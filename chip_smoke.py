@@ -6,8 +6,9 @@
 On one CUDA card, from the root of a checkout:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the streaming kernel from ``src/repro_torch/kernels/csrc`` and
-   prints the build seconds and the compiler's register report;
+2. builds the streaming and flash kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) and
+   prints the build seconds and the compiler's register reports;
 3. drives ``plan(StencilProblem(s, dims), RunConfig(backend="hopper",
    par_time=T, bsize=B)).run(grid, iters=2T+3, aux=...)`` for the four
    Table-2 stencils at the paper's sizes (16384^2 and 448^3, inputs made
@@ -22,7 +23,16 @@ On one CUDA card, from the root of a checkout:
    convolution yardstick (checked against the oracle on a small grid
    first) with CUDA events, and computes the bound from the bytes and
    FLOPs of the super-step;
-5. prints one ``{"kernels": [...]}`` line and, last, the device line.
+5. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+   through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
+   + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
+   layer) and none in decode, tokens in the vocab and finite logits; times
+   a warm run and profiles one prefill for the kernel's share of device
+   time; holds the kernel against its plain version on layer 0's q, k, v
+   (output pre-filled with NaN), the ``"flash"`` prefill against the
+   ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
+   plain version and ``scaled_dot_product_attention`` as the yardstick;
+6. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.  It exits non-zero
 without a result when no CUDA device is present.
@@ -36,6 +46,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -48,15 +60,18 @@ SOURCE = "src/repro_torch/kernels/csrc/stencil_stream.cu"
 REPLACES = "src/repro/kernels/builder.py:81"
 
 #: data-sheet peaks per card variant: (device-memory bytes/s, f32 FLOP/s
-#: outside the tensor cores), matched against the nvidia-smi name
-PEAKS = (("H100 PCIe", 2.0e12, 51.2e12), ("H100 NVL", 3.9e12, 60.0e12),
-         ("H200", 4.8e12, 67.0e12), ("H100", 3.35e12, 67.0e12))
+#: outside the tensor cores, dense bf16 tensor-core FLOP/s), matched
+#: against the nvidia-smi name
+PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12),
+         ("H100 NVL", 3.9e12, 60.0e12, 835e12),
+         ("H200", 4.8e12, 67.0e12, 989e12),
+         ("H100", 3.35e12, 67.0e12, 989e12))
 
 
 def peaks_for(card_name: str):
-    for key, bw, flops in PEAKS:
+    for key, *peaks in PEAKS:
         if key in card_name:
-            return bw, flops
+            return tuple(peaks)
     raise RuntimeError(f"no data-sheet peaks for {card_name!r}")
 
 
@@ -126,23 +141,20 @@ def drive_main_path(name, dims, par_time, bsize, device, seed=0) -> dict:
             "oracle_max_abs_err": err, "plan": p, "g": g, "aux": aux}
 
 
-def breakdown(main: dict) -> dict:
-    """Where one warm ``run`` spends its time: its milliseconds between
-    CUDA events (median of 3); and from one profiled run, its own span
-    between CUDA events, the union of its device-event intervals, the
-    streaming kernel's share of that busy time and the idle share of the
-    span."""
+def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
+    """One profiled call of ``fn``: its own span between CUDA events, the
+    union of its device-event intervals (busy), the share of busy time in
+    kernels whose name holds ``kernel_key`` (when given), the idle share of
+    the span, and the ``top`` largest other device times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    p, g, aux, iters = main["plan"], main["g"], main["aux"], main["iters"]
-    run_ms = time_ms(lambda: p.run(g, iters, aux=aux), reps=3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        p.run(g, iters, aux=aux)
+        fn()
         end.record()
         end.synchronize()
     span_us = start.elapsed_time(end) * 1e3
@@ -160,21 +172,38 @@ def breakdown(main: dict) -> dict:
     per_name = {}
     for s, t, n in spans:
         per_name[n] = per_name.get(n, 0.0) + (t - s)
-    kernel = sum(t for n, t in per_name.items() if "stream_kernel" in n)
-    if kernel <= 0:
-        raise AssertionError("the profiler saw no stream_kernel launch")
+    key = kernel_key or "\0"
+    kernel = sum(t for n, t in per_name.items() if key in n)
+    if kernel_key and kernel <= 0:
+        raise AssertionError(f"the profiler saw no {kernel_key} launch")
     if kernel > busy or busy > span_us:
         raise AssertionError(f"device times do not add up: kernel {kernel} "
                              f"us, busy {busy} us, span {span_us} us")
-    others = sorted(((t, n) for n, t in per_name.items()
-                     if "stream_kernel" not in n), reverse=True)[:3]
+    # summed by the name's first 60 characters: templated kernels share them
+    short = {}
+    for n, t in per_name.items():
+        if key not in n:
+            short[n[:60]] = short.get(n[:60], 0.0) + t
+    others = sorted(((t, n) for n, t in short.items()), reverse=True)[:top]
+    out = {"profiled_run_ms": span_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1 - busy / span_us,
+           "device_ops": len(spans),
+           "top_other_device_us": {n: t for t, n in others}}
+    if kernel_key:
+        out["kernel_share_of_device"] = kernel / busy
+    return out
+
+
+def breakdown(main: dict) -> dict:
+    """Where one warm ``run`` spends its time: its milliseconds between
+    CUDA events (median of 3), and :func:`device_profile` of one run."""
+    p, g, aux, iters = main["plan"], main["g"], main["aux"], main["iters"]
+    run_ms = time_ms(lambda: p.run(g, iters, aux=aux), reps=3)
+    prof = device_profile(lambda: p.run(g, iters, aux=aux), "stream_kernel")
     return {"run_ms": run_ms,
             "run_gcells_per_s": math.prod(g.shape) * iters / run_ms / 1e6,
-            "profiled_run_ms": span_us / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "kernel_share_of_device": kernel / busy,
-            "device_idle_share": 1 - busy / span_us,
-            "top_other_device_us": {n[:60]: t for t, n in others}}
+            **prof}
 
 
 def library_yardstick(name, g, aux, par_time):
@@ -298,7 +327,7 @@ def compare_and_time(name, main: dict, peaks) -> dict:
     n_in = 2 if aux_p is not None else 1
     bytes_once = (n_in + 1) * math.prod(geom.dims) * 4
     flops = st.flop_pcu * math.prod(geom.dims) * T
-    bw, fp32 = peaks
+    bw, fp32, _ = peaks
     t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
     dma = ops.dma_traffic_bytes(st, geom)
     return {
@@ -310,6 +339,198 @@ def compare_and_time(name, main: dict, peaks) -> dict:
         "dma_bound_ms": dma / bw * 1e3,
         "gcells_per_s": math.prod(geom.dims) * T / kernel_ms / 1e6,
     }
+
+
+# --- LM serving: qwen3-1.7b through the flash-attention kernel ------------
+
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 4096, 16
+#: teacher-forced decode: prefill this many tokens, then decode
+#: LM_TF_STEPS more; every prefill length stays at most 512 (attn_q_chunk)
+#: so the flash wrapper accepts it
+LM_TF_PROMPT, LM_TF_STEPS = 508, 4
+LM_SOURCE = "src/repro_torch/kernels/csrc/flash_fwd.cu"
+LM_REPLACES = "src/repro/kernels/flash_attention.py:66"
+#: two bf16 paths through 28 layers, compared on the true-vocab logits by
+#: ||a - b|| / ||b||: "flash" against "xla" prefill, and decode against
+#: prefill
+LOGIT_REL_TOL = 5e-2
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def lm_phase(device, peaks) -> dict:
+    """Serve full-width qwen3-1.7b (random weights from a seed) through
+    ``generate`` and hold the flash kernel, the prefill and the decode
+    against their plain counterparts on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.transformer import _layer
+    cfg = get_config(LM_ARCH)
+    B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.d_head
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"{LM_ARCH}: {n_par} parameters ({n_par * 2 / 1e9:.3f} GB bf16, "
+          f"padded vocab {cfg.padded_vocab}) made in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    kv_gb = cfg.n_layers * B * (S + LM_NEW) * Hkv * D * 2 * 2 / 1e9
+    full_kv_gb = cfg.n_layers * 32 * (32768 + LM_NEW) * Hkv * D * 2 * 2 / 1e9
+    print(f"cut: prefill_32k (batch 32 x 32768) needs {full_kv_gb:.1f} GB of "
+          f"KV cache, more than one card holds; served batch {B} x prompt "
+          f"{S} + {LM_NEW} new ({kv_gb:.2f} GB of KV cache)", flush=True)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (B, S),
+                                                dtype=np.int32)
+    tokens = torch.from_numpy(prompts).long().to(device)
+
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    flash.LAUNCHES = 0
+    out = generate(cfg, params, tokens, LM_NEW)
+    launches = flash.LAUNCHES
+    if (out.prefill_launches, out.decode_launches, launches) != (
+            cfg.n_layers, 0, cfg.n_layers):
+        raise AssertionError(
+            f"flash launches: {out.prefill_launches} in prefill, "
+            f"{out.decode_launches} in decode, {launches} in all; expected "
+            f"{cfg.n_layers}, 0, {cfg.n_layers}")
+    if tuple(out.tokens.shape) != (B, LM_NEW) or not bool(
+            ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
+        raise AssertionError("generated tokens outside [0, vocab)")
+    if not bool(out.logits.isfinite().all()):
+        raise AssertionError("non-finite logits")
+    print(f"generate (cold): prefill {out.prefill_s * 1e3:.3f} ms, decode "
+          f"{out.decode_s * 1e3:.3f} ms for {LM_NEW - 1} steps; launches "
+          f"{out.prefill_launches} + {out.decode_launches}; tokens[0] "
+          f"{out.tokens[0].tolist()}", flush=True)
+    warm = generate(cfg, params, tokens, LM_NEW)
+    e2e = {"prefill_ms": warm.prefill_s * 1e3,
+           "prefill_tok_per_s": B * S / warm.prefill_s,
+           "decode_ms_per_step": warm.decode_s * 1e3 / (LM_NEW - 1),
+           "decode_tok_per_s": B * (LM_NEW - 1) / warm.decode_s}
+    with torch.inference_mode():
+        prof = device_profile(lambda: prefill(params, cfg, tokens, S),
+                              "flash_fwd_kernel")
+    e2e["kernel_share_of_prefill_device"] = prof.pop(
+        "kernel_share_of_device")
+    e2e.update({f"prefill_{k}": v for k, v in prof.items()})
+    with torch.inference_mode():
+        _, caches = prefill(params, cfg, tokens, S + 1)
+        nxt = tokens[:, -1:]
+        prof = device_profile(lambda: decode_step(params, cfg, nxt, caches),
+                              None, top=5)
+        del caches
+    e2e.update({f"decode_{k}": v for k, v in prof.items()})
+    print(f"generate (warm): prefill {e2e['prefill_ms']:.3f} ms "
+          f"({e2e['prefill_tok_per_s']:.1f} tok/s), decode "
+          f"{e2e['decode_ms_per_step']:.3f} ms/step "
+          f"({e2e['decode_tok_per_s']:.1f} tok/s); flash share of prefill "
+          f"device time {e2e['kernel_share_of_prefill_device']:.4f}, device "
+          f"idle {e2e['prefill_device_idle_share']:.4f} in prefill, "
+          f"{e2e['decode_device_idle_share']:.4f} in one decode step "
+          f"({e2e['decode_device_ops']} device ops)", flush=True)
+
+    with torch.inference_mode():
+        # the kernel against its plain version on layer 0's q, k, v
+        x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+        bp = _layer(params["blocks"], 0)
+        q, k, v = _project_qkv(L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                               bp["attn"], cfg,
+                               torch.arange(S, device=device))
+        del x
+        o = torch.full_like(q, float("nan"))
+        lse = torch.full((B, H, S), float("nan"), device=device)
+        flash.flash_attention_lse(q, k, v, True, out=(o, lse))
+        torch.cuda.synchronize()
+        # raises past the bounds stated in check_against_plain
+        vs_plain = flash.check_against_plain(o, q, k, v, True, lse=lse)
+        print(f"flash kernel vs plain (B {B}, S {S}, H {H}, Hkv {Hkv}, D "
+              f"{D}): {vs_plain}", flush=True)
+        kernel_ms = time_ms(lambda: flash.flash_attention_lse(q, k, v, True),
+                            reps=10)
+        plain_ms = time_ms(lambda: flash.flash_fwd_plain(q, k, v, True),
+                           reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_vs_plain = flash.check_against_plain(sdpa().transpose(1, 2), q,
+                                                 k, v, True)
+        print(f"scaled_dot_product_attention vs plain: {lib_vs_plain}",
+              flush=True)
+        library_ms = time_ms(sdpa, reps=10)
+        del q, k, v, qt, kt, vt, o, lse
+
+        # "flash" prefill against "xla" (chunked torch ops)
+        lf, cf = prefill(params, cfg, tokens, S)
+        del cf
+        lx, cx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                            tokens, S)
+        del cx
+        flash_xla = rel_err(lf[..., :cfg.vocab], lx[..., :cfg.vocab])
+        print(f"prefill logits, flash vs xla: rel err {flash_xla}, max abs "
+              f"{(lf - lx).abs().max().item()}", flush=True)
+
+        # teacher-forced decode against prefill over the same tokens
+        tf = []
+        short = tokens[:, :LM_TF_PROMPT + LM_TF_STEPS]
+        _, caches = prefill(params, cfg, short[:, :LM_TF_PROMPT],
+                               LM_TF_PROMPT + LM_TF_STEPS)
+        for t in range(LM_TF_PROMPT, LM_TF_PROMPT + LM_TF_STEPS):
+            ld, caches = decode_step(params, cfg, short[:, t:t + 1], caches)
+            lp, _ = prefill(params, cfg, short[:, :t + 1], t + 1)
+            tf.append(rel_err(ld[..., :cfg.vocab], lp[..., :cfg.vocab]))
+        print(f"teacher-forced decode vs prefill (prompt {LM_TF_PROMPT}, "
+              f"{LM_TF_STEPS} steps): rel err {tf}", flush=True)
+        del caches
+    if flash_xla > LOGIT_REL_TOL or max(tf) > LOGIT_REL_TOL:
+        raise AssertionError(f"logits differ beyond {LOGIT_REL_TOL}")
+
+    bw, _, bf16 = peaks
+    t_ops = flash.flash_flops(B, S, S, H, D, True, False) / bf16 * 1e3
+    t_bytes = flash.flash_traffic_bytes(B, S, S, H, Hkv, D, 2, False) \
+        / bw * 1e3
+    res = {"name": f"flash_fwd[{LM_ARCH}]", "route": "cuda",
+           "source": LM_SOURCE, "replaces": LM_REPLACES,
+           "launches": launches, **vs_plain, "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms,
+           "library_max_abs_err": lib_vs_plain["max_abs_err"],
+           "library_row_rel_err": lib_vs_plain["row_rel_err"],
+           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D},
+           "flash_vs_xla_logit_rel_err": flash_xla,
+           "teacher_forced_logit_rel_err": tf,
+           "tokens_in_range": True, "logits_finite": True, **e2e}
+    print(f"  flash_fwd: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"library {library_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
+          f"({res['bound_by']})", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -328,12 +549,17 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     peaks = peaks_for(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    lib_path = _build.build("stencil_stream.cu", "stencil")
+    sources = (("stencil_stream.cu", "stencil"), ("flash_fwd.cu", "flash_fwd"))
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        libs = list(pool.map(lambda src: _build.build(*src), sources))
     _build.stencil_stream()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({lib_path.name})")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.flash_fwd()
+    print(f"build: {time.perf_counter() - t0:.3f} s "
+          f"({', '.join(lib.name for lib in libs)})")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({lib.name.split('_')[0]}):", line.strip())
     device = torch.device("cuda", 0)
     kernels = []
     for name in STENCILS:
@@ -364,6 +590,7 @@ def main() -> int:
         })
         del main_run
         torch.cuda.empty_cache()
+    kernels.append(lm_phase(device, peaks))
     print(json.dumps({"kernels": kernels, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,17 @@ class Params(ctypes.Structure):
         "hy", "hx", "par_time", "steps")]
 
 
+class FlashParams(ctypes.Structure):
+    """``struct FlashParams`` of ``flash_fwd.cu``, passed by value."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("q", "k", "v", "o",
+                                                      "lse")]
+                + [(f"{t}_s{d}", ctypes.c_longlong) for t in "qkvo"
+                   for d in "bsh"]
+                + [(name, ctypes.c_int) for name in ("B", "H", "Hkv", "Sq",
+                                                     "Skv", "D", "causal")]
+                + [("scale_log2", ctypes.c_float)])
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -92,4 +103,15 @@ def stencil_stream() -> ctypes.CDLL:
     dll.stencil_stream_launch.restype = ctypes.c_int
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]
     dll.stencil_stream_error_string.restype = ctypes.c_char_p
+    return dll
+
+
+@functools.cache
+def flash_fwd() -> ctypes.CDLL:
+    """The loaded ``flash_fwd.cu`` library, built at first use."""
+    dll = ctypes.CDLL(str(build("flash_fwd.cu", "flash_fwd")))
+    dll.flash_fwd_launch.argtypes = [FlashParams, ctypes.c_void_p]
+    dll.flash_fwd_launch.restype = ctypes.c_int
+    dll.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    dll.flash_fwd_error_string.restype = ctypes.c_char_p
     return dll

@@ -1,0 +1,273 @@
+"""Model assembly for the dense decoder-only family: config, parameters,
+prefill and KV-cache decode.
+
+Parameters are a dict shaped like the reference's pytree, with the per-layer
+leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
+reference's parameters across is a copy (``convert.params_from_reference``).
+The layer loop is a Python loop over views of those stacks.  Serving runs
+under ``torch.inference_mode()``; there is no remat.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.attention import (KVCache, decode_attention,
+                                          init_attention, init_cache,
+                                          self_attention, update_cache)
+
+#: families of the reference that are not ported yet, and their ROADMAP item
+PENDING_FAMILIES = {"moe": "A16c", "ssm": "A16d", "hybrid": "A16e",
+                    "encdec": "A16f", "vlm": "A16g"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int = 0
+    n_kv: int = 0
+    d_head: int = 128
+    d_ff: int = 0
+    vocab: int = 32000
+    act: str = "swiglu"
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_capacity: float = 1.25
+    # SSM
+    d_state: int = 0
+    d_conv: int = 4
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 8
+    ssd_chunk: int = 256
+    # hybrid (Zamba2): groups of [1 shared attn+MLP block, group_size-1 mamba]
+    hybrid_group: int = 6
+    # enc-dec
+    n_enc_layers: int = 0
+    # modality stubs
+    input_mode: str = "tokens"     # tokens | embeds_prefix | frames
+    prefix_len: int = 0            # vlm: patch positions at seq start
+    # perf knobs
+    attn_q_chunk: int = 512
+    attn_kv_chunk: int = 1024
+    loss_chunk: int = 1024
+    remat_policy: str = "full"     # full | dots | none
+    dtype: str = "float32"
+    # attention implementation of prefill: "flash" (the flash kernel on
+    # the card, its plain version on the CPU) or "xla" (chunked online
+    # softmax in torch ops)
+    attn_impl: str = "flash"
+
+    def __post_init__(self):
+        if self.attn_impl == "stub":
+            raise NotImplementedError("attn_impl='stub' is the reference's "
+                                      "dry-run billing (ROADMAP A17)")
+        if self.attn_impl not in ("flash", "xla"):
+            raise ValueError(f"attn_impl must be 'flash' or 'xla'; got "
+                             f"{self.attn_impl!r}")
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (Megatron-style); padded logits
+        are masked."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            self.dtype]
+
+    @property
+    def n_params(self) -> int:
+        """Analytic parameter count (unpadded vocab)."""
+        D, V = self.d_model, self.vocab
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        att = D * (self.n_heads + 2 * self.n_kv) * self.d_head \
+            + self.n_heads * self.d_head * D
+        mult = 2 if self.act == "swiglu" else 1
+        mlp = D * mult * self.d_ff + self.d_ff * D
+        moe = (self.n_experts * (D * mult * self.d_ff + self.d_ff * D)
+               + D * self.n_experts) if self.family == "moe" else 0
+        H, P, G, N = (self.ssm_heads, self.ssm_head_dim, self.ssm_groups,
+                      self.d_state)
+        di = H * P
+        ssm = (2 * D * di + 2 * D * G * N + D * H + di * D
+               + self.d_conv * (di + 2 * G * N) + 3 * H + di)
+        if self.family == "dense" or self.family == "vlm":
+            return emb + self.n_layers * (att + mlp)
+        if self.family == "moe":
+            return emb + self.n_layers * (att + moe)
+        if self.family == "ssm":
+            return emb + self.n_layers * ssm
+        if self.family == "hybrid":
+            n_groups = self.n_layers // self.hybrid_group
+            n_mamba = self.n_layers - n_groups
+            return emb + n_mamba * ssm + (att + mlp)
+        if self.family == "encdec":
+            return emb + self.n_enc_layers * (att + mlp) \
+                + self.n_layers * (2 * att + mlp)
+        raise ValueError(self.family)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        item = PENDING_FAMILIES.get(cfg.family)
+        if item is None:
+            raise ValueError(cfg.family)
+        raise NotImplementedError(f"the {cfg.family} family is not ported "
+                                  f"yet (ROADMAP {item})")
+
+
+def require_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions")
+    return device
+
+
+# --- init ---------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random parameters of the dense family: every weight ``normal * scale``
+    drawn in f32 from ``generator`` (on ``device``) and cast, norms ones."""
+    _require_dense(cfg)
+    device = require_device(device)
+    dt, D, n = cfg.tdtype, cfg.d_model, cfg.n_layers
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    layers = []
+    for _ in range(n):
+        layers.append({
+            "ln1": ones(D),
+            "attn": init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                                   cfg.qk_norm, dt, generator, device),
+            "ln2": ones(D),
+            "mlp": L.init_mlp(D, cfg.d_ff, cfg.act, dt, generator, device)})
+    return {
+        "embed": L.init_embed(cfg.padded_vocab, D, dt, cfg.tie_embeddings,
+                              generator, device),
+        "final_norm": ones(D),
+        "blocks": _stack(layers)}
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _layer(blocks, i: int):
+    """Layer ``i``'s parameters: views into the stacked leaves."""
+    if isinstance(blocks, dict):
+        return {k: _layer(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+# --- forward / prefill ---------------------------------------------------------
+
+def _dense_body(x, bp, cfg: ModelConfig, *, collect: bool = False):
+    """One pre-norm block: attention then MLP, each with a residual.
+    Returns ``(x, (k, v) or None)``."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    h = self_attention(L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"],
+                       cfg, pos, return_kv=collect)
+    kv = None
+    if collect:
+        h, kv = h
+    x = x + h
+    h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
+                    cfg.act)
+    return x + h, kv
+
+
+def forward(params, cfg: ModelConfig, tokens
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar)."""
+    _require_dense(cfg)
+    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    for i in range(cfg.n_layers):
+        x, _ = _dense_body(x, _layer(params["blocks"], i), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: int
+            ) -> Tuple[torch.Tensor, dict]:
+    """Process the prompt and build decode caches padded to ``max_len``.
+
+    Returns (last-position logits (B,1,V) f32, caches): the caches are
+    ``{"k", "v"}`` of ``(n_layers, B, max_len, n_kv, d_head)`` and
+    ``"length"`` (an int).  The reference also returns its enc-dec
+    family's encoder memory, which the dense family does not have."""
+    _require_dense(cfg)
+    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    B, S = tokens.shape
+    if max_len < S:
+        raise ValueError(f"max_len={max_len} < prompt length {S}")
+    caches = make_decode_caches(cfg, B, max_len, x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _dense_body(x, _layer(params["blocks"], i), cfg,
+                                collect=True)
+        caches["k"][i, :, :S] = k
+        caches["v"][i, :, :S] = v
+    caches["length"] = S
+    x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
+    return logits, caches
+
+
+# --- decode -------------------------------------------------------------------
+
+def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       device="cuda") -> dict:
+    _require_dense(cfg)
+    cache = init_cache(cfg, batch, max_len, cfg.n_layers, cfg.tdtype,
+                       require_device(device))
+    return {"k": cache.k, "v": cache.v, "length": cache.length}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches: dict
+                ) -> Tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B,1) -> (logits (B,1,V) f32, caches).
+
+    The caches are updated in place: the returned dict holds the same
+    ``k`` and ``v`` tensors with this step's K/V written at ``length``, and
+    ``length + 1``."""
+    _require_dense(cfg)
+    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    length = caches["length"]
+    if length >= caches["k"].shape[2]:
+        raise ValueError(f"the cache holds {caches['k'].shape[2]} positions, "
+                         f"all used")
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        cache = KVCache(caches["k"][i], caches["v"][i], length)
+        h, (kn, vn) = decode_attention(
+            L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)
+        x = x + h
+        h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
+                        cfg.act)
+        update_cache(cache, kn, vn)
+        x = x + h
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
+    return logits, {"k": caches["k"], "v": caches["v"], "length": length + 1}

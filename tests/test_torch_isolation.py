@@ -1,5 +1,5 @@
-"""The port imports and runs with JAX and the reference package made
-unimportable."""
+"""The port imports and runs, the stencil plan and the LM serving path,
+with JAX and the reference package made unimportable."""
 import os
 import subprocess
 import sys
@@ -23,6 +23,16 @@ rng = np.random.default_rng(0)
 out = p.run(rng.uniform(0.5, 2, (9, 30)).astype(np.float32), 5,
             aux=rng.uniform(0, 0.1, (9, 30)).astype(np.float32))
 assert out.shape == (9, 30) and bool(out.isfinite().all())
+import repro_torch.models, repro_torch.launch.serve as serve
+from repro_torch.configs import smoke_config
+cfg = smoke_config("qwen3-1.7b")
+params = repro_torch.models.init_params(
+    cfg, torch.Generator().manual_seed(0), "cpu")
+gen = serve.generate(cfg, params,
+                     torch.from_numpy(rng.integers(1, cfg.vocab, (2, 16))),
+                     3)
+assert gen.tokens.shape == (2, 3) and bool(gen.logits.isfinite().all())
+assert bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all())
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")
        and sys.modules[m] is not None]
