@@ -6,9 +6,10 @@
 On one CUDA card, from the root of a checkout:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the streaming and flash kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) and
-   prints the build seconds and the compiler's register reports;
+2. builds the streaming kernel and the flash forward and backward kernels
+   from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel) and prints the build seconds and the compiler's register
+   reports;
 3. drives ``plan(StencilProblem(s, dims), RunConfig(backend="hopper",
    par_time=T, bsize=B)).run(grid, iters=2T+3, aux=...)`` for the four
    Table-2 stencils at the paper's sizes (16384^2 and 448^3, inputs made
@@ -32,7 +33,23 @@ On one CUDA card, from the root of a checkout:
    (output pre-filled with NaN), the ``"flash"`` prefill against the
    ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
    plain version and ``scaled_dot_product_attention`` as the yardstick;
-6. prints one ``{"kernels": [...]}`` line and, last, the device line.
+6. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+   ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
+   (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
+   microbatch and 2 with two, asserting finite losses, the first within
+   1.0 of the same batch's loss without autograd, and 56 forward, 28 dQ
+   and 28 dK/dV kernel launches per step (twice that with two
+   microbatches); prints step time, tokens/s, peak memory and one
+   profiled step; holds both backward kernels against their plain version
+   on layer 0's q, k, v and the real output gradient from the first
+   batch's backward (``check_bwd_against_plain``), times them beside the
+   plain version and the backward of ``scaled_dot_product_attention``;
+   holds the ``"flash"`` loss and every gradient leaf against ``"xla"`` at
+   full width on a 1 x 4096 batch; and runs ``fault_tolerant_train`` at
+   the smoke width (bf16, head dim 128, so the kernels run) with an
+   injected failure and a restart, asserting the uninterrupted run's
+   losses bit for bit;
+7. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.  It exits non-zero
 without a result when no CUDA device is present.
@@ -377,7 +394,7 @@ def lm_phase(device, peaks) -> dict:
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models import layers as L
     from repro_torch.models.attention import _project_qkv
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _unstack
     cfg = get_config(LM_ARCH)
     B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.d_head
     t0 = time.perf_counter()
@@ -447,7 +464,7 @@ def lm_phase(device, peaks) -> dict:
     with torch.inference_mode():
         # the kernel against its plain version on layer 0's q, k, v
         x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
-        bp = _layer(params["blocks"], 0)
+        bp = _unstack(params["blocks"], cfg.n_layers)[0]
         q, k, v = _project_qkv(L.rms_norm(x, bp["ln1"], cfg.norm_eps),
                                bp["attn"], cfg,
                                torch.arange(S, device=device))
@@ -525,6 +542,336 @@ def lm_phase(device, peaks) -> dict:
     return res
 
 
+# --- LM training: qwen3-1.7b through the flash backward kernels ----------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096
+#: steps with one microbatch, then with two
+TRAIN_STEPS = (4, 2)
+#: the full-width "flash" against "xla" check: one 4096-token row
+XLA_BATCH, XLA_SEQ = 1, 4096
+#: two bf16 paths through 28 layers and back, compared by ||a - b|| / ||b||
+#: on the loss and on each gradient leaf (the serving check's bound)
+GRAD_REL_TOL = 5e-2
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_bwd.cu"
+DQ_REPLACES = "src/repro/kernels/flash_attention.py:162"
+DKV_REPLACES = "src/repro/kernels/flash_attention.py:198"
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attention as flash
+    return (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels import flash_attention as flash
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+
+
+def capture_layer0(params, cfg, batch) -> dict:
+    """Layer 0's q, k, v and the gradient of its attention output from one
+    backward of the batch's loss (the gradient taken with respect to the
+    stacked ``wq``, which every layer's q projection reads)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm_loss
+    seen = {}
+    real = A.flash_attention
+
+    def spy(q, k, v, *args):
+        o = real(q, k, v, *args)
+        if "q" not in seen and o.requires_grad:
+            seen.update(q=q.detach(), k=k.detach(), v=v.detach())
+            o.register_hook(lambda g: seen.setdefault(
+                "do", g.detach().clone(memory_format=torch.contiguous_format)))
+        return o
+    wq = params["blocks"]["attn"]["wq"]
+    A.flash_attention = spy
+    wq.requires_grad_(True)
+    try:
+        torch.autograd.grad(lm_loss(params, cfg, batch), [wq])
+    finally:
+        A.flash_attention = real
+        wq.requires_grad_(False)
+    if "do" not in seen:
+        raise AssertionError("layer 0's output gradient was not captured")
+    return seen
+
+
+def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
+    """Both backward kernels against ``flash_bwd_plain`` on ``cap``'s q, k,
+    v and real dO (outputs pre-filled with NaN), then CUDA-event times of
+    each kernel, the plain version and the SDPA backward, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v, do = cap["q"], cap["k"], cap["v"], cap["do"]
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    with torch.no_grad():
+        o, lse = flash.flash_attention_lse(q, k, v, True)
+        nan = float("nan")
+        dq, dk, dv = (torch.full_like(t, nan) for t in (q, k, v))
+        delta = torch.full((B, H, S), nan, device=q.device)
+        flash.flash_bwd_dq(q, k, v, o, lse, do, True, out=(dq, delta))
+        flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, out=(dk, dv))
+        torch.cuda.synchronize()
+        # raises past the bounds stated in check_bwd_against_plain
+        vs_plain = flash.check_bwd_against_plain((dq, dk, dv), q, k, v, o,
+                                                 lse, do, True)
+        print(f"flash backward kernels vs plain (B {B}, S {S}, H {H}, Hkv "
+              f"{Hkv}, D {D}; dO from the first batch's backward, norm "
+              f"{do.float().norm().item():.6g}): {vs_plain}", flush=True)
+        dq_ms = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, lse, do),
+                        reps=10)
+        dkv_ms = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta), reps=10)
+        plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse,
+                                                         do), reps=3)
+        want = flash.flash_bwd_plain(q, k, v, o, lse, do)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_grad():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+    lib = [g.transpose(1, 2) for g in sdpa_grad()]
+    lib_rel = [rel_err(g, w) for g, w in zip(lib, want)]
+    print(f"scaled_dot_product_attention backward vs plain: rel err "
+          f"dq/dk/dv {lib_rel}", flush=True)
+    if max(lib_rel) > 1e-2:
+        raise AssertionError("the SDPA yardstick does not compute the same "
+                             "gradients")
+    with torch.no_grad():
+        fwd_ms = time_ms(sdpa, reps=10)
+    library_ms = time_ms(sdpa_grad, reps=10) - fwd_ms
+    del qt, kt, vt, lib, want, o, lse, dq, dk, dv, delta
+    bw, _, bf16 = peaks
+    out = {}
+    for kernel, ms, err in (("dq", dq_ms, vs_plain["dq_max_abs_err"]),
+                            ("dkv", dkv_ms, max(vs_plain["dk_max_abs_err"],
+                                                vs_plain["dv_max_abs_err"]))):
+        t_ops = flash.flash_bwd_kernel_flops(B, S, S, H, D, True, kernel) \
+            / bf16 * 1e3
+        t_bytes = flash.flash_bwd_kernel_bytes(B, S, S, H, Hkv, D, kernel) \
+            / bw * 1e3
+        out[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "library_ms": library_ms}
+        print(f"  flash_bwd_{kernel}: kernel {ms:.3f} ms, plain (dq, dk, dv "
+              f"together) {plain_ms:.3f} ms, SDPA backward (dq, dk, dv) "
+              f"{library_ms:.3f} ms, bound {out[kernel]['bound_ms']:.3f} ms "
+              f"({out[kernel]['bound_by']})", flush=True)
+    out["readings"] = vs_plain
+    out["library_rel_err"] = lib_rel
+    out["shape"] = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D}
+    return out
+
+
+def flash_vs_xla(params, cfg, batch) -> dict:
+    """Loss and gradients through "flash" and through "xla" (chunked torch
+    ops under autograd) at full width: relative L2 of each."""
+    import dataclasses
+    from repro_torch.train.steps import _loss_and_grads
+    from repro_torch.optim.adamw import leaves
+    lf, gf = _loss_and_grads(params, cfg, batch)
+    lx, gx = _loss_and_grads(
+        params, dataclasses.replace(cfg, attn_impl="xla"), batch)
+    out = {"loss_flash": lf.item(), "loss_xla": lx.item(),
+           "loss_rel_err": abs(lf.item() - lx.item()) / abs(lx.item())}
+    names = _leaf_names(gf)
+    for name, a, b in zip(names, leaves(gf), leaves(gx)):
+        out[f"grad_rel_err[{name}]"] = rel_err(a, b)
+    worst = max(v for k, v in out.items() if k.startswith("grad_rel"))
+    print(f"flash vs xla at full width, batch {XLA_BATCH} x {XLA_SEQ}: "
+          f"{out}", flush=True)
+    if out["loss_rel_err"] > GRAD_REL_TOL or worst > GRAD_REL_TOL:
+        raise AssertionError(f"flash and xla loss or gradients differ "
+                             f"beyond {GRAD_REL_TOL}")
+    return out
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _leaf_names(tree[k],
+                                                     f"{prefix}{k}/")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def loop_restart_check(device) -> dict:
+    """``fault_tolerant_train`` at the smoke width on the card (bf16, head
+    dim 128: the flash kernels' form), deterministic algorithms on: 8 steps
+    uninterrupted, then 6 with a failure injected at step 3 and a restart
+    to 8, whose losses must equal the first run's bit for bit."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (TrainLoopConfig, fault_tolerant_train,
+                                   make_train_step)
+    cfg = dataclasses.replace(smoke_config(LM_ARCH), dtype="bfloat16",
+                              d_head=128)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=2,
+                                            total_steps=8))
+    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                         global_batch=4, seed=1))
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, total, hook=None):
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            0), device)
+        loop = TrainLoopConfig(total_steps=total, checkpoint_every=2,
+                               checkpoint_dir=os.path.join(root, name),
+                               straggler_factor=1e9)
+        return fault_tolerant_train(
+            loop, step, (params, adamw_init(params)), iter(()),
+            lambda s: device_batch(data.batch_at(s), device),
+            failure_hook=hook, log=lambda *_: None)[2]
+    boom = {3}
+
+    def hook(s):
+        if s in boom:
+            boom.remove(s)
+            raise RuntimeError("simulated device loss")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = _launch_counts()
+        want = run("a", 8)["losses"]
+        first = run("b", 6, hook)
+        second = run("b", 8)
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    got = first["losses"] + second["losses"]
+    print(f"fault_tolerant_train (smoke width, bf16, d_head 128): "
+          f"uninterrupted {want}; with a failure at step 3 and a restart "
+          f"{got}; retries {first['retries']}; launches {launched}",
+          flush=True)
+    if first["retries"] != 1 or got != want or not all(launched):
+        raise AssertionError("the checkpointed loop did not repeat the "
+                             "uninterrupted losses")
+    return {"losses": want, "retries": first["retries"]}
+
+
+def train_phase(device, peaks) -> dict:
+    """Train full-width qwen3-1.7b through ``make_train_step`` and hold the
+    backward kernels, the "flash" gradients and the checkpointed loop
+    against their plain counterparts on the card."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    cfg = get_config(LM_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    full = SHAPES["train_4k"]
+    print(f"cut: train_4k is batch {full['batch']} x {full['seq']} tokens "
+          f"per step, {full['batch'] // B}x this one, and does not fit one "
+          f"card without microbatching; trained batch {B} x {S}, "
+          f"remat_policy={cfg.remat_policy}, attn_impl={cfg.attn_impl}",
+          flush=True)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    opt = adamw_init(params)
+    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                         global_batch=B, seed=0))
+    batches = [device_batch(data.batch_at(s), device)
+               for s in range(sum(TRAIN_STEPS))]
+    with torch.no_grad():
+        loss0 = lm_loss(params, cfg, batches[0]).item()
+    cap = capture_layer0(params, cfg, batches[0])
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=sum(TRAIN_STEPS))
+    steps = {mb: make_train_step(cfg, ocfg, mb) for mb in (1, 2)}
+    plan = [1] * TRAIN_STEPS[0] + [2] * TRAIN_STEPS[1]
+
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, secs, per_step = [], [], []
+    for batch, mb in zip(batches, plan):
+        c0, t0 = _launch_counts(), time.perf_counter()
+        params, opt, metrics = steps[mb](params, opt, batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(c0, _launch_counts())))
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    want = [(2 * L * mb, L * mb, L * mb) for mb in plan]
+    print(f"train steps (mb {plan}): losses {losses}; seconds {secs}; "
+          f"launches per step (fwd, dq, dkv) {per_step}; peak memory "
+          f"{peak_gb:.3f} GB; loss of batch 0 without autograd {loss0}",
+          flush=True)
+    if per_step != want or launches != tuple(map(sum, zip(*want))):
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - loss0) > 1.0:
+        raise AssertionError("training losses not finite, or the first "
+                             "step's loss far from the batch's loss")
+    n1 = TRAIN_STEPS[0]
+    e2e = {"train_step_ms": statistics.median(secs[1:n1]) * 1e3,
+           "train_cold_step_ms": secs[0] * 1e3,
+           "train_mb2_step_ms": statistics.median(secs[n1:]) * 1e3,
+           "train_peak_memory_gb": peak_gb, "train_losses": losses,
+           "train_loss_no_grad": loss0,
+           "train_launches_per_step": per_step}
+    e2e["train_tok_per_s"] = B * S / (e2e["train_step_ms"] / 1e3)
+    prof = device_profile(lambda: steps[1](params, opt, batches[0]),
+                          "flash_", top=6)
+    e2e["train_kernel_share_of_device"] = prof.pop("kernel_share_of_device")
+    e2e.update({f"train_{k}": v for k, v in prof.items()})
+    print(f"train (warm, mb 1): {e2e['train_step_ms']:.3f} ms per step, "
+          f"{e2e['train_tok_per_s']:.1f} tok/s; cold first step "
+          f"{e2e['train_cold_step_ms']:.3f} ms; mb 2 "
+          f"{e2e['train_mb2_step_ms']:.3f} ms; flash kernels' share of "
+          f"device time {e2e['train_kernel_share_of_device']:.4f}, device "
+          f"idle {e2e['train_device_idle_share']:.4f} "
+          f"({e2e['train_device_ops']} device ops); largest other device "
+          f"times {e2e['train_top_other_device_us']}", flush=True)
+    del batches
+
+    bwd = backward_kernels_vs_plain(cap, peaks)
+    del cap
+    torch.cuda.empty_cache()
+    xb = device_batch(SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=XLA_SEQ, global_batch=XLA_BATCH,
+        seed=1)).batch_at(0), device)
+    vs_xla = flash_vs_xla(params, cfg, xb)
+    del params, opt, xb
+    torch.cuda.empty_cache()
+    loop = loop_restart_check(device)
+
+    common = {"route": "cuda", "source": BWD_SOURCE,
+              "plain_covers": "dq, dk and dv together",
+              "library": "scaled_dot_product_attention backward (grad "
+                         "minus forward), dq, dk and dv together",
+              "shape": bwd["shape"], **bwd["readings"],
+              "library_rel_err": bwd["library_rel_err"]}
+    kernels = [
+        {"name": f"flash_bwd_dq[{LM_ARCH}]", "replaces": DQ_REPLACES,
+         "launches": launches[1], **bwd["dq"], **common, **e2e,
+         "flash_vs_xla": vs_xla, "loop_restart": loop},
+        {"name": f"flash_bwd_dkv[{LM_ARCH}]", "replaces": DKV_REPLACES,
+         "launches": launches[2], **bwd["dkv"], **common}]
+    return {"kernels": kernels, "fwd_per_step": [p[0] for p in per_step]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -549,11 +896,13 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     peaks = peaks_for(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    sources = (("stencil_stream.cu", "stencil"), ("flash_fwd.cu", "flash_fwd"))
+    sources = (("stencil_stream.cu", "stencil"), ("flash_fwd.cu", "flash_fwd"),
+               ("flash_bwd.cu", "flash_bwd"))
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         libs = list(pool.map(lambda src: _build.build(*src), sources))
     _build.stencil_stream()
     _build.flash_fwd()
+    _build.flash_bwd()
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(lib.name for lib in libs)})")
     for lib in libs:
@@ -591,6 +940,9 @@ def main() -> int:
         del main_run
         torch.cuda.empty_cache()
     kernels.append(lm_phase(device, peaks))
+    train = train_phase(device, peaks)
+    kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")
+    kernels.extend(train["kernels"])
     print(json.dumps({"kernels": kernels, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 ``get_config(name)``   — the published config.
 ``smoke_config(name)`` — same family, reduced dims (CPU tests).
+``SHAPES``             — the assigned input-shape set (per-arch cells).
 
 Architectures of the reference that are not ported yet raise and name
 their ROADMAP item.
@@ -13,6 +14,14 @@ import importlib
 from repro_torch.models import ModelConfig
 
 ARCH_IDS = ["qwen3-1.7b"]
+
+# assigned input-shape set (LM-family): seq_len x global_batch
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {

@@ -1,12 +1,14 @@
 """Carrying the reference package's parameters and state across.
 
 The "weights" of a stencil run are its scalar coefficients and its input
-grids; those of a model are its parameter tree and its decode caches.
-These functions take them as numpy arrays — the form the reference
-package's values take after ``np.asarray`` — and return the port's tensors.
+grids; those of a model are its parameter tree, its decode caches and its
+optimizer state.  These functions take them as numpy arrays — the form the
+reference package's values take after ``np.asarray`` — and return the
+port's tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -73,3 +75,27 @@ def caches_from_reference(tree: Mapping, device="cpu",
     return {"k": _tensor(tree["k"], dtype, device),
             "v": _tensor(tree["v"], dtype, device),
             "length": int(np.asarray(tree["length"]))}
+
+
+def opt_state_from_reference(cfg: ModelConfig, state, device="cpu"):
+    """The reference's ``AdamWState`` (its leaves as numpy arrays; master
+    leaves ``None`` for f32 parameters) -> the port's: ``step`` a 0-d int32
+    tensor, ``m``, ``v`` and, for parameters that are not f32, ``master``
+    as f32 trees shaped like ``params_from_reference``'s."""
+    from repro_torch.optim import AdamWState
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    step, m, v, master = state
+    m = params_from_reference(f32, m, device)
+    v = params_from_reference(f32, v, device)
+    if cfg.tdtype == torch.float32:
+        master = _none_like(m)
+    else:
+        master = params_from_reference(f32, master, device)
+    return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                   device=device), m, v, master)
+
+
+def _none_like(tree):
+    if isinstance(tree, Mapping):
+        return {k: _none_like(v) for k, v in tree.items()}
+    return None

@@ -48,6 +48,18 @@ class FlashParams(ctypes.Structure):
                 + [("scale_log2", ctypes.c_float)])
 
 
+class FlashBwdParams(ctypes.Structure):
+    """``struct FlashBwdParams`` of ``flash_bwd.cu``, passed by value."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "q", "k", "v", "o", "dout", "lse", "delta", "dq", "dk", "dv")]
+                + [(f"{t}_s{d}", ctypes.c_longlong)
+                   for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+                   for d in "bsh"]
+                + [(name, ctypes.c_int) for name in ("B", "H", "Hkv", "Sq",
+                                                     "Skv", "D", "causal")]
+                + [("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)])
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -114,4 +126,16 @@ def flash_fwd() -> ctypes.CDLL:
     dll.flash_fwd_launch.restype = ctypes.c_int
     dll.flash_fwd_error_string.argtypes = [ctypes.c_int]
     dll.flash_fwd_error_string.restype = ctypes.c_char_p
+    return dll
+
+
+@functools.cache
+def flash_bwd() -> ctypes.CDLL:
+    """The loaded ``flash_bwd.cu`` library, built at first use."""
+    dll = ctypes.CDLL(str(build("flash_bwd.cu", "flash_bwd")))
+    for fn in (dll.flash_bwd_dq_launch, dll.flash_bwd_dkv_launch):
+        fn.argtypes = [FlashBwdParams, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dll.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    dll.flash_bwd_error_string.restype = ctypes.c_char_p
     return dll

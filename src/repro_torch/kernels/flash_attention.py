@@ -1,13 +1,16 @@
-"""Flash-attention forward: the Hopper kernel's wrapper, its plain version,
-the launch counter, and the kernel's byte and FLOP counts.
+"""Flash attention: the Hopper kernels' wrappers (forward, and the backward's
+dQ and dK/dV), their plain versions, the launch counters, the bounds that
+hold each kernel against its plain version, and the kernels' byte and FLOP
+counts.
 
 :func:`flash_attention` and :func:`flash_attention_lse` take q ``(B, Sq, H,
 D)`` and k, v ``(B, Skv, Hkv, D)`` in the model's layout.  For CUDA tensors
 they launch ``csrc/flash_fwd.cu`` (bf16 only); for CPU tensors they run
-:func:`flash_fwd_plain`.  Nothing falls back: a CUDA tensor goes to the
-kernel or raises.  Only the forward is ported: an input that requires a
-gradient raises, since the backward kernels come with training (ROADMAP B3,
-B4).
+:func:`flash_fwd_plain`.  Under autograd they go through a
+``torch.autograd.Function`` whose backward, :func:`flash_bwd`, launches the
+two kernels of ``csrc/flash_bwd.cu`` for CUDA tensors and runs
+:func:`flash_bwd_plain` for CPU tensors.  Nothing falls back: a CUDA tensor
+goes to the kernels or raises.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ DEFAULT_BLOCK_KV = 512
 
 #: kernel launches made by :func:`flash_attention_lse` (CUDA tensors only)
 LAUNCHES = 0
+#: launches of the backward's dQ and dK/dV kernels (CUDA tensors only)
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
 
 def ref_attention(q, k, v, *, causal: bool = True):
@@ -108,11 +114,131 @@ def check_against_plain(o, q, k, v, causal: bool = True, lse=None) -> dict:
     return out
 
 
+def _bwd_plain(q, k, v, o, lse, do, causal: bool, tile: int,
+               magnitudes: bool):
+    """The backward in tiled f32 torch ops; with ``magnitudes``, also the
+    sums :func:`check_bwd_against_plain` builds its bounds from."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(Skv, device=dev)
+    delta = (do.float() * o.float()).sum(-1)                    # (B, Sq, H)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    if magnitudes:
+        mag = {"dq_abs": torch.empty(q.shape, device=dev),
+               "dq_sq": torch.empty((B, Sq, H), device=dev),
+               "dk_abs": torch.zeros(k.shape, device=dev),
+               "dk_sq": torch.zeros((B, Skv, Hkv), device=dev),
+               "dv_abs": torch.zeros(k.shape, device=dev),
+               "dv_sq": torch.zeros((B, Skv, Hkv), device=dev)}
+        kabs, ksq, vabs = kf.abs(), kf.square().sum(-1), vf.abs()
+        dlt_abs = (do.float() * o.float()).abs().sum(-1)        # (B, Sq, H)
+    for q0 in range(0, Sq, tile):
+        n = min(tile, Sq - q0)
+        qt = q[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        dot = do[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kf) * scale
+        if causal:
+            qpos = torch.arange(q0, q0 + n, device=dev)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:q0 + n].reshape(B, Hkv, G, n, 1))
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dot, vf)
+        dlt = delta[:, q0:q0 + n].reshape(B, n, Hkv, G).permute(0, 2, 3, 1)
+        ds = p * (dp - dlt[..., None])
+        dq[:, q0:q0 + n] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+                            * scale).reshape(B, n, H, D).to(q.dtype)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qt) * scale
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dot)
+        if magnitudes:
+            # |dS| and the f32 rounding of dP - delta, which cancel where
+            # dS is near 0 (2**-8 of the sums of |terms|: many times the
+            # worst case of a 128-term f32 dot product)
+            dp_abs = torch.einsum("bqhgd,bkhd->bhgqk", dot.abs(), vabs)
+            dlt_t = dlt_abs[:, q0:q0 + n].reshape(B, n, Hkv, G).permute(
+                0, 2, 3, 1)[..., None]
+            ads = ds.abs() + 2 ** -8 * p * (dp_abs + dlt_t)
+            ds2 = ads.square()
+            mag["dq_abs"][:, q0:q0 + n] = (torch.einsum(
+                "bhgqk,bkhd->bqhgd", ads, kabs) * scale).reshape(B, n, H, D)
+            mag["dq_sq"][:, q0:q0 + n] = (torch.einsum(
+                "bhgqk,bkh->bqhg", ds2, ksq) * scale ** 2).reshape(B, n, H)
+            mag["dk_abs"] += torch.einsum("bhgqk,bqhgd->bkhd", ads,
+                                          qt.abs()) * scale
+            mag["dk_sq"] += torch.einsum("bhgqk,bqhg->bkh", ds2,
+                                         qt.square().sum(-1)) * scale ** 2
+            mag["dv_abs"] += torch.einsum("bhgqk,bqhgd->bkhd", p, dot.abs())
+            mag["dv_sq"] += torch.einsum("bhgqk,bqhg->bkh", p.square(),
+                                         dot.square().sum(-1))
+    out = (dq, dk.to(k.dtype), dv.to(v.dtype))
+    return (out, mag) if magnitudes else out
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
+                    tile: int = 256):
+    """The backward kernels' function in torch ops: ``(dq, dk, dv)`` from
+    the forward's ``o`` and f32 ``lse`` and the output gradient ``do``.
+    Tiles of ``tile`` query rows against all keys, in f32 throughout, as
+    the TPU kernels compute it (P = exp(S - lse) recomputed, delta =
+    rowsum(dO * O)); dq is cast to q's dtype, dk and dv, summed over each
+    KV head's G query heads, to k's."""
+    return _bwd_plain(q, k, v, o, lse, do, causal, tile, magnitudes=False)
+
+
+def check_bwd_against_plain(grads, q, k, v, o, lse, do,
+                            causal: bool = True) -> dict:
+    """Hold ``grads = (dq, dk, dv)`` from the backward kernels against
+    :func:`flash_bwd_plain` on the same inputs; raise ``AssertionError``
+    past the bounds, else return the readings.
+
+    The kernels round P to bf16 before dV = P^T dO, and dS before dQ = dS K
+    and dK = dS^T Q; the plain version keeps both f32.  Rounding to bf16
+    moves a value by at most u = 2**-8 of itself, so each element of dV
+    may move by u * sum_i P_ij |dO_i| (likewise dK and dQ with |dS|), and
+    both sides round their output to bf16, 2u of it between them.  Where
+    dP and delta cancel, dS carries their f32 rounding, so |dS| is widened
+    by ``2**-8 * P * (sum_d |dO||V| + sum_d |dO||O|)``.  Each element must
+    lie within ``2**-7 * (sum_term + |want|)`` (the first term doubled for
+    margin).  That bound is loose where many terms of mixed sign add up,
+    as on the late rows of dQ, so each row (over D) must also lie within
+    ``2**-6 * sqrt(sum_sq) + 2**-7 * |want_row|``, where
+    ``sum_sq = sum_i P_ij**2 |dO_i|**2`` (dS and |Q|, |K| for dK and dQ):
+    independent roundings add up to about u/2 * sqrt(sum_sq) over a row,
+    and a skipped tile, a wrong KV head or a q-head missing from dK's
+    G-sum moves a row by far more."""
+    want, mag = _bwd_plain(q, k, v, o, lse, do, causal, 256,
+                           magnitudes=True)
+    out = {}
+    failed = []
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        got, ref = got.float(), ref.float()
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{name} holds values that are not finite "
+                                 f"(unwritten or overflowed)")
+        diff = (got - ref).abs()
+        bound = 2 ** -7 * (mag[f"{name}_abs"] + ref.abs()) + 1e-30
+        row = diff.norm(dim=-1)
+        row_bound = (2 ** -6 * mag[f"{name}_sq"].sqrt()
+                     + 2 ** -7 * ref.norm(dim=-1) + 1e-30)
+        out[f"{name}_max_abs_err"] = diff.max().item()
+        out[f"{name}_bound_ratio"] = (diff / bound).max().item()
+        out[f"{name}_row_bound_ratio"] = (row / row_bound).max().item()
+        out[f"{name}_late_rows_max_abs_err"] = diff[
+            :, diff.shape[1] // 2:].max().item()
+        if out[f"{name}_bound_ratio"] > 1 or \
+                out[f"{name}_row_bound_ratio"] > 1:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"{', '.join(failed)} differ from the plain "
+                             f"version beyond the bound: {out}")
+    return out
+
+
 def _check(q, k, v, block_q: int, block_kv: int) -> None:
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only: the backward kernels are not "
-            "ported yet (ROADMAP B3, B4)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B,Sq,H,D) and k, v (B,Skv,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -130,20 +256,46 @@ def _check(q, k, v, block_q: int, block_kv: int) -> None:
                          f"block_q={block_q} and block_kv={block_kv}")
 
 
-def _launch(q, k, v, causal: bool, out=None):
-    global LAUNCHES
-    from repro_torch.kernels import _build
+def _require_card(q, k, v) -> None:
+    """What every flash kernel takes: a card, bf16, head dim 128."""
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA tensor but no CUDA device")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"the flash kernel takes bf16 on the card; got "
+        raise ValueError(f"the flash kernels take bf16 on the card; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype} (f32: ROADMAP "
                          f"B2-f32)")
+    if q.shape[-1] != 128:
+        raise ValueError(f"the flash kernels take head dim 128 (every "
+                         f"ported config's); got {q.shape[-1]} (ROADMAP "
+                         f"B2-f32)")
+
+
+def _layout_ok(t) -> bool:
+    """The kernels read 16-byte chunks of the head dim through strides."""
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _require_layout(**tensors) -> None:
+    for name, t in tensors.items():
+        if not _layout_ok(t):
+            raise ValueError(f"{name} needs a contiguous head dim, strides "
+                             f"that are multiples of 8 elements and a "
+                             f"16-byte aligned start; got strides "
+                             f"{t.stride()}")
+
+
+def _strides(**tensors) -> dict:
+    return {f"{name}_s{d}": t.stride(i) for name, t in tensors.items()
+            for i, d in enumerate("bsh")}
+
+
+def _launch(q, k, v, causal: bool, out=None):
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    _require_card(q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    if D != 128:
-        raise ValueError(f"the flash kernel takes head dim 128 (every ported "
-                         f"config's); got {D} (ROADMAP B2-f32)")
     if out is None:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -154,13 +306,7 @@ def _launch(q, k, v, causal: bool, out=None):
                 or lse.device != q.device or not lse.is_contiguous()):
             raise ValueError("out must be (o like q, contiguous f32 lse "
                              "(B, H, Sq)) on q's device")
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name} needs a contiguous head dim, strides "
-                             f"that are multiples of 8 elements and a "
-                             f"16-byte aligned start; got strides "
-                             f"{t.stride()}")
+    _require_layout(q=q, k=k, v=v, o=o)
     params = _build.FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
         lse=lse.data_ptr(),
@@ -181,15 +327,120 @@ def _launch(q, k, v, causal: bool, out=None):
     return o, lse
 
 
-def flash_attention_lse(q, k, v, causal: bool = True,
-                        block_q: int = DEFAULT_BLOCK_Q,
-                        block_kv: int = DEFAULT_BLOCK_KV, out=None):
-    """``(o, lse)``: o like q, lse ``(B, H, Sq)`` f32, written into the
-    pair ``out`` when it is given.  ``block_q`` and ``block_kv`` only fix
-    which shapes are accepted, as in the TPU kernel: Sq and Skv must be
-    multiples of them (or shorter); the Hopper kernel tiles by its own
-    sizes and masks its ragged edge."""
-    _check(q, k, v, block_q, block_kv)
+def _bwd_params(q, k, v, o, lse, do, delta, dq, dk, dv, causal: bool):
+    from repro_torch.kernels import _build
+    _require_card(q, k, v)
+    if not (o.dtype == do.dtype == torch.bfloat16):
+        raise ValueError("o and do must be bf16 like q, k and v")
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be shaped like q {tuple(q.shape)}; "
+                         f"got {tuple(o.shape)}, {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, H, Sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 (B, H, Sq)")
+    tensors = dict(q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv)
+    if any(t.device != q.device for t in (lse, delta, *tensors.values())):
+        raise ValueError("the backward's tensors must be on one device")
+    _require_layout(**tensors)
+    return _build.FlashBwdParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(),
+        **_strides(**tensors), B=B, H=H, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
+        causal=int(causal), scale=D ** -0.5,
+        scale_log2=D ** -0.5 * math.log2(math.e))
+
+
+def _run_bwd(entry: str, params, device) -> None:
+    from repro_torch.kernels import _build
+    dll = _build.flash_bwd()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(dll, entry)(params, stream)
+    if err != 0:
+        msg = dll.flash_bwd_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: {msg} ({err})")
+
+
+def _outputs(out, likes):
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dtype, device=dev)
+                     for shape, dtype, dev in likes)
+    for t, (shape, dtype, dev) in zip(out, likes):
+        if t.shape != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"out: expected {tuple(shape)} {dtype} on "
+                             f"{dev}; got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    return tuple(out)
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True, out=None):
+    """Launch the dQ kernel: ``(dq, delta)``, dq like q and ``delta =
+    rowsum(dO * O)`` ``(B, H, Sq)`` f32, which :func:`flash_bwd_dkv`
+    reads; written into the pair ``out`` when it is given.  CUDA tensors
+    only."""
+    global DQ_LAUNCHES
+    B, Sq, H, _ = q.shape
+    dq, delta = _outputs(out, ((q.shape, q.dtype, q.device),
+                               ((B, H, Sq), torch.float32, q.device)))
+    # the dK/dV slots are not touched by this kernel
+    params = _bwd_params(q, k, v, o, lse, do, delta, dq, k, v, causal)
+    _run_bwd("flash_bwd_dq_launch", params, q.device)
+    DQ_LAUNCHES += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True, out=None):
+    """Launch the dK/dV kernel: ``(dk, dv)`` like k and v, each KV head's
+    G query heads summed in the kernel; written into the pair ``out`` when
+    it is given.  CUDA tensors only."""
+    global DKV_LAUNCHES
+    dk, dv = _outputs(out, ((k.shape, k.dtype, k.device),
+                            (v.shape, v.dtype, v.device)))
+    # the O and dQ slots are not touched by this kernel
+    params = _bwd_params(q, k, v, q, lse, do, delta, q, dk, dv, causal)
+    _run_bwd("flash_bwd_dkv_launch", params, q.device)
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """``(dq, dk, dv)``: the two backward kernels for CUDA tensors,
+    :func:`flash_bwd_plain` for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if not _layout_ok(do):         # an output gradient has any strides
+        do = do.contiguous()
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash forward (kernel or plain version), saving q, k,
+    v, o and lse.  Backward: :func:`flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, causal: bool, out=None):
     if q.device.type == "cpu":
         o, lse = flash_fwd_plain(q, k, v, causal)
         if out is None:
@@ -200,6 +451,24 @@ def flash_attention_lse(q, k, v, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     return _launch(q, k, v, causal, out)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True,
+                        block_q: int = DEFAULT_BLOCK_Q,
+                        block_kv: int = DEFAULT_BLOCK_KV, out=None):
+    """``(o, lse)``: o like q, lse ``(B, H, Sq)`` f32, written into the
+    pair ``out`` when it is given.  ``block_q`` and ``block_kv`` only fix
+    which shapes are accepted, as in the TPU kernel: Sq and Skv must be
+    multiples of them (or shorter); the Hopper kernel tiles by its own
+    sizes and masks its ragged edge.  When q, k or v requires a gradient,
+    the backward runs :func:`flash_bwd`."""
+    _check(q, k, v, block_q, block_kv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if out is not None:
+            raise ValueError("out= cannot hold a result that needs a "
+                             "gradient")
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, out)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -234,3 +503,28 @@ def flash_flops(B: int, Sq: int, Skv: int, H: int, D: int,
     if not train:
         return fwd
     return fwd + 5 * 2 * B * H * pairs * D
+
+
+def flash_bwd_kernel_flops(B: int, Sq: int, Skv: int, H: int, D: int,
+                           causal: bool, kernel: str) -> float:
+    """Matrix-unit FLOPs of one backward kernel: both recompute S and dP;
+    ``"dq"`` adds dS K (3 products), ``"dkv"`` P^T dO and dS^T Q (4)."""
+    products = {"dq": 3, "dkv": 4}[kernel]
+    pairs = Sq * Skv * (0.5 if causal else 1.0)
+    return products * 2 * B * H * pairs * D
+
+
+def flash_bwd_kernel_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int,
+                           D: int, kernel: str, bytes_el: int = 2) -> int:
+    """Device-memory bytes of one backward kernel's function, each input
+    read once and each output written once: ``"dq"`` reads Q, K, V, O, dO
+    and lse and writes dQ and delta; ``"dkv"`` reads Q, K, V, dO, lse and
+    delta and writes dK and dV."""
+    qb = B * Sq * H * D * bytes_el
+    kvb = B * Skv * Hkv * D * bytes_el
+    rows = B * H * Sq * 4
+    if kernel == "dq":
+        return 4 * qb + 2 * kvb + 2 * rows
+    if kernel == "dkv":
+        return 2 * qb + 4 * kvb + 2 * rows
+    raise ValueError(kernel)

@@ -1,0 +1,115 @@
+"""Training launcher on one device: config -> data pipeline -> train step
+-> fault-tolerant loop (checkpoint/restart, straggler detection, failure
+retry).
+
+On a CUDA device each layer's causal attention runs the flash kernels
+(``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
+backward).  ``--smoke`` selects the reduced config of the same family;
+``--device cpu`` runs the kernels' plain versions:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --device cpu --steps 20 --batch 8 --seq 128
+
+Without ``--ckpt-dir`` the checkpoints go to a fresh temporary directory
+that is removed at the end; with it, a second launch resumes from the
+newest complete step there.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import shutil
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.models import init_params
+from repro_torch.models.transformer import require_device
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.train import (TrainLoopConfig, fault_tolerant_train,
+                               make_train_step)
+
+
+def device_batch(host: dict, device) -> dict:
+    """A pipeline batch (numpy) as tensors on ``device``: token ids as
+    int64, the loss mask as f32."""
+    return {k: torch.from_numpy(v).to(
+        device, torch.long if v.dtype.kind in "iu" else torch.float32)
+        for k, v in host.items()}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config of the same family")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compress", type=float, default=None, metavar="RATIO",
+                    help="EF-top-k gradient compression keep-ratio (not "
+                    "ported yet)")
+    ap.add_argument("--attn-impl", default=None, choices=["flash", "xla"],
+                    help="attention implementation override (flash = the "
+                    "flash kernels on the card, their plain versions on the "
+                    "CPU)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.compress:
+        raise NotImplementedError("--compress: gradient compression "
+                                  "(optim/compression.py) is not ported yet "
+                                  "(ROADMAP A16h-compress)")
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    device = require_device(args.device)
+    print(f"arch={cfg.name} params={cfg.n_params / 1e6:.1f}M "
+          f"device={device} attn_impl={cfg.attn_impl}")
+
+    data = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed, d_model=cfg.d_model))
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device)
+    opt_state = adamw_init(params)
+    ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
+    step_fn = make_train_step(cfg, ocfg, microbatches=args.microbatches)
+
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
+        prefix=f"repro_torch_{cfg.name}_ckpt_")
+    loop_cfg = TrainLoopConfig(total_steps=args.steps,
+                               checkpoint_every=args.ckpt_every,
+                               checkpoint_dir=ckpt_dir)
+    try:
+        t0 = time.time()
+        params, opt_state, events = fault_tolerant_train(
+            loop_cfg, step_fn, (params, opt_state), iter(data),
+            lambda s: device_batch(data.batch_at(s), device))
+        dt = time.time() - t0
+    finally:
+        if args.ckpt_dir is None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    losses = events["losses"]
+    if losses:
+        k = max(1, len(losses) // 10)
+        tok_s = args.batch * args.seq * len(losses) / dt
+        print(f"loss {np.mean(losses[:k]):.4f} -> {np.mean(losses[-k:]):.4f}"
+              f" over {len(losses)} steps; {tok_s:.0f} tok/s;"
+              f" retries={events['retries']}"
+              f" stragglers={len(events['stragglers'])}")
+    return events
+
+
+if __name__ == "__main__":
+    main()

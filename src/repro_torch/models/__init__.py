@@ -1,9 +1,9 @@
-"""Models: the dense decoder-only family (config, parameters, prefill, KV-cache
-decode).  Other families, the loss and the sharding specs are not ported
-yet (ROADMAP A16)."""
+"""Models: the dense decoder-only family (config, parameters, forward and
+loss, prefill, KV-cache decode).  Other families and the sharding specs are
+not ported yet (ROADMAP A16)."""
 from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            forward, init_params,
+                                            forward, init_params, lm_loss,
                                             make_decode_caches, prefill)
 
 __all__ = ["ModelConfig", "decode_step", "forward", "init_params",
-           "make_decode_caches", "prefill"]
+           "lm_loss", "make_decode_caches", "prefill"]

@@ -1,11 +1,13 @@
 """Model assembly for the dense decoder-only family: config, parameters,
-prefill and KV-cache decode.
+forward and loss (training), prefill and KV-cache decode (serving).
 
 Parameters are a dict shaped like the reference's pytree, with the per-layer
 leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
 reference's parameters across is a copy (``convert.params_from_reference``).
-The layer loop is a Python loop over views of those stacks.  Serving runs
-under ``torch.inference_mode()``; there is no remat.
+The layer loop is a Python loop over slices of those stacks.  Training's
+:func:`forward` wraps each layer in ``torch.utils.checkpoint`` when
+``cfg.remat_policy == "full"`` (the reference's ``jax.checkpoint``);
+serving runs under ``torch.inference_mode()`` with no remat.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (KVCache, decode_attention,
@@ -175,11 +178,17 @@ def _stack(layers):
     return torch.stack(layers)
 
 
-def _layer(blocks, i: int):
-    """Layer ``i``'s parameters: views into the stacked leaves."""
+def _unstack(blocks, n: int) -> list:
+    """Every layer's parameters (views into the stacked leaves), from one
+    ``unbind(0)`` per stacked leaf.
+    Under autograd, indexing ``blocks[i]`` once per layer would give each
+    layer's backward a zero gradient the size of the whole stack; one
+    ``unbind`` has one backward node that stacks the ``n`` slices'
+    gradients."""
     if isinstance(blocks, dict):
-        return {k: _layer(v, i) for k, v in blocks.items()}
-    return blocks[i]
+        parts = {k: _unstack(v, n) for k, v in blocks.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(blocks.unbind(0))
 
 
 # --- forward / prefill ---------------------------------------------------------
@@ -199,15 +208,73 @@ def _dense_body(x, bp, cfg: ModelConfig, *, collect: bool = False):
     return x + h, kv
 
 
+def _remat(fn, policy: str):
+    """``fn`` under the reference's remat policy: ``"full"`` recomputes
+    the whole body in the backward (``torch.utils.checkpoint``, not
+    reentrant), ``"none"`` keeps every activation."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        raise NotImplementedError("remat_policy='dots' (save the matrix "
+                                  "products, recompute the rest) is not "
+                                  "ported yet (ROADMAP A16h-dots)")
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def forward(params, cfg: ModelConfig, tokens
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar)."""
+    """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar).
+    Each layer runs under ``cfg.remat_policy`` when autograd records."""
     _require_dense(cfg)
+    body = _remat(lambda x, bp: _dense_body(x, bp, cfg)[0],
+                  cfg.remat_policy)
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
-    for i in range(cfg.n_layers):
-        x, _ = _dense_body(x, _layer(params["blocks"], i), cfg)
+    for bp in _unstack(params["blocks"], cfg.n_layers):
+        x = body(x, bp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _chunk_loss(h, head, labels, mask, pad_mask):
+    """Summed masked cross-entropy of one chunk: f32 logits over the
+    padded vocab, the padding masked by ``pad_mask``."""
+    logits = (h @ head).float() + pad_mask
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Chunked softmax cross-entropy, f32 0-d.  ``batch`` holds ``tokens``
+    and ``labels`` (B, S) and optionally ``loss_mask`` (B, S).  The loss
+    is taken over ``cfg.loss_chunk`` positions at a time, and under
+    autograd each chunk is a ``torch.utils.checkpoint`` region, so only one
+    chunk's (B, C, padded vocab) logits are alive at a time, backward
+    included."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+    B, S, D = hidden.shape
+    C = min(cfg.loss_chunk, S)
+    nc = S // C
+    head = params["embed"].get("head")
+    if head is None:
+        head = params["embed"]["tok"].T
+    cols = torch.arange(cfg.padded_vocab, device=hidden.device)
+    pad_mask = torch.where(cols < cfg.vocab, 0.0, -1e30)
+    chunk = _remat(_chunk_loss, "full")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nc):
+        sl = slice(c * C, (c + 1) * C)
+        total = total + chunk(hidden[:, sl], head, labels[:, sl],
+                              mask[:, sl], pad_mask)
+    loss = total / mask[:, :nc * C].sum().clamp_min(1.0)
+    return loss + 1e-2 * aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int
@@ -224,9 +291,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int
     if max_len < S:
         raise ValueError(f"max_len={max_len} < prompt length {S}")
     caches = make_decode_caches(cfg, B, max_len, x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dense_body(x, _layer(params["blocks"], i), cfg,
-                                collect=True)
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        x, (k, v) = _dense_body(x, bp, cfg, collect=True)
         caches["k"][i, :, :S] = k
         caches["v"][i, :, :S] = v
     caches["length"] = S
@@ -258,8 +324,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: dict
     if length >= caches["k"].shape[2]:
         raise ValueError(f"the cache holds {caches['k'].shape[2]} positions, "
                          f"all used")
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         cache = KVCache(caches["k"][i], caches["v"][i], length)
         h, (kn, vn) = decode_attention(
             L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)

@@ -1,5 +1,8 @@
-"""Step functions.  Only serving's prefill and decode are ported; training
-waits for the backward kernels (ROADMAP A16h, B3, B4)."""
-from repro_torch.train.steps import make_decode_fn, make_prefill_fn
+"""Step functions (training, prefill, decode) and the fault-tolerant
+training loop."""
+from repro_torch.train.loop import TrainLoopConfig, fault_tolerant_train
+from repro_torch.train.steps import (make_decode_fn, make_prefill_fn,
+                                     make_train_step)
 
-__all__ = ["make_decode_fn", "make_prefill_fn"]
+__all__ = ["TrainLoopConfig", "fault_tolerant_train", "make_decode_fn",
+           "make_prefill_fn", "make_train_step"]

@@ -1,7 +1,84 @@
-"""Serving's step functions: prefill and one decode step."""
+"""Step functions: the training step, and serving's prefill and decode.
+
+``make_train_step`` builds the reference's production step: loss (each
+layer under ``cfg.remat_policy``) -> gradients (accumulated in f32 over
+microbatches when there are more than one) -> global-norm clip -> AdamW ->
+metrics.  The reference's cross-pod variant with gradient compression is
+not ported yet (ROADMAP A16h-compress).
+"""
 from __future__ import annotations
 
-from repro_torch.models import ModelConfig, decode_step, prefill
+import torch
+
+from repro_torch.models import ModelConfig, decode_step, lm_loss, prefill
+from repro_torch.optim import AdamWState, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, leaves
+
+
+def _shaped_like(tree, values):
+    """``tree``'s nested dicts with its leaves taken in order from the
+    iterator ``values``.  (A module-level function: a recursive closure
+    over the iterator would form a reference cycle that keeps a whole
+    step's gradients alive until the garbage collector runs.)"""
+    if isinstance(tree, dict):
+        return {k: _shaped_like(v, values) for k, v in tree.items()}
+    return next(values)
+
+
+def _loss_and_grads(params, cfg: ModelConfig, batch: dict):
+    """``(loss, grads)``: the f32 loss and its gradients in the parameters'
+    dtypes, shaped like ``params``."""
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        loss = lm_loss(params, cfg, batch)
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return loss.detach(), _shaped_like(params, iter(grads))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    microbatches: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics).  ``batch`` holds ``tokens``, ``labels`` and ``loss_mask``
+    tensors on the parameters' device.  The parameters and the optimizer
+    state are updated in place (``adamw_update``) and returned; the
+    metrics are 0-d tensors (``loss``, ``grad_norm``, ``lr``)."""
+
+    def train_step(params, opt_state: AdamWState, batch: dict):
+        if microbatches == 1:
+            loss, grads = _loss_and_grads(params, cfg, batch)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % microbatches:
+                raise ValueError(f"batch {n} does not split into "
+                                 f"{microbatches} microbatches")
+            m = n // microbatches
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            acc = None
+            for i in range(microbatches):
+                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                mb_loss, g = _loss_and_grads(params, cfg, mb)
+                loss = loss + mb_loss
+                if acc is None:
+                    acc = [x.float() for x in leaves(g)]
+                else:
+                    for a, x in zip(acc, leaves(g)):
+                        a.add_(x)              # into the f32 accumulator
+                del g
+            loss = loss / microbatches
+            grads = _shaped_like(params, (a.div_(microbatches) for a in acc))
+            del acc
+        new_params, new_opt, metrics = adamw_update(opt_cfg, params, grads,
+                                                    opt_state)
+        metrics["loss"] = loss
+        return new_params, new_opt, metrics
+
+    return train_step
 
 
 def make_prefill_fn(cfg: ModelConfig, max_len: int):

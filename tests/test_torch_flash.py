@@ -1,6 +1,7 @@
 """The flash-attention forward of the port (its plain version, which CPU
 tensors take) against the reference's Pallas kernel in interpret mode, on
-the same numpy inputs; and the wrapper's refusals."""
+the same numpy inputs; and the wrapper's refusals.  The backward is in
+``test_torch_flash_bwd.py``."""
 import shutil
 
 import jax.numpy as jnp
@@ -148,13 +149,6 @@ def test_traffic_and_flops_equal_reference(train, causal):
             == jflash.flash_traffic_bytes(B, Sq, Skv, H, Hkv, D, 2, train)
         assert flash.flash_flops(B, Sq, Skv, H, D, causal, train) \
             == jflash.flash_flops(B, Sq, Skv, H, D, causal, train)
-
-
-def test_refuses_inputs_that_require_grad():
-    q, k, v = _torch(*_qkv(1, 64, 64, 2, 1, 32))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B3, B4"):
-        flash.flash_attention(q, k, v)
 
 
 def test_refuses_shapes_the_blocks_do_not_divide():

@@ -1,5 +1,5 @@
-"""The Hopper flash-attention forward kernel against its plain version, on
-the card.  Needs an sm_90 device and ``nvcc``; skipped otherwise.  Run on a
+"""The Hopper flash-attention kernels (forward, and the backward's dQ and
+dK/dV) against their plain versions, on the card.  Needs an sm_90 device and ``nvcc``; skipped otherwise.  Run on a
 card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_flash_cuda.py -m gpu``.
 """
@@ -83,3 +83,52 @@ def test_kernel_refuses_f32_and_other_head_dims(cuda):
     q, k, v = (t[..., :64] for t in _qkv(CASES[0], cuda))
     with pytest.raises(ValueError, match="head dim 128"):
         flash.flash_attention(q, k, v, True)
+
+
+def _bwd_inputs(case, device, seed=0):
+    """q, k, v, the forward's o and lse, and an output gradient."""
+    B, Sq, _, H, _, D, causal = case
+    q, k, v = _qkv(case, device, seed)
+    o, lse = flash.flash_attention_lse(q, k, v, causal)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_backward_kernels_match_plain_version(cuda, case):
+    causal = case[-1]
+    q, k, v, o, lse, do = _bwd_inputs(case, cuda)
+    B, Sq, H = q.shape[:3]
+    dq = torch.full_like(q, float("nan"))
+    delta = torch.full((B, H, Sq), float("nan"), device=cuda)
+    dk = torch.full_like(k, float("nan"))
+    dv = torch.full_like(v, float("nan"))
+    before = (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    flash.flash_bwd_dq(q, k, v, o, lse, do, causal, out=(dq, delta))
+    flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal, out=(dk, dv))
+    torch.cuda.synchronize()
+    assert (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+    want_delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.testing.assert_close(delta, want_delta, rtol=1e-5, atol=1e-4)
+    # the bounds are check_bwd_against_plain's: P and dS rounded to bf16
+    # before their products, per element and per row
+    flash.check_bwd_against_plain((dq, dk, dv), q, k, v, o, lse, do, causal)
+
+
+def test_autograd_goes_through_both_kernels(cuda):
+    """torch.autograd.grad through flash_attention: one forward launch, one
+    launch of each backward kernel, gradients within the bound."""
+    case = (2, 320, 320, 8, 2, 128, True)
+    q, k, v, o, lse, do = _bwd_inputs(case, cuda, seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    out = flash.flash_attention(*leaves, True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    flash.check_bwd_against_plain(grads, q, k, v, o, lse, do, True)

@@ -1,5 +1,5 @@
-"""The port imports and runs, the stencil plan and the LM serving path,
-with JAX and the reference package made unimportable."""
+"""The port imports and runs — the stencil plan, the LM serving path and two
+training steps — with JAX and the reference package made unimportable."""
 import os
 import subprocess
 import sys
@@ -33,6 +33,15 @@ gen = serve.generate(cfg, params,
                      3)
 assert gen.tokens.shape == (2, 3) and bool(gen.logits.isfinite().all())
 assert bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all())
+import repro_torch.checkpoint, repro_torch.data, repro_torch.optim
+import repro_torch.resilience, repro_torch.train
+import repro_torch.launch.train as launch_train
+from repro_torch.convert import opt_state_from_reference
+from repro_torch.configs import SHAPES
+events = launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
+                            "cpu", "--steps", "2", "--batch", "2", "--seq",
+                            "16"])
+assert len(events["losses"]) == 2 and all(np.isfinite(events["losses"]))
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")
        and sys.modules[m] is not None]
