@@ -24,7 +24,21 @@ On one CUDA card, from the root of a checkout:
    convolution yardstick (checked against the oracle on a small grid
    first) with CUDA events, and computes the bound from the bytes and
    FLOPs of the super-step;
-5. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+5. drives the stage programs of ``PROGRAMS`` (the chains of
+   ``benchmarks/programs.py::FULL_CASES`` and a 3D chain, at the same
+   sizes): ``plan(StencilProblem([StencilStage(...), ...], dims),
+   RunConfig(backend="hopper", ...)).run(grid, iters=2T+3)`` through the
+   kernel's chain form (Table-2 device functions and ``make_star`` tap
+   tables in one chain, radius-0 stages), asserting ``ceil(iters/T)``
+   launches and the result within ``precision.tolerance(..., stages=S)``
+   of the ``reference`` backend; prints run ms and GCell/s, one profiled
+   run, one super-step of the kernel against its plain version bit for
+   bit (with and without PE forwarding), kernel, plain and cuDNN
+   yardstick times (``S x T`` convolutions with the same taps) against
+   the bound, and the fused plan against ``S`` chained single-stage
+   ``hopper`` plans at T=1 (run ms, speedup, max abs difference within
+   the same tolerance);
+6. serves full-width qwen3-1.7b (bf16, random weights from a seed)
    through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
    + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
    layer) and none in decode, tokens in the vocab and finite logits; times
@@ -33,7 +47,7 @@ On one CUDA card, from the root of a checkout:
    (output pre-filled with NaN), the ``"flash"`` prefill against the
    ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
    plain version and ``scaled_dot_product_attention`` as the yardstick;
-6. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+7. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
    ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
    (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
    microbatch and 2 with two, asserting finite losses, the first within
@@ -49,7 +63,7 @@ On one CUDA card, from the root of a checkout:
    the smoke width (bf16, head dim 128, so the kernels run) with an
    injected failure and a restart, asserting the uninterrupted run's
    losses bit for bit;
-7. prints one ``{"kernels": [...]}`` line and, last, the device line.
+8. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.  It exits non-zero
 without a result when no CUDA device is present.
@@ -318,7 +332,7 @@ def compare_and_time(name, main: dict, peaks) -> dict:
         out.fill_(float("nan"))
         builder.superstep_chain(stages, geom, gp, c, steps, aux_p, out=out)
         torch.cuda.synchronize()
-        plain = builder.superstep_plain(st, geom, gp, c, steps, aux_p,
+        plain = builder.superstep_plain(stages, geom, gp, c, steps, aux_p,
                                         torch.full_like(gp, float("nan")))
         got, want = out[region], plain[region]
         if bool(got.isnan().any()):
@@ -334,7 +348,7 @@ def compare_and_time(name, main: dict, peaks) -> dict:
     kernel_ms = time_ms(lambda: builder.superstep_chain(
         stages, geom, gp, c, T, aux_p, out=out), reps=5)
     plain_ms = time_ms(lambda: builder.superstep_plain(
-        st, geom, gp, c, T, aux_p, torch.empty_like(gp)), reps=3)
+        stages, geom, gp, c, T, aux_p, torch.empty_like(gp)), reps=3)
     library_err = check_yardstick(name, T, gp.device)
     library_ms = time_ms(library_yardstick(name, main["g"], main["aux"], T),
                          reps=3)
@@ -356,6 +370,255 @@ def compare_and_time(name, main: dict, peaks) -> dict:
         "dma_bound_ms": dma / bw * 1e3,
         "gcells_per_s": math.prod(geom.dims) * T / kernel_ms / 1e6,
     }
+
+
+# --- stage programs: linear chains fused into one super-step --------------
+
+#: the chains of benchmarks/programs.py::FULL_CASES and tests/
+#: test_programs.py's two-stage 3D chain, at FULL_DIMS: (rank, par_time,
+#: bsize) per program
+PROGRAMS = {"advect_diffuse2d": (2, 4, (256,)),
+            "diffuse_damp2d": (2, 4, (256,)),
+            "star_diffuse3d": (3, 2, (32, 32))}
+
+
+def program_stages(name):
+    """The stages of program ``name``: ``star2d_r1`` with the advect
+    coefficients of ``benchmarks/programs.py::_advect2d`` then
+    ``diffusion2d``; ``diffusion2d`` then a ``star2d_r0`` damp (``c0 =
+    0.995``); ``star3d_r1`` then ``diffusion3d``."""
+    from repro_torch.api import StencilStage
+    from repro_torch.core.stencils import make_star
+    if name == "advect_diffuse2d":
+        return [StencilStage(make_star(2, 1),
+                             coeffs={"c0": 0.7, "c_0_-1": 0.1, "c_0_1": 0.0,
+                                     "c_1_-1": 0.2, "c_1_1": 0.0},
+                             name="advect"),
+                StencilStage("diffusion2d")]
+    if name == "diffuse_damp2d":
+        return [StencilStage("diffusion2d"),
+                StencilStage(make_star(2, 0), coeffs={"c0": 0.995},
+                             name="damp")]
+    return [StencilStage(make_star(3, 1)), StencilStage("diffusion3d")]
+
+
+def grid_input(dims, device, seed):
+    """A grid ``uniform(0.5, 2)`` made on ``device`` from ``seed``."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.empty(dims, device=device).uniform_(0.5, 2.0,
+                                                     generator=gen)
+
+
+def drive_program(name, device, seed=0) -> dict:
+    """plan().run() of a program through the chain kernel, its launch count,
+    and the result against the port's reference backend."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    from repro_torch.kernels import builder
+    nd, par_time, bsize = PROGRAMS[name]
+    dims = FULL_DIMS[nd]
+    problem = StencilProblem(program_stages(name), dims)
+    iters = 2 * par_time + 3
+    g = grid_input(dims, device, seed)
+    p = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                bsize=bsize, device=device))
+    torch.cuda.synchronize()
+    builder.LAUNCHES = 0
+    out = p.run(g, iters)
+    torch.cuda.synchronize()
+    launches = builder.LAUNCHES
+    want = math.ceil(iters / par_time)
+    if launches != want:
+        raise AssertionError(f"{name}: run launched the kernel {launches} "
+                             f"times, expected {want}")
+    if tuple(out.shape) != tuple(dims) or not bool(out.isfinite().all()):
+        raise AssertionError(f"{name}: result not finite of shape {dims}")
+    ref = plan(problem, RunConfig(backend="reference", device=device)).run(
+        g, iters)
+    tol = precision.tolerance("float32", iters, stages=problem.n_stages)
+    torch.testing.assert_close(out, ref, **tol)
+    err = (out - ref).abs().max().item()
+    del ref
+    return {"iters": iters, "launches": launches, "oracle_max_abs_err": err,
+            "plan": p, "g": g, "aux": None, "out": out, "tol": tol}
+
+
+def program_yardstick(problem, g, par_time):
+    """``par_time`` iterations of one cuDNN convolution per stage over the
+    edge-padded grid (full float32): the same chain as one PyTorch call
+    per stage and iteration.  Each stage is a linear tap sum, so its
+    weights are its ``apply`` on one-hot taps."""
+    import torch
+    import torch.nn.functional as F
+    nd = problem.ndim
+    convs = []
+    for stage, cf in zip(problem.stages,
+                         problem.resolve_coeffs(device=g.device)):
+        r = stage.stencil.radius
+
+        def one_hot(off, r=r):
+            e = torch.zeros((2 * r + 1,) * nd, device=g.device)
+            e[tuple(o + r for o in off)] = 1.0
+            return e
+        convs.append((stage.stencil.apply(one_hot, cf)[None, None], r))
+    conv = F.conv2d if nd == 2 else F.conv3d
+
+    def run():
+        x = g[None, None]
+        for _ in range(par_time):
+            for w, r in convs:
+                if r:
+                    x = F.pad(x, (r,) * (2 * nd), mode="replicate")
+                x = conv(x, w)
+        return x[0, 0]
+    return run
+
+
+def check_program_yardstick(problem, par_time, device, seed=1) -> float:
+    """The yardstick against the port's oracle on a small grid."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    dims = (40, 56) if problem.ndim == 2 else (12, 20, 28)
+    small = StencilProblem(problem.program, dims)
+    g = grid_input(dims, device, seed)
+    got = program_yardstick(small, g, par_time)()
+    want = plan(small, RunConfig(backend="reference", device=device)).run(
+        g, par_time)
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        "float32", par_time, stages=small.n_stages))
+    return (got - want).abs().max().item()
+
+
+def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
+    """One super-step of the chain kernel against its plain version, bit
+    for bit, with and without PE forwarding; the times and the bound; and
+    the fused plan against chained single-stage plans at T=1."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core.blocking import smem_bytes
+    from repro_torch.kernels import builder, ops
+    p = main["plan"]
+    problem, geom = p.problem, p.geometry
+    stages = problem.exec_stages
+    T = geom.par_time
+    g = main["g"]
+    gp = ops._pad_blocked(g, geom)
+    c = ops.pack_program_coeffs(stages, problem.resolve_coeffs())
+    h = geom.size_halo
+    region = (slice(None),) + tuple(slice(h, h + n * cs) for n, cs in
+                                    zip(geom.bnum, geom.csize))
+    out = torch.empty_like(gp)
+    err = 0.0
+    for steps in (T, T - 1):
+        out.fill_(float("nan"))
+        builder.superstep_chain(stages, geom, gp, c, steps, None, out=out)
+        torch.cuda.synchronize()
+        plain = builder.superstep_plain(stages, geom, gp, c, steps, None,
+                                        torch.full_like(gp, float("nan")))
+        got, want = out[region], plain[region]
+        if bool(got.isnan().any()):
+            raise AssertionError(f"{name}: kernel left compute cells "
+                                 f"unwritten (steps={steps})")
+        if int((~out.isnan()).sum()) != got.numel():
+            raise AssertionError(f"{name}: kernel wrote outside the "
+                                 f"compute region (steps={steps})")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name}: kernel differs from its plain version by "
+                f"{(got - want).abs().max().item()} (steps={steps})")
+        err = max(err, (got - want).abs().max().item())
+        del plain, got, want
+    kernel_ms = time_ms(lambda: builder.superstep_chain(
+        stages, geom, gp, c, T, None, out=out), reps=5)
+    plain_ms = time_ms(lambda: builder.superstep_plain(
+        stages, geom, gp, c, T, None, torch.empty_like(gp)), reps=3)
+    library_err = check_program_yardstick(problem, T, g.device)
+    library_ms = time_ms(program_yardstick(problem, g, T), reps=3)
+    del gp, out
+    # bound: the grid read once and written once; the FLOPs of every stage
+    # (flop_pcu sums them) on every cell for T iterations
+    cells = math.prod(geom.dims)
+    bytes_once = (problem.stencil.num_read + 1) * cells * 4
+    flops = T * problem.stencil.flop_pcu * cells
+    bw, fp32, _ = peaks
+    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
+
+    # fusion: S single-stage plans at T=1, chained stage by stage
+    singles = [plan(StencilProblem([s], geom.dims),
+                    RunConfig(backend="hopper", par_time=1,
+                              bsize=geom.bsize, device=g.device))
+               for s in problem.stages]
+    iters = main["iters"]
+
+    def chained():
+        x = g
+        for _ in range(iters):
+            for sp in singles:
+                x = sp.run(x, 1)
+        return x
+    seq = chained()
+    torch.testing.assert_close(main["out"], seq, **main["tol"])
+    fusion_err = (main["out"] - seq).abs().max().item()
+    del seq
+    chained_ms = time_ms(chained, reps=3)
+    return {
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_small_max_abs_err": library_err,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": bytes_once, "bound_flops": flops,
+        "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom),
+        "gcells_per_s": cells * T / kernel_ms / 1e6,
+        "smem_bytes": smem_bytes(geom, stages),
+        "chained_run_ms": chained_ms, "fused_run_ms": fused_run_ms,
+        "fusion_speedup": chained_ms / fused_run_ms,
+        "fused_vs_chained_max_abs_err": fusion_err,
+    }
+
+
+def program_phase(device, peaks) -> list:
+    """Every program of :data:`PROGRAMS` through the chain kernel: the main
+    path's run and checks, its breakdown, the kernel against its plain
+    version, and fused against chained."""
+    import torch
+    rows = []
+    for name in PROGRAMS:
+        main_run = drive_program(name, device)
+        e2e = breakdown(main_run)
+        p = main_run["plan"]
+        geom = p.geometry
+        stage_names = [s.name for s in p.problem.stages]
+        print(f"{name} {stage_names} {geom.dims} T={geom.par_time} "
+              f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
+              f"{main_run['iters']} iters {e2e['run_ms']:.3f} ms, "
+              f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
+              f"{main_run['launches']} launches, oracle max_abs_err "
+              f"{main_run['oracle_max_abs_err']:.3g}; kernel share of "
+              f"device time {e2e['kernel_share_of_device']:.3f}, device "
+              f"idle {e2e['device_idle_share']:.3f}", flush=True)
+        res = compare_program(name, main_run, e2e["run_ms"], peaks)
+        print(f"  superstep: kernel {res['ms']:.3f} ms (bit for bit with "
+              f"plain), plain {res['plain_ms']:.3f} ms, library "
+              f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+              f"({res['bound_by']}); fused run {res['fused_run_ms']:.3f} ms "
+              f"vs chained T=1 plans {res['chained_run_ms']:.3f} ms: "
+              f"{res['fusion_speedup']:.3f}x, max_abs_diff "
+              f"{res['fused_vs_chained_max_abs_err']:.3g}", flush=True)
+        rows.append({
+            "name": f"stencil_stream[{name}]", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": main_run["launches"], **res,
+            "stages": stage_names, "dims": list(geom.dims),
+            "par_time": geom.par_time, "bsize": list(geom.bsize),
+            "iters": main_run["iters"],
+            "oracle_max_abs_err": main_run["oracle_max_abs_err"], **e2e,
+        })
+        del main_run
+        torch.cuda.empty_cache()
+    return rows
 
 
 # --- LM serving: qwen3-1.7b through the flash-attention kernel ------------
@@ -939,6 +1202,7 @@ def main() -> int:
         })
         del main_run
         torch.cuda.empty_cache()
+    kernels.extend(program_phase(device, peaks))
     kernels.append(lm_phase(device, peaks))
     train = train_phase(device, peaks)
     kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the combined spatial/temporal blocking stencil system.
 
 The package mirrors ``repro``'s layout: ``core`` (stencils, boundary
-conditions, precision policy, block geometry), ``programs`` (the unroll and
-window arithmetic of the streaming kernel), ``kernels`` (the oracle, the
+conditions, precision policy, block geometry), ``programs`` (multi-stage
+stage programs, and the unroll and window arithmetic of the streaming
+kernel), ``kernels`` (the oracle, the
 super-step loops and the hand-written Hopper kernel) and ``api``
 (``StencilProblem`` -> ``plan()`` -> ``StencilPlan``).  It imports ``torch``
 and never ``jax``.

@@ -4,12 +4,16 @@ A backend is a factory ``factory(problem, config, geom) -> execute`` with
 ``execute(grid, coeffs, iters, aux) -> grid``; ``plan()`` resolves
 ``RunConfig.backend`` through the registry.  The built-ins:
 
-  ``reference``  the port's unblocked oracle (``kernels/ref.py``)
+  ``reference``  the port's unblocked oracle (``kernels/ref.py``): bare
+                 stencils, stage chains and stage DAGs
   ``hopper``     the streaming kernel path (``kernels/ops.py`` around
-                 ``kernels/csrc/stencil_stream.cu``; plain version on CPU)
+                 ``kernels/csrc/stencil_stream.cu``; plain version on CPU):
+                 bare stencils and linear stage chains, fused
 
-The ``hopper`` factory refuses, at plan time, what this slice of the port
-does not cover, and names the ROADMAP item that will add it.
+``execute`` takes one coefficient dict for a single-stage problem and a
+tuple of per-stage dicts for a program.  The ``hopper`` factory refuses, at
+plan time, what this slice of the port does not cover, and names the
+ROADMAP item that will add it.
 """
 from __future__ import annotations
 
@@ -20,10 +24,11 @@ import torch
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core.blocking import BlockGeometry
-from repro_torch.kernels.builder import KERNEL_IDS, kernel_limits
-from repro_torch.kernels.ops import (_pad_blocked, fused_superstep_loop,
-                                     pack_coeffs)
-from repro_torch.kernels.ref import oracle_run
+from repro_torch.kernels.builder import kernel_limits, stage_op
+from repro_torch.kernels.ops import (_pad_blocked, fused_chain_loop,
+                                     pack_program_coeffs)
+from repro_torch.kernels.ref import (oracle_dag_run, oracle_program_run,
+                                     oracle_run)
 
 #: (grid, coeffs, iters, aux) -> final grid
 ExecuteFn = Callable[..., torch.Tensor]
@@ -56,11 +61,28 @@ def list_backends() -> list:
     return sorted(_REGISTRY)
 
 
-def _reference_backend(problem, config, geom):
-    st, bc = problem.exec_stages[0]
+def _stage_coeffs(problem: StencilProblem, coeffs) -> tuple:
+    """The execute payload as one dict per stage."""
+    return coeffs if problem.n_stages > 1 else (coeffs,)
 
-    def execute(grid, coeffs, iters, aux=None):
-        return oracle_run(st, grid, coeffs, iters, aux, bc=bc)
+
+def _reference_backend(problem, config, geom):
+    if problem.is_dag:
+        dag = problem.exec_dag
+
+        def execute(grid, coeffs, iters, aux=None):
+            return oracle_dag_run(dag, grid, _stage_coeffs(problem, coeffs),
+                                  iters, aux)
+    elif problem.n_stages > 1:
+        stages = problem.exec_stages
+
+        def execute(grid, coeffs, iters, aux=None):
+            return oracle_program_run(stages, grid, coeffs, iters, aux)
+    else:
+        st, bc = problem.exec_stages[0]
+
+        def execute(grid, coeffs, iters, aux=None):
+            return oracle_run(st, grid, coeffs, iters, aux, bc=bc)
     return execute
 
 
@@ -74,32 +96,44 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
     if problem.dtype != "float32":
         raise ValueError(f"backend 'hopper' runs float32 only; got "
                          f"{problem.dtype} (ROADMAP B1e)")
-    if not problem.bc.is_clamp:
-        raise ValueError(f"backend 'hopper' runs the clamp boundary only; "
-                         f"got {problem.bc.token()} (ROADMAP B1c)")
+    unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
+    if problem.is_dag:
+        extra = (f"; its stages {unported} also need ROADMAP B1i"
+                 if unported else "")
+        raise ValueError(f"backend 'hopper' runs linear stage chains; "
+                         f"{problem.stencil.name} is a DAG program (fields "
+                         f"{list(problem.fields)}, fan-in or non-default "
+                         f"wiring: ROADMAP B1h){extra}")
+    for s in problem.stages:
+        if not s.boundary.is_clamp:
+            raise ValueError(f"backend 'hopper' runs the clamp boundary "
+                             f"only; stage {s.name} has "
+                             f"{s.boundary.token()} (ROADMAP B1c)")
     if config.par_vec != 1:
         raise ValueError(f"backend 'hopper' runs par_vec=1 only; got "
                          f"{config.par_vec} (ROADMAP B1d)")
     if problem.ndim == 1:
         raise ValueError("backend 'hopper' runs 2D and 3D grids; 1D is "
                          "ROADMAP B1d")
-    if problem.stencil.name not in KERNEL_IDS:
-        raise ValueError(f"backend 'hopper' runs {sorted(KERNEL_IDS)}; got "
-                         f"{problem.stencil.name} (ROADMAP B1i)")
-    limit = kernel_limits(geom)
+    if unported:
+        raise ValueError(f"backend 'hopper' runs the Table-2 stencils and "
+                         f"make_star/make_box tap sums; stages {unported} "
+                         f"are neither (ROADMAP B1i)")
+    limit = kernel_limits(geom, problem.exec_stages)
     if limit:
         raise ValueError(f"backend 'hopper': {limit}")
 
 
 def _hopper_backend(problem, config, geom):
     _refuse_hopper(problem, config, geom)
-    st, bc = problem.exec_stages[0]
+    stages = problem.exec_stages
+    bc0 = problem.structural_bc
 
     def execute(grid, coeffs, iters, aux=None):
-        gp = _pad_blocked(grid, geom, bc)
-        aux_p = None if aux is None else _pad_blocked(aux, geom, bc)
-        return fused_superstep_loop(st, geom, gp, pack_coeffs(st, coeffs),
-                                    iters, aux_p, bc=bc)
+        gp = _pad_blocked(grid, geom, bc0)
+        aux_p = None if aux is None else _pad_blocked(aux, geom, bc0)
+        packed = pack_program_coeffs(stages, _stage_coeffs(problem, coeffs))
+        return fused_chain_loop(stages, geom, gp, packed, iters, aux_p)
     return execute
 
 

@@ -73,10 +73,15 @@ class StencilPlan:
 
     def run(self, grid, iters: int, coeffs=None, *,
             aux=None) -> torch.Tensor:
-        """Advance ``grid`` by ``iters`` time-steps.  ``coeffs`` overrides
-        :func:`~repro_torch.core.stencils.default_coeffs` by name; ``aux``
-        is the Hotspot ``power`` grid.  Inputs go to the plan's device."""
-        grid = self._state(grid, self.problem.shape, "grid")
+        """Advance ``grid`` by ``iters`` time-steps (program iterations:
+        each applies every stage).  ``coeffs`` overrides
+        :func:`~repro_torch.core.stencils.default_coeffs` and the stages'
+        own overrides by name: a dict for a single-stage problem, a
+        sequence of per-stage dicts or ``None`` for a program.  ``aux`` is
+        the Hotspot ``power`` grid.  A multi-field program takes and
+        returns the ``(n_fields, *shape)`` stack (``problem.state_shape``).
+        Inputs go to the plan's device."""
+        grid = self._state(grid, self.problem.state_shape, "grid")
         iters = int(iters)
         if iters < 0:
             raise ValueError(f"iters must be >= 0, got {iters}")
@@ -85,6 +90,8 @@ class StencilPlan:
         coeffs = self.problem.resolve_coeffs(coeffs)
         if iters == 0:
             return grid
+        if self.problem.n_stages == 1:
+            coeffs = coeffs[0]
         return self._execute(grid, coeffs, iters, aux)
 
     def run_batch(self, grids, iters: int, coeffs=None, *,
@@ -94,9 +101,10 @@ class StencilPlan:
         grid shared by the batch or one per member ``(B, *shape)``."""
         grids = torch.as_tensor(grids, dtype=self.problem.torch_dtype,
                                 device=self.device)
-        if grids.ndim != self.problem.ndim + 1 or grids.shape[0] < 1:
+        state = self.problem.state_shape
+        if grids.ndim != len(state) + 1 or grids.shape[0] < 1:
             raise ValueError(f"run_batch needs grids of shape "
-                             f"(B, *{self.problem.shape}), B >= 1; got "
+                             f"(B, *{state}), B >= 1; got "
                              f"{tuple(grids.shape)}")
         shape = self.problem.shape
         aux = self._aux(aux, (shape, (grids.shape[0],) + shape))
@@ -107,7 +115,11 @@ class StencilPlan:
 
     def traffic_report(self, iters: Optional[int] = None) -> dict:
         """Model traffic (paper Eq. 7/8) against the streaming kernel's
-        device-memory bytes (``kernels/ops.dma_traffic_bytes``)."""
+        device-memory bytes (``kernels/ops.dma_traffic_bytes``).  For a
+        program it adds the stages and the fusion accounting: the fused
+        chain's intermediates stay in shared memory (0 device-memory bytes)
+        where chained single-stage plans would write and re-read each of
+        the ``S - 1`` intermediates once per iteration."""
         from repro_torch.kernels.ops import dma_traffic_bytes
         geom = self.geometry
         if geom is None:
@@ -125,8 +137,20 @@ class StencilPlan:
             "traffic_accuracy": model / kernel,
             "redundancy": geom.redundancy,
             "par_vec": geom.par_vec,
-            "smem_bytes": smem_bytes(geom, st.has_aux, cb),
+            # the kernel runs chains only; a DAG's rings are ROADMAP B1h
+            "smem_bytes": (None if self.problem.is_dag else
+                           smem_bytes(geom, self.problem.exec_stages, cb)),
         }
+        n_stages = self.problem.n_stages
+        if n_stages > 1:
+            cells = math.prod(self.problem.shape)
+            report["stages"] = [
+                {"name": s.name, "radius": s.stencil.radius,
+                 "flop_pcu": s.stencil.flop_pcu, "bc": s.boundary.token()}
+                for s in self.problem.stages]
+            report["intermediate_hbm_bytes_per_superstep"] = 0
+            report["unfused_intermediate_bytes_per_superstep"] = (
+                2 * (n_stages - 1) * cells * cb * geom.par_time)
         if iters is not None:
             n_super = math.ceil(iters / geom.par_time)
             report["n_super"] = n_super

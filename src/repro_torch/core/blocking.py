@@ -120,17 +120,20 @@ class BlockGeometry:
         return self.cells_read / math.prod(self.dims)
 
 
-def smem_bytes(geom: BlockGeometry, has_aux: bool = False,
-               cell_bytes: int = 4) -> int:
-    """Shared memory one CTA of ``kernels/csrc/stencil_stream.cu`` needs:
-    a ring of ``win_slots`` slabs of one block plane per producer — the
-    input stream and every chain entry but the last, which writes straight
-    to device memory — so ``par_time`` windows in all.  ``has_aux`` adds
-    nothing: the kernel reads the aux centre from device memory (L2), as the
-    TPU kernel only reads the aux centre too."""
-    del has_aux
+def smem_bytes(geom: BlockGeometry, stages, cell_bytes: int = 4) -> int:
+    """Shared memory one CTA of ``kernels/csrc/stencil_stream.cu`` needs to
+    run the chain ``stages = ((stencil, bc), ...)`` at ``geom``: one ring
+    of block planes per producer, as deep as the layout's window
+    (``dag_layout(...).wins``: ``2R+1`` slots for a radius-``R``
+    consumer, 1 for a radius-0 one).  The last entry writes straight to
+    device memory and has no ring; an aux stream adds nothing, since the
+    kernel reads its centre from device memory."""
+    # imported here: ``programs`` imports ``core``, which imports this module
+    from repro_torch.programs import chain_dag, dag_layout, unroll_dag
+    lay = dag_layout(unroll_dag(chain_dag(stages), geom.par_time),
+                     geom.par_vec)
     plane = math.prod(geom.bsize)
-    return geom.par_time * geom.win_slots * geom.par_vec * plane * cell_bytes
+    return sum(lay.wins) * geom.par_vec * plane * cell_bytes
 
 
 def stream_extension(geom: BlockGeometry, bc) -> int:

@@ -51,6 +51,10 @@ class Stencil:
     offsets: tuple = ()
     #: number of input grids ``apply`` reads (a tuple of getters if > 1)
     arity: int = 1
+    #: ``apply`` is the ordered tap sum ``c[coeff_names[0]] *
+    #: get(offsets[0]) + c[coeff_names[1]] * get(offsets[1]) + ...``, which
+    #: the streaming kernel runs from a tap table (``make_star``/``make_box``)
+    tap_sum: bool = False
 
     def __post_init__(self):
         if self.arity < 1:
@@ -158,7 +162,8 @@ def make_star(ndim: int, radius: int) -> Stencil:
 
     return Stencil(f"star{ndim}d_r{radius}", ndim, radius, flops, 1, 1, False,
                    tuple(names), _apply,
-                   offsets=(tuple([0] * ndim),) + tuple(o for _, o in offs))
+                   offsets=(tuple([0] * ndim),) + tuple(o for _, o in offs),
+                   tap_sum=True)
 
 
 STAR1D_R1 = make_star(1, 1)
@@ -186,7 +191,8 @@ def make_box(ndim: int, radius: int) -> Stencil:
         return out
 
     return Stencil(f"box{ndim}d_r{radius}", ndim, radius, flops, 1, 1, False,
-                   tuple(names), _apply, offsets=tuple(o for _, o in offs))
+                   tuple(names), _apply, offsets=tuple(o for _, o in offs),
+                   tap_sum=True)
 
 
 def _default_values(stencil: Stencil) -> dict:

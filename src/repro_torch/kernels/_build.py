@@ -25,16 +25,52 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 
-class Coeffs(ctypes.Structure):
-    """``struct Coeffs`` of ``stencil_stream.cu``, passed by value."""
-    _fields_ = [("c", ctypes.c_float * 8)]
+#: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``)
+MAX_ENTRIES, MAX_STAGES, MAX_TAPS, MAX_COEFFS = 64, 16, 128, 192
+#: sizes of ``stencil_stream.cu``'s ``Program``, ``Rec`` and ``TickRec``,
+#: which its ``static_assert``s hold to these numbers
+PROGRAM_BYTES, REC_BYTES, TICKREC_BYTES = 2304, 80, 32
+#: static shared memory of ``stencil_stream.cu``'s chain body: its ``Rec``
+#: and ``TickRec`` per entry, taps and coefficients
+TABLE_SMEM = ((REC_BYTES + TICKREC_BYTES) * MAX_ENTRIES + 4 * MAX_TAPS
+              + 4 * MAX_COEFFS)
 
 
 class Params(ctypes.Structure):
     """``struct Params`` of ``stencil_stream.cu``, passed by value."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy", "dx",
-        "hy", "hx", "par_time", "steps")]
+        "hy", "hx", "steps", "n_entries")]
+
+
+class Entry(ctypes.Structure):
+    """``struct Entry`` of ``stencil_stream.cu``: one unrolled entry."""
+    _fields_ = [(name, ctypes.c_short) for name in (
+        "lag", "in_base", "in_slots", "out_base", "out_slots", "stage",
+        "iteration")]
+
+
+class Stage(ctypes.Structure):
+    """``struct Stage`` of ``stencil_stream.cu``: one stage's op."""
+    _fields_ = [(name, ctypes.c_short) for name in (
+        "op", "coeff_lo", "tap_lo", "tap_n")]
+
+
+class Tap(ctypes.Structure):
+    """``struct Tap`` of ``stencil_stream.cu``: one offset and its
+    stage-local coefficient index."""
+    _fields_ = [("ds", ctypes.c_byte), ("dy", ctypes.c_byte),
+                ("dx", ctypes.c_byte), ("ci", ctypes.c_ubyte)]
+
+
+class Program(ctypes.Structure):
+    """``struct Program`` of ``stencil_stream.cu``: the chain's tables,
+    passed to the kernel by value."""
+    _fields_ = [("e", Entry * MAX_ENTRIES), ("s", Stage * MAX_STAGES),
+                ("taps", Tap * MAX_TAPS), ("c", ctypes.c_float * MAX_COEFFS)]
+
+
+assert ctypes.sizeof(Program) == PROGRAM_BYTES, "Program mirror drifted"
 
 
 class FlashParams(ctypes.Structure):
@@ -110,7 +146,8 @@ def stencil_stream() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(build("stencil_stream.cu", "stencil")))
     dll.stencil_stream_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        Params, Coeffs, ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
+        Params,
+        ctypes.POINTER(Program), ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
         ctypes.c_void_p]
     dll.stencil_stream_launch.restype = ctypes.c_int
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]

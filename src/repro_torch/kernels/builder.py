@@ -3,17 +3,24 @@ plain version, and the launch counter.
 
 :func:`superstep_chain` takes the padded grid ``gp`` (``(ns, *padded)``,
 BC-padded by ``kernels/ops._pad_blocked``) and advances it by ``steps``
-(<= ``par_time``) fused time-steps, writing the ``csize`` columns of every
-block into the padded output layout.  For a CUDA tensor it launches
-``csrc/stencil_stream.cu``; for a CPU tensor it runs :func:`superstep_plain`.
-Nothing falls back: a CUDA tensor goes to the kernel or raises.
+(<= ``par_time``) fused iterations of the stage chain ``stages = ((stencil,
+bc), ...)``, writing the ``csize`` columns of every block into the padded
+output layout.  The ``len(stages) * par_time`` unrolled entries run in
+order; an entry whose iteration is ``>= steps`` forwards its input (PE
+forwarding).  For a CUDA tensor it launches ``csrc/stencil_stream.cu``; for
+a CPU tensor it runs :func:`superstep_plain`.  Nothing falls back: a CUDA
+tensor goes to the kernel or raises.
 
-This slice covers the single-stage chain of the four Table-2 stencils on
-2D and 3D grids, clamp boundary, float32, ``par_vec = 1``; ``api/backends``
-refuses the rest at plan time.
+The kernel computes a stage with one of two ops: the device function of a
+Table-2 stencil (:data:`KERNEL_IDS`), or a tap table for a stencil whose
+``apply`` is an ordered tap sum (``make_star``/``make_box``,
+:func:`linear_taps`).  This slice covers linear chains of such stages on
+2D and 3D grids, clamp boundary, float32, ``par_vec = 1``;
+``api/backends`` refuses the rest at plan time.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -22,24 +29,81 @@ import torch
 from repro_torch.core import boundary
 from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        BlockGeometry, smem_bytes)
+from repro_torch.core.stencils import STENCILS, Stencil
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import (MAX_COEFFS, MAX_ENTRIES, MAX_STAGES,
+                                        MAX_TAPS, TABLE_SMEM)
 from repro_torch.programs import chain_dag, dag_layout, unroll_dag
 
 #: kernel launches made by :func:`superstep_chain` (CUDA tensors only)
 LAUNCHES = 0
 
-#: stencil name -> ``stencil_id`` of ``stencil_stream_launch``
+#: Table-2 stencil name -> its op id in ``stencil_stream.cu``
 KERNEL_IDS = {"diffusion2d": 0, "hotspot2d": 1, "diffusion3d": 2,
               "hotspot3d": 3}
+#: op id of the tap-table path
+TAP_OP = 4
 
 
-def kernel_limits(geom: BlockGeometry) -> Optional[str]:
-    """Why the kernel cannot run ``geom`` (None if it can): one thread per
-    block-plane cell and :func:`smem_bytes` of shared memory per CTA."""
+def linear_taps(stencil: Stencil):
+    """The ordered ``(coefficient index, offset)`` pairs of a stencil whose
+    ``apply`` is a tap sum, in the order ``apply`` adds them; ``None`` for
+    any other stencil."""
+    if not stencil.tap_sum or stencil.arity != 1 or stencil.has_aux:
+        return None
+    return tuple(enumerate(stencil.offsets))
+
+
+def stage_op(stencil: Stencil) -> Optional[int]:
+    """The kernel op that computes ``stencil`` (a Table-2 id or
+    :data:`TAP_OP`), or ``None`` if the kernel has none."""
+    if stencil.name in KERNEL_IDS and STENCILS[stencil.name] == stencil:
+        return KERNEL_IDS[stencil.name]
+    if linear_taps(stencil) is not None:
+        return TAP_OP
+    return None
+
+
+def kernel_body(stages) -> int:
+    """Which loop body of the kernel runs the chain: the Table-2 id for a
+    single Table-2 stage (the paper's main path), else -1 (any chain)."""
+    op = stage_op(stages[0][0])
+    if len(stages) == 1 and op is not None and op != TAP_OP:
+        return op
+    return -1
+
+
+def kernel_limits(geom: BlockGeometry, stages) -> Optional[str]:
+    """Why the kernel cannot run the chain ``stages`` at ``geom`` (None if
+    it can): one thread per block-plane cell, per CTA the
+    :func:`smem_bytes` of its rings, and, for the chain body only, the
+    capacities of its entry, stage, tap and coefficient tables (128 taps
+    bound a star's radius to 31, well inside a tap's signed-byte offsets),
+    their shared memory, and a thread per entry (radius-0 stages add
+    entries but no halo, so a narrow block can have fewer threads).  The
+    main-path body reads no table, so its ``par_time`` is bound only by
+    shared memory."""
     threads = math.prod(geom.bsize)
     if threads > MAX_THREADS:
         return (f"bsize {geom.bsize} needs {threads} threads per CTA "
                 f"(at most {MAX_THREADS})")
-    smem = smem_bytes(geom)
+    smem = smem_bytes(geom, stages)
+    if kernel_body(stages) < 0:
+        entries = len(stages) * geom.par_time
+        taps = sum(len(linear_taps(st) or ()) for st, _ in stages)
+        coeffs = sum(len(st.coeff_names) for st, _ in stages)
+        for what, n, cap in (("fused entries (stages x par_time)", entries,
+                              MAX_ENTRIES),
+                             ("stages", len(stages), MAX_STAGES),
+                             ("taps", taps, MAX_TAPS),
+                             ("coefficients", coeffs, MAX_COEFFS)):
+            if n > cap:
+                return f"{n} {what} exceed the kernel's table of {cap}"
+        if entries > threads:
+            return (f"{entries} fused entries (stages x par_time) need as "
+                    f"many threads per CTA; bsize {geom.bsize} has "
+                    f"{threads}")
+        smem += TABLE_SMEM
     if smem > SMEM_LIMIT:
         return (f"par_time={geom.par_time}, bsize={geom.bsize} need {smem} "
                 f"bytes of shared memory per CTA (at most {SMEM_LIMIT})")
@@ -48,22 +112,28 @@ def kernel_limits(geom: BlockGeometry) -> Optional[str]:
 
 def _check(stages, geom: BlockGeometry, gp, coeffs_packed, steps, aux_p,
            out):
-    if len(stages) != 1:
-        raise NotImplementedError("multi-stage chains are not ported yet "
-                                  "(ROADMAP B1g)")
-    st, bc = stages[0]
-    if st.name not in KERNEL_IDS or st.radius != 1:
-        raise ValueError(f"the streaming kernel computes {list(KERNEL_IDS)};"
-                         f" got {st.name}")
-    if bc is not None and not bc.is_clamp:
-        raise ValueError(f"the streaming kernel supports the clamp boundary "
-                         f"only; got {bc.token()} (ROADMAP B1c)")
+    if not stages:
+        raise ValueError("superstep_chain needs at least one stage")
+    for st, bc in stages:
+        if stage_op(st) is None:
+            raise ValueError(
+                f"the streaming kernel computes {list(KERNEL_IDS)} and "
+                f"make_star/make_box tap sums; got {st.name} (ROADMAP B1i)")
+        if bc is not None and not bc.is_clamp:
+            raise ValueError(f"the streaming kernel supports the clamp "
+                             f"boundary only; got {bc.token()} for {st.name}"
+                             f" (ROADMAP B1c)")
+        if st.ndim != geom.ndim:
+            raise ValueError(f"{st.name} is {st.ndim}D, geometry "
+                             f"{geom.ndim}D")
+    rad = sum(st.radius for st, _ in stages)
+    if geom.rad < rad:
+        raise ValueError(f"geometry radius {geom.rad} is narrower than the "
+                         f"chain's {rad}")
     if geom.par_vec != 1 or geom.ndim not in (2, 3):
         raise ValueError("the streaming kernel runs 2D/3D grids at "
                          "par_vec=1 (ROADMAP B1d)")
-    if st.ndim != geom.ndim:
-        raise ValueError(f"{st.name} is {st.ndim}D, geometry {geom.ndim}D")
-    limit = kernel_limits(geom)
+    limit = kernel_limits(geom, stages)
     if limit:
         raise ValueError(limit)
     shape = (geom.stream_dim,) + geom.padded_dims
@@ -72,19 +142,21 @@ def _check(stages, geom: BlockGeometry, gp, coeffs_packed, steps, aux_p,
                          f"{gp.dtype} {tuple(gp.shape)}")
     if not gp.is_contiguous():
         raise ValueError("gp must be contiguous")
-    if st.has_aux != (aux_p is not None):
-        raise ValueError(f"{st.name} {'needs' if st.has_aux else 'takes no'}"
-                         " padded aux grid")
+    has_aux = any(st.has_aux for st, _ in stages)
+    if has_aux != (aux_p is not None):
+        raise ValueError(f"the chain {'needs' if has_aux else 'takes no'} "
+                         "padded aux grid")
     if aux_p is not None and (aux_p.dtype != gp.dtype
                               or aux_p.shape != gp.shape
                               or aux_p.device != gp.device
                               or not aux_p.is_contiguous()):
         raise ValueError("aux_p must be a contiguous tensor like gp")
+    names = [n for st, _ in stages for n in st.coeff_names]
     if (coeffs_packed.device.type != "cpu"
             or coeffs_packed.dtype != torch.float32
-            or tuple(coeffs_packed.shape) != (len(st.coeff_names),)):
+            or tuple(coeffs_packed.shape) != (len(names),)):
         raise ValueError(f"coeffs_packed must be a float32 CPU vector of "
-                         f"{len(st.coeff_names)} ({st.coeff_names})")
+                         f"{len(names)} ({names})")
     if not 0 <= int(steps) <= geom.par_time:
         raise ValueError(f"steps={steps} outside [0, {geom.par_time}]")
     if out is not None:
@@ -100,30 +172,67 @@ def superstep_chain(stages, geom: BlockGeometry, gp: torch.Tensor,
                     coeffs_packed: torch.Tensor, steps: int,
                     aux_p: Optional[torch.Tensor] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One super-step through the ``par_time``-entry chain of
-    ``stages = ((stencil, bc),)``.  ``coeffs_packed`` is the float32 CPU
-    vector of ``kernels/ops.pack_coeffs``; ``steps`` a host int.  Returns
-    ``out`` (allocated like ``gp`` when None) with the compute region of
-    every block written; the halo and overhang columns are left as they
-    were."""
+    """One super-step through the ``len(stages) * par_time``-entry chain of
+    ``stages = ((stencil, bc), ...)``.  ``coeffs_packed`` is the float32
+    CPU vector of ``kernels/ops.pack_program_coeffs``; ``steps`` a host
+    int.  Returns ``out`` (allocated like ``gp`` when None) with the
+    compute region of every block written; the halo and overhang columns
+    are left as they were."""
+    stages = tuple(stages)
     _check(stages, geom, gp, coeffs_packed, steps, aux_p, out)
     if out is None:
         out = torch.empty_like(gp)
     if gp.device.type == "cpu":
-        return superstep_plain(stages[0][0], geom, gp, coeffs_packed,
-                               int(steps), aux_p, out)
+        return superstep_plain(stages, geom, gp, coeffs_packed, int(steps),
+                               aux_p, out)
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
     _launch(stages, geom, gp, coeffs_packed, int(steps), aux_p, out)
     return out
 
 
+def _program_table(stages, geom: BlockGeometry, coeffs_packed):
+    """The kernel's ``Program`` table for the chain: one row per unrolled
+    entry (lag, producer ring, own ring, stage, iteration; rings in
+    block planes, laid out in value-id order with the layout's window
+    depths), one per stage (op, coefficient offset, tap range), the taps
+    and the coefficients; the main-path body reads only the
+    coefficients, so its entries, which may outnumber the table's rows,
+    are left out.  Returns ``(table, out_lag)``."""
+    plan = unroll_dag(chain_dag(stages), geom.par_time)
+    lay = dag_layout(plan, 1)
+    base, acc = {}, 0
+    for v, w in enumerate(lay.wins):
+        if w:
+            base[v] = acc
+            acc += w
+    k = _build.Program()
+    taps, lo = [], 0
+    for s, (st, _) in enumerate(stages):
+        pairs = linear_taps(st) or ()
+        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs))
+        lo += len(st.coeff_names)
+        for ci, off in pairs:
+            ds, dy, dx = (off[0], 0, off[1]) if geom.ndim == 2 else off
+            taps.append(_build.Tap(ds, dy, dx, ci))
+    for i, tap in enumerate(taps):
+        k.taps[i] = tap
+    for i, v in enumerate(coeffs_packed.tolist()):
+        k.c[i] = v
+    if kernel_body(stages) >= 0:
+        return k, lay.out_lag
+    F = plan.n_streams
+    for i, e in enumerate(plan.entries):
+        v, (p,) = F + i, e.inputs
+        k.e[i] = _build.Entry(lay.lags[v], base[p], lay.wins[p],
+                              base.get(v, 0), lay.wins[v], i % len(stages),
+                              e.iteration)
+    return k, lay.out_lag
+
+
 def _launch(stages, geom, gp, coeffs_packed, steps, aux_p, out) -> None:
     global LAUNCHES
-    from repro_torch.kernels import _build
-    st = stages[0][0]
-    # the kernel's rings are the layout's windows (smem_bytes counts them)
-    lay = dag_layout(unroll_dag(chain_dag(stages), geom.par_time), 1)
+    table, out_lag = _program_table(stages, geom, coeffs_packed)
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
                            geom.blocked_dims)
     if geom.ndim == 2:      # a 2D grid is a 3D one with one blocked y row
@@ -133,22 +242,20 @@ def _launch(stages, geom, gp, coeffs_packed, steps, aux_p, out) -> None:
     else:
         hy = geom.size_halo
     params = _build.Params(
-        ns=geom.stream_dim, ticks=geom.stream_dim + lay.out_lag,
+        ns=geom.stream_dim, ticks=geom.stream_dim + out_lag,
         py=pad[0], px=pad[1], by=blk[0], bx=blk[1], cy=cmp[0], cx=cmp[1],
-        dy=dims[0], dx=dims[1], hy=hy, hx=geom.size_halo,
-        par_time=geom.par_time, steps=steps)
-    coeffs = _build.Coeffs()
-    for i, v in enumerate(coeffs_packed.tolist()):
-        coeffs.c[i] = v
+        dy=dims[0], dx=dims[1], hy=hy, hx=geom.size_halo, steps=steps,
+        n_entries=len(stages) * geom.par_time)
     bnum = geom.bnum
     grid_x, grid_y = bnum[-1], (bnum[0] if geom.ndim == 3 else 1)
     dll = _build.stencil_stream()
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device).cuda_stream
         err = dll.stencil_stream_launch(
-            KERNEL_IDS[st.name], gp.data_ptr(),
-            None if aux_p is None else aux_p.data_ptr(), out.data_ptr(),
-            params, coeffs, grid_x, grid_y, smem_bytes(geom), stream)
+            kernel_body(stages), gp.data_ptr(),
+            None if aux_p is None else aux_p.data_ptr(),
+            out.data_ptr(), params, ctypes.byref(table), grid_x, grid_y,
+            smem_bytes(geom, stages), stream)
     if err != 0:
         msg = dll.stencil_stream_error_string(err).decode()
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
@@ -212,26 +319,36 @@ def _block_getter(blocks: torch.Tensor, nb: int, r: int):
     return get
 
 
-def superstep_plain(stencil, geom: BlockGeometry, gp: torch.Tensor,
+def superstep_plain(stages, geom: BlockGeometry, gp: torch.Tensor,
                     coeffs_packed: torch.Tensor, steps: int,
                     aux_p: Optional[torch.Tensor],
                     out: torch.Tensor) -> torch.Tensor:
     """The kernel's super-step in torch ops, vectorised over blocks: extract
-    the overlapped blocks, run ``par_time`` entries (an entry past ``steps``
-    forwards its input), re-impose the clamp boundary on every value that
-    feeds a next entry, and write each block's compute region into ``out``.
-    It computes the kernel's values without replaying its tick schedule."""
+    the overlapped blocks, run the ``len(stages) * par_time`` entries in
+    order (entry ``t*S + s`` applies stage ``s`` with a getter clamped by
+    that stage's radius, or forwards its input when ``t >= steps``),
+    re-impose the clamp boundary on every value that feeds a next entry,
+    and write each block's compute region into ``out``.  It computes the
+    kernel's values without replaying its tick schedule."""
     nb = geom.ndim - 1
     h = geom.size_halo
-    coeffs = dict(zip(stencil.coeff_names, coeffs_packed.unbind()))
+    cdicts, lo = [], 0
+    for st, _ in stages:
+        n = len(st.coeff_names)
+        cdicts.append(dict(zip(st.coeff_names,
+                               coeffs_packed[lo:lo + n].unbind())))
+        lo += n
     edge_idx = [_edge_index(geom, i, gp.device) for i in range(nb)]
     aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
     cur = _extract_blocks(gp, geom)
-    for t in range(geom.par_time):
+    n_entries = len(stages) * geom.par_time
+    for i in range(n_entries):
+        t, s = divmod(i, len(stages))
+        st = stages[s][0]
         if t < steps:
-            cur = stencil.apply(_block_getter(cur, nb, stencil.radius),
-                                coeffs, aux_b)
-        if t < geom.par_time - 1:
+            cur = st.apply(_block_getter(cur, nb, st.radius), cdicts[s],
+                           aux_b if st.has_aux else None)
+        if i < n_entries - 1:
             cur = _reclamp_blocks(cur, edge_idx)
     comp = cur[(slice(None),) * (nb + 1)
                + tuple(slice(h, h + c) for c in geom.csize)]

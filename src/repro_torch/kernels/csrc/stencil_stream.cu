@@ -1,31 +1,66 @@
-// Streaming super-step of a single-stage stencil chain, for Hopper (sm_90a).
+// Streaming super-step of a linear stencil chain, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_dag_kernel` of src/repro/kernels/builder.py
 // (launched by `_superstep_dag_impl` through `superstep_chain`) for its
-// single-stage linear-chain form: 2D and 3D grids, the four Table-2
-// stencils (radius 1), clamp boundary, float32 storage, one row or plane
-// per tick (par_vec = 1).  It computes what that kernel computes: the same
-// padded input and output layout and, in the compute region it writes, the
-// same values.
+// linear-chain form: one or more stages per iteration, `par_time`
+// iterations unrolled into `S * par_time` entries, 2D and 3D grids, clamp
+// boundary, float32 storage, one row or plane per tick (par_vec = 1).  A
+// stage is one of the four Table-2 stencils (radius 1) or a tap table for a
+// stencil whose update is an ordered sum of coefficient x neighbour
+// (`make_star`, `make_box`; any radius).  It computes what that kernel
+// computes: the same padded input and output layout and, in the compute
+// region it writes, the same values.
 //
 // Design.  One CTA per overlapped block (grid = bnum).  One thread per block
 // column (2D) or per (y, x) cell of the block plane (3D).  The CTA streams
-// axis 0 through `par_time` fused entries.  Shared memory holds a ring of
-// 3 (= 2R+1) rows or planes per producer: the input stream and entries
-// 0..par_time-2; the last entry writes straight to device memory, and only
-// the `csize` columns of its block.  At tick k the CTA pushes input row k
-// (coalesced, prefetched one tick ahead into a register), then entry i
-// computes row j = k - (i+1) from its producer's ring.  Stream-axis taps
-// clip to [0, ns-1]; blocked-axis taps that leave the block are clamped to
-// it — garbage, but inside the halo the overlap discards.  Entries whose
-// iteration is >= `steps` forward their centre tap (PE forwarding).  On
-// grid-edge blocks every value that enters a ring is taken at the position
-// clamped to the grid (the blocked-axis boundary re-imposition of the TPU
-// kernel).  Hotspot's `power` is read at the centre straight from device
-// memory, which L2 serves.  The arithmetic uses __fmul_rn/__fadd_rn, which
-// nvcc never contracts into FMAs, in the operation order of
-// src/repro_torch/core/stencils.py, so the kernel and its plain version
-// agree bit for bit.
+// axis 0 through the unrolled entries, described by the `Program` table the
+// launcher builds from `repro_torch.programs.dag_layout`: per entry its lag
+// behind the input stream, its producer's ring (base and slot count) and
+// its own ring.  Shared memory holds one ring of block planes per
+// producer: the input stream and every entry but the last, which writes
+// straight to device memory, and only the `csize` columns of its block.  A
+// ring is as deep as its consumer needs: 2R+1 slots (1 for a radius-0
+// stage).  At tick t the CTA pushes input row t (coalesced, prefetched one
+// tick ahead into a register), then entry i computes row j = t - lag_i from
+// rows j-R..j+R of its producer's ring; a barrier follows each entry, so a
+// producer's row is in its ring before its consumer reads it, and the
+// layout's window depths guarantee that no slot is overwritten while it is
+// still read.  Stream-axis taps clip to [0, ns-1]; blocked-axis taps that
+// leave the block are clamped to it — garbage, but inside the halo the
+// overlap discards (the halo is rad * par_time, rad the sum of the stage
+// radii).  Entries whose iteration is >= `steps` forward their centre tap
+// (PE forwarding).  On grid-edge blocks every value that enters a ring is
+// taken at the position clamped to the grid (the blocked-axis boundary
+// re-imposition of the TPU kernel).  Hotspot's `power` is read at the centre
+// of row j straight from device memory, which L2 serves.  The arithmetic
+// uses __fmul_rn/__fadd_rn, which nvcc never contracts into FMAs, in the
+// operation order of src/repro_torch/core/stencils.py (a tap table in the
+// order of its `apply`), so the kernel and its plain version agree bit for
+// bit.
+//
+// Two loop bodies, one template.  With 8 warps to an SM (2D), every
+// instruction an entry adds is paid on each of its rows, so the kernel has
+// a body for the paper's main path — one Table-2 stage (kOp = its id): lag
+// i+1, 3-slot rings, coefficients in registers — and one for any chain
+// (kOp = -1).  The chain body copies the table into static shared memory
+// at start (`Rec`: one flat record per entry, a Table-2 stage's
+// coefficients inline; the taps and coefficients of tap tables), and at
+// the top of each tick thread i computes entry i's ring offsets for that
+// tick (`TickRec`), so an entry costs its threads one record read and no
+// division.  So the chain body needs at least as many threads as entries,
+// which a chain of radius-0 stages (entries but no halo) on a narrow block
+// can break: the launcher refuses it (as does `kernel_limits`).  Striding
+// these two loops over the entries instead cost the tap chain about a fifth
+// on an H100 (chip_smoke.py's advect_diffuse2d).  It still costs more per entry than the main-path body: on an
+// H100 (chip_smoke.py), 8 entries of diffusion2d and a radius-0 damp over
+// 16384^2 take 1.8x the time of 8 diffusion2d entries.
+
+// Tables.  Entries, stages, taps and the coefficients of all stages
+// (concatenated in stage order) travel in one `Program` struct passed by
+// value as a __grid_constant__ kernel parameter (2,304 bytes, inside the
+// 4 KB parameter space): no device buffer and no copy before the launch.
+// The chain body adds 8,448 bytes of static shared memory to the rings
+// (`kernels/_build.py::TABLE_SMEM`).
 //
 // Bound.  Device-memory bytes: each block reads `ns * bsize` cells (plus
 // the same of `power`) and writes `ns * csize` cells per super-step
@@ -33,37 +68,69 @@
 // byte, far below the card's balance point.
 //
 // Left on the table by this first design: no cp.async or TMA (a tick waits
-// on one register-prefetched load per thread), `par_time + 1` CTA barriers
-// per tick, and a CTA count of `num_blocks` — 69 for the 16384^2 grid at
-// bsize 256 — against 132 SMs.
+// on one register-prefetched load per thread), `S * par_time + 1` CTA
+// barriers per tick, a chain body that costs more per entry than the
+// main-path body, and a CTA count of `num_blocks` — 69 for the 16384^2 grid
+// at bsize 256 — against 132 SMs.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-// The two structs are passed by value from Python (ctypes) and so live
-// outside the unnamed namespace: the exported launcher's signature names
-// them.
-struct Coeffs {
-  float c[8];
-};
+// Capacities of the tables (kernels/_build.py: MAX_*).
+constexpr int kMaxEntries = 64;
+constexpr int kMaxStages = 16;
+constexpr int kMaxTaps = 128;
+constexpr int kMaxCoeffs = 192;
+
+// The structs are passed from Python (ctypes) and so live outside the
+// unnamed namespace: the exported launcher's signature names them.
 
 // Extents in cells.  A 2D grid is a 3D one with a single blocked y row:
 // py = by = cy = dy = 1 and hy = 0.
 struct Params {
-  int ns;        // stream rows (2D) / planes (3D)
-  int ticks;     // ns + output lag
-  int py, px;    // padded extents of the blocked dims
-  int by, bx;    // block extents
-  int cy, cx;    // compute extents
-  int dy, dx;    // grid extents
-  int hy, hx;    // halo widths
-  int par_time;  // fused entries
-  int steps;     // entries that compute; the rest forward (<= par_time)
+  int ns;         // stream rows (2D) / planes (3D)
+  int ticks;      // ns + output lag
+  int py, px;     // padded extents of the blocked dims
+  int by, bx;     // block extents
+  int cy, cx;     // compute extents
+  int dy, dx;     // grid extents
+  int hy, hx;     // halo widths
+  int steps;      // iterations that compute; later ones forward
+  int n_entries;  // S * par_time
 };
+
+// One unrolled entry.  Rings are counted in block planes; `out_slots` is 0
+// for the last entry (no ring).
+struct Entry {
+  short lag;
+  short in_base, in_slots;
+  short out_base, out_slots;
+  short stage, iteration;
+};
+
+// `op`: 0 diffusion2d, 1 hotspot2d, 2 diffusion3d, 3 hotspot3d, 4 tap table.
+struct Stage {
+  short op, coeff_lo, tap_lo, tap_n;
+};
+
+// Offsets (stream, y, x; y = 0 in 2D) and the stage-local coefficient index.
+struct Tap {
+  signed char ds, dy, dx;
+  unsigned char ci;
+};
+
+struct Program {
+  Entry e[kMaxEntries];
+  Stage s[kMaxStages];
+  Tap taps[kMaxTaps];
+  float c[kMaxCoeffs];
+};
+// the ctypes mirror in kernels/_build.py (PROGRAM_BYTES) has this size
+static_assert(sizeof(Program) == 2304, "Program layout changed");
 
 namespace {
 
-constexpr int kWin = 3;            // ring slots per producer: 2R + 1, R = 1
+constexpr int kTapOp = 4;
 constexpr float kTempAmb = 80.0f;  // Hotspot ambient temperature
 
 // Ring offsets of one cell and its blocked-axis neighbours (clamped to the
@@ -95,75 +162,134 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
-// `up` is stream row j-1, `mid` row j, `dn` row j+1 of the producer.
-// Coefficients come in the stencil's `coeff_names` order.
+// The Table-2 stencils.  `up` is stream row j-1, `mid` row j, `dn` row j+1
+// of the producer; `c` the stage's coefficients in `coeff_names` order.
 
-struct Diffusion2D {  // cc, cw, ce, cs, cn
-  static constexpr bool kAux = false;
-  __device__ static float apply(const float* up, const float* mid,
-                                const float* dn, const Pos& q,
-                                const Coeffs& k, float) {
-    float v = mul(k.c[0], mid[q.c]);
-    v = add(v, mul(k.c[1], mid[q.w]));
-    v = add(v, mul(k.c[2], mid[q.e]));
-    v = add(v, mul(k.c[3], dn[q.c]));
-    return add(v, mul(k.c[4], up[q.c]));
-  }
+// cc, cw, ce, cs, cn
+__device__ __forceinline__ float diffusion2d(const float* up, const float* mid,
+                                             const float* dn, const Pos& q,
+                                             const float* c) {
+  float v = mul(c[0], mid[q.c]);
+  v = add(v, mul(c[1], mid[q.w]));
+  v = add(v, mul(c[2], mid[q.e]));
+  v = add(v, mul(c[3], dn[q.c]));
+  return add(v, mul(c[4], up[q.c]));
+}
+
+// sdc, rx1, ry1, rz1
+__device__ __forceinline__ float hotspot2d(const float* up, const float* mid,
+                                           const float* dn, const Pos& q,
+                                           const float* c, float aux) {
+  const float v = mid[q.c];
+  const float two_v = mul(2.0f, v);
+  const float dy = sub(add(up[q.c], dn[q.c]), two_v);
+  const float dx = sub(add(mid[q.e], mid[q.w]), two_v);
+  float t = add(aux, mul(dy, c[2]));
+  t = add(t, mul(dx, c[1]));
+  t = add(t, mul(sub(kTempAmb, v), c[3]));
+  return add(v, mul(c[0], t));
+}
+
+// cc, cw, ce, cs, cn, cb, ca
+__device__ __forceinline__ float diffusion3d(const float* up, const float* mid,
+                                             const float* dn, const Pos& q,
+                                             const float* c) {
+  float v = mul(c[0], mid[q.c]);
+  v = add(v, mul(c[1], mid[q.w]));
+  v = add(v, mul(c[2], mid[q.e]));
+  v = add(v, mul(c[3], mid[q.s]));
+  v = add(v, mul(c[4], mid[q.n]));
+  v = add(v, mul(c[5], up[q.c]));
+  return add(v, mul(c[6], dn[q.c]));
+}
+
+// cc, cn, cs, ce, cw, ca, cb, sdc
+__device__ __forceinline__ float hotspot3d(const float* up, const float* mid,
+                                           const float* dn, const Pos& q,
+                                           const float* c, float aux) {
+  float v = mul(mid[q.c], c[0]);
+  v = add(v, mul(mid[q.n], c[1]));
+  v = add(v, mul(mid[q.s], c[2]));
+  v = add(v, mul(mid[q.e], c[3]));
+  v = add(v, mul(mid[q.w], c[4]));
+  v = add(v, mul(dn[q.c], c[5]));
+  v = add(v, mul(up[q.c], c[6]));
+  v = add(v, mul(c[7], aux));
+  return add(v, mul(c[5], kTempAmb));
+}
+
+// Slot of a ring row: `m` is the slot of row j, `r` a row within W-1 of j
+// (true of every tap: |r - j| <= R < W).  One wrap, no division.
+__device__ __forceinline__ int slot_of(int m, int r, int j, int W) {
+  const int s = m + r - j;
+  return s < 0 ? s + W : (s >= W ? s - W : s);
+}
+
+// One entry of a chain, flattened for shared memory: its ring layout, its
+// stage's op and coefficient/tap ranges, and a Table-2 stage's
+// coefficients inline.
+struct Rec {  // 80 bytes; the padding keeps `c` 16-byte aligned
+  int lag, in_base, in_slots, out_base;
+  int out_slots, op, iteration, tap_lo;
+  int tap_n, coeff_lo, pad0, pad1;
+  float c[8];
 };
+// kernels/_build.py prices the chain body's tables with REC_BYTES
+static_assert(sizeof(Rec) == 80, "Rec layout changed");
 
-struct Hotspot2D {  // sdc, rx1, ry1, rz1
-  static constexpr bool kAux = true;
-  __device__ static float apply(const float* up, const float* mid,
-                                const float* dn, const Pos& q,
-                                const Coeffs& k, float aux) {
-    const float v = mid[q.c];
-    const float two_v = mul(2.0f, v);
-    const float dy = sub(add(up[q.c], dn[q.c]), two_v);
-    const float dx = sub(add(mid[q.e], mid[q.w]), two_v);
-    float t = add(aux, mul(dy, k.c[2]));
-    t = add(t, mul(dx, k.c[1]));
-    t = add(t, mul(sub(kTempAmb, v), k.c[3]));
-    return add(v, mul(k.c[0], t));
-  }
+// One entry at one tick: the row j it computes, whether it is in the stream
+// (bit 0) and computes rather than forwards (bit 1), the slot m of row j in
+// its producer's ring, and the ring offsets (in floats) of rows j-1, j, j+1
+// and of its own output slot.
+struct TickRec {  // 32 bytes: two 16-byte loads
+  int j, flags, m, pad;
+  int up, mid, dn, outo;
 };
+// ... and TICKREC_BYTES
+static_assert(sizeof(TickRec) == 32, "TickRec layout changed");
 
-struct Diffusion3D {  // cc, cw, ce, cs, cn, cb, ca
-  static constexpr bool kAux = false;
-  __device__ static float apply(const float* up, const float* mid,
-                                const float* dn, const Pos& q,
-                                const Coeffs& k, float) {
-    float v = mul(k.c[0], mid[q.c]);
-    v = add(v, mul(k.c[1], mid[q.w]));
-    v = add(v, mul(k.c[2], mid[q.e]));
-    v = add(v, mul(k.c[3], mid[q.s]));
-    v = add(v, mul(k.c[4], mid[q.n]));
-    v = add(v, mul(k.c[5], up[q.c]));
-    return add(v, mul(k.c[6], dn[q.c]));
+// A tap table: sum over the stage's taps, in table order, of coefficient x
+// neighbour, the first term alone (as `make_star`/`make_box` `apply`).
+// `ring` is the producer's ring of W slots, `m` the slot of row j; `taps`
+// and `c` the chain's tables in shared memory.
+__device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
+                                         const Rec& en, const float* ring,
+                                         int m, int plane, int j, int y,
+                                         int x, const Params& p) {
+  float acc = 0.0f;
+  for (int n = 0; n < en.tap_n; ++n) {
+    const Tap tp = taps[en.tap_lo + n];
+    const int r = min(max(j + tp.ds, 0), p.ns - 1);
+    const int yy = min(max(y + tp.dy, 0), p.by - 1);
+    const int xx = min(max(x + tp.dx, 0), p.bx - 1);
+    const float term = mul(c[en.coeff_lo + tp.ci],
+                           ring[slot_of(m, r, j, en.in_slots) * plane +
+                                yy * p.bx + xx]);
+    acc = n ? add(acc, term) : term;
   }
-};
+  return acc;
+}
 
-struct Hotspot3D {  // cc, cn, cs, ce, cw, ca, cb, sdc
-  static constexpr bool kAux = true;
-  __device__ static float apply(const float* up, const float* mid,
-                                const float* dn, const Pos& q,
-                                const Coeffs& k, float aux) {
-    float v = mul(mid[q.c], k.c[0]);
-    v = add(v, mul(mid[q.n], k.c[1]));
-    v = add(v, mul(mid[q.s], k.c[2]));
-    v = add(v, mul(mid[q.e], k.c[3]));
-    v = add(v, mul(mid[q.w], k.c[4]));
-    v = add(v, mul(dn[q.c], k.c[5]));
-    v = add(v, mul(up[q.c], k.c[6]));
-    v = add(v, mul(k.c[7], aux));
-    return add(v, mul(k.c[5], kTempAmb));
-  }
-};
+// A Table-2 stencil at the cell `q`, rows `up`, `mid`, `dn`.
+template <int kOp>
+__device__ __forceinline__ float table2(const float* up, const float* mid,
+                                        const float* dn, const Pos& q,
+                                        const float* c, const float* aux,
+                                        size_t row) {
+  if (kOp == 0) return diffusion2d(up, mid, dn, q, c);
+  if (kOp == 1) return hotspot2d(up, mid, dn, q, c, __ldg(aux + row + q.g));
+  if (kOp == 2) return diffusion3d(up, mid, dn, q, c);
+  return hotspot3d(up, mid, dn, q, c, __ldg(aux + row + q.g));
+}
 
-template <class S>
+// kOp in 0..3: a single-stage chain of that Table-2 stencil.  kOp = -1: any
+// chain of the table.
+template <int kOp>
 __global__ void __launch_bounds__(1024)
     stream_kernel(const float* __restrict__ gp, const float* __restrict__ aux,
-                  float* __restrict__ out, Params p, Coeffs k) {
-  extern __shared__ float win[];  // [par_time][kWin][by * bx]
+                  float* __restrict__ out, const Params p,
+                  const __grid_constant__ Program k) {
+  extern __shared__ float win[];  // the rings, in value-id order
   const int plane = p.by * p.bx;
   const int tid = threadIdx.x;
   const int ty = tid / p.bx;
@@ -177,82 +303,187 @@ __global__ void __launch_bounds__(1024)
   const int hi_y = min(p.dy - 1 + p.hy - sy, p.by - 1);
   const int lo_x = max(p.hx - sx, 0);
   const int hi_x = min(p.dx - 1 + p.hx - sx, p.bx - 1);
+  const int ey = min(max(ty, lo_y), hi_y);
+  const int ex = min(max(tx, lo_x), hi_x);
   const Pos own = pos_at(ty, tx, p, sy, sx);
-  const Pos edge = pos_at(min(max(ty, lo_y), hi_y), min(max(tx, lo_x), hi_x),
-                          p, sy, sx);
+  const Pos edge = pos_at(ey, ex, p, sy, sx);
   const bool writes = ty >= p.hy && ty < p.hy + p.cy && tx >= p.hx &&
                       tx < p.hx + p.cx;
   const size_t pstride = (size_t)p.py * p.px;
-
   float next = __ldg(gp + own.g);
-  for (int t = 0; t < p.ticks; ++t) {
-    if (t < p.ns) {
-      const float v = next;
-      if (t + 1 < p.ns) next = __ldg(gp + (size_t)(t + 1) * pstride + own.g);
-      win[(t % kWin) * plane + tid] = v;
-    }
-    __syncthreads();
-    for (int i = 0; i < p.par_time; ++i) {
-      const int j = t - (i + 1);  // CTA-uniform
-      if (j >= 0 && j < p.ns) {
-        const float* ring = win + i * kWin * plane;
-        const float* up = ring + (max(j - 1, 0) % kWin) * plane;
-        const float* mid = ring + (j % kWin) * plane;
-        const float* dn = ring + (min(j + 1, p.ns - 1) % kWin) * plane;
-        const bool last = i == p.par_time - 1;
-        const Pos q = last ? own : edge;
-        float val;
-        if (i < p.steps) {
-          float a = 0.0f;
-          if (S::kAux) a = __ldg(aux + (size_t)j * pstride + q.g);
-          val = S::apply(up, mid, dn, q, k, a);
-        } else {
-          val = mid[q.c];
-        }
-        if (!last) {
-          win[((i + 1) * kWin + j % kWin) * plane + tid] = val;
-        } else if (writes) {
-          out[(size_t)j * pstride + own.g] = val;
-        }
+
+  if constexpr (kOp >= 0) {
+    // the main path: entry i lags i+1 rows and reads ring i of 3 slots
+    float c[8];
+    for (int z = 0; z < 8; ++z) c[z] = k.c[z];
+    for (int t = 0; t < p.ticks; ++t) {
+      if (t < p.ns) {
+        const float v = next;
+        if (t + 1 < p.ns) next = __ldg(gp + (size_t)(t + 1) * pstride + own.g);
+        win[(t % 3) * plane + tid] = v;
       }
       __syncthreads();
+      for (int i = 0; i < p.n_entries; ++i) {
+        const int j = t - (i + 1);  // CTA-uniform
+        if (j >= 0 && j < p.ns) {
+          const float* ring = win + i * 3 * plane;
+          const float* up = ring + (max(j - 1, 0) % 3) * plane;
+          const float* mid = ring + (j % 3) * plane;
+          const float* dn = ring + (min(j + 1, p.ns - 1) % 3) * plane;
+          const bool last = i == p.n_entries - 1;
+          const Pos q = last ? own : edge;
+          const float val =
+              i < p.steps
+                  ? table2<kOp>(up, mid, dn, q, c, aux, (size_t)j * pstride)
+                  : mid[q.c];
+          if (!last) {
+            win[((i + 1) * 3 + j % 3) * plane + tid] = val;
+          } else if (writes) {
+            out[(size_t)j * pstride + own.g] = val;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  } else {
+    __shared__ Rec rec[kMaxEntries];
+    __shared__ TickRec trec[kMaxEntries];
+    __shared__ Tap s_taps[kMaxTaps];
+    __shared__ float s_c[kMaxCoeffs];
+    if (tid < p.n_entries) {  // one thread per entry (launcher checks)
+      const Entry en = k.e[tid];
+      const Stage st = k.s[en.stage];
+      Rec r = {en.lag,      en.in_base, en.in_slots,   en.out_base,
+               en.out_slots, st.op,      en.iteration, st.tap_lo,
+               st.tap_n,     st.coeff_lo, 0,            0};
+      for (int z = 0; z < 8; ++z) {
+        r.c[z] = st.op != kTapOp && st.coeff_lo + z < kMaxCoeffs
+                     ? k.c[st.coeff_lo + z]
+                     : 0.0f;
+      }
+      rec[tid] = r;
+    }
+    for (int z = tid; z < kMaxTaps; z += blockDim.x) s_taps[z] = k.taps[z];
+    for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
+    __syncthreads();
+    // the input stream's ring is entry 0's producer
+    float* const stream_ring = win + rec[0].in_base * plane;
+    const unsigned stream_slots = rec[0].in_slots;
+    for (int t = 0; t < p.ticks; ++t) {
+      if (t < p.ns) {
+        const float v = next;
+        if (t + 1 < p.ns) next = __ldg(gp + (size_t)(t + 1) * pstride + own.g);
+        stream_ring[((unsigned)t % stream_slots) * plane + tid] = v;
+      }
+      if (tid < p.n_entries) {  // entry tid's offsets at this tick
+        const Rec& e = rec[tid];
+        TickRec r;
+        r.j = t - e.lag;
+        r.flags = (r.j >= 0 && r.j < p.ns) | ((e.iteration < p.steps) << 1);
+        const int jj = min(max(r.j, 0), p.ns - 1);
+        const int W = e.in_slots;
+        r.m = (unsigned)jj % (unsigned)W;
+        r.pad = 0;
+        r.mid = (e.in_base + r.m) * plane;
+        r.up = (e.in_base + slot_of(r.m, max(jj - 1, 0), jj, W)) * plane;
+        r.dn = (e.in_base + slot_of(r.m, min(jj + 1, p.ns - 1), jj, W)) *
+               plane;
+        r.outo = e.out_slots
+                     ? (e.out_base + (unsigned)jj % (unsigned)e.out_slots) *
+                           plane
+                     : 0;
+        trec[tid] = r;
+      }
+      __syncthreads();
+      for (int i = 0; i < p.n_entries; ++i) {
+        const TickRec r = trec[i];
+        if (r.flags & 1) {
+          const Rec& en = rec[i];
+          const int j = r.j;
+          const bool last = i == p.n_entries - 1;
+          const Pos q = last ? own : edge;
+          const size_t row = (size_t)j * pstride;
+          float val;
+          if (!(r.flags & 2)) {
+            val = win[r.mid + q.c];
+          } else if (en.op == kTapOp) {
+            val = tap_sum(s_taps, s_c, en, win + en.in_base * plane, r.m,
+                          plane, j, last ? ty : ey, last ? tx : ex, p);
+          } else {
+            const float* up = win + r.up;
+            const float* mid = win + r.mid;
+            const float* dn = win + r.dn;
+            float c[8];
+            for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+            switch (en.op) {
+              case 0:
+                val = table2<0>(up, mid, dn, q, c, aux, row);
+                break;
+              case 1:
+                val = table2<1>(up, mid, dn, q, c, aux, row);
+                break;
+              case 2:
+                val = table2<2>(up, mid, dn, q, c, aux, row);
+                break;
+              default:
+                val = table2<3>(up, mid, dn, q, c, aux, row);
+                break;
+            }
+          }
+          if (!last) {
+            win[r.outo + tid] = val;
+          } else if (writes) {
+            out[row + own.g] = val;
+          }
+        }
+        __syncthreads();
+      }
     }
   }
 }
 
-template <class S>
+template <int kOp>
 cudaError_t launch(const float* gp, const float* aux, float* out,
-                   const Params& p, const Coeffs& k, int grid_x, int grid_y,
+                   const Params& p, const Program& k, int grid_x, int grid_y,
                    size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stream_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  stream_kernel<S><<<dim3(grid_x, grid_y), p.by * p.bx, smem, stream>>>(
+  const cudaError_t e = cudaFuncSetAttribute(
+      stream_kernel<kOp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  stream_kernel<kOp><<<dim3(grid_x, grid_y), p.by * p.bx, smem, stream>>>(
       gp, aux, out, p, k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// stencil_id: 0 diffusion2d, 1 hotspot2d, 2 diffusion3d, 3 hotspot3d.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int stencil_stream_launch(int stencil_id, const float* gp,
+// `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
+// main-path body), -1 any chain of the table.  Returns the cudaError_t of
+// the launch (0 on success).  `k` is copied into the kernel's parameters;
+// the caller may free it when this returns.
+extern "C" int stencil_stream_launch(int kernel_op, const float* gp,
                                      const float* aux, float* out, Params p,
-                                     Coeffs k, int grid_x, int grid_y,
+                                     const Program* k, int grid_x, int grid_y,
                                      size_t smem, void* stream) {
+  // the main-path body reads no entry table, so only the chain body is
+  // bound by its capacity and needs a thread per entry
+  if (p.n_entries < 1 ||
+      (kernel_op == -1 &&
+       (p.n_entries > kMaxEntries || p.n_entries > p.by * p.bx))) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (stencil_id) {
+  switch (kernel_op) {
+    case -1:
+      return launch<-1>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
     case 0:
-      return launch<Diffusion2D>(gp, aux, out, p, k, grid_x, grid_y, smem, s);
+      return launch<0>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
     case 1:
-      return launch<Hotspot2D>(gp, aux, out, p, k, grid_x, grid_y, smem, s);
+      return launch<1>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
     case 2:
-      return launch<Diffusion3D>(gp, aux, out, p, k, grid_x, grid_y, smem, s);
+      return launch<2>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
     case 3:
-      return launch<Hotspot3D>(gp, aux, out, p, k, grid_x, grid_y, smem, s);
+      return launch<3>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
     default:
       return cudaErrorInvalidValue;
   }

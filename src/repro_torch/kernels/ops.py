@@ -1,10 +1,12 @@
 """Super-step loops around the streaming kernel.
 
 A run pads the blocked dims once (``_pad_blocked``), launches one super-step
-per ``par_time`` iterations (``ceil(iters/par_time)`` in all, the last one
-PE-forwarding ``iters % par_time``), refreshes the halo and overhang
-columns between super-steps with torch ops (``_reclamp_padded``), and
-slices the grid back out (``_slice_blocked``).
+of the whole stage chain per ``par_time`` iterations
+(``ceil(iters/par_time)`` in all, the last one PE-forwarding ``iters %
+par_time``), refreshes the halo and overhang columns between super-steps
+with torch ops (``_reclamp_padded``), and slices the grid back out
+(``_slice_blocked``).  The coefficients of all stages travel as one packed
+vector (``pack_program_coeffs``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,23 @@ def pack_coeffs(stencil: Stencil, coeffs: dict) -> torch.Tensor:
     return torch.stack([torch.as_tensor(coeffs[n], dtype=torch.float32)
                         .to("cpu").reshape(())
                         for n in stencil.coeff_names])
+
+
+def pack_program_coeffs(stages, stage_coeffs) -> torch.Tensor:
+    """The per-stage coefficient vectors concatenated in stage order: the
+    layout ``programs.unroll_dag`` assigns ``coeff_lo`` offsets into.
+    ``stages`` is ``((stencil, bc), ...)``, ``stage_coeffs`` one dict per
+    stage."""
+    return torch.cat([pack_coeffs(st, c)
+                      for (st, _), c in zip(stages, stage_coeffs)])
+
+
+def pack_dag_coeffs(dag, stage_coeffs) -> torch.Tensor:
+    """:func:`pack_program_coeffs` for a ``programs.DagSpec``: authored
+    stage order (evaluation follows ``dag.topo``; packing stays
+    positional)."""
+    return torch.cat([pack_coeffs(st, c)
+                      for (st, _, _), c in zip(dag.stages, stage_coeffs)])
 
 
 def _pad_blocked(grid: torch.Tensor, geom: BlockGeometry,
@@ -114,22 +133,14 @@ def fused_chain_loop(stages, geom: BlockGeometry, gp: torch.Tensor,
     return _slice_blocked(g, geom, bc0).contiguous()
 
 
-def fused_superstep_loop(stencil: Stencil, geom: BlockGeometry,
-                         gp: torch.Tensor, coeffs_packed: torch.Tensor,
-                         iters: int, aux_p: torch.Tensor | None,
-                         bc=None) -> torch.Tensor:
-    """Single-operator case of :func:`fused_chain_loop`."""
-    return fused_chain_loop(((stencil, bc),), geom, gp, coeffs_packed, iters,
-                            aux_p)
-
-
-def dma_traffic_bytes(stencil: Stencil, geom: BlockGeometry,
-                      cell_bytes: int = 4, bc=None) -> int:
+def dma_traffic_bytes(stencil, geom: BlockGeometry, cell_bytes: int = 4,
+                      bc=None) -> int:
     """Device-memory bytes one super-step of the streaming kernel moves:
     every block reads ``stream`` rows/planes of ``prod(bsize)`` cells per
-    input stream (grid, and aux for Hotspot) and writes ``stream`` rows of
-    ``prod(csize)`` cells; overlapping halo columns are read once per block
-    that holds them."""
+    input stream (``stencil.num_read``: the grid, and aux when any stage
+    reads it; a program's intermediates never leave the chip) and writes
+    ``stream`` rows of ``prod(csize)`` cells; overlapping halo columns are
+    read once per block that holds them."""
     dom = geom.stream_dim + 2 * stream_extension(geom, bc)
     stream = geom.stream_slabs(dom) * geom.par_vec
     reads = geom.num_blocks * stream * math.prod(geom.bsize) * stencil.num_read

@@ -1,5 +1,6 @@
-"""The port imports and runs — the stencil plan, the LM serving path and two
-training steps — with JAX and the reference package made unimportable."""
+"""The port imports and runs — the stencil plan, a stage program (chain and
+DAG), the LM serving path and two training steps — with JAX and the
+reference package made unimportable."""
 import os
 import subprocess
 import sys
@@ -23,6 +24,24 @@ rng = np.random.default_rng(0)
 out = p.run(rng.uniform(0.5, 2, (9, 30)).astype(np.float32), 5,
             aux=rng.uniform(0, 0.1, (9, 30)).astype(np.float32))
 assert out.shape == (9, 30) and bool(out.isfinite().all())
+from repro_torch.core.stencils import make_star
+prog = [api.StencilStage(make_star(2, 1), coeffs={"c0": 0.7}),
+        api.StencilStage("diffusion2d")]
+chain = api.plan(api.StencilProblem(prog, (9, 30)),
+                 api.RunConfig(backend="hopper", par_time=2, bsize=12,
+                               device="cpu"))
+g = rng.uniform(0.5, 2, (9, 30)).astype(np.float32)
+ref = api.plan(api.StencilProblem(prog, (9, 30)),
+               api.RunConfig(backend="reference", device="cpu"))
+assert torch.equal(chain.run(g, 5), ref.run(g, 5))
+dag = api.StencilProgram(
+    (api.StencilStage(make_star(2, 1), name="a", inputs=("u",)),),
+    fields=("u", "v"), updates={"u": "a", "v": "u"})
+state = api.plan(
+    api.StencilProblem(dag, (9, 30)),
+    api.RunConfig(backend="reference", device="cpu")).run(
+        rng.uniform(0.5, 2, (2, 9, 30)).astype(np.float32), 3)
+assert state.shape == (2, 9, 30)
 import repro_torch.models, repro_torch.launch.serve as serve
 from repro_torch.configs import smoke_config
 cfg = smoke_config("qwen3-1.7b")

@@ -1,6 +1,7 @@
 """The Hopper streaming kernel against its plain version and the port's
-oracle, on the card.  Needs an sm_90 device and ``nvcc``; skipped
-otherwise.  Run on a card with
+oracle, on the card: the four Table-2 stencils and linear stage chains
+(tap tables, mixed radii, radius-0 stages, aux).  Needs an sm_90 device and
+``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
 import math
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import RunConfig, StencilProblem, plan
+from repro_torch.api import RunConfig, StencilProblem, StencilStage, plan
 from repro_torch.core import blocking, precision, stencils
 from repro_torch.kernels import builder, ops
 
@@ -66,7 +67,8 @@ def test_kernel_matches_plain_version(cuda, case):
                                 out=out)
         torch.cuda.synchronize()
         assert builder.LAUNCHES == before + 1
-        want = builder.superstep_plain(st, geom, gp, c, steps, aux_p,
+        want = builder.superstep_plain(((st, None),), geom, gp, c, steps,
+                                       aux_p,
                                        torch.full_like(gp, float("nan")))
         assert not out[region].isnan().any()
         assert int((~out.isnan()).sum()) == math.prod(out[region].shape)
@@ -90,3 +92,101 @@ def test_plan_on_card_matches_oracle(cuda, case):
     scale = 100 if name.startswith("hotspot") else None
     torch.testing.assert_close(got, want, **precision.tolerance(
         "float32", iters, scale=scale))
+
+
+def _advect(nd):
+    return StencilStage(stencils.make_star(nd, 1),
+                        coeffs={"c0": 0.7, "c_0_-1": 0.1, "c_0_1": 0.0,
+                                f"c_{nd - 1}_-1": 0.2, f"c_{nd - 1}_1": 0.0})
+
+
+def _damp(nd):
+    return StencilStage(stencils.make_star(nd, 0), coeffs={"c0": 0.995})
+
+
+PROGRAMS = [  # (id, stages, dims, par_time, bsize)
+    ("advect_diffuse2d", lambda: [_advect(2), StencilStage("diffusion2d")],
+     (40, 300), 3, (64,)),
+    ("diffuse_damp2d", lambda: [StencilStage("diffusion2d"), _damp(2)],
+     (33, 517), 4, (128,)),
+    ("star_diffuse3d", lambda: [StencilStage(stencils.make_star(3, 1)),
+                                StencilStage("diffusion3d")],
+     (21, 50, 45), 2, (16, 16)),
+    ("diffuse3_2d", lambda: [StencilStage("diffusion2d")] * 3, (25, 200), 2,
+     (64,)),
+    ("hotspot_damp2d", lambda: [StencilStage("hotspot2d"), _damp(2)],
+     (19, 200), 3, (64,)),
+    ("star_r2_diffuse2d", lambda: [StencilStage(stencils.make_star(2, 2)),
+                                   StencilStage("diffusion2d")],
+     (30, 200), 2, (64,)),
+    ("box2d_diffuse", lambda: [StencilStage(stencils.make_box(2, 1)),
+                               StencilStage("diffusion2d")],
+     (26, 150), 2, (48,)),
+    ("box3d_r1", lambda: [StencilStage(stencils.make_box(3, 1),
+                                       coeffs={"b_0_0_0": 0.3})],
+     (14, 30, 33), 2, (16, 16)),
+    # 12 entries on 12 threads per CTA, the fewest the chain body takes:
+    # radius-0 stages add entries but no halo
+    ("damp2_diffuse2d", lambda: [StencilStage("diffusion2d"), _damp(2),
+                                 _damp(2)], (20, 60), 4, (12,)),
+    # the main-path body: 80 entries, more than the chain body's table
+    ("diffusion2d_t80", lambda: [StencilStage("diffusion2d")], (10, 400),
+     80, (170,)),
+]
+
+
+def _program_inputs(problem, device, seed):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, problem.shape)
+                         .astype(np.float32)).to(device)
+    aux = None
+    if problem.needs_aux:
+        aux = torch.from_numpy(rng.uniform(0, 0.1, problem.shape)
+                               .astype(np.float32)).to(device)
+    return g, aux
+
+
+@pytest.mark.parametrize("case", PROGRAMS, ids=lambda c: c[0])
+def test_chain_kernel_equals_plain_version(cuda, case):
+    """One super-step of the chain kernel, bit for bit against its plain
+    version on the card, with and without PE forwarding."""
+    _, stages, dims, par_time, bsize = case
+    problem = StencilProblem(stages(), dims)
+    p = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                bsize=bsize))
+    geom, ex = p.geometry, problem.exec_stages
+    g, aux = _program_inputs(problem, cuda, seed=2)
+    gp = ops._pad_blocked(g, geom)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom)
+    c = ops.pack_program_coeffs(ex, problem.resolve_coeffs())
+    h = geom.size_halo
+    region = (slice(None),) + tuple(slice(h, h + n * cs) for n, cs in
+                                    zip(geom.bnum, geom.csize))
+    for steps in (par_time, par_time - 1):
+        out = torch.full_like(gp, float("nan"))
+        before = builder.LAUNCHES
+        builder.superstep_chain(ex, geom, gp, c, steps, aux_p, out=out)
+        torch.cuda.synchronize()
+        assert builder.LAUNCHES == before + 1
+        want = builder.superstep_plain(ex, geom, gp, c, steps, aux_p,
+                                       torch.full_like(gp, float("nan")))
+        assert not out[region].isnan().any()
+        assert int((~out.isnan()).sum()) == math.prod(out[region].shape)
+        assert torch.equal(out[region], want[region])
+
+
+@pytest.mark.parametrize("case", PROGRAMS, ids=lambda c: c[0])
+def test_program_plan_on_card_matches_oracle(cuda, case):
+    _, stages, dims, par_time, bsize = case
+    problem = StencilProblem(stages(), dims)
+    iters = 2 * par_time + 3
+    g, aux = _program_inputs(problem, cuda, seed=3)
+    before = builder.LAUNCHES
+    got = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                  bsize=bsize)).run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / par_time)
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    scale = 100 if problem.needs_aux else None
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        "float32", iters, stages=problem.n_stages, scale=scale))

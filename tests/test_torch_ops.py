@@ -78,7 +78,7 @@ def test_unroll_and_layout_match_reference(par_time):
     # the kernel's shared memory is exactly the layout's windows
     geom = blocking.BlockGeometry(2, (8, 64), 1, par_time, (32,))
     lay = programs.dag_layout(plan, 1)
-    assert blocking.smem_bytes(geom, True) == sum(lay.wins) * 32 * 4
+    assert blocking.smem_bytes(geom, ((st, None),)) == sum(lay.wins) * 32 * 4
 
 
 @pytest.mark.parametrize("spec", ["clamp", "periodic", "reflect",
@@ -169,8 +169,12 @@ def test_superstep_chain_rejects_bad_inputs():
     st = stencils.DIFFUSION2D
     gp = torch.zeros((8,) + geom.padded_dims)
     c = ops.pack_coeffs(st, stencils.default_coeffs(st))
-    with pytest.raises(NotImplementedError, match="B1g"):
-        builder.superstep_chain(((st, None), (st, None)), geom, gp, c, 2)
+    with pytest.raises(ValueError, match="B1i"):
+        builder.superstep_chain(((stencils.make_combine(2, 2), None),),
+                                geom, gp, c, 2)
+    with pytest.raises(ValueError, match="radius"):    # halo too narrow
+        builder.superstep_chain(((st, None), (st, None)), geom, gp,
+                                torch.cat([c, c]), 2)
     with pytest.raises(ValueError, match="B1c"):
         builder.superstep_chain(
             ((st, boundary.BoundaryCondition.make("periodic", 2)),), geom,

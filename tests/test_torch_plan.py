@@ -1,6 +1,8 @@
 """``repro_torch.api`` end to end on the CPU against the reference package's
 ``plan()``: the ``hopper`` backend (its plain version here), the port's
 ``reference`` backend, ``run_batch``, and the plan-time refusals."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +10,8 @@ import torch
 
 import _torch_conformance as conf
 from repro import api as japi
-from repro_torch.api import RunConfig, StencilProblem, plan
+from repro_torch.api import (RunConfig, StencilProblem, StencilProgram,
+                             StencilStage, plan)
 from repro_torch.convert import state_from_reference
 from repro_torch.core import stencils
 
@@ -142,7 +145,8 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="B1d"):
         _hopper(StencilProblem("star1d_r1", (64,)), bsize=())
     with pytest.raises(ValueError, match="B1i"):
-        _hopper(StencilProblem(stencils.make_star(2, 1), (8, 32)))
+        _hopper(StencilProblem(dataclasses.replace(
+            stencils.DIFFUSION2D, name="custom2d"), (8, 32)))
     with pytest.raises(ValueError, match="A11"):
         plan(StencilProblem("diffusion2d", (8, 32)),
              RunConfig(backend="hopper", device="cpu"))
@@ -151,8 +155,11 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="shared memory"):
         _hopper(StencilProblem("diffusion2d", (8, 9000)), par_time=40,
                 bsize=1000)
-    with pytest.raises(NotImplementedError, match="A12"):
-        StencilProblem(["diffusion2d", "diffusion2d"], (8, 32))
+    with pytest.raises(ValueError, match="B1h"):
+        _hopper(StencilProblem(StencilProgram(
+            (StencilStage("diffusion2d", name="a", inputs=("b",)),
+             StencilStage("diffusion2d", name="b", inputs=("u",))),
+            updates={"u": "a"}), (8, 32)))
 
 
 def test_cuda_device_without_a_card_raises():
