@@ -38,7 +38,20 @@ On one CUDA card, from the root of a checkout:
    the bound, and the fused plan against ``S`` chained single-stage
    ``hopper`` plans at T=1 (run ms, speedup, max abs difference within
    the same tolerance);
-6. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+6. drives the stage DAGs of ``DAGS`` (``benchmarks/programs.py::
+   DAG_FULL_CASES``' wave equation and diamond, and the wave equation in
+   3D, at the same sizes): ``plan(StencilProblem(program, dims,
+   boundary=...), RunConfig(backend="hopper", ...)).run(state,
+   iters=2T+3)`` through the kernel's DAG body (two field streams, a 3-way
+   combine and state nodes; fan-out and a 2-way fan-in; periodic and clamp
+   boundaries), asserting ``ceil(iters/T)`` launches and the result within
+   ``precision.tolerance(..., stages=S)`` of the ``reference`` backend;
+   prints run ms and GCell/s (grid cells x iterations), one profiled run,
+   one super-step of the kernel against its plain version bit for bit
+   (with and without forwarding), kernel, plain and a composed yardstick
+   (one cuDNN convolution per tap stage, ``torch.mul``/``torch.add`` per
+   combine) against the bound;
+7. serves full-width qwen3-1.7b (bf16, random weights from a seed)
    through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
    + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
    layer) and none in decode, tokens in the vocab and finite logits; times
@@ -47,7 +60,7 @@ On one CUDA card, from the root of a checkout:
    (output pre-filled with NaN), the ``"flash"`` prefill against the
    ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
    plain version and ``scaled_dot_product_attention`` as the yardstick;
-7. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+8. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
    ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
    (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
    microbatch and 2 with two, asserting finite losses, the first within
@@ -63,7 +76,7 @@ On one CUDA card, from the root of a checkout:
    the smoke width (bf16, head dim 128, so the kernels run) with an
    injected failure and a restart, asserting the uninterrupted run's
    losses bit for bit;
-8. prints one ``{"kernels": [...]}`` line and, last, the device line.
+9. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.  It exits non-zero
 without a result when no CUDA device is present.
@@ -232,9 +245,9 @@ def breakdown(main: dict) -> dict:
     p, g, aux, iters = main["plan"], main["g"], main["aux"], main["iters"]
     run_ms = time_ms(lambda: p.run(g, iters, aux=aux), reps=3)
     prof = device_profile(lambda: p.run(g, iters, aux=aux), "stream_kernel")
+    cells = math.prod(p.problem.shape)     # grid cells, not field values
     return {"run_ms": run_ms,
-            "run_gcells_per_s": math.prod(g.shape) * iters / run_ms / 1e6,
-            **prof}
+            "run_gcells_per_s": cells * iters / run_ms / 1e6, **prof}
 
 
 def library_yardstick(name, g, aux, par_time):
@@ -410,18 +423,15 @@ def grid_input(dims, device, seed):
                                                      generator=gen)
 
 
-def drive_program(name, device, seed=0) -> dict:
-    """plan().run() of a program through the chain kernel, its launch count,
-    and the result against the port's reference backend."""
+def drive_plan(name, problem, par_time, bsize, device, seed=0) -> dict:
+    """plan().run() of a stage program through the kernel, its launch
+    count, and the result against the port's reference backend."""
     import torch
-    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.api import RunConfig, plan
     from repro_torch.core import precision
     from repro_torch.kernels import builder
-    nd, par_time, bsize = PROGRAMS[name]
-    dims = FULL_DIMS[nd]
-    problem = StencilProblem(program_stages(name), dims)
     iters = 2 * par_time + 3
-    g = grid_input(dims, device, seed)
+    g = grid_input(problem.state_shape, device, seed)
     p = plan(problem, RunConfig(backend="hopper", par_time=par_time,
                                 bsize=bsize, device=device))
     torch.cuda.synchronize()
@@ -433,8 +443,10 @@ def drive_program(name, device, seed=0) -> dict:
     if launches != want:
         raise AssertionError(f"{name}: run launched the kernel {launches} "
                              f"times, expected {want}")
-    if tuple(out.shape) != tuple(dims) or not bool(out.isfinite().all()):
-        raise AssertionError(f"{name}: result not finite of shape {dims}")
+    if (tuple(out.shape) != problem.state_shape
+            or not bool(out.isfinite().all())):
+        raise AssertionError(f"{name}: result not finite of shape "
+                             f"{problem.state_shape}")
     ref = plan(problem, RunConfig(backend="reference", device=device)).run(
         g, iters)
     tol = precision.tolerance("float32", iters, stages=problem.n_stages)
@@ -443,6 +455,15 @@ def drive_program(name, device, seed=0) -> dict:
     del ref
     return {"iters": iters, "launches": launches, "oracle_max_abs_err": err,
             "plan": p, "g": g, "aux": None, "out": out, "tol": tol}
+
+
+def drive_program(name, device) -> dict:
+    """:func:`drive_plan` of the chain ``name`` of :data:`PROGRAMS`."""
+    from repro_torch.api import StencilProblem
+    nd, par_time, bsize = PROGRAMS[name]
+    return drive_plan(name, StencilProblem(program_stages(name),
+                                           FULL_DIMS[nd]),
+                      par_time, bsize, device)
 
 
 def program_yardstick(problem, g, par_time):
@@ -492,32 +513,29 @@ def check_program_yardstick(problem, par_time, device, seed=1) -> float:
     return (got - want).abs().max().item()
 
 
-def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
-    """One super-step of the chain kernel against its plain version, bit
-    for bit, with and without PE forwarding; the times and the bound; and
-    the fused plan against chained single-stage plans at T=1."""
+def superstep_vs_plain(name, problem, geom, g) -> dict:
+    """One super-step of a stage program through the kernel against its
+    plain version on the same padded state, bit for bit, with and without
+    forwarding (the output starts as NaN, so a cell the kernel misses or
+    writes outside its compute region shows); then both times."""
     import torch
-    from repro_torch.api import RunConfig, StencilProblem, plan
-    from repro_torch.core.blocking import smem_bytes
     from repro_torch.kernels import builder, ops
-    p = main["plan"]
-    problem, geom = p.problem, p.geometry
-    stages = problem.exec_stages
+    dag, bc0 = problem.exec_dag, problem.structural_bc
     T = geom.par_time
-    g = main["g"]
-    gp = ops._pad_blocked(g, geom)
-    c = ops.pack_program_coeffs(stages, problem.resolve_coeffs())
+    gp = ops._pad_blocked(g, geom, bc0)
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
     h = geom.size_halo
-    region = (slice(None),) + tuple(slice(h, h + n * cs) for n, cs in
-                                    zip(geom.bnum, geom.csize))
+    region = (Ellipsis, slice(None)) + tuple(
+        slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
     out = torch.empty_like(gp)
     err = 0.0
     for steps in (T, T - 1):
         out.fill_(float("nan"))
-        builder.superstep_chain(stages, geom, gp, c, steps, None, out=out)
+        builder.superstep_dag(dag, geom, gp, c, steps, None, out=out)
         torch.cuda.synchronize()
-        plain = builder.superstep_plain(stages, geom, gp, c, steps, None,
-                                        torch.full_like(gp, float("nan")))
+        plain = builder.superstep_dag_plain(dag, geom, gp, c, steps, None,
+                                            torch.full_like(gp,
+                                                            float("nan")))
         got, want = out[region], plain[region]
         if bool(got.isnan().any()):
             raise AssertionError(f"{name}: kernel left compute cells "
@@ -531,13 +549,30 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
                 f"{(got - want).abs().max().item()} (steps={steps})")
         err = max(err, (got - want).abs().max().item())
         del plain, got, want
-    kernel_ms = time_ms(lambda: builder.superstep_chain(
-        stages, geom, gp, c, T, None, out=out), reps=5)
-    plain_ms = time_ms(lambda: builder.superstep_plain(
-        stages, geom, gp, c, T, None, torch.empty_like(gp)), reps=3)
+        torch.cuda.empty_cache()
+    kernel_ms = time_ms(lambda: builder.superstep_dag(
+        dag, geom, gp, c, T, None, out=out), reps=5)
+    plain_ms = time_ms(lambda: builder.superstep_dag_plain(
+        dag, geom, gp, c, T, None, torch.empty_like(gp)), reps=3)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
+    """One super-step of the chain kernel against its plain version, bit
+    for bit, with and without PE forwarding; the times and the bound; and
+    the fused plan against chained single-stage plans at T=1."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core.blocking import smem_bytes
+    from repro_torch.kernels import ops
+    p = main["plan"]
+    problem, geom = p.problem, p.geometry
+    stages = problem.exec_stages
+    T = geom.par_time
+    g = main["g"]
+    res = superstep_vs_plain(name, problem, geom, g)
     library_err = check_program_yardstick(problem, T, g.device)
     library_ms = time_ms(program_yardstick(problem, g, T), reps=3)
-    del gp, out
     # bound: the grid read once and written once; the FLOPs of every stage
     # (flop_pcu sums them) on every cell for T iterations
     cells = math.prod(geom.dims)
@@ -565,13 +600,13 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     del seq
     chained_ms = time_ms(chained, reps=3)
     return {
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "library_small_max_abs_err": library_err,
+        **res, "library_ms": library_ms,
+        "library_small_max_abs_err": library_err,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_bytes": bytes_once, "bound_flops": flops,
         "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom),
-        "gcells_per_s": cells * T / kernel_ms / 1e6,
+        "gcells_per_s": cells * T / res["ms"] / 1e6,
         "smem_bytes": smem_bytes(geom, stages),
         "chained_run_ms": chained_ms, "fused_run_ms": fused_run_ms,
         "fusion_speedup": chained_ms / fused_run_ms,
@@ -612,6 +647,206 @@ def program_phase(device, peaks) -> list:
             "source": SOURCE, "replaces": REPLACES,
             "launches": main_run["launches"], **res,
             "stages": stage_names, "dims": list(geom.dims),
+            "par_time": geom.par_time, "bsize": list(geom.bsize),
+            "iters": main_run["iters"],
+            "oracle_max_abs_err": main_run["oracle_max_abs_err"], **e2e,
+        })
+        del main_run
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --- stage DAGs: field streams, fan-in and state nodes ---------------------
+
+#: the DAG programs of benchmarks/programs.py::DAG_FULL_CASES and the wave
+#: equation in 3D, at FULL_DIMS: (rank, boundary, par_time, bsize)
+DAGS = {"wave2d": (2, "periodic", 4, (256,)),
+        "diamond2d": (2, "clamp", 2, (256,)),
+        "wave3d": (3, "clamp", 2, (32, 32))}
+
+
+def dag_program(name):
+    """``examples/wave2d_program.py::wave_program(0.4)`` (a ``make_star``
+    Laplacian, c0 = -2 x rank and 1.0 on each neighbour, fanned with ``u``
+    and ``u_prev`` into a 3-way combine 2, -1, 0.16; both fields rotated),
+    in 2D or 3D; ``benchmarks/programs.py::_diamond_program`` (two star
+    views of ``u`` recombined)."""
+    from repro_torch.api import StencilProgram, StencilStage
+    from repro_torch.core.stencils import make_combine, make_star
+    if name == "diamond2d":
+        s = make_star(2, 1)
+        return StencilProgram(
+            (StencilStage(s, name="a", inputs=("u",)),
+             StencilStage(s, name="b", inputs=("u",),
+                          coeffs={"c0": 0.5, "c_0_1": 0.2}),
+             StencilStage(make_combine(2, 2), name="m", inputs=("a", "b"),
+                          coeffs={"w0": 0.6, "w1": 0.4})))
+    nd = int(name[-2])
+    lap = {"c0": -2.0 * nd}
+    lap.update({f"c_{a}_{d}": 1.0 for a in range(nd) for d in (-1, 1)})
+    return StencilProgram(
+        (StencilStage(make_star(nd, 1), coeffs=lap, name="lapu",
+                      inputs=("u",)),
+         StencilStage(make_combine(nd, 3), name="unext",
+                      inputs=("u", "u_prev", "lapu"),
+                      coeffs={"w0": 2.0, "w1": -1.0, "w2": 0.4 * 0.4})),
+        fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def drive_dag(name, device) -> dict:
+    """:func:`drive_plan` of the DAG ``name`` of :data:`DAGS`, through the
+    kernel's DAG body."""
+    from repro_torch.api import StencilProblem
+    nd, bc, par_time, bsize = DAGS[name]
+    return drive_plan(name, StencilProblem(dag_program(name), FULL_DIMS[nd],
+                                           boundary=bc),
+                      par_time, bsize, device)
+
+
+def dag_yardstick(problem, g, par_time):
+    """``par_time`` iterations of the DAG in composed PyTorch calls: one
+    cuDNN convolution per tap stage over the field padded by its boundary
+    (``replicate`` for clamp, ``circular`` for periodic), ``torch.mul`` and
+    ``torch.add`` for a combine in its ``apply`` order.  No single call
+    computes a DAG."""
+    import torch
+    import torch.nn.functional as F
+    nd = problem.ndim
+    kinds = set(problem.structural_bc.kinds)
+    if len(kinds) != 1 or not kinds <= {"clamp", "periodic"}:
+        raise ValueError(f"the yardstick pads one way; got {kinds}")
+    mode = "circular" if kinds == {"periodic"} else "replicate"
+    prog = problem.program
+    conv = F.conv2d if nd == 2 else F.conv3d
+    ops_ = []
+    for stage, cf in zip(prog.stages,
+                         problem.resolve_coeffs(device=g.device)):
+        st = stage.stencil
+        if st.combine:
+            ops_.append(("combine", [cf[n] for n in st.coeff_names], 0))
+            continue
+        r = st.radius
+
+        def one_hot(off, r=r):
+            e = torch.zeros((2 * r + 1,) * nd, device=g.device)
+            e[tuple(o + r for o in off)] = 1.0
+            return e
+        ops_.append(("conv", st.apply(one_hot, cf)[None, None], r))
+    F_ = len(prog.fields)
+
+    def run():
+        fields = list(g.unbind(0)) if F_ > 1 else [g]
+        for _ in range(par_time):
+            vals = [None] * len(prog.stages)
+            for si in prog.topo:
+                kind, w, r = ops_[si]
+                ins = [vals[i] if i >= 0 else fields[~i]
+                       for i in prog.inputs_idx[si]]
+                if kind == "conv":
+                    x = ins[0][None, None]
+                    if r:
+                        x = F.pad(x, (r,) * (2 * nd), mode=mode)
+                    vals[si] = conv(x, w)[0, 0]
+                else:
+                    acc = torch.mul(w[0], ins[0])
+                    for wi, xi in zip(w[1:], ins[1:]):
+                        acc = torch.add(acc, torch.mul(wi, xi))
+                    vals[si] = acc
+            fields = [vals[u] if u >= 0 else fields[~u]
+                      for u in prog.updates_idx]
+        return torch.stack(fields) if F_ > 1 else fields[0]
+    return run
+
+
+def check_dag_yardstick(problem, par_time, device, seed=1) -> float:
+    """The composed yardstick against the port's oracle on a small grid."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    dims = (40, 56) if problem.ndim == 2 else (12, 20, 28)
+    small = StencilProblem(problem.program, dims,
+                           boundary=problem.structural_bc)
+    g = grid_input(small.state_shape, device, seed)
+    got = dag_yardstick(small, g, par_time)()
+    want = plan(small, RunConfig(backend="reference", device=device)).run(
+        g, par_time)
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        "float32", par_time, stages=small.n_stages))
+    return (got - want).abs().max().item()
+
+
+def compare_dag(name, main: dict, peaks) -> dict:
+    """One super-step of the DAG body against its plain version, bit for
+    bit, with and without forwarding through the state nodes; the times
+    and the bound."""
+    from repro_torch.core.blocking import smem_bytes
+    from repro_torch.kernels import ops
+    p = main["plan"]
+    problem, geom = p.problem, p.geometry
+    T = geom.par_time
+    g = main["g"]
+    res = superstep_vs_plain(name, problem, geom, g)
+    library_err = check_dag_yardstick(problem, T, g.device)
+    library_ms = time_ms(dag_yardstick(problem, g, T), reps=3)
+    # bound: every field read once and written once, aux read once; the
+    # FLOPs of every stage (flop_pcu sums them) on every cell for T
+    # iterations
+    cells = math.prod(problem.shape)
+    n_fields = len(problem.fields)
+    bytes_once = (problem.stencil.num_read + n_fields) * cells * 4
+    flops = T * problem.stencil.flop_pcu * cells
+    bw, fp32, _ = peaks
+    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
+    return {
+        **res, "library_ms": library_ms,
+        "library_small_max_abs_err": library_err,
+        "library": "composed: one cuDNN convolution per tap stage, "
+                   "torch.mul/torch.add per combine, per iteration",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": bytes_once, "bound_flops": flops,
+        "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom,
+                                           bc=problem.structural_bc),
+        "gcells_per_s": cells * T / res["ms"] / 1e6,
+        "smem_bytes": smem_bytes(geom, problem.exec_dag),
+    }
+
+
+def dag_phase(device, peaks) -> list:
+    """Every program of :data:`DAGS` through the DAG body of the kernel: the
+    main path's run and checks, its breakdown, and the kernel against its
+    plain version."""
+    import torch
+    rows = []
+    for name in DAGS:
+        main_run = drive_dag(name, device)
+        e2e = breakdown(main_run)
+        p = main_run["plan"]
+        geom = p.geometry
+        prob = p.problem
+        print(f"{name} fields {list(prob.fields)} stages "
+              f"{[s.name for s in prob.stages]} {geom.dims} "
+              f"{prob.structural_bc.token()} T={geom.par_time} "
+              f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
+              f"{main_run['iters']} iters {e2e['run_ms']:.3f} ms, "
+              f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
+              f"{main_run['launches']} launches, oracle max_abs_err "
+              f"{main_run['oracle_max_abs_err']:.3g}; kernel share of "
+              f"device time {e2e['kernel_share_of_device']:.3f}, device "
+              f"idle {e2e['device_idle_share']:.3f}", flush=True)
+        res = compare_dag(name, main_run, peaks)
+        print(f"  superstep: kernel {res['ms']:.3f} ms (bit for bit with "
+              f"plain), plain {res['plain_ms']:.3f} ms, composed library "
+              f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+              f"({res['bound_by']}), rings {res['smem_bytes']} bytes",
+              flush=True)
+        rows.append({
+            "name": f"stencil_stream[{name}]", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": main_run["launches"], **res,
+            "fields": list(prob.fields),
+            "stages": [s.name for s in prob.stages],
+            "boundary": prob.structural_bc.token(), "dims": list(geom.dims),
             "par_time": geom.par_time, "bsize": list(geom.bsize),
             "iters": main_run["iters"],
             "oracle_max_abs_err": main_run["oracle_max_abs_err"], **e2e,
@@ -1203,6 +1438,7 @@ def main() -> int:
         del main_run
         torch.cuda.empty_cache()
     kernels.extend(program_phase(device, peaks))
+    kernels.extend(dag_phase(device, peaks))
     kernels.append(lm_phase(device, peaks))
     train = train_phase(device, peaks)
     kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")

@@ -8,7 +8,7 @@ A backend is a factory ``factory(problem, config, geom) -> execute`` with
                  stencils, stage chains and stage DAGs
   ``hopper``     the streaming kernel path (``kernels/ops.py`` around
                  ``kernels/csrc/stencil_stream.cu``; plain version on CPU):
-                 bare stencils and linear stage chains, fused
+                 bare stencils, stage chains and stage DAGs, fused
 
 ``execute`` takes one coefficient dict for a single-stage problem and a
 tuple of per-stage dicts for a program.  The ``hopper`` factory refuses, at
@@ -24,9 +24,9 @@ import torch
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core.blocking import BlockGeometry
-from repro_torch.kernels.builder import kernel_limits, stage_op
-from repro_torch.kernels.ops import (_pad_blocked, fused_chain_loop,
-                                     pack_program_coeffs)
+from repro_torch.kernels.builder import KERNEL_BCS, kernel_limits, stage_op
+from repro_torch.kernels.ops import (_pad_blocked, fused_dag_loop,
+                                     pack_dag_coeffs)
 from repro_torch.kernels.ref import (oracle_dag_run, oracle_program_run,
                                      oracle_run)
 
@@ -96,18 +96,10 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
     if problem.dtype != "float32":
         raise ValueError(f"backend 'hopper' runs float32 only; got "
                          f"{problem.dtype} (ROADMAP B1e)")
-    unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
-    if problem.is_dag:
-        extra = (f"; its stages {unported} also need ROADMAP B1i"
-                 if unported else "")
-        raise ValueError(f"backend 'hopper' runs linear stage chains; "
-                         f"{problem.stencil.name} is a DAG program (fields "
-                         f"{list(problem.fields)}, fan-in or non-default "
-                         f"wiring: ROADMAP B1h){extra}")
     for s in problem.stages:
-        if not s.boundary.is_clamp:
-            raise ValueError(f"backend 'hopper' runs the clamp boundary "
-                             f"only; stage {s.name} has "
+        if any(k not in KERNEL_BCS for k in s.boundary.kinds):
+            raise ValueError(f"backend 'hopper' runs the clamp and periodic "
+                             f"boundaries; stage {s.name} has "
                              f"{s.boundary.token()} (ROADMAP B1c)")
     if config.par_vec != 1:
         raise ValueError(f"backend 'hopper' runs par_vec=1 only; got "
@@ -115,25 +107,27 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
     if problem.ndim == 1:
         raise ValueError("backend 'hopper' runs 2D and 3D grids; 1D is "
                          "ROADMAP B1d")
+    unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
     if unported:
-        raise ValueError(f"backend 'hopper' runs the Table-2 stencils and "
-                         f"make_star/make_box tap sums; stages {unported} "
-                         f"are neither (ROADMAP B1i)")
-    limit = kernel_limits(geom, problem.exec_stages)
+        raise ValueError(f"backend 'hopper' runs the Table-2 stencils, "
+                         f"make_star/make_box tap sums and make_combine "
+                         f"fan-in; stages {unported} are none of these "
+                         f"(ROADMAP B1i)")
+    limit = kernel_limits(geom, problem.exec_dag)
     if limit:
         raise ValueError(f"backend 'hopper': {limit}")
 
 
 def _hopper_backend(problem, config, geom):
     _refuse_hopper(problem, config, geom)
-    stages = problem.exec_stages
+    dag = problem.exec_dag
     bc0 = problem.structural_bc
 
     def execute(grid, coeffs, iters, aux=None):
         gp = _pad_blocked(grid, geom, bc0)
         aux_p = None if aux is None else _pad_blocked(aux, geom, bc0)
-        packed = pack_program_coeffs(stages, _stage_coeffs(problem, coeffs))
-        return fused_chain_loop(stages, geom, gp, packed, iters, aux_p)
+        packed = pack_dag_coeffs(dag, _stage_coeffs(problem, coeffs))
+        return fused_dag_loop(dag, geom, gp, packed, iters, aux_p)
     return execute
 
 

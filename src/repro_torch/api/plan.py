@@ -115,11 +115,14 @@ class StencilPlan:
 
     def traffic_report(self, iters: Optional[int] = None) -> dict:
         """Model traffic (paper Eq. 7/8) against the streaming kernel's
-        device-memory bytes (``kernels/ops.dma_traffic_bytes``).  For a
-        program it adds the stages and the fusion accounting: the fused
-        chain's intermediates stay in shared memory (0 device-memory bytes)
-        where chained single-stage plans would write and re-read each of
-        the ``S - 1`` intermediates once per iteration."""
+        device-memory bytes (``kernels/ops.dma_traffic_bytes``), the
+        kernel's shared memory for its rings (``smem_bytes``), and the
+        fields with the streams read (``F`` plus aux) and written (``F``).
+        For a program it adds the stages and the fusion accounting: the
+        fused program's intermediates stay in shared memory (0
+        device-memory bytes) where chained single-stage plans would write
+        and re-read each of the ``S - 1`` intermediates once per
+        iteration."""
         from repro_torch.kernels.ops import dma_traffic_bytes
         geom = self.geometry
         if geom is None:
@@ -137,9 +140,11 @@ class StencilPlan:
             "traffic_accuracy": model / kernel,
             "redundancy": geom.redundancy,
             "par_vec": geom.par_vec,
-            # the kernel runs chains only; a DAG's rings are ROADMAP B1h
-            "smem_bytes": (None if self.problem.is_dag else
-                           smem_bytes(geom, self.problem.exec_stages, cb)),
+            "smem_bytes": smem_bytes(geom, self.problem.exec_dag, cb),
+            # device-memory streams per super-step: one per field, plus aux
+            "fields": list(self.problem.fields),
+            "streams_in": st.num_read,
+            "streams_out": st.num_write,
         }
         n_stages = self.problem.n_stages
         if n_stages > 1:

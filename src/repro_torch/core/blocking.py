@@ -120,18 +120,20 @@ class BlockGeometry:
         return self.cells_read / math.prod(self.dims)
 
 
-def smem_bytes(geom: BlockGeometry, stages, cell_bytes: int = 4) -> int:
-    """Shared memory one CTA of ``kernels/csrc/stencil_stream.cu`` needs to
-    run the chain ``stages = ((stencil, bc), ...)`` at ``geom``: one ring
-    of block planes per producer, as deep as the layout's window
-    (``dag_layout(...).wins``: ``2R+1`` slots for a radius-``R``
-    consumer, 1 for a radius-0 one).  The last entry writes straight to
-    device memory and has no ring; an aux stream adds nothing, since the
-    kernel reads its centre from device memory."""
+def smem_bytes(geom: BlockGeometry, program, cell_bytes: int = 4) -> int:
+    """Shared memory one CTA of ``kernels/csrc/stencil_stream.cu`` needs for
+    the rings of ``program`` at ``geom``: the chain ``((stencil, bc), ...)``
+    or a ``programs.DagSpec``.  One ring of block planes per value that an
+    entry reads — each field stream and each entry with a consumer — as deep
+    as the layout's window (``dag_layout(...).wins``: ``2R+1`` slots for a
+    radius-``R`` consumer one level below, more where an edge skips
+    levels, 1 for a radius-0 one).  A value that only feeds the output
+    writes straight to device memory and has no ring; an aux stream adds
+    nothing, since the kernel reads its centre from device memory."""
     # imported here: ``programs`` imports ``core``, which imports this module
-    from repro_torch.programs import chain_dag, dag_layout, unroll_dag
-    lay = dag_layout(unroll_dag(chain_dag(stages), geom.par_time),
-                     geom.par_vec)
+    from repro_torch.programs import DagSpec, chain_dag, dag_layout, unroll_dag
+    dag = program if isinstance(program, DagSpec) else chain_dag(program)
+    lay = dag_layout(unroll_dag(dag, geom.par_time), geom.par_vec)
     plane = math.prod(geom.bsize)
     return sum(lay.wins) * geom.par_vec * plane * cell_bytes
 

@@ -55,6 +55,10 @@ class Stencil:
     #: get(offsets[0]) + c[coeff_names[1]] * get(offsets[1]) + ...``, which
     #: the streaming kernel runs from a tap table (``make_star``/``make_box``)
     tap_sum: bool = False
+    #: ``apply`` is the weighted sum ``c[coeff_names[0]] * gets[0](centre) +
+    #: c[coeff_names[1]] * gets[1](centre) + ...`` of its inputs, which the
+    #: streaming kernel runs as its combine op (``make_combine``)
+    combine: bool = False
 
     def __post_init__(self):
         if self.arity < 1:
@@ -136,7 +140,7 @@ def make_combine(ndim: int, arity: int) -> Stencil:
 
     return Stencil(f"combine{ndim}d_x{arity}", ndim, 0, 2 * arity - 1,
                    arity, 1, False, names, _apply, offsets=(center,),
-                   arity=arity)
+                   arity=arity, combine=True)
 
 
 def make_star(ndim: int, radius: int) -> Stencil:

@@ -25,29 +25,42 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 
-#: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``)
+#: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``):
+#: unrolled entries, stages, taps, coefficients, field streams of a DAG and
+#: inputs of one entry (the wave equation's combine takes 3, the largest
+#: fan-in of the repository's programs 4)
 MAX_ENTRIES, MAX_STAGES, MAX_TAPS, MAX_COEFFS = 64, 16, 128, 192
-#: sizes of ``stencil_stream.cu``'s ``Program``, ``Rec`` and ``TickRec``,
-#: which its ``static_assert``s hold to these numbers
-PROGRAM_BYTES, REC_BYTES, TICKREC_BYTES = 2304, 80, 32
-#: static shared memory of ``stencil_stream.cu``'s chain body: its ``Rec``
-#: and ``TickRec`` per entry, taps and coefficients
-TABLE_SMEM = ((REC_BYTES + TICKREC_BYTES) * MAX_ENTRIES + 4 * MAX_TAPS
-              + 4 * MAX_COEFFS)
+MAX_FIELDS, MAX_INPUTS = 4, 4
+#: sizes of ``stencil_stream.cu``'s ``Program`` and of the per-entry records
+#: its chain body (``Rec``, ``TickRec``) and DAG body (``DagRec``,
+#: ``DagTick``) keep in shared memory, which its ``static_assert``s hold to
+#: these numbers
+PROGRAM_BYTES = 3488
+REC_BYTES, TICKREC_BYTES = 80, 32
+DAGREC_BYTES, DAGTICK_BYTES = 112, 48
+#: static shared memory of each table-driven body of ``stencil_stream.cu``:
+#: its records per entry, taps and coefficients (the main-path body has
+#: none)
+TABLE_SMEM = {"chain": ((REC_BYTES + TICKREC_BYTES) * MAX_ENTRIES
+                        + 4 * MAX_TAPS + 4 * MAX_COEFFS),
+              "dag": ((DAGREC_BYTES + DAGTICK_BYTES) * MAX_ENTRIES
+                      + 4 * MAX_TAPS + 4 * MAX_COEFFS)}
 
 
 class Params(ctypes.Structure):
     """``struct Params`` of ``stencil_stream.cu``, passed by value."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy", "dx",
-        "hy", "hx", "steps", "n_entries")]
+        "hy", "hx", "per_y", "per_x", "steps", "n_entries", "n_fields")]
 
 
 class Entry(ctypes.Structure):
     """``struct Entry`` of ``stencil_stream.cu``: one unrolled entry."""
-    _fields_ = [(name, ctypes.c_short) for name in (
-        "lag", "in_base", "in_slots", "out_base", "out_slots", "stage",
-        "iteration")]
+    _fields_ = ([(name, ctypes.c_short) for name in (
+        "lag", "stage", "iteration", "field", "out_base", "out_slots",
+        "n_in", "pad")]
+                + [("in_base", ctypes.c_short * MAX_INPUTS),
+                   ("in_slots", ctypes.c_short * MAX_INPUTS)])
 
 
 class Stage(ctypes.Structure):
@@ -63,11 +76,19 @@ class Tap(ctypes.Structure):
                 ("dx", ctypes.c_byte), ("ci", ctypes.c_ubyte)]
 
 
+class Stream(ctypes.Structure):
+    """``struct Stream`` of ``stencil_stream.cu``: one field stream of a
+    DAG, its ring and whether it is written out unchanged."""
+    _fields_ = [(name, ctypes.c_short) for name in (
+        "base", "slots", "out", "pad")]
+
+
 class Program(ctypes.Structure):
-    """``struct Program`` of ``stencil_stream.cu``: the chain's tables,
-    passed to the kernel by value."""
+    """``struct Program`` of ``stencil_stream.cu``: the chain's or DAG's
+    tables, passed to the kernel by value."""
     _fields_ = [("e", Entry * MAX_ENTRIES), ("s", Stage * MAX_STAGES),
-                ("taps", Tap * MAX_TAPS), ("c", ctypes.c_float * MAX_COEFFS)]
+                ("taps", Tap * MAX_TAPS), ("c", ctypes.c_float * MAX_COEFFS),
+                ("f", Stream * MAX_FIELDS)]
 
 
 assert ctypes.sizeof(Program) == PROGRAM_BYTES, "Program mirror drifted"

@@ -1,5 +1,5 @@
-"""One super-step of the streaming chain: the Hopper kernel's wrapper, its
-plain version, and the launch counter.
+"""One super-step of the streaming kernel: its wrappers, their plain
+versions, and the launch counter.
 
 :func:`superstep_chain` takes the padded grid ``gp`` (``(ns, *padded)``,
 BC-padded by ``kernels/ops._pad_blocked``) and advances it by ``steps``
@@ -7,16 +7,21 @@ BC-padded by ``kernels/ops._pad_blocked``) and advances it by ``steps``
 bc), ...)``, writing the ``csize`` columns of every block into the padded
 output layout.  The ``len(stages) * par_time`` unrolled entries run in
 order; an entry whose iteration is ``>= steps`` forwards its input (PE
-forwarding).  For a CUDA tensor it launches ``csrc/stencil_stream.cu``; for
-a CPU tensor it runs :func:`superstep_plain`.  Nothing falls back: a CUDA
-tensor goes to the kernel or raises.
+forwarding).  :func:`superstep_dag` does the same for a stage DAG
+(``programs.DagSpec``: several fields, fan-out, fan-in, state nodes) over
+the padded state, ``(F, ns, *padded)`` for ``F > 1`` fields.  ``ns`` is the
+stream extent, the periodic stream extension included.  For a CUDA tensor
+they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
+:func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
+a CUDA tensor goes to the kernel or raises.
 
-The kernel computes a stage with one of two ops: the device function of a
-Table-2 stencil (:data:`KERNEL_IDS`), or a tap table for a stencil whose
+The kernel computes a stage with one of three ops: the device function of
+a Table-2 stencil (:data:`KERNEL_IDS`), a tap table for a stencil whose
 ``apply`` is an ordered tap sum (``make_star``/``make_box``,
-:func:`linear_taps`).  This slice covers linear chains of such stages on
-2D and 3D grids, clamp boundary, float32, ``par_vec = 1``;
-``api/backends`` refuses the rest at plan time.
+:func:`linear_taps`), or the weighted sum of a ``make_combine``; a DAG's
+state nodes select.  This slice covers such programs on 2D and 3D grids,
+clamp and periodic boundaries, float32, ``par_vec = 1``; ``api/backends``
+refuses the rest at plan time.
 """
 from __future__ import annotations
 
@@ -28,21 +33,30 @@ import torch
 
 from repro_torch.core import boundary
 from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
-                                       BlockGeometry, smem_bytes)
+                                       BlockGeometry, smem_bytes,
+                                       stream_extension)
 from repro_torch.core.stencils import STENCILS, Stencil
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import (MAX_COEFFS, MAX_ENTRIES, MAX_STAGES,
-                                        MAX_TAPS, TABLE_SMEM)
-from repro_torch.programs import chain_dag, dag_layout, unroll_dag
+from repro_torch.kernels._build import (MAX_COEFFS, MAX_ENTRIES, MAX_FIELDS,
+                                        MAX_INPUTS, MAX_STAGES, MAX_TAPS,
+                                        TABLE_SMEM)
+from repro_torch.programs import (DagSpec, chain_dag, dag_is_chain,
+                                  dag_layout, dag_radius, unroll_dag)
 
-#: kernel launches made by :func:`superstep_chain` (CUDA tensors only)
+#: kernel launches made by :func:`superstep_chain` and :func:`superstep_dag`
+#: (CUDA tensors only)
 LAUNCHES = 0
 
 #: Table-2 stencil name -> its op id in ``stencil_stream.cu``
 KERNEL_IDS = {"diffusion2d": 0, "hotspot2d": 1, "diffusion3d": 2,
               "hotspot3d": 3}
-#: op id of the tap-table path
-TAP_OP = 4
+#: op ids of the tap-table path and of the combine
+TAP_OP, COMBINE_OP = 4, 5
+#: ``stencil_stream.cu``'s table-driven bodies (the main-path body runs a
+#: Table-2 id)
+CHAIN_BODY, DAG_BODY = -1, -2
+#: the boundary kinds the kernel runs
+KERNEL_BCS = ("clamp", "periodic")
 
 
 def linear_taps(stencil: Stencil):
@@ -55,108 +69,143 @@ def linear_taps(stencil: Stencil):
 
 
 def stage_op(stencil: Stencil) -> Optional[int]:
-    """The kernel op that computes ``stencil`` (a Table-2 id or
-    :data:`TAP_OP`), or ``None`` if the kernel has none."""
+    """The kernel op that computes ``stencil`` (a Table-2 id,
+    :data:`TAP_OP` or :data:`COMBINE_OP`), or ``None`` if the kernel has
+    none."""
     if stencil.name in KERNEL_IDS and STENCILS[stencil.name] == stencil:
         return KERNEL_IDS[stencil.name]
     if linear_taps(stencil) is not None:
         return TAP_OP
+    if (stencil.combine and not stencil.has_aux
+            and len(stencil.coeff_names) == stencil.arity):
+        return COMBINE_OP
+    return None
+
+
+def _as_chain(program):
+    """The ``((stencil, bc), ...)`` stages of a chain (a stage tuple or a
+    path-graph ``DagSpec``), or None for any other DAG."""
+    if not isinstance(program, DagSpec):
+        return tuple(program)
+    if dag_is_chain(program):
+        return tuple((st, bc) for st, bc, _ in program.stages)
     return None
 
 
 def kernel_body(stages) -> int:
     """Which loop body of the kernel runs the chain: the Table-2 id for a
-    single Table-2 stage (the paper's main path), else -1 (any chain)."""
+    single Table-2 stage (the paper's main path), else :data:`CHAIN_BODY`
+    (any chain)."""
     op = stage_op(stages[0][0])
-    if len(stages) == 1 and op is not None and op != TAP_OP:
+    if len(stages) == 1 and op is not None and op < TAP_OP:
         return op
-    return -1
+    return CHAIN_BODY
 
 
-def kernel_limits(geom: BlockGeometry, stages) -> Optional[str]:
-    """Why the kernel cannot run the chain ``stages`` at ``geom`` (None if
-    it can): one thread per block-plane cell, per CTA the
-    :func:`smem_bytes` of its rings, and, for the chain body only, the
-    capacities of its entry, stage, tap and coefficient tables (128 taps
-    bound a star's radius to 31, well inside a tap's signed-byte offsets),
-    their shared memory, and a thread per entry (radius-0 stages add
-    entries but no halo, so a narrow block can have fewer threads).  The
-    main-path body reads no table, so its ``par_time`` is bound only by
-    shared memory."""
+def _blocked_periodic(bc, ndim: int) -> tuple:
+    """Per blocked axis, whether ``bc`` wraps it (None: clamp)."""
+    return tuple(k == "periodic" for k in boundary.kinds_of(bc, ndim)[1:])
+
+
+def kernel_limits(geom: BlockGeometry, program) -> Optional[str]:
+    """Why the kernel cannot run ``program`` (the chain ``((stencil, bc),
+    ...)`` or a ``DagSpec``) at ``geom`` (None if it can): one thread per
+    block-plane cell, per CTA the :func:`smem_bytes` of its rings, and, for
+    the table-driven bodies (any chain but one Table-2 stage, any DAG), the
+    capacities of their entry, stage, tap, coefficient, field-stream and
+    input tables (128 taps bound a star's radius to 31, well inside a tap's
+    signed-byte offsets), their shared memory, and a thread per entry
+    (radius-0 stages add entries but no halo, so a narrow block can have
+    fewer threads).  The main-path body reads no table, so its
+    ``par_time`` is bound only by shared memory."""
     threads = math.prod(geom.bsize)
     if threads > MAX_THREADS:
         return (f"bsize {geom.bsize} needs {threads} threads per CTA "
                 f"(at most {MAX_THREADS})")
-    smem = smem_bytes(geom, stages)
-    if kernel_body(stages) < 0:
-        entries = len(stages) * geom.par_time
-        taps = sum(len(linear_taps(st) or ()) for st, _ in stages)
-        coeffs = sum(len(st.coeff_names) for st, _ in stages)
-        for what, n, cap in (("fused entries (stages x par_time)", entries,
+    smem = smem_bytes(geom, program)
+    stages = _as_chain(program)
+    if stages is None or kernel_body(stages) < 0:
+        if stages is None:
+            plan = unroll_dag(program, geom.par_time)
+            entries, what = len(plan.entries), "stages and state nodes"
+            stencils = [st for st, _, _ in program.stages]
+            fields = program.n_fields
+            inputs = max(len(e.inputs) for e in plan.entries)
+            body = "dag"
+        else:
+            entries, what = len(stages) * geom.par_time, "stages"
+            stencils = [st for st, _ in stages]
+            fields, inputs, body = 1, 1, "chain"
+        taps = sum(len(linear_taps(st) or ()) for st in stencils)
+        coeffs = sum(len(st.coeff_names) for st in stencils)
+        for name, n, cap in ((f"fused entries ({what} x par_time)", entries,
                               MAX_ENTRIES),
-                             ("stages", len(stages), MAX_STAGES),
+                             ("stages", len(stencils), MAX_STAGES),
                              ("taps", taps, MAX_TAPS),
-                             ("coefficients", coeffs, MAX_COEFFS)):
+                             ("coefficients", coeffs, MAX_COEFFS),
+                             ("field streams", fields, MAX_FIELDS),
+                             ("inputs to one stage", inputs, MAX_INPUTS)):
             if n > cap:
-                return f"{n} {what} exceed the kernel's table of {cap}"
+                return f"{n} {name} exceed the kernel's table of {cap}"
         if entries > threads:
-            return (f"{entries} fused entries (stages x par_time) need as "
+            return (f"{entries} fused entries ({what} x par_time) need as "
                     f"many threads per CTA; bsize {geom.bsize} has "
                     f"{threads}")
-        smem += TABLE_SMEM
+        smem += TABLE_SMEM[body]
     if smem > SMEM_LIMIT:
         return (f"par_time={geom.par_time}, bsize={geom.bsize} need {smem} "
                 f"bytes of shared memory per CTA (at most {SMEM_LIMIT})")
     return None
 
 
-def _check(stages, geom: BlockGeometry, gp, coeffs_packed, steps, aux_p,
-           out):
-    if not stages:
-        raise ValueError("superstep_chain needs at least one stage")
+def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
+    """What the kernel needs of ``((stencil, bc), ...)`` at ``geom``."""
     for st, bc in stages:
         if stage_op(st) is None:
             raise ValueError(
-                f"the streaming kernel computes {list(KERNEL_IDS)} and "
-                f"make_star/make_box tap sums; got {st.name} (ROADMAP B1i)")
-        if bc is not None and not bc.is_clamp:
-            raise ValueError(f"the streaming kernel supports the clamp "
-                             f"boundary only; got {bc.token()} for {st.name}"
-                             f" (ROADMAP B1c)")
+                f"the streaming kernel computes {list(KERNEL_IDS)}, "
+                f"make_star/make_box tap sums and make_combine fan-in; got "
+                f"{st.name} (ROADMAP B1i)")
+        if any(k not in KERNEL_BCS for k in boundary.kinds_of(bc, st.ndim)):
+            raise ValueError(f"the streaming kernel supports the clamp and "
+                             f"periodic boundaries; got {bc.token()} for "
+                             f"{st.name} (ROADMAP B1c)")
         if st.ndim != geom.ndim:
             raise ValueError(f"{st.name} is {st.ndim}D, geometry "
                              f"{geom.ndim}D")
-    rad = sum(st.radius for st, _ in stages)
+    if len({tuple(k == "periodic" for k in boundary.kinds_of(bc, geom.ndim))
+            for _, bc in stages}) > 1:
+        raise ValueError("periodicity must be uniform across the stages")
     if geom.rad < rad:
         raise ValueError(f"geometry radius {geom.rad} is narrower than the "
-                         f"chain's {rad}")
+                         f"program's {rad}")
     if geom.par_vec != 1 or geom.ndim not in (2, 3):
         raise ValueError("the streaming kernel runs 2D/3D grids at "
                          "par_vec=1 (ROADMAP B1d)")
-    limit = kernel_limits(geom, stages)
-    if limit:
-        raise ValueError(limit)
-    shape = (geom.stream_dim,) + geom.padded_dims
+
+
+def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
+                   coeffs_packed, steps, aux_p, has_aux: bool, out) -> None:
+    """``gp`` (and ``out``) of ``shape``, ``aux_p`` of one field's shape."""
     if gp.dtype != torch.float32 or tuple(gp.shape) != shape:
         raise ValueError(f"gp must be float32 of shape {shape}; got "
                          f"{gp.dtype} {tuple(gp.shape)}")
     if not gp.is_contiguous():
         raise ValueError("gp must be contiguous")
-    has_aux = any(st.has_aux for st, _ in stages)
     if has_aux != (aux_p is not None):
-        raise ValueError(f"the chain {'needs' if has_aux else 'takes no'} "
-                         "padded aux grid")
+        raise ValueError(f"the program {'needs' if has_aux else 'takes no'}"
+                         " padded aux grid")
     if aux_p is not None and (aux_p.dtype != gp.dtype
-                              or aux_p.shape != gp.shape
+                              or aux_p.shape != gp.shape[-geom.ndim:]
                               or aux_p.device != gp.device
                               or not aux_p.is_contiguous()):
-        raise ValueError("aux_p must be a contiguous tensor like gp")
-    names = [n for st, _ in stages for n in st.coeff_names]
+        raise ValueError("aux_p must be a contiguous tensor like one field "
+                         "of gp")
     if (coeffs_packed.device.type != "cpu"
             or coeffs_packed.dtype != torch.float32
-            or tuple(coeffs_packed.shape) != (len(names),)):
+            or tuple(coeffs_packed.shape) != (n_coeffs,)):
         raise ValueError(f"coeffs_packed must be a float32 CPU vector of "
-                         f"{len(names)} ({names})")
+                         f"{n_coeffs}")
     if not 0 <= int(steps) <= geom.par_time:
         raise ValueError(f"steps={steps} outside [0, {geom.par_time}]")
     if out is not None:
@@ -168,27 +217,113 @@ def _check(stages, geom: BlockGeometry, gp, coeffs_packed, steps, aux_p,
             raise ValueError("out must not alias gp or aux_p")
 
 
+def _stream_shape(geom: BlockGeometry, bc0, n_fields: int = 1) -> tuple:
+    """The padded state's shape: the stream axis carries the periodic
+    extension."""
+    ns = geom.stream_dim + 2 * stream_extension(geom, bc0)
+    return (((n_fields,) if n_fields > 1 else ()) + (ns,)
+            + geom.padded_dims)
+
+
 def superstep_chain(stages, geom: BlockGeometry, gp: torch.Tensor,
                     coeffs_packed: torch.Tensor, steps: int,
                     aux_p: Optional[torch.Tensor] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One super-step through the ``len(stages) * par_time``-entry chain of
-    ``stages = ((stencil, bc), ...)``.  ``coeffs_packed`` is the float32
-    CPU vector of ``kernels/ops.pack_program_coeffs``; ``steps`` a host
-    int.  Returns ``out`` (allocated like ``gp`` when None) with the
-    compute region of every block written; the halo and overhang columns
-    are left as they were."""
+    ``stages = ((stencil, bc), ...)``: :func:`superstep_dag` of its path
+    graph.  ``coeffs_packed`` is the float32 CPU vector of
+    ``kernels/ops.pack_program_coeffs``; ``steps`` a host int."""
     stages = tuple(stages)
-    _check(stages, geom, gp, coeffs_packed, steps, aux_p, out)
+    if not stages:
+        raise ValueError("superstep_chain needs at least one stage")
+    many = [st.name for st, _ in stages if st.arity != 1]
+    if many:
+        raise ValueError(f"the streaming kernel runs make_combine fan-in "
+                         f"in a DAG (superstep_dag), not in a chain; got "
+                         f"{many} (ROADMAP B1i)")
+    return superstep_dag(chain_dag(stages), geom, gp, coeffs_packed, steps,
+                         aux_p, out)
+
+
+def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
+                  coeffs_packed: torch.Tensor, steps: int,
+                  aux_p: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One super-step (<= ``par_time`` fused program iterations) of the
+    stage DAG ``dag`` over the padded state ``gp``: ``(ns, *padded)`` for
+    one field, ``(F, ns, *padded)`` for ``F`` (each field padded under
+    stage 0's BC by ``kernels/ops._pad_blocked``).  ``coeffs_packed`` is
+    ``kernels/ops.pack_dag_coeffs``' float32 CPU vector; ``steps`` a host
+    int.  A path graph runs the kernel's chain (or main-path) body, any
+    other DAG its DAG body.  Returns ``out`` (allocated like ``gp`` when
+    None) with the compute region of every block of every field written;
+    the halo and overhang columns are left as they were."""
+    pairs = tuple((st, bc) for st, bc, _ in dag.stages)
+    _check_stages(pairs, geom, dag_radius(dag))
+    limit = kernel_limits(geom, dag)
+    if limit:
+        raise ValueError(limit)
+    _check_tensors(_stream_shape(geom, pairs[0][1], dag.n_fields),
+                   sum(len(st.coeff_names) for st, _ in pairs), geom, gp,
+                   coeffs_packed, steps, aux_p,
+                   any(st.has_aux for st, _ in pairs), out)
     if out is None:
         out = torch.empty_like(gp)
     if gp.device.type == "cpu":
-        return superstep_plain(stages, geom, gp, coeffs_packed, int(steps),
-                               aux_p, out)
+        return superstep_dag_plain(dag, geom, gp, coeffs_packed, int(steps),
+                                   aux_p, out)
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
-    _launch(stages, geom, gp, coeffs_packed, int(steps), aux_p, out)
+    stages = _as_chain(dag)
+    if stages is not None:
+        table, out_lag = _program_table(stages, geom, coeffs_packed)
+        body, n_entries = kernel_body(stages), len(stages) * geom.par_time
+    else:
+        table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed)
+        body = DAG_BODY
+    _launch(body, table, out_lag, n_entries, dag.n_fields, pairs[0][1],
+            geom, gp, aux_p, out, int(steps), smem_bytes(geom, dag))
     return out
+
+
+# --- the kernel's tables and launch ------------------------------------------
+
+def _ring_bases(wins) -> dict:
+    """Value id -> its ring's first slot: rings laid out in value-id order
+    with the layout's window depths."""
+    base, acc = {}, 0
+    for v, w in enumerate(wins):
+        if w:
+            base[v] = acc
+            acc += w
+    return base
+
+
+def _entry(lag, stage, iteration, field, out_base, out_slots, ins):
+    """One row of the kernel's entry table; ``ins`` the ``(ring base,
+    slots)`` of each input."""
+    pad = [(0, 0)] * (MAX_INPUTS - len(ins))
+    bases, slots = zip(*(list(ins) + pad))
+    return _build.Entry(lag, stage, iteration, field, out_base, out_slots,
+                        len(ins), 0, bases, slots)
+
+
+def _stage_tables(k, stencils, ndim: int, coeffs_packed) -> None:
+    """Fill the stage, tap and coefficient tables of ``k``: per stage its op,
+    coefficient offset and tap range; the taps of every tap table; the
+    coefficients."""
+    taps, lo = [], 0
+    for s, st in enumerate(stencils):
+        pairs = linear_taps(st) or ()
+        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs))
+        lo += len(st.coeff_names)
+        for ci, off in pairs:
+            ds, dy, dx = (off[0], 0, off[1]) if ndim == 2 else off
+            taps.append(_build.Tap(ds, dy, dx, ci))
+    for i, tap in enumerate(taps):
+        k.taps[i] = tap
+    for i, v in enumerate(coeffs_packed.tolist()):
+        k.c[i] = v
 
 
 def _program_table(stages, geom: BlockGeometry, coeffs_packed):
@@ -201,68 +336,85 @@ def _program_table(stages, geom: BlockGeometry, coeffs_packed):
     are left out.  Returns ``(table, out_lag)``."""
     plan = unroll_dag(chain_dag(stages), geom.par_time)
     lay = dag_layout(plan, 1)
-    base, acc = {}, 0
-    for v, w in enumerate(lay.wins):
-        if w:
-            base[v] = acc
-            acc += w
+    base = _ring_bases(lay.wins)
     k = _build.Program()
-    taps, lo = [], 0
-    for s, (st, _) in enumerate(stages):
-        pairs = linear_taps(st) or ()
-        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs))
-        lo += len(st.coeff_names)
-        for ci, off in pairs:
-            ds, dy, dx = (off[0], 0, off[1]) if geom.ndim == 2 else off
-            taps.append(_build.Tap(ds, dy, dx, ci))
-    for i, tap in enumerate(taps):
-        k.taps[i] = tap
-    for i, v in enumerate(coeffs_packed.tolist()):
-        k.c[i] = v
+    _stage_tables(k, [st for st, _ in stages], geom.ndim, coeffs_packed)
     if kernel_body(stages) >= 0:
         return k, lay.out_lag
     F = plan.n_streams
     for i, e in enumerate(plan.entries):
         v, (p,) = F + i, e.inputs
-        k.e[i] = _build.Entry(lay.lags[v], base[p], lay.wins[p],
-                              base.get(v, 0), lay.wins[v], i % len(stages),
-                              e.iteration)
+        k.e[i] = _entry(lay.lags[v], i % len(stages), e.iteration, -1,
+                        base.get(v, 0), lay.wins[v], [(base[p], lay.wins[p])])
     return k, lay.out_lag
 
 
-def _launch(stages, geom, gp, coeffs_packed, steps, aux_p, out) -> None:
+def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
+    """The kernel's ``Program`` table for a DAG: as :func:`_program_table`,
+    with every input's ring per entry, stage -1 for a state node, the
+    output field each value drains to, and per field stream its ring and
+    whether the field is carried unchanged.  Returns ``(table, out_lag,
+    n_entries)``."""
+    plan = unroll_dag(dag, geom.par_time)
+    lay = dag_layout(plan, 1)
+    base = _ring_bases(lay.wins)
+    F = plan.n_streams
+    k = _build.Program()
+    _stage_tables(k, [st for st, _, _ in dag.stages], geom.ndim,
+                  coeffs_packed)
+    # unroll_dag's order: per iteration the stages in topological order,
+    # then one state node per updated field
+    n_state = sum(u != ~f for f, u in enumerate(dag.updates))
+    stage_of = (list(dag.topo) + [-1] * n_state) * geom.par_time
+    field_of = {o: f for f, o in enumerate(plan.outputs)}
+    for f in range(F):
+        k.f[f] = _build.Stream(base.get(f, 0), lay.wins[f],
+                               int(field_of.get(f) == f), 0)
+    for i, e in enumerate(plan.entries):
+        v = F + i
+        k.e[i] = _entry(lay.lags[v], stage_of[i], e.iteration,
+                        field_of.get(v, -1), base.get(v, 0), lay.wins[v],
+                        [(base[p], lay.wins[p]) for p in e.inputs])
+    return k, lay.out_lag, len(plan.entries)
+
+
+def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
+            bc0, geom: BlockGeometry, gp, aux_p, out, steps: int,
+            smem: int) -> None:
     global LAUNCHES
-    table, out_lag = _program_table(stages, geom, coeffs_packed)
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
                            geom.blocked_dims)
+    per = _blocked_periodic(bc0, geom.ndim)
     if geom.ndim == 2:      # a 2D grid is a 3D one with one blocked y row
         pad, blk, cmp, dims = ((1,) + pad, (1,) + blk, (1,) + cmp,
                                (1,) + dims)
+        per = (False,) + per
         hy = 0
     else:
         hy = geom.size_halo
+    ns = gp.shape[-geom.ndim]
     params = _build.Params(
-        ns=geom.stream_dim, ticks=geom.stream_dim + out_lag,
-        py=pad[0], px=pad[1], by=blk[0], bx=blk[1], cy=cmp[0], cx=cmp[1],
-        dy=dims[0], dx=dims[1], hy=hy, hx=geom.size_halo, steps=steps,
-        n_entries=len(stages) * geom.par_time)
+        ns=ns, ticks=ns + out_lag, py=pad[0], px=pad[1], by=blk[0],
+        bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
+        hx=geom.size_halo, per_y=per[0], per_x=per[1], steps=steps,
+        n_entries=n_entries, n_fields=n_fields)
     bnum = geom.bnum
     grid_x, grid_y = bnum[-1], (bnum[0] if geom.ndim == 3 else 1)
     dll = _build.stencil_stream()
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device).cuda_stream
         err = dll.stencil_stream_launch(
-            kernel_body(stages), gp.data_ptr(),
+            body, gp.data_ptr(),
             None if aux_p is None else aux_p.data_ptr(),
             out.data_ptr(), params, ctypes.byref(table), grid_x, grid_y,
-            smem_bytes(geom, stages), stream)
+            smem, stream)
     if err != 0:
         msg = dll.stencil_stream_error_string(err).decode()
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
     LAUNCHES += 1
 
 
-# --- plain version -----------------------------------------------------------
+# --- plain versions ----------------------------------------------------------
 
 def _extract_blocks(gp: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
     """(ns, *padded) -> (*bnum, ns, *bsize) overlapped blocks."""
@@ -280,23 +432,33 @@ def _extract_blocks(gp: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
     return out.permute(perm)
 
 
-def _edge_index(geom: BlockGeometry, i: int, device) -> torch.Tensor:
-    """(bnum_i, bsize_i) block-local positions clamped to the grid along
-    blocked dim ``i`` — identity on interior blocks."""
-    h, c, b = geom.size_halo, geom.csize[i], geom.bsize[i]
-    d = geom.blocked_dims[i]
-    start = torch.arange(geom.bnum[i], device=device)[:, None] * c
-    x = torch.arange(b, device=device)[None, :]
-    lo = (h - start).clamp(min=0)
-    hi = (d - 1 + h - start).clamp(max=b - 1)
-    return torch.minimum(torch.maximum(x, lo), hi)
+def _edge_indices(geom: BlockGeometry, bc, device) -> list:
+    """Per blocked dim, the (bnum_i, bsize_i) block-local positions clamped
+    to the grid — identity on interior blocks — or None along a periodic
+    dim, whose halo holds wrapped copies."""
+    out = []
+    for i, wraps in enumerate(_blocked_periodic(bc, geom.ndim)):
+        if wraps:
+            out.append(None)
+            continue
+        h, c, b = geom.size_halo, geom.csize[i], geom.bsize[i]
+        d = geom.blocked_dims[i]
+        start = torch.arange(geom.bnum[i], device=device)[:, None] * c
+        x = torch.arange(b, device=device)[None, :]
+        lo = (h - start).clamp(min=0)
+        hi = (d - 1 + h - start).clamp(max=b - 1)
+        out.append(torch.minimum(torch.maximum(x, lo), hi))
+    return out
 
 
 def _reclamp_blocks(blocks: torch.Tensor, edge_idx) -> torch.Tensor:
-    """Re-impose the clamp boundary on grid-edge blocks: every blocked-axis
-    position takes the value at its position clamped to the grid."""
+    """Re-impose the boundary on grid-edge blocks: along each clamp dim,
+    every blocked-axis position takes the value at its position clamped to
+    the grid."""
     nb = len(edge_idx)
     for i, idx in enumerate(edge_idx):
+        if idx is None:
+            continue
         shape = [1] * blocks.ndim
         shape[i] = idx.shape[0]
         shape[nb + 1 + i] = idx.shape[1]
@@ -309,7 +471,7 @@ def _block_getter(blocks: torch.Tensor, nb: int, r: int):
     """Neighbour getter on ``(*bnum, ns, *bsize)`` blocks: stream taps clip
     to ``[0, ns-1]`` and blocked-axis taps clip to the block."""
     p = blocks
-    for ax in range(nb, blocks.ndim):
+    for ax in range(nb, blocks.ndim) if r else ():
         p = boundary.pad_axis(p, ax, r, r, "clamp")
     lead = (slice(None),) * nb
 
@@ -319,42 +481,111 @@ def _block_getter(blocks: torch.Tensor, nb: int, r: int):
     return get
 
 
-def superstep_plain(stages, geom: BlockGeometry, gp: torch.Tensor,
-                    coeffs_packed: torch.Tensor, steps: int,
-                    aux_p: Optional[torch.Tensor],
-                    out: torch.Tensor) -> torch.Tensor:
-    """The kernel's super-step in torch ops, vectorised over blocks: extract
-    the overlapped blocks, run the ``len(stages) * par_time`` entries in
-    order (entry ``t*S + s`` applies stage ``s`` with a getter clamped by
-    that stage's radius, or forwards its input when ``t >= steps``),
-    re-impose the clamp boundary on every value that feeds a next entry,
-    and write each block's compute region into ``out``.  It computes the
-    kernel's values without replaying its tick schedule."""
+def _stitch(out: torch.Tensor, blocks: torch.Tensor,
+            geom: BlockGeometry) -> None:
+    """Write each block's compute region of ``(*bnum, ns, *bsize)`` blocks
+    into the padded grid ``out``."""
     nb = geom.ndim - 1
     h = geom.size_halo
-    cdicts, lo = [], 0
-    for st, _ in stages:
-        n = len(st.coeff_names)
-        cdicts.append(dict(zip(st.coeff_names,
-                               coeffs_packed[lo:lo + n].unbind())))
-        lo += n
-    edge_idx = [_edge_index(geom, i, gp.device) for i in range(nb)]
-    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
-    cur = _extract_blocks(gp, geom)
-    n_entries = len(stages) * geom.par_time
-    for i in range(n_entries):
-        t, s = divmod(i, len(stages))
-        st = stages[s][0]
-        if t < steps:
-            cur = st.apply(_block_getter(cur, nb, st.radius), cdicts[s],
-                           aux_b if st.has_aux else None)
-        if i < n_entries - 1:
-            cur = _reclamp_blocks(cur, edge_idx)
-    comp = cur[(slice(None),) * (nb + 1)
-               + tuple(slice(h, h + c) for c in geom.csize)]
+    comp = blocks[(slice(None),) * (nb + 1)
+                  + tuple(slice(h, h + c) for c in geom.csize)]
     # (*bnum, ns, *csize) -> (ns, bn0, cs0, bn1, cs1, ...)
     perm = (nb,) + tuple(x for i in range(nb) for x in (i, nb + 1 + i))
     widths = tuple(n * c for n, c in zip(geom.bnum, geom.csize))
     out[(slice(None),) + tuple(slice(h, h + w) for w in widths)] = (
-        comp.permute(perm).reshape((geom.stream_dim,) + widths))
+        comp.permute(perm).reshape((out.shape[0],) + widths))
+
+
+def _stage_coeffs(stencils, coeffs_packed) -> dict:
+    """Per stage, its offset into the packed vector (the ``coeff_lo`` of its
+    entries) -> ``{name: 0-d tensor}``."""
+    out, lo = {}, 0
+    for st in stencils:
+        n = len(st.coeff_names)
+        out[lo] = dict(zip(st.coeff_names,
+                           coeffs_packed[lo:lo + n].unbind()))
+        lo += n
+    return out
+
+
+def superstep_plain(stages, geom: BlockGeometry, gp: torch.Tensor,
+                    coeffs_packed: torch.Tensor, steps: int,
+                    aux_p: Optional[torch.Tensor],
+                    out: torch.Tensor) -> torch.Tensor:
+    """The kernel's chain super-step in torch ops, vectorised over blocks:
+    extract the overlapped blocks, run the ``len(stages) * par_time``
+    entries in order (entry ``t*S + s`` applies stage ``s`` with a getter
+    clamped by that stage's radius, or forwards its input when ``t >=
+    steps``), re-impose the boundary on every value that feeds a next entry
+    (clamp axes only), and write each block's compute region into ``out``.
+    It computes the kernel's values without replaying its tick
+    schedule."""
+    nb = geom.ndim - 1
+    cdicts = _stage_coeffs([st for st, _ in stages], coeffs_packed)
+    edge_idx = _edge_indices(geom, stages[0][1], gp.device)
+    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
+    cur = _extract_blocks(gp, geom)
+    entries = unroll_dag(chain_dag(stages), geom.par_time).entries
+    for i, e in enumerate(entries):
+        st = e.stencil
+        if e.iteration < steps:
+            cur = st.apply(_block_getter(cur, nb, st.radius),
+                           cdicts[e.coeff_lo], aux_b if st.has_aux else None)
+        if i < len(entries) - 1:
+            cur = _reclamp_blocks(cur, edge_idx)
+    _stitch(out, cur, geom)
+    return out
+
+
+def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
+                        coeffs_packed: torch.Tensor, steps: int,
+                        aux_p: Optional[torch.Tensor],
+                        out: torch.Tensor) -> torch.Tensor:
+    """The kernel's DAG super-step in torch ops, vectorised over blocks: the
+    unrolled entries of ``unroll_dag(dag, par_time)`` in order.  A stage
+    applies its stencil with one getter per input, clamped by its radius
+    (stages of iterations ``>= steps`` compute nothing: only the state
+    nodes of their iteration read them, and those forward); a state node
+    selects ``inputs[0]`` while its iteration is ``< steps``, else
+    ``inputs[1]``; every value that feeds another entry is re-clamped on
+    clamp axes; field ``k`` drains from ``plan.outputs[k]``, which is its
+    input stream for a field carried unchanged.  A path graph runs as
+    :func:`superstep_plain`."""
+    stages = _as_chain(dag)
+    if stages is not None:
+        return superstep_plain(stages, geom, gp, coeffs_packed, steps, aux_p,
+                               out)
+    plan = unroll_dag(dag, geom.par_time)
+    lay = dag_layout(plan, 1)
+    F = plan.n_streams
+    nb = geom.ndim - 1
+    cdicts = _stage_coeffs([st for st, _, _ in dag.stages], coeffs_packed)
+    edge_idx = _edge_indices(geom, dag.stages[0][1], gp.device)
+    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
+    fields = (gp,) if F == 1 else gp.unbind(0)
+    vals = [_extract_blocks(f, geom) for f in fields] + [None] * len(
+        plan.entries)
+    last_read = {p: i for i, e in enumerate(plan.entries) for p in e.inputs}
+    keep = set(plan.outputs)
+    for i, e in enumerate(plan.entries):
+        v = F + i
+        st = e.stencil
+        if st is None:
+            val = vals[e.inputs[0] if e.iteration < steps else e.inputs[1]]
+        elif e.iteration < steps:
+            gets = [_block_getter(vals[p], nb, st.radius) for p in e.inputs]
+            val = st.apply(tuple(gets) if st.arity > 1 else gets[0],
+                           cdicts[e.coeff_lo],
+                           aux_b if st.has_aux else None)
+        else:
+            val = None
+        if val is not None and lay.wins[v]:
+            val = _reclamp_blocks(val, edge_idx)
+        vals[v] = val
+        for p in set(e.inputs):       # free what no later entry reads
+            if last_read[p] == i and p not in keep:
+                vals[p] = None
+    outs = (out,) if F == 1 else out.unbind(0)
+    for o, dst in zip(plan.outputs, outs):
+        _stitch(dst, vals[o], geom)
     return out

@@ -1,7 +1,7 @@
 """Super-step loops around the streaming kernel.
 
 A run pads the blocked dims once (``_pad_blocked``), launches one super-step
-of the whole stage chain per ``par_time`` iterations
+of the whole stage program per ``par_time`` iterations
 (``ceil(iters/par_time)`` in all, the last one PE-forwarding ``iters %
 par_time``), refreshes the halo and overhang columns between super-steps
 with torch ops (``_reclamp_padded``), and slices the grid back out
@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import boundary
 from repro_torch.core.blocking import BlockGeometry, stream_extension
 from repro_torch.core.stencils import Stencil
-from repro_torch.kernels.builder import superstep_chain
+from repro_torch.kernels.builder import superstep_dag
 
 
 def pack_coeffs(stencil: Stencil, coeffs: dict) -> torch.Tensor:
@@ -115,20 +115,23 @@ def _reclamp_padded(gp: torch.Tensor, geom: BlockGeometry,
     return gp
 
 
-def fused_chain_loop(stages, geom: BlockGeometry, gp: torch.Tensor,
-                     coeffs_packed: torch.Tensor, iters: int,
-                     aux_p: torch.Tensor | None) -> torch.Tensor:
-    """The whole ``iters`` loop of a stage chain over the pre-padded grid
-    ``gp``, returning the unpadded result: a host loop of
+def fused_dag_loop(dag, geom: BlockGeometry, gp: torch.Tensor,
+                   coeffs_packed: torch.Tensor, iters: int,
+                   aux_p: torch.Tensor | None) -> torch.Tensor:
+    """The whole ``iters`` loop of a stage program (``programs.DagSpec``; a
+    chain is its path graph) over the pre-padded state ``gp`` (``(ns,
+    *padded)`` for one field, ``(F, ns, *padded)`` for several, every
+    field padded alike), returning the unpadded result: a host loop of
     ``ceil(iters/par_time)`` super-steps, super-step ``s`` running
     ``min(par_time, iters - s*par_time)`` steps.  Padding and the halo
-    refresh use stage 0's BC."""
-    bc0 = stages[0][1]
+    refresh of all fields, one ``_reclamp_padded`` per super-step, use
+    stage 0's BC (periodicity is uniform across stages)."""
+    bc0 = dag.stages[0][1]
     par_time = geom.par_time
     g = gp
     for s in range(math.ceil(iters / par_time)):
         steps = min(par_time, iters - s * par_time)
-        g = superstep_chain(stages, geom, g, coeffs_packed, steps, aux_p)
+        g = superstep_dag(dag, geom, g, coeffs_packed, steps, aux_p)
         g = _reclamp_padded(g, geom, bc0)
     return _slice_blocked(g, geom, bc0).contiguous()
 
@@ -137,10 +140,11 @@ def dma_traffic_bytes(stencil, geom: BlockGeometry, cell_bytes: int = 4,
                       bc=None) -> int:
     """Device-memory bytes one super-step of the streaming kernel moves:
     every block reads ``stream`` rows/planes of ``prod(bsize)`` cells per
-    input stream (``stencil.num_read``: the grid, and aux when any stage
-    reads it; a program's intermediates never leave the chip) and writes
-    ``stream`` rows of ``prod(csize)`` cells; overlapping halo columns are
-    read once per block that holds them."""
+    input stream (``stencil.num_read``: one per field, and aux when any
+    stage reads it; a program's intermediates never leave the chip) and
+    writes ``stream`` rows of ``prod(csize)`` cells per field
+    (``stencil.num_write``); overlapping halo columns are read once per
+    block that holds them.  ``stream`` counts the periodic extension."""
     dom = geom.stream_dim + 2 * stream_extension(geom, bc)
     stream = geom.stream_slabs(dom) * geom.par_vec
     reads = geom.num_blocks * stream * math.prod(geom.bsize) * stencil.num_read

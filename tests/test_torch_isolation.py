@@ -1,6 +1,6 @@
-"""The port imports and runs — the stencil plan, a stage program (chain and
-DAG), the LM serving path and two training steps — with JAX and the
-reference package made unimportable."""
+"""The port imports and runs — the stencil plan, stage programs (a chain,
+and DAGs on the reference and hopper backends), the LM serving path and two
+training steps — with JAX and the reference package made unimportable."""
 import os
 import subprocess
 import sys
@@ -42,6 +42,19 @@ state = api.plan(
     api.RunConfig(backend="reference", device="cpu")).run(
         rng.uniform(0.5, 2, (2, 9, 30)).astype(np.float32), 3)
 assert state.shape == (2, 9, 30)
+from repro_torch.core.stencils import make_combine
+wave = api.StencilProgram(
+    (api.StencilStage(make_star(2, 1), name="lapu", inputs=("u",)),
+     api.StencilStage(make_combine(2, 3), name="unext",
+                      inputs=("u", "u_prev", "lapu"),
+                      coeffs={"w0": 2.0, "w1": -1.0, "w2": 0.1})),
+    fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+s0 = rng.uniform(0.5, 2, (2, 9, 30)).astype(np.float32)
+runs = [api.plan(api.StencilProblem(wave, (9, 30), boundary="periodic"),
+                 api.RunConfig(backend=b, device="cpu", **kw)).run(s0, 3)
+        for b, kw in (("hopper", dict(par_time=2, bsize=12)),
+                      ("reference", {}))]
+assert runs[0].shape == (2, 9, 30) and torch.equal(*runs)
 import repro_torch.models, repro_torch.launch.serve as serve
 from repro_torch.configs import smoke_config
 cfg = smoke_config("qwen3-1.7b")

@@ -1,7 +1,8 @@
 """The Hopper streaming kernel against its plain version and the port's
-oracle, on the card: the four Table-2 stencils and linear stage chains
-(tap tables, mixed radii, radius-0 stages, aux).  Needs an sm_90 device and
-``nvcc``; skipped otherwise.  Run on a card with
+oracle, on the card: the four Table-2 stencils, linear stage chains (tap
+tables, mixed radii, radius-0 stages, aux), stage DAGs (field streams,
+fan-in, state nodes) and periodic boundaries on all three bodies.  Needs an
+sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
 import math
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import RunConfig, StencilProblem, StencilStage, plan
+from repro_torch.api import (RunConfig, StencilProblem, StencilProgram,
+                             StencilStage, plan)
 from repro_torch.core import blocking, precision, stencils
 from repro_torch.kernels import builder, ops
 
@@ -181,6 +183,159 @@ def test_program_plan_on_card_matches_oracle(cuda, case):
     problem = StencilProblem(stages(), dims)
     iters = 2 * par_time + 3
     g, aux = _program_inputs(problem, cuda, seed=3)
+    before = builder.LAUNCHES
+    got = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                  bsize=bsize)).run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / par_time)
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    scale = 100 if problem.needs_aux else None
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        "float32", iters, stages=problem.n_stages, scale=scale))
+
+
+# --- stage DAGs and periodic boundaries ---------------------------------------
+
+def _wave(nd):
+    lap = {"c0": -2.0 * nd}
+    lap.update({f"c_{a}_{d}": 1.0 for a in range(nd) for d in (-1, 1)})
+    return StencilProgram(
+        (StencilStage(stencils.make_star(nd, 1), coeffs=lap, name="lapu",
+                      inputs=("u",)),
+         StencilStage(stencils.make_combine(nd, 3), name="unext",
+                      inputs=("u", "u_prev", "lapu"),
+                      coeffs={"w0": 2.0, "w1": -1.0, "w2": 0.16})),
+        fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def _diamond():
+    s = stencils.make_star(2, 1)
+    return StencilProgram(
+        (StencilStage(s, name="a", inputs=("u",)),
+         StencilStage(s, name="b", inputs=("u",),
+                      coeffs={"c0": 0.5, "c_0_1": 0.2}),
+         StencilStage(stencils.make_combine(2, 2), name="m",
+                      inputs=("a", "b"), coeffs={"w0": 0.6, "w1": 0.4})))
+
+
+def _hotspot_dag():
+    return StencilProgram(
+        (StencilStage("hotspot2d", name="h", inputs=("u",)),
+         StencilStage(stencils.make_combine(2, 3), name="m",
+                      inputs=("h", "u", "v"),
+                      coeffs={"w0": 0.5, "w1": 0.3, "w2": 0.2})),
+        fields=("u", "v"), updates={"u": "m", "v": "u"})
+
+
+def _fanin4():
+    """Four inputs to one combine, radii 0 to 2, a field carried
+    unchanged."""
+    st = stencils
+    return StencilProgram(
+        (StencilStage(st.make_star(2, 2), name="s0", inputs=("f1",)),
+         StencilStage(st.make_star(2, 0), name="s1", inputs=("s0",)),
+         StencilStage(st.make_box(2, 1), name="s2", inputs=("f0",)),
+         StencilStage(st.make_combine(2, 4), name="out",
+                      inputs=("s1", "s2", "f0", "f1"))),
+        fields=("f0", "f1", "f2"), updates={"f0": "out", "f1": "f0"})
+
+
+DAGS = [  # (id, program, dims, boundary, par_time, bsize)
+    ("wave2d_periodic", lambda: _wave(2), (37, 300), "periodic", 4, (64,)),
+    ("wave2d_clamp", lambda: _wave(2), (30, 211), "clamp", 3, (48,)),
+    ("diamond_periodic_clamp", _diamond, (33, 150), ("periodic", "clamp"),
+     2, (40,)),
+    ("hotspot_dag", _hotspot_dag, (25, 170), ("clamp", "periodic"), 3,
+     (32,)),
+    ("fanin4", _fanin4, (29, 130), "periodic", 2, (32,)),
+    ("wave3d_periodic", lambda: _wave(3), (17, 40, 35), "periodic", 2,
+     (16, 16)),
+    ("wave3d_clamp", lambda: _wave(3), (21, 30, 45), "clamp", 2, (16, 16)),
+]
+
+PERIODIC = [  # (id, stages, dims, boundary, par_time, bsize)
+    ("diffusion2d", lambda: [StencilStage("diffusion2d")], (40, 300),
+     "periodic", 4, (64,)),
+    ("hotspot3d", lambda: [StencilStage("hotspot3d")], (19, 37, 70),
+     ("clamp", "periodic", "periodic"), 2, (12, 32)),
+    ("chain_clamp_periodic", lambda: [StencilStage(stencils.make_star(2, 1)),
+                                      StencilStage("diffusion2d")],
+     (33, 200), ("clamp", "periodic"), 2, (64,)),
+    ("chain3d_periodic", lambda: [StencilStage(stencils.make_star(3, 1)),
+                                  StencilStage("diffusion3d")],
+     (21, 50, 45), ("periodic", "clamp", "periodic"), 2, (16, 16)),
+]
+
+
+def _state(problem, device, seed):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, problem.state_shape)
+                         .astype(np.float32)).to(device)
+    aux = None
+    if problem.needs_aux:
+        aux = torch.from_numpy(rng.uniform(0, 0.1, problem.shape)
+                               .astype(np.float32)).to(device)
+    return g, aux
+
+
+def _superstep_vs_plain(problem, geom, g, aux):
+    """One super-step through the kernel, bit for bit against the plain
+    version on the card, with and without forwarding; the output starts as
+    NaN so that a cell the kernel misses or writes wrongly shows."""
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    dag = problem.exec_dag
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    h = geom.size_halo
+    region = (Ellipsis, slice(None)) + tuple(
+        slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
+    for steps in (geom.par_time, geom.par_time - 1):
+        out = torch.full_like(gp, float("nan"))
+        before = builder.LAUNCHES
+        builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out)
+        torch.cuda.synchronize()
+        assert builder.LAUNCHES == before + 1
+        plain = torch.full_like(gp, float("nan"))
+        if problem.is_dag:
+            builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p,
+                                        plain)
+        else:
+            builder.superstep_plain(problem.exec_stages, geom, gp, c, steps,
+                                    aux_p, plain)
+        assert not out[region].isnan().any()
+        assert int((~out.isnan()).sum()) == math.prod(out[region].shape)
+        assert torch.equal(out[region], plain[region])
+
+
+@pytest.mark.parametrize("case", DAGS, ids=lambda c: c[0])
+def test_dag_kernel_equals_plain_version(cuda, case):
+    _, program, dims, bc, par_time, bsize = case
+    problem = StencilProblem(program(), dims, boundary=bc)
+    assert problem.is_dag
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize)).geometry
+    g, aux = _state(problem, cuda, seed=4)
+    _superstep_vs_plain(problem, geom, g, aux)
+
+
+@pytest.mark.parametrize("case", PERIODIC, ids=lambda c: c[0])
+def test_periodic_kernel_equals_plain_version(cuda, case):
+    """Periodic and mixed boundaries on the main-path and chain bodies."""
+    _, stages, dims, bc, par_time, bsize = case
+    problem = StencilProblem(stages(), dims, boundary=bc)
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize)).geometry
+    g, aux = _state(problem, cuda, seed=5)
+    _superstep_vs_plain(problem, geom, g, aux)
+
+
+@pytest.mark.parametrize("case", DAGS + PERIODIC, ids=lambda c: c[0])
+def test_dag_and_periodic_plan_on_card_matches_reference(cuda, case):
+    _, program, dims, bc, par_time, bsize = case
+    problem = StencilProblem(program(), dims, boundary=bc)
+    iters = 2 * par_time + 1
+    g, aux = _state(problem, cuda, seed=6)
     before = builder.LAUNCHES
     got = plan(problem, RunConfig(backend="hopper", par_time=par_time,
                                   bsize=bsize)).run(g, iters, aux=aux)

@@ -177,7 +177,7 @@ def test_superstep_chain_rejects_bad_inputs():
                                 torch.cat([c, c]), 2)
     with pytest.raises(ValueError, match="B1c"):
         builder.superstep_chain(
-            ((st, boundary.BoundaryCondition.make("periodic", 2)),), geom,
+            ((st, boundary.BoundaryCondition.make("reflect", 2)),), geom,
             gp, c, 2)
     with pytest.raises(ValueError, match="shape"):
         builder.superstep_chain(((st, None),), geom, gp[1:], c, 2)

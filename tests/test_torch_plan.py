@@ -136,7 +136,8 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="B1e"):
         _hopper(StencilProblem("diffusion2d", (8, 32), dtype="bfloat16"))
     with pytest.raises(ValueError, match="B1c"):
-        _hopper(StencilProblem("diffusion2d", (8, 32), boundary="periodic"))
+        _hopper(StencilProblem("diffusion2d", (8, 32),
+                               boundary="constant:1.5"))
     with pytest.raises(ValueError, match="B1c"):
         _hopper(StencilProblem("hotspot3d", (8, 20, 20),
                                boundary=("clamp", "clamp", "reflect")))
@@ -155,11 +156,13 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="shared memory"):
         _hopper(StencilProblem("diffusion2d", (8, 9000)), par_time=40,
                 bsize=1000)
-    with pytest.raises(ValueError, match="B1h"):
-        _hopper(StencilProblem(StencilProgram(
-            (StencilStage("diffusion2d", name="a", inputs=("b",)),
-             StencilStage("diffusion2d", name="b", inputs=("u",))),
-            updates={"u": "a"}), (8, 32)))
+    dag = StencilProgram(
+        (StencilStage("diffusion2d", name="a", inputs=("b",)),
+         StencilStage("diffusion2d", name="b", inputs=("u",))),
+        updates={"u": "a"})
+    assert _hopper(StencilProblem(dag, (8, 32))).problem.is_dag   # B1h
+    with pytest.raises(ValueError, match="B1c"):
+        _hopper(StencilProblem(dag, (8, 32), boundary=("clamp", "reflect")))
 
 
 def test_cuda_device_without_a_card_raises():

@@ -373,7 +373,7 @@ def test_kernel_rings_are_the_layout_windows(name):
     lags = np.cumsum(radii)
     for i, r in enumerate(radii):
         e = table.e[i]
-        assert (e.lag, e.in_slots) == (lags[i], 2 * r + 1)
+        assert (e.lag, e.in_slots[0]) == (lags[i], 2 * r + 1)
         assert e.out_slots == (2 * radii[i + 1] + 1 if i + 1 < len(radii)
                                else 0)
     assert list(table.c)[:c.numel()] == c.tolist()
@@ -388,7 +388,11 @@ def test_linear_taps_follow_the_apply_order():
         assert builder.stage_op(st) == builder.TAP_OP
     assert builder.linear_taps(stencils.DIFFUSION2D) is None
     assert builder.stage_op(stencils.DIFFUSION2D) == 0
-    assert builder.stage_op(stencils.make_combine(2, 2)) is None
+    assert builder.stage_op(stencils.make_combine(2, 2)) == (
+        builder.COMBINE_OP)
+    custom = stencils.Stencil("custom2d", 2, 0, 1, 1, 1, False, ("a",),
+                              lambda get, c, aux=None: c["a"] * get((0, 0)))
+    assert builder.stage_op(custom) is None
 
 
 # --- fusion ------------------------------------------------------------------
@@ -449,19 +453,26 @@ def test_hopper_main_path_par_time_is_bound_by_shared_memory_only():
 
 def test_hopper_refuses_program_forms_it_does_not_run():
     S, P, st = PKGS["port"]
-    with pytest.raises(ValueError, match="B1h"):
+    custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
+                        lambda get, c, aux=None: c["a"] * get((0, 1)))
+    # DAGs plan (ROADMAP B1h is ported), but not with a custom stencil or
+    # a reflect stage
+    forward_ref = P((S("diffusion2d", name="a", inputs=("b",)),
+                     S("diffusion2d", name="b", inputs=("u",))),
+                    updates={"u": "a"})
+    assert _hopper(StencilProblem(forward_ref, (16, 32))).problem.is_dag
+    with pytest.raises(ValueError, match="B1i"):
         _hopper(StencilProblem(P(
-            (S("diffusion2d", name="a", inputs=("b",)),
-             S("diffusion2d", name="b", inputs=("u",))),
-            updates={"u": "a"}), (16, 32)))
-    with pytest.raises(ValueError, match="B1h.*B1i"):
-        _hopper(StencilProblem(_diamond2d(S, P, st), (16, 32)))
+            (S(custom, name="a", inputs=("u",)),
+             S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
+        ), (16, 32)))
+    with pytest.raises(ValueError, match="B1c"):
+        _hopper(StencilProblem(_diamond2d(S, P, st), (16, 32),
+                               boundary=("clamp", "reflect")))
     with pytest.raises(ValueError, match="B1c"):
         _hopper(StencilProblem([S("diffusion2d"),
                                 S(st.make_star(2, 1), boundary="reflect")],
                                (16, 32)))
-    custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
-                        lambda get, c, aux=None: c["a"] * get((0, 1)))
     with pytest.raises(ValueError, match="B1i"):
         _hopper(StencilProblem([S("diffusion2d"), S(custom)], (16, 32)))
     with pytest.raises(ValueError, match="shared memory"):
@@ -478,7 +489,8 @@ def test_hopper_refuses_program_forms_it_does_not_run():
         _hopper(StencilProblem([S(st.make_star(2, 32))], (8, 400)),
                 par_time=1, bsize=300)
     # what the hopper backend refuses, the reference backend runs
-    prob = StencilProblem(_diamond2d(S, P, st), (16, 32))
+    prob = StencilProblem(_diamond2d(S, P, st), (16, 32),
+                          boundary=("clamp", "reflect"))
     g, _ = _data(prob)
     out = plan(prob, RunConfig(backend="reference", device="cpu")).run(g, 2)
     assert bool(out.isfinite().all())
