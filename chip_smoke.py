@@ -51,7 +51,17 @@ On one CUDA card, from the root of a checkout:
    (with and without forwarding), kernel, plain and a composed yardstick
    (one cuDNN convolution per tap stage, ``torch.mul``/``torch.add`` per
    combine) against the bound;
-7. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+7. drives V-row slabs (``PAR_VEC``: the four stencils at V = 2, 4, 8 in 2D
+   and 2, 4 in 3D, advect_diffuse2d and wave2d at V = 4, on the earlier
+   phases' inputs and schedules) and the 1D entry (``star1d_r2`` over
+   2**20 cells on one CTA, T=4, at V = 1 against the reference backend and
+   the conv1d yardstick, then V = 16): for each, one super-step bit for
+   bit against the plain version, then ``plan(..., RunConfig(...,
+   par_vec=V)).run`` with ``ceil(iters/T)`` launches and a result equal
+   to the V = 1 run bit for bit; prints run ms and GCell/s, the super-step
+   beside V = 1's, plain, the V = 1 yardstick and the bound, and the
+   phase's seconds;
+8. serves full-width qwen3-1.7b (bf16, random weights from a seed)
    through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
    + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
    layer) and none in decode, tokens in the vocab and finite logits; times
@@ -60,7 +70,7 @@ On one CUDA card, from the root of a checkout:
    (output pre-filled with NaN), the ``"flash"`` prefill against the
    ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
    plain version and ``scaled_dot_product_attention`` as the yardstick;
-8. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+9. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
    ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
    (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
    microbatch and 2 with two, asserting finite losses, the first within
@@ -76,10 +86,11 @@ On one CUDA card, from the root of a checkout:
    the smoke width (bf16, head dim 128, so the kernels run) with an
    injected failure and a restart, asserting the uninterrupted run's
    losses bit for bit;
-9. prints one ``{"kernels": [...]}`` line and, last, the device line.
+10. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
-Any failed check raises, and the script exits non-zero.  It exits non-zero
-without a result when no CUDA device is present.
+Every timed median is printed and reported with the min and max of its
+samples.  Any failed check raises, and the script exits non-zero.  It
+exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -119,9 +130,37 @@ def peaks_for(card_name: str):
     raise RuntimeError(f"no data-sheet peaks for {card_name!r}")
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
+class Timing(float):
+    """A median of device milliseconds that carries the ``lo`` and ``hi``
+    of its samples."""
+    lo: float
+    hi: float
+
+    def __new__(cls, times):
+        t = super().__new__(cls, statistics.median(times))
+        t.lo, t.hi = min(times), max(times)
+        return t
+
+    def __str__(self):
+        return f"{float(self):.3f} ms [{self.lo:.3f}-{self.hi:.3f}]"
+
+
+def with_spread(row: dict) -> dict:
+    """``row`` with the min and max beside each :class:`Timing` ``x_ms``
+    (``x_min_ms``, ``x_max_ms``; ``min_ms``, ``max_ms`` beside ``ms``),
+    for the JSON line."""
+    out = {}
+    for k, v in row.items():
+        out[k] = v
+        if isinstance(v, Timing):
+            pre = k[:-2] if k.endswith("ms") else f"{k}_"
+            out[f"{pre}min_ms"], out[f"{pre}max_ms"] = v.lo, v.hi
+    return out
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> Timing:
     """Median device milliseconds of ``fn`` over ``reps`` runs (CUDA
-    events, after ``warmup`` untimed runs)."""
+    events, after ``warmup`` untimed runs), with their min and max."""
     import torch
     for _ in range(warmup):
         fn()
@@ -134,7 +173,21 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return Timing(times)
+
+
+def bound(problem, par_time: int, peaks) -> dict:
+    """The least time one super-step could take: every field (and aux)
+    read once and every field written once, against ``par_time`` times
+    the FLOPs of every stage (``flop_pcu`` sums them) on every cell."""
+    cells = math.prod(problem.shape)
+    bytes_once = (problem.stencil.num_read + len(problem.fields)) * cells * 4
+    flops = par_time * problem.stencil.flop_pcu * cells
+    bw, fp32, _ = peaks
+    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": bytes_once, "bound_flops": flops}
 
 
 def inputs(name, dims, device, seed):
@@ -182,7 +235,8 @@ def drive_main_path(name, dims, par_time, bsize, device, seed=0) -> dict:
         "float32", iters, scale=scale))
     err = (out - ref).abs().max().item()
     return {"iters": iters, "launches": launches,
-            "oracle_max_abs_err": err, "plan": p, "g": g, "aux": aux}
+            "oracle_max_abs_err": err, "plan": p, "g": g, "aux": aux,
+            "out": out}
 
 
 def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
@@ -365,22 +419,14 @@ def compare_and_time(name, main: dict, peaks) -> dict:
     library_err = check_yardstick(name, T, gp.device)
     library_ms = time_ms(library_yardstick(name, main["g"], main["aux"], T),
                          reps=3)
-    # bound: each real input cell read once, each real output cell written
-    # once (halo and overhang cells are not needed: clamping reads edge
-    # values); the stencil's FLOPs on the cells it advances
-    n_in = 2 if aux_p is not None else 1
-    bytes_once = (n_in + 1) * math.prod(geom.dims) * 4
-    flops = st.flop_pcu * math.prod(geom.dims) * T
-    bw, fp32, _ = peaks
-    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
+    # halo and overhang cells are not needed by the bound: clamping reads
+    # edge values
     dma = ops.dma_traffic_bytes(st, geom)
     return {
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "library_small_max_abs_err": library_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": bytes_once, "dma_bytes": dma,
-        "dma_bound_ms": dma / bw * 1e3,
+        **bound(main["plan"].problem, T, peaks), "dma_bytes": dma,
+        "dma_bound_ms": dma / peaks[0] * 1e3,
         "gcells_per_s": math.prod(geom.dims) * T / kernel_ms / 1e6,
     }
 
@@ -484,7 +530,7 @@ def program_yardstick(problem, g, par_time):
             e[tuple(o + r for o in off)] = 1.0
             return e
         convs.append((stage.stencil.apply(one_hot, cf)[None, None], r))
-    conv = F.conv2d if nd == 2 else F.conv3d
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
 
     def run():
         x = g[None, None]
@@ -502,8 +548,9 @@ def check_program_yardstick(problem, par_time, device, seed=1) -> float:
     import torch
     from repro_torch.api import RunConfig, StencilProblem, plan
     from repro_torch.core import precision
-    dims = (40, 56) if problem.ndim == 2 else (12, 20, 28)
-    small = StencilProblem(problem.program, dims)
+    dims = {1: (200,), 2: (40, 56), 3: (12, 20, 28)}[problem.ndim]
+    small = StencilProblem(problem.program, dims,
+                           boundary=problem.structural_bc)
     g = grid_input(dims, device, seed)
     got = program_yardstick(small, g, par_time)()
     want = plan(small, RunConfig(backend="reference", device=device)).run(
@@ -513,27 +560,31 @@ def check_program_yardstick(problem, par_time, device, seed=1) -> float:
     return (got - want).abs().max().item()
 
 
-def superstep_vs_plain(name, problem, geom, g) -> dict:
+def superstep_vs_plain(name, problem, geom, g, aux=None,
+                       plain_reps: int = 3) -> dict:
     """One super-step of a stage program through the kernel against its
     plain version on the same padded state, bit for bit, with and without
     forwarding (the output starts as NaN, so a cell the kernel misses or
-    writes outside its compute region shows); then both times."""
+    writes outside its compute region, the stream rows below ``dom``,
+    shows); then both times (the plain version's ``plain_reps`` runs after
+    the check's)."""
     import torch
     from repro_torch.kernels import builder, ops
     dag, bc0 = problem.exec_dag, problem.structural_bc
     T = geom.par_time
     gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
     c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
     h = geom.size_halo
-    region = (Ellipsis, slice(None)) + tuple(
+    region = (Ellipsis, slice(0, builder._stream_dom(geom, bc0))) + tuple(
         slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
     out = torch.empty_like(gp)
     err = 0.0
     for steps in (T, T - 1):
         out.fill_(float("nan"))
-        builder.superstep_dag(dag, geom, gp, c, steps, None, out=out)
+        builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out)
         torch.cuda.synchronize()
-        plain = builder.superstep_dag_plain(dag, geom, gp, c, steps, None,
+        plain = builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p,
                                             torch.full_like(gp,
                                                             float("nan")))
         got, want = out[region], plain[region]
@@ -551,9 +602,10 @@ def superstep_vs_plain(name, problem, geom, g) -> dict:
         del plain, got, want
         torch.cuda.empty_cache()
     kernel_ms = time_ms(lambda: builder.superstep_dag(
-        dag, geom, gp, c, T, None, out=out), reps=5)
+        dag, geom, gp, c, T, aux_p, out=out), reps=5, warmup=0)
     plain_ms = time_ms(lambda: builder.superstep_dag_plain(
-        dag, geom, gp, c, T, None, torch.empty_like(gp)), reps=3)
+        dag, geom, gp, c, T, aux_p, torch.empty_like(gp)), reps=plain_reps,
+        warmup=0)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
 
 
@@ -573,13 +625,7 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     res = superstep_vs_plain(name, problem, geom, g)
     library_err = check_program_yardstick(problem, T, g.device)
     library_ms = time_ms(program_yardstick(problem, g, T), reps=3)
-    # bound: the grid read once and written once; the FLOPs of every stage
-    # (flop_pcu sums them) on every cell for T iterations
     cells = math.prod(geom.dims)
-    bytes_once = (problem.stencil.num_read + 1) * cells * 4
-    flops = T * problem.stencil.flop_pcu * cells
-    bw, fp32, _ = peaks
-    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
 
     # fusion: S single-stage plans at T=1, chained stage by stage
     singles = [plan(StencilProblem([s], geom.dims),
@@ -602,9 +648,7 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     return {
         **res, "library_ms": library_ms,
         "library_small_max_abs_err": library_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": bytes_once, "bound_flops": flops,
+        **bound(problem, T, peaks),
         "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom),
         "gcells_per_s": cells * T / res["ms"] / 1e6,
         "smem_bytes": smem_bytes(geom, stages),
@@ -614,10 +658,11 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     }
 
 
-def program_phase(device, peaks) -> list:
+def program_phase(device, peaks, bases: dict) -> list:
     """Every program of :data:`PROGRAMS` through the chain kernel: the main
     path's run and checks, its breakdown, the kernel against its plain
-    version, and fused against chained."""
+    version, and fused against chained.  Keeps the V = 1 run of each
+    :data:`PAR_VEC` case in ``bases``."""
     import torch
     rows = []
     for name in PROGRAMS:
@@ -628,20 +673,22 @@ def program_phase(device, peaks) -> list:
         stage_names = [s.name for s in p.problem.stages]
         print(f"{name} {stage_names} {geom.dims} T={geom.par_time} "
               f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
-              f"{main_run['iters']} iters {e2e['run_ms']:.3f} ms, "
+              f"{main_run['iters']} iters {e2e['run_ms']}, "
               f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
               f"{main_run['launches']} launches, oracle max_abs_err "
               f"{main_run['oracle_max_abs_err']:.3g}; kernel share of "
               f"device time {e2e['kernel_share_of_device']:.3f}, device "
               f"idle {e2e['device_idle_share']:.3f}", flush=True)
         res = compare_program(name, main_run, e2e["run_ms"], peaks)
-        print(f"  superstep: kernel {res['ms']:.3f} ms (bit for bit with "
-              f"plain), plain {res['plain_ms']:.3f} ms, library "
-              f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-              f"({res['bound_by']}); fused run {res['fused_run_ms']:.3f} ms "
-              f"vs chained T=1 plans {res['chained_run_ms']:.3f} ms: "
-              f"{res['fusion_speedup']:.3f}x, max_abs_diff "
-              f"{res['fused_vs_chained_max_abs_err']:.3g}", flush=True)
+        print(f"  superstep: kernel {res['ms']} (bit for bit with plain), "
+              f"plain {res['plain_ms']}, library {res['library_ms']}, bound "
+              f"{res['bound_ms']:.3f} ms ({res['bound_by']}); fused run "
+              f"{res['fused_run_ms']} vs chained T=1 plans "
+              f"{res['chained_run_ms']}: {res['fusion_speedup']:.3f}x, "
+              f"max_abs_diff {res['fused_vs_chained_max_abs_err']:.3g}",
+              flush=True)
+        if name in PAR_VEC:
+            bases[name] = v1_base(main_run, res)
         rows.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
@@ -788,23 +835,13 @@ def compare_dag(name, main: dict, peaks) -> dict:
     res = superstep_vs_plain(name, problem, geom, g)
     library_err = check_dag_yardstick(problem, T, g.device)
     library_ms = time_ms(dag_yardstick(problem, g, T), reps=3)
-    # bound: every field read once and written once, aux read once; the
-    # FLOPs of every stage (flop_pcu sums them) on every cell for T
-    # iterations
     cells = math.prod(problem.shape)
-    n_fields = len(problem.fields)
-    bytes_once = (problem.stencil.num_read + n_fields) * cells * 4
-    flops = T * problem.stencil.flop_pcu * cells
-    bw, fp32, _ = peaks
-    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
     return {
         **res, "library_ms": library_ms,
         "library_small_max_abs_err": library_err,
         "library": "composed: one cuDNN convolution per tap stage, "
                    "torch.mul/torch.add per combine, per iteration",
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": bytes_once, "bound_flops": flops,
+        **bound(problem, T, peaks),
         "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom,
                                            bc=problem.structural_bc),
         "gcells_per_s": cells * T / res["ms"] / 1e6,
@@ -812,10 +849,11 @@ def compare_dag(name, main: dict, peaks) -> dict:
     }
 
 
-def dag_phase(device, peaks) -> list:
+def dag_phase(device, peaks, bases: dict) -> list:
     """Every program of :data:`DAGS` through the DAG body of the kernel: the
     main path's run and checks, its breakdown, and the kernel against its
-    plain version."""
+    plain version.  Keeps the V = 1 run of each :data:`PAR_VEC` case in
+    ``bases``."""
     import torch
     rows = []
     for name in DAGS:
@@ -828,18 +866,20 @@ def dag_phase(device, peaks) -> list:
               f"{[s.name for s in prob.stages]} {geom.dims} "
               f"{prob.structural_bc.token()} T={geom.par_time} "
               f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
-              f"{main_run['iters']} iters {e2e['run_ms']:.3f} ms, "
+              f"{main_run['iters']} iters {e2e['run_ms']}, "
               f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
               f"{main_run['launches']} launches, oracle max_abs_err "
               f"{main_run['oracle_max_abs_err']:.3g}; kernel share of "
               f"device time {e2e['kernel_share_of_device']:.3f}, device "
               f"idle {e2e['device_idle_share']:.3f}", flush=True)
         res = compare_dag(name, main_run, peaks)
-        print(f"  superstep: kernel {res['ms']:.3f} ms (bit for bit with "
-              f"plain), plain {res['plain_ms']:.3f} ms, composed library "
-              f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        print(f"  superstep: kernel {res['ms']} (bit for bit with plain), "
+              f"plain {res['plain_ms']}, composed library "
+              f"{res['library_ms']}, bound {res['bound_ms']:.3f} ms "
               f"({res['bound_by']}), rings {res['smem_bytes']} bytes",
               flush=True)
+        if name in PAR_VEC:
+            bases[name] = v1_base(main_run, res)
         rows.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
@@ -853,6 +893,164 @@ def dag_phase(device, peaks) -> list:
         })
         del main_run
         torch.cuda.empty_cache()
+    return rows
+
+
+# --- V-row slabs (par_vec > 1) and the 1D entry -----------------------------
+
+#: name -> the par_vec values run beside the V = 1 plan of that name (the
+#: main path's, the program phase's or the DAG phase's, at its schedule and
+#: on its inputs); the 1D star runs here at V = 1 first
+PAR_VEC = {"diffusion2d": (2, 4, 8), "hotspot2d": (2, 4, 8),
+           "diffusion3d": (2, 4), "hotspot3d": (2, 4),
+           "advect_diffuse2d": (4,), "wave2d": (4,), "star1d_r2": (16,)}
+#: the 1D entry: one CTA streams all 2**20 cells (the TPU kernel's grid
+#: (1,)), par_time 4
+STAR1D = ("star1d_r2", (1 << 20,), 4)
+
+
+def v1_base(main: dict, res: dict) -> dict:
+    """What the V > 1 runs of a case reuse from its V = 1 run: the plan,
+    inputs, result and iterations, and the super-step's and yardstick's
+    times."""
+    keep = ("plan", "g", "aux", "out", "iters")
+    return {**{k: main[k] for k in keep}, "ms": res["ms"],
+            "library_ms": res["library_ms"],
+            "library": res.get("library")}
+
+
+def counted_run(p, g, aux, iters):
+    """``p.run`` with the launch count at 0 just before and read just
+    after, timed with CUDA events: ``(out, launches, run ms)``."""
+    import torch
+    from repro_torch.kernels import builder
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    builder.LAUNCHES = 0
+    start.record()
+    out = p.run(g, iters, aux=aux)
+    end.record()
+    end.synchronize()
+    launches = builder.LAUNCHES
+    want = math.ceil(iters / p.geometry.par_time)
+    if launches != want:
+        raise AssertionError(f"{p.problem.stencil.name}: run launched the "
+                             f"kernel {launches} times, expected {want}")
+    return out, launches, Timing([start.elapsed_time(end)])
+
+
+def par_vec_row(name, base, V, device, peaks) -> dict:
+    """The plan of ``base`` at ``par_vec = V``: one super-step bit for bit
+    against the plain version (which also warms the kernel up), then the
+    counted, timed run, which must equal the V = 1 run bit for bit."""
+    import torch
+    from repro_torch.api import RunConfig, plan
+    from repro_torch.core.blocking import smem_bytes
+    from repro_torch.kernels import builder, ops
+    problem, g1 = base["plan"].problem, base["plan"].geometry
+    T, iters = g1.par_time, base["iters"]
+    p = plan(problem, RunConfig(backend="hopper", par_time=T,
+                                bsize=g1.bsize, par_vec=V, device=device))
+    geom = p.geometry
+    res = superstep_vs_plain(f"{name} V={V}", problem, geom, base["g"],
+                             base["aux"], plain_reps=1)
+    out, launches, run_ms = counted_run(p, base["g"], base["aux"], iters)
+    if not torch.equal(out, base["out"]):
+        raise AssertionError(
+            f"{name}: the run at V={V} differs from V=1 by "
+            f"{(out - base['out']).abs().max().item()}")
+    del out
+    vt, rows, _ = builder.cta_shape(geom)
+    cells = math.prod(problem.shape)
+    dma = ops.dma_traffic_bytes(problem.stencil, geom,
+                                bc=problem.structural_bc)
+    row = {"name": f"stencil_stream[{name} V={V}]", "route": "cuda",
+           "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           **res, **bound(problem, T, peaks),
+           "library_ms": base["library_ms"], "par_vec": V,
+           "v1_ms": base["ms"], "speedup_vs_v1": base["ms"] / res["ms"],
+           "equal_to_v1": True, "dims": list(problem.shape),
+           "par_time": T, "bsize": list(geom.bsize), "iters": iters,
+           "run_ms": run_ms, "run_gcells_per_s": cells * iters / run_ms / 1e6,
+           "gcells_per_s": cells * T / res["ms"] / 1e6,
+           "smem_bytes": smem_bytes(geom, problem.exec_dag),
+           "dma_bytes": dma, "dma_bound_ms": dma / peaks[0] * 1e3,
+           "rows_at_once": vt, "rows_per_thread": rows}
+    if base["library"]:
+        row["library"] = base["library"]
+    print(f"{name} V={V} {tuple(problem.shape)} T={T} bsize={geom.bsize} "
+          f"({geom.num_blocks} CTAs, {vt} rows at once x {rows} per thread, "
+          f"rings {row['smem_bytes']} B): run of {iters} iters {run_ms} "
+          f"({row['run_gcells_per_s']:.3f} GCell/s), {launches} launches, "
+          f"equal to V=1 bit for bit; superstep: kernel {res['ms']} (bit "
+          f"for bit with plain) vs V=1 {base['ms']}: "
+          f"{row['speedup_vs_v1']:.3f}x; plain {res['plain_ms']}, library "
+          f"(V=1) {base['library_ms']}, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}), slab-padded DMA bound "
+          f"{row['dma_bound_ms']:.3f} ms", flush=True)
+    return row
+
+
+def star1d_base(device, peaks):
+    """The 1D entry at V = 1: the counted run against the reference
+    backend, one super-step against the plain version, and the conv1d
+    yardstick; ``(base, row)``."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    name, dims, T = STAR1D
+    problem = StencilProblem(name, dims)
+    iters = 2 * T + 3
+    g = grid_input(dims, device, 0)
+    p = plan(problem, RunConfig(backend="hopper", par_time=T, bsize=(),
+                                device=device))
+    res = superstep_vs_plain(f"{name} V=1", problem, p.geometry, g)
+    out, launches, run_ms = counted_run(p, g, None, iters)
+    ref = plan(problem, RunConfig(backend="reference", device=device)).run(
+        g, iters)
+    torch.testing.assert_close(out, ref, **precision.tolerance(
+        "float32", iters))
+    err = (out - ref).abs().max().item()
+    del ref
+    library_err = check_program_yardstick(problem, T, device)
+    library_ms = time_ms(program_yardstick(problem, g, T), reps=3)
+    cells = math.prod(dims)
+    row = {"name": f"stencil_stream[{name} V=1]", "route": "cuda",
+           "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           **res, **bound(problem, T, peaks), "library_ms": library_ms,
+           "library_small_max_abs_err": library_err,
+           "library": "cuDNN conv1d per iteration (edge-padded)",
+           "par_vec": 1, "dims": list(dims), "par_time": T, "bsize": [],
+           "iters": iters, "oracle_max_abs_err": err, "run_ms": run_ms,
+           "run_gcells_per_s": cells * iters / run_ms / 1e6,
+           "gcells_per_s": cells * T / res["ms"] / 1e6}
+    print(f"{name} V=1 {dims} T={T} (one CTA): run of {iters} iters "
+          f"{run_ms} ({row['run_gcells_per_s']:.3f} GCell/s), {launches} "
+          f"launches, oracle max_abs_err {err:.3g}; superstep: kernel "
+          f"{res['ms']} (bit for bit with plain), plain {res['plain_ms']}, "
+          f"library {library_ms}, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']})", flush=True)
+    base = {"plan": p, "g": g, "aux": None, "out": out, "iters": iters,
+            "ms": res["ms"], "library_ms": library_ms,
+            "library": row["library"]}
+    return base, row
+
+
+def par_vec_phase(bases: dict, device, peaks) -> list:
+    """Every case of :data:`PAR_VEC` at each of its V beside its V = 1 run
+    (``bases``, filled by the earlier phases; the 1D star's here)."""
+    import torch
+    t0 = time.perf_counter()
+    base, row = star1d_base(device, peaks)
+    bases[STAR1D[0]] = base
+    rows = [row]
+    for name, vs in PAR_VEC.items():
+        for V in vs:
+            rows.append(par_vec_row(name, bases[name], V, device, peaks))
+            torch.cuda.empty_cache()
+        del bases[name]
+    print(f"par_vec phase: {time.perf_counter() - t0:.3f} s", flush=True)
     return rows
 
 
@@ -1032,8 +1230,8 @@ def lm_phase(device, peaks) -> dict:
            "flash_vs_xla_logit_rel_err": flash_xla,
            "teacher_forced_logit_rel_err": tf,
            "tokens_in_range": True, "logits_finite": True, **e2e}
-    print(f"  flash_fwd: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"library {library_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
+    print(f"  flash_fwd: kernel {kernel_ms}, plain {plain_ms}, library "
+          f"{library_ms}, bound {res['bound_ms']:.3f} ms "
           f"({res['bound_by']})", flush=True)
     del params
     torch.cuda.empty_cache()
@@ -1145,7 +1343,9 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
                              "gradients")
     with torch.no_grad():
         fwd_ms = time_ms(sdpa, reps=10)
-    library_ms = time_ms(sdpa_grad, reps=10) - fwd_ms
+    grad_ms = time_ms(sdpa_grad, reps=10)
+    library_ms = Timing([t - fwd_ms for t in (grad_ms.lo, grad_ms,
+                                              grad_ms.hi)])
     del qt, kt, vt, lib, want, o, lse, dq, dk, dv, delta
     bw, _, bf16 = peaks
     out = {}
@@ -1160,9 +1360,9 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
                        "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes
                        else "bytes", "library_ms": library_ms}
-        print(f"  flash_bwd_{kernel}: kernel {ms:.3f} ms, plain (dq, dk, dv "
-              f"together) {plain_ms:.3f} ms, SDPA backward (dq, dk, dv) "
-              f"{library_ms:.3f} ms, bound {out[kernel]['bound_ms']:.3f} ms "
+        print(f"  flash_bwd_{kernel}: kernel {ms}, plain (dq, dk, dv "
+              f"together) {plain_ms}, SDPA backward (dq, dk, dv) "
+              f"{library_ms}, bound {out[kernel]['bound_ms']:.3f} ms "
               f"({out[kernel]['bound_by']})", flush=True)
     out["readings"] = vs_plain
     out["library_rel_err"] = lib_rel
@@ -1409,6 +1609,7 @@ def main() -> int:
                 print(f"  ptxas ({lib.name.split('_')[0]}):", line.strip())
     device = torch.device("cuda", 0)
     kernels = []
+    bases = {}      # the V = 1 runs the par_vec phase compares against
     for name in STENCILS:
         nd = int(name[-2])
         dims = FULL_DIMS[nd]
@@ -1416,17 +1617,17 @@ def main() -> int:
         main_run = drive_main_path(name, dims, par_time, bsize, device)
         e2e = breakdown(main_run)
         print(f"{name} {dims} T={par_time} bsize={bsize}: run of "
-              f"{main_run['iters']} iters {e2e['run_ms']:.3f} ms, "
+              f"{main_run['iters']} iters {e2e['run_ms']}, "
               f"{main_run['launches']} launches, oracle max_abs_err "
               f"{main_run['oracle_max_abs_err']:.3g}; kernel share of "
               f"device time {e2e['kernel_share_of_device']:.3f}, device "
               f"idle {e2e['device_idle_share']:.3f}", flush=True)
         res = compare_and_time(name, main_run, peaks)
-        print(f"  superstep: kernel {res['ms']:.3f} ms, plain "
-              f"{res['plain_ms']:.3f} ms, library {res['library_ms']:.3f} "
-              f"ms, "
-              f"bound {res['bound_ms']:.3f} ms ({res['bound_by']})",
-              flush=True)
+        print(f"  superstep: kernel {res['ms']}, plain {res['plain_ms']}, "
+              f"library {res['library_ms']}, bound {res['bound_ms']:.3f} ms "
+              f"({res['bound_by']})", flush=True)
+        if name in PAR_VEC:
+            bases[name] = v1_base(main_run, res)
         kernels.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
@@ -1437,13 +1638,16 @@ def main() -> int:
         })
         del main_run
         torch.cuda.empty_cache()
-    kernels.extend(program_phase(device, peaks))
-    kernels.extend(dag_phase(device, peaks))
+    kernels.extend(program_phase(device, peaks, bases))
+    kernels.extend(dag_phase(device, peaks, bases))
+    kernels.extend(par_vec_phase(bases, device, peaks))
+    torch.cuda.empty_cache()
     kernels.append(lm_phase(device, peaks))
     train = train_phase(device, peaks)
     kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")
     kernels.extend(train["kernels"])
-    print(json.dumps({"kernels": kernels, "card": smi}))
+    print(json.dumps({"kernels": [with_spread(k) for k in kernels],
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

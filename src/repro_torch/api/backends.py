@@ -101,12 +101,6 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
             raise ValueError(f"backend 'hopper' runs the clamp and periodic "
                              f"boundaries; stage {s.name} has "
                              f"{s.boundary.token()} (ROADMAP B1c)")
-    if config.par_vec != 1:
-        raise ValueError(f"backend 'hopper' runs par_vec=1 only; got "
-                         f"{config.par_vec} (ROADMAP B1d)")
-    if problem.ndim == 1:
-        raise ValueError("backend 'hopper' runs 2D and 3D grids; 1D is "
-                         "ROADMAP B1d")
     unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
     if unported:
         raise ValueError(f"backend 'hopper' runs the Table-2 stencils, "

@@ -48,10 +48,12 @@ TABLE_SMEM = {"chain": ((REC_BYTES + TICKREC_BYTES) * MAX_ENTRIES
 
 
 class Params(ctypes.Structure):
-    """``struct Params`` of ``stencil_stream.cu``, passed by value."""
+    """``struct Params`` of ``stencil_stream.cu``, passed by value; the
+    launcher fills ``vt`` and ``rows`` (``builder.cta_shape``)."""
     _fields_ = [(name, ctypes.c_int) for name in (
-        "ns", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy", "dx",
-        "hy", "hx", "per_y", "per_x", "steps", "n_entries", "n_fields")]
+        "ns", "dom", "V", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy",
+        "dx", "hy", "hx", "per_y", "per_x", "steps", "n_entries", "n_fields",
+        "vt", "rows")]
 
 
 class Entry(ctypes.Structure):

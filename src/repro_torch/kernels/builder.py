@@ -19,9 +19,13 @@ The kernel computes a stage with one of three ops: the device function of
 a Table-2 stencil (:data:`KERNEL_IDS`), a tap table for a stencil whose
 ``apply`` is an ordered tap sum (``make_star``/``make_box``,
 :func:`linear_taps`), or the weighted sum of a ``make_combine``; a DAG's
-state nodes select.  This slice covers such programs on 2D and 3D grids,
-clamp and periodic boundaries, float32, ``par_vec = 1``; ``api/backends``
-refuses the rest at plan time.
+state nodes select.  This slice covers such programs on 1D, 2D and 3D
+grids, clamp and periodic boundaries, float32, any ``par_vec``: one tick
+streams a slab of ``par_vec`` rows (planes in 3D), and the stream axis is
+padded to a slab multiple.  Rows at or past the real stream extent ``dom``
+(the grid's, plus the periodic extension) are never tapped: stream taps
+clip to ``[0, dom-1]``, and neither the kernel nor its plain version writes
+them.  ``api/backends`` refuses the rest at plan time.
 """
 from __future__ import annotations
 
@@ -107,21 +111,34 @@ def _blocked_periodic(bc, ndim: int) -> tuple:
     return tuple(k == "periodic" for k in boundary.kinds_of(bc, ndim)[1:])
 
 
+def cta_shape(geom: BlockGeometry, n_entries: int = 0) -> tuple:
+    """``(vt, rows, threads)`` of one CTA of the kernel, the rule of
+    ``stencil_stream_launch``: ``vt`` the largest divisor of ``par_vec``
+    with ``prod(bsize) * vt <= 1024`` (0 if the block plane alone exceeds
+    1024 cells), so ``vt`` rows of a slab are computed at once and each
+    thread takes ``rows = par_vec / vt`` of them; ``threads`` is ``plane *
+    vt`` or, for a table-driven body, at least ``n_entries`` (one thread
+    builds each entry's tick record), rounded up to a multiple of 32."""
+    plane, V = math.prod(geom.bsize), geom.par_vec
+    vt = max((d for d in range(1, V + 1)
+              if V % d == 0 and plane * d <= MAX_THREADS), default=0)
+    threads = -(-max(plane * vt, n_entries) // 32) * 32
+    return vt, (V // vt if vt else 0), threads
+
+
 def kernel_limits(geom: BlockGeometry, program) -> Optional[str]:
     """Why the kernel cannot run ``program`` (the chain ``((stencil, bc),
-    ...)`` or a ``DagSpec``) at ``geom`` (None if it can): one thread per
-    block-plane cell, per CTA the :func:`smem_bytes` of its rings, and, for
-    the table-driven bodies (any chain but one Table-2 stage, any DAG), the
-    capacities of their entry, stage, tap, coefficient, field-stream and
-    input tables (128 taps bound a star's radius to 31, well inside a tap's
-    signed-byte offsets), their shared memory, and a thread per entry
-    (radius-0 stages add entries but no halo, so a narrow block can have
-    fewer threads).  The main-path body reads no table, so its
-    ``par_time`` is bound only by shared memory."""
-    threads = math.prod(geom.bsize)
-    if threads > MAX_THREADS:
-        return (f"bsize {geom.bsize} needs {threads} threads per CTA "
-                f"(at most {MAX_THREADS})")
+    ...)`` or a ``DagSpec``) at ``geom`` (None if it can): a block plane of
+    at most 1024 cells (:func:`cta_shape`), per CTA the :func:`smem_bytes`
+    of its rings (``par_vec`` rows per slot), and, for the table-driven
+    bodies (any chain but one Table-2 stage, any DAG), the capacities of
+    their entry, stage, tap, coefficient, field-stream and input tables
+    (128 taps bound a star's radius to 31, well inside a tap's signed-byte
+    offsets) and their shared memory.  The main-path body reads no table,
+    so its ``par_time`` is bound only by shared memory."""
+    if not cta_shape(geom)[0]:
+        return (f"bsize {geom.bsize} needs {math.prod(geom.bsize)} threads "
+                f"per CTA (at most {MAX_THREADS})")
     smem = smem_bytes(geom, program)
     stages = _as_chain(program)
     if stages is None or kernel_body(stages) < 0:
@@ -147,14 +164,11 @@ def kernel_limits(geom: BlockGeometry, program) -> Optional[str]:
                              ("inputs to one stage", inputs, MAX_INPUTS)):
             if n > cap:
                 return f"{n} {name} exceed the kernel's table of {cap}"
-        if entries > threads:
-            return (f"{entries} fused entries ({what} x par_time) need as "
-                    f"many threads per CTA; bsize {geom.bsize} has "
-                    f"{threads}")
         smem += TABLE_SMEM[body]
     if smem > SMEM_LIMIT:
-        return (f"par_time={geom.par_time}, bsize={geom.bsize} need {smem} "
-                f"bytes of shared memory per CTA (at most {SMEM_LIMIT})")
+        return (f"par_time={geom.par_time}, bsize={geom.bsize}, "
+                f"par_vec={geom.par_vec} need {smem} bytes of shared memory "
+                f"per CTA (at most {SMEM_LIMIT})")
     return None
 
 
@@ -179,9 +193,9 @@ def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
     if geom.rad < rad:
         raise ValueError(f"geometry radius {geom.rad} is narrower than the "
                          f"program's {rad}")
-    if geom.par_vec != 1 or geom.ndim not in (2, 3):
-        raise ValueError("the streaming kernel runs 2D/3D grids at "
-                         "par_vec=1 (ROADMAP B1d)")
+    if geom.ndim not in (1, 2, 3):
+        raise ValueError(f"the streaming kernel runs 1D, 2D and 3D grids; "
+                         f"got {geom.ndim}D")
 
 
 def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
@@ -217,10 +231,15 @@ def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
             raise ValueError("out must not alias gp or aux_p")
 
 
+def _stream_dom(geom: BlockGeometry, bc0) -> int:
+    """The real stream extent: the grid's, plus the periodic extension."""
+    return geom.stream_dim + 2 * stream_extension(geom, bc0)
+
+
 def _stream_shape(geom: BlockGeometry, bc0, n_fields: int = 1) -> tuple:
     """The padded state's shape: the stream axis carries the periodic
-    extension."""
-    ns = geom.stream_dim + 2 * stream_extension(geom, bc0)
+    extension and is padded to a multiple of ``par_vec``."""
+    ns = geom.stream_slabs(_stream_dom(geom, bc0)) * geom.par_vec
     return (((n_fields,) if n_fields > 1 else ()) + (ns,)
             + geom.padded_dims)
 
@@ -256,8 +275,9 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     ``kernels/ops.pack_dag_coeffs``' float32 CPU vector; ``steps`` a host
     int.  A path graph runs the kernel's chain (or main-path) body, any
     other DAG its DAG body.  Returns ``out`` (allocated like ``gp`` when
-    None) with the compute region of every block of every field written;
-    the halo and overhang columns are left as they were."""
+    None) with the compute region of every block of every field written,
+    rows ``< dom`` of the stream; the halo and overhang columns and the
+    slab-pad rows are left as they were."""
     pairs = tuple((st, bc) for st, bc, _ in dag.stages)
     _check_stages(pairs, geom, dag_radius(dag))
     limit = kernel_limits(geom, dag)
@@ -318,7 +338,8 @@ def _stage_tables(k, stencils, ndim: int, coeffs_packed) -> None:
         k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs))
         lo += len(st.coeff_names)
         for ci, off in pairs:
-            ds, dy, dx = (off[0], 0, off[1]) if ndim == 2 else off
+            ds, dy, dx = ((off[0], 0, 0) if ndim == 1 else
+                          (off[0], 0, off[1]) if ndim == 2 else off)
             taps.append(_build.Tap(ds, dy, dx, ci))
     for i, tap in enumerate(taps):
         k.taps[i] = tap
@@ -328,14 +349,14 @@ def _stage_tables(k, stencils, ndim: int, coeffs_packed) -> None:
 
 def _program_table(stages, geom: BlockGeometry, coeffs_packed):
     """The kernel's ``Program`` table for the chain: one row per unrolled
-    entry (lag, producer ring, own ring, stage, iteration; rings in
-    block planes, laid out in value-id order with the layout's window
-    depths), one per stage (op, coefficient offset, tap range), the taps
-    and the coefficients; the main-path body reads only the
-    coefficients, so its entries, which may outnumber the table's rows,
-    are left out.  Returns ``(table, out_lag)``."""
+    entry (lag, producer ring, own ring, stage, iteration; lags and rings
+    in slabs of ``par_vec`` block planes, rings laid out in value-id order
+    with the layout's window depths), one per stage (op, coefficient
+    offset, tap range), the taps and the coefficients; the main-path body
+    reads only the coefficients, so its entries, which may outnumber the
+    table's rows, are left out.  Returns ``(table, out_lag)``."""
     plan = unroll_dag(chain_dag(stages), geom.par_time)
-    lay = dag_layout(plan, 1)
+    lay = dag_layout(plan, geom.par_vec)
     base = _ring_bases(lay.wins)
     k = _build.Program()
     _stage_tables(k, [st for st, _ in stages], geom.ndim, coeffs_packed)
@@ -356,7 +377,7 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
     whether the field is carried unchanged.  Returns ``(table, out_lag,
     n_entries)``."""
     plan = unroll_dag(dag, geom.par_time)
-    lay = dag_layout(plan, 1)
+    lay = dag_layout(plan, geom.par_vec)
     base = _ring_bases(lay.wins)
     F = plan.n_streams
     k = _build.Program()
@@ -385,21 +406,25 @@ def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
                            geom.blocked_dims)
     per = _blocked_periodic(bc0, geom.ndim)
-    if geom.ndim == 2:      # a 2D grid is a 3D one with one blocked y row
+    hy = hx = geom.size_halo
+    if geom.ndim == 1:      # a 1D grid is a 3D one with one blocked cell
+        pad = blk = cmp = dims = (1, 1)
+        per = (False, False)
+        hy = hx = 0
+    elif geom.ndim == 2:    # a 2D grid is a 3D one with one blocked y row
         pad, blk, cmp, dims = ((1,) + pad, (1,) + blk, (1,) + cmp,
                                (1,) + dims)
         per = (False,) + per
         hy = 0
-    else:
-        hy = geom.size_halo
-    ns = gp.shape[-geom.ndim]
+    ns, V = gp.shape[-geom.ndim], geom.par_vec
     params = _build.Params(
-        ns=ns, ticks=ns + out_lag, py=pad[0], px=pad[1], by=blk[0],
-        bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
-        hx=geom.size_halo, per_y=per[0], per_x=per[1], steps=steps,
-        n_entries=n_entries, n_fields=n_fields)
+        ns=ns, dom=_stream_dom(geom, bc0), V=V, ticks=ns // V + out_lag,
+        py=pad[0], px=pad[1], by=blk[0], bx=blk[1], cy=cmp[0], cx=cmp[1],
+        dy=dims[0], dx=dims[1], hy=hy, hx=hx, per_y=per[0], per_x=per[1],
+        steps=steps, n_entries=n_entries, n_fields=n_fields)
     bnum = geom.bnum
-    grid_x, grid_y = bnum[-1], (bnum[0] if geom.ndim == 3 else 1)
+    grid_x = bnum[-1] if bnum else 1
+    grid_y = bnum[0] if geom.ndim == 3 else 1
     dll = _build.stencil_stream()
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device).cuda_stream
@@ -416,10 +441,12 @@ def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
 
 # --- plain versions ----------------------------------------------------------
 
-def _extract_blocks(gp: torch.Tensor, geom: BlockGeometry) -> torch.Tensor:
-    """(ns, *padded) -> (*bnum, ns, *bsize) overlapped blocks."""
+def _extract_blocks(gp: torch.Tensor, geom: BlockGeometry,
+                    dom: int) -> torch.Tensor:
+    """(ns, *padded) -> (*bnum, dom, *bsize) overlapped blocks of the first
+    ``dom`` stream rows: the slab-pad rows past them are never tapped."""
     nb = geom.ndim - 1
-    out = gp
+    out = gp[:dom]
     for i in range(nb):
         c, b, n = geom.csize[i], geom.bsize[i], geom.bnum[i]
         idx = (torch.arange(n, device=gp.device)[:, None] * c
@@ -468,8 +495,8 @@ def _reclamp_blocks(blocks: torch.Tensor, edge_idx) -> torch.Tensor:
 
 
 def _block_getter(blocks: torch.Tensor, nb: int, r: int):
-    """Neighbour getter on ``(*bnum, ns, *bsize)`` blocks: stream taps clip
-    to ``[0, ns-1]`` and blocked-axis taps clip to the block."""
+    """Neighbour getter on ``(*bnum, dom, *bsize)`` blocks: stream taps
+    clip to ``[0, dom-1]`` and blocked-axis taps clip to the block."""
     p = blocks
     for ax in range(nb, blocks.ndim) if r else ():
         p = boundary.pad_axis(p, ax, r, r, "clamp")
@@ -483,17 +510,18 @@ def _block_getter(blocks: torch.Tensor, nb: int, r: int):
 
 def _stitch(out: torch.Tensor, blocks: torch.Tensor,
             geom: BlockGeometry) -> None:
-    """Write each block's compute region of ``(*bnum, ns, *bsize)`` blocks
-    into the padded grid ``out``."""
+    """Write each block's compute region of ``(*bnum, dom, *bsize)``
+    blocks into the first ``dom`` stream rows of the padded grid ``out``."""
     nb = geom.ndim - 1
     h = geom.size_halo
     comp = blocks[(slice(None),) * (nb + 1)
                   + tuple(slice(h, h + c) for c in geom.csize)]
-    # (*bnum, ns, *csize) -> (ns, bn0, cs0, bn1, cs1, ...)
+    # (*bnum, dom, *csize) -> (dom, bn0, cs0, bn1, cs1, ...)
     perm = (nb,) + tuple(x for i in range(nb) for x in (i, nb + 1 + i))
     widths = tuple(n * c for n, c in zip(geom.bnum, geom.csize))
-    out[(slice(None),) + tuple(slice(h, h + w) for w in widths)] = (
-        comp.permute(perm).reshape((out.shape[0],) + widths))
+    dom = blocks.shape[nb]
+    out[(slice(0, dom),) + tuple(slice(h, h + w) for w in widths)] = (
+        comp.permute(perm).reshape((dom,) + widths))
 
 
 def _stage_coeffs(stencils, coeffs_packed) -> dict:
@@ -518,13 +546,16 @@ def superstep_plain(stages, geom: BlockGeometry, gp: torch.Tensor,
     clamped by that stage's radius, or forwards its input when ``t >=
     steps``), re-impose the boundary on every value that feeds a next entry
     (clamp axes only), and write each block's compute region into ``out``.
-    It computes the kernel's values without replaying its tick
-    schedule."""
+    It computes the kernel's values without replaying its tick schedule,
+    on the stream rows ``< dom`` only: ``par_vec`` changes which rows are
+    padded, not what the real rows hold, and the slab-pad rows of ``out``
+    are left as they were."""
     nb = geom.ndim - 1
+    dom = _stream_dom(geom, stages[0][1])
     cdicts = _stage_coeffs([st for st, _ in stages], coeffs_packed)
     edge_idx = _edge_indices(geom, stages[0][1], gp.device)
-    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
-    cur = _extract_blocks(gp, geom)
+    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom, dom)
+    cur = _extract_blocks(gp, geom, dom)
     entries = unroll_dag(chain_dag(stages), geom.par_time).entries
     for i, e in enumerate(entries):
         st = e.stencil
@@ -549,21 +580,23 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     selects ``inputs[0]`` while its iteration is ``< steps``, else
     ``inputs[1]``; every value that feeds another entry is re-clamped on
     clamp axes; field ``k`` drains from ``plan.outputs[k]``, which is its
-    input stream for a field carried unchanged.  A path graph runs as
+    input stream for a field carried unchanged.  As there, only stream
+    rows ``< dom`` are computed and written.  A path graph runs as
     :func:`superstep_plain`."""
     stages = _as_chain(dag)
     if stages is not None:
         return superstep_plain(stages, geom, gp, coeffs_packed, steps, aux_p,
                                out)
     plan = unroll_dag(dag, geom.par_time)
-    lay = dag_layout(plan, 1)
+    lay = dag_layout(plan, geom.par_vec)
     F = plan.n_streams
     nb = geom.ndim - 1
+    dom = _stream_dom(geom, dag.stages[0][1])
     cdicts = _stage_coeffs([st for st, _, _ in dag.stages], coeffs_packed)
     edge_idx = _edge_indices(geom, dag.stages[0][1], gp.device)
-    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom)
+    aux_b = None if aux_p is None else _extract_blocks(aux_p, geom, dom)
     fields = (gp,) if F == 1 else gp.unbind(0)
-    vals = [_extract_blocks(f, geom) for f in fields] + [None] * len(
+    vals = [_extract_blocks(f, geom, dom) for f in fields] + [None] * len(
         plan.entries)
     last_read = {p: i for i, e in enumerate(plan.entries) for p in e.inputs}
     keep = set(plan.outputs)

@@ -4,41 +4,60 @@
 // (launched by `_superstep_dag_impl` through `superstep_chain` and
 // `superstep_dag`) for these forms: linear stage chains and stage DAGs
 // (several field streams, fan-out, fan-in through `make_combine`, state
-// nodes), `par_time` iterations unrolled into one super-step, 2D and 3D
-// grids, clamp and periodic boundaries (per axis), float32 storage, one row
-// or plane per tick (par_vec = 1).  A stage is one of the four Table-2
-// stencils (radius 1), a tap table for a stencil whose update is an ordered
-// sum of coefficient x neighbour (`make_star`, `make_box`; any radius), or
-// a combine `w0*x0 + w1*x1 + ...` of its inputs' centres.  It computes what
-// that kernel computes: the same padded input and output layout and, in
-// the compute region it writes, the same values.
+// nodes), `par_time` iterations unrolled into one super-step, 1D, 2D and 3D
+// grids, clamp and periodic boundaries (per axis), float32 storage, and
+// slabs of V = `par_vec` rows (planes in 3D) per tick.  A stage is one of
+// the four Table-2 stencils (radius 1), a tap table for a stencil whose
+// update is an ordered sum of coefficient x neighbour (`make_star`,
+// `make_box`; any radius), or a combine `w0*x0 + w1*x1 + ...` of its
+// inputs' centres.  It computes what that kernel computes: the same padded
+// input and output layout and, in the compute region it writes, the same
+// values.
 //
-// Design.  One CTA per overlapped block (grid = bnum).  One thread per block
-// column (2D) or per (y, x) cell of the block plane (3D).  The CTA streams
-// axis 0 through the unrolled entries, described by the `Program` table the
-// launcher builds from `repro_torch.programs.dag_layout`: per entry its lag
-// behind the input streams, its producers' rings (base and slot count) and
-// its own ring.  Shared memory holds one ring of block planes per
-// producer: each field stream that an entry reads and every entry that
-// another entry reads; a value that only feeds the output writes straight
-// to device memory, and only the `csize` columns of its block.  A ring is
-// as deep as its consumers need: 2R+1 slots for a radius-R consumer one
-// level below, deeper where an edge skips levels (the short branch of a
-// diamond, a state node's previous value).  At tick t the CTA pushes input
-// row t of each field stream (coalesced, prefetched one tick ahead into a
-// register), then entry i computes row j = t - lag_i from rows j-R..j+R of
-// its producers' rings; a barrier follows each entry, so a producer's row
-// is in its ring before its consumer reads it, and the layout's window
-// depths guarantee that no slot is overwritten while it is still read.
-// Stream-axis taps clip to [0, ns-1] of the stream, which for a periodic
-// stream axis is the grid extended by the halo on each side (the wrap is
-// staged in device memory by kernels/ops.py); blocked-axis taps that leave
-// the block are clamped to it — garbage, but inside the halo the overlap
-// discards (the halo is rad * par_time, rad the DAG's critical-path
-// radius).  A chain entry whose iteration is >= `steps` forwards its centre
-// tap (PE forwarding); in a DAG the state nodes forward: each updated field
-// takes its new value while the iteration is < `steps`, else its previous
-// one, and the stages of later iterations compute nothing.
+// Design.  One CTA per overlapped block (grid = bnum; one CTA for a 1D
+// grid, the TPU's grid (1,)).  The CTA streams axis 0 one slab of V rows
+// per tick through the unrolled entries, described by the `Program` table
+// the launcher builds from `repro_torch.programs.dag_layout(plan, V)`: per
+// entry its lag behind the input streams and its producers' and own rings,
+// all counted in slabs.  Shared memory holds one ring per producer: each
+// field stream that an entry reads and every entry that another entry
+// reads; a value that only feeds the output writes straight to device
+// memory, and only the `csize` columns of its block.  A ring of W slots
+// holds W*V block planes, and row x of the stream sits in plane x mod W*V
+// (slab s in slot s mod W), so a ring is addressed by row as when V = 1.
+// A ring is as deep as its consumers need: 2R+1 slots for a consumer of
+// slab radius R = ceil(radius / V) one level below, deeper where an edge
+// skips levels (the short branch of a diamond, a state node's previous
+// value).  At tick t the CTA pushes slab t of each field stream (coalesced;
+// each thread's first rows prefetched one tick ahead into registers), then
+// entry i computes slab j = t - lag_i, row by row, from rows of its
+// producers' rings up to R slabs either side; a barrier follows each entry,
+// so a producer's slab is in its ring before its consumer reads it, and the
+// layout's window depths guarantee that no slot is overwritten while it is
+// still read.  One barrier per entry and tick is one per V rows.
+//
+// Threads.  A CTA computes `vt` rows of a slab at once, `vt` the largest
+// divisor of V with plane * vt <= 1024 (plane = the block's cells in a row
+// or plane); thread tid < plane * vt takes cell tid mod plane of rows tv,
+// tv + vt, ... (tv = tid / plane) of each slab, `rows` = V / vt in all.  The
+// table-driven bodies also need a thread per entry to build the tick
+// records, so the CTA has max(plane * vt, entries) threads, rounded up to a
+// multiple of 32 (`builder.cta_shape` mirrors the launcher's rule); threads
+// past plane * vt only build records and meet the barriers.
+//
+// Stream rows.  The stream extent `ns` is padded to a multiple of V past
+// the real extent `dom` (the grid's, plus the periodic extension, which for
+// a periodic stream axis is the grid extended by the halo on each side,
+// staged in device memory by kernels/ops.py).  Stream-axis taps clip to
+// [0, dom-1], as the TPU kernel's do; rows at or past `dom` are never
+// tapped, so they are neither read, computed nor written (the TPU kernel
+// computes and discards them).  Blocked-axis taps that leave the block are
+// clamped to it — garbage, but inside the halo the overlap discards (the
+// halo is rad * par_time, rad the DAG's critical-path radius).  A chain
+// entry whose iteration is >= `steps` forwards its centre tap (PE
+// forwarding); in a DAG the state nodes forward: each updated field takes
+// its new value while the iteration is < `steps`, else its previous one,
+// and the stages of later iterations compute nothing.
 //
 // Boundaries.  On grid-edge blocks every value that enters a ring is taken
 // at the position clamped to the grid along each clamp axis (the
@@ -51,31 +70,33 @@
 // the same rule along each axis.  Constant and reflect BCs, which may
 // differ per consumer, need that read-time re-imposition (ROADMAP B1c).
 //
-// Hotspot's `power` is read at the centre of row j straight from device
+// Hotspot's `power` is read at the centre of each row straight from device
 // memory, which L2 serves.  The arithmetic uses __fmul_rn/__fadd_rn, which
 // nvcc never contracts into FMAs, in the operation order of
 // src/repro_torch/core/stencils.py (a tap table in the order of its
-// `apply`), so the kernel and its plain version agree bit for bit.
+// `apply`), row by row, so the kernel and its plain version agree bit for
+// bit, and a run at any V equals the run at V = 1.
 //
-// Three loop bodies, one template.  With 8 warps to an SM (2D), every
-// instruction an entry adds is paid on each of its rows, so the kernel has
-// a body for the paper's main path — one Table-2 stage (kOp = its id): lag
-// i+1, 3-slot rings, coefficients in registers — one for any chain (kOp =
-// -1) and one for any DAG (kOp = -2).  The table-driven bodies copy the
-// table into static shared memory at start (`Rec`/`DagRec`: one flat
-// record per entry, a Table-2 stage's coefficients inline; the taps and
-// coefficients of tap tables), and at the top of each tick thread i
-// computes entry i's ring offsets for that tick (`TickRec`/`DagTick`), so
-// an entry costs its threads one record read and no division.  So these
-// bodies need at least as many threads as entries, which a program of
-// radius-0 stages (entries but no halo) on a narrow block can break: the
-// launcher refuses it (as does `kernel_limits`).  Striding these two loops
-// over the entries instead cost the tap chain about a fifth on an H100
-// (chip_smoke.py's advect_diffuse2d).  The chain body still costs more per
-// entry than the main-path body: on an H100 (chip_smoke.py), 8 entries of
-// diffusion2d and a radius-0 damp over 16384^2 take 1.8x the time of 8
-// diffusion2d entries.  The DAG body adds the field streams, several
-// producers per entry, the combine and the state-node select.
+// Three loop bodies, one template.  With 8 warps to an SM (2D, V = 1),
+// every instruction an entry adds is paid on each of its rows, so the
+// kernel has a body for the paper's main path — one Table-2 stage (kOp =
+// its id): lag i+1 slabs, 3-slot rings, coefficients in registers — one for
+// any chain (kOp = -1) and one for any DAG (kOp = -2).  Each comes in three
+// forms (`Form`): V = 1, where V, vt and the row loop fold away; one row
+// of each slab per thread; several rows per thread.  Slab bookkeeping with
+// a runtime V cost the V = 1 main path 12% and the DAG body 28% on an H100,
+// hence the forms.  The table-driven bodies copy the table into static
+// shared memory at start (`Rec`/`DagRec`: one flat record per entry, rings
+// in rows, a Table-2 stage's coefficients inline; the taps and coefficients
+// of tap tables), and at the top of each tick thread i computes entry i's
+// ring slots for that tick's slab (`TickRec`/`DagTick`), so an entry costs
+// its threads one record read and no division.  Striding these two loops over the entries instead cost the
+// tap chain about a fifth on an H100 (chip_smoke.py's advect_diffuse2d).
+// The chain body still costs more per entry than the main-path body: on an
+// H100 (chip_smoke.py), 8 entries of diffusion2d and a radius-0 damp over
+// 16384^2 take 1.8x the time of 8 diffusion2d entries.  The DAG body adds
+// the field streams, several producers per entry, the combine and the
+// state-node select.
 //
 // Tables.  Entries, stages, taps, the coefficients of all stages
 // (concatenated in stage order) and the field streams travel in one
@@ -85,16 +106,20 @@
 // memory to the rings, the DAG body 11,520 (`kernels/_build.py::
 // TABLE_SMEM`).
 //
-// Bound.  Device-memory bytes: each block reads `ns * bsize` cells per field
-// stream (plus the same of `power`) and writes `ns * csize` cells per field
-// per super-step (`kernels/ops.py::dma_traffic_bytes`); the arithmetic is a
-// few FLOPs per byte, far below the card's balance point.
+// Bound.  Device-memory bytes: each block reads `dom * bsize` cells per
+// field stream (plus the same of `power`) and writes `dom * csize` cells per
+// field per super-step (`kernels/ops.py::dma_traffic_bytes` bills the slab
+// pad too, as the TPU kernel moves it); the arithmetic is a few FLOPs per
+// byte, far below the card's balance point.
 //
 // Left on the table by this first design: no cp.async or TMA (a tick waits
-// on one register-prefetched load per thread and stream), one CTA barrier
+// on register-prefetched loads, and only some are prefetched: a thread's
+// first 4 rows of a slab in the main-path body, its first row in the chain
+// body and of the first two field streams in the DAG body), one CTA barrier
 // per entry and tick, table-driven bodies that cost more per entry than
-// the main-path body, and a CTA count of `num_blocks` — 69 for the 16384^2
-// grid at bsize 256 — against 132 SMs.
+// the main-path body, a 1D grid on one CTA whose one active thread at V = 1
+// spends about 2 us a tick, and a CTA count of `num_blocks` — 69 for the
+// 16384^2 grid at bsize 256 — against 132 SMs.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -106,15 +131,20 @@ constexpr int kMaxTaps = 128;
 constexpr int kMaxCoeffs = 192;
 constexpr int kMaxFields = 4;
 constexpr int kMaxInputs = 4;
+constexpr int kMaxThreads = 1024;
 
 // The structs are passed from Python (ctypes) and so live outside the
 // unnamed namespace: the exported launcher's signature names them.
 
 // Extents in cells.  A 2D grid is a 3D one with a single blocked y row:
-// py = by = cy = dy = 1 and hy = 0.
+// py = by = cy = dy = 1 and hy = 0; a 1D grid one with a single blocked
+// cell (all of them 1, hy = hx = 0).
 struct Params {
-  int ns;           // stream rows (2D) / planes (3D), periodic extension in
-  int ticks;        // ns + output lag
+  int ns;           // stream rows (2D) / planes (3D), periodic extension in,
+                    // padded to a multiple of V
+  int dom;          // real stream rows: taps clip to [0, dom-1]
+  int V;            // par_vec: rows per slab, one slab per tick
+  int ticks;        // ns / V + output lag (in slabs)
   int py, px;       // padded extents of the blocked dims
   int by, bx;       // block extents
   int cy, cx;       // compute extents
@@ -124,9 +154,11 @@ struct Params {
   int steps;        // iterations that compute; later ones forward
   int n_entries;    // unrolled entries
   int n_fields;     // field streams (1 but for a DAG)
+  int vt;           // rows of a slab computed at once (set by the launcher)
+  int rows;         // rows of a slab per thread, V / vt (the launcher)
 };
 
-// One unrolled entry.  Rings are counted in block planes; `out_slots` is 0
+// One unrolled entry.  Lags and rings are counted in slabs; `out_slots` is 0
 // for a value that no entry reads (no ring).  `stage` -1 marks a DAG's
 // state node, which selects input 0 (the new value) while its iteration is
 // < steps, else input 1 (the field's previous value).  `field` is the
@@ -145,7 +177,8 @@ struct Stage {
   short op, coeff_lo, tap_lo, tap_n;
 };
 
-// Offsets (stream, y, x; y = 0 in 2D) and the stage-local coefficient index.
+// Offsets (stream, y, x; y = 0 in 2D, both 0 in 1D) and the stage-local
+// coefficient index.
 struct Tap {
   signed char ds, dy, dx;
   unsigned char ci;
@@ -177,10 +210,10 @@ constexpr int kDagBody = -2;
 constexpr float kTempAmb = 80.0f;  // Hotspot ambient temperature
 
 // Ring offsets of one cell and its blocked-axis neighbours (clamped to the
-// block), and its device-memory offset within a row/plane.
+// block), and its device-memory offset within a row/plane (a padded plane
+// holds far fewer than 2^31 cells).
 struct Pos {
-  int c, n, s, w, e;
-  size_t g;
+  int c, n, s, w, e, g;
 };
 
 __device__ __forceinline__ Pos pos_at(int y, int x, const Params& p, int sy,
@@ -191,7 +224,7 @@ __device__ __forceinline__ Pos pos_at(int y, int x, const Params& p, int sy,
   q.s = min(y + 1, p.by - 1) * p.bx + x;
   q.w = y * p.bx + max(x - 1, 0);
   q.e = y * p.bx + min(x + 1, p.bx - 1);
-  q.g = (size_t)(sy + y) * p.px + sx + x;
+  q.g = (sy + y) * p.px + sx + x;
   return q;
 }
 
@@ -262,15 +295,25 @@ __device__ __forceinline__ float hotspot3d(const float* up, const float* mid,
 }
 
 // Slot of a ring row: `m` is the slot of row j, `r` a row within W-1 of j
-// (true of every tap: |r - j| <= R < W).  One wrap, no division.
+// (true of every tap: |r - j| <= radius <= R*V < W*V rows).  One wrap, no
+// division.
 __device__ __forceinline__ int slot_of(int m, int r, int j, int W) {
   const int s = m + r - j;
   return s < 0 ? s + W : (s >= W ? s - W : s);
 }
 
-// One entry of a chain, flattened for shared memory: its ring layout, its
-// stage's op and coefficient/tap ranges, and a Table-2 stage's
-// coefficients inline.
+// The slots of rows x-1 and x+1, clipped to [0, dom-1], around slot m of
+// row x in a ring of W rows: a Table-2 stencil's `up` and `dn`.
+__device__ __forceinline__ int slot_up(int m, int x, int W) {
+  return x == 0 ? m : (m == 0 ? W - 1 : m - 1);
+}
+__device__ __forceinline__ int slot_dn(int m, int x, int W, int dom) {
+  return x == dom - 1 ? m : (m == W - 1 ? 0 : m + 1);
+}
+
+// One entry of a chain, flattened for shared memory: its ring layout (in
+// rows: a slot of the table is V rows), its stage's op and coefficient/tap
+// ranges, and a Table-2 stage's coefficients inline.
 struct Rec {  // 80 bytes; the padding keeps `c` 16-byte aligned
   int lag, in_base, in_slots, out_base;
   int out_slots, op, iteration, tap_lo;
@@ -280,13 +323,15 @@ struct Rec {  // 80 bytes; the padding keeps `c` 16-byte aligned
 // kernels/_build.py prices the chain body's tables with REC_BYTES
 static_assert(sizeof(Rec) == 80, "Rec layout changed");
 
-// One entry at one tick: the row j it computes, whether it is in the stream
-// (bit 0) and computes rather than forwards (bit 1), the slot m of row j in
-// its producer's ring, and the ring offsets (in floats) of rows j-1, j, j+1
-// and of its own output slot.
+// One entry at one tick: the slab j it computes, whether it is in the
+// stream (bit 0) and computes rather than forwards (bit 1), the slot m of
+// the slab's first row in its producer's ring (relative to the ring's
+// base), and the offset (in floats) of that row in its own ring.  Row r of
+// the slab sits r slots (planes) further in both: a ring's depth is a
+// multiple of V.
 struct TickRec {  // 32 bytes: two 16-byte loads
-  int j, flags, m, pad;
-  int up, mid, dn, outo;
+  int j, flags, m, outo;
+  int pad0, pad1, pad2, pad3;
 };
 // ... and TICKREC_BYTES
 static_assert(sizeof(TickRec) == 32, "TickRec layout changed");
@@ -294,7 +339,8 @@ static_assert(sizeof(TickRec) == 32, "TickRec layout changed");
 // A tap table: sum over the stage's `tap_n` taps from `tap_lo`, in table
 // order, of coefficient x neighbour, the first term alone (as
 // `make_star`/`make_box` `apply`).  `ring` is the producer's ring of W
-// slots, `m` the slot of row j; `taps` and `c` the tables in shared memory.
+// rows, `m` the slot of row j; `taps` and `c` the tables in shared memory.
+// Stream taps clip to [0, dom-1].
 __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
                                          int tap_lo, int tap_n, int coeff_lo,
                                          const float* ring, int W, int m,
@@ -303,7 +349,7 @@ __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
   float acc = 0.0f;
   for (int n = 0; n < tap_n; ++n) {
     const Tap tp = taps[tap_lo + n];
-    const int r = min(max(j + tp.ds, 0), p.ns - 1);
+    const int r = min(max(j + tp.ds, 0), p.dom - 1);
     const int yy = min(max(y + tp.dy, 0), p.by - 1);
     const int xx = min(max(x + tp.dx, 0), p.bx - 1);
     const float term = mul(c[coeff_lo + tp.ci],
@@ -313,8 +359,9 @@ __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
   return acc;
 }
 
-// One entry of a DAG, flattened for shared memory: its ring layout, op,
-// inputs, coefficient/tap ranges, and a Table-2 stage's coefficients.
+// One entry of a DAG, flattened for shared memory: its ring layout (in
+// rows), op, inputs, coefficient/tap ranges, and a Table-2 stage's
+// coefficients.
 struct DagRec {  // 112 bytes; `c` 16-byte aligned
   int lag, op, iteration, field;
   int out_base, out_slots, n_in, tap_lo;
@@ -326,16 +373,66 @@ struct DagRec {  // 112 bytes; `c` 16-byte aligned
 // kernels/_build.py prices the DAG body's tables with DAGREC_BYTES
 static_assert(sizeof(DagRec) == 112, "DagRec layout changed");
 
-// One DAG entry at one tick: the row j, flags as in `TickRec`, the slot m
-// of row j in input 0's ring and the offsets (in floats) of its own output
-// slot, of rows j-1 and j+1 of input 0, and of row j of every input.
+// One DAG entry at one tick: the slab j, flags as in `TickRec`, the offset
+// (in floats) of the slab's first row in its own ring, its slot in input
+// 0's ring (relative to the ring's base), and its offset in every input's
+// ring.
 struct DagTick {  // 48 bytes: three 16-byte loads
   int j, flags, outo, m;
-  int up, dn, pad0, pad1;
+  int pad0, pad1, pad2, pad3;
   int mid[kMaxInputs];
 };
 // ... and DAGTICK_BYTES
 static_assert(sizeof(DagTick) == 48, "DagTick layout changed");
+
+// This thread's rows of slab 0 of one field stream (`src`, its padded
+// grid at the thread's cell) into `nxt`: the first kPre of its `nr` rows.
+template <int kPre>
+__device__ __forceinline__ void prefetch_slab(float* nxt, const float* src,
+                                              int tv, int vt, int nr,
+                                              int dom, size_t pstride) {
+#pragma unroll
+  for (int q = 0; q < kPre; ++q) {
+    const int x = tv + q * vt;
+    nxt[q] = q < nr && x < dom ? __ldg(src + (size_t)x * pstride) : 0.0f;
+  }
+}
+
+// Push this thread's rows of slab t of one field stream (`src` at the
+// thread's cell) into `ring` (WV rows; none if null) at plane cell `cell`,
+// and write them to `dst` (at the thread's cell; none if null).  The first
+// kPre rows come from `nxt`, which then takes the same rows of slab t+1;
+// later rows, and all of them when `nxt` is null, are loaded now.
+template <int kPre>
+__device__ __forceinline__ void push_slab(float* nxt, const float* src,
+                                          float* ring, int WV, float* dst,
+                                          int t, int tv, int vt, int nr,
+                                          int V, int dom, size_t pstride,
+                                          int plane, int cell) {
+  const int x0 = t * V;
+  const int m0 = ring ? x0 % WV : 0;  // slot of the slab's row 0
+  const auto put = [&](int r, int x, float v) {
+    if (ring) ring[(m0 + r) * plane + cell] = v;
+    if (dst) dst[(size_t)x * pstride] = v;
+  };
+  if (nxt) {
+#pragma unroll
+    for (int q = 0; q < kPre; ++q) {
+      const int r = tv + q * vt;
+      const int x = x0 + r;
+      if (q < nr && x < dom) {
+        put(r, x, nxt[q]);
+        if (x + V < dom) nxt[q] = __ldg(src + (size_t)(x + V) * pstride);
+      }
+    }
+  }
+  for (int q = nxt ? kPre : 0; q < nr; ++q) {
+    const int r = tv + q * vt;
+    const int x = x0 + r;
+    if (x >= dom) break;
+    put(r, x, __ldg(src + (size_t)x * pstride));
+  }
+}
 
 // A Table-2 stencil at the cell `q`, rows `up`, `mid`, `dn`.
 template <int kOp>
@@ -366,19 +463,58 @@ __device__ __forceinline__ float table2_op(int op, const float* up,
   }
 }
 
+// How a thread covers a slab (a template argument, so that the V = 1 path
+// folds V, vt and the row loop away): V = 1; one row of each slab per
+// thread (rows == 1); or several rows.
+enum Form { kVecOne = 0, kOneRow = 1, kRows = 2 };
+
+// Calls f(r, x) for this thread's rows of slab j below `dom` in turn: r the
+// row within the slab, x the stream row.
+template <int kForm, class F>
+__device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
+                                         int nr, int dom, F&& f) {
+  if constexpr (kForm != kRows) {
+    const int x = j * V + tv;
+    // at V = 1 the stream is not padded: every row of a slab is below dom
+    if (kForm == kVecOne || x < dom) f(tv, x);
+  } else {
+    for (int u = 0; u < nr; ++u) {
+      const int r = tv + u * vt;
+      const int x = j * V + r;
+      if (x >= dom) break;
+      f(r, x);
+    }
+  }
+}
+
 // kOp in 0..3: a single-stage chain of that Table-2 stencil.  kOp = -1: any
 // chain of the table.  kOp = -2: any DAG of the table; `gp` and `out` then
-// hold `n_fields` padded grids one after the other.
-template <int kOp>
-__global__ void __launch_bounds__(1024)
+// hold `n_fields` padded grids one after the other.  kForm: a `Form`.  The
+// main-path body asks for 32 registers, so that two CTAs of 1024 threads
+// (3D, 32 x 32) fit an SM, but not with several rows per thread: there it
+// would spill, and from V = 4 in 3D the rings fit one CTA an SM anyway.
+template <int kOp, int kForm>
+__global__ void __launch_bounds__(1024,
+                                  kOp >= 0 && kForm != kRows ? 2 : 1)
     stream_kernel(const float* __restrict__ gp, const float* __restrict__ aux,
                   float* __restrict__ out, const Params p,
                   const __grid_constant__ Program k) {
   extern __shared__ float win[];  // the rings, in value-id order
+  constexpr bool kV1 = kForm == kVecOne;
   const int plane = p.by * p.bx;
   const int tid = threadIdx.x;
-  const int ty = tid / p.bx;
-  const int tx = tid - ty * p.bx;
+  const int V = kV1 ? 1 : p.V;
+  const int vt = kV1 ? 1 : p.vt;
+  const int nr = kV1 ? 1 : p.rows;
+  const int nslabs = p.ns / V;
+  // thread tid < plane * vt takes cell tid mod plane of rows tv, tv + vt,
+  // ... of each slab; the others build records and meet the barriers (and
+  // touch no memory with their cell)
+  const bool act = tid < plane * vt;
+  const int tv = kV1 ? 0 : tid / plane;
+  const int cell = tid - tv * plane;
+  const int ty = cell / p.bx;
+  const int tx = cell - ty * p.bx;
   const int sy = blockIdx.y * p.cy;  // block start in padded coordinates
   const int sx = blockIdx.x * p.cx;
 
@@ -393,56 +529,63 @@ __global__ void __launch_bounds__(1024)
   const int ex = min(max(tx, lo_x), hi_x);
   const Pos own = pos_at(ty, tx, p, sy, sx);
   const Pos edge = pos_at(ey, ex, p, sy, sx);
-  const bool writes = ty >= p.hy && ty < p.hy + p.cy && tx >= p.hx &&
+  const bool writes = act && ty >= p.hy && ty < p.hy + p.cy && tx >= p.hx &&
                       tx < p.hx + p.cx;
   const size_t pstride = (size_t)p.py * p.px;
 
   if constexpr (kOp >= 0) {
-    float next = __ldg(gp + own.g);
-    // the main path: entry i lags i+1 rows and reads ring i of 3 slots
+    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs
+    const int WV = 3 * V;
+    constexpr int kPre = kForm == kRows ? 4 : 1;
+    float nxt[kPre];
+    if (act) prefetch_slab<kPre>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
     float c[8];
     for (int z = 0; z < 8; ++z) c[z] = k.c[z];
     for (int t = 0; t < p.ticks; ++t) {
-      if (t < p.ns) {
-        const float v = next;
-        if (t + 1 < p.ns) next = __ldg(gp + (size_t)(t + 1) * pstride + own.g);
-        win[(t % 3) * plane + tid] = v;
+      if (act && t < nslabs) {
+        push_slab<kPre>(nxt, gp + own.g, win, WV, nullptr, t, tv, vt, nr, V,
+                  p.dom, pstride, plane, cell);
       }
       __syncthreads();
       for (int i = 0; i < p.n_entries; ++i) {
         const int j = t - (i + 1);  // CTA-uniform
-        if (j >= 0 && j < p.ns) {
-          const float* ring = win + i * 3 * plane;
-          const float* up = ring + (max(j - 1, 0) % 3) * plane;
-          const float* mid = ring + (j % 3) * plane;
-          const float* dn = ring + (min(j + 1, p.ns - 1) % 3) * plane;
+        if (act && j >= 0 && j < nslabs) {
+          const float* ring = win + i * WV * plane;
+          const int m0 = (j % 3) * V;
           const bool last = i == p.n_entries - 1;
           const Pos q = last ? own : edge;
-          const float val =
-              i < p.steps
-                  ? table2<kOp>(up, mid, dn, q, c, aux, (size_t)j * pstride)
-                  : mid[q.c];
-          if (!last) {
-            win[((i + 1) * 3 + j % 3) * plane + tid] = val;
-          } else if (writes) {
-            out[(size_t)j * pstride + own.g] = val;
-          }
+          for_rows<kForm>(j, V, tv, vt, nr, p.dom, [&](int r, int x) {
+            const int m = m0 + r;
+            const float* up = ring + slot_up(m, x, WV) * plane;
+            const float* mid = ring + m * plane;
+            const float* dn = ring + slot_dn(m, x, WV, p.dom) * plane;
+            const float val =
+                i < p.steps
+                    ? table2<kOp>(up, mid, dn, q, c, aux, (size_t)x * pstride)
+                    : mid[q.c];
+            if (!last) {
+              win[((i + 1) * WV + m) * plane + cell] = val;
+            } else if (writes) {
+              out[(size_t)x * pstride + own.g] = val;
+            }
+          });
         }
         __syncthreads();
       }
     }
   } else if constexpr (kOp == kChainBody) {
-    float next = __ldg(gp + own.g);
     __shared__ Rec rec[kMaxEntries];
     __shared__ TickRec trec[kMaxEntries];
     __shared__ Tap s_taps[kMaxTaps];
     __shared__ float s_c[kMaxCoeffs];
-    if (tid < p.n_entries) {  // one thread per entry (launcher checks)
+    if (tid < p.n_entries) {  // a thread per entry (the launcher's rule)
       const Entry en = k.e[tid];
       const Stage st = k.s[en.stage];
-      Rec r = {en.lag,       en.in_base[0], en.in_slots[0], en.out_base,
-               en.out_slots, st.op,         en.iteration,  st.tap_lo,
-               st.tap_n,     st.coeff_lo,   0,             0};
+      // rings in rows: a slot of the table is V block planes
+      Rec r = {en.lag,          en.in_base[0] * V, en.in_slots[0] * V,
+               en.out_base * V, en.out_slots * V,  st.op,
+               en.iteration,    st.tap_lo,         st.tap_n,
+               st.coeff_lo,     0,                 0};
       for (int z = 0; z < 8; ++z) {
         r.c[z] = st.op != kTapOp && st.coeff_lo + z < kMaxCoeffs
                      ? k.c[st.coeff_lo + z]
@@ -455,59 +598,59 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
     // the input stream's ring is entry 0's producer
     float* const stream_ring = win + rec[0].in_base * plane;
-    const unsigned stream_slots = rec[0].in_slots;
+    const int stream_rows = rec[0].in_slots;
+    float nxt[1];
+    if (act) prefetch_slab<1>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
     for (int t = 0; t < p.ticks; ++t) {
-      if (t < p.ns) {
-        const float v = next;
-        if (t + 1 < p.ns) next = __ldg(gp + (size_t)(t + 1) * pstride + own.g);
-        stream_ring[((unsigned)t % stream_slots) * plane + tid] = v;
+      if (act && t < nslabs) {
+        push_slab<1>(nxt, gp + own.g, stream_ring, stream_rows, nullptr, t, tv,
+                  vt, nr, V, p.dom, pstride, plane, cell);
       }
-      if (tid < p.n_entries) {  // entry tid's offsets at this tick
+      if (tid < p.n_entries) {  // entry tid's slots at this tick
         const Rec& e = rec[tid];
         TickRec r;
         r.j = t - e.lag;
-        r.flags = (r.j >= 0 && r.j < p.ns) | ((e.iteration < p.steps) << 1);
-        const int jj = min(max(r.j, 0), p.ns - 1);
-        const int W = e.in_slots;
-        r.m = (unsigned)jj % (unsigned)W;
-        r.pad = 0;
-        r.mid = (e.in_base + r.m) * plane;
-        r.up = (e.in_base + slot_of(r.m, max(jj - 1, 0), jj, W)) * plane;
-        r.dn = (e.in_base + slot_of(r.m, min(jj + 1, p.ns - 1), jj, W)) *
-               plane;
+        r.flags = (r.j >= 0 && r.j < nslabs) | ((e.iteration < p.steps) << 1);
+        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
+        r.m = x0 % (unsigned)e.in_slots;
         r.outo = e.out_slots
-                     ? (e.out_base + (unsigned)jj % (unsigned)e.out_slots) *
-                           plane
+                     ? (e.out_base + x0 % (unsigned)e.out_slots) * plane
                      : 0;
+        r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
         trec[tid] = r;
       }
       __syncthreads();
       for (int i = 0; i < p.n_entries; ++i) {
         const TickRec r = trec[i];
-        if (r.flags & 1) {
+        if (act && (r.flags & 1)) {
           const Rec& en = rec[i];
-          const int j = r.j;
           const bool last = i == p.n_entries - 1;
           const Pos q = last ? own : edge;
-          const size_t row = (size_t)j * pstride;
-          float val;
-          if (!(r.flags & 2)) {
-            val = win[r.mid + q.c];
-          } else if (en.op == kTapOp) {
-            val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo,
-                          win + en.in_base * plane, en.in_slots, r.m, plane,
-                          j, last ? ty : ey, last ? tx : ex, p);
-          } else {
-            float c[8];
-            for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-            val = table2_op(en.op, win + r.up, win + r.mid, win + r.dn, q, c,
-                            aux, row);
-          }
-          if (!last) {
-            win[r.outo + tid] = val;
-          } else if (writes) {
-            out[row + own.g] = val;
-          }
+          const float* ring = win + en.in_base * plane;
+          const int W = en.in_slots;
+          for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+            const int m = r.m + row;
+            float val;
+            if (!(r.flags & 2)) {
+              val = ring[m * plane + q.c];
+            } else if (en.op == kTapOp) {
+              val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo,
+                            ring, W, m, plane, x, last ? ty : ey,
+                            last ? tx : ex, p);
+            } else {
+              float c[8];
+              for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+              val = table2_op(en.op, ring + slot_up(m, x, W) * plane,
+                              ring + m * plane,
+                              ring + slot_dn(m, x, W, p.dom) * plane, q, c,
+                              aux, (size_t)x * pstride);
+            }
+            if (!last) {
+              win[r.outo + row * plane + cell] = val;
+            } else if (writes) {
+              out[(size_t)x * pstride + own.g] = val;
+            }
+          });
         }
         __syncthreads();
       }
@@ -518,14 +661,14 @@ __global__ void __launch_bounds__(1024)
     __shared__ DagTick trec[kMaxEntries];
     __shared__ Tap s_taps[kMaxTaps];
     __shared__ float s_c[kMaxCoeffs];
-    if (tid < p.n_entries) {  // one thread per entry (launcher checks)
+    if (tid < p.n_entries) {  // a thread per entry (the launcher's rule)
       const Entry en = k.e[tid];
       DagRec r = {};
       r.lag = en.lag;
       r.iteration = en.iteration;
       r.field = en.field;
-      r.out_base = en.out_base;
-      r.out_slots = en.out_slots;
+      r.out_base = en.out_base * V;
+      r.out_slots = en.out_slots * V;
       r.n_in = en.n_in;
       r.op = kSelectOp;
       if (en.stage >= 0) {
@@ -541,8 +684,8 @@ __global__ void __launch_bounds__(1024)
         }
       }
       for (int z = 0; z < kMaxInputs; ++z) {
-        r.in_base[z] = en.in_base[z];
-        r.in_slots[z] = max((int)en.in_slots[z], 1);
+        r.in_base[z] = en.in_base[z] * V;
+        r.in_slots[z] = max((int)en.in_slots[z], 1) * V;
       }
       rec[tid] = r;
     }
@@ -550,50 +693,49 @@ __global__ void __launch_bounds__(1024)
     for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
     __syncthreads();
     const size_t fstride = (size_t)p.ns * pstride;  // one field's grid
-    float next[kMaxFields];
+    // the first two field streams are prefetched a tick ahead, later ones
+    // loaded as they are pushed: four fields' registers spill
+    constexpr int kPreFields = 2;
+    float nxt[kPreFields][1];
 #pragma unroll
-    for (int f = 0; f < kMaxFields; ++f) {
-      if (f < p.n_fields) next[f] = __ldg(gp + f * fstride + own.g);
+    for (int f = 0; f < kPreFields; ++f) {
+      if (act && f < p.n_fields) {
+        prefetch_slab<1>(nxt[f], gp + f * fstride + own.g, tv, vt, nr,
+                         p.dom, pstride);
+      }
     }
     for (int t = 0; t < p.ticks; ++t) {
-      if (t < p.ns) {
-        // push row t of every field stream; a field carried unchanged is
+      if (act && t < nslabs) {
+        // push slab t of every field stream; a field carried unchanged is
         // written out as it streams in
-        const size_t row = (size_t)t * pstride;
 #pragma unroll
         for (int f = 0; f < kMaxFields; ++f) {
           if (f < p.n_fields) {
-            const float v = next[f];
-            if (t + 1 < p.ns) {
-              next[f] = __ldg(gp + f * fstride + row + pstride + own.g);
-            }
             const Stream st = k.f[f];
-            if (st.slots) win[(st.base + t % st.slots) * plane + tid] = v;
-            if (st.out && writes) out[f * fstride + row + own.g] = v;
+            push_slab<1>(
+                f < kPreFields ? nxt[f % kPreFields] : nullptr,
+                gp + f * fstride + own.g,
+                st.slots ? win + st.base * V * plane : nullptr, st.slots * V,
+                st.out && writes ? out + f * fstride + own.g : nullptr, t, tv,
+                vt, nr, V, p.dom, pstride, plane, cell);
           }
         }
       }
-      if (tid < p.n_entries) {  // entry tid's offsets at this tick
+      if (tid < p.n_entries) {  // entry tid's slots at this tick
         const DagRec& e = rec[tid];
         DagTick r;
         r.j = t - e.lag;
-        r.flags = (r.j >= 0 && r.j < p.ns) | ((e.iteration < p.steps) << 1);
-        const int jj = min(max(r.j, 0), p.ns - 1);
-        const int W = e.in_slots[0];
-        r.m = (unsigned)jj % (unsigned)W;
-        r.up = (e.in_base[0] + slot_of(r.m, max(jj - 1, 0), jj, W)) * plane;
-        r.dn = (e.in_base[0] + slot_of(r.m, min(jj + 1, p.ns - 1), jj, W)) *
-               plane;
-        r.pad0 = r.pad1 = 0;
+        r.flags = (r.j >= 0 && r.j < nslabs) | ((e.iteration < p.steps) << 1);
+        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
+        r.m = x0 % (unsigned)e.in_slots[0];
+        r.outo = e.out_slots
+                     ? (e.out_base + x0 % (unsigned)e.out_slots) * plane
+                     : 0;
+        r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
         for (int z = 0; z < kMaxInputs; ++z) {
-          r.mid[z] = (e.in_base[z] + (int)((unsigned)jj %
-                                           (unsigned)e.in_slots[z])) *
+          r.mid[z] = (e.in_base[z] + (int)(x0 % (unsigned)e.in_slots[z])) *
                      plane;
         }
-        r.outo = e.out_slots
-                     ? (e.out_base + (unsigned)jj % (unsigned)e.out_slots) *
-                           plane
-                     : 0;
         trec[tid] = r;
       }
       __syncthreads();
@@ -602,36 +744,41 @@ __global__ void __launch_bounds__(1024)
         const DagRec& en = rec[i];
         // a stage of an iteration >= steps computes nothing: only the
         // state nodes of its iteration read it, and they forward
-        if ((r.flags & 1) && ((r.flags & 2) || en.op == kSelectOp)) {
-          const int j = r.j;
+        if (act && (r.flags & 1) && ((r.flags & 2) || en.op == kSelectOp)) {
           // a value that enters a ring is taken at the grid-clamped
           // position; one that only drains to the output at its own
           const bool ring = en.out_slots > 0;
           const Pos q = ring ? edge : own;
-          const size_t row = (size_t)j * pstride;
-          float val;
-          if (en.op == kSelectOp) {
-            val = win[((r.flags & 2) ? r.mid[0] : r.mid[1]) + q.c];
-          } else if (en.op == kCombineOp) {
-            // make_combine's apply: w0*x0, then + w_z*x_z in input order
-            val = mul(s_c[en.coeff_lo], win[r.mid[0] + q.c]);
-            for (int z = 1; z < en.n_in; ++z) {
-              val = add(val, mul(s_c[en.coeff_lo + z], win[r.mid[z] + q.c]));
+          const float* in0 = win + en.in_base[0] * plane;
+          const int W = en.in_slots[0];
+          for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+            const int m = r.m + row;
+            const int at = row * plane + q.c;  // row `row` of an input slab
+            float val;
+            if (en.op == kSelectOp) {
+              val = win[((r.flags & 2) ? r.mid[0] : r.mid[1]) + at];
+            } else if (en.op == kCombineOp) {
+              // make_combine's apply: w0*x0, then + w_z*x_z in input order
+              val = mul(s_c[en.coeff_lo], win[r.mid[0] + at]);
+              for (int z = 1; z < en.n_in; ++z) {
+                val = add(val, mul(s_c[en.coeff_lo + z], win[r.mid[z] + at]));
+              }
+            } else if (en.op == kTapOp) {
+              val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo, in0,
+                            W, m, plane, x, ring ? ey : ty, ring ? ex : tx, p);
+            } else {
+              float c[8];
+              for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+              val = table2_op(en.op, in0 + slot_up(m, x, W) * plane,
+                              in0 + m * plane,
+                              in0 + slot_dn(m, x, W, p.dom) * plane, q, c,
+                              aux, (size_t)x * pstride);
             }
-          } else if (en.op == kTapOp) {
-            val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo,
-                          win + en.in_base[0] * plane, en.in_slots[0], r.m,
-                          plane, j, ring ? ey : ty, ring ? ex : tx, p);
-          } else {
-            float c[8];
-            for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-            val = table2_op(en.op, win + r.up, win + r.mid[0], win + r.dn, q,
-                            c, aux, row);
-          }
-          if (ring) win[r.outo + tid] = val;
-          if (en.field >= 0 && writes) {
-            out[en.field * fstride + row + own.g] = val;
-          }
+            if (ring) win[r.outo + row * plane + cell] = val;
+            if (en.field >= 0 && writes) {
+              out[en.field * fstride + (size_t)x * pstride + own.g] = val;
+            }
+          });
         }
         __syncthreads();
       }
@@ -639,52 +786,81 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+template <int kOp, int kForm>
+cudaError_t launch_as(const float* gp, const float* aux, float* out,
+                      const Params& p, const Program& k, int grid_x,
+                      int grid_y, int threads, size_t smem,
+                      cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      stream_kernel<kOp, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  stream_kernel<kOp, kForm><<<dim3(grid_x, grid_y), threads, smem, stream>>>(
+      gp, aux, out, p, k);
+  return cudaGetLastError();
+}
+
 template <int kOp>
 cudaError_t launch(const float* gp, const float* aux, float* out,
                    const Params& p, const Program& k, int grid_x, int grid_y,
-                   size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      stream_kernel<kOp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  stream_kernel<kOp><<<dim3(grid_x, grid_y), p.by * p.bx, smem, stream>>>(
-      gp, aux, out, p, k);
-  return cudaGetLastError();
+                   int threads, size_t smem, cudaStream_t stream) {
+  if (p.V == 1) {
+    return launch_as<kOp, kVecOne>(gp, aux, out, p, k, grid_x, grid_y,
+                                   threads, smem, stream);
+  }
+  if (p.rows == 1) {
+    return launch_as<kOp, kOneRow>(gp, aux, out, p, k, grid_x, grid_y,
+                                   threads, smem, stream);
+  }
+  return launch_as<kOp, kRows>(gp, aux, out, p, k, grid_x, grid_y, threads,
+                               smem, stream);
 }
 
 }  // namespace
 
 // `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
 // main-path body), -1 any chain of the table, -2 any DAG of the table.
-// Returns the cudaError_t of the launch (0 on success).  `k` is copied into
-// the kernel's parameters; the caller may free it when this returns.
+// Fills `p.vt` and `p.rows` and sizes the CTA by the rule of the header
+// (`builder.cta_shape`).  Returns the cudaError_t of the launch (0 on
+// success).  `k` is copied into the kernel's parameters; the caller may
+// free it when this returns.
 extern "C" int stencil_stream_launch(int kernel_op, const float* gp,
                                      const float* aux, float* out, Params p,
                                      const Program* k, int grid_x, int grid_y,
                                      size_t smem, void* stream) {
+  const int plane = p.by * p.bx;
+  int vt = 0;  // the largest divisor of V with plane * vt <= 1024
+  for (int d = 1; d <= p.V && plane * d <= kMaxThreads; ++d) {
+    if (p.V % d == 0) vt = d;
+  }
   // the main-path body reads no entry table, so only the table-driven
   // bodies are bound by its capacity and need a thread per entry
-  if (p.n_entries < 1 ||
-      (kernel_op < 0 &&
-       (p.n_entries > kMaxEntries || p.n_entries > p.by * p.bx)) ||
-      p.n_fields < 1 || p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1)) {
+  if (vt < 1 || p.dom < 1 || p.ns % p.V != 0 || p.dom > p.ns ||
+      p.ns - p.dom >= p.V || p.n_entries < 1 ||
+      (kernel_op < 0 && p.n_entries > kMaxEntries) || p.n_fields < 1 ||
+      p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1)) {
     return cudaErrorInvalidValue;
   }
+  p.vt = vt;
+  p.rows = p.V / vt;
+  const int threads =
+      (max(plane * vt, kernel_op < 0 ? p.n_entries : 0) + 31) / 32 * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kernel_op) {
     case kDagBody:
-      return launch<kDagBody>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
+      return launch<kDagBody>(gp, aux, out, p, *k, grid_x, grid_y, threads,
+                              smem, s);
     case kChainBody:
-      return launch<kChainBody>(gp, aux, out, p, *k, grid_x, grid_y, smem,
-                                s);
+      return launch<kChainBody>(gp, aux, out, p, *k, grid_x, grid_y, threads,
+                                smem, s);
     case 0:
-      return launch<0>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
+      return launch<0>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
     case 1:
-      return launch<1>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
+      return launch<1>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
     case 2:
-      return launch<2>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
+      return launch<2>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
     case 3:
-      return launch<3>(gp, aux, out, p, *k, grid_x, grid_y, smem, s);
+      return launch<3>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
     default:
       return cudaErrorInvalidValue;
   }

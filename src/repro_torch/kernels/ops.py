@@ -144,7 +144,10 @@ def dma_traffic_bytes(stencil, geom: BlockGeometry, cell_bytes: int = 4,
     stage reads it; a program's intermediates never leave the chip) and
     writes ``stream`` rows of ``prod(csize)`` cells per field
     (``stencil.num_write``); overlapping halo columns are read once per
-    block that holds them.  ``stream`` counts the periodic extension."""
+    block that holds them.  ``stream`` counts the periodic extension and
+    the pad up to a multiple of ``par_vec`` (the TPU kernel moves whole
+    slabs; the Hopper kernel skips the pad rows, so this bills a little
+    more than it moves)."""
     dom = geom.stream_dim + 2 * stream_extension(geom, bc)
     stream = geom.stream_slabs(dom) * geom.par_vec
     reads = geom.num_blocks * stream * math.prod(geom.bsize) * stencil.num_read

@@ -1,7 +1,8 @@
 """The Hopper streaming kernel against its plain version and the port's
 oracle, on the card: the four Table-2 stencils, linear stage chains (tap
 tables, mixed radii, radius-0 stages, aux), stage DAGs (field streams,
-fan-in, state nodes) and periodic boundaries on all three bodies.  Needs an
+fan-in, state nodes), periodic boundaries, and V-row slabs (``par_vec >
+1``) and 1D grids on all three bodies.  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -127,8 +128,8 @@ PROGRAMS = [  # (id, stages, dims, par_time, bsize)
     ("box3d_r1", lambda: [StencilStage(stencils.make_box(3, 1),
                                        coeffs={"b_0_0_0": 0.3})],
      (14, 30, 33), 2, (16, 16)),
-    # 12 entries on 12 threads per CTA, the fewest the chain body takes:
-    # radius-0 stages add entries but no halo
+    # 12 entries on a 12-cell block plane: radius-0 stages add entries but
+    # no halo
     ("damp2_diffuse2d", lambda: [StencilStage("diffusion2d"), _damp(2),
                                  _damp(2)], (20, 60), 4, (12,)),
     # the main-path body: 80 entries, more than the chain body's table
@@ -288,7 +289,8 @@ def _superstep_vs_plain(problem, geom, g, aux):
     dag = problem.exec_dag
     c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
     h = geom.size_halo
-    region = (Ellipsis, slice(None)) + tuple(
+    # rows past the real stream extent (the slab pad) are never written
+    region = (Ellipsis, slice(0, builder._stream_dom(geom, bc0))) + tuple(
         slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
     for steps in (geom.par_time, geom.par_time - 1):
         out = torch.full_like(gp, float("nan"))
@@ -306,6 +308,7 @@ def _superstep_vs_plain(problem, geom, g, aux):
         assert not out[region].isnan().any()
         assert int((~out.isnan()).sum()) == math.prod(out[region].shape)
         assert torch.equal(out[region], plain[region])
+    return gp, aux_p, dag, c, region, out
 
 
 @pytest.mark.parametrize("case", DAGS, ids=lambda c: c[0])
@@ -344,4 +347,95 @@ def test_dag_and_periodic_plan_on_card_matches_reference(cuda, case):
                                                              aux=aux)
     scale = 100 if problem.needs_aux else None
     torch.testing.assert_close(got, want, **precision.tolerance(
+        "float32", iters, stages=problem.n_stages, scale=scale))
+
+
+# --- V-row slabs (par_vec > 1) and 1D grids ----------------------------------
+
+def _star(name):
+    return lambda: [StencilStage(name)]
+
+
+PAR_VEC = [  # (id, program, dims, boundary, par_time, bsize, par_vec): stream
+    # extents that V does not divide, the three bodies, 1D on two of them
+    ("diffusion2d_v4", _star("diffusion2d"), (37, 300), "clamp", 4, (64,), 4),
+    ("hotspot2d_v8", _star("hotspot2d"), (33, 517), "clamp", 4, (128,), 8),
+    ("diffusion2d_periodic_v16", _star("diffusion2d"), (40, 300), "periodic",
+     4, (64,), 16),
+    ("diffusion3d_v2", _star("diffusion3d"), (21, 50, 45), "clamp", 3,
+     (16, 16), 2),
+    ("hotspot3d_v4", _star("hotspot3d"), (19, 37, 70),
+     ("clamp", "periodic", "periodic"), 2, (12, 32), 4),
+    ("chain_r2_v4", lambda: [StencilStage(stencils.make_star(2, 2)),
+                             StencilStage("diffusion2d")], (30, 200),
+     "clamp", 2, (64,), 4),
+    ("chain3d_periodic_v2", lambda: [StencilStage(stencils.make_star(3, 1)),
+                                     StencilStage("diffusion3d")],
+     (21, 50, 45), ("periodic", "clamp", "periodic"), 2, (16, 16), 2),
+    # 12 entries on a 12-cell plane: the CTA is rounded up to 32 threads
+    ("damp2_chain_v8", lambda: [StencilStage("diffusion2d"), _damp(2),
+                                _damp(2)], (20, 60), "clamp", 4, (12,), 8),
+    # a 300-cell plane: 2 rows of a slab at once, several rows per thread
+    ("advect_diffuse2d_rows_v4", lambda: [_advect(2),
+                                          StencilStage("diffusion2d")],
+     (37, 700), "clamp", 2, (300,), 4),
+    ("wave2d_periodic_v4", lambda: _wave(2), (37, 300), "periodic", 4, (64,),
+     4),
+    ("wave2d_rows_v8", lambda: _wave(2), (37, 700), "periodic", 2, (300,),
+     8),
+    ("hotspot_dag_v4", _hotspot_dag, (25, 170), ("clamp", "periodic"), 3,
+     (32,), 4),
+    ("fanin4_v2", _fanin4, (29, 130), "periodic", 2, (32,), 2),
+    ("wave3d_v4", lambda: _wave(3), (17, 40, 35), "clamp", 2, (16, 16), 4),
+    ("star1d_r1_v1", _star("star1d_r1"), (1001,), "clamp", 4, (), 1),
+    ("star1d_r2_periodic_v16", _star("star1d_r2"), (1001,), "periodic", 4,
+     (), 16),
+    ("wave1d_v4", lambda: _wave(1), (999,), "clamp", 3, (), 4),
+]
+
+
+def _par_vec_case(case):
+    _, program, dims, bc, par_time, bsize, V = case
+    problem = StencilProblem(program(), dims, boundary=bc)
+    cfg = dict(backend="hopper", par_time=par_time, bsize=bsize)
+    return problem, cfg, V
+
+
+@pytest.mark.parametrize("case", PAR_VEC, ids=lambda c: c[0])
+def test_par_vec_kernel_equals_plain_version(cuda, case):
+    """One super-step bit for bit against the plain version; then the
+    slab-pad rows of the input set to NaN, which must change nothing: no
+    row past the real stream extent is ever tapped."""
+    problem, cfg, V = _par_vec_case(case)
+    geom = plan(problem, RunConfig(par_vec=V, **cfg)).geometry
+    g, aux = _state(problem, cuda, seed=7)
+    gp, aux_p, dag, c, region, out = _superstep_vs_plain(problem, geom, g,
+                                                         aux)
+    dom = builder._stream_dom(geom, problem.structural_bc)
+    if gp.shape[-geom.ndim] > dom:
+        poisoned = gp.clone()
+        poisoned[(Ellipsis, slice(dom, None)) + (slice(None),) * (
+            geom.ndim - 1)] = float("nan")
+        again = torch.full_like(gp, float("nan"))
+        builder.superstep_dag(dag, geom, poisoned, c, geom.par_time - 1,
+                              aux_p, out=again)
+        assert torch.equal(again[region], out[region])
+
+
+@pytest.mark.parametrize("case", PAR_VEC, ids=lambda c: c[0])
+def test_par_vec_plan_equals_v1_plan(cuda, case):
+    """The plan at V launches ``ceil(iters/T)`` times and equals the plan at
+    V = 1 bit for bit, which stays within tolerance of the reference."""
+    problem, cfg, V = _par_vec_case(case)
+    iters = 2 * cfg["par_time"] + 1
+    g, aux = _state(problem, cuda, seed=8)
+    before = builder.LAUNCHES
+    got = plan(problem, RunConfig(par_vec=V, **cfg)).run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / cfg["par_time"])
+    v1 = plan(problem, RunConfig(par_vec=1, **cfg)).run(g, iters, aux=aux)
+    assert torch.equal(got, v1)
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    scale = 100 if problem.needs_aux else None
+    torch.testing.assert_close(v1, want, **precision.tolerance(
         "float32", iters, stages=problem.n_stages, scale=scale))

@@ -141,10 +141,15 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="B1c"):
         _hopper(StencilProblem("hotspot3d", (8, 20, 20),
                                boundary=("clamp", "clamp", "reflect")))
-    with pytest.raises(ValueError, match="B1d"):
-        _hopper(StencilProblem("diffusion2d", (8, 32)), par_vec=2)
-    with pytest.raises(ValueError, match="B1d"):
-        _hopper(StencilProblem("star1d_r1", (64,)), bsize=())
+    # par_vec > 1 and 1D grids plan (ROADMAP B1d is ported); a V whose
+    # rings do not fit one CTA is refused by its shared memory
+    assert _hopper(StencilProblem("diffusion2d", (8, 32)),
+                   par_vec=2).geometry.par_vec == 2
+    assert _hopper(StencilProblem("star1d_r1", (64,)),
+                   bsize=()).geometry.ndim == 1
+    with pytest.raises(ValueError, match="par_vec=16 need .* shared memory"):
+        _hopper(StencilProblem("diffusion2d", (64, 9000)), par_time=8,
+                bsize=256, par_vec=16)
     with pytest.raises(ValueError, match="B1i"):
         _hopper(StencilProblem(dataclasses.replace(
             stencils.DIFFUSION2D, name="custom2d"), (8, 32)))

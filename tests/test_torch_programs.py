@@ -84,8 +84,8 @@ CHAINS = {
     "advect_diffuse2d": (_chain(("make_star", (2, 1),
                                  {"coeffs": ADVECT, "name": "advect"}),
                                 "diffusion2d"), (22, 30), 2, 14),
-    # 12 entries on 12 threads per CTA, the fewest the chain body takes:
-    # radius-0 stages add entries but no halo
+    # 12 entries on a 12-cell block plane: radius-0 stages add entries but
+    # no halo
     "damp2_diffuse2d": (_chain("diffusion2d", DAMP, DAMP), (14, 26), 4, 12),
 }
 
@@ -481,10 +481,10 @@ def test_hopper_refuses_program_forms_it_does_not_run():
     with pytest.raises(ValueError, match="entries"):
         _hopper(StencilProblem([S(st.make_star(2, 0))] * 5, (8, 64)),
                 par_time=13, bsize=16)
-    with pytest.raises(ValueError, match="12 fused entries .* threads"):
-        _hopper(StencilProblem([S("diffusion2d"), S(st.make_star(2, 0)),
-                                S(st.make_star(2, 0))], (14, 26)),
-                par_time=4, bsize=11)
+    # 12 entries on an 11-cell plane: the CTA takes a thread per entry
+    assert _hopper(StencilProblem([S("diffusion2d"), S(st.make_star(2, 0)),
+                                   S(st.make_star(2, 0))], (14, 26)),
+                   par_time=4, bsize=11).geometry.bsize == (11,)
     with pytest.raises(ValueError, match="taps"):
         _hopper(StencilProblem([S(st.make_star(2, 32))], (8, 400)),
                 par_time=1, bsize=300)
