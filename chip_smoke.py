@@ -61,32 +61,46 @@ On one CUDA card, from the root of a checkout:
    to the V = 1 run bit for bit; prints run ms and GCell/s, the super-step
    beside V = 1's, plain, the V = 1 yardstick and the bound, and the
    phase's seconds;
-8. serves full-width qwen3-1.7b (bf16, random weights from a seed)
-   through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
-   + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
-   layer) and none in decode, tokens in the vocab and finite logits; times
-   a warm run and profiles one prefill for the kernel's share of device
-   time; holds the kernel against its plain version on layer 0's q, k, v
-   (output pre-filled with NaN), the ``"flash"`` prefill against the
-   ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
-   plain version and ``scaled_dot_product_attention`` as the yardstick;
-9. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
-   ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
-   (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
-   microbatch and 2 with two, asserting finite losses, the first within
-   1.0 of the same batch's loss without autograd, and 56 forward, 28 dQ
-   and 28 dK/dV kernel launches per step (twice that with two
-   microbatches); prints step time, tokens/s, peak memory and one
-   profiled step; holds both backward kernels against their plain version
-   on layer 0's q, k, v and the real output gradient from the first
-   batch's backward (``check_bwd_against_plain``), times them beside the
-   plain version and the backward of ``scaled_dot_product_attention``;
-   holds the ``"flash"`` loss and every gradient leaf against ``"xla"`` at
-   full width on a 1 x 4096 batch; and runs ``fault_tolerant_train`` at
-   the smoke width (bf16, head dim 128, so the kernels run) with an
-   injected failure and a restart, asserting the uninterrupted run's
-   losses bit for bit;
-10. prints one ``{"kernels": [...]}`` line and, last, the device line.
+8. runs the bf16 phase (``BF16_VECS``: the four stencils, advect_diffuse2d
+   and wave2d on their f32 cells' inputs cast to bf16, at V = 1 and the
+   Vs of the f32 runs — 2D also at V = 16, which plans only in bf16 — and
+   the 1D star at V = 16): per V one super-step bit for bit against the
+   plain version, the counted run in bf16 equal to the bf16 V = 1 run bit
+   for bit (V = 1 within ``precision.tolerance("bfloat16", ...)`` of the
+   reference backend), the times beside f32's at the same V, the bytes
+   bound at 2 bytes a cell, a cuDNN yardstick in bf16 and the DMA bytes,
+   at most 0.6 of f32's;
+9. runs the boundary phase (``BC_CASES``: diffusion2d under reflect and
+   constant 1.5, hotspot3d mixed per axis, advect_diffuse2d with a reflect
+   and a constant stage, diamond2d under reflect, and diffusion2d constant
+   1.5 in bf16): the same checks and times at V = 1, beside the clamp
+   cell's, with the yardstick padded under the same boundary;
+10. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+    through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
+    + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
+    layer) and none in decode, tokens in the vocab and finite logits; times
+    a warm run and profiles one prefill for the kernel's share of device
+    time; holds the kernel against its plain version on layer 0's q, k, v
+    (output pre-filled with NaN), the ``"flash"`` prefill against the
+    ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
+    plain version and ``scaled_dot_product_attention`` as the yardstick;
+11. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+    ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
+    (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
+    microbatch and 2 with two, asserting finite losses, the first within
+    1.0 of the same batch's loss without autograd, and 56 forward, 28 dQ
+    and 28 dK/dV kernel launches per step (twice that with two
+    microbatches); prints step time, tokens/s, peak memory and one
+    profiled step; holds both backward kernels against their plain version
+    on layer 0's q, k, v and the real output gradient from the first
+    batch's backward (``check_bwd_against_plain``), times them beside the
+    plain version and the backward of ``scaled_dot_product_attention``;
+    holds the ``"flash"`` loss and every gradient leaf against ``"xla"`` at
+    full width on a 1 x 4096 batch; and runs ``fault_tolerant_train`` at
+    the smoke width (bf16, head dim 128, so the kernels run) with an
+    injected failure and a restart, asserting the uninterrupted run's
+    losses bit for bit;
+12. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -178,10 +192,12 @@ def time_ms(fn, reps: int, warmup: int = 1) -> Timing:
 
 def bound(problem, par_time: int, peaks) -> dict:
     """The least time one super-step could take: every field (and aux)
-    read once and every field written once, against ``par_time`` times
-    the FLOPs of every stage (``flop_pcu`` sums them) on every cell."""
+    read once and every field written once at the storage dtype's cell
+    size, against ``par_time`` times the FLOPs of every stage
+    (``flop_pcu`` sums them) on every cell."""
     cells = math.prod(problem.shape)
-    bytes_once = (problem.stencil.num_read + len(problem.fields)) * cells * 4
+    bytes_once = ((problem.stencil.num_read + len(problem.fields)) * cells
+                  * problem.cell_bytes)
     flops = par_time * problem.stencil.flop_pcu * cells
     bw, fp32, _ = peaks
     t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
@@ -243,23 +259,33 @@ def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
     """One profiled call of ``fn``: its own span between CUDA events, the
     union of its device-event intervals (busy), the share of busy time in
     kernels whose name holds ``kernel_key`` (when given), the idle share of
-    the span, and the ``top`` largest other device times."""
+    the span, and the ``top`` largest other device times.  Busy and the
+    span it is a share of are both read on the profiler's clock (the span
+    is the host range from before the launches to after the final
+    synchronize): CUDA events run on another clock, and a device busy
+    0.6% of a nearly saturated span exceeded their span on an H100."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-    span_us = start.elapsed_time(end) * 1e3
-    # device-side events only: CPU ops also carry their kernels' time
+        with record_function("chip_smoke_span"):
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+    events = prof.events()
+    (whole,) = [e for e in events if e.name == "chip_smoke_span"
+                and e.device_type == DeviceType.CPU]
+    span_us = whole.time_range.end - whole.time_range.start
+    # device-side events only (CPU ops also carry their kernels' time), and
+    # not the range's own device-side copy
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
+                   for e in events
                    if e.device_type == DeviceType.CUDA
+                   and e.name != "chip_smoke_span"
                    and e.time_range.end > e.time_range.start)
     if not spans:
         raise AssertionError("the profiler saw no device time")
@@ -283,7 +309,7 @@ def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
         if key not in n:
             short[n[:60]] = short.get(n[:60], 0.0) + t
     others = sorted(((t, n) for n, t in short.items()), reverse=True)[:top]
-    out = {"profiled_run_ms": span_us / 1e3,
+    out = {"profiled_run_ms": start.elapsed_time(end),
            "device_busy_ms": busy / 1e3,
            "device_idle_share": 1 - busy / span_us,
            "device_ops": len(spans),
@@ -304,12 +330,39 @@ def breakdown(main: dict) -> dict:
             "run_gcells_per_s": cells * iters / run_ms / 1e6, **prof}
 
 
-def library_yardstick(name, g, aux, par_time):
-    """``par_time`` steps of one cuDNN convolution with bias over the
-    edge-padded grid (full float32): the same update as one PyTorch call
-    per step.  Every Table-2 update is linear: the taps weigh channel 0,
-    the grid; for Hotspot, channel 1 is the edge-padded power, weighed
-    ``sdc`` at the centre, and the ambient term is the bias."""
+#: boundary kind -> the ``F.pad`` mode that applies it
+PAD_MODES = {"clamp": "replicate", "periodic": "circular",
+             "reflect": "reflect", "constant": "constant"}
+
+
+def pad_bc(x, r: int, bc):
+    """``x`` of shape ``(1, C, *grid)`` padded by ``r`` on every grid axis
+    under ``bc`` (None: clamp): one ``F.pad`` when every axis has one
+    kind, else one per axis."""
+    import torch.nn.functional as F
+    from repro_torch.core import boundary
+    nd = x.ndim - 2
+    kinds = boundary.kinds_of(bc, nd)
+    fill = boundary.fill_of(bc)
+    if len(set(kinds)) == 1:
+        value = fill if kinds[0] == "constant" else None
+        return F.pad(x, (r,) * (2 * nd), mode=PAD_MODES[kinds[0]],
+                     value=value)
+    for ax, kind in enumerate(kinds):
+        pad = [0] * (2 * nd)
+        pad[2 * (nd - 1 - ax)] = pad[2 * (nd - 1 - ax) + 1] = r
+        x = F.pad(x, pad, mode=PAD_MODES[kind],
+                  value=fill if kind == "constant" else None)
+    return x
+
+
+def library_yardstick(name, g, aux, par_time, bc=None):
+    """``par_time`` steps of one cuDNN convolution with bias over the grid
+    padded under ``bc`` (clamp when None), in the grid's dtype (full
+    float32 or bf16): the same update as one PyTorch call per step.  Every
+    Table-2 update is linear: the taps weigh channel 0, the grid; for
+    Hotspot, channel 1 is the edge-padded power, weighed ``sdc`` at the
+    centre, and the ambient term is the bias."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.stencils import STENCILS as ST
@@ -326,7 +379,7 @@ def library_yardstick(name, g, aux, par_time):
     elif name == "hotspot3d":
         c["bias"] = c["ca"] * TEMP_AMB
     chans = 1 if aux is None else 2
-    w = torch.zeros((1, chans) + (3,) * nd, device=g.device)
+    w = torch.zeros((1, chans) + (3,) * nd, device=g.device, dtype=g.dtype)
     w0 = w[0, 0]
     w0[mid] = c["cc"]
     w0[(0,) + mid[1:]] = c["cn"] if nd == 2 else c["cb"]
@@ -339,7 +392,7 @@ def library_yardstick(name, g, aux, par_time):
     bias = None
     if aux is not None:
         w[(0, 1) + mid] = c["sdc"]
-        bias = torch.tensor([c["bias"]], device=g.device)
+        bias = torch.tensor([c["bias"]], device=g.device, dtype=g.dtype)
     conv = F.conv2d if nd == 2 else F.conv3d
     pad = (1, 1) * nd
     aux_p = None if aux is None else F.pad(aux[None, None], pad,
@@ -348,7 +401,7 @@ def library_yardstick(name, g, aux, par_time):
     def run():
         x = g[None, None]
         for _ in range(par_time):
-            x = F.pad(x, pad, mode="replicate")
+            x = pad_bc(x, 1, bc)
             if aux_p is not None:
                 x = torch.cat([x, aux_p], dim=1)
             x = conv(x, w, bias)
@@ -356,21 +409,25 @@ def library_yardstick(name, g, aux, par_time):
     return run
 
 
-def check_yardstick(name, par_time, device, seed=1) -> float:
-    """The yardstick against the port's oracle on a small grid: it must
-    compute the same function to stand beside the kernel."""
+def check_yardstick(name, par_time, device, seed=1, bc="clamp",
+                    dtype="float32") -> float:
+    """The yardstick against the port's oracle on a small grid, under
+    ``bc`` and in ``dtype``: it must compute the same function to stand
+    beside the kernel."""
     import torch
     from repro_torch.api import RunConfig, StencilProblem, plan
     from repro_torch.core import precision
     dims = (40, 56) if name.endswith("2d") else (12, 20, 28)
     g, aux = inputs(name, dims, device, seed)
-    got = library_yardstick(name, g, aux, par_time)()
-    want = plan(StencilProblem(name, dims),
-                RunConfig(backend="reference", device=device)).run(
-                    g, par_time, aux=aux)
+    problem = StencilProblem(name, dims, boundary=bc, dtype=dtype)
+    g = g.to(problem.torch_dtype)
+    aux = None if aux is None else aux.to(problem.torch_dtype)
+    got = library_yardstick(name, g, aux, par_time, problem.bc)()
+    want = plan(problem, RunConfig(backend="reference", device=device)).run(
+        g, par_time, aux=aux)
     scale = 100 if name.startswith("hotspot") else None
     torch.testing.assert_close(got, want, **precision.tolerance(
-        "float32", par_time, scale=scale))
+        dtype, par_time, scale=scale))
     return (got - want).abs().max().item()
 
 
@@ -514,9 +571,9 @@ def drive_program(name, device) -> dict:
 
 def program_yardstick(problem, g, par_time):
     """``par_time`` iterations of one cuDNN convolution per stage over the
-    edge-padded grid (full float32): the same chain as one PyTorch call
-    per stage and iteration.  Each stage is a linear tap sum, so its
-    weights are its ``apply`` on one-hot taps."""
+    grid padded under that stage's boundary, in the grid's dtype: the same
+    chain as one PyTorch call per stage and iteration.  Each stage is a
+    linear tap sum, so its weights are its ``apply`` on one-hot taps."""
     import torch
     import torch.nn.functional as F
     nd = problem.ndim
@@ -529,34 +586,37 @@ def program_yardstick(problem, g, par_time):
             e = torch.zeros((2 * r + 1,) * nd, device=g.device)
             e[tuple(o + r for o in off)] = 1.0
             return e
-        convs.append((stage.stencil.apply(one_hot, cf)[None, None], r))
+        convs.append((stage.stencil.apply(one_hot, cf)[None, None].to(
+            g.dtype), r, stage.boundary))
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
 
     def run():
         x = g[None, None]
         for _ in range(par_time):
-            for w, r in convs:
+            for w, r, bc in convs:
                 if r:
-                    x = F.pad(x, (r,) * (2 * nd), mode="replicate")
+                    x = pad_bc(x, r, bc)
                 x = conv(x, w)
         return x[0, 0]
     return run
 
 
 def check_program_yardstick(problem, par_time, device, seed=1) -> float:
-    """The yardstick against the port's oracle on a small grid."""
+    """The yardstick against the port's oracle on a small grid, in the
+    problem's dtype."""
     import torch
     from repro_torch.api import RunConfig, StencilProblem, plan
     from repro_torch.core import precision
     dims = {1: (200,), 2: (40, 56), 3: (12, 20, 28)}[problem.ndim]
     small = StencilProblem(problem.program, dims,
-                           boundary=problem.structural_bc)
-    g = grid_input(dims, device, seed)
+                           boundary=problem.structural_bc,
+                           dtype=problem.dtype)
+    g = grid_input(dims, device, seed).to(small.torch_dtype)
     got = program_yardstick(small, g, par_time)()
     want = plan(small, RunConfig(backend="reference", device=device)).run(
         g, par_time)
     torch.testing.assert_close(got, want, **precision.tolerance(
-        "float32", par_time, stages=small.n_stages))
+        small.dtype, par_time, stages=small.n_stages))
     return (got - want).abs().max().item()
 
 
@@ -567,7 +627,7 @@ def superstep_vs_plain(name, problem, geom, g, aux=None,
     forwarding (the output starts as NaN, so a cell the kernel misses or
     writes outside its compute region, the stream rows below ``dom``,
     shows); then both times (the plain version's ``plain_reps`` runs after
-    the check's)."""
+    the check's; with 0, the check's own call at ``steps = T``)."""
     import torch
     from repro_torch.kernels import builder, ops
     dag, bc0 = problem.exec_dag, problem.structural_bc
@@ -580,13 +640,18 @@ def superstep_vs_plain(name, problem, geom, g, aux=None,
         slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
     out = torch.empty_like(gp)
     err = 0.0
+    checked = []
     for steps in (T, T - 1):
         out.fill_(float("nan"))
         builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out)
-        torch.cuda.synchronize()
-        plain = builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p,
-                                            torch.full_like(gp,
-                                                            float("nan")))
+        plain = torch.full_like(gp, float("nan"))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p, plain)
+        end.record()
+        end.synchronize()
+        checked.append(start.elapsed_time(end))
         got, want = out[region], plain[region]
         if bool(got.isnan().any()):
             raise AssertionError(f"{name}: kernel left compute cells "
@@ -603,9 +668,10 @@ def superstep_vs_plain(name, problem, geom, g, aux=None,
         torch.cuda.empty_cache()
     kernel_ms = time_ms(lambda: builder.superstep_dag(
         dag, geom, gp, c, T, aux_p, out=out), reps=5, warmup=0)
-    plain_ms = time_ms(lambda: builder.superstep_dag_plain(
-        dag, geom, gp, c, T, aux_p, torch.empty_like(gp)), reps=plain_reps,
-        warmup=0)
+    plain_ms = Timing(checked[:1]) if not plain_reps else time_ms(
+        lambda: builder.superstep_dag_plain(dag, geom, gp, c, T, aux_p,
+                                            torch.empty_like(gp)),
+        reps=plain_reps, warmup=0)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
 
 
@@ -751,18 +817,14 @@ def drive_dag(name, device) -> dict:
 
 
 def dag_yardstick(problem, g, par_time):
-    """``par_time`` iterations of the DAG in composed PyTorch calls: one
-    cuDNN convolution per tap stage over the field padded by its boundary
-    (``replicate`` for clamp, ``circular`` for periodic), ``torch.mul`` and
+    """``par_time`` iterations of the DAG in composed PyTorch calls, in the
+    state's dtype: one cuDNN convolution per tap stage over its input
+    padded under the stage's boundary (:func:`pad_bc`), ``torch.mul`` and
     ``torch.add`` for a combine in its ``apply`` order.  No single call
     computes a DAG."""
     import torch
     import torch.nn.functional as F
     nd = problem.ndim
-    kinds = set(problem.structural_bc.kinds)
-    if len(kinds) != 1 or not kinds <= {"clamp", "periodic"}:
-        raise ValueError(f"the yardstick pads one way; got {kinds}")
-    mode = "circular" if kinds == {"periodic"} else "replicate"
     prog = problem.program
     conv = F.conv2d if nd == 2 else F.conv3d
     ops_ = []
@@ -770,7 +832,8 @@ def dag_yardstick(problem, g, par_time):
                          problem.resolve_coeffs(device=g.device)):
         st = stage.stencil
         if st.combine:
-            ops_.append(("combine", [cf[n] for n in st.coeff_names], 0))
+            ops_.append(("combine", [cf[n] for n in st.coeff_names], 0,
+                         None))
             continue
         r = st.radius
 
@@ -778,7 +841,8 @@ def dag_yardstick(problem, g, par_time):
             e = torch.zeros((2 * r + 1,) * nd, device=g.device)
             e[tuple(o + r for o in off)] = 1.0
             return e
-        ops_.append(("conv", st.apply(one_hot, cf)[None, None], r))
+        ops_.append(("conv", st.apply(one_hot, cf)[None, None].to(g.dtype),
+                     r, stage.boundary))
     F_ = len(prog.fields)
 
     def run():
@@ -786,13 +850,13 @@ def dag_yardstick(problem, g, par_time):
         for _ in range(par_time):
             vals = [None] * len(prog.stages)
             for si in prog.topo:
-                kind, w, r = ops_[si]
+                kind, w, r, bc = ops_[si]
                 ins = [vals[i] if i >= 0 else fields[~i]
                        for i in prog.inputs_idx[si]]
                 if kind == "conv":
                     x = ins[0][None, None]
                     if r:
-                        x = F.pad(x, (r,) * (2 * nd), mode=mode)
+                        x = pad_bc(x, r, bc)
                     vals[si] = conv(x, w)[0, 0]
                 else:
                     acc = torch.mul(w[0], ins[0])
@@ -806,19 +870,21 @@ def dag_yardstick(problem, g, par_time):
 
 
 def check_dag_yardstick(problem, par_time, device, seed=1) -> float:
-    """The composed yardstick against the port's oracle on a small grid."""
+    """The composed yardstick against the port's oracle on a small grid, in
+    the problem's dtype."""
     import torch
     from repro_torch.api import RunConfig, StencilProblem, plan
     from repro_torch.core import precision
     dims = (40, 56) if problem.ndim == 2 else (12, 20, 28)
     small = StencilProblem(problem.program, dims,
-                           boundary=problem.structural_bc)
-    g = grid_input(small.state_shape, device, seed)
+                           boundary=problem.structural_bc,
+                           dtype=problem.dtype)
+    g = grid_input(small.state_shape, device, seed).to(small.torch_dtype)
     got = dag_yardstick(small, g, par_time)()
     want = plan(small, RunConfig(backend="reference", device=device)).run(
         g, par_time)
     torch.testing.assert_close(got, want, **precision.tolerance(
-        "float32", par_time, stages=small.n_stages))
+        small.dtype, par_time, stages=small.n_stages))
     return (got - want).abs().max().item()
 
 
@@ -1051,6 +1117,258 @@ def par_vec_phase(bases: dict, device, peaks) -> list:
             torch.cuda.empty_cache()
         del bases[name]
     print(f"par_vec phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
+# --- bf16 storage (B1e) ----------------------------------------------------
+
+#: name -> the par_vec values run in bf16 on the f32 cells' inputs and
+#: schedules, V = 1 first (the run every V > 1 must equal); the 1D star at
+#: V = 16 only (its V = 1 run takes 20 s)
+BF16_VECS = {"diffusion2d": (1, 8, 16), "hotspot2d": (1, 8, 16),
+             "diffusion3d": (1, 4), "hotspot3d": (1, 4),
+             "advect_diffuse2d": (1, 4), "wave2d": (1, 4),
+             "star1d_r2": (16,)}
+#: the bf16 DMA bytes of a super-step may be at most this share of f32's
+#: (the gate of benchmarks/kernels.py:128-150)
+BF16_DMA_RATIO = 0.6
+
+
+def case_problem(name, dtype="float32", boundary=None):
+    """``(problem, inputs(device), par_time, bsize)`` of the cell ``name``
+    in ``dtype``: a Table-2 stencil, a program of :data:`PROGRAMS`, a DAG
+    of :data:`DAGS` or the 1D star, under its own boundary unless
+    ``boundary`` is given; the inputs are the f32 cell's (seed 0) cast to
+    ``dtype``."""
+    from repro_torch.api import StencilProblem
+    if name in STENCILS:
+        nd = int(name[-2])
+        dims = FULL_DIMS[nd]
+        problem = StencilProblem(name, dims, dtype=dtype,
+                                 boundary=boundary or "clamp")
+        T, bsize = SCHEDULE[nd]
+
+        def make(device):
+            g, aux = inputs(name, dims, device, 0)
+            return g.to(problem.torch_dtype), (
+                None if aux is None else aux.to(problem.torch_dtype))
+        return problem, make, T, bsize
+    if name in PROGRAMS:
+        nd, T, bsize = PROGRAMS[name]
+        program, bc = program_stages(name), boundary or "clamp"
+    elif name in DAGS:
+        nd, bc, T, bsize = DAGS[name]
+        program, bc = dag_program(name), boundary or bc
+    else:
+        program, (nd, T, bsize) = STAR1D[0], (1, STAR1D[2], ())
+        bc = boundary or "clamp"
+    dims = STAR1D[1] if nd == 1 else FULL_DIMS[nd]
+    problem = StencilProblem(program, dims, boundary=bc, dtype=dtype)
+    return problem, lambda device: (grid_input(
+        problem.state_shape, device, 0).to(problem.torch_dtype), None), \
+        T, bsize
+
+
+def f32_times(rows) -> dict:
+    """``(case, V) -> super-step ms`` of the f32 rows so far."""
+    out = {}
+    for row in rows:
+        case = row["name"][len("stencil_stream["):-1]
+        name, _, v = case.partition(" V=")
+        out[(name, int(v or 1))] = row["ms"]
+    return out
+
+
+def storage_row(label, problem, g, aux, T, bsize, V, device, peaks,
+                library) -> tuple:
+    """One plan of ``problem`` at ``par_vec = V``: a super-step bit for bit
+    against the plain version at ``steps = T`` and ``T - 1`` (the first
+    plain call timed), the counted run (``ceil(iters/T)`` launches, the
+    storage dtype out), the times and the bound; ``(row, run's output)``.
+    ``library`` is ``(ms, small max abs err, what)``."""
+    from repro_torch.api import RunConfig, plan
+    from repro_torch.core.blocking import smem_bytes
+    from repro_torch.kernels import builder, ops
+    p = plan(problem, RunConfig(backend="hopper", par_time=T, bsize=bsize,
+                                par_vec=V, device=device))
+    geom = p.geometry
+    iters = 2 * T + 3
+    res = superstep_vs_plain(label, problem, geom, g, aux, plain_reps=0)
+    out, launches, run_ms = counted_run(p, g, aux, iters)
+    if out.dtype != problem.torch_dtype:
+        raise AssertionError(f"{label}: the run returned {out.dtype}")
+    vt, rows, _ = builder.cta_shape(geom)
+    cells = math.prod(problem.shape)
+    bc = problem.structural_bc
+    dma = ops.dma_traffic_bytes(problem.stencil, geom, problem.cell_bytes,
+                                bc=bc)
+    row = {"name": f"stencil_stream[{label}]", "route": "cuda",
+           "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           **res, **bound(problem, T, peaks), "library_ms": library[0],
+           "library_small_max_abs_err": library[1], "library": library[2],
+           "dtype": problem.dtype, "boundary": [
+               s.boundary.token() for s in problem.stages],
+           "par_vec": V, "dims": list(problem.shape), "par_time": T,
+           "bsize": list(geom.bsize), "iters": iters, "run_ms": run_ms,
+           "run_gcells_per_s": cells * iters / run_ms / 1e6,
+           "gcells_per_s": cells * T / res["ms"] / 1e6,
+           "smem_bytes": smem_bytes(geom, problem.exec_dag,
+                                    problem.cell_bytes),
+           "dma_bytes": dma, "dma_bound_ms": dma / peaks[0] * 1e3,
+           "dma_bytes_f32": ops.dma_traffic_bytes(problem.stencil, geom, 4,
+                                                  bc=bc),
+           "rows_at_once": vt, "rows_per_thread": rows}
+    return row, out
+
+
+def check_reference(label, problem, g, aux, out, iters) -> float:
+    """The run against the port's ``reference`` backend within
+    ``precision.tolerance(dtype, iters, stages)``; its max abs error."""
+    import torch
+    from repro_torch.api import RunConfig, plan
+    from repro_torch.core import precision
+    ref = plan(problem, RunConfig(backend="reference", device=g.device)).run(
+        g, iters, aux=aux)
+    torch.testing.assert_close(out, ref, **precision.tolerance(
+        problem.dtype, iters, stages=problem.n_stages,
+        scale=100 if problem.needs_aux else None))
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def case_library(name, problem, g, aux, T, device):
+    """The cell's yardstick in the problem's dtype and boundary: checked on
+    a small grid, then timed on ``g``; ``(ms, small max abs err, what)``."""
+    if name in STENCILS:
+        err = check_yardstick(name, T, device, bc=problem.bc,
+                              dtype=problem.dtype)
+        fn, what = library_yardstick(name, g, aux, T, problem.bc), (
+            f"cuDNN conv per step, {problem.dtype}")
+    elif problem.is_dag:
+        err = check_dag_yardstick(problem, T, device)
+        fn, what = dag_yardstick(problem, g, T), (
+            f"composed: cuDNN conv per tap stage, torch.mul/add per "
+            f"combine, {problem.dtype}")
+    else:
+        err = check_program_yardstick(problem, T, device)
+        fn, what = program_yardstick(problem, g, T), (
+            f"cuDNN conv per stage, {problem.dtype}")
+    return time_ms(fn, reps=3), err, what
+
+
+def bf16_phase(device, peaks, f32_rows) -> list:
+    """Every case of :data:`BF16_VECS` in bf16 on the f32 cell's inputs:
+    per V a super-step bit for bit against the plain version, the counted
+    run equal to the bf16 V = 1 run bit for bit (and V = 1, or the 1D
+    star's one V, within tolerance of the reference backend), the times
+    beside f32's at the same V, and the DMA bytes against f32's."""
+    import torch
+    t0 = time.perf_counter()
+    f32 = f32_times(f32_rows)
+    rows = []
+    for name, vs in BF16_VECS.items():
+        problem, make, T, bsize = case_problem(name, "bfloat16")
+        g, aux = make(device)
+        library = case_library(name, problem, g, aux, T, device)
+        first = None
+        for V in vs:
+            label = f"{name} bf16 V={V}"
+            row, out = storage_row(label, problem, g, aux, T, bsize, V,
+                                   device, peaks, library)
+            if first is None:
+                row["oracle_max_abs_err"] = check_reference(
+                    label, problem, g, aux, out, row["iters"])
+                first = out
+            elif not torch.equal(out, first):
+                raise AssertionError(f"{label}: differs from V={vs[0]}")
+            else:
+                row["equal_to_v1"] = True
+            del out
+            ratio = row["dma_bytes"] / row["dma_bytes_f32"]
+            if ratio > BF16_DMA_RATIO:
+                raise AssertionError(f"{label}: bf16 DMA bytes are {ratio} "
+                                     f"of f32's (at most {BF16_DMA_RATIO})")
+            row["dma_ratio_vs_f32"] = ratio
+            row["f32_ms"] = f32.get((name, V))
+            print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize} "
+                  f"(rings {row['smem_bytes']} B, {row['rows_at_once']} "
+                  f"rows at once x {row['rows_per_thread']}): run "
+                  f"{row['run_ms']}, {row['launches']} launches, "
+                  + ("equal to V=1 bit for bit" if "equal_to_v1" in row
+                     else f"oracle max_abs_err "
+                          f"{row['oracle_max_abs_err']:.3g}")
+                  + f"; superstep: kernel {row['ms']} (bit for bit with "
+                  f"plain) vs f32 {row['f32_ms'] or 'refused'}, plain "
+                  f"{row['plain_ms']}, library {row['library_ms']}, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); DMA "
+                  f"{ratio:.3f} of f32's", flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del g, aux, first
+        torch.cuda.empty_cache()
+    print(f"bf16 phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
+# --- reflect and constant boundaries (B1c) ----------------------------------
+
+#: (label, cell, boundary, dtype): the main path under each kind, mixed per
+#: axis in 3D, a chain whose stages differ, a DAG under one boundary, and
+#: the rounded constant fill in bf16
+BC_CASES = (
+    ("diffusion2d reflect", "diffusion2d", "reflect", "float32"),
+    ("diffusion2d constant:1.5", "diffusion2d", "constant:1.5", "float32"),
+    ("hotspot3d clamp,reflect,constant:0.0", "hotspot3d",
+     ("clamp", "reflect", "constant:0.0"), "float32"),
+    ("advect_diffuse2d reflect|constant:0.0", "advect_diffuse2d", None,
+     "float32"),
+    ("diamond2d reflect", "diamond2d", "reflect", "float32"),
+    ("diffusion2d constant:1.5 bf16", "diffusion2d", "constant:1.5",
+     "bfloat16"),
+)
+
+
+def bc_problem(name, bc, dtype):
+    """:func:`case_problem` under ``bc``; for the chain, stage 0 (the advect
+    star) under reflect and stage 1 (diffusion2d) under constant 0."""
+    import dataclasses
+    from repro_torch.api import StencilProblem
+    if bc is not None:
+        return case_problem(name, dtype, bc)
+    problem, make, T, bsize = case_problem(name, dtype)
+    adv, dif = problem.program.stages
+    chain = [dataclasses.replace(adv, boundary="reflect"),
+             dataclasses.replace(dif, boundary="constant:0.0")]
+    return StencilProblem(chain, problem.shape, dtype=dtype), make, T, bsize
+
+
+def bc_phase(device, peaks, f32_rows) -> list:
+    """Every case of :data:`BC_CASES` at V = 1: a super-step bit for bit
+    against the plain version, the counted run within tolerance of the
+    reference backend, and the times beside the clamp cell's."""
+    import torch
+    t0 = time.perf_counter()
+    f32 = f32_times(f32_rows)
+    rows = []
+    for label, name, bc, dtype in BC_CASES:
+        problem, make, T, bsize = bc_problem(name, bc, dtype)
+        g, aux = make(device)
+        library = case_library(name, problem, g, aux, T, device)
+        row, out = storage_row(label, problem, g, aux, T, bsize, 1, device,
+                               peaks, library)
+        row["oracle_max_abs_err"] = check_reference(label, problem, g, aux,
+                                                    out, row["iters"])
+        row["clamp_f32_ms"] = f32.get((name, 1))
+        print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize}: run "
+              f"{row['run_ms']}, {row['launches']} launches, oracle "
+              f"max_abs_err {row['oracle_max_abs_err']:.3g}; superstep: "
+              f"kernel {row['ms']} (bit for bit with plain) vs f32 clamp "
+              f"{row['clamp_f32_ms']}, plain {row['plain_ms']}, library "
+              f"{row['library_ms']}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        rows.append(row)
+        del g, aux, out
+        torch.cuda.empty_cache()
+    print(f"bc phase: {time.perf_counter() - t0:.3f} s", flush=True)
     return rows
 
 
@@ -1594,11 +1912,10 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     peaks = peaks_for(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    sources = (("stencil_stream.cu", "stencil"), ("flash_fwd.cu", "flash_fwd"),
-               ("flash_bwd.cu", "flash_bwd"))
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
-        libs = list(pool.map(lambda src: _build.build(*src), sources))
-    _build.stencil_stream()
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:  # one nvcc each
+        libs = list(pool.map(_build.build, _build.LIBRARIES))
+    _build.stencil_stream(False)
+    _build.stencil_stream(True)
     _build.flash_fwd()
     _build.flash_bwd()
     print(f"build: {time.perf_counter() - t0:.3f} s "
@@ -1606,7 +1923,8 @@ def main() -> int:
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas ({lib.name.split('_')[0]}):", line.strip())
+                print(f"  ptxas ({lib.stem.rsplit('_', 1)[0]}):",
+                      line.strip())
     device = torch.device("cuda", 0)
     kernels = []
     bases = {}      # the V = 1 runs the par_vec phase compares against
@@ -1641,6 +1959,9 @@ def main() -> int:
     kernels.extend(program_phase(device, peaks, bases))
     kernels.extend(dag_phase(device, peaks, bases))
     kernels.extend(par_vec_phase(bases, device, peaks))
+    torch.cuda.empty_cache()
+    kernels.extend(bf16_phase(device, peaks, kernels))
+    kernels.extend(bc_phase(device, peaks, kernels))
     torch.cuda.empty_cache()
     kernels.append(lm_phase(device, peaks))
     train = train_phase(device, peaks)

@@ -24,7 +24,8 @@ import torch
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core.blocking import BlockGeometry
-from repro_torch.kernels.builder import KERNEL_BCS, kernel_limits, stage_op
+from repro_torch.kernels.builder import (KERNEL_DTYPES, kernel_limits,
+                                          stage_op)
 from repro_torch.kernels.ops import (_pad_blocked, fused_dag_loop,
                                      pack_dag_coeffs)
 from repro_torch.kernels.ref import (oracle_dag_run, oracle_program_run,
@@ -93,21 +94,17 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
         raise ValueError("backend 'hopper' runs pinned schedules: pass "
                          "RunConfig(par_time=..., bsize=...) (autotuning is "
                          "ROADMAP A11)")
-    if problem.dtype != "float32":
-        raise ValueError(f"backend 'hopper' runs float32 only; got "
-                         f"{problem.dtype} (ROADMAP B1e)")
-    for s in problem.stages:
-        if any(k not in KERNEL_BCS for k in s.boundary.kinds):
-            raise ValueError(f"backend 'hopper' runs the clamp and periodic "
-                             f"boundaries; stage {s.name} has "
-                             f"{s.boundary.token()} (ROADMAP B1c)")
+    if problem.torch_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"backend 'hopper' stores float32 or bfloat16, as "
+                         f"the reference's Pallas kernels do; got "
+                         f"{problem.dtype}")
     unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
     if unported:
         raise ValueError(f"backend 'hopper' runs the Table-2 stencils, "
                          f"make_star/make_box tap sums and make_combine "
                          f"fan-in; stages {unported} are none of these "
                          f"(ROADMAP B1i)")
-    limit = kernel_limits(geom, problem.exec_dag)
+    limit = kernel_limits(geom, problem.exec_dag, problem.cell_bytes)
     if limit:
         raise ValueError(f"backend 'hopper': {limit}")
 

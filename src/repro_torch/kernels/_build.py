@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` at first use into ``build/repro_torch/`` at the root of the
 checkout, under a name that carries a hash of the source and the flags, and
-loaded with ``ctypes``.  Only the sources in the repository are used.
+loaded with ``ctypes``; ``stencil_stream.cu`` gives one library per storage
+type (:data:`LIBRARIES`).  Only the sources in the repository are used.
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a card.
 """
@@ -23,6 +24,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: library stem -> (source, its own nvcc flags).  The streaming kernel is
+#: built once per storage type, so that the two halves of its 72 kernels
+#: compile in parallel: one library of all 72 took 22 s on an H100 machine
+#: (nvcc's --split-compile took 12 s but changed the code, and slowed the
+#: one-row form of hotspot2d by 8-10%)
+LIBRARIES = {"stencil_f32": ("stencil_stream.cu", ("-DSTENCIL_BF16=0",)),
+             "stencil_bf16": ("stencil_stream.cu", ("-DSTENCIL_BF16=1",)),
+             "flash_fwd": ("flash_fwd.cu", ()),
+             "flash_bwd": ("flash_bwd.cu", ())}
 
 
 #: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``):
@@ -35,8 +45,8 @@ MAX_FIELDS, MAX_INPUTS = 4, 4
 #: its chain body (``Rec``, ``TickRec``) and DAG body (``DagRec``,
 #: ``DagTick``) keep in shared memory, which its ``static_assert``s hold to
 #: these numbers
-PROGRAM_BYTES = 3488
-REC_BYTES, TICKREC_BYTES = 80, 32
+PROGRAM_BYTES = 3616
+REC_BYTES, TICKREC_BYTES = 96, 32
 DAGREC_BYTES, DAGTICK_BYTES = 112, 48
 #: static shared memory of each table-driven body of ``stencil_stream.cu``:
 #: its records per entry, taps and coefficients (the main-path body has
@@ -52,8 +62,7 @@ class Params(ctypes.Structure):
     launcher fills ``vt`` and ``rows`` (``builder.cta_shape``)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "dom", "V", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy",
-        "dx", "hy", "hx", "per_y", "per_x", "steps", "n_entries", "n_fields",
-        "vt", "rows")]
+        "dx", "hy", "hx", "steps", "n_entries", "n_fields", "vt", "rows")]
 
 
 class Entry(ctypes.Structure):
@@ -66,9 +75,14 @@ class Entry(ctypes.Structure):
 
 
 class Stage(ctypes.Structure):
-    """``struct Stage`` of ``stencil_stream.cu``: one stage's op."""
-    _fields_ = [(name, ctypes.c_short) for name in (
+    """``struct Stage`` of ``stencil_stream.cu``: one stage's op, its
+    boundary kind per axis (stream, blocked y, blocked x) and its constant
+    fill."""
+    _fields_ = ([(name, ctypes.c_short) for name in (
         "op", "coeff_lo", "tap_lo", "tap_n")]
+                + [(name, ctypes.c_byte) for name in ("ks", "ky", "kx",
+                                                      "pad")]
+                + [("fill", ctypes.c_float)])
 
 
 class Tap(ctypes.Structure):
@@ -130,27 +144,30 @@ def _nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def library_path(source: str, stem: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives: its name
+def library_path(stem: str) -> Path:
+    """Where the library ``stem`` of :data:`LIBRARIES` lives: its name
     carries a hash of the source text and the compiler flags."""
+    source, flags = LIBRARIES[stem]
     digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(NVCC_FLAGS + flags).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{stem}_{digest[:16]}.so"
 
 
-def build(source: str, stem: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library exists.  The compiler's
-    report (``-Xptxas -v``: registers, shared memory, spills) is kept in a
-    ``.log`` beside the library."""
-    lib = library_path(source, stem)
+def build(stem: str) -> Path:
+    """Compile the library ``stem`` of :data:`LIBRARIES` unless it exists.
+    The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) is kept in a ``.log`` beside the library."""
+    lib = library_path(stem)
     if lib.exists():
         return lib
+    source, flags = LIBRARIES[stem]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+            [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / source)],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} "
@@ -164,12 +181,13 @@ def build(source: str, stem: str) -> Path:
 
 
 @functools.cache
-def stencil_stream() -> ctypes.CDLL:
-    """The loaded ``stencil_stream.cu`` library, built at first use."""
-    dll = ctypes.CDLL(str(build("stencil_stream.cu", "stencil")))
+def stencil_stream(bf16: bool = False) -> ctypes.CDLL:
+    """The loaded ``stencil_stream.cu`` library of float32 or (``bf16``)
+    bfloat16 storage, built at first use."""
+    dll = ctypes.CDLL(str(build("stencil_bf16" if bf16 else "stencil_f32")))
     dll.stencil_stream_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        Params,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, Params,
         ctypes.POINTER(Program), ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
         ctypes.c_void_p]
     dll.stencil_stream_launch.restype = ctypes.c_int
@@ -181,7 +199,7 @@ def stencil_stream() -> ctypes.CDLL:
 @functools.cache
 def flash_fwd() -> ctypes.CDLL:
     """The loaded ``flash_fwd.cu`` library, built at first use."""
-    dll = ctypes.CDLL(str(build("flash_fwd.cu", "flash_fwd")))
+    dll = ctypes.CDLL(str(build("flash_fwd")))
     dll.flash_fwd_launch.argtypes = [FlashParams, ctypes.c_void_p]
     dll.flash_fwd_launch.restype = ctypes.c_int
     dll.flash_fwd_error_string.argtypes = [ctypes.c_int]
@@ -192,7 +210,7 @@ def flash_fwd() -> ctypes.CDLL:
 @functools.cache
 def flash_bwd() -> ctypes.CDLL:
     """The loaded ``flash_bwd.cu`` library, built at first use."""
-    dll = ctypes.CDLL(str(build("flash_bwd.cu", "flash_bwd")))
+    dll = ctypes.CDLL(str(build("flash_bwd")))
     for fn in (dll.flash_bwd_dq_launch, dll.flash_bwd_dkv_launch):
         fn.argtypes = [FlashBwdParams, ctypes.c_void_p]
         fn.restype = ctypes.c_int

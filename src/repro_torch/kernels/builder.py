@@ -20,12 +20,15 @@ a Table-2 stencil (:data:`KERNEL_IDS`), a tap table for a stencil whose
 ``apply`` is an ordered tap sum (``make_star``/``make_box``,
 :func:`linear_taps`), or the weighted sum of a ``make_combine``; a DAG's
 state nodes select.  This slice covers such programs on 1D, 2D and 3D
-grids, clamp and periodic boundaries, float32, any ``par_vec``: one tick
+grids, the four boundary kinds per axis and per stage (a DAG's stages
+sharing one), float32 or bfloat16 storage with float32 arithmetic (one
+rounding to storage per stage application), any ``par_vec``: one tick
 streams a slab of ``par_vec`` rows (planes in 3D), and the stream axis is
 padded to a slab multiple.  Rows at or past the real stream extent ``dom``
-(the grid's, plus the periodic extension) are never tapped: stream taps
-clip to ``[0, dom-1]``, and neither the kernel nor its plain version writes
-them.  ``api/backends`` refuses the rest at plan time.
+(the grid's, plus the periodic extension) are never tapped: a stream tap
+outside ``[0, dom-1]`` clips, mirrors or reads the fill by the tapping
+stage's stream-axis kind, and neither the kernel nor its plain version
+writes those rows.  ``api/backends`` refuses the rest at plan time.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import boundary
+from repro_torch.core import boundary, precision
 from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        BlockGeometry, smem_bytes,
                                        stream_extension)
@@ -59,8 +62,12 @@ TAP_OP, COMBINE_OP = 4, 5
 #: ``stencil_stream.cu``'s table-driven bodies (the main-path body runs a
 #: Table-2 id)
 CHAIN_BODY, DAG_BODY = -1, -2
-#: the boundary kinds the kernel runs
-KERNEL_BCS = ("clamp", "periodic")
+#: boundary kind -> its id in ``stencil_stream.cu``'s ``Stage`` table
+#: (``Kind``); an axis the grid does not have is "periodic", which
+#: re-imposes nothing
+BC_IDS = {"clamp": 0, "periodic": 1, "reflect": 2, "constant": 3}
+#: the storage dtypes the kernel runs (float32 arithmetic for both)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def linear_taps(stencil: Stencil):
@@ -106,11 +113,6 @@ def kernel_body(stages) -> int:
     return CHAIN_BODY
 
 
-def _blocked_periodic(bc, ndim: int) -> tuple:
-    """Per blocked axis, whether ``bc`` wraps it (None: clamp)."""
-    return tuple(k == "periodic" for k in boundary.kinds_of(bc, ndim)[1:])
-
-
 def cta_shape(geom: BlockGeometry, n_entries: int = 0) -> tuple:
     """``(vt, rows, threads)`` of one CTA of the kernel, the rule of
     ``stencil_stream_launch``: ``vt`` the largest divisor of ``par_vec``
@@ -126,21 +128,37 @@ def cta_shape(geom: BlockGeometry, n_entries: int = 0) -> tuple:
     return vt, (V // vt if vt else 0), threads
 
 
-def kernel_limits(geom: BlockGeometry, program) -> Optional[str]:
+def _bc_key(bc, ndim: int) -> tuple:
+    """What a stage's boundary does: its kinds, and its fill where an axis
+    is constant."""
+    kinds = boundary.kinds_of(bc, ndim)
+    return kinds, boundary.fill_of(bc) if "constant" in kinds else 0.0
+
+
+def kernel_limits(geom: BlockGeometry, program,
+                  cell_bytes: int = 4) -> Optional[str]:
     """Why the kernel cannot run ``program`` (the chain ``((stencil, bc),
-    ...)`` or a ``DagSpec``) at ``geom`` (None if it can): a block plane of
-    at most 1024 cells (:func:`cta_shape`), per CTA the :func:`smem_bytes`
-    of its rings (``par_vec`` rows per slot), and, for the table-driven
-    bodies (any chain but one Table-2 stage, any DAG), the capacities of
-    their entry, stage, tap, coefficient, field-stream and input tables
-    (128 taps bound a star's radius to 31, well inside a tap's signed-byte
-    offsets) and their shared memory.  The main-path body reads no table,
-    so its ``par_time`` is bound only by shared memory."""
+    ...)`` or a ``DagSpec``) at ``geom`` with ``cell_bytes`` of storage a
+    cell (None if it can): a DAG that is not a path graph needs one
+    boundary on all its stages (it re-imposes at push time, not per
+    consumer); a block plane of at most 1024 cells (:func:`cta_shape`),
+    per CTA the :func:`smem_bytes` of its rings (``par_vec`` rows per
+    slot), and, for the table-driven bodies (any chain but one Table-2
+    stage, any DAG), the capacities of their entry, stage, tap,
+    coefficient, field-stream and input tables (128 taps bound a star's
+    radius to 31, well inside a tap's signed-byte offsets) and their shared
+    memory.  The main-path body reads no table, so its ``par_time`` is
+    bound only by shared memory."""
+    stages = _as_chain(program)
+    if stages is None and len({_bc_key(bc, geom.ndim)
+                               for _, bc, _ in program.stages}) > 1:
+        return (f"the stages of a DAG differ in boundary "
+                f"({sorted({bc.token() for _, bc, _ in program.stages})}); "
+                f"the kernel runs DAGs whose stages share one (ROADMAP B1k)")
     if not cta_shape(geom)[0]:
         return (f"bsize {geom.bsize} needs {math.prod(geom.bsize)} threads "
                 f"per CTA (at most {MAX_THREADS})")
-    smem = smem_bytes(geom, program)
-    stages = _as_chain(program)
+    smem = smem_bytes(geom, program, cell_bytes)
     if stages is None or kernel_body(stages) < 0:
         if stages is None:
             plan = unroll_dag(program, geom.par_time)
@@ -168,7 +186,8 @@ def kernel_limits(geom: BlockGeometry, program) -> Optional[str]:
     if smem > SMEM_LIMIT:
         return (f"par_time={geom.par_time}, bsize={geom.bsize}, "
                 f"par_vec={geom.par_vec} need {smem} bytes of shared memory "
-                f"per CTA (at most {SMEM_LIMIT})")
+                f"per CTA at {cell_bytes} bytes a cell (at most "
+                f"{SMEM_LIMIT})")
     return None
 
 
@@ -180,10 +199,6 @@ def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
                 f"the streaming kernel computes {list(KERNEL_IDS)}, "
                 f"make_star/make_box tap sums and make_combine fan-in; got "
                 f"{st.name} (ROADMAP B1i)")
-        if any(k not in KERNEL_BCS for k in boundary.kinds_of(bc, st.ndim)):
-            raise ValueError(f"the streaming kernel supports the clamp and "
-                             f"periodic boundaries; got {bc.token()} for "
-                             f"{st.name} (ROADMAP B1c)")
         if st.ndim != geom.ndim:
             raise ValueError(f"{st.name} is {st.ndim}D, geometry "
                              f"{geom.ndim}D")
@@ -200,10 +215,11 @@ def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
 
 def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
                    coeffs_packed, steps, aux_p, has_aux: bool, out) -> None:
-    """``gp`` (and ``out``) of ``shape``, ``aux_p`` of one field's shape."""
-    if gp.dtype != torch.float32 or tuple(gp.shape) != shape:
-        raise ValueError(f"gp must be float32 of shape {shape}; got "
-                         f"{gp.dtype} {tuple(gp.shape)}")
+    """``gp`` (and ``out``) of ``shape`` and a storage dtype the kernel
+    runs, ``aux_p`` of one field's shape and the same dtype."""
+    if gp.dtype not in KERNEL_DTYPES or tuple(gp.shape) != shape:
+        raise ValueError(f"gp must be float32 or bfloat16 of shape {shape}; "
+                         f"got {gp.dtype} {tuple(gp.shape)}")
     if not gp.is_contiguous():
         raise ValueError("gp must be contiguous")
     if has_aux != (aux_p is not None):
@@ -280,7 +296,7 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     slab-pad rows are left as they were."""
     pairs = tuple((st, bc) for st, bc, _ in dag.stages)
     _check_stages(pairs, geom, dag_radius(dag))
-    limit = kernel_limits(geom, dag)
+    limit = kernel_limits(geom, dag, gp.element_size())
     if limit:
         raise ValueError(limit)
     _check_tensors(_stream_shape(geom, pairs[0][1], dag.n_fields),
@@ -301,8 +317,11 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     else:
         table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed)
         body = DAG_BODY
-    _launch(body, table, out_lag, n_entries, dag.n_fields, pairs[0][1],
-            geom, gp, aux_p, out, int(steps), smem_bytes(geom, dag))
+    bcs = any(k in ("reflect", "constant")
+              for _, bc in pairs for k in boundary.kinds_of(bc, geom.ndim))
+    _launch(body, table, out_lag, n_entries, dag.n_fields, pairs[0][1], bcs,
+            geom, gp, aux_p, out, int(steps),
+            smem_bytes(geom, dag, gp.element_size()))
     return out
 
 
@@ -328,14 +347,19 @@ def _entry(lag, stage, iteration, field, out_base, out_slots, ins):
                         len(ins), 0, bases, slots)
 
 
-def _stage_tables(k, stencils, ndim: int, coeffs_packed) -> None:
-    """Fill the stage, tap and coefficient tables of ``k``: per stage its op,
-    coefficient offset and tap range; the taps of every tap table; the
-    coefficients."""
+def _stage_tables(k, stages, ndim: int, coeffs_packed) -> None:
+    """Fill the stage, tap and coefficient tables of ``k`` from ``((stencil,
+    bc), ...)``: per stage its op, coefficient offset, tap range, boundary
+    kinds (stream, blocked y, blocked x) and fill; the taps of every tap
+    table; the coefficients."""
     taps, lo = [], 0
-    for s, st in enumerate(stencils):
+    for s, (st, bc) in enumerate(stages):
         pairs = linear_taps(st) or ()
-        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs))
+        kinds = boundary.kinds_of(bc, ndim)
+        blocked = ("periodic",) * (3 - ndim) + tuple(kinds[1:])
+        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs),
+                              *(BC_IDS[x] for x in (kinds[0],) + blocked), 0,
+                              boundary.fill_of(bc))
         lo += len(st.coeff_names)
         for ci, off in pairs:
             ds, dy, dx = ((off[0], 0, 0) if ndim == 1 else
@@ -359,7 +383,7 @@ def _program_table(stages, geom: BlockGeometry, coeffs_packed):
     lay = dag_layout(plan, geom.par_vec)
     base = _ring_bases(lay.wins)
     k = _build.Program()
-    _stage_tables(k, [st for st, _ in stages], geom.ndim, coeffs_packed)
+    _stage_tables(k, stages, geom.ndim, coeffs_packed)
     if kernel_body(stages) >= 0:
         return k, lay.out_lag
     F = plan.n_streams
@@ -381,7 +405,7 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
     base = _ring_bases(lay.wins)
     F = plan.n_streams
     k = _build.Program()
-    _stage_tables(k, [st for st, _, _ in dag.stages], geom.ndim,
+    _stage_tables(k, [(st, bc) for st, bc, _ in dag.stages], geom.ndim,
                   coeffs_packed)
     # unroll_dag's order: per iteration the stages in topological order,
     # then one state node per updated field
@@ -400,36 +424,35 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
 
 
 def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
-            bc0, geom: BlockGeometry, gp, aux_p, out, steps: int,
+            bc0, bcs: bool, geom: BlockGeometry, gp, aux_p, out, steps: int,
             smem: int) -> None:
+    """Launch one super-step; ``bcs``: some stage has a reflect or constant
+    axis (the kernels that do the boundary work)."""
     global LAUNCHES
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
                            geom.blocked_dims)
-    per = _blocked_periodic(bc0, geom.ndim)
     hy = hx = geom.size_halo
     if geom.ndim == 1:      # a 1D grid is a 3D one with one blocked cell
         pad = blk = cmp = dims = (1, 1)
-        per = (False, False)
         hy = hx = 0
     elif geom.ndim == 2:    # a 2D grid is a 3D one with one blocked y row
         pad, blk, cmp, dims = ((1,) + pad, (1,) + blk, (1,) + cmp,
                                (1,) + dims)
-        per = (False,) + per
         hy = 0
     ns, V = gp.shape[-geom.ndim], geom.par_vec
     params = _build.Params(
         ns=ns, dom=_stream_dom(geom, bc0), V=V, ticks=ns // V + out_lag,
         py=pad[0], px=pad[1], by=blk[0], bx=blk[1], cy=cmp[0], cx=cmp[1],
-        dy=dims[0], dx=dims[1], hy=hy, hx=hx, per_y=per[0], per_x=per[1],
-        steps=steps, n_entries=n_entries, n_fields=n_fields)
+        dy=dims[0], dx=dims[1], hy=hy, hx=hx, steps=steps,
+        n_entries=n_entries, n_fields=n_fields)
     bnum = geom.bnum
     grid_x = bnum[-1] if bnum else 1
     grid_y = bnum[0] if geom.ndim == 3 else 1
-    dll = _build.stencil_stream()
+    dll = _build.stencil_stream(gp.dtype == torch.bfloat16)
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device).cuda_stream
         err = dll.stencil_stream_launch(
-            body, gp.data_ptr(),
+            body, int(bcs), gp.data_ptr(),
             None if aux_p is None else aux_p.data_ptr(),
             out.data_ptr(), params, ctypes.byref(table), grid_x, grid_y,
             smem, stream)
@@ -459,47 +482,66 @@ def _extract_blocks(gp: torch.Tensor, geom: BlockGeometry,
     return out.permute(perm)
 
 
-def _edge_indices(geom: BlockGeometry, bc, device) -> list:
-    """Per blocked dim, the (bnum_i, bsize_i) block-local positions clamped
-    to the grid — identity on interior blocks — or None along a periodic
-    dim, whose halo holds wrapped copies."""
-    out = []
-    for i, wraps in enumerate(_blocked_periodic(bc, geom.ndim)):
-        if wraps:
-            out.append(None)
+def _reimposer(geom: BlockGeometry, bc, device):
+    """The blocked-axis boundary re-imposition of a consumer under ``bc``,
+    as a function of ``(*bnum, dom, *bsize)`` blocks, following the TPU
+    kernel's ``_reimpose_axis``: along each blocked axis in turn, a
+    position outside the grid (block-local edges ``lo = h - start`` and
+    ``hi = d - 1 + h - start``; none on interior blocks) takes the edge
+    cell's value (clamp), the value mirrored about the edge without
+    repeating it (reflect: ``2*lo - x`` or ``2*hi - x``, modulo the block),
+    or the fill in the blocks' dtype (constant); a periodic axis is left
+    alone, its halo holds wrapped copies."""
+    nb = geom.ndim - 1
+    steps = []
+    for i, kind in enumerate(boundary.kinds_of(bc, geom.ndim)[1:]):
+        if kind == "periodic":
             continue
         h, c, b = geom.size_halo, geom.csize[i], geom.bsize[i]
-        d = geom.blocked_dims[i]
         start = torch.arange(geom.bnum[i], device=device)[:, None] * c
         x = torch.arange(b, device=device)[None, :]
-        lo = (h - start).clamp(min=0)
-        hi = (d - 1 + h - start).clamp(max=b - 1)
-        out.append(torch.minimum(torch.maximum(x, lo), hi))
-    return out
+        lo, hi = h - start, geom.blocked_dims[i] - 1 + h - start
+        if kind == "constant":
+            steps.append((i, None, (x < lo) | (x > hi)))
+        elif kind == "reflect":
+            steps.append((i, torch.where(
+                x > hi, 2 * hi - x, torch.where(x < lo, 2 * lo - x, x)) % b,
+                None))
+        else:
+            steps.append((i, torch.minimum(torch.maximum(x, lo.clamp(min=0)),
+                                           hi.clamp(max=b - 1)), None))
+    fill = boundary.fill_of(bc)
+
+    def reimpose(blocks: torch.Tensor) -> torch.Tensor:
+        for i, idx, mask in steps:
+            shape = [1] * blocks.ndim
+            shape[i] = geom.bnum[i]
+            shape[nb + 1 + i] = geom.bsize[i]
+            if mask is not None:
+                blocks = torch.where(
+                    mask.reshape(shape),
+                    torch.tensor(fill, dtype=blocks.dtype, device=device),
+                    blocks)
+            else:
+                blocks = torch.gather(blocks, nb + 1 + i,
+                                      idx.reshape(shape).expand(blocks.shape))
+        return blocks
+    return reimpose
 
 
-def _reclamp_blocks(blocks: torch.Tensor, edge_idx) -> torch.Tensor:
-    """Re-impose the boundary on grid-edge blocks: along each clamp dim,
-    every blocked-axis position takes the value at its position clamped to
-    the grid."""
-    nb = len(edge_idx)
-    for i, idx in enumerate(edge_idx):
-        if idx is None:
-            continue
-        shape = [1] * blocks.ndim
-        shape[i] = idx.shape[0]
-        shape[nb + 1 + i] = idx.shape[1]
-        blocks = torch.gather(blocks, nb + 1 + i,
-                              idx.reshape(shape).expand(blocks.shape))
-    return blocks
-
-
-def _block_getter(blocks: torch.Tensor, nb: int, r: int):
-    """Neighbour getter on ``(*bnum, dom, *bsize)`` blocks: stream taps
-    clip to ``[0, dom-1]`` and blocked-axis taps clip to the block."""
+def _block_getter(blocks: torch.Tensor, nb: int, r: int, bc):
+    """Neighbour getter on ``(*bnum, dom, *bsize)`` blocks for a stage
+    under ``bc``: a stream tap outside ``[0, dom-1]`` clips (clamp, the
+    periodic extension), mirrors (reflect) or reads the fill rounded to the
+    blocks' dtype (constant), as the TPU kernel's ``stream_tap``;
+    blocked-axis taps clip to the block."""
+    kind = boundary.kinds_of(bc, nb + 1)[0]
+    kind = kind if kind in ("reflect", "constant") else "clamp"
     p = blocks
-    for ax in range(nb, blocks.ndim) if r else ():
-        p = boundary.pad_axis(p, ax, r, r, "clamp")
+    if r:
+        p = boundary.pad_axis(p, nb, r, r, kind, boundary.fill_of(bc))
+        for ax in range(nb + 1, blocks.ndim):
+            p = boundary.pad_axis(p, ax, r, r, "clamp")
     lead = (slice(None),) * nb
 
     def get(off):
@@ -542,28 +584,31 @@ def superstep_plain(stages, geom: BlockGeometry, gp: torch.Tensor,
                     out: torch.Tensor) -> torch.Tensor:
     """The kernel's chain super-step in torch ops, vectorised over blocks:
     extract the overlapped blocks, run the ``len(stages) * par_time``
-    entries in order (entry ``t*S + s`` applies stage ``s`` with a getter
-    clamped by that stage's radius, or forwards its input when ``t >=
-    steps``), re-impose the boundary on every value that feeds a next entry
-    (clamp axes only), and write each block's compute region into ``out``.
-    It computes the kernel's values without replaying its tick schedule,
-    on the stream rows ``< dom`` only: ``par_vec`` changes which rows are
-    padded, not what the real rows hold, and the slab-pad rows of ``out``
-    are left as they were."""
+    entries in order (entry ``t*S + s`` applies stage ``s`` through
+    ``precision.apply_stage`` — taps widened to float32, one rounding to
+    the storage dtype — with a getter under that stage's stream-axis
+    boundary, or forwards its input when ``t >= steps``), re-impose on
+    every value that feeds a next entry the blocked-axis boundary of that
+    consumer (:func:`_reimposer`), and write each block's compute region
+    into ``out``.  It computes the kernel's values without replaying its
+    tick schedule, on the stream rows ``< dom`` only: ``par_vec`` changes
+    which rows are padded, not what the real rows hold, and the slab-pad
+    rows of ``out`` are left as they were."""
     nb = geom.ndim - 1
     dom = _stream_dom(geom, stages[0][1])
     cdicts = _stage_coeffs([st for st, _ in stages], coeffs_packed)
-    edge_idx = _edge_indices(geom, stages[0][1], gp.device)
+    reimpose = [_reimposer(geom, bc, gp.device) for _, bc in stages]
     aux_b = None if aux_p is None else _extract_blocks(aux_p, geom, dom)
     cur = _extract_blocks(gp, geom, dom)
     entries = unroll_dag(chain_dag(stages), geom.par_time).entries
     for i, e in enumerate(entries):
         st = e.stencil
         if e.iteration < steps:
-            cur = st.apply(_block_getter(cur, nb, st.radius),
-                           cdicts[e.coeff_lo], aux_b if st.has_aux else None)
+            cur = precision.apply_stage(
+                st, _block_getter(cur, nb, st.radius, e.bc),
+                cdicts[e.coeff_lo], aux_b if st.has_aux else None, gp.dtype)
         if i < len(entries) - 1:
-            cur = _reclamp_blocks(cur, edge_idx)
+            cur = reimpose[(i + 1) % len(stages)](cur)
     _stitch(out, cur, geom)
     return out
 
@@ -574,15 +619,15 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
                         out: torch.Tensor) -> torch.Tensor:
     """The kernel's DAG super-step in torch ops, vectorised over blocks: the
     unrolled entries of ``unroll_dag(dag, par_time)`` in order.  A stage
-    applies its stencil with one getter per input, clamped by its radius
-    (stages of iterations ``>= steps`` compute nothing: only the state
-    nodes of their iteration read them, and those forward); a state node
-    selects ``inputs[0]`` while its iteration is ``< steps``, else
-    ``inputs[1]``; every value that feeds another entry is re-clamped on
-    clamp axes; field ``k`` drains from ``plan.outputs[k]``, which is its
-    input stream for a field carried unchanged.  As there, only stream
-    rows ``< dom`` are computed and written.  A path graph runs as
-    :func:`superstep_plain`."""
+    applies its stencil through ``precision.apply_stage`` with one getter
+    per input under its boundary (stages of iterations ``>= steps``
+    compute nothing: only the state nodes of their iteration read them,
+    and those forward); a state node selects ``inputs[0]`` while its
+    iteration is ``< steps``, else ``inputs[1]``; every value that feeds
+    another entry is re-imposed under the stages' one boundary; field ``k``
+    drains from ``plan.outputs[k]``, which is its input stream for a field
+    carried unchanged.  As there, only stream rows ``< dom`` are computed
+    and written.  A path graph runs as :func:`superstep_plain`."""
     stages = _as_chain(dag)
     if stages is not None:
         return superstep_plain(stages, geom, gp, coeffs_packed, steps, aux_p,
@@ -591,9 +636,10 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     lay = dag_layout(plan, geom.par_vec)
     F = plan.n_streams
     nb = geom.ndim - 1
-    dom = _stream_dom(geom, dag.stages[0][1])
+    bc0 = dag.stages[0][1]
+    dom = _stream_dom(geom, bc0)
     cdicts = _stage_coeffs([st for st, _, _ in dag.stages], coeffs_packed)
-    edge_idx = _edge_indices(geom, dag.stages[0][1], gp.device)
+    reimpose = _reimposer(geom, bc0, gp.device)
     aux_b = None if aux_p is None else _extract_blocks(aux_p, geom, dom)
     fields = (gp,) if F == 1 else gp.unbind(0)
     vals = [_extract_blocks(f, geom, dom) for f in fields] + [None] * len(
@@ -606,14 +652,15 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
         if st is None:
             val = vals[e.inputs[0] if e.iteration < steps else e.inputs[1]]
         elif e.iteration < steps:
-            gets = [_block_getter(vals[p], nb, st.radius) for p in e.inputs]
-            val = st.apply(tuple(gets) if st.arity > 1 else gets[0],
-                           cdicts[e.coeff_lo],
-                           aux_b if st.has_aux else None)
+            gets = [_block_getter(vals[p], nb, st.radius, e.bc)
+                    for p in e.inputs]
+            val = precision.apply_stage(
+                st, tuple(gets) if st.arity > 1 else gets[0],
+                cdicts[e.coeff_lo], aux_b if st.has_aux else None, gp.dtype)
         else:
             val = None
         if val is not None and lay.wins[v]:
-            val = _reclamp_blocks(val, edge_idx)
+            val = reimpose(val)
         vals[v] = val
         for p in set(e.inputs):       # free what no later entry reads
             if last_read[p] == i and p not in keep:

@@ -5,14 +5,15 @@
 // `superstep_dag`) for these forms: linear stage chains and stage DAGs
 // (several field streams, fan-out, fan-in through `make_combine`, state
 // nodes), `par_time` iterations unrolled into one super-step, 1D, 2D and 3D
-// grids, clamp and periodic boundaries (per axis), float32 storage, and
-// slabs of V = `par_vec` rows (planes in 3D) per tick.  A stage is one of
-// the four Table-2 stencils (radius 1), a tap table for a stencil whose
-// update is an ordered sum of coefficient x neighbour (`make_star`,
-// `make_box`; any radius), or a combine `w0*x0 + w1*x1 + ...` of its
-// inputs' centres.  It computes what that kernel computes: the same padded
-// input and output layout and, in the compute region it writes, the same
-// values.
+// grids, the clamp, periodic, reflect and constant boundaries (per axis and
+// per stage; a DAG's stages share one), float32 or bfloat16 storage with
+// float32 arithmetic, and slabs of V = `par_vec` rows (planes in 3D) per
+// tick.  A stage is one of the four Table-2 stencils (radius 1), a tap
+// table for a stencil whose update is an ordered sum of coefficient x
+// neighbour (`make_star`, `make_box`; any radius), or a combine `w0*x0 +
+// w1*x1 + ...` of its inputs' centres.  It computes what that kernel
+// computes: the same padded input and output layout and, in the compute
+// region it writes, the same values.
 //
 // Design.  One CTA per overlapped block (grid = bnum; one CTA for a 1D
 // grid, the TPU's grid (1,)).  The CTA streams axis 0 one slab of V rows
@@ -36,6 +37,15 @@
 // layout's window depths guarantee that no slot is overwritten while it is
 // still read.  One barrier per entry and tick is one per V rows.
 //
+// Storage.  `T`, a template argument, is the storage type: float or
+// __nv_bfloat16.  The input, aux, output and every ring hold T; a stage
+// widens what it reads to float, computes in float and rounds its value to
+// T once (round to nearest even) before the value enters a ring or the
+// output, as `repro_torch.core.precision.apply_stage` and the TPU kernel's
+// `val.astype(sdtype)` do.  Forwarding and state-node selects copy T values.
+// For float every conversion is the identity, so the float kernels are the
+// code they were before T.
+//
 // Threads.  A CTA computes `vt` rows of a slab at once, `vt` the largest
 // divisor of V with plane * vt <= 1024 (plane = the block's cells in a row
 // or plane); thread tid < plane * vt takes cell tid mod plane of rows tv,
@@ -48,34 +58,43 @@
 // Stream rows.  The stream extent `ns` is padded to a multiple of V past
 // the real extent `dom` (the grid's, plus the periodic extension, which for
 // a periodic stream axis is the grid extended by the halo on each side,
-// staged in device memory by kernels/ops.py).  Stream-axis taps clip to
-// [0, dom-1], as the TPU kernel's do; rows at or past `dom` are never
-// tapped, so they are neither read, computed nor written (the TPU kernel
-// computes and discards them).  Blocked-axis taps that leave the block are
-// clamped to it — garbage, but inside the halo the overlap discards (the
-// halo is rad * par_time, rad the DAG's critical-path radius).  A chain
-// entry whose iteration is >= `steps` forwards its centre tap (PE
-// forwarding); in a DAG the state nodes forward: each updated field takes
-// its new value while the iteration is < `steps`, else its previous one,
-// and the stages of later iterations compute nothing.
+// staged in device memory by kernels/ops.py).  A stream-axis tap of row r
+// outside [0, dom-1] follows the tapping stage's stream-axis kind, as the
+// TPU kernel's `stream_tap` does: clamp (and the periodic extension) clips
+// r, reflect mirrors it about the edge row without repeating it (period
+// 2*dom-2), constant reads the fill.  A mirrored row lies within the tap's
+// radius of the row computed, so inside the rows the ring holds at every V.
+// Rows at or past `dom` are never tapped, so they are neither read,
+// computed nor written (the TPU kernel computes and discards them).
+// Blocked-axis taps that leave the block are clamped to it — garbage, but
+// inside the halo the overlap discards (the halo is rad * par_time, rad
+// the DAG's critical-path radius).  A chain entry whose iteration is >=
+// `steps` forwards its centre tap (PE forwarding); in a DAG the state nodes
+// forward: each updated field takes its new value while the iteration is <
+// `steps`, else its previous one, and the stages of later iterations
+// compute nothing.
 //
-// Boundaries.  On grid-edge blocks every value that enters a ring is taken
-// at the position clamped to the grid along each clamp axis (the
-// blocked-axis boundary re-imposition of the TPU kernel); along a periodic
-// blocked axis the halo holds wrapped copies and nothing is re-imposed.
-// The TPU kernel re-imposes each consumer's own BC when it reads a DAG's
-// values; doing it once when the value is pushed gives the same values
-// here, because every stage runs clamp or periodic and periodicity is
-// uniform across a program's stages, so every consumer of a value applies
-// the same rule along each axis.  Constant and reflect BCs, which may
-// differ per consumer, need that read-time re-imposition (ROADMAP B1c).
+// Boundaries.  On grid-edge blocks every value that enters a ring is
+// re-imposed along each blocked axis under its consumer's kind, as the TPU
+// kernel's `_reimpose_axis` does: a thread whose cell lies outside the
+// grid takes the value at the clamped position (clamp), at the mirrored
+// position (reflect: 2*lo - y below the edge lo, 2*hi - y above the edge
+// hi, modulo the block), or the fill rounded to T (constant); along a
+// periodic axis the halo holds wrapped copies and nothing is re-imposed.
+// Each stage carries its kinds and fill in the `Stage` table.  In a chain
+// every value has one consumer, the next entry, whose kinds the value takes
+// at push time (the TPU kernel's `plan.linear` path).  A DAG's consumers
+// re-impose at read time in the TPU kernel; doing it once at push time
+// gives the same values when all stages share one boundary, which the
+// launcher requires (DAGs whose consumers differ: ROADMAP B1k).  The field
+// streams arrive BC-padded and are pushed as they are.
 //
 // Hotspot's `power` is read at the centre of each row straight from device
 // memory, which L2 serves.  The arithmetic uses __fmul_rn/__fadd_rn, which
 // nvcc never contracts into FMAs, in the operation order of
 // src/repro_torch/core/stencils.py (a tap table in the order of its
 // `apply`), row by row, so the kernel and its plain version agree bit for
-// bit, and a run at any V equals the run at V = 1.
+// bit in both storage types, and a run at any V equals the run at V = 1.
 //
 // Three loop bodies, one template.  With 8 warps to an SM (2D, V = 1),
 // every instruction an entry adds is paid on each of its rows, so the
@@ -83,34 +102,39 @@
 // its id): lag i+1 slabs, 3-slot rings, coefficients in registers — one for
 // any chain (kOp = -1) and one for any DAG (kOp = -2).  Each comes in three
 // forms (`Form`): V = 1, where V, vt and the row loop fold away; one row
-// of each slab per thread; several rows per thread.  Slab bookkeeping with
-// a runtime V cost the V = 1 main path 12% and the DAG body 28% on an H100,
-// hence the forms.  The table-driven bodies copy the table into static
+// of each slab per thread; several rows per thread; in two storage types
+// (one library each); and with or without the reflect and constant
+// boundaries (kBC): 72 kernels.  Slab bookkeeping with a runtime V cost
+// the V = 1 main path 12% and the DAG body 28% on an H100, hence the
+// forms; deciding the boundary kinds at run time cost the float32 bodies
+// 3-31%, hence kBC.  The table-driven bodies copy the table into static
 // shared memory at start (`Rec`/`DagRec`: one flat record per entry, rings
-// in rows, a Table-2 stage's coefficients inline; the taps and coefficients
-// of tap tables), and at the top of each tick thread i computes entry i's
-// ring slots for that tick's slab (`TickRec`/`DagTick`), so an entry costs
-// its threads one record read and no division.  Striding these two loops over the entries instead cost the
-// tap chain about a fifth on an H100 (chip_smoke.py's advect_diffuse2d).
-// The chain body still costs more per entry than the main-path body: on an
-// H100 (chip_smoke.py), 8 entries of diffusion2d and a radius-0 damp over
+// in rows, a Table-2 stage's coefficients inline; the taps and
+// coefficients of tap tables), and at the top of each tick thread i
+// computes entry i's ring slots for that tick's slab (`TickRec`/`DagTick`),
+// so an entry costs its threads one record read and no division.  Striding
+// these two loops over the entries instead cost the tap chain about a
+// fifth on an H100 (chip_smoke.py's advect_diffuse2d).  The chain body
+// still costs more per entry than the main-path body: on an H100
+// (chip_smoke.py), 8 entries of diffusion2d and a radius-0 damp over
 // 16384^2 take 1.8x the time of 8 diffusion2d entries.  The DAG body adds
 // the field streams, several producers per entry, the combine and the
 // state-node select.
 //
-// Tables.  Entries, stages, taps, the coefficients of all stages
-// (concatenated in stage order) and the field streams travel in one
-// `Program` struct passed by value as a __grid_constant__ kernel parameter
-// (3,488 bytes, inside the 4 KB parameter space): no device buffer and no
-// copy before the launch.  The chain body adds 8,448 bytes of static shared
-// memory to the rings, the DAG body 11,520 (`kernels/_build.py::
-// TABLE_SMEM`).
+// Tables.  Entries, stages (op, ranges, boundary kinds and fill), taps, the
+// coefficients of all stages (concatenated in stage order) and the field
+// streams travel in one `Program` struct passed by value as a
+// __grid_constant__ kernel parameter (3,616 bytes, inside the 4 KB
+// parameter space): no device buffer and no copy before the launch.  The
+// chain body adds 9,472 bytes of static shared memory to the rings, the DAG
+// body 11,520 (`kernels/_build.py::TABLE_SMEM`).
 //
 // Bound.  Device-memory bytes: each block reads `dom * bsize` cells per
 // field stream (plus the same of `power`) and writes `dom * csize` cells per
-// field per super-step (`kernels/ops.py::dma_traffic_bytes` bills the slab
-// pad too, as the TPU kernel moves it); the arithmetic is a few FLOPs per
-// byte, far below the card's balance point.
+// field per super-step, sizeof(T) bytes a cell (`kernels/ops.py::
+// dma_traffic_bytes` bills the slab pad too, as the TPU kernel moves it);
+// the arithmetic is a few FLOPs per byte, far below the card's balance
+// point.
 //
 // Left on the table by this first design: no cp.async or TMA (a tick waits
 // on register-prefetched loads, and only some are prefetched: a thread's
@@ -121,6 +145,7 @@
 // spends about 2 us a tick, and a CTA count of `num_blocks` — 69 for the
 // 16384^2 grid at bsize 256 — against 132 SMs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -142,7 +167,7 @@ constexpr int kMaxThreads = 1024;
 struct Params {
   int ns;           // stream rows (2D) / planes (3D), periodic extension in,
                     // padded to a multiple of V
-  int dom;          // real stream rows: taps clip to [0, dom-1]
+  int dom;          // real stream rows: no tap reaches past [0, dom-1]
   int V;            // par_vec: rows per slab, one slab per tick
   int ticks;        // ns / V + output lag (in slabs)
   int py, px;       // padded extents of the blocked dims
@@ -150,7 +175,6 @@ struct Params {
   int cy, cx;       // compute extents
   int dy, dx;       // grid extents
   int hy, hx;       // halo widths
-  int per_y, per_x; // 1 where the blocked axis is periodic
   int steps;        // iterations that compute; later ones forward
   int n_entries;    // unrolled entries
   int n_fields;     // field streams (1 but for a DAG)
@@ -172,10 +196,16 @@ struct Entry {
 static_assert(sizeof(Entry) == 32, "Entry layout changed");
 
 // `op`: 0 diffusion2d, 1 hotspot2d, 2 diffusion3d, 3 hotspot3d, 4 tap
-// table, 5 combine (coefficient z weighs input z's centre).
+// table, 5 combine (coefficient z weighs input z's centre).  `ks`, `ky`,
+// `kx`: the stage's boundary kind along the stream axis and the blocked y
+// and x axes (a `Kind`; kPeriodic, which re-imposes nothing, along an axis
+// the grid does not have), `fill` its constant fill.
 struct Stage {
   short op, coeff_lo, tap_lo, tap_n;
+  signed char ks, ky, kx, pad;
+  float fill;
 };
+static_assert(sizeof(Stage) == 16, "Stage layout changed");
 
 // Offsets (stream, y, x; y = 0 in 2D, both 0 in 1D) and the stage-local
 // coefficient index.
@@ -198,7 +228,7 @@ struct Program {
   Stream f[kMaxFields];
 };
 // the ctypes mirror in kernels/_build.py (PROGRAM_BYTES) has this size
-static_assert(sizeof(Program) == 3488, "Program layout changed");
+static_assert(sizeof(Program) == 3616, "Program layout changed");
 
 namespace {
 
@@ -208,6 +238,26 @@ constexpr int kSelectOp = 6;  // a state node (no stage)
 constexpr int kChainBody = -1;
 constexpr int kDagBody = -2;
 constexpr float kTempAmb = 80.0f;  // Hotspot ambient temperature
+
+// Boundary kinds (kernels/builder.py: BC_IDS).
+enum Kind { kClamp = 0, kPeriodic = 1, kReflect = 2, kConstant = 3 };
+
+// Storage to float and back: the identity for float; for bfloat16 the
+// exact widening and one round to nearest even.
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Ring offsets of one cell and its blocked-axis neighbours (clamped to the
 // block), and its device-memory offset within a row/plane (a padded plane
@@ -228,6 +278,40 @@ __device__ __forceinline__ Pos pos_at(int y, int x, const Params& p, int sy,
   return q;
 }
 
+// A thread's cell `t` along one blocked axis of a block that starts at
+// `start` (padded coordinates): the grid's edges in block coordinates are
+// lo = h - start and hi = d - 1 + h - start.  `clamp` is the position clamp
+// re-imposes (the edge cell), `mirror` the one reflect does (the cell
+// mirrored about the edge, modulo the block of n cells), `out` whether the
+// cell is outside the grid (constant: the fill).
+struct Axis {
+  int clamp, mirror;
+  bool out;
+};
+
+__device__ __forceinline__ Axis axis_at(int t, int start, int h, int d,
+                                        int n) {
+  const int lo = h - start, hi = d - 1 + h - start;
+  Axis a;
+  a.clamp = min(max(t, max(lo, 0)), min(hi, n - 1));
+  int m = t > hi ? 2 * hi - t : (t < lo ? 2 * lo - t : t);
+  m %= n;
+  a.mirror = m < 0 ? m + n : m;
+  a.out = t < lo || t > hi;
+  return a;
+}
+
+// Where cell `t` takes a value that enters a ring under kind `k`.
+__device__ __forceinline__ int axis_pos(const Axis& a, int t, int k) {
+  return k == kClamp ? a.clamp : (k == kReflect ? a.mirror : t);
+}
+
+// Whether the cell takes the fill under the blocked-axis kinds ky, kx.
+__device__ __forceinline__ bool takes_fill(const Axis& ay, const Axis& ax,
+                                           int ky, int kx) {
+  return (ky == kConstant && ay.out) || (kx == kConstant && ax.out);
+}
+
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
 }
@@ -238,28 +322,48 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
+// What a stencil reads in place of stream rows j-1 (`up`) and j+1 (`dn`)
+// past the rows under a constant stream axis: the fill.  Without kBC
+// neither, and the reads fold to the rows'.
+struct Ends {
+  bool up, dn;
+  float fill;
+};
+
+template <class T>
+__device__ __forceinline__ float row_at(const T* row, int c, bool f,
+                                        float fill) {
+  return f ? fill : wide(row[c]);
+}
+
 // The Table-2 stencils.  `up` is stream row j-1, `mid` row j, `dn` row j+1
-// of the producer; `c` the stage's coefficients in `coeff_names` order.
+// of the producer (`e` says where the fill replaces `up` or `dn`); `c` the
+// stage's coefficients in `coeff_names` order.
 
 // cc, cw, ce, cs, cn
-__device__ __forceinline__ float diffusion2d(const float* up, const float* mid,
-                                             const float* dn, const Pos& q,
-                                             const float* c) {
-  float v = mul(c[0], mid[q.c]);
-  v = add(v, mul(c[1], mid[q.w]));
-  v = add(v, mul(c[2], mid[q.e]));
-  v = add(v, mul(c[3], dn[q.c]));
-  return add(v, mul(c[4], up[q.c]));
+template <class T>
+__device__ __forceinline__ float diffusion2d(const T* up, const T* mid,
+                                             const T* dn, const Pos& q,
+                                             const float* c, const Ends& e) {
+  float v = mul(c[0], wide(mid[q.c]));
+  v = add(v, mul(c[1], wide(mid[q.w])));
+  v = add(v, mul(c[2], wide(mid[q.e])));
+  v = add(v, mul(c[3], row_at(dn, q.c, e.dn, e.fill)));
+  return add(v, mul(c[4], row_at(up, q.c, e.up, e.fill)));
 }
 
 // sdc, rx1, ry1, rz1
-__device__ __forceinline__ float hotspot2d(const float* up, const float* mid,
-                                           const float* dn, const Pos& q,
-                                           const float* c, float aux) {
-  const float v = mid[q.c];
+template <class T>
+__device__ __forceinline__ float hotspot2d(const T* up, const T* mid,
+                                           const T* dn, const Pos& q,
+                                           const float* c, const Ends& e,
+                                           float aux) {
+  const float v = wide(mid[q.c]);
   const float two_v = mul(2.0f, v);
-  const float dy = sub(add(up[q.c], dn[q.c]), two_v);
-  const float dx = sub(add(mid[q.e], mid[q.w]), two_v);
+  const float dy = sub(add(row_at(up, q.c, e.up, e.fill),
+                           row_at(dn, q.c, e.dn, e.fill)),
+                       two_v);
+  const float dx = sub(add(wide(mid[q.e]), wide(mid[q.w])), two_v);
   float t = add(aux, mul(dy, c[2]));
   t = add(t, mul(dx, c[1]));
   t = add(t, mul(sub(kTempAmb, v), c[3]));
@@ -267,66 +371,97 @@ __device__ __forceinline__ float hotspot2d(const float* up, const float* mid,
 }
 
 // cc, cw, ce, cs, cn, cb, ca
-__device__ __forceinline__ float diffusion3d(const float* up, const float* mid,
-                                             const float* dn, const Pos& q,
-                                             const float* c) {
-  float v = mul(c[0], mid[q.c]);
-  v = add(v, mul(c[1], mid[q.w]));
-  v = add(v, mul(c[2], mid[q.e]));
-  v = add(v, mul(c[3], mid[q.s]));
-  v = add(v, mul(c[4], mid[q.n]));
-  v = add(v, mul(c[5], up[q.c]));
-  return add(v, mul(c[6], dn[q.c]));
+template <class T>
+__device__ __forceinline__ float diffusion3d(const T* up, const T* mid,
+                                             const T* dn, const Pos& q,
+                                             const float* c, const Ends& e) {
+  float v = mul(c[0], wide(mid[q.c]));
+  v = add(v, mul(c[1], wide(mid[q.w])));
+  v = add(v, mul(c[2], wide(mid[q.e])));
+  v = add(v, mul(c[3], wide(mid[q.s])));
+  v = add(v, mul(c[4], wide(mid[q.n])));
+  v = add(v, mul(c[5], row_at(up, q.c, e.up, e.fill)));
+  return add(v, mul(c[6], row_at(dn, q.c, e.dn, e.fill)));
 }
 
 // cc, cn, cs, ce, cw, ca, cb, sdc
-__device__ __forceinline__ float hotspot3d(const float* up, const float* mid,
-                                           const float* dn, const Pos& q,
-                                           const float* c, float aux) {
-  float v = mul(mid[q.c], c[0]);
-  v = add(v, mul(mid[q.n], c[1]));
-  v = add(v, mul(mid[q.s], c[2]));
-  v = add(v, mul(mid[q.e], c[3]));
-  v = add(v, mul(mid[q.w], c[4]));
-  v = add(v, mul(dn[q.c], c[5]));
-  v = add(v, mul(up[q.c], c[6]));
+template <class T>
+__device__ __forceinline__ float hotspot3d(const T* up, const T* mid,
+                                           const T* dn, const Pos& q,
+                                           const float* c, const Ends& e,
+                                           float aux) {
+  float v = mul(wide(mid[q.c]), c[0]);
+  v = add(v, mul(wide(mid[q.n]), c[1]));
+  v = add(v, mul(wide(mid[q.s]), c[2]));
+  v = add(v, mul(wide(mid[q.e]), c[3]));
+  v = add(v, mul(wide(mid[q.w]), c[4]));
+  v = add(v, mul(row_at(dn, q.c, e.dn, e.fill), c[5]));
+  v = add(v, mul(row_at(up, q.c, e.up, e.fill), c[6]));
   v = add(v, mul(c[7], aux));
   return add(v, mul(c[5], kTempAmb));
 }
 
 // Slot of a ring row: `m` is the slot of row j, `r` a row within W-1 of j
-// (true of every tap: |r - j| <= radius <= R*V < W*V rows).  One wrap, no
-// division.
+// (true of every tap, mirrored ones included: |r - j| <= radius <= R*V <
+// W*V rows).  One wrap, no division.
 __device__ __forceinline__ int slot_of(int m, int r, int j, int W) {
   const int s = m + r - j;
   return s < 0 ? s + W : (s >= W ? s - W : s);
 }
 
-// The slots of rows x-1 and x+1, clipped to [0, dom-1], around slot m of
-// row x in a ring of W rows: a Table-2 stencil's `up` and `dn`.
-__device__ __forceinline__ int slot_up(int m, int x, int W) {
-  return x == 0 ? m : (m == 0 ? W - 1 : m - 1);
+// The slots of rows x-1 and x+1 around slot m of row x in a ring of W rows
+// (a Table-2 stencil's `up` and `dn`), under stream-axis kind `ks`: at the
+// ends clamp (and the periodic extension) takes row x again, reflect the
+// row on the other side (rows 1 and dom-2); constant reads the fill there
+// (`ends`).  Without kBC every kind is taken for clamp.
+template <bool kBC>
+__device__ __forceinline__ int slot_up(int m, int x, int W, int ks) {
+  if (x == 0) return kBC && ks == kReflect ? (m == W - 1 ? 0 : m + 1) : m;
+  return m == 0 ? W - 1 : m - 1;
 }
-__device__ __forceinline__ int slot_dn(int m, int x, int W, int dom) {
-  return x == dom - 1 ? m : (m == W - 1 ? 0 : m + 1);
+template <bool kBC>
+__device__ __forceinline__ int slot_dn(int m, int x, int W, int dom, int ks) {
+  if (x == dom - 1) return kBC && ks == kReflect ? (m == 0 ? W - 1 : m - 1) : m;
+  return m == W - 1 ? 0 : m + 1;
+}
+template <bool kBC>
+__device__ __forceinline__ Ends ends(int x, int dom, int ks, float fill) {
+  const bool f = kBC && ks == kConstant;
+  return {f && x == 0, f && x == dom - 1, fill};
+}
+
+// Stream row `r` outside [0, dom-1] under kind `ks`: clipped (clamp, the
+// periodic extension) or mirrored (reflect, period 2*dom-2); constant reads
+// the fill, so any row in range does.
+__device__ __forceinline__ int stream_row(int r, int dom, int ks) {
+  if (ks == kReflect) {
+    const int per = max(2 * dom - 2, 1);
+    int m = r % per;
+    m = m < 0 ? m + per : m;
+    return m >= dom ? per - m : m;
+  }
+  return min(max(r, 0), dom - 1);
 }
 
 // One entry of a chain, flattened for shared memory: its ring layout (in
-// rows: a slot of the table is V rows), its stage's op and coefficient/tap
-// ranges, and a Table-2 stage's coefficients inline.
-struct Rec {  // 80 bytes; the padding keeps `c` 16-byte aligned
+// rows: a slot of the table is V rows), its stage's op, coefficient/tap
+// ranges and stream-axis kind and fill, its consumer's blocked-axis kinds
+// (`kyx`: ky | kx << 8) and fill, and a Table-2 stage's coefficients
+// inline.  Both fills are rounded through the storage type.
+struct Rec {  // 96 bytes; the padding keeps `c` 16-byte aligned
   int lag, in_base, in_slots, out_base;
   int out_slots, op, iteration, tap_lo;
-  int tap_n, coeff_lo, pad0, pad1;
+  int tap_n, coeff_lo, ks, kyx;
+  float fill_s, fill_b, pad0, pad1;
   float c[8];
 };
 // kernels/_build.py prices the chain body's tables with REC_BYTES
-static_assert(sizeof(Rec) == 80, "Rec layout changed");
+static_assert(sizeof(Rec) == 96, "Rec layout changed");
 
 // One entry at one tick: the slab j it computes, whether it is in the
 // stream (bit 0) and computes rather than forwards (bit 1), the slot m of
 // the slab's first row in its producer's ring (relative to the ring's
-// base), and the offset (in floats) of that row in its own ring.  Row r of
+// base), and the offset (in cells) of that row in its own ring.  Row r of
 // the slab sits r slots (planes) further in both: a ring's depth is a
 // multiple of V.
 struct TickRec {  // 32 bytes: two 16-byte loads
@@ -339,21 +474,29 @@ static_assert(sizeof(TickRec) == 32, "TickRec layout changed");
 // A tap table: sum over the stage's `tap_n` taps from `tap_lo`, in table
 // order, of coefficient x neighbour, the first term alone (as
 // `make_star`/`make_box` `apply`).  `ring` is the producer's ring of W
-// rows, `m` the slot of row j; `taps` and `c` the tables in shared memory.
-// Stream taps clip to [0, dom-1].
+// rows, `m` the slot of row x; (y, xx) the cell; `taps` and `c` the tables
+// in shared memory.  Stream taps past the rows follow `ks` (`stream_row`;
+// constant reads `fill`); without kBC they clip.
+template <bool kBC, class T>
 __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
                                          int tap_lo, int tap_n, int coeff_lo,
-                                         const float* ring, int W, int m,
-                                         int plane, int j, int y, int x,
-                                         const Params& p) {
+                                         const T* ring, int W, int m,
+                                         int plane, int x, int y, int xx,
+                                         const Params& p, int ks,
+                                         float fill) {
   float acc = 0.0f;
   for (int n = 0; n < tap_n; ++n) {
     const Tap tp = taps[tap_lo + n];
-    const int r = min(max(j + tp.ds, 0), p.dom - 1);
-    const int yy = min(max(y + tp.dy, 0), p.by - 1);
-    const int xx = min(max(x + tp.dx, 0), p.bx - 1);
-    const float term = mul(c[coeff_lo + tp.ci],
-                           ring[slot_of(m, r, j, W) * plane + yy * p.bx + xx]);
+    int r = x + tp.ds;
+    const bool oob = kBC && (r < 0 || r >= p.dom);
+    r = oob ? stream_row(r, p.dom, ks) : min(max(r, 0), p.dom - 1);
+    const int ty = min(max(y + tp.dy, 0), p.by - 1);
+    const int tx = min(max(xx + tp.dx, 0), p.bx - 1);
+    const float v =
+        oob && ks == kConstant
+            ? fill
+            : wide(ring[slot_of(m, r, x, W) * plane + ty * p.bx + tx]);
+    const float term = mul(c[coeff_lo + tp.ci], v);
     acc = n ? add(acc, term) : term;
   }
   return acc;
@@ -374,7 +517,7 @@ struct DagRec {  // 112 bytes; `c` 16-byte aligned
 static_assert(sizeof(DagRec) == 112, "DagRec layout changed");
 
 // One DAG entry at one tick: the slab j, flags as in `TickRec`, the offset
-// (in floats) of the slab's first row in its own ring, its slot in input
+// (in cells) of the slab's first row in its own ring, its slot in input
 // 0's ring (relative to the ring's base), and its offset in every input's
 // ring.
 struct DagTick {  // 48 bytes: three 16-byte loads
@@ -387,14 +530,15 @@ static_assert(sizeof(DagTick) == 48, "DagTick layout changed");
 
 // This thread's rows of slab 0 of one field stream (`src`, its padded
 // grid at the thread's cell) into `nxt`: the first kPre of its `nr` rows.
-template <int kPre>
-__device__ __forceinline__ void prefetch_slab(float* nxt, const float* src,
-                                              int tv, int vt, int nr,
-                                              int dom, size_t pstride) {
+template <int kPre, class T>
+__device__ __forceinline__ void prefetch_slab(T* nxt, const T* src, int tv,
+                                              int vt, int nr, int dom,
+                                              size_t pstride) {
 #pragma unroll
   for (int q = 0; q < kPre; ++q) {
     const int x = tv + q * vt;
-    nxt[q] = q < nr && x < dom ? __ldg(src + (size_t)x * pstride) : 0.0f;
+    nxt[q] = q < nr && x < dom ? __ldg(src + (size_t)x * pstride)
+                               : narrow<T>(0.0f);
   }
 }
 
@@ -403,15 +547,15 @@ __device__ __forceinline__ void prefetch_slab(float* nxt, const float* src,
 // and write them to `dst` (at the thread's cell; none if null).  The first
 // kPre rows come from `nxt`, which then takes the same rows of slab t+1;
 // later rows, and all of them when `nxt` is null, are loaded now.
-template <int kPre>
-__device__ __forceinline__ void push_slab(float* nxt, const float* src,
-                                          float* ring, int WV, float* dst,
-                                          int t, int tv, int vt, int nr,
-                                          int V, int dom, size_t pstride,
-                                          int plane, int cell) {
+template <int kPre, class T>
+__device__ __forceinline__ void push_slab(T* nxt, const T* src, T* ring,
+                                          int WV, T* dst, int t, int tv,
+                                          int vt, int nr, int V, int dom,
+                                          size_t pstride, int plane,
+                                          int cell) {
   const int x0 = t * V;
   const int m0 = ring ? x0 % WV : 0;  // slot of the slab's row 0
-  const auto put = [&](int r, int x, float v) {
+  const auto put = [&](int r, int x, T v) {
     if (ring) ring[(m0 + r) * plane + cell] = v;
     if (dst) dst[(size_t)x * pstride] = v;
   };
@@ -435,31 +579,34 @@ __device__ __forceinline__ void push_slab(float* nxt, const float* src,
 }
 
 // A Table-2 stencil at the cell `q`, rows `up`, `mid`, `dn`.
-template <int kOp>
-__device__ __forceinline__ float table2(const float* up, const float* mid,
-                                        const float* dn, const Pos& q,
-                                        const float* c, const float* aux,
-                                        size_t row) {
-  if (kOp == 0) return diffusion2d(up, mid, dn, q, c);
-  if (kOp == 1) return hotspot2d(up, mid, dn, q, c, __ldg(aux + row + q.g));
-  if (kOp == 2) return diffusion3d(up, mid, dn, q, c);
-  return hotspot3d(up, mid, dn, q, c, __ldg(aux + row + q.g));
+template <int kOp, class T>
+__device__ __forceinline__ float table2(const T* up, const T* mid,
+                                        const T* dn, const Pos& q,
+                                        const float* c, const Ends& e,
+                                        const T* aux, size_t row) {
+  if (kOp == 0) return diffusion2d(up, mid, dn, q, c, e);
+  if (kOp == 1) {
+    return hotspot2d(up, mid, dn, q, c, e, wide(__ldg(aux + row + q.g)));
+  }
+  if (kOp == 2) return diffusion3d(up, mid, dn, q, c, e);
+  return hotspot3d(up, mid, dn, q, c, e, wide(__ldg(aux + row + q.g)));
 }
 
 // A Table-2 stencil of runtime op `op` (the table-driven bodies).
-__device__ __forceinline__ float table2_op(int op, const float* up,
-                                           const float* mid, const float* dn,
-                                           const Pos& q, const float* c,
-                                           const float* aux, size_t row) {
+template <class T>
+__device__ __forceinline__ float table2_op(int op, const T* up, const T* mid,
+                                           const T* dn, const Pos& q,
+                                           const float* c, const Ends& e,
+                                           const T* aux, size_t row) {
   switch (op) {
     case 0:
-      return table2<0>(up, mid, dn, q, c, aux, row);
+      return table2<0>(up, mid, dn, q, c, e, aux, row);
     case 1:
-      return table2<1>(up, mid, dn, q, c, aux, row);
+      return table2<1>(up, mid, dn, q, c, e, aux, row);
     case 2:
-      return table2<2>(up, mid, dn, q, c, aux, row);
+      return table2<2>(up, mid, dn, q, c, e, aux, row);
     default:
-      return table2<3>(up, mid, dn, q, c, aux, row);
+      return table2<3>(up, mid, dn, q, c, e, aux, row);
   }
 }
 
@@ -489,17 +636,23 @@ __device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
 
 // kOp in 0..3: a single-stage chain of that Table-2 stencil.  kOp = -1: any
 // chain of the table.  kOp = -2: any DAG of the table; `gp` and `out` then
-// hold `n_fields` padded grids one after the other.  kForm: a `Form`.  The
-// main-path body asks for 32 registers, so that two CTAs of 1024 threads
-// (3D, 32 x 32) fit an SM, but not with several rows per thread: there it
-// would spill, and from V = 4 in 3D the rings fit one CTA an SM anyway.
-template <int kOp, int kForm>
+// hold `n_fields` padded grids one after the other.  kForm: a `Form`.  T:
+// the storage type.  kBC: some stage has a reflect or constant axis; without
+// it the per-row and per-entry boundary work folds away to the clamp and
+// periodic code (in a run-time form it cost the float32 bodies 3-31% on an
+// H100).  The main-path body asks for 32 registers, so that two
+// CTAs of 1024 threads (3D, 32 x 32) fit an SM, but not with several rows
+// per thread: there it would spill, and from V = 4 in 3D the rings fit one
+// CTA an SM anyway.
+template <int kOp, int kForm, class T, bool kBC>
 __global__ void __launch_bounds__(1024,
                                   kOp >= 0 && kForm != kRows ? 2 : 1)
-    stream_kernel(const float* __restrict__ gp, const float* __restrict__ aux,
-                  float* __restrict__ out, const Params p,
+    stream_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
+                  T* __restrict__ out, const Params p,
                   const __grid_constant__ Program k) {
-  extern __shared__ float win[];  // the rings, in value-id order
+  // the rings, in value-id order
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const win = reinterpret_cast<T*>(smem_raw);
   constexpr bool kV1 = kForm == kVecOne;
   const int plane = p.by * p.bx;
   const int tid = threadIdx.x;
@@ -518,53 +671,55 @@ __global__ void __launch_bounds__(1024,
   const int sy = blockIdx.y * p.cy;  // block start in padded coordinates
   const int sx = blockIdx.x * p.cx;
 
-  // grid edges in block coordinates: values entering a ring are taken at
-  // the position clamped to [lo, hi] (a no-op on interior blocks, and along
-  // a periodic axis, whose halo holds wrapped copies)
-  const int lo_y = p.per_y ? 0 : max(p.hy - sy, 0);
-  const int hi_y = p.per_y ? p.by - 1 : min(p.dy - 1 + p.hy - sy, p.by - 1);
-  const int lo_x = p.per_x ? 0 : max(p.hx - sx, 0);
-  const int hi_x = p.per_x ? p.bx - 1 : min(p.dx - 1 + p.hx - sx, p.bx - 1);
-  const int ey = min(max(ty, lo_y), hi_y);
-  const int ex = min(max(tx, lo_x), hi_x);
+  // the cell's positions under each blocked-axis kind (no-ops on interior
+  // blocks)
+  const Axis ay = axis_at(ty, sy, p.hy, p.dy, p.by);
+  const Axis ax = axis_at(tx, sx, p.hx, p.dx, p.bx);
   const Pos own = pos_at(ty, tx, p, sy, sx);
-  const Pos edge = pos_at(ey, ex, p, sy, sx);
   const bool writes = act && ty >= p.hy && ty < p.hy + p.cy && tx >= p.hx &&
                       tx < p.hx + p.cx;
   const size_t pstride = (size_t)p.py * p.px;
 
   if constexpr (kOp >= 0) {
-    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs
+    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs;
+    // every entry runs stage 0's boundary
     const int WV = 3 * V;
     constexpr int kPre = kForm == kRows ? 4 : 1;
-    float nxt[kPre];
+    const Pos edge = pos_at(axis_pos(ay, ty, k.s[0].ky),
+                            axis_pos(ax, tx, k.s[0].kx), p, sy, sx);
+    const bool fill_edge = kBC && takes_fill(ay, ax, k.s[0].ky, k.s[0].kx);
+    const T fill_t = narrow<T>(k.s[0].fill);
+    T nxt[kPre];
     if (act) prefetch_slab<kPre>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
     float c[8];
     for (int z = 0; z < 8; ++z) c[z] = k.c[z];
     for (int t = 0; t < p.ticks; ++t) {
       if (act && t < nslabs) {
-        push_slab<kPre>(nxt, gp + own.g, win, WV, nullptr, t, tv, vt, nr, V,
-                  p.dom, pstride, plane, cell);
+        push_slab<kPre>(nxt, gp + own.g, win, WV, (T*)nullptr, t, tv, vt, nr,
+                        V, p.dom, pstride, plane, cell);
       }
       __syncthreads();
       for (int i = 0; i < p.n_entries; ++i) {
         const int j = t - (i + 1);  // CTA-uniform
         if (act && j >= 0 && j < nslabs) {
-          const float* ring = win + i * WV * plane;
+          const T* ring = win + i * WV * plane;
           const int m0 = (j % 3) * V;
           const bool last = i == p.n_entries - 1;
           const Pos q = last ? own : edge;
           for_rows<kForm>(j, V, tv, vt, nr, p.dom, [&](int r, int x) {
             const int m = m0 + r;
-            const float* up = ring + slot_up(m, x, WV) * plane;
-            const float* mid = ring + m * plane;
-            const float* dn = ring + slot_dn(m, x, WV, p.dom) * plane;
-            const float val =
+            const T* mid = ring + m * plane;
+            const int ks = k.s[0].ks;
+            const T val =
                 i < p.steps
-                    ? table2<kOp>(up, mid, dn, q, c, aux, (size_t)x * pstride)
+                    ? narrow<T>(table2<kOp>(
+                          ring + slot_up<kBC>(m, x, WV, ks) * plane, mid,
+                          ring + slot_dn<kBC>(m, x, WV, p.dom, ks) * plane, q,
+                          c, ends<kBC>(x, p.dom, ks, wide(fill_t)), aux,
+                          (size_t)x * pstride))
                     : mid[q.c];
             if (!last) {
-              win[((i + 1) * WV + m) * plane + cell] = val;
+              win[((i + 1) * WV + m) * plane + cell] = fill_edge ? fill_t : val;
             } else if (writes) {
               out[(size_t)x * pstride + own.g] = val;
             }
@@ -581,11 +736,16 @@ __global__ void __launch_bounds__(1024,
     if (tid < p.n_entries) {  // a thread per entry (the launcher's rule)
       const Entry en = k.e[tid];
       const Stage st = k.s[en.stage];
+      // the consumer: the next entry (the last one's value drains out)
+      const Stage sc =
+          tid + 1 < p.n_entries ? k.s[k.e[tid + 1].stage] : st;
       // rings in rows: a slot of the table is V block planes
       Rec r = {en.lag,          en.in_base[0] * V, en.in_slots[0] * V,
                en.out_base * V, en.out_slots * V,  st.op,
                en.iteration,    st.tap_lo,         st.tap_n,
-               st.coeff_lo,     0,                 0};
+               st.coeff_lo,     st.ks,             sc.ky | (sc.kx << 8),
+               wide(narrow<T>(st.fill)),           wide(narrow<T>(sc.fill)),
+               0.0f,            0.0f};
       for (int z = 0; z < 8; ++z) {
         r.c[z] = st.op != kTapOp && st.coeff_lo + z < kMaxCoeffs
                      ? k.c[st.coeff_lo + z]
@@ -596,15 +756,20 @@ __global__ void __launch_bounds__(1024,
     for (int z = tid; z < kMaxTaps; z += blockDim.x) s_taps[z] = k.taps[z];
     for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
     __syncthreads();
+    // without kBC every stage re-imposes as stage 0 does (periodicity is
+    // uniform, the other axes clamp)
+    const int ey = axis_pos(ay, ty, k.s[0].ky);
+    const int ex = axis_pos(ax, tx, k.s[0].kx);
+    const Pos edge = pos_at(ey, ex, p, sy, sx);
     // the input stream's ring is entry 0's producer
-    float* const stream_ring = win + rec[0].in_base * plane;
+    T* const stream_ring = win + rec[0].in_base * plane;
     const int stream_rows = rec[0].in_slots;
-    float nxt[1];
+    T nxt[1];
     if (act) prefetch_slab<1>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
     for (int t = 0; t < p.ticks; ++t) {
       if (act && t < nslabs) {
-        push_slab<1>(nxt, gp + own.g, stream_ring, stream_rows, nullptr, t, tv,
-                  vt, nr, V, p.dom, pstride, plane, cell);
+        push_slab<1>(nxt, gp + own.g, stream_ring, stream_rows, (T*)nullptr,
+                     t, tv, vt, nr, V, p.dom, pstride, plane, cell);
       }
       if (tid < p.n_entries) {  // entry tid's slots at this tick
         const Rec& e = rec[tid];
@@ -625,28 +790,37 @@ __global__ void __launch_bounds__(1024,
         if (act && (r.flags & 1)) {
           const Rec& en = rec[i];
           const bool last = i == p.n_entries - 1;
-          const Pos q = last ? own : edge;
-          const float* ring = win + en.in_base * plane;
+          // a value that enters a ring is taken where its consumer's
+          // blocked-axis kinds say
+          const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
+          const int qy = last ? ty : (kBC ? axis_pos(ay, ty, ky) : ey);
+          const int qx = last ? tx : (kBC ? axis_pos(ax, tx, kx) : ex);
+          const bool fill_edge = kBC && !last && takes_fill(ay, ax, ky, kx);
+          const Pos q = !kBC ? (last ? own : edge) : pos_at(qy, qx, p, sy, sx);
+          const T* ring = win + en.in_base * plane;
           const int W = en.in_slots;
           for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
             const int m = r.m + row;
-            float val;
+            T val;
             if (!(r.flags & 2)) {
               val = ring[m * plane + q.c];
             } else if (en.op == kTapOp) {
-              val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo,
-                            ring, W, m, plane, x, last ? ty : ey,
-                            last ? tx : ex, p);
+              val = narrow<T>(tap_sum<kBC>(s_taps, s_c, en.tap_lo, en.tap_n,
+                                           en.coeff_lo, ring, W, m, plane, x,
+                                           qy, qx, p, en.ks, en.fill_s));
             } else {
               float c[8];
               for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-              val = table2_op(en.op, ring + slot_up(m, x, W) * plane,
-                              ring + m * plane,
-                              ring + slot_dn(m, x, W, p.dom) * plane, q, c,
-                              aux, (size_t)x * pstride);
+              val = narrow<T>(table2_op(
+                  en.op, ring + slot_up<kBC>(m, x, W, en.ks) * plane,
+                  ring + m * plane,
+                  ring + slot_dn<kBC>(m, x, W, p.dom, en.ks) * plane, q, c,
+                  ends<kBC>(x, p.dom, en.ks, en.fill_s), aux,
+                  (size_t)x * pstride));
             }
             if (!last) {
-              win[r.outo + row * plane + cell] = val;
+              win[r.outo + row * plane + cell] =
+                  fill_edge ? narrow<T>(en.fill_b) : val;
             } else if (writes) {
               out[(size_t)x * pstride + own.g] = val;
             }
@@ -656,7 +830,8 @@ __global__ void __launch_bounds__(1024,
       }
     }
   } else {
-    // a DAG: `n_fields` field streams, entries with several producers
+    // a DAG: `n_fields` field streams, entries with several producers; all
+    // stages share stage 0's boundary (the launcher's rule)
     __shared__ DagRec rec[kMaxEntries];
     __shared__ DagTick trec[kMaxEntries];
     __shared__ Tap s_taps[kMaxTaps];
@@ -692,11 +867,15 @@ __global__ void __launch_bounds__(1024,
     for (int z = tid; z < kMaxTaps; z += blockDim.x) s_taps[z] = k.taps[z];
     for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
     __syncthreads();
+    const int ey = axis_pos(ay, ty, k.s[0].ky);
+    const int ex = axis_pos(ax, tx, k.s[0].kx);
+    const Pos edge = pos_at(ey, ex, p, sy, sx);
+    const bool fill_edge = kBC && takes_fill(ay, ax, k.s[0].ky, k.s[0].kx);
     const size_t fstride = (size_t)p.ns * pstride;  // one field's grid
     // the first two field streams are prefetched a tick ahead, later ones
     // loaded as they are pushed: four fields' registers spill
     constexpr int kPreFields = 2;
-    float nxt[kPreFields][1];
+    T nxt[kPreFields][1];
 #pragma unroll
     for (int f = 0; f < kPreFields; ++f) {
       if (act && f < p.n_fields) {
@@ -713,11 +892,12 @@ __global__ void __launch_bounds__(1024,
           if (f < p.n_fields) {
             const Stream st = k.f[f];
             push_slab<1>(
-                f < kPreFields ? nxt[f % kPreFields] : nullptr,
+                f < kPreFields ? nxt[f % kPreFields] : (T*)nullptr,
                 gp + f * fstride + own.g,
-                st.slots ? win + st.base * V * plane : nullptr, st.slots * V,
-                st.out && writes ? out + f * fstride + own.g : nullptr, t, tv,
-                vt, nr, V, p.dom, pstride, plane, cell);
+                st.slots ? win + st.base * V * plane : (T*)nullptr,
+                st.slots * V,
+                st.out && writes ? out + f * fstride + own.g : (T*)nullptr, t,
+                tv, vt, nr, V, p.dom, pstride, plane, cell);
           }
         }
       }
@@ -745,35 +925,43 @@ __global__ void __launch_bounds__(1024,
         // a stage of an iteration >= steps computes nothing: only the
         // state nodes of its iteration read it, and they forward
         if (act && (r.flags & 1) && ((r.flags & 2) || en.op == kSelectOp)) {
-          // a value that enters a ring is taken at the grid-clamped
-          // position; one that only drains to the output at its own
+          // a value that enters a ring is re-imposed; one that only drains
+          // to the output is taken at its own position
           const bool ring = en.out_slots > 0;
           const Pos q = ring ? edge : own;
-          const float* in0 = win + en.in_base[0] * plane;
+          const T* in0 = win + en.in_base[0] * plane;
           const int W = en.in_slots[0];
           for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
             const int m = r.m + row;
             const int at = row * plane + q.c;  // row `row` of an input slab
-            float val;
+            T val;
             if (en.op == kSelectOp) {
               val = win[((r.flags & 2) ? r.mid[0] : r.mid[1]) + at];
             } else if (en.op == kCombineOp) {
               // make_combine's apply: w0*x0, then + w_z*x_z in input order
-              val = mul(s_c[en.coeff_lo], win[r.mid[0] + at]);
+              float acc = mul(s_c[en.coeff_lo], wide(win[r.mid[0] + at]));
               for (int z = 1; z < en.n_in; ++z) {
-                val = add(val, mul(s_c[en.coeff_lo + z], win[r.mid[z] + at]));
+                acc = add(acc,
+                          mul(s_c[en.coeff_lo + z], wide(win[r.mid[z] + at])));
               }
+              val = narrow<T>(acc);
             } else if (en.op == kTapOp) {
-              val = tap_sum(s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo, in0,
-                            W, m, plane, x, ring ? ey : ty, ring ? ex : tx, p);
+              val = narrow<T>(tap_sum<kBC>(
+                  s_taps, s_c, en.tap_lo, en.tap_n, en.coeff_lo, in0, W, m,
+                  plane, x, ring ? ey : ty, ring ? ex : tx, p, k.s[0].ks,
+                  wide(narrow<T>(k.s[0].fill))));
             } else {
               float c[8];
               for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-              val = table2_op(en.op, in0 + slot_up(m, x, W) * plane,
-                              in0 + m * plane,
-                              in0 + slot_dn(m, x, W, p.dom) * plane, q, c,
-                              aux, (size_t)x * pstride);
+              const int ks = k.s[0].ks;
+              val = narrow<T>(table2_op(
+                  en.op, in0 + slot_up<kBC>(m, x, W, ks) * plane,
+                  in0 + m * plane,
+                  in0 + slot_dn<kBC>(m, x, W, p.dom, ks) * plane, q, c,
+                  ends<kBC>(x, p.dom, ks, wide(narrow<T>(k.s[0].fill))), aux,
+                  (size_t)x * pstride));
             }
+            if (ring && fill_edge) val = narrow<T>(k.s[0].fill);
             if (ring) win[r.outo + row * plane + cell] = val;
             if (en.field >= 0 && writes) {
               out[en.field * fstride + (size_t)x * pstride + own.g] = val;
@@ -786,46 +974,90 @@ __global__ void __launch_bounds__(1024,
   }
 }
 
-template <int kOp, int kForm>
-cudaError_t launch_as(const float* gp, const float* aux, float* out,
+template <int kOp, int kForm, class T, bool kBC>
+cudaError_t launch_as(const void* gp, const void* aux, void* out,
                       const Params& p, const Program& k, int grid_x,
                       int grid_y, int threads, size_t smem,
                       cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      stream_kernel<kOp, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      stream_kernel<kOp, kForm, T, kBC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  stream_kernel<kOp, kForm><<<dim3(grid_x, grid_y), threads, smem, stream>>>(
-      gp, aux, out, p, k);
+  stream_kernel<kOp, kForm, T, kBC>
+      <<<dim3(grid_x, grid_y), threads, smem, stream>>>(
+          static_cast<const T*>(gp), static_cast<const T*>(aux),
+          static_cast<T*>(out), p, k);
   return cudaGetLastError();
 }
 
-template <int kOp>
-cudaError_t launch(const float* gp, const float* aux, float* out,
+template <int kOp, class T, bool kBC>
+cudaError_t launch(const void* gp, const void* aux, void* out,
                    const Params& p, const Program& k, int grid_x, int grid_y,
                    int threads, size_t smem, cudaStream_t stream) {
   if (p.V == 1) {
-    return launch_as<kOp, kVecOne>(gp, aux, out, p, k, grid_x, grid_y,
-                                   threads, smem, stream);
+    return launch_as<kOp, kVecOne, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
+                                      threads, smem, stream);
   }
   if (p.rows == 1) {
-    return launch_as<kOp, kOneRow>(gp, aux, out, p, k, grid_x, grid_y,
-                                   threads, smem, stream);
+    return launch_as<kOp, kOneRow, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
+                                      threads, smem, stream);
   }
-  return launch_as<kOp, kRows>(gp, aux, out, p, k, grid_x, grid_y, threads,
-                               smem, stream);
+  return launch_as<kOp, kRows, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
+                                  threads, smem, stream);
+}
+
+template <class T, bool kBC>
+cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
+                        void* out, const Params& p, const Program& k,
+                        int grid_x, int grid_y, int threads, size_t smem,
+                        cudaStream_t s) {
+  switch (kernel_op) {
+    case kDagBody:
+      return launch<kDagBody, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
+                                      threads, smem, s);
+    case kChainBody:
+      return launch<kChainBody, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
+                                        threads, smem, s);
+    case 0:
+      return launch<0, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
+                               smem, s);
+    case 1:
+      return launch<1, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
+                               smem, s);
+    case 2:
+      return launch<2, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
+                               smem, s);
+    case 3:
+      return launch<3, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
+                               smem, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// The storage type of this library: it is built once per type
+// (kernels/_build.py: LIBRARIES), so that the two halves of the kernels
+// compile in parallel.
+#ifndef STENCIL_BF16
+#define STENCIL_BF16 0
+#endif
+#if STENCIL_BF16
+using Storage = __nv_bfloat16;
+#else
+using Storage = float;
+#endif
+
 // `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
-// main-path body), -1 any chain of the table, -2 any DAG of the table.
-// Fills `p.vt` and `p.rows` and sizes the CTA by the rule of the header
-// (`builder.cta_shape`).  Returns the cudaError_t of the launch (0 on
-// success).  `k` is copied into the kernel's parameters; the caller may
-// free it when this returns.
-extern "C" int stencil_stream_launch(int kernel_op, const float* gp,
-                                     const float* aux, float* out, Params p,
+// main-path body), -1 any chain of the table, -2 any DAG of the table, over
+// `Storage` grids.  `bcs`: 1 when some stage has a reflect or constant axis
+// (the kernels with the boundary work), else 0.  Fills `p.vt` and `p.rows`
+// and sizes the CTA by the rule of the header (`builder.cta_shape`).
+// Returns the cudaError_t of the launch (0 on success).  `k` is copied into
+// the kernel's parameters; the caller may free it when this returns.
+extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
+                                     const void* aux, void* out, Params p,
                                      const Program* k, int grid_x, int grid_y,
                                      size_t smem, void* stream) {
   const int plane = p.by * p.bx;
@@ -838,7 +1070,8 @@ extern "C" int stencil_stream_launch(int kernel_op, const float* gp,
   if (vt < 1 || p.dom < 1 || p.ns % p.V != 0 || p.dom > p.ns ||
       p.ns - p.dom >= p.V || p.n_entries < 1 ||
       (kernel_op < 0 && p.n_entries > kMaxEntries) || p.n_fields < 1 ||
-      p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1)) {
+      p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1) ||
+      (bcs != 0 && bcs != 1)) {
     return cudaErrorInvalidValue;
   }
   p.vt = vt;
@@ -846,24 +1079,10 @@ extern "C" int stencil_stream_launch(int kernel_op, const float* gp,
   const int threads =
       (max(plane * vt, kernel_op < 0 ? p.n_entries : 0) + 31) / 32 * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kernel_op) {
-    case kDagBody:
-      return launch<kDagBody>(gp, aux, out, p, *k, grid_x, grid_y, threads,
-                              smem, s);
-    case kChainBody:
-      return launch<kChainBody>(gp, aux, out, p, *k, grid_x, grid_y, threads,
-                                smem, s);
-    case 0:
-      return launch<0>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
-    case 1:
-      return launch<1>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
-    case 2:
-      return launch<2>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
-    case 3:
-      return launch<3>(gp, aux, out, p, *k, grid_x, grid_y, threads, smem, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k,
+                                          grid_x, grid_y, threads, smem, s)
+             : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k,
+                                           grid_x, grid_y, threads, smem, s);
 }
 
 extern "C" const char* stencil_stream_error_string(int err) {

@@ -7,6 +7,7 @@ with its aux, eight seeded random DAGs), one super-step against ``repro``'s
 ``superstep_dag(..., interpret=True)``, periodic main-path stencils and
 chains, the run forms, the traffic report and the plan-time refusals.
 Tolerances are ``repro.core.precision.tolerance(..., stages=S)``."""
+import dataclasses
 import random
 
 import jax.numpy as jnp
@@ -364,9 +365,15 @@ def _hopper(problem, **cfg):
 def test_hopper_dag_refusals_name_their_item():
     S, P, st = PKGS["port"]
     wave = _wave(2)(S, P, st)
+    # one boundary on every stage plans (B1c); stages that differ do not
     for bc in ("constant:0.5", ("clamp", "reflect")):
-        with pytest.raises(ValueError, match="B1c"):
-            _hopper(StencilProblem(wave, (16, 32), boundary=bc))
+        assert _hopper(StencilProblem(wave, (16, 32), boundary=bc)).geometry
+    lapu, unext = wave.stages
+    with pytest.raises(ValueError, match="B1k"):
+        _hopper(StencilProblem(P(
+            (lapu, dataclasses.replace(unext, boundary="reflect")),
+            fields=wave.fields, updates={"u": "unext", "u_prev": "u"}),
+            (16, 32)))
     custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
                         lambda get, c, aux=None: c["a"] * get((0, 1)))
     with pytest.raises(ValueError, match="B1i"):
@@ -394,8 +401,8 @@ def test_hopper_dag_refusals_name_their_item():
                    bsize=12).geometry.bsize == (12,)
     assert _hopper(StencilProblem(wave, (16, 32)),
                    par_vec=2).geometry.par_vec == 2
-    with pytest.raises(ValueError, match="B1e"):
-        _hopper(StencilProblem(wave, (16, 32), dtype="bfloat16"))
+    assert _hopper(StencilProblem(wave, (16, 32),
+                                  dtype="bfloat16")).geometry   # B1e
 
 
 def test_superstep_dag_rejects_bad_inputs():

@@ -1,8 +1,10 @@
 """The Hopper streaming kernel against its plain version and the port's
 oracle, on the card: the four Table-2 stencils, linear stage chains (tap
 tables, mixed radii, radius-0 stages, aux), stage DAGs (field streams,
-fan-in, state nodes), periodic boundaries, and V-row slabs (``par_vec >
-1``) and 1D grids on all three bodies.  Needs an
+fan-in, state nodes), periodic boundaries, V-row slabs (``par_vec > 1``)
+and 1D grids on all three bodies, and bfloat16 storage and the reflect and
+constant boundaries (mixed per axis and per chain stage) on all three
+bodies.  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -269,13 +271,15 @@ PERIODIC = [  # (id, stages, dims, boundary, par_time, bsize)
 
 
 def _state(problem, device, seed):
+    """State and aux from ``seed``, in the problem's storage dtype."""
     rng = np.random.default_rng(seed)
+    dt = problem.torch_dtype
     g = torch.from_numpy(rng.uniform(0.5, 2.0, problem.state_shape)
-                         .astype(np.float32)).to(device)
+                         .astype(np.float32)).to(device, dt)
     aux = None
     if problem.needs_aux:
         aux = torch.from_numpy(rng.uniform(0, 0.1, problem.shape)
-                               .astype(np.float32)).to(device)
+                               .astype(np.float32)).to(device, dt)
     return g, aux
 
 
@@ -439,3 +443,120 @@ def test_par_vec_plan_equals_v1_plan(cuda, case):
     scale = 100 if problem.needs_aux else None
     torch.testing.assert_close(v1, want, **precision.tolerance(
         "float32", iters, stages=problem.n_stages, scale=scale))
+
+
+# --- bfloat16 storage and the reflect and constant boundaries -----------------
+
+def _mixed_chain(nd):
+    """A chain whose stages differ in boundary: reflect, then constant."""
+    first = _advect(nd) if nd == 2 else StencilStage(stencils.make_star(3, 1))
+    return lambda: [
+        StencilStage(first.stencil, coeffs=first.coeffs, boundary="reflect"),
+        StencilStage(f"diffusion{nd}d",
+                     boundary=("constant:0.0",) + ("reflect",) * (nd - 1))]
+
+
+STORAGE_BC = [  # (id, program, dims, boundary, par_time, bsize, par_vec,
+    # dtype): the three bodies in their three forms, ragged slab pads
+    ("diffusion2d_bf16", _star("diffusion2d"), (37, 300), "clamp", 4, (64,),
+     1, "bfloat16"),
+    ("hotspot2d_periodic_bf16_v8", _star("hotspot2d"), (33, 517), "periodic",
+     4, (128,), 8, "bfloat16"),
+    ("diffusion3d_bf16_v2", _star("diffusion3d"), (21, 50, 45), "clamp", 3,
+     (16, 16), 2, "bfloat16"),
+    ("hotspot3d_bf16_v4", _star("hotspot3d"), (19, 37, 70),
+     ("clamp", "periodic", "periodic"), 2, (12, 32), 4, "bfloat16"),
+    ("advect_diffuse2d_rows_bf16_v4", lambda: [_advect(2),
+                                               StencilStage("diffusion2d")],
+     (37, 700), "clamp", 2, (300,), 4, "bfloat16"),
+    ("damp2_chain_bf16", lambda: [StencilStage("diffusion2d"), _damp(2),
+                                  _damp(2)], (20, 60), "clamp", 4, (12,), 1,
+     "bfloat16"),
+    ("wave2d_periodic_bf16_v4", lambda: _wave(2), (37, 300), "periodic", 4,
+     (64,), 4, "bfloat16"),
+    ("hotspot_dag_bf16", _hotspot_dag, (25, 170), ("clamp", "periodic"), 3,
+     (32,), 1, "bfloat16"),
+    ("wave3d_bf16", lambda: _wave(3), (17, 40, 35), "clamp", 2, (16, 16), 1,
+     "bfloat16"),
+    ("star1d_r2_bf16_v16", _star("star1d_r2"), (1001,), "clamp", 4, (), 16,
+     "bfloat16"),
+    ("diffusion2d_reflect_v4", _star("diffusion2d"), (37, 300), "reflect", 4,
+     (64,), 4, "float32"),
+    ("diffusion2d_constant", _star("diffusion2d"), (37, 300), "constant:1.5",
+     4, (64,), 1, "float32"),
+    ("diffusion2d_constant_bf16_v8", _star("diffusion2d"), (37, 300),
+     "constant:1.5", 4, (64,), 8, "bfloat16"),
+    ("hotspot2d_reflect_constant", _star("hotspot2d"), (33, 517),
+     ("reflect", "constant:80.0"), 4, (128,), 1, "float32"),
+    ("hotspot3d_mixed_v2", _star("hotspot3d"), (19, 37, 70),
+     ("clamp", "reflect", "constant:0.0"), 2, (12, 32), 2, "float32"),
+    ("diffusion3d_mixed_bf16_v4", _star("diffusion3d"), (21, 50, 45),
+     ("reflect", "constant:0.5", "reflect"), 3, (16, 16), 4, "bfloat16"),
+    ("mixed_chain2d", _mixed_chain(2), (37, 300), "clamp", 2, (64,), 1,
+     "float32"),
+    ("mixed_chain2d_bf16_v4", _mixed_chain(2), (37, 300), "clamp", 2, (64,),
+     4, "bfloat16"),
+    ("mixed_chain3d_v2", _mixed_chain(3), (21, 50, 45), "clamp", 2, (16, 16),
+     2, "float32"),
+    ("diamond_reflect", _diamond, (33, 150), "reflect", 2, (40,), 1,
+     "float32"),
+    ("diamond_constant_bf16_v4", _diamond, (33, 150), "constant:0.25", 2,
+     (40,), 4, "bfloat16"),
+    ("wave2d_reflect_constant_v2", lambda: _wave(2), (30, 211),
+     ("reflect", "constant:0.0"), 3, (48,), 2, "float32"),
+    ("wave3d_constant_bf16", lambda: _wave(3), (21, 30, 45), "constant:0.5",
+     2, (16, 16), 1, "bfloat16"),
+    ("star1d_r2_reflect_v4", _star("star1d_r2"), (1001,), "reflect", 4, (),
+     4, "float32"),
+    ("star1d_r1_constant_bf16", _star("star1d_r1"), (999,), "constant:2.0",
+     3, (), 1, "bfloat16"),
+]
+
+
+def _storage_bc_case(case):
+    _, program, dims, bc, par_time, bsize, V, dtype = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    cfg = dict(backend="hopper", par_time=par_time, bsize=bsize)
+    return problem, cfg, V
+
+
+@pytest.mark.parametrize("case", STORAGE_BC, ids=lambda c: c[0])
+def test_storage_and_bc_kernel_equals_plain_version(cuda, case):
+    """One super-step bit for bit against the plain version in the
+    problem's storage dtype; NaN in the slab-pad rows changes nothing."""
+    problem, cfg, V = _storage_bc_case(case)
+    geom = plan(problem, RunConfig(par_vec=V, **cfg)).geometry
+    g, aux = _state(problem, cuda, seed=9)
+    gp, aux_p, dag, c, region, out = _superstep_vs_plain(problem, geom, g,
+                                                         aux)
+    assert out.dtype == problem.torch_dtype
+    dom = builder._stream_dom(geom, problem.structural_bc)
+    if gp.shape[-geom.ndim] > dom:
+        poisoned = gp.clone()
+        poisoned[(Ellipsis, slice(dom, None)) + (slice(None),) * (
+            geom.ndim - 1)] = float("nan")
+        again = torch.full_like(gp, float("nan"))
+        builder.superstep_dag(dag, geom, poisoned, c, geom.par_time - 1,
+                              aux_p, out=again)
+        assert torch.equal(again[region], out[region])
+
+
+@pytest.mark.parametrize("case", STORAGE_BC, ids=lambda c: c[0])
+def test_storage_and_bc_plan_equals_v1_and_reference(cuda, case):
+    """The plan launches ``ceil(iters/T)`` times, returns the storage dtype,
+    equals the plan at V = 1 bit for bit and stays within
+    ``precision.tolerance(dtype, iters, stages)`` of the reference."""
+    problem, cfg, V = _storage_bc_case(case)
+    iters = 2 * cfg["par_time"] + 1
+    g, aux = _state(problem, cuda, seed=10)
+    before = builder.LAUNCHES
+    got = plan(problem, RunConfig(par_vec=V, **cfg)).run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / cfg["par_time"])
+    assert got.dtype == problem.torch_dtype
+    v1 = plan(problem, RunConfig(par_vec=1, **cfg)).run(g, iters, aux=aux)
+    assert torch.equal(got, v1)
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    scale = 100 if problem.needs_aux else None
+    torch.testing.assert_close(v1, want, **precision.tolerance(
+        problem.dtype, iters, stages=problem.n_stages, scale=scale))

@@ -175,10 +175,10 @@ def test_superstep_chain_rejects_bad_inputs():
     with pytest.raises(ValueError, match="radius"):    # halo too narrow
         builder.superstep_chain(((st, None), (st, None)), geom, gp,
                                 torch.cat([c, c]), 2)
-    with pytest.raises(ValueError, match="B1c"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         builder.superstep_chain(
             ((st, boundary.BoundaryCondition.make("reflect", 2)),), geom,
-            gp, c, 2)
+            gp.double(), c, 2)
     with pytest.raises(ValueError, match="shape"):
         builder.superstep_chain(((st, None),), geom, gp[1:], c, 2)
     with pytest.raises(ValueError, match="steps"):

@@ -5,6 +5,8 @@ plain version of the chain kernel (against ``pallas_interpret`` and
 ``oracle_program_run``), one super-step of a chain against ``repro``'s
 Pallas kernel in interpret mode, fusion, and the plan-time refusals.
 Tolerances are ``repro.core.precision.tolerance(..., stages=S)``."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -456,7 +458,7 @@ def test_hopper_refuses_program_forms_it_does_not_run():
     custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
                         lambda get, c, aux=None: c["a"] * get((0, 1)))
     # DAGs plan (ROADMAP B1h is ported), but not with a custom stencil or
-    # a reflect stage
+    # with stages that differ in boundary (B1k)
     forward_ref = P((S("diffusion2d", name="a", inputs=("b",)),
                      S("diffusion2d", name="b", inputs=("u",))),
                     updates={"u": "a"})
@@ -466,13 +468,16 @@ def test_hopper_refuses_program_forms_it_does_not_run():
             (S(custom, name="a", inputs=("u",)),
              S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
         ), (16, 32)))
-    with pytest.raises(ValueError, match="B1c"):
-        _hopper(StencilProblem(_diamond2d(S, P, st), (16, 32),
-                               boundary=("clamp", "reflect")))
-    with pytest.raises(ValueError, match="B1c"):
-        _hopper(StencilProblem([S("diffusion2d"),
-                                S(st.make_star(2, 1), boundary="reflect")],
-                               (16, 32)))
+    a, b, m = _diamond2d(S, P, st).stages
+    mixed = P((a, dataclasses.replace(b, boundary="reflect"), m))
+    with pytest.raises(ValueError, match="B1k"):
+        _hopper(StencilProblem(mixed, (16, 32)))
+    # one boundary on a DAG, and chains whose stages differ, plan (B1c)
+    assert _hopper(StencilProblem(_diamond2d(S, P, st), (16, 32),
+                                  boundary=("clamp", "reflect"))).geometry
+    assert _hopper(StencilProblem([S("diffusion2d"),
+                                   S(st.make_star(2, 1), boundary="reflect")],
+                                  (16, 32))).geometry
     with pytest.raises(ValueError, match="B1i"):
         _hopper(StencilProblem([S("diffusion2d"), S(custom)], (16, 32)))
     with pytest.raises(ValueError, match="shared memory"):
@@ -489,8 +494,7 @@ def test_hopper_refuses_program_forms_it_does_not_run():
         _hopper(StencilProblem([S(st.make_star(2, 32))], (8, 400)),
                 par_time=1, bsize=300)
     # what the hopper backend refuses, the reference backend runs
-    prob = StencilProblem(_diamond2d(S, P, st), (16, 32),
-                          boundary=("clamp", "reflect"))
+    prob = StencilProblem(mixed, (16, 32))
     g, _ = _data(prob)
     out = plan(prob, RunConfig(backend="reference", device="cpu")).run(g, 2)
     assert bool(out.isfinite().all())
