@@ -75,7 +75,29 @@ On one CUDA card, from the root of a checkout:
    and a constant stage, diamond2d under reflect, and diffusion2d constant
    1.5 in bf16): the same checks and times at V = 1, beside the clamp
    cell's, with the yardstick padded under the same boundary;
-10. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+10. runs the batch phase (``BATCH_CASES``: diffusion2d and hotspot2d with
+    one shared power grid at 16384^2, B = 4; hotspot3d at 448^3, B = 8,
+    a power grid per member; advect_diffuse2d and the periodic wave2d,
+    B = 2; diffusion2d in bf16 at V = 8, B = 4; iters = 2T+3): per case
+    ``run_batch`` bit for bit against the B sequential ``run``s, one launch
+    per super-step for the whole batch (``ceil(iters/T)``, B x num_blocks
+    CTAs each), ``run_batch`` ms against the sequential loop's, one
+    batched super-step bit for bit against the plain version, the batched
+    cuDNN yardstick (N = B), the bound and the peak memory; then
+    ``prewarm((1, 2, 4, 8))`` of a 4096^2 plan, first call and repeat;
+11. serves stencil requests (``serve_phase``): one ``StencilService`` with
+    a diffusion2d and a hotspot2d bucket (a power grid per request) at
+    4096^2, T=8, bsize 256, batch classes (1, 2, 4, 8); 64 requests each,
+    iters 8 or 16, seeded open-loop Poisson arrivals at twice the rate of
+    the sequential ``plan.run`` loop timed first; every delivered grid bit
+    for bit with the loop's; delivered GCell/s against the loop's, p50/p99
+    latency, batch fill, rounds, rejections and launches; then an injected
+    ``serve.launch`` failure (retried and served), a NaN member
+    (quarantined with ``NumericalFault`` while its three neighbours
+    deliver) and a checkpointed request killed after its first chunk and
+    resubmitted (resumed bit for bit); and the kernel at the serving shape
+    (hotspot2d, B = 8) against its plain version and yardstick;
+12. serves full-width qwen3-1.7b (bf16, random weights from a seed)
     through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
     + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
     layer) and none in decode, tokens in the vocab and finite logits; times
@@ -84,7 +106,7 @@ On one CUDA card, from the root of a checkout:
     (output pre-filled with NaN), the ``"flash"`` prefill against the
     ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
     plain version and ``scaled_dot_product_attention`` as the yardstick;
-11. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+13. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
     ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
     (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
     microbatch and 2 with two, asserting finite losses, the first within
@@ -100,7 +122,7 @@ On one CUDA card, from the root of a checkout:
     the smoke width (bf16, head dim 128, so the kernels run) with an
     injected failure and a restart, asserting the uninterrupted run's
     losses bit for bit;
-12. prints one ``{"kernels": [...]}`` line and, last, the device line.
+14. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -368,7 +390,7 @@ def library_yardstick(name, g, aux, par_time, bc=None):
     from repro_torch.core.stencils import STENCILS as ST
     from repro_torch.core.stencils import TEMP_AMB, default_coeffs
     c = {k: float(v) for k, v in default_coeffs(ST[name]).items()}
-    nd = g.ndim
+    nd = ST[name].ndim
     mid = (1,) * nd
     if name == "hotspot2d":
         sdc = c["sdc"]
@@ -395,17 +417,23 @@ def library_yardstick(name, g, aux, par_time, bc=None):
         bias = torch.tensor([c["bias"]], device=g.device, dtype=g.dtype)
     conv = F.conv2d if nd == 2 else F.conv3d
     pad = (1, 1) * nd
-    aux_p = None if aux is None else F.pad(aux[None, None], pad,
-                                           mode="replicate")
+    # a batch (a leading axis on g) is the convolution's N; the power is
+    # shared by the batch or one per member
+    x0 = g[:, None] if g.ndim > nd else g[None, None]
+    aux_p = None
+    if aux is not None:
+        aux_p = F.pad(aux[:, None] if aux.ndim > nd else aux[None, None],
+                      pad, mode="replicate").expand(
+                          (x0.shape[0], 1) + (-1,) * nd)
 
     def run():
-        x = g[None, None]
+        x = x0
         for _ in range(par_time):
             x = pad_bc(x, 1, bc)
             if aux_p is not None:
                 x = torch.cat([x, aux_p], dim=1)
             x = conv(x, w, bias)
-        return x[0, 0]
+        return x[:, 0] if g.ndim > nd else x[0, 0]
     return run
 
 
@@ -589,15 +617,16 @@ def program_yardstick(problem, g, par_time):
         convs.append((stage.stencil.apply(one_hot, cf)[None, None].to(
             g.dtype), r, stage.boundary))
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    batched = g.ndim > nd     # a batch is the convolution's N
 
     def run():
-        x = g[None, None]
+        x = g[:, None] if batched else g[None, None]
         for _ in range(par_time):
             for w, r, bc in convs:
                 if r:
                     x = pad_bc(x, r, bc)
                 x = conv(x, w)
-        return x[0, 0]
+        return x[:, 0] if batched else x[0, 0]
     return run
 
 
@@ -844,9 +873,11 @@ def dag_yardstick(problem, g, par_time):
         ops_.append(("conv", st.apply(one_hot, cf)[None, None].to(g.dtype),
                      r, stage.boundary))
     F_ = len(prog.fields)
+    # a batch (a leading axis on the state) is the convolutions' N
+    lead = g.ndim - nd - (F_ > 1)
 
     def run():
-        fields = list(g.unbind(0)) if F_ > 1 else [g]
+        fields = list(g.unbind(lead)) if F_ > 1 else [g]
         for _ in range(par_time):
             vals = [None] * len(prog.stages)
             for si in prog.topo:
@@ -854,10 +885,11 @@ def dag_yardstick(problem, g, par_time):
                 ins = [vals[i] if i >= 0 else fields[~i]
                        for i in prog.inputs_idx[si]]
                 if kind == "conv":
-                    x = ins[0][None, None]
+                    x = ins[0][:, None] if lead else ins[0][None, None]
                     if r:
                         x = pad_bc(x, r, bc)
-                    vals[si] = conv(x, w)[0, 0]
+                    x = conv(x, w)
+                    vals[si] = x[:, 0] if lead else x[0, 0]
                 else:
                     acc = torch.mul(w[0], ins[0])
                     for wi, xi in zip(w[1:], ins[1:]):
@@ -865,7 +897,7 @@ def dag_yardstick(problem, g, par_time):
                     vals[si] = acc
             fields = [vals[u] if u >= 0 else fields[~u]
                       for u in prog.updates_idx]
-        return torch.stack(fields) if F_ > 1 else fields[0]
+        return torch.stack(fields, lead) if F_ > 1 else fields[0]
     return run
 
 
@@ -1370,6 +1402,432 @@ def bc_phase(device, peaks, f32_rows) -> list:
         torch.cuda.empty_cache()
     print(f"bc phase: {time.perf_counter() - t0:.3f} s", flush=True)
     return rows
+
+
+# --- batches along the kernel grid's z axis (B1f) ---------------------------
+
+#: (label, cell, dtype, B, par_vec, aux mode): the main path without aux
+#: and with one power grid shared by the batch, 3D with one per member, a
+#: chain, a periodic DAG and bf16 at V = 8, each at its cell's size and
+#: schedule, iters = 2T+3
+BATCH_CASES = (
+    ("diffusion2d B=4", "diffusion2d", "float32", 4, 1, None),
+    ("hotspot2d B=4 shared aux", "hotspot2d", "float32", 4, 1, "shared"),
+    ("hotspot3d B=8 member aux", "hotspot3d", "float32", 8, 1, "member"),
+    ("advect_diffuse2d B=2", "advect_diffuse2d", "float32", 2, 1, None),
+    ("wave2d B=2", "wave2d", "float32", 2, 1, None),
+    ("diffusion2d bf16 B=4 V=8", "diffusion2d", "bfloat16", 4, 8, None),
+)
+#: the plan whose prewarm is timed: the serve phase's diffusion2d bucket
+PREWARM_SIZES = (1, 2, 4, 8)
+
+
+def batch_inputs(name, problem, B, aux_mode, device):
+    """Member b's state and aux from seed b (the f32 cells' inputs at b =
+    0), in the problem's dtype: ``(B, *state)`` and the aux, one grid for
+    the batch (``"shared"``) or ``(B, *shape)`` (``"member"``)."""
+    import torch
+    dt = problem.torch_dtype
+    g = torch.empty((B,) + problem.state_shape, device=device, dtype=dt)
+    auxs = []
+    for b in range(B):
+        if name in STENCILS:
+            gb, ab = inputs(name, problem.shape, device, b)
+            auxs.append(ab)
+        else:
+            gb = grid_input(problem.state_shape, device, b)
+        g[b] = gb
+        del gb
+    aux = None
+    if aux_mode == "shared":
+        aux = auxs[0].to(dt)
+    elif aux_mode == "member":
+        aux = torch.stack(auxs).to(dt)
+    return g, aux
+
+
+def batch_bound(problem, T, peaks, B, shared_aux) -> dict:
+    """:func:`bound` of ``B`` members: every field of every member read and
+    written once, the aux read once per member or once for the batch."""
+    cells = math.prod(problem.shape)
+    n_aux = 1 if problem.needs_aux else 0
+    reads = B * (problem.stencil.num_read - n_aux) + (
+        n_aux if shared_aux else B * n_aux)
+    bytes_once = (reads + B * len(problem.fields)) * cells * problem.cell_bytes
+    flops = B * T * problem.stencil.flop_pcu * cells
+    bw, fp32, _ = peaks
+    t_bytes, t_ops = bytes_once / bw * 1e3, flops / fp32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": bytes_once, "bound_flops": flops}
+
+
+def counted_batch(p, g, aux, iters):
+    """``p.run_batch`` with the launch count at 0 just before and read just
+    after, and the peak device memory of the call: ``(out, launches,
+    peak bytes)``; it must launch ``ceil(iters/T)`` times whatever B."""
+    import torch
+    from repro_torch.kernels import builder
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    builder.LAUNCHES = 0
+    out = p.run_batch(g, iters, aux=aux)
+    torch.cuda.synchronize()
+    launches = builder.LAUNCHES
+    want = math.ceil(iters / p.geometry.par_time)
+    if launches != want:
+        raise AssertionError(f"run_batch of {g.shape[0]} launched the "
+                             f"kernel {launches} times, expected {want}")
+    return out, launches, torch.cuda.max_memory_allocated()
+
+
+def batch_row(label, name, dtype, B, V, aux_mode, device, peaks) -> dict:
+    """One batch case: ``run_batch`` bit for bit against the B sequential
+    ``run``s, its launches, CTAs and peak memory; ``run_batch`` ms against
+    the sequential loop's; one batched super-step bit for bit against the
+    plain version (one timed call); the batched cuDNN yardstick (N = B)
+    and the bound."""
+    import torch
+    from repro_torch.api import RunConfig, plan
+    problem, _, T, bsize = case_problem(name, dtype)
+    p = plan(problem, RunConfig(backend="hopper", par_time=T, bsize=bsize,
+                                par_vec=V, device=device))
+    geom = p.geometry
+    iters = 2 * T + 3
+    g, aux = batch_inputs(name, problem, B, aux_mode, device)
+    out, launches, peak = counted_batch(p, g, aux, iters)
+
+    def member_aux(b):
+        return aux[b] if aux_mode == "member" else aux
+    for b in range(B):
+        one = p.run(g[b], iters, aux=member_aux(b))
+        if not torch.equal(out[b], one):
+            raise AssertionError(
+                f"{label}: member {b} of run_batch differs from its run by "
+                f"{(out[b].float() - one.float()).abs().max().item()}")
+        del one
+    del out
+    torch.cuda.empty_cache()
+    batch_ms = time_ms(lambda: p.run_batch(g, iters, aux=aux), reps=3)
+    seq_ms = time_ms(lambda: [p.run(g[b], iters, aux=member_aux(b))
+                              for b in range(B)], reps=3)
+    torch.cuda.empty_cache()
+    res = superstep_vs_plain(label, problem, geom, g, aux, plain_reps=0)
+    torch.cuda.empty_cache()
+    if name in STENCILS:
+        fn = library_yardstick(name, g, aux, T, problem.bc)
+        what = f"cuDNN conv per step, N = {B}, {dtype}"
+    elif problem.is_dag:
+        fn = dag_yardstick(problem, g, T)
+        what = f"composed cuDNN conv and torch.mul/add, N = {B}, {dtype}"
+    else:
+        fn = program_yardstick(problem, g, T)
+        what = f"cuDNN conv per stage, N = {B}, {dtype}"
+    library_ms = time_ms(fn, reps=3)
+    cells = math.prod(problem.shape)
+    row = {"name": f"stencil_stream[{label}]", "route": "cuda",
+           "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           **res, **batch_bound(problem, T, peaks, B, aux_mode == "shared"),
+           "library_ms": library_ms, "library": what, "batch": B,
+           "aux": aux_mode, "dtype": dtype, "par_vec": V,
+           "dims": list(problem.shape), "par_time": T,
+           "bsize": list(geom.bsize), "iters": iters,
+           "ctas_per_launch": B * geom.num_blocks,
+           "equal_to_sequential": True, "run_batch_ms": batch_ms,
+           "sequential_ms": seq_ms, "batch_speedup": seq_ms / batch_ms,
+           "run_batch_gcells_per_s": B * cells * iters / batch_ms / 1e6,
+           "peak_bytes": peak}
+    print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize} V={V}: "
+          f"run_batch of {iters} iters {batch_ms} "
+          f"({row['run_batch_gcells_per_s']:.3f} GCell/s) vs {B} runs "
+          f"{seq_ms}: {row['batch_speedup']:.3f}x, equal bit for bit; "
+          f"{launches} launches of {row['ctas_per_launch']} CTAs "
+          f"({geom.num_blocks} a member); peak {peak / 2**30:.3f} GiB; "
+          f"superstep: kernel {res['ms']} (bit for bit with plain), plain "
+          f"{res['plain_ms']}, library {library_ms}, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
+    del g, aux
+    torch.cuda.empty_cache()
+    return row
+
+
+def prewarm_seconds(device) -> dict:
+    """``prewarm(PREWARM_SIZES)`` of the serve phase's diffusion2d plan,
+    twice: the first call of a new plan (its batch sizes and buffers met
+    for the first time; the library was built and loaded at the start)
+    and the repeat."""
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    p = plan(StencilProblem("diffusion2d", SERVE_DIMS),
+             RunConfig(backend="hopper", par_time=SERVE_T,
+                       bsize=SERVE_BSIZE, device=device))
+    cold = p.prewarm(PREWARM_SIZES)
+    warm = p.prewarm(PREWARM_SIZES)
+    print(f"prewarm{PREWARM_SIZES} of diffusion2d {SERVE_DIMS}: first "
+          f"{ {k: round(v, 4) for k, v in cold.items()} } s, repeat "
+          f"{ {k: round(v, 4) for k, v in warm.items()} } s", flush=True)
+    return {"prewarm_first_s": cold, "prewarm_repeat_s": warm}
+
+
+def batch_phase(device, peaks) -> list:
+    """Every case of :data:`BATCH_CASES`, then the prewarm timings."""
+    t0 = time.perf_counter()
+    rows = [batch_row(*case, device, peaks) for case in BATCH_CASES]
+    rows[0].update(prewarm_seconds(device))
+    print(f"batch phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
+# --- serving: StencilService over run_batch ---------------------------------
+
+#: two buckets at 4096^2 f32, T=8, bsize 256 (18 CTAs a member), batch
+#: classes up to 8 (144 CTAs)
+SERVE_DIMS, SERVE_T, SERVE_BSIZE = (4096, 4096), 8, (256,)
+SERVE_STENCILS = ("diffusion2d", "hotspot2d")
+SERVE_CLASSES = (1, 2, 4, 8)
+#: requests per bucket, their iters, and the distinct seeded grids they
+#: draw from (request i of a bucket takes grid i mod SERVE_BASES)
+SERVE_N, SERVE_ITERS, SERVE_BASES = 64, (8, 16), 8
+#: open-loop arrivals at this multiple of the sequential loop's rate
+SERVE_LOAD = 2.0
+#: launch slots, each a CUDA stream of its own, run in worker threads so
+#: that the event loop keeps admitting while a launch computes (inline, a
+#: launch blocks the loop and the arrivals with it, and batches hold about
+#: one request)
+SERVE_SLOTS = 2
+
+
+def serve_requests(device):
+    """The 2 x :data:`SERVE_N` requests, seeded: ``(bucket, base, iters)``
+    per request in arrival order, the exponential gaps, and per bucket the
+    numpy base grids (and power grids)."""
+    import numpy as np
+    rng = np.random.default_rng(2024)
+    bases = {}
+    for s, name in enumerate(SERVE_STENCILS):
+        gs, auxs = [], []
+        for k in range(SERVE_BASES):
+            g, aux = inputs(name, SERVE_DIMS, device, 100 * s + k)
+            gs.append(g.cpu().numpy())
+            auxs.append(None if aux is None else aux.cpu().numpy())
+        bases[name] = (gs, auxs)
+    order = [(name, i) for name in SERVE_STENCILS for i in range(SERVE_N)]
+    rng.shuffle(order)
+    reqs = [(name, i % SERVE_BASES, int(rng.choice(SERVE_ITERS)))
+            for name, i in order]
+    return reqs, rng, bases
+
+
+def serve_phase(device, peaks) -> dict:
+    """One ``StencilService`` with a diffusion2d and a hotspot2d bucket
+    (per-request power) at :data:`SERVE_DIMS`: the sequential ``plan.run``
+    loop over the requests (its rate, and each request's result), then
+    the service under seeded open-loop arrivals at :data:`SERVE_LOAD`
+    times that rate (every delivered grid bit for bit with the loop's);
+    then an injected launch failure (retried and served), a NaN member
+    (quarantined while its neighbours deliver) and a checkpointed request
+    killed after its first chunk and resubmitted (resumed bit for bit)."""
+    import asyncio
+    import tempfile
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.kernels import builder
+    from repro_torch.resilience import FaultPlan, FaultSpec
+    from repro_torch.serve import (LaunchFailed, NumericalFault,
+                                   ServiceConfig, ServiceOverloaded,
+                                   StencilRequest, serve)
+    t_phase = time.perf_counter()
+    run = {"backend": "hopper", "par_time": SERVE_T,
+           "bsize": list(SERVE_BSIZE), "device": str(device)}
+    plans = {name: plan(StencilProblem(name, SERVE_DIMS), RunConfig(**run))
+             for name in SERVE_STENCILS}
+    reqs, rng, bases = serve_requests(device)
+
+    def request(name, k, iters, **kw):
+        gs, auxs = bases[name]
+        return StencilRequest(name, gs[k], iters, aux=auxs[k], **kw)
+
+    # the sequential loop: one plan.run per request, host to host
+    want = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, k, iters in reqs:
+        gs, auxs = bases[name]
+        want[(name, k, iters)] = plans[name].run(gs[k], iters,
+                                                 aux=auxs[k]).cpu()
+    seq_s = time.perf_counter() - t0
+    cells = math.prod(SERVE_DIMS)
+    work = sum(cells * iters for _, _, iters in reqs)
+    rate = len(reqs) / seq_s
+    gaps = rng.exponential(1.0 / (SERVE_LOAD * rate), len(reqs))
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        cfg = ServiceConfig.make({
+            "buckets": [{"problem": {"stencil": name,
+                                     "shape": list(SERVE_DIMS)},
+                         "run": run, "max_batch": max(SERVE_CLASSES),
+                         "batch_classes": list(SERVE_CLASSES),
+                         "max_wait_ms": 4.0, "queue_cap": 64}
+                        for name in SERVE_STENCILS],
+            "max_concurrent_batches": SERVE_SLOTS, "offload_compute": True,
+            "checkpoint_dir": ckdir})
+
+        async def main():
+            t_boot = time.perf_counter()
+            svc = await serve(cfg)
+            boot_s = time.perf_counter() - t_boot
+            torch.cuda.synchronize()
+            builder.LAUNCHES = 0
+            t_start = time.perf_counter()
+            outcomes = [None] * len(reqs)
+
+            async def one(i):
+                try:
+                    fut = svc.submit_nowait(request(*reqs[i]))
+                except ServiceOverloaded as e:
+                    outcomes[i] = e
+                    return
+                outcomes[i] = await fut
+
+            tasks = []
+            for i, gap in enumerate(gaps):
+                await asyncio.sleep(float(gap))
+                tasks.append(asyncio.create_task(one(i)))
+            await asyncio.gather(*tasks)
+            wall = time.perf_counter() - t_start
+            launches = builder.LAUNCHES
+            snap = svc.snapshot()
+            # one injected launch failure: retried and served
+            name, k, iters = reqs[0]
+            with FaultPlan([FaultSpec("serve.launch", nth=1)]).active():
+                retried = await svc.submit(request(name, k, iters))
+            retries = svc.snapshot()["retries"] - snap["retries"]
+            # one NaN member among three healthy ones, in one launch
+            gs, _ = bases["diffusion2d"]
+            poisoned = gs[0].copy()
+            poisoned[SERVE_DIMS[0] // 3, SERVE_DIMS[1] // 4] = float("nan")
+            batch = [StencilRequest("diffusion2d", g, 8)
+                     for g in (gs[1], poisoned, gs[2], gs[3])]
+            nan_out = await asyncio.gather(
+                *[svc.submit_nowait(r) for r in batch],
+                return_exceptions=True)
+            # a checkpointed request killed after its first chunk (every
+            # later save fails, so do the retries), then resubmitted
+            ck = dict(checkpoint_key="job", checkpoint_every=SERVE_T)
+            kill = FaultSpec("checkpoint.save", p=1.0, max_fires=None,
+                             match=lambda ctx: ctx["step"] > SERVE_T)
+            with FaultPlan([kill]).active():
+                killed = await asyncio.gather(svc.submit_nowait(request(
+                    "hotspot2d", 1, 3 * SERVE_T, **ck)),
+                    return_exceptions=True)
+            resumed = await svc.submit(request("hotspot2d", 1, 3 * SERVE_T,
+                                               **ck))
+            final = svc.snapshot()
+            await svc.stop()
+            return (boot_s, outcomes, wall, launches, snap, retried,
+                    retries, nan_out, killed, resumed, final)
+
+        (boot_s, outcomes, wall, launches, snap, retried, retries, nan_out,
+         killed, resumed, final) = asyncio.run(main())
+
+    served = [(r, o) for r, o in zip(reqs, outcomes)
+              if not isinstance(o, Exception)]
+    rejected = [o for o in outcomes if isinstance(o, ServiceOverloaded)]
+    failed = [o for o in outcomes
+              if isinstance(o, Exception) and o not in rejected]
+    if failed:
+        raise AssertionError(f"serve: {len(failed)} requests failed: "
+                             f"{failed[:3]}")
+    for (name, k, iters), res in served:
+        if not torch.equal(res.grid, want[(name, k, iters)]):
+            raise AssertionError(f"serve: a {name} request of {iters} iters "
+                                 f"differs from plan.run")
+    if launches < 1:
+        raise AssertionError("serve: the kernel was launched no time")
+    name, k, iters = reqs[0]
+    if retries < 1 or not torch.equal(retried.grid, want[(name, k, iters)]):
+        raise AssertionError("serve: the injected launch failure was not "
+                             "retried and served")
+    p = plans["diffusion2d"]
+    gs, _ = bases["diffusion2d"]
+    if not (isinstance(nan_out[1], NumericalFault)
+            and nan_out[1].kind == "nan"
+            and final["quarantined"] - snap["quarantined"] == 1
+            and all(torch.equal(nan_out[j].grid, p.run(gs[g], 8).cpu())
+                    for j, g in ((0, 1), (2, 2), (3, 3)))):
+        raise AssertionError(f"serve: the NaN member was not quarantined "
+                             f"with its neighbours delivered: {nan_out}")
+    hp = plans["hotspot2d"]
+    hg, ha = bases["hotspot2d"]
+    whole = hp.run(hg[1], 3 * SERVE_T, aux=ha[1]).cpu()
+    if not (isinstance(killed[0], LaunchFailed) and resumed.rounds == 2
+            and torch.equal(resumed.grid, whole)):
+        raise AssertionError(f"serve: the checkpointed request did not "
+                             f"resume bit for bit: {killed}, rounds "
+                             f"{resumed.rounds}")
+    done = [iters for (_, _, iters), _ in served]
+    served_work = cells * sum(done)
+    lat = snap["latency_ms"]
+    out = {"requests": len(reqs), "served": len(served),
+           "rejected": len(rejected), "sequential_s": seq_s,
+           "sequential_gcells_per_s": work / seq_s / 1e9,
+           "offered_rate_per_s": SERVE_LOAD * rate, "wall_s": wall,
+           "delivered_gcells_per_s": served_work / wall / 1e9,
+           "speedup_vs_loop": served_work / wall / (work / seq_s),
+           "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+           "batch_fill": snap["batch_fill"], "batches": snap["batches"],
+           "rounds": snap["rounds"], "launches": launches,
+           "boot_s": boot_s, "prewarm_s": snap["prewarm_s"],
+           "retried_ok": True, "quarantined_ok": True, "resumed_ok": True}
+    print(f"serve {list(SERVE_STENCILS)} {SERVE_DIMS} T={SERVE_T} "
+          f"bsize={SERVE_BSIZE} classes {SERVE_CLASSES}, {SERVE_SLOTS} "
+          f"offloaded launch slots: sequential loop "
+          f"{seq_s:.3f} s for {len(reqs)} requests "
+          f"({out['sequential_gcells_per_s']:.3f} GCell/s); service at "
+          f"{out['offered_rate_per_s']:.1f} req/s offered: {len(served)} "
+          f"served, {len(rejected)} rejected in {wall:.3f} s "
+          f"({out['delivered_gcells_per_s']:.3f} GCell/s, "
+          f"{out['speedup_vs_loop']:.3f}x the loop), p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, "
+          f"batch fill {snap['batch_fill']:.3f}, {snap['batches']} batches, "
+          f"{snap['rounds']} rounds, {launches} launches; every grid bit "
+          f"for bit with plan.run; boot {boot_s:.3f} s; injected launch "
+          f"failure retried and served, NaN member quarantined, "
+          f"checkpointed request resumed bit for bit ({resumed.rounds} of "
+          f"3 chunks rerun)", flush=True)
+    print(f"serve phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return out
+
+
+def serve_kernel_row(device, peaks, serve_out: dict) -> dict:
+    """The kernel at the serving shape: one super-step of a full batch
+    class of hotspot2d (per-member power), bit for bit against the plain
+    version, its time, the batched cuDNN yardstick and the bound; with the
+    serve phase's launches and numbers."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    B = max(SERVE_CLASSES)
+    problem = StencilProblem("hotspot2d", SERVE_DIMS)
+    p = plan(problem, RunConfig(backend="hopper", par_time=SERVE_T,
+                                bsize=SERVE_BSIZE, device=device))
+    g, aux = batch_inputs("hotspot2d", problem, B, "member", device)
+    res = superstep_vs_plain(f"serve hotspot2d B={B}", problem, p.geometry,
+                             g, aux, plain_reps=0)
+    library_ms = time_ms(library_yardstick("hotspot2d", g, aux, SERVE_T,
+                                           problem.bc), reps=3)
+    row = {"name": f"stencil_stream[serve {'+'.join(SERVE_STENCILS)} "
+                   f"{SERVE_DIMS[0]}^2]", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES, "launches": serve_out["launches"], **res,
+           **batch_bound(problem, SERVE_T, peaks, B, False),
+           "library_ms": library_ms,
+           "library": f"cuDNN conv per step, N = {B}",
+           "kernel_case": f"hotspot2d B={B}, per-member power",
+           "ctas_per_launch": B * p.geometry.num_blocks, **serve_out}
+    print(f"  serve kernel (hotspot2d B={B}, {row['ctas_per_launch']} CTAs): "
+          f"superstep {res['ms']} (bit for bit with plain), plain "
+          f"{res['plain_ms']}, library {library_ms}, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
+    del g, aux
+    torch.cuda.empty_cache()
+    return row
 
 
 # --- LM serving: qwen3-1.7b through the flash-attention kernel ------------
@@ -1914,8 +2372,9 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:  # one nvcc each
         libs = list(pool.map(_build.build, _build.LIBRARIES))
-    _build.stencil_stream(False)
-    _build.stencil_stream(True)
+    for bf16 in (False, True):
+        for batch in (False, True):
+            _build.stencil_stream(bf16, batch)
     _build.flash_fwd()
     _build.flash_bwd()
     print(f"build: {time.perf_counter() - t0:.3f} s "
@@ -1926,6 +2385,7 @@ def main() -> int:
                 print(f"  ptxas ({lib.stem.rsplit('_', 1)[0]}):",
                       line.strip())
     device = torch.device("cuda", 0)
+    t_main = time.perf_counter()
     kernels = []
     bases = {}      # the V = 1 runs the par_vec phase compares against
     for name in STENCILS:
@@ -1963,10 +2423,16 @@ def main() -> int:
     kernels.extend(bf16_phase(device, peaks, kernels))
     kernels.extend(bc_phase(device, peaks, kernels))
     torch.cuda.empty_cache()
+    kernels.extend(batch_phase(device, peaks))
+    kernels.append(serve_kernel_row(device, peaks, serve_phase(device,
+                                                               peaks)))
+    torch.cuda.empty_cache()
     kernels.append(lm_phase(device, peaks))
     train = train_phase(device, peaks)
     kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")
     kernels.extend(train["kernels"])
+    print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
+          f"build", flush=True)
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 """Backend registry.
 
-A backend is a factory ``factory(problem, config, geom) -> execute`` with
-``execute(grid, coeffs, iters, aux) -> grid``; ``plan()`` resolves
-``RunConfig.backend`` through the registry.  The built-ins:
+A backend is a factory ``factory(problem, config, geom)`` that returns an
+``execute(grid, coeffs, iters, aux) -> grid`` or a :class:`BackendProgram`
+that adds ``execute_batch(grids, coeffs, iters, aux)`` over a leading
+batch axis (``aux`` None, one grid shared by the batch, or one per
+member); ``plan()`` resolves ``RunConfig.backend`` through the registry
+and threads the reference's fault points through both entry points
+(:func:`as_program`).  The built-ins:
 
   ``reference``  the port's unblocked oracle (``kernels/ref.py``): bare
                  stencils, stage chains and stage DAGs
@@ -11,30 +15,101 @@ A backend is a factory ``factory(problem, config, geom) -> execute`` with
                  bare stencils, stage chains and stage DAGs, fused
 
 ``execute`` takes one coefficient dict for a single-stage problem and a
-tuple of per-stage dicts for a program.  The ``hopper`` factory refuses, at
-plan time, what this slice of the port does not cover, and names the
-ROADMAP item that will add it.
+tuple of per-stage dicts for a program.  ``hopper``'s ``execute_batch``
+pads the batch once and advances every member in each launch (one per
+super-step, as a single grid), equal to sequential runs bit for bit;
+``reference`` has none, so ``run_batch`` runs the oracle member by
+member.  The ``hopper`` factory
+refuses, at plan time, what this slice of the port does not cover, and
+names the ROADMAP item that will add it.
+
+The reference's ``exec_cache.get`` point has no counterpart: it guards
+XLA's process-level executable cache, and PyTorch runs eagerly, so there
+is no executable to cache; the port does not register it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core.blocking import BlockGeometry
-from repro_torch.kernels.builder import (KERNEL_DTYPES, kernel_limits,
-                                          stage_op)
+from repro_torch.kernels.builder import (KERNEL_DTYPES, check_batch,
+                                          kernel_limits, stage_op)
 from repro_torch.kernels.ops import (_pad_blocked, fused_dag_loop,
                                      pack_dag_coeffs)
 from repro_torch.kernels.ref import (oracle_dag_run, oracle_program_run,
                                      oracle_run)
+from repro_torch.resilience.faults import (corrupt_point, fault_point,
+                                           register_point)
 
 #: (grid, coeffs, iters, aux) -> final grid
 ExecuteFn = Callable[..., torch.Tensor]
+
+# --- fault-injection seams (repro_torch.resilience; no-ops with no plan) ----
+FP_EXECUTE = register_point(
+    "backend.execute", "before any backend's single-grid execute")
+FP_EXECUTE_RESULT = register_point(
+    "backend.execute.result", "a single-grid result passes through "
+    "(action='nan' poisons it)")
+FP_EXECUTE_BATCH = register_point(
+    "backend.execute_batch", "before any backend's batched execute")
+FP_EXECUTE_BATCH_RESULT = register_point(
+    "backend.execute_batch.result", "a batched result passes through "
+    "(action='nan' + member=i poisons one member)")
+
+
+@dataclasses.dataclass
+class BackendProgram:
+    """What a backend factory hands ``plan()``: the single-grid entry
+    point and, optionally, the batched one (``None``: ``run_batch`` loops
+    over ``execute``)."""
+    execute: ExecuteFn
+    execute_batch: Optional[ExecuteFn] = None
+
+
 Backend = Callable[[StencilProblem, RunConfig, Optional[BlockGeometry]],
-                   ExecuteFn]
+                   Union[ExecuteFn, BackendProgram]]
+
+
+def as_program(obj: Union[ExecuteFn, BackendProgram]) -> BackendProgram:
+    """Normalize a factory's return value (bare callable or program) and
+    thread the ``backend.execute*`` fault points through it, so every
+    backend, built-in or registered, has the injection seams."""
+    if isinstance(obj, BackendProgram):
+        program = obj
+    elif callable(obj):
+        program = BackendProgram(execute=obj)
+    else:
+        raise TypeError(f"backend factory returned {type(obj).__name__}; "
+                        "expected a callable or BackendProgram")
+    return _instrument(program)
+
+
+def _instrument(program: BackendProgram) -> BackendProgram:
+    """Wrap the entry points with their fault seams (idempotent)."""
+    if getattr(program.execute, "_fault_instrumented", False):
+        return program
+    inner, inner_batch = program.execute, program.execute_batch
+
+    def execute(grid, coeffs, iters, aux=None):
+        fault_point(FP_EXECUTE)
+        return corrupt_point(FP_EXECUTE_RESULT,
+                             inner(grid, coeffs, iters, aux))
+    execute._fault_instrumented = True
+
+    execute_batch = None
+    if inner_batch is not None:
+        def execute_batch(grids, coeffs, iters, aux=None):
+            fault_point(FP_EXECUTE_BATCH, {"batch": grids.shape[0]})
+            return corrupt_point(FP_EXECUTE_BATCH_RESULT,
+                                 inner_batch(grids, coeffs, iters, aux),
+                                 {"batch": grids.shape[0]})
+        execute_batch._fault_instrumented = True
+    return BackendProgram(execute=execute, execute_batch=execute_batch)
 
 _REGISTRY: Dict[str, Backend] = {}
 
@@ -119,7 +194,12 @@ def _hopper_backend(problem, config, geom):
         aux_p = None if aux is None else _pad_blocked(aux, geom, bc0)
         packed = pack_dag_coeffs(dag, _stage_coeffs(problem, coeffs))
         return fused_dag_loop(dag, geom, gp, packed, iters, aux_p)
-    return execute
+
+    def execute_batch(grids, coeffs, iters, aux=None):
+        # the padding copies every member: refuse an over-cap batch first
+        check_batch(grids.shape[0])
+        return execute(grids, coeffs, iters, aux)
+    return BackendProgram(execute, execute_batch)
 
 
 register_backend("reference", _reference_backend)

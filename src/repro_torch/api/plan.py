@@ -3,11 +3,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional
 
 import torch
 
-from repro_torch.api.backends import ExecuteFn, get_backend
+from repro_torch.api.backends import ExecuteFn, as_program, get_backend
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core.blocking import (BlockGeometry, extended_geometry,
@@ -31,8 +32,10 @@ def plan(problem: StencilProblem,
         geom = BlockGeometry(problem.ndim, problem.shape,
                              problem.stencil.radius, config.par_time, bsize,
                              config.par_vec)
+    program = as_program(factory(problem, config, geom))
     return StencilPlan(problem=problem, config=config, geometry=geom,
-                       _execute=factory(problem, config, geom))
+                       _execute=program.execute,
+                       _execute_batch=program.execute_batch)
 
 
 @dataclasses.dataclass
@@ -42,6 +45,9 @@ class StencilPlan:
     config: RunConfig
     geometry: Optional[BlockGeometry]
     _execute: ExecuteFn = dataclasses.field(repr=False)
+    #: the batched entry point (None: ``run_batch`` loops over ``run``)
+    _execute_batch: Optional[ExecuteFn] = dataclasses.field(default=None,
+                                                            repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -55,7 +61,9 @@ class StencilPlan:
                              f"{tuple(shape)}")
         return t
 
-    def _aux(self, aux, shapes) -> Optional[torch.Tensor]:
+    def _aux(self, aux, shapes, message: str) -> Optional[torch.Tensor]:
+        """The aux grid, on the plan's device, of one of ``shapes``
+        (``message`` otherwise)."""
         if not self.problem.needs_aux:
             if aux is not None:
                 raise ValueError(f"{self.problem.stencil.name} takes no aux "
@@ -67,12 +75,19 @@ class StencilPlan:
         aux = torch.as_tensor(aux, dtype=self.problem.torch_dtype,
                               device=self.device).contiguous()
         if tuple(aux.shape) not in shapes:
-            raise ValueError(f"aux shape {tuple(aux.shape)} must be one of "
-                             f"{list(shapes)}")
+            raise ValueError(message.format(tuple(aux.shape)))
         return aux
 
-    def run(self, grid, iters: int, coeffs=None, *,
-            aux=None) -> torch.Tensor:
+    def _payload(self, coeffs):
+        """The execute payload: one dict for a single-stage problem, else
+        one per stage; host-side, since the kernel takes coefficients by
+        value."""
+        coeffs = self.problem.resolve_coeffs(coeffs)
+        return coeffs[0] if self.problem.n_stages == 1 else coeffs
+
+    def run(self, grid, iters: int, coeffs=None, *, aux=None,
+            checkpoint_every: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None) -> torch.Tensor:
         """Advance ``grid`` by ``iters`` time-steps (program iterations:
         each applies every stage).  ``coeffs`` overrides
         :func:`~repro_torch.core.stencils.default_coeffs` and the stages'
@@ -80,38 +95,112 @@ class StencilPlan:
         sequence of per-stage dicts or ``None`` for a program.  ``aux`` is
         the Hotspot ``power`` grid.  A multi-field program takes and
         returns the ``(n_fields, *shape)`` stack (``problem.state_shape``).
-        Inputs go to the plan's device."""
+        Inputs go to the plan's device.
+
+        ``checkpoint_every`` with ``checkpoint_dir`` makes the run
+        restartable (:func:`repro_torch.resilience.run_checkpointed`): the
+        state is saved atomically every ``checkpoint_every`` iterations,
+        rounded up to a super-step multiple, and a run that calls ``run``
+        again with the same directory resumes from the last complete save;
+        the final grid equals an uninterrupted run's bit for bit."""
+        if (checkpoint_every is None) != (checkpoint_dir is None):
+            raise ValueError("checkpoint_every and checkpoint_dir go "
+                             "together — pass both or neither")
+        if checkpoint_dir is not None:
+            from repro_torch.resilience.checkpoint_run import \
+                run_checkpointed
+            return run_checkpointed(
+                self, grid, iters, coeffs, aux=aux,
+                checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir).grid
         grid = self._state(grid, self.problem.state_shape, "grid")
         iters = int(iters)
         if iters < 0:
             raise ValueError(f"iters must be >= 0, got {iters}")
-        aux = self._aux(aux, (self.problem.shape,))
-        # host-side coefficients: the kernel takes them by value
-        coeffs = self.problem.resolve_coeffs(coeffs)
+        shape = self.problem.shape
+        aux = self._aux(aux, (shape,), f"aux shape {{}} != problem shape "
+                                       f"{shape}")
+        coeffs = self._payload(coeffs)
         if iters == 0:
             return grid
-        if self.problem.n_stages == 1:
-            coeffs = coeffs[0]
         return self._execute(grid, coeffs, iters, aux)
 
     def run_batch(self, grids, iters: int, coeffs=None, *,
                   aux=None) -> torch.Tensor:
-        """Advance a batch ``(B, *shape)`` of grids: one :meth:`run` per
-        member, so each result equals the sequential run.  ``aux`` is one
-        grid shared by the batch or one per member ``(B, *shape)``."""
+        """Advance a batch ``(B, *state_shape)`` of grids by ``iters``
+        time-steps, each member as :meth:`run` would and equal to it bit for
+        bit.  On ``hopper`` the batch is padded once and each super-step is
+        one launch for all ``B`` members (the members run along the
+        kernel's grid), so a run takes ``ceil(iters/par_time)`` launches
+        whatever ``B``; a backend without a batched entry point loops over
+        the members.  ``aux`` (Hotspot ``power``) is one grid of ``shape``
+        shared by the batch or one per member, ``(B, *shape)``.  Shapes and
+        aux are validated before anything runs."""
         grids = torch.as_tensor(grids, dtype=self.problem.torch_dtype,
                                 device=self.device)
         state = self.problem.state_shape
-        if grids.ndim != len(state) + 1 or grids.shape[0] < 1:
-            raise ValueError(f"run_batch needs grids of shape "
-                             f"(B, *{state}), B >= 1; got "
-                             f"{tuple(grids.shape)}")
+        if grids.ndim != len(state) + 1 or tuple(grids.shape[1:]) != state:
+            raise ValueError(f"run_batch needs grids of shape (B, *{state}); "
+                             f"got {tuple(grids.shape)}")
+        if grids.shape[0] < 1:
+            raise ValueError("run_batch needs a batch of at least 1 grid")
+        iters = int(iters)
+        if iters < 0:
+            raise ValueError(f"iters must be >= 0, got {iters}")
         shape = self.problem.shape
-        aux = self._aux(aux, (shape, (grids.shape[0],) + shape))
-        per_member = aux is not None and aux.ndim == grids.ndim
-        return torch.stack([
-            self.run(g, iters, coeffs, aux=aux[b] if per_member else aux)
-            for b, g in enumerate(grids)])
+        batched = (grids.shape[0],) + shape
+        aux = self._aux(aux, (shape, batched),
+                        f"aux shape {{}} must be {shape} (shared) or "
+                        f"{batched} (per-batch)")
+        coeffs = self._payload(coeffs)
+        if iters == 0:
+            return grids
+        if self._execute_batch is None:
+            per_member = aux is not None and aux.ndim > self.problem.ndim
+            return torch.stack([
+                self._execute(g.contiguous(), coeffs, iters,
+                              aux[b] if per_member else aux)
+                for b, g in enumerate(grids)])
+        return self._execute_batch(grids, coeffs, iters, aux)
+
+    def prewarm(self, batch_sizes=(1,), *, iters: int = 1, coeffs=None,
+                single: bool = True) -> dict:
+        """Load the plan's kernels and warm them before traffic arrives:
+        one :meth:`run` of a zero state (``single``) and one
+        :meth:`run_batch` of zeros per size in ``batch_sizes``, each
+        ``iters`` steps (1: one super-step) and synchronized.  The first
+        call on a card builds and loads the kernel library (compiled at
+        first use; ``kernels/_build.py``).  An aux-taking stencil warms the
+        per-member aux mode, the one the serving path uses.  Returns
+        ``{"single": seconds, B: seconds, ...}`` per warmed entry."""
+        if int(iters) < 1:
+            raise ValueError(f"prewarm iters must be >= 1, got {iters}")
+        sizes = sorted({int(b) for b in batch_sizes})
+        if sizes and sizes[0] < 1:
+            raise ValueError(f"batch sizes must be >= 1, got {sizes[0]}")
+        prob, dev = self.problem, self.device
+        zeros = torch.zeros(prob.state_shape, dtype=prob.torch_dtype,
+                            device=dev)
+        aux = (torch.zeros(prob.shape, dtype=prob.torch_dtype, device=dev)
+               if prob.needs_aux else None)
+
+        def timed(fn) -> float:
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0
+
+        timings: dict = {}
+        if single:
+            timings["single"] = timed(
+                lambda: self.run(zeros, iters, coeffs, aux=aux))
+        for b in sizes:
+            aux_b = None if aux is None else aux.expand((b,) + prob.shape)
+            timings[b] = timed(lambda: self.run_batch(
+                zeros.expand((b,) + prob.state_shape), iters, coeffs,
+                aux=aux_b))
+        return timings
 
     def traffic_report(self, iters: Optional[int] = None) -> dict:
         """Model traffic (paper Eq. 7/8) against the streaming kernel's

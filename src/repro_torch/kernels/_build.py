@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` at first use into ``build/repro_torch/`` at the root of the
 checkout, under a name that carries a hash of the source and the flags, and
 loaded with ``ctypes``; ``stencil_stream.cu`` gives one library per storage
-type (:data:`LIBRARIES`).  Only the sources in the repository are used.
+type for single grids and one for batches (:data:`LIBRARIES`).  Only the sources in the repository are used.
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a card.
 """
@@ -28,13 +28,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: built once per storage type, so that the two halves of its 72 kernels
 #: compile in parallel: one library of all 72 took 22 s on an H100 machine
 #: (nvcc's --split-compile took 12 s but changed the code, and slowed the
-#: one-row form of hotspot2d by 8-10%)
+#: one-row form of hotspot2d by 8-10%); and once more per type with the
+#: batch members' offsets (``STENCIL_BATCH``), which cost single-grid
+#: launches up to 11% on an H100 when compiled into every kernel
 LIBRARIES = {"stencil_f32": ("stencil_stream.cu", ("-DSTENCIL_BF16=0",)),
              "stencil_bf16": ("stencil_stream.cu", ("-DSTENCIL_BF16=1",)),
+             "stencil_f32_batch": ("stencil_stream.cu",
+                                   ("-DSTENCIL_BF16=0", "-DSTENCIL_BATCH=1")),
+             "stencil_bf16_batch": ("stencil_stream.cu",
+                                    ("-DSTENCIL_BF16=1", "-DSTENCIL_BATCH=1")),
              "flash_fwd": ("flash_fwd.cu", ()),
              "flash_bwd": ("flash_bwd.cu", ())}
 
 
+#: batch members of one ``stencil_stream.cu`` launch (its ``kMaxBatch``:
+#: the members run along ``gridDim.z``, at most 65535 blocks)
+MAX_BATCH = 65535
 #: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``):
 #: unrolled entries, stages, taps, coefficients, field streams of a DAG and
 #: inputs of one entry (the wave equation's combine takes 3, the largest
@@ -181,15 +190,18 @@ def build(stem: str) -> Path:
 
 
 @functools.cache
-def stencil_stream(bf16: bool = False) -> ctypes.CDLL:
+def stencil_stream(bf16: bool = False, batch: bool = False) -> ctypes.CDLL:
     """The loaded ``stencil_stream.cu`` library of float32 or (``bf16``)
-    bfloat16 storage, built at first use."""
-    dll = ctypes.CDLL(str(build("stencil_bf16" if bf16 else "stencil_f32")))
+    bfloat16 storage, for single grids or (``batch``) batches of two or
+    more, built at first use."""
+    stem = ("stencil_bf16" if bf16 else "stencil_f32") + (
+        "_batch" if batch else "")
+    dll = ctypes.CDLL(str(build(stem)))
     dll.stencil_stream_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, Params,
-        ctypes.POINTER(Program), ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
-        ctypes.c_void_p]
+        ctypes.POINTER(Program), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t, ctypes.c_void_p]
     dll.stencil_stream_launch.restype = ctypes.c_int
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]
     dll.stencil_stream_error_string.restype = ctypes.c_char_p

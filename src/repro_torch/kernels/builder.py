@@ -10,7 +10,12 @@ order; an entry whose iteration is ``>= steps`` forwards its input (PE
 forwarding).  :func:`superstep_dag` does the same for a stage DAG
 (``programs.DagSpec``: several fields, fan-out, fan-in, state nodes) over
 the padded state, ``(F, ns, *padded)`` for ``F > 1`` fields.  ``ns`` is the
-stream extent, the periodic stream extension included.  For a CUDA tensor
+stream extent, the periodic stream extension included.  Either takes a
+batch of states with a leading batch axis, ``(B, ns, *padded)`` or ``(B,
+F, ns, *padded)``, and advances all ``B`` members in one launch (the
+members run along the kernel grid's z axis, at most
+``_build.MAX_BATCH``); the aux grid is then one field's, shared by the
+batch, or one per member.  For a CUDA tensor
 they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
 :func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
 a CUDA tensor goes to the kernel or raises.
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -44,15 +50,17 @@ from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        stream_extension)
 from repro_torch.core.stencils import STENCILS, Stencil
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import (MAX_COEFFS, MAX_ENTRIES, MAX_FIELDS,
-                                        MAX_INPUTS, MAX_STAGES, MAX_TAPS,
-                                        TABLE_SMEM)
+from repro_torch.kernels._build import (MAX_BATCH, MAX_COEFFS, MAX_ENTRIES,
+                                        MAX_FIELDS, MAX_INPUTS, MAX_STAGES,
+                                        MAX_TAPS, TABLE_SMEM)
 from repro_torch.programs import (DagSpec, chain_dag, dag_is_chain,
                                   dag_layout, dag_radius, unroll_dag)
 
 #: kernel launches made by :func:`superstep_chain` and :func:`superstep_dag`
-#: (CUDA tensors only)
+#: (CUDA tensors only); counted under a lock, since the service launches
+#: from worker threads
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 #: Table-2 stencil name -> its op id in ``stencil_stream.cu``
 KERNEL_IDS = {"diffusion2d": 0, "hotspot2d": 1, "diffusion3d": 2,
@@ -213,24 +221,49 @@ def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
                          f"got {geom.ndim}D")
 
 
+def check_batch(batch: int) -> None:
+    """Raise unless one launch can advance ``batch`` members: 1 to
+    ``MAX_BATCH``, the cap of the kernel grid's z axis."""
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a batch of {batch} members: one stencil_stream "
+                         f"launch advances 1 to {MAX_BATCH} (the gridDim.z "
+                         f"cap); split the batch")
+
+
+def batch_of(shape, gp) -> Optional[int]:
+    """``B`` when ``gp`` carries a leading batch axis in front of the
+    padded state ``shape``, else None."""
+    return gp.shape[0] if gp.ndim == len(shape) + 1 else None
+
+
 def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
-                   coeffs_packed, steps, aux_p, has_aux: bool, out) -> None:
-    """``gp`` (and ``out``) of ``shape`` and a storage dtype the kernel
-    runs, ``aux_p`` of one field's shape and the same dtype."""
-    if gp.dtype not in KERNEL_DTYPES or tuple(gp.shape) != shape:
-        raise ValueError(f"gp must be float32 or bfloat16 of shape {shape}; "
-                         f"got {gp.dtype} {tuple(gp.shape)}")
+                   coeffs_packed, steps, aux_p, has_aux: bool,
+                   out) -> Optional[int]:
+    """``gp`` (and ``out``) of ``shape`` or ``(B, *shape)`` and a storage
+    dtype the kernel runs, ``aux_p`` of one field's shape, or of ``(B,
+    *field)`` for a batch, and the same dtype.  Returns ``B`` (None
+    unbatched); the batch cap is checked before the layout, so that a
+    refused batch is named as such."""
+    batch = batch_of(shape, gp)
+    want = shape if batch is None else (batch,) + tuple(shape)
+    if gp.dtype not in KERNEL_DTYPES or tuple(gp.shape) != want:
+        raise ValueError(f"gp must be float32 or bfloat16 of shape {shape} "
+                         f"or (B, *{shape}); got {gp.dtype} "
+                         f"{tuple(gp.shape)}")
+    if batch is not None:
+        check_batch(batch)
     if not gp.is_contiguous():
         raise ValueError("gp must be contiguous")
     if has_aux != (aux_p is not None):
         raise ValueError(f"the program {'needs' if has_aux else 'takes no'}"
                          " padded aux grid")
-    if aux_p is not None and (aux_p.dtype != gp.dtype
-                              or aux_p.shape != gp.shape[-geom.ndim:]
-                              or aux_p.device != gp.device
-                              or not aux_p.is_contiguous()):
+    field = tuple(gp.shape[-geom.ndim:])
+    if aux_p is not None and (
+            aux_p.dtype != gp.dtype
+            or tuple(aux_p.shape) not in (field, (batch,) + field)
+            or aux_p.device != gp.device or not aux_p.is_contiguous()):
         raise ValueError("aux_p must be a contiguous tensor like one field "
-                         "of gp")
+                         "of gp, or one per member of the batch")
     if (coeffs_packed.device.type != "cpu"
             or coeffs_packed.dtype != torch.float32
             or tuple(coeffs_packed.shape) != (n_coeffs,)):
@@ -245,6 +278,7 @@ def _check_tensors(shape, n_coeffs: int, geom: BlockGeometry, gp,
         if out.data_ptr() in (gp.data_ptr(),
                               None if aux_p is None else aux_p.data_ptr()):
             raise ValueError("out must not alias gp or aux_p")
+    return batch
 
 
 def _stream_dom(geom: BlockGeometry, bc0) -> int:
@@ -289,8 +323,10 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     one field, ``(F, ns, *padded)`` for ``F`` (each field padded under
     stage 0's BC by ``kernels/ops._pad_blocked``).  ``coeffs_packed`` is
     ``kernels/ops.pack_dag_coeffs``' float32 CPU vector; ``steps`` a host
-    int.  A path graph runs the kernel's chain (or main-path) body, any
-    other DAG its DAG body.  Returns ``out`` (allocated like ``gp`` when
+    int.  A leading batch axis, ``(B, *state)``, advances ``B`` members in
+    one launch, with ``aux_p`` one field's shape (shared) or ``(B,
+    *field)``.  A path graph runs the kernel's chain (or main-path) body,
+    any other DAG its DAG body.  Returns ``out`` (allocated like ``gp`` when
     None) with the compute region of every block of every field written,
     rows ``< dom`` of the stream; the halo and overhang columns and the
     slab-pad rows are left as they were."""
@@ -299,10 +335,10 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     limit = kernel_limits(geom, dag, gp.element_size())
     if limit:
         raise ValueError(limit)
-    _check_tensors(_stream_shape(geom, pairs[0][1], dag.n_fields),
-                   sum(len(st.coeff_names) for st, _ in pairs), geom, gp,
-                   coeffs_packed, steps, aux_p,
-                   any(st.has_aux for st, _ in pairs), out)
+    batch = _check_tensors(_stream_shape(geom, pairs[0][1], dag.n_fields),
+                           sum(len(st.coeff_names) for st, _ in pairs), geom,
+                           gp, coeffs_packed, steps, aux_p,
+                           any(st.has_aux for st, _ in pairs), out)
     if out is None:
         out = torch.empty_like(gp)
     if gp.device.type == "cpu":
@@ -321,7 +357,7 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
               for _, bc in pairs for k in boundary.kinds_of(bc, geom.ndim))
     _launch(body, table, out_lag, n_entries, dag.n_fields, pairs[0][1], bcs,
             geom, gp, aux_p, out, int(steps),
-            smem_bytes(geom, dag, gp.element_size()))
+            smem_bytes(geom, dag, gp.element_size()), batch)
     return out
 
 
@@ -425,9 +461,13 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
 
 def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
             bc0, bcs: bool, geom: BlockGeometry, gp, aux_p, out, steps: int,
-            smem: int) -> None:
-    """Launch one super-step; ``bcs``: some stage has a reflect or constant
-    axis (the kernels that do the boundary work)."""
+            smem: int, batch: Optional[int]) -> None:
+    """Launch one super-step of every member of ``gp``; ``bcs``: some
+    stage has a reflect or constant axis (the kernels that do the boundary
+    work); ``batch``: the members along the grid's z axis (None: one).
+    Member ``b`` lies ``b * member_stride`` cells into ``gp`` and ``out``,
+    its aux ``b * aux_stride`` cells into ``aux_p`` (0 for a shared aux
+    grid)."""
     global LAUNCHES
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
                            geom.blocked_dims)
@@ -448,18 +488,24 @@ def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
     bnum = geom.bnum
     grid_x = bnum[-1] if bnum else 1
     grid_y = bnum[0] if geom.ndim == 3 else 1
-    dll = _build.stencil_stream(gp.dtype == torch.bfloat16)
+    member_stride = math.prod(gp.shape[1:]) if batch else 0
+    aux_stride = (math.prod(aux_p.shape[1:])
+                  if batch and aux_p is not None and aux_p.ndim > geom.ndim
+                  else 0)
+    dll = _build.stencil_stream(gp.dtype == torch.bfloat16,
+                                bool(batch and batch > 1))
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device).cuda_stream
         err = dll.stencil_stream_launch(
             body, int(bcs), gp.data_ptr(),
             None if aux_p is None else aux_p.data_ptr(),
             out.data_ptr(), params, ctypes.byref(table), grid_x, grid_y,
-            smem, stream)
+            batch or 1, member_stride, aux_stride, smem, stream)
     if err != 0:
         msg = dll.stencil_stream_error_string(err).decode()
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 
 # --- plain versions ----------------------------------------------------------
@@ -627,7 +673,16 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     another entry is re-imposed under the stages' one boundary; field ``k``
     drains from ``plan.outputs[k]``, which is its input stream for a field
     carried unchanged.  As there, only stream rows ``< dom`` are computed
-    and written.  A path graph runs as :func:`superstep_plain`."""
+    and written.  A path graph runs as :func:`superstep_plain`.  A batch
+    (a leading axis, aux shared or per member) runs member by member, so
+    it equals ``B`` single calls bit for bit."""
+    bc0 = dag.stages[0][1]
+    if batch_of(_stream_shape(geom, bc0, dag.n_fields), gp) is not None:
+        per_member = aux_p is not None and aux_p.ndim > geom.ndim
+        for b in range(gp.shape[0]):
+            superstep_dag_plain(dag, geom, gp[b], coeffs_packed, steps,
+                                aux_p[b] if per_member else aux_p, out[b])
+        return out
     stages = _as_chain(dag)
     if stages is not None:
         return superstep_plain(stages, geom, gp, coeffs_packed, steps, aux_p,
@@ -636,7 +691,6 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     lay = dag_layout(plan, geom.par_vec)
     F = plan.n_streams
     nb = geom.ndim - 1
-    bc0 = dag.stages[0][1]
     dom = _stream_dom(geom, bc0)
     cdicts = _stage_coeffs([st for st, _, _ in dag.stages], coeffs_packed)
     reimpose = _reimposer(geom, bc0, gp.device)

@@ -16,7 +16,17 @@
 // region it writes, the same values.
 //
 // Design.  One CTA per overlapped block (grid = bnum; one CTA for a 1D
-// grid, the TPU's grid (1,)).  The CTA streams axis 0 one slab of V rows
+// grid, the TPU's grid (1,)), and one such grid per member of a batch
+// (blockIdx.z; the TPU runs the members one after the other under
+// `lax.map`, src/repro/api/backends.py:463-478).  A member's state, output
+// and per-member aux lie `member_stride` and `aux_stride` cells after the
+// previous member's, offsets taken in 64 bits (a batch of wave2d states at
+// 16384^2 passes 2^31 cells); no CTA's arithmetic depends on blockIdx.z, so
+// a batched launch equals one launch per member bit for bit.  The offsets
+// are compiled only into the batch libraries (STENCIL_BATCH): held in
+// registers, the offset pointers cost single-grid launches up to 11% on an
+// H100 (hotspot2d at V = 8, diamond2d under reflect), so a single grid
+// runs code without them.  The CTA streams axis 0 one slab of V rows
 // per tick through the unrolled entries, described by the `Program` table
 // the launcher builds from `repro_torch.programs.dag_layout(plan, V)`: per
 // entry its lag behind the input streams and its producers' and own rings,
@@ -142,8 +152,9 @@
 // body and of the first two field streams in the DAG body), one CTA barrier
 // per entry and tick, table-driven bodies that cost more per entry than
 // the main-path body, a 1D grid on one CTA whose one active thread at V = 1
-// spends about 2 us a tick, and a CTA count of `num_blocks` — 69 for the
-// 16384^2 grid at bsize 256 — against 132 SMs.
+// spends about 2 us a tick, and a CTA count of `num_blocks` per member —
+// 69 for the 16384^2 grid at bsize 256 — against 132 SMs, which only a
+// batch of two or more members fills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,6 +168,12 @@ constexpr int kMaxCoeffs = 192;
 constexpr int kMaxFields = 4;
 constexpr int kMaxInputs = 4;
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxBatch = 65535;  // gridDim.z
+
+// Whether this library advances batches (kernels/_build.py: LIBRARIES).
+#ifndef STENCIL_BATCH
+#define STENCIL_BATCH 0
+#endif
 
 // The structs are passed from Python (ctypes) and so live outside the
 // unnamed namespace: the exported launcher's signature names them.
@@ -649,7 +666,15 @@ __global__ void __launch_bounds__(1024,
                                   kOp >= 0 && kForm != kRows ? 2 : 1)
     stream_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
                   T* __restrict__ out, const Params p,
-                  const __grid_constant__ Program k) {
+                  const __grid_constant__ Program k, long long member_stride,
+                  long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
   // the rings, in value-id order
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const win = reinterpret_cast<T*>(smem_raw);
@@ -974,62 +999,64 @@ __global__ void __launch_bounds__(1024,
   }
 }
 
+// The launch grid: blocks along x and y, batch members along z, and the
+// cells from one member's state (and aux) to the next's.
+struct Grid {
+  int x, y, z;
+  long long member_stride, aux_stride;
+};
+
 template <int kOp, int kForm, class T, bool kBC>
 cudaError_t launch_as(const void* gp, const void* aux, void* out,
-                      const Params& p, const Program& k, int grid_x,
-                      int grid_y, int threads, size_t smem,
-                      cudaStream_t stream) {
+                      const Params& p, const Program& k, const Grid& g,
+                      int threads, size_t smem, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       stream_kernel<kOp, kForm, T, kBC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   stream_kernel<kOp, kForm, T, kBC>
-      <<<dim3(grid_x, grid_y), threads, smem, stream>>>(
+      <<<dim3(g.x, g.y, g.z), threads, smem, stream>>>(
           static_cast<const T*>(gp), static_cast<const T*>(aux),
-          static_cast<T*>(out), p, k);
+          static_cast<T*>(out), p, k, g.member_stride, g.aux_stride);
   return cudaGetLastError();
 }
 
 template <int kOp, class T, bool kBC>
 cudaError_t launch(const void* gp, const void* aux, void* out,
-                   const Params& p, const Program& k, int grid_x, int grid_y,
+                   const Params& p, const Program& k, const Grid& g,
                    int threads, size_t smem, cudaStream_t stream) {
   if (p.V == 1) {
-    return launch_as<kOp, kVecOne, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
-                                      threads, smem, stream);
+    return launch_as<kOp, kVecOne, T, kBC>(gp, aux, out, p, k, g, threads,
+                                           smem, stream);
   }
   if (p.rows == 1) {
-    return launch_as<kOp, kOneRow, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
-                                      threads, smem, stream);
+    return launch_as<kOp, kOneRow, T, kBC>(gp, aux, out, p, k, g, threads,
+                                           smem, stream);
   }
-  return launch_as<kOp, kRows, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
-                                  threads, smem, stream);
+  return launch_as<kOp, kRows, T, kBC>(gp, aux, out, p, k, g, threads, smem,
+                                       stream);
 }
 
 template <class T, bool kBC>
 cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
                         void* out, const Params& p, const Program& k,
-                        int grid_x, int grid_y, int threads, size_t smem,
+                        const Grid& g, int threads, size_t smem,
                         cudaStream_t s) {
   switch (kernel_op) {
     case kDagBody:
-      return launch<kDagBody, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
-                                      threads, smem, s);
+      return launch<kDagBody, T, kBC>(gp, aux, out, p, k, g, threads, smem,
+                                      s);
     case kChainBody:
-      return launch<kChainBody, T, kBC>(gp, aux, out, p, k, grid_x, grid_y,
-                                        threads, smem, s);
+      return launch<kChainBody, T, kBC>(gp, aux, out, p, k, g, threads, smem,
+                                        s);
     case 0:
-      return launch<0, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
-                               smem, s);
+      return launch<0, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
     case 1:
-      return launch<1, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
-                               smem, s);
+      return launch<1, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
     case 2:
-      return launch<2, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
-                               smem, s);
+      return launch<2, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
     case 3:
-      return launch<3, T, kBC>(gp, aux, out, p, k, grid_x, grid_y, threads,
-                               smem, s);
+      return launch<3, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1037,9 +1064,9 @@ cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
 
 }  // namespace
 
-// The storage type of this library: it is built once per type
-// (kernels/_build.py: LIBRARIES), so that the two halves of the kernels
-// compile in parallel.
+// The storage type of this library: it is built once per type, and once
+// more per type for batches (kernels/_build.py: LIBRARIES), so that the
+// four quarters of the kernels compile in parallel.
 #ifndef STENCIL_BF16
 #define STENCIL_BF16 0
 #endif
@@ -1052,14 +1079,21 @@ using Storage = float;
 // `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
 // main-path body), -1 any chain of the table, -2 any DAG of the table, over
 // `Storage` grids.  `bcs`: 1 when some stage has a reflect or constant axis
-// (the kernels with the boundary work), else 0.  Fills `p.vt` and `p.rows`
-// and sizes the CTA by the rule of the header (`builder.cta_shape`).
-// Returns the cudaError_t of the launch (0 on success).  `k` is copied into
-// the kernel's parameters; the caller may free it when this returns.
+// (the kernels with the boundary work), else 0.  `batch` members (at most
+// 65535, the cap of gridDim.z; 1 unless the library is built with
+// STENCIL_BATCH) are advanced at once: member b's state and output start
+// `member_stride` cells after `gp` and `out`, its aux `aux_stride` cells
+// after `aux` (0 for an aux grid the batch shares).
+// Fills `p.vt` and `p.rows` and sizes the CTA by the rule of the header
+// (`builder.cta_shape`).  Returns the cudaError_t of the launch (0 on
+// success).  `k` is copied into the kernel's parameters; the caller may free
+// it when this returns.
 extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
                                      const void* aux, void* out, Params p,
                                      const Program* k, int grid_x, int grid_y,
-                                     size_t smem, void* stream) {
+                                     int batch, long long member_stride,
+                                     long long aux_stride, size_t smem,
+                                     void* stream) {
   const int plane = p.by * p.bx;
   int vt = 0;  // the largest divisor of V with plane * vt <= 1024
   for (int d = 1; d <= p.V && plane * d <= kMaxThreads; ++d) {
@@ -1071,18 +1105,22 @@ extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
       p.ns - p.dom >= p.V || p.n_entries < 1 ||
       (kernel_op < 0 && p.n_entries > kMaxEntries) || p.n_fields < 1 ||
       p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1) ||
-      (bcs != 0 && bcs != 1)) {
+      (bcs != 0 && bcs != 1) || batch < 1 ||
+      batch > (STENCIL_BATCH ? kMaxBatch : 1) ||
+      member_stride < 0 || aux_stride < 0 ||
+      (batch > 1 && member_stride == 0)) {
     return cudaErrorInvalidValue;
   }
   p.vt = vt;
   p.rows = p.V / vt;
   const int threads =
       (max(plane * vt, kernel_op < 0 ? p.n_entries : 0) + 31) / 32 * 32;
+  const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k,
-                                          grid_x, grid_y, threads, smem, s)
-             : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k,
-                                           grid_x, grid_y, threads, smem, s);
+  return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k, g,
+                                          threads, smem, s)
+             : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k, g,
+                                           threads, smem, s);
 }
 
 extern "C" const char* stencil_stream_error_string(int err) {

@@ -125,7 +125,10 @@ def fused_dag_loop(dag, geom: BlockGeometry, gp: torch.Tensor,
     ``ceil(iters/par_time)`` super-steps, super-step ``s`` running
     ``min(par_time, iters - s*par_time)`` steps.  Padding and the halo
     refresh of all fields, one ``_reclamp_padded`` per super-step, use
-    stage 0's BC (periodicity is uniform across stages)."""
+    stage 0's BC (periodicity is uniform across stages).  A batch, ``gp``
+    with a leading axis ``B`` (``aux_p`` shared or ``(B, *field)``),
+    advances every member in each launch: still ``ceil(iters/par_time)``
+    launches; each halo refresh copies the whole batch once."""
     bc0 = dag.stages[0][1]
     par_time = geom.par_time
     g = gp

@@ -1,6 +1,8 @@
 """The port imports and runs — the stencil plan, stage programs (a chain,
-and DAGs on the reference and hopper backends), the LM serving path and two
-training steps — with JAX and the reference package made unimportable."""
+and DAGs on the reference and hopper backends), the LM serving path, two
+training steps, a batched ``run_batch`` and a ``StencilService`` serving a
+few requests and a checkpointed one — with JAX and the reference package
+made unimportable."""
 import os
 import subprocess
 import sys
@@ -74,6 +76,40 @@ events = launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
                             "cpu", "--steps", "2", "--batch", "2", "--seq",
                             "16"])
 assert len(events["losses"]) == 2 and all(np.isfinite(events["losses"]))
+import asyncio, tempfile
+import repro_torch.resilience, repro_torch.serve as rserve
+sp = api.plan(api.StencilProblem("diffusion2d", (12, 32)),
+              api.RunConfig(backend="hopper", par_time=2, bsize=16,
+                            device="cpu"))
+grids = rng.uniform(0.5, 2, (3, 12, 32)).astype(np.float32)
+batch = sp.run_batch(grids, 5)
+assert all(torch.equal(batch[b], sp.run(grids[b], 5)) for b in range(3))
+
+
+async def serve_a_few(ckdir):
+    svc = await rserve.from_config({
+        "buckets": [{"problem": {"stencil": "diffusion2d",
+                                 "shape": [12, 32]},
+                     "run": {"backend": "hopper", "par_time": 2,
+                             "bsize": 16, "device": "cpu"},
+                     "max_batch": 4, "max_wait_ms": 5.0}],
+        "checkpoint_dir": ckdir})
+    futs = [svc.submit_nowait(rserve.StencilRequest("diffusion2d", g, 3))
+            for g in grids]
+    futs.append(svc.submit_nowait(rserve.StencilRequest(
+        "diffusion2d", grids[0], 6, checkpoint_key="job",
+        checkpoint_every=2)))
+    out = await asyncio.gather(*futs)
+    snap = svc.snapshot()
+    await svc.stop()
+    return out, snap
+
+
+with tempfile.TemporaryDirectory() as ckdir:
+    served, snap = asyncio.run(serve_a_few(ckdir))
+assert all(torch.equal(r.grid, sp.run(g, 3)) for r, g in zip(served, grids))
+assert torch.equal(served[-1].grid, sp.run(grids[0], 6))
+assert snap["completed"] == 4 and snap["failed_total"] == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")
        and sys.modules[m] is not None]

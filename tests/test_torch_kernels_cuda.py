@@ -560,3 +560,127 @@ def test_storage_and_bc_plan_equals_v1_and_reference(cuda, case):
     scale = 100 if problem.needs_aux else None
     torch.testing.assert_close(v1, want, **precision.tolerance(
         problem.dtype, iters, stages=problem.n_stages, scale=scale))
+
+
+# --- batches along the grid's z axis (B1f) ---------------------------------
+
+BATCHES = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype,
+    # aux mode): the three bodies in their three forms, both storage types,
+    # per-member and shared aux
+    ("hotspot2d_member_aux", _star("hotspot2d"), (33, 517), "clamp", 4,
+     (128,), 1, "float32", "member"),
+    ("hotspot3d_shared_aux_v2", _star("hotspot3d"), (19, 37, 70), "clamp", 2,
+     (12, 32), 2, "float32", "shared"),
+    ("diffusion2d_bf16_v8", _star("diffusion2d"), (37, 300), "reflect", 4,
+     (64,), 8, "bfloat16", None),
+    ("advect_diffuse2d_bf16_v4", lambda: [_advect(2),
+                                          StencilStage("diffusion2d")],
+     (37, 700), "clamp", 2, (300,), 4, "bfloat16", None),
+    ("mixed_chain2d", _mixed_chain(2), (37, 300), "clamp", 2, (64,), 1,
+     "float32", None),
+    ("wave2d_periodic", lambda: _wave(2), (37, 300), "periodic", 4, (64,), 1,
+     "float32", None),
+    ("hotspot_dag_member_aux", _hotspot_dag, (25, 170), ("clamp", "periodic"),
+     3, (32,), 1, "float32", "member"),
+    ("diamond_reflect_v4", _diamond, (33, 150), "reflect", 2, (40,), 4,
+     "float32", None),
+    ("star1d_r2_v16", _star("star1d_r2"), (1001,), "clamp", 4, (), 16,
+     "float32", None),
+]
+
+
+def _batch_state(problem, n, aux_mode, device, seed):
+    """``n`` states, and the aux: one per member or one shared grid."""
+    parts = [_state(problem, device, seed + b) for b in range(n)]
+    g = torch.stack([p[0] for p in parts])
+    aux = None
+    if aux_mode == "member":
+        aux = torch.stack([p[1] for p in parts])
+    elif aux_mode == "shared":
+        aux = parts[0][1]
+    return g, aux
+
+
+@pytest.mark.parametrize("case", BATCHES, ids=lambda c: c[0])
+def test_batched_launch_equals_single_launches(cuda, case):
+    """One launch over a batch of 3 equals 3 single launches and the
+    batched plain version bit for bit, with and without forwarding."""
+    _, program, dims, bc, par_time, bsize, V, dtype, aux_mode = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize, par_vec=V)).geometry
+    g, aux = _batch_state(problem, 3, aux_mode, cuda, seed=20)
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    dag = problem.exec_dag
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    for steps in (par_time, par_time - 1):
+        out = torch.full_like(gp, float("nan"))
+        before = builder.LAUNCHES
+        builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out)
+        torch.cuda.synchronize()
+        assert builder.LAUNCHES == before + 1
+        plain = torch.full_like(gp, float("nan"))
+        builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p, plain)
+        assert torch.equal(out.nan_to_num(-7.0), plain.nan_to_num(-7.0))
+        for b in range(3):
+            single = torch.full_like(gp[b], float("nan"))
+            builder.superstep_dag(
+                dag, geom, gp[b].contiguous(), c, steps,
+                aux_p[b].contiguous() if aux_mode == "member" else aux_p,
+                out=single)
+            assert torch.equal(out[b].nan_to_num(-7.0),
+                               single.nan_to_num(-7.0)), b
+
+
+@pytest.mark.parametrize("case", BATCHES, ids=lambda c: c[0])
+def test_run_batch_on_card_equals_sequential_runs(cuda, case):
+    """``run_batch`` launches ``ceil(iters/T)`` times for the whole batch
+    and equals the members' sequential ``run``s bit for bit."""
+    _, program, dims, bc, par_time, bsize, V, dtype, aux_mode = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    p = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                bsize=bsize, par_vec=V))
+    iters = 2 * par_time + 1
+    g, aux = _batch_state(problem, 4, aux_mode, cuda, seed=30)
+    before = builder.LAUNCHES
+    got = p.run_batch(g, iters, aux=aux)
+    torch.cuda.synchronize()
+    assert builder.LAUNCHES - before == math.ceil(iters / par_time)
+    for b in range(4):
+        a = aux[b] if aux_mode == "member" else aux
+        assert torch.equal(got[b], p.run(g[b], iters, aux=a)), b
+
+
+def test_batch_offsets_past_2_31_cells(cuda):
+    """A batch of 4 wave2d states at 16384^2 (2 fields each: 4 x 2 x
+    16392 x 16400 = 2.15e9 padded cells, past 2^31): the members whose
+    cells lie past 2^31 (member 3) and before it (member 0) equal single
+    launches on copies of those members bit for bit."""
+    problem = StencilProblem(_wave(2), (16384, 16384), boundary="periodic")
+    geom = plan(problem, RunConfig(backend="hopper", par_time=4,
+                                   bsize=(256,))).geometry
+    dag, bc0 = problem.exec_dag, problem.structural_bc
+    shape = builder._stream_shape(geom, bc0, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    gp = torch.empty((4,) + shape, device=cuda).uniform_(0.5, 2.0,
+                                                         generator=gen)
+    assert gp.numel() > 2 ** 31
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    # the outputs start as NaN: the cells a launch does not write (halo,
+    # overhang) must stay NaN in both
+    out = torch.full_like(gp, float("nan"))
+    builder.superstep_dag(dag, geom, gp, c, 4, out=out)
+    torch.cuda.synchronize()
+    h = geom.size_halo
+    region = (Ellipsis, slice(0, builder._stream_dom(geom, bc0))) + tuple(
+        slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
+    for b in (0, 3):
+        assert not out[b][region].isnan().any(), b
+        single = torch.full_like(gp[b], float("nan"))
+        builder.superstep_dag(dag, geom, gp[b].clone(), c, 4, out=single)
+        torch.cuda.synchronize()
+        assert torch.equal(out[b].nan_to_num(-7.0),
+                           single.nan_to_num(-7.0)), b
+        del single
