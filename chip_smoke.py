@@ -75,7 +75,17 @@ On one CUDA card, from the root of a checkout:
    and a constant stage, diamond2d under reflect, and diffusion2d constant
    1.5 in bf16): the same checks and times at V = 1, beside the clamp
    cell's, with the yardstick padded under the same boundary;
-10. runs the batch phase (``BATCH_CASES``: diffusion2d and hotspot2d with
+10. runs the B1k/B1j phase (``B1KJ_CASES``): diamond2d at 16384², T=2,
+    bsize 256 with a clamp, b reflect and m constant 0, in f32 and bf16,
+    and wave3d at 448³, T=2, 32×32 with a reflect Laplacian and a clamp
+    combine, through the mixed-boundary DAG body; the four stencils at
+    bsize 2048 (2D, T=8) and 64×64 (3D, T=4) through the wide form; two
+    ``make_box(3, 2)`` stages (250 taps) at 448³, 32×32, T=2 through the
+    large-table route: per case a super-step bit for bit against the plain
+    version, the counted run within tolerance of the reference backend,
+    times with their spread, the bound, CTAs and redundancy, the
+    yardstick, and the rows of the same cell it is compared with;
+11. runs the batch phase (``BATCH_CASES``: diffusion2d and hotspot2d with
     one shared power grid at 16384^2, B = 4; hotspot3d at 448^3, B = 8,
     a power grid per member; advect_diffuse2d and the periodic wave2d,
     B = 2; diffusion2d in bf16 at V = 8, B = 4; iters = 2T+3): per case
@@ -85,7 +95,7 @@ On one CUDA card, from the root of a checkout:
     batched super-step bit for bit against the plain version, the batched
     cuDNN yardstick (N = B), the bound and the peak memory; then
     ``prewarm((1, 2, 4, 8))`` of a 4096^2 plan, first call and repeat;
-11. serves stencil requests (``serve_phase``): one ``StencilService`` with
+12. serves stencil requests (``serve_phase``): one ``StencilService`` with
     a diffusion2d and a hotspot2d bucket (a power grid per request) at
     4096^2, T=8, bsize 256, batch classes (1, 2, 4, 8); 64 requests each,
     iters 8 or 16, seeded open-loop Poisson arrivals at twice the rate of
@@ -97,7 +107,7 @@ On one CUDA card, from the root of a checkout:
     deliver) and a checkpointed request killed after its first chunk and
     resubmitted (resumed bit for bit); and the kernel at the serving shape
     (hotspot2d, B = 8) against its plain version and yardstick;
-12. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+13. serves full-width qwen3-1.7b (bf16, random weights from a seed)
     through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
     + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
     layer) and none in decode, tokens in the vocab and finite logits; times
@@ -106,7 +116,7 @@ On one CUDA card, from the root of a checkout:
     (output pre-filled with NaN), the ``"flash"`` prefill against the
     ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
     plain version and ``scaled_dot_product_attention`` as the yardstick;
-13. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+14. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
     ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
     (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
     microbatch and 2 with two, asserting finite losses, the first within
@@ -122,7 +132,7 @@ On one CUDA card, from the root of a checkout:
     the smoke width (bf16, head dim 128, so the kernels run) with an
     injected failure and a restart, asserting the uninterrupted run's
     losses bit for bit;
-14. prints one ``{"kernels": [...]}`` line and, last, the device line.
+15. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -1404,6 +1414,107 @@ def bc_phase(device, peaks, f32_rows) -> list:
     return rows
 
 
+# --- mixed-boundary DAGs (B1k), wide planes and large tables (B1j) --------
+
+#: (label, cell, dtype, par_time, bsize, labels of the rows it is compared
+#: with): diamond2d with a clamp, b reflect and m constant 0 (f32, bf16);
+#: wave3d with a reflect Laplacian and a clamp combine; the four stencils
+#: at bsize 2048 (2D) and 64 x 64 (3D), the largest T whose rings fit; two
+#: make_box(3, 2) stages (250 taps, past the kernel parameter's 128)
+B1KJ_CASES = (
+    ("diamond2d clamp|reflect|constant:0.0", "diamond2d mixed", "float32",
+     2, (256,), ("diamond2d reflect", "diamond2d")),
+    ("diamond2d clamp|reflect|constant:0.0 bf16", "diamond2d mixed",
+     "bfloat16", 2, (256,), ("diamond2d clamp|reflect|constant:0.0",)),
+    ("wave3d reflect|clamp", "wave3d mixed", "float32", 2, (32, 32),
+     ("wave3d",)),
+    ("diffusion2d bsize=2048", "diffusion2d", "float32", 8, (2048,),
+     ("diffusion2d",)),
+    ("hotspot2d bsize=2048", "hotspot2d", "float32", 8, (2048,),
+     ("hotspot2d",)),
+    ("diffusion3d 64x64", "diffusion3d", "float32", 4, (64, 64),
+     ("diffusion3d",)),
+    ("hotspot3d 64x64", "hotspot3d", "float32", 4, (64, 64),
+     ("hotspot3d",)),
+    ("box3d_r2 x2", "box3d_r2 x2", "float32", 2, (32, 32), ()),
+)
+
+
+def b1kj_problem(cell, dtype):
+    """``(problem, inputs(device))`` of a :data:`B1KJ_CASES` cell at
+    :data:`FULL_DIMS`: a Table-2 stencil; diamond2d or wave3d with their
+    stages' boundaries replaced; the box chain."""
+    import dataclasses
+    from repro_torch.api import StencilProblem, StencilProgram, StencilStage
+    from repro_torch.core.stencils import make_box
+    if cell in STENCILS:
+        problem, make, _, _ = case_problem(cell, dtype)
+        return problem, make
+    if cell == "box3d_r2 x2":
+        program = [StencilStage(make_box(3, 2)), StencilStage(make_box(3, 2))]
+    else:
+        name = cell.split()[0]
+        prog = dag_program(name)
+        bcs = (("clamp", "reflect", "constant:0.0") if name == "diamond2d"
+               else ("reflect", "clamp"))
+        program = StencilProgram(
+            tuple(dataclasses.replace(st, boundary=bc)
+                  for st, bc in zip(prog.stages, bcs)),
+            fields=prog.fields, updates=prog.updates)
+    problem = StencilProblem(program, FULL_DIMS[3 if "3d" in cell else 2],
+                             dtype=dtype)
+    return problem, lambda device: (grid_input(
+        problem.state_shape, device, 0).to(problem.torch_dtype), None)
+
+
+def b1kj_phase(device, peaks, rows_so_far) -> list:
+    """Every case of :data:`B1KJ_CASES` at V = 1: a super-step bit for bit
+    against the plain version (steps = T and T - 1), the counted run
+    within tolerance of the reference backend, the times, bound, CTAs and
+    redundancy beside the rows it is compared with."""
+    import torch
+    from repro_torch.api import RunConfig, plan
+    from repro_torch.kernels import builder
+    t0 = time.perf_counter()
+    ms_of = {k[0]: v for k, v in f32_times(rows_so_far).items()
+             if k[1] == 1}
+    rows = []
+    for label, cell, dtype, T, bsize, compare in B1KJ_CASES:
+        problem, make = b1kj_problem(cell, dtype)
+        g, aux = make(device)
+        library = case_library(cell, problem, g, aux, T, device)
+        row, out = storage_row(label, problem, g, aux, T, bsize, 1, device,
+                               peaks, library)
+        row["oracle_max_abs_err"] = check_reference(label, problem, g, aux,
+                                                    out, row["iters"])
+        del out
+        p_geom = plan(problem, RunConfig(backend="hopper", par_time=T,
+                                         bsize=bsize, device=device)).geometry
+        tab = builder.tables_of(p_geom, problem.exec_dag)
+        row.update({
+            "ctas": p_geom.num_blocks, "redundancy": p_geom.redundancy,
+            "form": ("mixed-boundary DAG body" if problem.is_dag else
+                     "large-table route" if tab is not None and tab.big
+                     else "wide form"),
+            "compared_with": {c: ms_of.get(c) for c in compare}})
+        if tab is not None and tab.big:
+            row["table"] = tab._asdict()
+        print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize} "
+              f"({row['form']}, {row['ctas']} CTAs, redundancy "
+              f"{row['redundancy']:.4f}): run {row['run_ms']}, "
+              f"{row['launches']} launches, oracle max_abs_err "
+              f"{row['oracle_max_abs_err']:.3g}; superstep: kernel "
+              f"{row['ms']} (bit for bit with plain), plain "
+              f"{row['plain_ms']}, library {row['library_ms']}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); compared "
+              f"with {row['compared_with']}", flush=True)
+        rows.append(row)
+        del g, aux
+        torch.cuda.empty_cache()
+    print(f"b1kj phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
 # --- batches along the kernel grid's z axis (B1f) ---------------------------
 
 #: (label, cell, dtype, B, par_vec, aux mode): the main path without aux
@@ -2422,6 +2533,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.extend(bf16_phase(device, peaks, kernels))
     kernels.extend(bc_phase(device, peaks, kernels))
+    kernels.extend(b1kj_phase(device, peaks, kernels))
     torch.cuda.empty_cache()
     kernels.extend(batch_phase(device, peaks))
     kernels.append(serve_kernel_row(device, peaks, serve_phase(device,

@@ -13,12 +13,14 @@ VMEM: :func:`smem_bytes` is the streaming kernel's own footprint.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence, Tuple
 
 #: shared memory one CTA may use on H100 (232,448 bytes = 227 KB)
 SMEM_LIMIT = 232448
-#: threads per CTA on any CUDA device
+#: threads per CTA on any CUDA device; the streaming kernel runs a block
+#: plane of more cells in its wide form, several cells a thread
 MAX_THREADS = 1024
 
 
@@ -131,11 +133,18 @@ def smem_bytes(geom: BlockGeometry, program, cell_bytes: int = 4) -> int:
     writes straight to device memory and has no ring; an aux stream adds
     nothing, since the kernel reads its centre from device memory."""
     # imported here: ``programs`` imports ``core``, which imports this module
-    from repro_torch.programs import DagSpec, chain_dag, dag_layout, unroll_dag
+    from repro_torch.programs import DagSpec, chain_dag
     dag = program if isinstance(program, DagSpec) else chain_dag(program)
-    lay = dag_layout(unroll_dag(dag, geom.par_time), geom.par_vec)
     plane = math.prod(geom.bsize)
-    return sum(lay.wins) * geom.par_vec * plane * cell_bytes
+    return _ring_slots(geom, dag) * geom.par_vec * plane * cell_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def _ring_slots(geom: BlockGeometry, dag) -> int:
+    """The slots of all rings of the ``programs.DagSpec`` ``dag`` at
+    ``geom`` (kept: each super-step's launch checks them)."""
+    from repro_torch.programs import dag_layout, unroll_dag
+    return sum(dag_layout(unroll_dag(dag, geom.par_time), geom.par_vec).wins)
 
 
 def stream_extension(geom: BlockGeometry, bc) -> int:

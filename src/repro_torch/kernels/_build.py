@@ -25,8 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 #: library stem -> (source, its own nvcc flags).  The streaming kernel is
-#: built once per storage type, so that the two halves of its 72 kernels
-#: compile in parallel: one library of all 72 took 22 s on an H100 machine
+#: built once per storage type, so that the halves of its kernels compile
+#: in parallel (57 per library): one library of 72 took 22 s on an H100
+#: machine
 #: (nvcc's --split-compile took 12 s but changed the code, and slowed the
 #: one-row form of hotspot2d by 8-10%); and once more per type with the
 #: batch members' offsets (``STENCIL_BATCH``), which cost single-grid
@@ -44,19 +45,24 @@ LIBRARIES = {"stencil_f32": ("stencil_stream.cu", ("-DSTENCIL_BF16=0",)),
 #: batch members of one ``stencil_stream.cu`` launch (its ``kMaxBatch``:
 #: the members run along ``gridDim.z``, at most 65535 blocks)
 MAX_BATCH = 65535
-#: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``):
-#: unrolled entries, stages, taps, coefficients, field streams of a DAG and
-#: inputs of one entry (the wave equation's combine takes 3, the largest
-#: fan-in of the repository's programs 4)
+#: capacities of ``stencil_stream.cu``'s ``Program`` table (its ``kMax*``),
+#: the one passed as a kernel parameter: unrolled entries, stages, taps,
+#: coefficients, field streams of a DAG and inputs of one entry (a program
+#: past any of them takes the large-table route, :func:`program_type`)
 MAX_ENTRIES, MAX_STAGES, MAX_TAPS, MAX_COEFFS = 64, 16, 128, 192
 MAX_FIELDS, MAX_INPUTS = 4, 4
+#: the largest lag, ring slot and tap offset the parameter table's 16-bit
+#: and 8-bit fields hold (a program past them takes the large-table route,
+#: whose fields are 32-bit)
+SHORT_MAX, BYTE_MAX = 2 ** 15 - 1, 2 ** 7 - 1
 #: sizes of ``stencil_stream.cu``'s ``Program`` and of the per-entry records
 #: its chain body (``Rec``, ``TickRec``) and DAG body (``DagRec``,
-#: ``DagTick``) keep in shared memory, which its ``static_assert``s hold to
-#: these numbers
+#: ``DagTick``; ``BigDagRec``, ``BigDagTick`` in the large-table route) keep
+#: in shared memory, which its ``static_assert``s hold to these numbers
 PROGRAM_BYTES = 3616
 REC_BYTES, TICKREC_BYTES = 96, 32
 DAGREC_BYTES, DAGTICK_BYTES = 112, 48
+BIG_DAGREC_BYTES, BIG_DAGTICK_BYTES = 96, 16
 #: static shared memory of each table-driven body of ``stencil_stream.cu``:
 #: its records per entry, taps and coefficients (the main-path body has
 #: none)
@@ -64,6 +70,19 @@ TABLE_SMEM = {"chain": ((REC_BYTES + TICKREC_BYTES) * MAX_ENTRIES
                         + 4 * MAX_TAPS + 4 * MAX_COEFFS),
               "dag": ((DAGREC_BYTES + DAGTICK_BYTES) * MAX_ENTRIES
                       + 4 * MAX_TAPS + 4 * MAX_COEFFS)}
+
+
+def big_table_bytes(body: str, n_entries: int, n_taps: int, n_coeffs: int,
+                    n_inputs: int = 0) -> int:
+    """Dynamic shared memory in front of the rings in the large-table
+    route (``stencil_stream.cu``'s ``table_bytes``): per entry the body's
+    record and tick record, then, for a DAG, each input's ring (8 bytes)
+    and its offset at the tick (4), and the taps (16 bytes) and
+    coefficients, rounded up to 16 bytes."""
+    rec, per_input = ((REC_BYTES + TICKREC_BYTES, 0) if body == "chain"
+                      else (BIG_DAGREC_BYTES + BIG_DAGTICK_BYTES, 12))
+    return -(-(n_entries * rec + per_input * n_inputs + 16 * n_taps
+               + 4 * n_coeffs) // 16) * 16
 
 
 class Params(ctypes.Structure):
@@ -117,6 +136,47 @@ class Program(ctypes.Structure):
 
 
 assert ctypes.sizeof(Program) == PROGRAM_BYTES, "Program mirror drifted"
+
+
+class BigEntry(ctypes.Structure):
+    """``struct BigEntry`` of ``stencil_stream.cu``: one unrolled entry of
+    the large-table route, its ``n_in`` inputs from ``in_lo`` on in the
+    table's ``ins``."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "lag", "stage", "iteration", "field", "out_base", "out_slots",
+        "n_in", "in_lo")]
+
+
+class Input(ctypes.Structure):
+    """``struct Input`` of ``stencil_stream.cu``: an input's ring (first
+    slot and depth, in slabs) in the large-table route."""
+    _fields_ = [("base", ctypes.c_int), ("slots", ctypes.c_int)]
+
+
+class BigTap(ctypes.Structure):
+    """``struct BigTap`` of ``stencil_stream.cu``: :class:`Tap` of the
+    large-table route."""
+    _fields_ = [(name, ctypes.c_int) for name in ("ds", "dy", "dx", "ci")]
+
+
+class BigStream(ctypes.Structure):
+    """``struct BigStream`` of ``stencil_stream.cu``: :class:`Stream` of
+    the large-table route."""
+    _fields_ = [(name, ctypes.c_int) for name in ("base", "slots", "out",
+                                                   "pad")]
+
+
+@functools.cache
+def program_type(n_entries: int, n_stages: int, n_taps: int, n_coeffs: int,
+                 n_fields: int, n_inputs: int) -> type:
+    """The large-table route's table (for a program past a capacity of
+    ``Program``): entries, stages, taps, coefficients, field streams and
+    the entries' inputs, of these lengths and back to back, the device
+    buffer ``stencil_stream_launch_big`` reads."""
+    return type("ProgramOf", (ctypes.Structure,), {"_fields_": [
+        ("e", BigEntry * n_entries), ("s", Stage * n_stages),
+        ("taps", BigTap * n_taps), ("c", ctypes.c_float * n_coeffs),
+        ("f", BigStream * n_fields), ("ins", Input * n_inputs)]})
 
 
 class FlashParams(ctypes.Structure):
@@ -203,6 +263,13 @@ def stencil_stream(bf16: bool = False, batch: bool = False) -> ctypes.CDLL:
         ctypes.POINTER(Program), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t, ctypes.c_void_p]
     dll.stencil_stream_launch.restype = ctypes.c_int
+    dll.stencil_stream_launch_big.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, Params, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_size_t, ctypes.c_void_p]
+    dll.stencil_stream_launch_big.restype = ctypes.c_int
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]
     dll.stencil_stream_error_string.restype = ctypes.c_char_p
     return dll

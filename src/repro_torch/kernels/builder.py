@@ -25,8 +25,11 @@ a Table-2 stencil (:data:`KERNEL_IDS`), a tap table for a stencil whose
 ``apply`` is an ordered tap sum (``make_star``/``make_box``,
 :func:`linear_taps`), or the weighted sum of a ``make_combine``; a DAG's
 state nodes select.  This slice covers such programs on 1D, 2D and 3D
-grids, the four boundary kinds per axis and per stage (a DAG's stages
-sharing one), float32 or bfloat16 storage with float32 arithmetic (one
+grids, the four boundary kinds per axis and per stage (a DAG whose stages
+differ runs the kernel's mixed-boundary body, whose consumers re-impose at
+read time), block planes of any size (over 1024 cells a thread takes
+several), tables past the kernel parameter's capacities (in a device
+buffer), float32 or bfloat16 storage with float32 arithmetic (one
 rounding to storage per stage application), any ``par_vec``: one tick
 streams a slab of ``par_vec`` rows (planes in 3D), and the stream axis is
 padded to a slab multiple.  Rows at or past the real stream extent ``dom``
@@ -38,9 +41,10 @@ writes those rows.  ``api/backends`` refuses the rest at plan time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,9 +54,10 @@ from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        stream_extension)
 from repro_torch.core.stencils import STENCILS, Stencil
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import (MAX_BATCH, MAX_COEFFS, MAX_ENTRIES,
-                                        MAX_FIELDS, MAX_INPUTS, MAX_STAGES,
-                                        MAX_TAPS, TABLE_SMEM)
+from repro_torch.kernels._build import (BYTE_MAX, MAX_BATCH, MAX_COEFFS,
+                                        MAX_ENTRIES, MAX_FIELDS, MAX_INPUTS,
+                                        MAX_STAGES, MAX_TAPS, SHORT_MAX,
+                                        TABLE_SMEM, big_table_bytes)
 from repro_torch.programs import (DagSpec, chain_dag, dag_is_chain,
                                   dag_layout, dag_radius, unroll_dag)
 
@@ -67,9 +72,10 @@ KERNEL_IDS = {"diffusion2d": 0, "hotspot2d": 1, "diffusion3d": 2,
               "hotspot3d": 3}
 #: op ids of the tap-table path and of the combine
 TAP_OP, COMBINE_OP = 4, 5
-#: ``stencil_stream.cu``'s table-driven bodies (the main-path body runs a
+#: ``stencil_stream.cu``'s table-driven bodies: any chain, a DAG whose
+#: stages share one boundary, and any DAG (the main-path body runs a
 #: Table-2 id)
-CHAIN_BODY, DAG_BODY = -1, -2
+CHAIN_BODY, DAG_BODY, MIX_BODY = -1, -2, -3
 #: boundary kind -> its id in ``stencil_stream.cu``'s ``Stage`` table
 #: (``Kind``); an axis the grid does not have is "periodic", which
 #: re-imposes nothing
@@ -121,19 +127,27 @@ def kernel_body(stages) -> int:
     return CHAIN_BODY
 
 
-def cta_shape(geom: BlockGeometry, n_entries: int = 0) -> tuple:
-    """``(vt, rows, threads)`` of one CTA of the kernel, the rule of
-    ``stencil_stream_launch``: ``vt`` the largest divisor of ``par_vec``
-    with ``prod(bsize) * vt <= 1024`` (0 if the block plane alone exceeds
-    1024 cells), so ``vt`` rows of a slab are computed at once and each
-    thread takes ``rows = par_vec / vt`` of them; ``threads`` is ``plane *
-    vt`` or, for a table-driven body, at least ``n_entries`` (one thread
-    builds each entry's tick record), rounded up to a multiple of 32."""
+def cta_shape(geom: BlockGeometry, tab: Optional["Tables"] = None) -> tuple:
+    """``(vt, rows, threads)`` of one CTA of the kernel running a program
+    whose tables are ``tab`` (None for the main-path body), the rule of
+    ``stencil_stream.cu``'s ``cta_threads``: ``vt`` the largest divisor of
+    ``par_vec`` with ``prod(bsize) * vt <= 1024``, so ``vt`` rows of a
+    slab are computed at once and each thread takes ``rows = par_vec /
+    vt`` of them; ``threads`` is ``plane * vt`` or, for a table-driven
+    body, at least its entries (one thread builds each entry's tick
+    record), rounded up to a multiple of 32.  A block plane over 1024
+    cells, and the large-table route at any plane, run the kernel's wide
+    form: ``vt = 1``, every row of a slab per thread, and ``min(plane,
+    1024)`` threads rounded up to 32, each taking every ``threads``-th
+    cell of the plane (and, in the large-table route, every
+    ``threads``-th entry's records)."""
     plane, V = math.prod(geom.bsize), geom.par_vec
-    vt = max((d for d in range(1, V + 1)
-              if V % d == 0 and plane * d <= MAX_THREADS), default=0)
-    threads = -(-max(plane * vt, n_entries) // 32) * 32
-    return vt, (V // vt if vt else 0), threads
+    if (tab is not None and tab.big) or plane > MAX_THREADS:
+        return 1, V, min(-(-plane // 32) * 32, MAX_THREADS)
+    vt = max(d for d in range(1, V + 1)
+             if V % d == 0 and plane * d <= MAX_THREADS)
+    threads = -(-max(plane * vt, tab.entries if tab else 0) // 32) * 32
+    return vt, V // vt, threads
 
 
 def _bc_key(bc, ndim: int) -> tuple:
@@ -143,54 +157,101 @@ def _bc_key(bc, ndim: int) -> tuple:
     return kinds, boundary.fill_of(bc) if "constant" in kinds else 0.0
 
 
+def mixes_boundaries(dag: DagSpec, ndim: int) -> bool:
+    """Whether the stages of ``dag`` differ in boundary (a kind on some
+    axis, or the fill): the kernel then runs its mixed-boundary DAG body,
+    whose consumers re-impose at read time (a path graph runs the chain
+    body, which takes every value's one consumer's boundary at push
+    time)."""
+    return len({_bc_key(bc, ndim) for _, bc, _ in dag.stages}) > 1
+
+
+class Tables(NamedTuple):
+    """What the tables of a table-driven body hold for one program:
+    ``body`` ("chain" or "dag"), unrolled entries, stages, taps,
+    coefficients, field streams, the widest entry's inputs, the inputs of
+    all entries, the rings' slots and the largest lag (in slabs of
+    ``par_vec`` rows), and the farthest tap offset."""
+    body: str
+    entries: int
+    stages: int
+    taps: int
+    coeffs: int
+    fields: int
+    inputs: int
+    all_inputs: int
+    slots: int
+    lag: int
+    reach: int
+
+    @property
+    def big(self) -> bool:
+        """Past a capacity of the kernel parameter's ``Program`` (its
+        lengths, or its 16-bit lags and ring slots and 8-bit tap offsets):
+        the large-table route (the table in a device buffer with 32-bit
+        fields, the records in dynamic shared memory sized to the
+        program)."""
+        return (self.entries > MAX_ENTRIES or self.stages > MAX_STAGES
+                or self.taps > MAX_TAPS or self.coeffs > MAX_COEFFS
+                or self.fields > MAX_FIELDS or self.inputs > MAX_INPUTS
+                or max(self.slots, self.lag) > SHORT_MAX
+                or self.reach > BYTE_MAX)
+
+    @property
+    def smem(self) -> int:
+        """Shared memory of the records, taps and coefficients: static and
+        sized to the caps, or, in the large-table route, sized to the
+        program."""
+        if not self.big:
+            return TABLE_SMEM[self.body]
+        return big_table_bytes(self.body, self.entries, self.taps,
+                               self.coeffs, self.all_inputs)
+
+
+def tables_of(geom: BlockGeometry, program) -> Optional[Tables]:
+    """:class:`Tables` of ``program`` (a chain ``((stencil, bc), ...)`` or
+    a ``DagSpec``) at ``geom``; None for a single Table-2 stage, whose
+    main-path body reads no table."""
+    stages = _as_chain(program)
+    if stages is not None and kernel_body(stages) >= 0:
+        return None
+    return _tables(geom, program if isinstance(program, DagSpec)
+                   else chain_dag(stages))
+
+
+@functools.lru_cache(maxsize=256)
+def _tables(geom: BlockGeometry, dag: DagSpec) -> Tables:
+    plan = unroll_dag(dag, geom.par_time)
+    lay = dag_layout(plan, geom.par_vec)
+    stencils = [st for st, _, _ in dag.stages]
+    taps = [linear_taps(st) or () for st in stencils]
+    return Tables(
+        "chain" if dag_is_chain(dag) else "dag", len(plan.entries),
+        len(stencils), sum(map(len, taps)),
+        sum(len(st.coeff_names) for st in stencils), dag.n_fields,
+        max(len(e.inputs) for e in plan.entries),
+        sum(len(e.inputs) for e in plan.entries), sum(lay.wins),
+        max(lay.lags), max((abs(o) for t in taps for _, off in t
+                            for o in off), default=0))
+
+
 def kernel_limits(geom: BlockGeometry, program,
                   cell_bytes: int = 4) -> Optional[str]:
     """Why the kernel cannot run ``program`` (the chain ``((stencil, bc),
     ...)`` or a ``DagSpec``) at ``geom`` with ``cell_bytes`` of storage a
-    cell (None if it can): a DAG that is not a path graph needs one
-    boundary on all its stages (it re-imposes at push time, not per
-    consumer); a block plane of at most 1024 cells (:func:`cta_shape`),
-    per CTA the :func:`smem_bytes` of its rings (``par_vec`` rows per
-    slot), and, for the table-driven bodies (any chain but one Table-2
-    stage, any DAG), the capacities of their entry, stage, tap,
-    coefficient, field-stream and input tables (128 taps bound a star's
-    radius to 31, well inside a tap's signed-byte offsets) and their shared
-    memory.  The main-path body reads no table, so its ``par_time`` is
-    bound only by shared memory."""
-    stages = _as_chain(program)
-    if stages is None and len({_bc_key(bc, geom.ndim)
-                               for _, bc, _ in program.stages}) > 1:
-        return (f"the stages of a DAG differ in boundary "
-                f"({sorted({bc.token() for _, bc, _ in program.stages})}); "
-                f"the kernel runs DAGs whose stages share one (ROADMAP B1k)")
-    if not cta_shape(geom)[0]:
-        return (f"bsize {geom.bsize} needs {math.prod(geom.bsize)} threads "
-                f"per CTA (at most {MAX_THREADS})")
+    cell (None if it can): per CTA the :func:`smem_bytes` of its rings
+    (``par_vec`` rows per slot) and, for the table-driven bodies (any
+    chain but one Table-2 stage, any DAG), the shared memory of their
+    records, taps and coefficients (:class:`Tables`; a program past the
+    kernel parameter's capacities takes the large-table route, whose
+    records are sized to it) must fit one CTA.  Any block plane runs (over
+    1024 cells in the wide form, :func:`cta_shape`), and DAGs whose stages
+    differ in boundary run the mixed-boundary body.  The main-path body
+    reads no table, so its ``par_time`` is bound only by shared memory."""
     smem = smem_bytes(geom, program, cell_bytes)
-    if stages is None or kernel_body(stages) < 0:
-        if stages is None:
-            plan = unroll_dag(program, geom.par_time)
-            entries, what = len(plan.entries), "stages and state nodes"
-            stencils = [st for st, _, _ in program.stages]
-            fields = program.n_fields
-            inputs = max(len(e.inputs) for e in plan.entries)
-            body = "dag"
-        else:
-            entries, what = len(stages) * geom.par_time, "stages"
-            stencils = [st for st, _ in stages]
-            fields, inputs, body = 1, 1, "chain"
-        taps = sum(len(linear_taps(st) or ()) for st in stencils)
-        coeffs = sum(len(st.coeff_names) for st in stencils)
-        for name, n, cap in ((f"fused entries ({what} x par_time)", entries,
-                              MAX_ENTRIES),
-                             ("stages", len(stencils), MAX_STAGES),
-                             ("taps", taps, MAX_TAPS),
-                             ("coefficients", coeffs, MAX_COEFFS),
-                             ("field streams", fields, MAX_FIELDS),
-                             ("inputs to one stage", inputs, MAX_INPUTS)):
-            if n > cap:
-                return f"{n} {name} exceed the kernel's table of {cap}"
-        smem += TABLE_SMEM[body]
+    tab = tables_of(geom, program)
+    if tab is not None:
+        smem += tab.smem
     if smem > SMEM_LIMIT:
         return (f"par_time={geom.par_time}, bsize={geom.bsize}, "
                 f"par_vec={geom.par_vec} need {smem} bytes of shared memory "
@@ -346,18 +407,10 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
                                    aux_p, out)
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
-    stages = _as_chain(dag)
-    if stages is not None:
-        table, out_lag = _program_table(stages, geom, coeffs_packed)
-        body, n_entries = kernel_body(stages), len(stages) * geom.par_time
-    else:
-        table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed)
-        body = DAG_BODY
-    bcs = any(k in ("reflect", "constant")
-              for _, bc in pairs for k in boundary.kinds_of(bc, geom.ndim))
-    _launch(body, table, out_lag, n_entries, dag.n_fields, pairs[0][1], bcs,
-            geom, gp, aux_p, out, int(steps),
-            smem_bytes(geom, dag, gp.element_size()), batch)
+    prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device)
+    _launch(prog, geom, gp, aux_p, out, int(steps),
+            smem_bytes(geom, dag, gp.element_size()) + prog.table_smem,
+            batch)
     return out
 
 
@@ -374,13 +427,22 @@ def _ring_bases(wins) -> dict:
     return base
 
 
-def _entry(lag, stage, iteration, field, out_base, out_slots, ins):
-    """One row of the kernel's entry table; ``ins`` the ``(ring base,
-    slots)`` of each input."""
-    pad = [(0, 0)] * (MAX_INPUTS - len(ins))
-    bases, slots = zip(*(list(ins) + pad))
-    return _build.Entry(lag, stage, iteration, field, out_base, out_slots,
-                        len(ins), 0, bases, slots)
+def _fill_entries(k, rows, big: bool) -> None:
+    """Fill the entry table of ``k`` from ``(lag, stage, iteration, field,
+    out_base, out_slots, ins)`` rows, ``ins`` the ``(ring base, slots)``
+    of each input: inline in ``Entry``, or, in the large-table route, in
+    the table's ``ins`` from the entry's ``in_lo`` on."""
+    lo = 0
+    for i, (*head, ins) in enumerate(rows):
+        if big:
+            k.e[i] = _build.BigEntry(*head, len(ins), lo)
+            for base, slots in ins:
+                k.ins[lo] = _build.Input(base, slots)
+                lo += 1
+        else:
+            bases, slots = zip(*(list(ins)
+                                 + [(0, 0)] * (MAX_INPUTS - len(ins))))
+            k.e[i] = _build.Entry(*head, len(ins), 0, bases, slots)
 
 
 def _stage_tables(k, stages, ndim: int, coeffs_packed) -> None:
@@ -400,37 +462,53 @@ def _stage_tables(k, stages, ndim: int, coeffs_packed) -> None:
         for ci, off in pairs:
             ds, dy, dx = ((off[0], 0, 0) if ndim == 1 else
                           (off[0], 0, off[1]) if ndim == 2 else off)
-            taps.append(_build.Tap(ds, dy, dx, ci))
+            taps.append((ds, dy, dx, ci))
     for i, tap in enumerate(taps):
-        k.taps[i] = tap
+        k.taps[i] = k.taps._type_(*tap)   # Tap, or BigTap
     for i, v in enumerate(coeffs_packed.tolist()):
         k.c[i] = v
 
 
-def _program_table(stages, geom: BlockGeometry, coeffs_packed):
+def _new_table(tab: Tables, big: bool):
+    """An empty table for a program of ``tab``: ``Program`` (the kernel
+    parameter, sized to its capacities) or, for the large-table route
+    (``big``), one with tables of the program's lengths
+    (``_build.program_type``)."""
+    if not big:
+        return _build.Program()
+    return _build.program_type(tab.entries, tab.stages, tab.taps, tab.coeffs,
+                               tab.fields, tab.all_inputs)()
+
+
+def _program_table(stages, geom: BlockGeometry, coeffs_packed,
+                   big: bool = False):
     """The kernel's ``Program`` table for the chain: one row per unrolled
     entry (lag, producer ring, own ring, stage, iteration; lags and rings
     in slabs of ``par_vec`` block planes, rings laid out in value-id order
     with the layout's window depths), one per stage (op, coefficient
     offset, tap range), the taps and the coefficients; the main-path body
     reads only the coefficients, so its entries, which may outnumber the
-    table's rows, are left out.  Returns ``(table, out_lag)``."""
+    table's rows, are left out.  ``big``: sized to the program, for the
+    large-table route.  Returns ``(table, out_lag)``."""
     plan = unroll_dag(chain_dag(stages), geom.par_time)
     lay = dag_layout(plan, geom.par_vec)
     base = _ring_bases(lay.wins)
-    k = _build.Program()
-    _stage_tables(k, stages, geom.ndim, coeffs_packed)
     if kernel_body(stages) >= 0:
+        k = _build.Program()
+        _stage_tables(k, stages, geom.ndim, coeffs_packed)
         return k, lay.out_lag
+    k = _new_table(tables_of(geom, stages), big)
+    _stage_tables(k, stages, geom.ndim, coeffs_packed)
     F = plan.n_streams
-    for i, e in enumerate(plan.entries):
-        v, (p,) = F + i, e.inputs
-        k.e[i] = _entry(lay.lags[v], i % len(stages), e.iteration, -1,
-                        base.get(v, 0), lay.wins[v], [(base[p], lay.wins[p])])
+    _fill_entries(k, [(lay.lags[F + i], i % len(stages), e.iteration, -1,
+                       base.get(F + i, 0), lay.wins[F + i],
+                       [(base[p], lay.wins[p]) for p in e.inputs])
+                      for i, e in enumerate(plan.entries)], big)
     return k, lay.out_lag
 
 
-def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
+def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed,
+               big: bool = False):
     """The kernel's ``Program`` table for a DAG: as :func:`_program_table`,
     with every input's ring per entry, stage -1 for a state node, the
     output field each value drains to, and per field stream its ring and
@@ -440,7 +518,7 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
     lay = dag_layout(plan, geom.par_vec)
     base = _ring_bases(lay.wins)
     F = plan.n_streams
-    k = _build.Program()
+    k = _new_table(tables_of(geom, dag), big)
     _stage_tables(k, [(st, bc) for st, bc, _ in dag.stages], geom.ndim,
                   coeffs_packed)
     # unroll_dag's order: per iteration the stages in topological order,
@@ -448,25 +526,73 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
     n_state = sum(u != ~f for f, u in enumerate(dag.updates))
     stage_of = (list(dag.topo) + [-1] * n_state) * geom.par_time
     field_of = {o: f for f, o in enumerate(plan.outputs)}
+    Stream = _build.BigStream if big else _build.Stream
     for f in range(F):
-        k.f[f] = _build.Stream(base.get(f, 0), lay.wins[f],
-                               int(field_of.get(f) == f), 0)
-    for i, e in enumerate(plan.entries):
-        v = F + i
-        k.e[i] = _entry(lay.lags[v], stage_of[i], e.iteration,
-                        field_of.get(v, -1), base.get(v, 0), lay.wins[v],
-                        [(base[p], lay.wins[p]) for p in e.inputs])
+        k.f[f] = Stream(base.get(f, 0), lay.wins[f],
+                        int(field_of.get(f) == f), 0)
+    _fill_entries(k, [(lay.lags[F + i], stage_of[i], e.iteration,
+                       field_of.get(F + i, -1), base.get(F + i, 0),
+                       lay.wins[F + i], [(base[p], lay.wins[p])
+                                         for p in e.inputs])
+                      for i, e in enumerate(plan.entries)], big)
     return k, lay.out_lag, len(plan.entries)
 
 
-def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
-            bc0, bcs: bool, geom: BlockGeometry, gp, aux_p, out, steps: int,
-            smem: int, batch: Optional[int]) -> None:
-    """Launch one super-step of every member of ``gp``; ``bcs``: some
-    stage has a reflect or constant axis (the kernels that do the boundary
-    work); ``batch``: the members along the grid's z axis (None: one).
-    Member ``b`` lies ``b * member_stride`` cells into ``gp`` and ``out``,
-    its aux ``b * aux_stride`` cells into ``aux_p`` (0 for a shared aux
+class _LaunchPlan(NamedTuple):
+    """What every launch of one program at one geometry shares: the body
+    that runs it, its table (a ``Program`` passed by value, or the
+    large-table route's table in a device buffer), the output lag, the
+    entries and field streams, the first stage's BC, whether some stage
+    has a reflect or constant axis (the kernels that do the boundary
+    work), the records' shared memory in front of the rings, and the
+    large-table route's table lengths ``(stages, taps, coefficients,
+    inputs)`` (None for the parameter table)."""
+    body: int
+    table: object
+    out_lag: int
+    n_entries: int
+    n_fields: int
+    bc0: object
+    bcs: bool
+    table_smem: int
+    big: Optional[tuple]
+
+
+@functools.lru_cache(maxsize=64)
+def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
+              device: torch.device) -> _LaunchPlan:
+    """:class:`_LaunchPlan` of ``dag`` at ``geom`` with the packed
+    coefficients ``coeffs``, built once and kept for the program's later
+    super-steps: the large-table route copies its table to ``device``
+    here, not at every launch."""
+    coeffs_packed = torch.tensor(coeffs, dtype=torch.float32)
+    pairs = tuple((st, bc) for st, bc, _ in dag.stages)
+    stages = _as_chain(dag)
+    tab = tables_of(geom, dag)
+    big = tab is not None and tab.big
+    if stages is not None:
+        table, out_lag = _program_table(stages, geom, coeffs_packed, big)
+        body, n_entries = kernel_body(stages), len(stages) * geom.par_time
+    else:
+        table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed, big)
+        body = MIX_BODY if mixes_boundaries(dag, geom.ndim) else DAG_BODY
+    if big:
+        table = torch.frombuffer(bytearray(table),
+                                 dtype=torch.uint8).to(device)
+    bcs = any(k in ("reflect", "constant")
+              for _, bc in pairs for k in boundary.kinds_of(bc, geom.ndim))
+    return _LaunchPlan(body, table, out_lag, n_entries, dag.n_fields,
+                       pairs[0][1], bcs, tab.smem if big else 0,
+                       (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
+                       if big else None)
+
+
+def _launch(prog: _LaunchPlan, geom: BlockGeometry, gp, aux_p, out,
+            steps: int, smem: int, batch: Optional[int]) -> None:
+    """Launch one super-step of ``prog`` on every member of ``gp``;
+    ``batch``: the members along the grid's z axis (None: one).  Member
+    ``b`` lies ``b * member_stride`` cells into ``gp`` and ``out``, its
+    aux ``b * aux_stride`` cells into ``aux_p`` (0 for a shared aux
     grid)."""
     global LAUNCHES
     pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
@@ -481,10 +607,11 @@ def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
         hy = 0
     ns, V = gp.shape[-geom.ndim], geom.par_vec
     params = _build.Params(
-        ns=ns, dom=_stream_dom(geom, bc0), V=V, ticks=ns // V + out_lag,
-        py=pad[0], px=pad[1], by=blk[0], bx=blk[1], cy=cmp[0], cx=cmp[1],
-        dy=dims[0], dx=dims[1], hy=hy, hx=hx, steps=steps,
-        n_entries=n_entries, n_fields=n_fields)
+        ns=ns, dom=_stream_dom(geom, prog.bc0), V=V,
+        ticks=ns // V + prog.out_lag, py=pad[0], px=pad[1], by=blk[0],
+        bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
+        hx=hx, steps=steps, n_entries=prog.n_entries,
+        n_fields=prog.n_fields)
     bnum = geom.bnum
     grid_x = bnum[-1] if bnum else 1
     grid_y = bnum[0] if geom.ndim == 3 else 1
@@ -495,12 +622,23 @@ def _launch(body: int, table, out_lag: int, n_entries: int, n_fields: int,
     dll = _build.stencil_stream(gp.dtype == torch.bfloat16,
                                 bool(batch and batch > 1))
     with torch.cuda.device(gp.device):
-        stream = torch.cuda.current_stream(gp.device).cuda_stream
-        err = dll.stencil_stream_launch(
-            body, int(bcs), gp.data_ptr(),
-            None if aux_p is None else aux_p.data_ptr(),
-            out.data_ptr(), params, ctypes.byref(table), grid_x, grid_y,
-            batch or 1, member_stride, aux_stride, smem, stream)
+        stream = torch.cuda.current_stream(gp.device)
+        aux_ptr = None if aux_p is None else aux_p.data_ptr()
+        if prog.big is None:
+            err = dll.stencil_stream_launch(
+                prog.body, int(prog.bcs), gp.data_ptr(), aux_ptr,
+                out.data_ptr(), params, ctypes.byref(prog.table), grid_x,
+                grid_y, batch or 1, member_stride, aux_stride, smem,
+                stream.cuda_stream)
+        else:
+            # the kept table is not reused for another tensor before the
+            # kernels of every stream that read it are done
+            prog.table.record_stream(stream)
+            err = dll.stencil_stream_launch_big(
+                prog.body, int(prog.bcs), gp.data_ptr(), aux_ptr,
+                out.data_ptr(), params, prog.table.data_ptr(), *prog.big,
+                grid_x, grid_y, batch or 1, member_stride, aux_stride, smem,
+                stream.cuda_stream)
     if err != 0:
         msg = dll.stencil_stream_error_string(err).decode()
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
@@ -669,13 +807,19 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     per input under its boundary (stages of iterations ``>= steps``
     compute nothing: only the state nodes of their iteration read them,
     and those forward); a state node selects ``inputs[0]`` while its
-    iteration is ``< steps``, else ``inputs[1]``; every value that feeds
-    another entry is re-imposed under the stages' one boundary; field ``k``
-    drains from ``plan.outputs[k]``, which is its input stream for a field
-    carried unchanged.  As there, only stream rows ``< dom`` are computed
-    and written.  A path graph runs as :func:`superstep_plain`.  A batch
-    (a leading axis, aux shared or per member) runs member by member, so
-    it equals ``B`` single calls bit for bit."""
+    iteration is ``< steps``, else ``inputs[1]``; field ``k`` drains from
+    ``plan.outputs[k]``, which is its input stream for a field carried
+    unchanged.  As the TPU kernel's ``cat_of``, a stage re-imposes every
+    input it reads, field streams included, under its own blocked-axis
+    boundary (:func:`_reimposer`), and values are kept as computed.  When
+    the stages share one boundary, every value that feeds another entry is
+    instead re-imposed once, as it is made, under that boundary, which the
+    consumers' re-imposition would leave as it is (the kernel's
+    single-boundary DAG body; the two differ only outside the grid).  As
+    in the chain, only stream rows ``< dom`` are computed and written.  A
+    path graph runs as :func:`superstep_plain`.  A batch (a leading axis,
+    aux shared or per member) runs member by member, so it equals ``B``
+    single calls bit for bit."""
     bc0 = dag.stages[0][1]
     if batch_of(_stream_shape(geom, bc0, dag.n_fields), gp) is not None:
         per_member = aux_p is not None and aux_p.ndim > geom.ndim
@@ -693,7 +837,14 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     nb = geom.ndim - 1
     dom = _stream_dom(geom, bc0)
     cdicts = _stage_coeffs([st for st, _, _ in dag.stages], coeffs_packed)
-    reimpose = _reimposer(geom, bc0, gp.device)
+    mixed = mixes_boundaries(dag, geom.ndim)
+    reimposers = {}
+
+    def reimposer(bc):
+        key = _bc_key(bc, geom.ndim)
+        if key not in reimposers:
+            reimposers[key] = _reimposer(geom, bc, gp.device)
+        return reimposers[key]
     aux_b = None if aux_p is None else _extract_blocks(aux_p, geom, dom)
     fields = (gp,) if F == 1 else gp.unbind(0)
     vals = [_extract_blocks(f, geom, dom) for f in fields] + [None] * len(
@@ -706,15 +857,17 @@ def superstep_dag_plain(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
         if st is None:
             val = vals[e.inputs[0] if e.iteration < steps else e.inputs[1]]
         elif e.iteration < steps:
-            gets = [_block_getter(vals[p], nb, st.radius, e.bc)
+            ins = ({p: reimposer(e.bc)(vals[p]) for p in e.inputs}
+                   if mixed else vals)
+            gets = [_block_getter(ins[p], nb, st.radius, e.bc)
                     for p in e.inputs]
             val = precision.apply_stage(
                 st, tuple(gets) if st.arity > 1 else gets[0],
                 cdicts[e.coeff_lo], aux_b if st.has_aux else None, gp.dtype)
         else:
             val = None
-        if val is not None and lay.wins[v]:
-            val = reimpose(val)
+        if val is not None and lay.wins[v] and not mixed:
+            val = reimposer(bc0)(val)
         vals[v] = val
         for p in set(e.inputs):       # free what no later entry reads
             if last_read[p] == i and p not in keep:

@@ -6,7 +6,8 @@
 // (several field streams, fan-out, fan-in through `make_combine`, state
 // nodes), `par_time` iterations unrolled into one super-step, 1D, 2D and 3D
 // grids, the clamp, periodic, reflect and constant boundaries (per axis and
-// per stage; a DAG's stages share one), float32 or bfloat16 storage with
+// per stage, a DAG's stages included), block planes of any size, tables of
+// any length that shared memory holds, float32 or bfloat16 storage with
 // float32 arithmetic, and slabs of V = `par_vec` rows (planes in 3D) per
 // tick.  A stage is one of the four Table-2 stencils (radius 1), a tap
 // table for a stencil whose update is an ordered sum of coefficient x
@@ -63,7 +64,12 @@
 // table-driven bodies also need a thread per entry to build the tick
 // records, so the CTA has max(plane * vt, entries) threads, rounded up to a
 // multiple of 32 (`builder.cta_shape` mirrors the launcher's rule); threads
-// past plane * vt only build records and meet the barriers.
+// past plane * vt only build records and meet the barriers.  A plane over
+// 1024 cells runs the wide form (`kWide`): 1024 threads, thread tid takes
+// cells tid, tid + 1024, ... with every row of a slab (vt = 1, no register
+// prefetch); the large-table route runs it at any plane, on min(plane,
+// 1024) threads rounded up to 32, each building the records of entries
+// tid, tid + threads, ....
 //
 // Stream rows.  The stream extent `ns` is padded to a multiple of V past
 // the real extent `dom` (the grid's, plus the periodic extension, which for
@@ -84,20 +90,25 @@
 // `steps`, else its previous one, and the stages of later iterations
 // compute nothing.
 //
-// Boundaries.  On grid-edge blocks every value that enters a ring is
-// re-imposed along each blocked axis under its consumer's kind, as the TPU
-// kernel's `_reimpose_axis` does: a thread whose cell lies outside the
-// grid takes the value at the clamped position (clamp), at the mirrored
-// position (reflect: 2*lo - y below the edge lo, 2*hi - y above the edge
-// hi, modulo the block), or the fill rounded to T (constant); along a
-// periodic axis the halo holds wrapped copies and nothing is re-imposed.
-// Each stage carries its kinds and fill in the `Stage` table.  In a chain
-// every value has one consumer, the next entry, whose kinds the value takes
-// at push time (the TPU kernel's `plan.linear` path).  A DAG's consumers
-// re-impose at read time in the TPU kernel; doing it once at push time
-// gives the same values when all stages share one boundary, which the
-// launcher requires (DAGs whose consumers differ: ROADMAP B1k).  The field
-// streams arrive BC-padded and are pushed as they are.
+// Boundaries.  On grid-edge blocks every value a consumer reads is
+// re-imposed along each blocked axis under the consumer's kind, as the TPU
+// kernel's `_reimpose_axis` does: a cell outside the grid takes the value
+// at the clamped position (clamp), at the mirrored position (reflect:
+// 2*lo - y below the edge lo, 2*hi - y above the edge hi, modulo the
+// block), or the fill rounded to T (constant); along a periodic axis the
+// halo holds wrapped copies and nothing is re-imposed.  Each stage carries
+// its kinds and fill in the `Stage` table.  In a chain every value has one
+// consumer, the next entry, whose kinds the value takes at push time (the
+// TPU kernel's `plan.linear` path); so does every value of a DAG whose
+// stages share one boundary (kOp = -2).  A DAG whose stages differ (kOp =
+// -3) keeps its values as computed and re-imposes at read time, as the
+// TPU kernel's `cat_of`: each tap's blocked position is clipped to the
+// block and then mapped under the consumer's kinds (`reimposed`), or reads
+// the fill, on grid-edge blocks only (a CTA-uniform test).  Mapping taps
+// needs no more shared memory; one ring copy per distinct consumer
+// boundary would multiply the rings of the shared values.  The field
+// streams arrive padded under stage 0's BC and are pushed as they are; a
+// consumer with another BC re-imposes them too.
 //
 // Hotspot's `power` is read at the centre of each row straight from device
 // memory, which L2 serves.  The arithmetic uses __fmul_rn/__fadd_rn, which
@@ -110,11 +121,14 @@
 // every instruction an entry adds is paid on each of its rows, so the
 // kernel has a body for the paper's main path — one Table-2 stage (kOp =
 // its id): lag i+1 slabs, 3-slot rings, coefficients in registers — one for
-// any chain (kOp = -1) and one for any DAG (kOp = -2).  Each comes in three
-// forms (`Form`): V = 1, where V, vt and the row loop fold away; one row
-// of each slab per thread; several rows per thread; in two storage types
-// (one library each); and with or without the reflect and constant
-// boundaries (kBC): 72 kernels.  Slab bookkeeping with a runtime V cost
+// any chain (kOp = -1), one for any DAG whose stages share one boundary
+// (kOp = -2) and one for any DAG (kOp = -3).  Each comes in four forms
+// (`Form`): V = 1, where V, vt and the row loop fold away; one row of each
+// slab per thread; several rows per thread; several cells per thread (the
+// wide form); in two storage types (one library each); and with or without
+// the reflect and constant boundaries (kBC; kOp = -3 only with them); the
+// table-driven bodies also in the large-table route: 57 kernels a library,
+// 228 in the four.  Slab bookkeeping with a runtime V cost
 // the V = 1 main path 12% and the DAG body 28% on an H100, hence the
 // forms; deciding the boundary kinds at run time cost the float32 bodies
 // 3-31%, hence kBC.  The table-driven bodies copy the table into static
@@ -137,7 +151,17 @@
 // __grid_constant__ kernel parameter (3,616 bytes, inside the 4 KB
 // parameter space): no device buffer and no copy before the launch.  The
 // chain body adds 9,472 bytes of static shared memory to the rings, the DAG
-// body 11,520 (`kernels/_build.py::TABLE_SMEM`).
+// body 11,520 (`kernels/_build.py::TABLE_SMEM`).  A program past any of
+// the `Program` capacities (entries, stages, taps, coefficients, field
+// streams, inputs of one entry, or the 16-bit lags and ring slots and
+// 8-bit tap offsets of its rows) takes the large-table route: tables of
+// the program's own lengths with 32-bit fields and each entry's inputs
+// out of line, back to back in a device buffer (`DevTable`;
+// `kernels/builder.py` builds and copies it once per program), and the
+// records, inputs, taps and coefficients in dynamic shared memory in
+// front of the rings, sized to the program.  A device buffer rather than
+// the 32 KB parameter space of CUDA 12.1+: its length is bound only by
+// shared memory, and one route serves every length.
 //
 // Bound.  Device-memory bytes: each block reads `dom * bsize` cells per
 // field stream (plus the same of `power`) and writes `dom * csize` cells per
@@ -153,14 +177,18 @@
 // per entry and tick, table-driven bodies that cost more per entry than
 // the main-path body, a 1D grid on one CTA whose one active thread at V = 1
 // spends about 2 us a tick, and a CTA count of `num_blocks` per member —
-// 69 for the 16384^2 grid at bsize 256 — against 132 SMs, which only a
-// batch of two or more members fills.
+// 69 for the 16384^2 grid at bsize 256, 9 at bsize 2048 — against 132 SMs,
+// which only a batch of two or more members fills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-// Capacities of the tables (kernels/_build.py: MAX_*).
+#include <type_traits>
+
+// Capacities of the `Program` table passed as a kernel parameter
+// (kernels/_build.py: MAX_*); a program past any of them takes the
+// large-table route, whose tables are sized to the program.
 constexpr int kMaxEntries = 64;
 constexpr int kMaxStages = 16;
 constexpr int kMaxTaps = 128;
@@ -237,7 +265,31 @@ struct Stream {
   short base, slots, out, pad;
 };
 
+// The large-table route's rows (kernels/_build.py: BigEntry, Input,
+// BigTap, BigStream): 32-bit fields, and an entry's inputs out of line,
+// `n_in` of them from `in_lo` on in the table's `ins`.  Its stages are
+// `Stage`s: their tap and coefficient offsets stay far below 2^15, since
+// shared memory holds fewer taps and coefficients.
+struct BigEntry {
+  int lag, stage, iteration, field;
+  int out_base, out_slots, n_in, in_lo;
+};
+struct Input {
+  int base, slots;
+};
+struct BigTap {
+  int ds, dy, dx, ci;
+};
+struct BigStream {
+  int base, slots, out, pad;
+};
+
 struct Program {
+  // what a body reads of the table's lengths and tap type (the
+  // large-table route's `DevTable` carries its own)
+  static constexpr bool kBig = false;
+  using TapT = Tap;
+  static constexpr int n_taps = kMaxTaps, n_coeffs = kMaxCoeffs;
   Entry e[kMaxEntries];
   Stage s[kMaxStages];
   Tap taps[kMaxTaps];
@@ -254,6 +306,7 @@ constexpr int kCombineOp = 5;
 constexpr int kSelectOp = 6;  // a state node (no stage)
 constexpr int kChainBody = -1;
 constexpr int kDagBody = -2;
+constexpr int kMixBody = -3;  // a DAG whose stages differ in boundary
 constexpr float kTempAmb = 80.0f;  // Hotspot ambient temperature
 
 // Boundary kinds (kernels/builder.py: BC_IDS).
@@ -494,8 +547,8 @@ static_assert(sizeof(TickRec) == 32, "TickRec layout changed");
 // rows, `m` the slot of row x; (y, xx) the cell; `taps` and `c` the tables
 // in shared memory.  Stream taps past the rows follow `ks` (`stream_row`;
 // constant reads `fill`); without kBC they clip.
-template <bool kBC, class T>
-__device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
+template <bool kBC, class T, class Tp>
+__device__ __forceinline__ float tap_sum(const Tp* taps, const float* c,
                                          int tap_lo, int tap_n, int coeff_lo,
                                          const T* ring, int W, int m,
                                          int plane, int x, int y, int xx,
@@ -503,7 +556,7 @@ __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
                                          float fill) {
   float acc = 0.0f;
   for (int n = 0; n < tap_n; ++n) {
-    const Tap tp = taps[tap_lo + n];
+    const Tp tp = taps[tap_lo + n];
     int r = x + tp.ds;
     const bool oob = kBC && (r < 0 || r >= p.dom);
     r = oob ? stream_row(r, p.dom, ks) : min(max(r, 0), p.dom - 1);
@@ -521,11 +574,14 @@ __device__ __forceinline__ float tap_sum(const Tap* taps, const float* c,
 
 // One entry of a DAG, flattened for shared memory: its ring layout (in
 // rows), op, inputs, coefficient/tap ranges, and a Table-2 stage's
-// coefficients.
+// coefficients; for the mixed-boundary body also its stage's kinds
+// (`kinds`: ks | ky << 8 | kx << 16) and fill rounded through the storage
+// type.
 struct DagRec {  // 112 bytes; `c` 16-byte aligned
   int lag, op, iteration, field;
   int out_base, out_slots, n_in, tap_lo;
-  int tap_n, coeff_lo, pad0, pad1;
+  int tap_n, coeff_lo, kinds;
+  float fill;
   int in_base[kMaxInputs];
   int in_slots[kMaxInputs];
   float c[8];
@@ -544,6 +600,24 @@ struct DagTick {  // 48 bytes: three 16-byte loads
 };
 // ... and DAGTICK_BYTES
 static_assert(sizeof(DagTick) == 48, "DagTick layout changed");
+
+// `DagRec` and `DagTick` of the large-table route: an entry's inputs out
+// of line, `n_in` of them from `in_lo` on, their rings in
+// `Records::ins` and their offsets at the tick in `Records::mid`.
+struct BigDagRec {  // 96 bytes; `c` 16-byte aligned
+  int lag, op, iteration, field;
+  int out_base, out_slots, n_in, tap_lo;
+  int tap_n, coeff_lo, kinds;
+  float fill;
+  int in_lo, pad0, pad1, pad2;
+  float c[8];
+};
+// kernels/_build.py prices them with BIG_DAGREC_BYTES, BIG_DAGTICK_BYTES
+static_assert(sizeof(BigDagRec) == 96, "BigDagRec layout changed");
+struct BigDagTick {  // 16 bytes
+  int j, flags, outo, m;
+};
+static_assert(sizeof(BigDagTick) == 16, "BigDagTick layout changed");
 
 // This thread's rows of slab 0 of one field stream (`src`, its padded
 // grid at the thread's cell) into `nxt`: the first kPre of its `nr` rows.
@@ -629,15 +703,17 @@ __device__ __forceinline__ float table2_op(int op, const T* up, const T* mid,
 
 // How a thread covers a slab (a template argument, so that the V = 1 path
 // folds V, vt and the row loop away): V = 1; one row of each slab per
-// thread (rows == 1); or several rows.
-enum Form { kVecOne = 0, kOneRow = 1, kRows = 2 };
+// thread (rows == 1); several rows; or (`kWide`: a block plane over 1024
+// cells, and the large-table route at any plane) several cells of the
+// plane per thread, each with every row of the slab.
+enum Form { kVecOne = 0, kOneRow = 1, kRows = 2, kWide = 3 };
 
 // Calls f(r, x) for this thread's rows of slab j below `dom` in turn: r the
 // row within the slab, x the stream row.
 template <int kForm, class F>
 __device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
                                          int nr, int dom, F&& f) {
-  if constexpr (kForm != kRows) {
+  if constexpr (kForm < kRows) {
     const int x = j * V + tv;
     // at V = 1 the stream is not padded: every row of a slab is below dom
     if (kForm == kVecOne || x < dom) f(tv, x);
@@ -651,16 +727,20 @@ __device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
   }
 }
 
-// kOp in 0..3: a single-stage chain of that Table-2 stencil.  kOp = -1: any
-// chain of the table.  kOp = -2: any DAG of the table; `gp` and `out` then
-// hold `n_fields` padded grids one after the other.  kForm: a `Form`.  T:
-// the storage type.  kBC: some stage has a reflect or constant axis; without
-// it the per-row and per-entry boundary work folds away to the clamp and
-// periodic code (in a run-time form it cost the float32 bodies 3-31% on an
-// H100).  The main-path body asks for 32 registers, so that two
-// CTAs of 1024 threads (3D, 32 x 32) fit an SM, but not with several rows
-// per thread: there it would spill, and from V = 4 in 3D the rings fit one
-// CTA an SM anyway.
+// The forms of the first slices: kOp in 0..3, a single-stage chain of that
+// Table-2 stencil; kOp = -1, any chain of the table; kOp = -2, any DAG of
+// the table whose stages share one boundary (`gp` and `out` then hold
+// `n_fields` padded grids one after the other); kForm one of the first three
+// `Form`s, the table a kernel parameter.  They keep this code: compiled
+// from `stream_body` below, which also runs the later forms, the same
+// kernels came out of ptxas with other register counts and spills on an
+// H100 build.  T: the storage type.  kBC: some stage has a reflect or
+// constant axis; without it the per-row and per-entry boundary work folds
+// away to the clamp and periodic code (in a run-time form it cost the
+// float32 bodies 3-31% on an H100).  The main-path body asks for 32
+// registers, so that two CTAs of 1024 threads (3D, 32 x 32) fit an SM, but
+// not with several rows per thread: there it would spill, and from V = 4 in
+// 3D the rings fit one CTA an SM anyway.
 template <int kOp, int kForm, class T, bool kBC>
 __global__ void __launch_bounds__(1024,
                                   kOp >= 0 && kForm != kRows ? 2 : 1)
@@ -999,6 +1079,711 @@ __global__ void __launch_bounds__(1024,
   }
 }
 
+// One plane cell of a CTA's block: its index, coordinates and positions
+// (its own; `edge`, where stage 0's blocked-axis kinds take a value that
+// enters a ring), whether it is a thread's (`act`) and in the compute
+// region (`writes`), and whether stage 0's kinds give it the fill.
+struct Cell {
+  int cell, ty, tx, ey, ex;
+  Axis ay, ax;
+  Pos own, edge;
+  bool act, writes, fill_edge;
+};
+
+template <bool kBC>
+__device__ __forceinline__ Cell cell_at(int cell, bool act, const Params& p,
+                                        int sy, int sx, const Stage& s0) {
+  Cell c;
+  c.cell = cell;
+  c.ty = cell / p.bx;
+  c.tx = cell - c.ty * p.bx;
+  c.ay = axis_at(c.ty, sy, p.hy, p.dy, p.by);
+  c.ax = axis_at(c.tx, sx, p.hx, p.dx, p.bx);
+  c.own = pos_at(c.ty, c.tx, p, sy, sx);
+  c.ey = axis_pos(c.ay, c.ty, s0.ky);
+  c.ex = axis_pos(c.ax, c.tx, s0.kx);
+  c.edge = pos_at(c.ey, c.ex, p, sy, sx);
+  c.act = act;
+  c.writes = act && c.ty >= p.hy && c.ty < p.hy + p.cy && c.tx >= p.hx &&
+             c.tx < p.hx + p.cx;
+  c.fill_edge = kBC && takes_fill(c.ay, c.ax, s0.ky, s0.kx);
+  return c;
+}
+
+// Block position t along one blocked axis (the grid's edges lo, hi in
+// block coordinates, n cells) where a consumer of kind k reads it: t itself
+// inside the grid or along a periodic axis, the edge cell (clamp), the
+// mirrored cell (reflect, as `axis_at`), or -1 for the fill (constant).
+__device__ __forceinline__ int reimposed(int t, int lo, int hi, int n,
+                                         int k) {
+  if ((t >= lo && t <= hi) || k == kPeriodic) return t;
+  if (k == kConstant) return -1;
+  if (k == kClamp) return min(max(t, max(lo, 0)), min(hi, n - 1));
+  int m = t > hi ? 2 * hi - t : 2 * lo - t;
+  m %= n;
+  return m < 0 ? m + n : m;
+}
+
+// The Table-2 stencils over a getter g(ds, dy, dx) of the widened tap at
+// that stream, y and x offset (the mixed-boundary DAG body, whose taps are
+// re-imposed one by one), in the operation order of the functions above;
+// Hotspot's power at `aux + at`.
+template <class T, class G>
+__device__ __forceinline__ float table2_get(int op, const G& g,
+                                            const float* c, const T* aux,
+                                            size_t at) {
+  switch (op) {
+    case 0: {  // diffusion2d
+      float v = mul(c[0], g(0, 0, 0));
+      v = add(v, mul(c[1], g(0, 0, -1)));
+      v = add(v, mul(c[2], g(0, 0, 1)));
+      v = add(v, mul(c[3], g(1, 0, 0)));
+      return add(v, mul(c[4], g(-1, 0, 0)));
+    }
+    case 1: {  // hotspot2d
+      const float v = g(0, 0, 0);
+      const float two_v = mul(2.0f, v);
+      const float dy = sub(add(g(-1, 0, 0), g(1, 0, 0)), two_v);
+      const float dx = sub(add(g(0, 0, 1), g(0, 0, -1)), two_v);
+      float t = add(wide(__ldg(aux + at)), mul(dy, c[2]));
+      t = add(t, mul(dx, c[1]));
+      t = add(t, mul(sub(kTempAmb, v), c[3]));
+      return add(v, mul(c[0], t));
+    }
+    case 2: {  // diffusion3d
+      float v = mul(c[0], g(0, 0, 0));
+      v = add(v, mul(c[1], g(0, 0, -1)));
+      v = add(v, mul(c[2], g(0, 0, 1)));
+      v = add(v, mul(c[3], g(0, 1, 0)));
+      v = add(v, mul(c[4], g(0, -1, 0)));
+      v = add(v, mul(c[5], g(-1, 0, 0)));
+      return add(v, mul(c[6], g(1, 0, 0)));
+    }
+    default: {  // hotspot3d
+      float v = mul(g(0, 0, 0), c[0]);
+      v = add(v, mul(g(0, -1, 0), c[1]));
+      v = add(v, mul(g(0, 1, 0), c[2]));
+      v = add(v, mul(g(0, 0, 1), c[3]));
+      v = add(v, mul(g(0, 0, -1), c[4]));
+      v = add(v, mul(g(1, 0, 0), c[5]));
+      v = add(v, mul(g(-1, 0, 0), c[6]));
+      v = add(v, mul(c[7], wide(__ldg(aux + at))));
+      return add(v, mul(c[5], kTempAmb));
+    }
+  }
+}
+
+// The large-table route's view of a program laid out in device memory with
+// tables of the program's own lengths (kernels/_build.py: program_type):
+// the members a body reads carry `Program`'s names, so one body reads
+// either.
+struct DevTable {
+  static constexpr bool kBig = true;
+  using TapT = BigTap;
+  const BigEntry* e;
+  const Stage* s;
+  const BigTap* taps;
+  const float* c;
+  const BigStream* f;
+  const Input* ins;
+  int n_taps, n_coeffs, n_inputs;
+};
+
+// Input z of entry `en`: its ring's first slot and depth, in slabs.
+__device__ __forceinline__ Input input_of(const Program&, const Entry& en,
+                                          int z) {
+  return {en.in_base[z], en.in_slots[z]};
+}
+__device__ __forceinline__ Input input_of(const DevTable& k,
+                                          const BigEntry& en, int z) {
+  return k.ins[en.in_lo + z];
+}
+
+// Bytes at the front of the large-table route's dynamic shared memory: per
+// entry a record R and a tick record TR, the `n_inputs` inputs' rings,
+// the taps, the coefficients and the inputs' offsets at the tick,
+// rounded up to 16 so that the rings after them stay aligned
+// (kernels/_build.py: big_table_bytes; the chain body keeps no inputs).
+template <class R, class TR>
+__device__ __forceinline__ size_t table_bytes(int n_entries, int n_taps,
+                                              int n_coeffs, int n_inputs) {
+  return ((size_t)n_entries * (sizeof(R) + sizeof(TR)) +
+          (sizeof(Input) + 4) * (size_t)n_inputs + sizeof(BigTap) * n_taps +
+          4 * (size_t)n_coeffs + 15) /
+         16 * 16;
+}
+
+// The records of a table-driven body and the program's taps and
+// coefficients in shared memory: static arrays sized to the caps when the
+// table is a kernel parameter, else the front of the dynamic shared
+// memory, sized to the program, with the DAG entries' inputs (`n_inputs`:
+// their rings in rows, and their offsets at the tick).
+template <class R, class TR, class Tp>
+struct Records {
+  R* rec;
+  TR* trec;
+  Tp* taps;
+  float* c;
+  Input* ins;
+  int* mid;
+};
+
+template <class R, class TR, class K>
+__device__ __forceinline__ Records<R, TR, typename K::TapT> records(
+    unsigned char* dyn, const K& k, int n, int n_inputs) {
+  using Tp = typename K::TapT;
+  if constexpr (K::kBig) {
+    R* rec = reinterpret_cast<R*>(dyn);
+    TR* trec = reinterpret_cast<TR*>(rec + n);
+    Input* ins = reinterpret_cast<Input*>(trec + n);
+    Tp* taps = reinterpret_cast<Tp*>(ins + n_inputs);
+    float* c = reinterpret_cast<float*>(taps + k.n_taps);
+    return {rec, trec, taps, c, ins, reinterpret_cast<int*>(c + k.n_coeffs)};
+  } else {
+    __shared__ R rec[kMaxEntries];
+    __shared__ TR trec[kMaxEntries];
+    __shared__ Tp taps[kMaxTaps];
+    __shared__ float c[kMaxCoeffs];
+    return {rec, trec, taps, c, nullptr, nullptr};
+  }
+}
+
+// The later forms, one body for all: the wide form (kWide) of the main-path,
+// chain and single-boundary DAG bodies; kOp = -3, any DAG (the consumers
+// re-impose at read time), in every form; and the large-table route of the
+// table-driven bodies (K = `DevTable`, the wide form).  The bodies compute
+// as those of `stream_kernel` do; a thread covers its cells through
+// `cells` and builds the records of its entries through `entries`.  K:
+// `Program` (the table as a kernel parameter) or `DevTable`.
+template <int kOp, int kForm, class T, bool kBC, class K>
+__device__ __forceinline__ void stream_body(const T* __restrict__ gp,
+                                            const T* __restrict__ aux,
+                                            T* __restrict__ out,
+                                            const Params& p, const K& k,
+                                            long long member_stride,
+                                            long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
+  constexpr bool kV1 = kForm == kVecOne;
+  constexpr bool kW = kForm == kWide;
+  constexpr bool kMix = kOp == kMixBody;
+  // the rings, in value-id order (in the large-table route after the
+  // records)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  size_t front = 0;
+  if constexpr (K::kBig) {
+    front = kOp == kChainBody
+                ? table_bytes<Rec, TickRec>(p.n_entries, k.n_taps,
+                                            k.n_coeffs, 0)
+                : table_bytes<BigDagRec, BigDagTick>(p.n_entries, k.n_taps,
+                                                     k.n_coeffs, k.n_inputs);
+  }
+  T* const win = reinterpret_cast<T*>(smem_raw + front);
+  const int plane = p.by * p.bx;
+  const int tid = threadIdx.x;
+  const int V = kV1 ? 1 : p.V;
+  const int vt = kV1 ? 1 : p.vt;
+  const int nr = kV1 ? 1 : p.rows;
+  const int nslabs = p.ns / V;
+  // thread tid < plane * vt takes cell tid mod plane of rows tv, tv + vt,
+  // ... of each slab; the others build records and meet the barriers (and
+  // touch no memory with their cell).  In the wide form a thread takes
+  // cells tid, tid + blockDim.x, ... with every row of a slab.
+  const bool act = tid < plane * vt;
+  const int tv = kV1 || kW ? 0 : tid / plane;
+  const int sy = blockIdx.y * p.cy;  // block start in padded coordinates
+  const int sx = blockIdx.x * p.cx;
+  const Cell me = cell_at<kBC>(tid - tv * plane, act, p, sy, sx, k.s[0]);
+  const size_t pstride = (size_t)p.py * p.px;
+  // calls f(cell) for each plane cell this thread takes
+  const auto cells = [&](auto&& f) {
+    if constexpr (!kW) {
+      if (me.act) f(me);
+    } else {
+      for (int c = tid; c < plane; c += blockDim.x) {
+        f(cell_at<kBC>(c, true, p, sy, sx, k.s[0]));
+      }
+    }
+  };
+  // calls f(i) for each entry whose records this thread builds: entry tid
+  // (the launcher gives a table-driven body a thread per entry) or, in
+  // the large-table route, every blockDim.x-th from tid
+  const auto entries = [&](auto&& f) {
+    if constexpr (!K::kBig) {
+      if (tid < p.n_entries) f(tid);
+    } else {
+      for (int i = tid; i < p.n_entries; i += blockDim.x) f(i);
+    }
+  };
+
+  if constexpr (kOp >= 0) {
+    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs;
+    // every entry runs stage 0's boundary
+    const int WV = 3 * V;
+    constexpr int kPre = kForm == kRows ? 4 : 1;
+    const T fill_t = narrow<T>(k.s[0].fill);
+    T nxt[kPre];
+    if (!kW && act) {
+      prefetch_slab<kPre>(nxt, gp + me.own.g, tv, vt, nr, p.dom, pstride);
+    }
+    float c[8];
+    for (int z = 0; z < 8; ++z) c[z] = k.c[z];
+    for (int t = 0; t < p.ticks; ++t) {
+      if (t < nslabs) {
+        cells([&](const Cell& cl) {
+          push_slab<kPre>(kW ? (T*)nullptr : nxt, gp + cl.own.g, win, WV,
+                          (T*)nullptr, t, tv, vt, nr, V, p.dom, pstride,
+                          plane, cl.cell);
+        });
+      }
+      __syncthreads();
+      for (int i = 0; i < p.n_entries; ++i) {
+        const int j = t - (i + 1);  // CTA-uniform
+        if (j >= 0 && j < nslabs) {
+          cells([&](const Cell& cl) {
+            const T* ring = win + i * WV * plane;
+            const int m0 = (j % 3) * V;
+            const bool last = i == p.n_entries - 1;
+            const Pos q = last ? cl.own : cl.edge;
+            for_rows<kForm>(j, V, tv, vt, nr, p.dom, [&](int r, int x) {
+              const int m = m0 + r;
+              const T* mid = ring + m * plane;
+              const int ks = k.s[0].ks;
+              const T val =
+                  i < p.steps
+                      ? narrow<T>(table2<kOp>(
+                            ring + slot_up<kBC>(m, x, WV, ks) * plane, mid,
+                            ring + slot_dn<kBC>(m, x, WV, p.dom, ks) * plane,
+                            q, c, ends<kBC>(x, p.dom, ks, wide(fill_t)), aux,
+                            (size_t)x * pstride))
+                      : mid[q.c];
+              if (!last) {
+                win[((i + 1) * WV + m) * plane + cl.cell] =
+                    cl.fill_edge ? fill_t : val;
+              } else if (cl.writes) {
+                out[(size_t)x * pstride + cl.own.g] = val;
+              }
+            });
+          });
+        }
+        __syncthreads();
+      }
+    }
+  } else if constexpr (kOp == kChainBody) {
+    const auto sm = records<Rec, TickRec>(smem_raw, k, p.n_entries, 0);
+    Rec* const rec = sm.rec;
+    TickRec* const trec = sm.trec;
+    entries([&](int e) {
+      const auto en = k.e[e];
+      const Stage st = k.s[en.stage];
+      // the consumer: the next entry (the last one's value drains out)
+      const Stage sc = e + 1 < p.n_entries ? k.s[k.e[e + 1].stage] : st;
+      const Input in = input_of(k, en, 0);
+      // rings in rows: a slot of the table is V block planes
+      Rec r = {en.lag,          in.base * V,       in.slots * V,
+               en.out_base * V, en.out_slots * V,  st.op,
+               en.iteration,    st.tap_lo,         st.tap_n,
+               st.coeff_lo,     st.ks,             sc.ky | (sc.kx << 8),
+               wide(narrow<T>(st.fill)),           wide(narrow<T>(sc.fill)),
+               0.0f,            0.0f};
+      for (int z = 0; z < 8; ++z) {
+        r.c[z] = st.op != kTapOp && st.coeff_lo + z < k.n_coeffs
+                     ? k.c[st.coeff_lo + z]
+                     : 0.0f;
+      }
+      rec[e] = r;
+    });
+    for (int z = tid; z < k.n_taps; z += blockDim.x) sm.taps[z] = k.taps[z];
+    for (int z = tid; z < k.n_coeffs; z += blockDim.x) sm.c[z] = k.c[z];
+    __syncthreads();
+    // without kBC every stage re-imposes as stage 0 does (periodicity is
+    // uniform, the other axes clamp)
+    // the input stream's ring is entry 0's producer
+    T* const stream_ring = win + rec[0].in_base * plane;
+    const int stream_rows = rec[0].in_slots;
+    T nxt[1];
+    if (!kW && act) {
+      prefetch_slab<1>(nxt, gp + me.own.g, tv, vt, nr, p.dom, pstride);
+    }
+    for (int t = 0; t < p.ticks; ++t) {
+      if (t < nslabs) {
+        cells([&](const Cell& cl) {
+          push_slab<1>(kW ? (T*)nullptr : nxt, gp + cl.own.g, stream_ring,
+                       stream_rows, (T*)nullptr, t, tv, vt, nr, V, p.dom,
+                       pstride, plane, cl.cell);
+        });
+      }
+      entries([&](int e) {  // entry e's slots at this tick
+        const Rec& en = rec[e];
+        TickRec r;
+        r.j = t - en.lag;
+        r.flags = (r.j >= 0 && r.j < nslabs) | ((en.iteration < p.steps) << 1);
+        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
+        r.m = x0 % (unsigned)en.in_slots;
+        r.outo = en.out_slots
+                     ? (en.out_base + x0 % (unsigned)en.out_slots) * plane
+                     : 0;
+        r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
+        trec[e] = r;
+      });
+      __syncthreads();
+      for (int i = 0; i < p.n_entries; ++i) {
+        const TickRec r = trec[i];
+        if (r.flags & 1) {
+          cells([&](const Cell& cl) {
+            const Rec& en = rec[i];
+            const bool last = i == p.n_entries - 1;
+            // a value that enters a ring is taken where its consumer's
+            // blocked-axis kinds say
+            const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
+            const int qy =
+                last ? cl.ty : (kBC ? axis_pos(cl.ay, cl.ty, ky) : cl.ey);
+            const int qx =
+                last ? cl.tx : (kBC ? axis_pos(cl.ax, cl.tx, kx) : cl.ex);
+            const bool fill_edge =
+                kBC && !last && takes_fill(cl.ay, cl.ax, ky, kx);
+            const Pos q = !kBC ? (last ? cl.own : cl.edge)
+                               : pos_at(qy, qx, p, sy, sx);
+            const T* ring = win + en.in_base * plane;
+            const int W = en.in_slots;
+            for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+              const int m = r.m + row;
+              T val;
+              if (!(r.flags & 2)) {
+                val = ring[m * plane + q.c];
+              } else if (en.op == kTapOp) {
+                val = narrow<T>(tap_sum<kBC>(sm.taps, sm.c, en.tap_lo,
+                                             en.tap_n, en.coeff_lo, ring, W,
+                                             m, plane, x, qy, qx, p, en.ks,
+                                             en.fill_s));
+              } else {
+                float c[8];
+                for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+                val = narrow<T>(table2_op(
+                    en.op, ring + slot_up<kBC>(m, x, W, en.ks) * plane,
+                    ring + m * plane,
+                    ring + slot_dn<kBC>(m, x, W, p.dom, en.ks) * plane, q, c,
+                    ends<kBC>(x, p.dom, en.ks, en.fill_s), aux,
+                    (size_t)x * pstride));
+              }
+              if (!last) {
+                win[r.outo + row * plane + cl.cell] =
+                    fill_edge ? narrow<T>(en.fill_b) : val;
+              } else if (cl.writes) {
+                out[(size_t)x * pstride + cl.own.g] = val;
+              }
+            });
+          });
+        }
+        __syncthreads();
+      }
+    }
+  } else {
+    // a DAG: `n_fields` field streams, entries with several producers.
+    // Single-boundary (kDagBody, which `builder.superstep_dag` picks only
+    // when the stages share one): every value that enters a ring is
+    // re-imposed at push time under stage 0's boundary.  Mixed
+    // (kMixBody): values enter their rings as computed, and
+    // each consumer re-imposes every tap it reads under its own kinds, on
+    // grid-edge blocks only.
+    using DR = std::conditional_t<K::kBig, BigDagRec, DagRec>;
+    using DT = std::conditional_t<K::kBig, BigDagTick, DagTick>;
+    int n_inputs = 0;
+    if constexpr (K::kBig) n_inputs = k.n_inputs;
+    const auto sm = records<DR, DT>(smem_raw, k, p.n_entries, n_inputs);
+    DR* const rec = sm.rec;
+    DT* const trec = sm.trec;
+    // input z of an entry's record: its ring's first row and depth in
+    // rows, and its offset (in cells) at this tick
+    const auto ring_of = [&](const DR& en, int z) -> Input {
+      if constexpr (K::kBig) {
+        return sm.ins[en.in_lo + z];
+      } else {
+        return {en.in_base[z], en.in_slots[z]};
+      }
+    };
+    const auto mid = [&](const DT& r, const DR& en, int z) -> int {
+      if constexpr (K::kBig) {
+        return sm.mid[en.in_lo + z];
+      } else {
+        return r.mid[z];
+      }
+    };
+    entries([&](int e) {
+      const auto en = k.e[e];
+      DR r = {};
+      r.lag = en.lag;
+      r.iteration = en.iteration;
+      r.field = en.field;
+      r.out_base = en.out_base * V;
+      r.out_slots = en.out_slots * V;
+      r.n_in = en.n_in;
+      r.op = kSelectOp;
+      if (en.stage >= 0) {
+        const Stage st = k.s[en.stage];
+        r.op = st.op;
+        r.tap_lo = st.tap_lo;
+        r.tap_n = st.tap_n;
+        r.coeff_lo = st.coeff_lo;
+        for (int z = 0; z < 8; ++z) {
+          r.c[z] = st.op < kTapOp && st.coeff_lo + z < k.n_coeffs
+                       ? k.c[st.coeff_lo + z]
+                       : 0.0f;
+        }
+        if constexpr (kMix) {
+          r.kinds = st.ks | (st.ky << 8) | (st.kx << 16);
+          r.fill = wide(narrow<T>(st.fill));
+        }
+      }
+      if constexpr (K::kBig) {
+        r.in_lo = en.in_lo;
+        for (int z = 0; z < en.n_in; ++z) {
+          const Input in = k.ins[en.in_lo + z];
+          sm.ins[en.in_lo + z] = {in.base * V, max(in.slots, 1) * V};
+        }
+      } else {
+        for (int z = 0; z < kMaxInputs; ++z) {
+          r.in_base[z] = en.in_base[z] * V;
+          r.in_slots[z] = max((int)en.in_slots[z], 1) * V;
+        }
+      }
+      rec[e] = r;
+    });
+    for (int z = tid; z < k.n_taps; z += blockDim.x) sm.taps[z] = k.taps[z];
+    for (int z = tid; z < k.n_coeffs; z += blockDim.x) sm.c[z] = k.c[z];
+    __syncthreads();
+    // the grid's edges in block coordinates, and whether this block has
+    // any (CTA-uniform): the mixed body re-imposes only there
+    const int loy = p.hy - sy, hiy = p.dy - 1 + p.hy - sy;
+    const int lox = p.hx - sx, hix = p.dx - 1 + p.hx - sx;
+    const bool edge_block =
+        loy > 0 || hiy < p.by - 1 || lox > 0 || hix < p.bx - 1;
+    const size_t fstride = (size_t)p.ns * pstride;  // one field's grid
+    // the first two field streams are prefetched a tick ahead, later ones
+    // loaded as they are pushed: four fields' registers spill
+    constexpr int kPreFields = 2;
+    T nxt[kPreFields][1];
+#pragma unroll
+    for (int f = 0; f < kPreFields; ++f) {
+      if (!kW && act && f < p.n_fields) {
+        prefetch_slab<1>(nxt[f], gp + f * fstride + me.own.g, tv, vt, nr,
+                         p.dom, pstride);
+      }
+    }
+    for (int t = 0; t < p.ticks; ++t) {
+      if (t < nslabs) {
+        // push slab t of every field stream; a field carried unchanged is
+        // written out as it streams in
+        cells([&](const Cell& cl) {
+#pragma unroll
+          for (int f = 0; f < (K::kBig ? p.n_fields : kMaxFields); ++f) {
+            if (f < p.n_fields) {
+              const auto st = k.f[f];
+              push_slab<1>(
+                  !kW && f < kPreFields ? nxt[f % kPreFields] : (T*)nullptr,
+                  gp + f * fstride + cl.own.g,
+                  st.slots ? win + st.base * V * plane : (T*)nullptr,
+                  st.slots * V,
+                  st.out && cl.writes ? out + f * fstride + cl.own.g
+                                      : (T*)nullptr,
+                  t, tv, vt, nr, V, p.dom, pstride, plane, cl.cell);
+            }
+          }
+        });
+      }
+      entries([&](int e) {  // entry e's slots at this tick
+        const DR& en = rec[e];
+        DT r;
+        r.j = t - en.lag;
+        r.flags = (r.j >= 0 && r.j < nslabs) | ((en.iteration < p.steps) << 1);
+        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
+        r.m = x0 % (unsigned)ring_of(en, 0).slots;
+        r.outo = en.out_slots
+                     ? (en.out_base + x0 % (unsigned)en.out_slots) * plane
+                     : 0;
+        if constexpr (K::kBig) {
+          for (int z = 0; z < en.n_in; ++z) {
+            const Input in = ring_of(en, z);
+            sm.mid[en.in_lo + z] =
+                (in.base + (int)(x0 % (unsigned)in.slots)) * plane;
+          }
+        } else {
+          r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
+          for (int z = 0; z < kMaxInputs; ++z) {
+            r.mid[z] =
+                (en.in_base[z] + (int)(x0 % (unsigned)en.in_slots[z])) *
+                plane;
+          }
+        }
+        trec[e] = r;
+      });
+      __syncthreads();
+      for (int i = 0; i < p.n_entries; ++i) {
+        const DT r = trec[i];
+        const DR& en = rec[i];
+        // a stage of an iteration >= steps computes nothing: only the
+        // state nodes of its iteration read it, and they forward
+        if ((r.flags & 1) && ((r.flags & 2) || en.op == kSelectOp)) {
+          cells([&](const Cell& cl) {
+            const bool ring = en.out_slots > 0;
+            const Input i0 = ring_of(en, 0);
+            const T* in0 = win + i0.base * plane;
+            const int W = i0.slots;
+            // the single-boundary code: the cell computed at position q
+            // (taps at block cell (qy, qx)) under stream kind ks and fill
+            // `fill`, and the fill taken where `fill_edge`
+            const auto push_time = [&](const Pos& q, int qy, int qx, int ks,
+                                       float fill, bool fill_edge) {
+              for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+                const int m = r.m + row;
+                const int at = row * plane + q.c;  // row `row` of an input
+                T val;
+                if (en.op == kSelectOp) {
+                  val = win[mid(r, en, (r.flags & 2) ? 0 : 1) + at];
+                } else if (en.op == kCombineOp) {
+                  // make_combine's apply: w0*x0, then + w_z*x_z in order
+                  float acc =
+                      mul(sm.c[en.coeff_lo], wide(win[mid(r, en, 0) + at]));
+                  for (int z = 1; z < en.n_in; ++z) {
+                    acc = add(acc, mul(sm.c[en.coeff_lo + z],
+                                       wide(win[mid(r, en, z) + at])));
+                  }
+                  val = narrow<T>(acc);
+                } else if (en.op == kTapOp) {
+                  val = narrow<T>(tap_sum<kBC>(sm.taps, sm.c, en.tap_lo,
+                                               en.tap_n, en.coeff_lo, in0, W,
+                                               m, plane, x, qy, qx, p, ks,
+                                               fill));
+                } else {
+                  float c[8];
+                  for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+                  val = narrow<T>(table2_op(
+                      en.op, in0 + slot_up<kBC>(m, x, W, ks) * plane,
+                      in0 + m * plane,
+                      in0 + slot_dn<kBC>(m, x, W, p.dom, ks) * plane, q, c,
+                      ends<kBC>(x, p.dom, ks, fill), aux,
+                      (size_t)x * pstride));
+                }
+                if (fill_edge) val = narrow<T>(fill);
+                if (ring) win[r.outo + row * plane + cl.cell] = val;
+                if (en.field >= 0 && cl.writes) {
+                  out[en.field * fstride + (size_t)x * pstride + cl.own.g] =
+                      val;
+                }
+              });
+            };
+            if constexpr (!kMix) {
+              // a value that enters a ring is re-imposed; one that only
+              // drains to the output is taken at its own position
+              push_time(ring ? cl.edge : cl.own, ring ? cl.ey : cl.ty,
+                        ring ? cl.ex : cl.tx, k.s[0].ks,
+                        wide(narrow<T>(k.s[0].fill)), ring && cl.fill_edge);
+            } else if (!edge_block) {
+              // off the grid's edges re-imposing maps nothing: the cell's
+              // own position under the entry's stream kind.  (Taking this
+              // path per cell on grid-edge blocks too, for the cells whose
+              // taps stay in the grid, cost diamond2d 1.7x on an H100
+              // 80GB HBM3 at 700 W: a warp holding both kinds of cell pays
+              // both paths, and the barrier after each entry waits for
+              // it.)
+              push_time(cl.own, cl.ty, cl.tx, en.kinds & 0xff, en.fill,
+                        false);
+            } else {
+              const int ks = en.kinds & 0xff, ky = (en.kinds >> 8) & 0xff,
+                        kx = en.kinds >> 16;
+              // where a tap at block cell (y, x) reads under this entry's
+              // blocked-axis kinds: a plane offset, or -1 for the fill
+              const auto at = [&](int y, int x) {
+                y = reimposed(y, loy, hiy, p.by, ky);
+                x = reimposed(x, lox, hix, p.bx, kx);
+                return y < 0 || x < 0 ? -1 : y * p.bx + x;
+              };
+              const int oc = at(cl.ty, cl.tx);
+              for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+                const int m = r.m + row;
+                // input 0's tap (ds, dy, dx) of row x under this entry's
+                // kinds: a stream row past the rows follows ks (constant:
+                // the fill), a blocked position clips to the block and is
+                // then re-imposed
+                const auto tap = [&](int ds, int dy, int dx) {
+                  int rr = x + ds;
+                  const bool oob = rr < 0 || rr >= p.dom;
+                  if (oob && ks == kConstant) return en.fill;
+                  rr = oob ? stream_row(rr, p.dom, ks) : rr;
+                  const int o = at(min(max(cl.ty + dy, 0), p.by - 1),
+                                   min(max(cl.tx + dx, 0), p.bx - 1));
+                  return o < 0 ? en.fill
+                               : wide(in0[slot_of(m, rr, x, W) * plane + o]);
+                };
+                T val;
+                if (en.op == kSelectOp) {
+                  val = win[mid(r, en, (r.flags & 2) ? 0 : 1) + row * plane +
+                            cl.own.c];
+                } else if (en.op == kCombineOp) {
+                  const auto in = [&](int z) {
+                    return oc < 0 ? en.fill
+                                  : wide(win[mid(r, en, z) + row * plane +
+                                             oc]);
+                  };
+                  float acc = mul(sm.c[en.coeff_lo], in(0));
+                  for (int z = 1; z < en.n_in; ++z) {
+                    acc = add(acc, mul(sm.c[en.coeff_lo + z], in(z)));
+                  }
+                  val = narrow<T>(acc);
+                } else if (en.op == kTapOp) {
+                  float acc = 0.0f;
+                  for (int n = 0; n < en.tap_n; ++n) {
+                    const auto tp = sm.taps[en.tap_lo + n];
+                    const float term = mul(sm.c[en.coeff_lo + tp.ci],
+                                           tap(tp.ds, tp.dy, tp.dx));
+                    acc = n ? add(acc, term) : term;
+                  }
+                  val = narrow<T>(acc);
+                } else {
+                  val = narrow<T>(table2_get(en.op, tap, en.c, aux,
+                                             (size_t)x * pstride + cl.own.g));
+                }
+                if (ring) win[r.outo + row * plane + cl.cell] = val;
+                if (en.field >= 0 && cl.writes) {
+                  out[en.field * fstride + (size_t)x * pstride + cl.own.g] =
+                      val;
+                }
+              });
+            }
+          });
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// The later forms' kernels: the table as a __grid_constant__ parameter, or
+// (the large-table route, the wide form only) in device memory.
+template <int kOp, int kForm, class T, bool kBC>
+__global__ void __launch_bounds__(1024, 1)
+    stream_kernel_x(const T* __restrict__ gp, const T* __restrict__ aux,
+                    T* __restrict__ out, const Params p,
+                    const __grid_constant__ Program k,
+                    long long member_stride, long long aux_stride) {
+  stream_body<kOp, kForm, T, kBC>(gp, aux, out, p, k, member_stride,
+                                  aux_stride);
+}
+
+template <int kOp, class T, bool kBC>
+__global__ void __launch_bounds__(1024, 1)
+    stream_kernel_big(const T* __restrict__ gp, const T* __restrict__ aux,
+                      T* __restrict__ out, const Params p, const DevTable k,
+                      long long member_stride, long long aux_stride) {
+  stream_body<kOp, kWide, T, kBC>(gp, aux, out, p, k, member_stride,
+                                  aux_stride);
+}
+
 // The launch grid: blocks along x and y, batch members along z, and the
 // cells from one member's state (and aux) to the next's.
 struct Grid {
@@ -1006,25 +1791,44 @@ struct Grid {
   long long member_stride, aux_stride;
 };
 
+// One launch of `kernel` (K: `Program` or `DevTable`).
+template <class T, class F, class K>
+cudaError_t launch_kernel(F kernel, const void* gp, const void* aux,
+                          void* out, const Params& p, const K& k,
+                          const Grid& g, int threads, size_t smem,
+                          cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(g.x, g.y, g.z), threads, smem, stream>>>(
+      static_cast<const T*>(gp), static_cast<const T*>(aux),
+      static_cast<T*>(out), p, k, g.member_stride, g.aux_stride);
+  return cudaGetLastError();
+}
+
+// The forms of the first slices run `stream_kernel`, the later ones
+// `stream_kernel_x`.
 template <int kOp, int kForm, class T, bool kBC>
 cudaError_t launch_as(const void* gp, const void* aux, void* out,
                       const Params& p, const Program& k, const Grid& g,
                       int threads, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      stream_kernel<kOp, kForm, T, kBC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  stream_kernel<kOp, kForm, T, kBC>
-      <<<dim3(g.x, g.y, g.z), threads, smem, stream>>>(
-          static_cast<const T*>(gp), static_cast<const T*>(aux),
-          static_cast<T*>(out), p, k, g.member_stride, g.aux_stride);
-  return cudaGetLastError();
+  if constexpr (kForm == kWide || kOp == kMixBody) {
+    return launch_kernel<T>(stream_kernel_x<kOp, kForm, T, kBC>, gp, aux,
+                            out, p, k, g, threads, smem, stream);
+  } else {
+    return launch_kernel<T>(stream_kernel<kOp, kForm, T, kBC>, gp, aux, out,
+                            p, k, g, threads, smem, stream);
+  }
 }
 
 template <int kOp, class T, bool kBC>
 cudaError_t launch(const void* gp, const void* aux, void* out,
                    const Params& p, const Program& k, const Grid& g,
                    int threads, size_t smem, cudaStream_t stream) {
+  if (p.by * p.bx > kMaxThreads) {
+    return launch_as<kOp, kWide, T, kBC>(gp, aux, out, p, k, g, threads,
+                                         smem, stream);
+  }
   if (p.V == 1) {
     return launch_as<kOp, kVecOne, T, kBC>(gp, aux, out, p, k, g, threads,
                                            smem, stream);
@@ -1043,6 +1847,12 @@ cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
                         const Grid& g, int threads, size_t smem,
                         cudaStream_t s) {
   switch (kernel_op) {
+    case kMixBody:
+      if constexpr (kBC) {
+        return launch<kMixBody, T, true>(gp, aux, out, p, k, g, threads,
+                                         smem, s);
+      }
+      return cudaErrorInvalidValue;
     case kDagBody:
       return launch<kDagBody, T, kBC>(gp, aux, out, p, k, g, threads, smem,
                                       s);
@@ -1062,6 +1872,63 @@ cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
   }
 }
 
+template <class T, bool kBC>
+cudaError_t launch_big_body(int kernel_op, const void* gp, const void* aux,
+                            void* out, const Params& p, const DevTable& k,
+                            const Grid& g, int threads, size_t smem,
+                            cudaStream_t s) {
+  switch (kernel_op) {
+    case kMixBody:
+      if constexpr (kBC) {
+        return launch_kernel<T>(stream_kernel_big<kMixBody, T, true>, gp,
+                                aux, out, p, k, g, threads, smem, s);
+      }
+      return cudaErrorInvalidValue;
+    case kDagBody:
+      return launch_kernel<T>(stream_kernel_big<kDagBody, T, kBC>, gp, aux,
+                              out, p, k, g, threads, smem, s);
+    case kChainBody:
+      return launch_kernel<T>(stream_kernel_big<kChainBody, T, kBC>, gp,
+                              aux, out, p, k, g, threads, smem, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Checks a launch, fills `p.vt` and `p.rows` and returns the CTA's threads
+// by the rule of the header (`builder.cta_shape`), or 0 if the launch is
+// invalid.  `big`: the large-table route (table-driven bodies only; the
+// wide form at any plane, entries beyond the threads strided).
+int cta_threads(int kernel_op, int bcs, Params& p, int batch,
+                long long member_stride, long long aux_stride, bool big) {
+  const int plane = p.by * p.bx;
+  const bool wide = big || plane > kMaxThreads;
+  int vt = wide ? 1 : 0;  // else the largest divisor of V with plane * vt
+                          // <= 1024
+  for (int d = 1; !wide && d <= p.V && plane * d <= kMaxThreads; ++d) {
+    if (p.V % d == 0) vt = d;
+  }
+  const bool table = kernel_op < 0;
+  const bool dag = kernel_op == kDagBody || kernel_op == kMixBody;
+  // the main-path body reads no entry table, so only the table-driven
+  // bodies are bound by its capacity and need a thread per entry
+  if (vt < 1 || plane < 1 || p.V < 1 || p.dom < 1 || p.ns % p.V != 0 ||
+      p.dom > p.ns || p.ns - p.dom >= p.V || p.n_entries < 1 ||
+      (table && !big && p.n_entries > kMaxEntries) || (big && !table) ||
+      kernel_op < kMixBody || (kernel_op == kMixBody && bcs != 1) ||
+      p.n_fields < 1 || (!dag && p.n_fields > 1) ||
+      (dag && !big && p.n_fields > kMaxFields) ||
+      (bcs != 0 && bcs != 1) || batch < 1 ||
+      batch > (STENCIL_BATCH ? kMaxBatch : 1) || member_stride < 0 ||
+      aux_stride < 0 || (batch > 1 && member_stride == 0)) {
+    return 0;
+  }
+  p.vt = vt;
+  p.rows = p.V / vt;
+  if (wide) return min((plane + 31) / 32 * 32, kMaxThreads);
+  return (max(plane * vt, table ? p.n_entries : 0) + 31) / 32 * 32;
+}
+
 }  // namespace
 
 // The storage type of this library: it is built once per type, and once
@@ -1077,50 +1944,69 @@ using Storage = float;
 #endif
 
 // `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
-// main-path body), -1 any chain of the table, -2 any DAG of the table, over
-// `Storage` grids.  `bcs`: 1 when some stage has a reflect or constant axis
-// (the kernels with the boundary work), else 0.  `batch` members (at most
-// 65535, the cap of gridDim.z; 1 unless the library is built with
-// STENCIL_BATCH) are advanced at once: member b's state and output start
-// `member_stride` cells after `gp` and `out`, its aux `aux_stride` cells
-// after `aux` (0 for an aux grid the batch shares).
-// Fills `p.vt` and `p.rows` and sizes the CTA by the rule of the header
-// (`builder.cta_shape`).  Returns the cudaError_t of the launch (0 on
-// success).  `k` is copied into the kernel's parameters; the caller may free
-// it when this returns.
+// main-path body), -1 any chain of the table, -2 any DAG of the table whose
+// stages share one boundary, -3 any DAG, over `Storage` grids.  `bcs`: 1
+// when some stage has a reflect or constant axis (the kernels with the
+// boundary work; -3 needs it), else 0.  `batch` members (at most 65535,
+// the cap of gridDim.z; 1 unless the library is built with STENCIL_BATCH)
+// are advanced at once: member b's state and output start `member_stride`
+// cells after `gp` and `out`, its aux `aux_stride` cells after `aux` (0 for
+// an aux grid the batch shares).  Fills `p.vt` and `p.rows` and sizes the
+// CTA by the rule of the header (`builder.cta_shape`).  Returns the
+// cudaError_t of the launch (0 on success).  `k` is copied into the
+// kernel's parameters; the caller may free it when this returns.
 extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
                                      const void* aux, void* out, Params p,
                                      const Program* k, int grid_x, int grid_y,
                                      int batch, long long member_stride,
                                      long long aux_stride, size_t smem,
                                      void* stream) {
-  const int plane = p.by * p.bx;
-  int vt = 0;  // the largest divisor of V with plane * vt <= 1024
-  for (int d = 1; d <= p.V && plane * d <= kMaxThreads; ++d) {
-    if (p.V % d == 0) vt = d;
-  }
-  // the main-path body reads no entry table, so only the table-driven
-  // bodies are bound by its capacity and need a thread per entry
-  if (vt < 1 || p.dom < 1 || p.ns % p.V != 0 || p.dom > p.ns ||
-      p.ns - p.dom >= p.V || p.n_entries < 1 ||
-      (kernel_op < 0 && p.n_entries > kMaxEntries) || p.n_fields < 1 ||
-      p.n_fields > (kernel_op == kDagBody ? kMaxFields : 1) ||
-      (bcs != 0 && bcs != 1) || batch < 1 ||
-      batch > (STENCIL_BATCH ? kMaxBatch : 1) ||
-      member_stride < 0 || aux_stride < 0 ||
-      (batch > 1 && member_stride == 0)) {
-    return cudaErrorInvalidValue;
-  }
-  p.vt = vt;
-  p.rows = p.V / vt;
-  const int threads =
-      (max(plane * vt, kernel_op < 0 ? p.n_entries : 0) + 31) / 32 * 32;
+  const int threads = cta_threads(kernel_op, bcs, p, batch, member_stride,
+                                  aux_stride, false);
+  if (!threads) return cudaErrorInvalidValue;
   const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k, g,
                                           threads, smem, s)
              : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k, g,
                                            threads, smem, s);
+}
+
+// The large-table route of a table-driven body (`kernel_op` -1, -2 or -3):
+// `table` is a device buffer holding `p.n_entries` entries (`BigEntry`),
+// `n_stages` stages, `n_taps` taps (`BigTap`), `n_coeffs` coefficients,
+// `p.n_fields` field streams (`BigStream`) and the entries' `n_inputs`
+// inputs back to back (kernels/_build.py: program_type), which must
+// outlive the kernel; `smem` counts the records in front of the rings
+// (kernels/_build.py: big_table_bytes).  Otherwise as
+// `stencil_stream_launch`.
+extern "C" int stencil_stream_launch_big(
+    int kernel_op, int bcs, const void* gp, const void* aux, void* out,
+    Params p, const void* table, int n_stages, int n_taps, int n_coeffs,
+    int n_inputs, int grid_x, int grid_y, int batch, long long member_stride,
+    long long aux_stride, size_t smem, void* stream) {
+  const int threads = cta_threads(kernel_op, bcs, p, batch, member_stride,
+                                  aux_stride, true);
+  if (!threads || table == nullptr || n_stages < 1 || n_taps < 0 ||
+      n_coeffs < 0 || n_inputs < p.n_entries) {
+    return cudaErrorInvalidValue;
+  }
+  DevTable k;
+  k.e = static_cast<const BigEntry*>(table);
+  k.s = reinterpret_cast<const Stage*>(k.e + p.n_entries);
+  k.taps = reinterpret_cast<const BigTap*>(k.s + n_stages);
+  k.c = reinterpret_cast<const float*>(k.taps + n_taps);
+  k.f = reinterpret_cast<const BigStream*>(k.c + n_coeffs);
+  k.ins = reinterpret_cast<const Input*>(k.f + p.n_fields);
+  k.n_taps = n_taps;
+  k.n_coeffs = n_coeffs;
+  k.n_inputs = n_inputs;
+  const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bcs ? launch_big_body<Storage, true>(kernel_op, gp, aux, out, p, k,
+                                              g, threads, smem, s)
+             : launch_big_body<Storage, false>(kernel_op, gp, aux, out, p, k,
+                                               g, threads, smem, s);
 }
 
 extern "C" const char* stencil_stream_error_string(int err) {

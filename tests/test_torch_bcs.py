@@ -1,12 +1,14 @@
 """The reflect and constant boundaries on the ``hopper`` backend against the
 reference package on the same numpy inputs: the plain version of the
 streaming kernel with each kind on each axis (2D, 3D, 1D), a chain whose
-stages differ in boundary and DAGs whose stages share one, in float32 and
-bfloat16, against ``repro``'s ``pallas_interpret`` backend; one super-step
-of a mixed chain and of a single-boundary DAG against ``repro``'s
-interpret-mode kernel; the mirrored stream rows against the rows the rings
-hold at every V; the boundary columns of the kernel's stage table; the
-refusal of DAGs whose stages differ (ROADMAP B1k).  Tolerances are
+stages differ in boundary, DAGs whose stages share one and DAGs whose
+stages differ (the diamond, the wave equation in 2D and 3D, a Hotspot DAG,
+a field stream read under another boundary than stage 0's), in float32
+and bfloat16, against ``repro``'s ``pallas_interpret`` backend and the
+``reference`` backend; one super-step of a mixed chain, a single-boundary
+DAG and mixed-boundary DAGs against ``repro``'s interpret-mode kernel;
+the mirrored stream rows against the rows the rings hold at every V; the
+boundary columns of the kernel's stage table.  Tolerances are
 ``repro.core.precision.tolerance(dtype, iters, stages)``.
 """
 import jax.numpy as jnp
@@ -63,6 +65,65 @@ def _diamond(S, P, st):
                 coeffs={"c0": 0.5, "c_0_1": 0.2}),
               S(st.make_combine(2, 2), name="m", inputs=("a", "b"),
                 coeffs={"w0": 0.6, "w1": 0.4})))
+
+
+def _mixed_diamond(S, P, st):
+    """The diamond with ``a`` clamp, ``b`` reflect (it reads the field
+    stream, which arrives padded under ``a``'s clamp) and the combine
+    constant 0.5."""
+    a, b, m = _diamond(S, P, st).stages
+    return P((S(a.stencil, name="a", inputs=("u",), boundary="clamp"),
+              S(b.stencil, name="b", inputs=("u",), coeffs=b.coeffs,
+                boundary="reflect"),
+              S(m.stencil, name="m", inputs=("a", "b"), coeffs=m.coeffs,
+                boundary="constant:0.5")))
+
+
+def _mixed_wave(S, P, st):
+    """The 2D wave equation with a reflect Laplacian and a clamp combine."""
+    lapu, unext = _wave(S, P, st).stages
+    return P((S(lapu.stencil, coeffs=lapu.coeffs, name="lapu",
+                inputs=("u",), boundary="reflect"),
+              S(unext.stencil, coeffs=unext.coeffs, name="unext",
+                inputs=unext.inputs, boundary="clamp")),
+             fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def _mixed_wave3d(S, P, st):
+    """The 3D wave equation: the Laplacian reflect along the stream axis,
+    constant 0.25 along y and clamp along x, the combine reflect."""
+    lap = {"c0": -6.0}
+    lap.update({f"c_{a}_{d}": 1.0 for a in range(3) for d in (-1, 1)})
+    return P((S(st.make_star(3, 1), coeffs=lap, name="lapu", inputs=("u",),
+                boundary=("reflect", "constant:0.25", "clamp")),
+              S(st.make_combine(3, 3), name="unext",
+                inputs=("u", "u_prev", "lapu"),
+                coeffs={"w0": 2.0, "w1": -1.0, "w2": 0.1},
+                boundary="reflect")),
+             fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def _mixed_hotspot_dag(S, P, st):
+    """A Hotspot stage (constant stream axis, reflect x) blended with the
+    raw field and a trailing second field by a clamp combine."""
+    return P((S("hotspot2d", name="h", inputs=("u",),
+                boundary=("constant:80.0", "reflect")),
+              S(st.make_combine(2, 3), name="m", inputs=("h", "u", "v"),
+                coeffs={"w0": 0.5, "w1": 0.3, "w2": 0.2},
+                boundary="clamp")),
+             fields=("u", "v"), updates={"u": "m", "v": "u"})
+
+
+def _field_stream_mixed(S, P, st):
+    """The field stream, padded under stage 0's reflect, read by a
+    diffusion under constant 1.0 and by a clamp combine."""
+    return P((S(st.make_star(2, 2), name="s0", inputs=("u",),
+                boundary="reflect"),
+              S("diffusion2d", name="s1", inputs=("u",),
+                boundary="constant:1.0"),
+              S(st.make_combine(2, 3), name="m", inputs=("s0", "s1", "u"),
+                coeffs={"w0": 0.3, "w1": 0.5, "w2": 0.2},
+                boundary="clamp")))
 
 
 def _problems(build, dims, bc, dtype):
@@ -137,6 +198,21 @@ CASES = [
     (_diamond, (21, 40), "constant:0.25", 2, 16, 2, 5, BF16),
 ]
 
+#: DAGs whose stages differ in boundary (ROADMAP B1k), in the CASES form
+#: (the stages carry their own boundaries)
+MIXED_DAGS = [
+    (_mixed_diamond, (21, 40), "clamp", 2, 16, 1, 5, F32),
+    (_mixed_diamond, (21, 40), "clamp", 2, 16, 2, 5, BF16),
+    (_mixed_wave, (22, 19), "clamp", 2, 8, 1, 5, F32),
+    (_mixed_wave, (22, 19), "clamp", 3, 12, 4, 7, BF16),
+    (_mixed_hotspot_dag, (17, 23), "clamp", 2, 8, 1, 5, F32),
+    (_mixed_hotspot_dag, (17, 23), "clamp", 2, 8, 2, 5, BF16),
+    (_mixed_wave3d, (11, 14, 13), "clamp", 2, (8, 8), 1, 5, F32),
+    (_mixed_wave3d, (11, 14, 13), "clamp", 2, (8, 8), 2, 3, BF16),
+    (_field_stream_mixed, (20, 30), "clamp", 2, 16, 1, 5, F32),
+    (_field_stream_mixed, (20, 30), "clamp", 2, 16, 1, 5, BF16),
+]
+
 
 def _case_id(case):
     build, dims, bc, _, _, V, _, dtype = case
@@ -162,10 +238,35 @@ def test_bc_hopper_matches_pallas_interpret(case):
     np.testing.assert_allclose(_np(got), _np(exp), **_tol(mine, iters))
 
 
+@pytest.mark.parametrize("case", MIXED_DAGS, ids=_case_id)
+def test_mixed_boundary_dag_matches_pallas_interpret_and_reference(case):
+    """A DAG whose stages differ in boundary: every consumer re-imposes
+    what it reads under its own boundary, as ``repro``'s ``cat_of``.  The
+    plain version agrees with ``pallas_interpret`` and the ``reference``
+    backend in the problem's dtype."""
+    build, dims, bc, par_time, bsize, V, iters, dtype = case
+    mine, want = _problems(build, dims, bc, dtype)
+    p = _hopper(mine, par_time, bsize, V)
+    assert builder.mixes_boundaries(mine.exec_dag, mine.ndim)
+    g, aux = _data(mine)
+    got = p.run(_t(g, dtype), iters, aux=_t(aux, dtype))
+    assert got.dtype == mine.torch_dtype
+    exp = japi.plan(want, japi.RunConfig(
+        backend="pallas_interpret", par_time=par_time, bsize=bsize,
+        par_vec=V)).run(_j(g, dtype), iters, aux=_j(aux, dtype))
+    np.testing.assert_allclose(_np(got), _np(exp), **_tol(mine, iters))
+    ref = plan(mine, RunConfig(backend="reference", device="cpu")).run(
+        _t(g, dtype), iters, aux=_t(aux, dtype))
+    np.testing.assert_allclose(_np(got), _np(ref), **_tol(mine, iters))
+
+
 @pytest.mark.parametrize("build,dims,bc,dtype", [
     (_mixed_chain, (24, 32), "clamp", BF16),
     (_diamond, (21, 40), ("reflect", "constant:0.5"), F32),
-], ids=["mixed_chain_bf16", "diamond_f32"])
+    (_mixed_diamond, (21, 40), "clamp", F32),
+    (_field_stream_mixed, (20, 30), "clamp", BF16),
+], ids=["mixed_chain_bf16", "diamond_f32", "mixed_diamond_f32",
+        "field_stream_mixed_bf16"])
 def test_bc_superstep_matches_interpret_kernel(build, dims, bc, dtype):
     """One super-step of the plain version against ``repro``'s
     ``superstep_chain``/``superstep_dag(..., interpret=True)`` on the same
@@ -251,20 +352,37 @@ def test_stage_table_carries_the_boundaries():
 
 
 def test_dags_whose_stages_differ_in_boundary_are_refused():
-    """A DAG re-imposes at push time, which needs one boundary on all its
-    stages (ROADMAP B1k); a chain may mix them."""
-    S, P, st = PKGS["port"]
-    a, b, m = _diamond(S, P, st).stages
-    mixed = P((a, b, StencilStage(m.stencil, name="m", inputs=("a", "b"),
-                                  coeffs=m.coeffs, boundary="reflect")))
-    with pytest.raises(ValueError, match="B1k"):
-        _hopper(StencilProblem(mixed, (21, 40)), 2, 16)
+    """A DAG whose combine alone is reflect plans (ROADMAP B1k is
+    ported): its super-step agrees with ``repro``'s interpret-mode kernel
+    on the grid's cells, and its run with ``pallas_interpret``; a chain
+    may mix boundaries too."""
+    def mixed(S, P, st):
+        a, b, m = _diamond(S, P, st).stages
+        return P((a, b, S(m.stencil, name="m", inputs=("a", "b"),
+                          coeffs=m.coeffs, boundary="reflect")))
+    mine, want = _problems(mixed, (21, 40), "clamp", F32)
     geom = blocking.BlockGeometry(2, (21, 40), 1, 2, (16,))
-    dag = StencilProblem(mixed, (21, 40)).exec_dag
-    assert "B1k" in builder.kernel_limits(geom, dag)
-    gp = torch.zeros((21,) + geom.padded_dims)
-    c = torch.zeros(sum(len(s.coeff_names) for s, _, _ in dag.stages))
-    with pytest.raises(ValueError, match="B1k"):
-        builder.superstep_dag(dag, geom, gp, c, 2)
+    assert _hopper(mine, 2, 16).geometry == geom
+    dag = mine.exec_dag
+    assert builder.kernel_limits(geom, dag) is None
+    g, _ = _data(mine, seed=3)
+    jgeom = japi.plan(want, japi.RunConfig(backend="pallas_interpret",
+                                           par_time=2, bsize=16)).geometry
+    gp = ops._pad_blocked(_t(g, F32), geom, mine.structural_bc)
+    jgp = jops._pad_blocked(_j(g, F32), jgeom, want.structural_bc)
+    c = ops.pack_dag_coeffs(dag, mine.resolve_coeffs())
+    jc = jops.pack_dag_coeffs(want.exec_dag,
+                              want.resolve_coeffs(dtype=jnp.float32))
+    cells = (slice(0, 21), slice(geom.size_halo, geom.size_halo + 40))
+    got = builder.superstep_dag(dag, geom, gp, c, 2)
+    exp = jbuilder.superstep_dag(want.exec_dag, jgeom, jgp, jc,
+                                 jnp.asarray(2, jnp.int32), interpret=True)
+    np.testing.assert_allclose(_np(got[cells]), _np(exp[cells]),
+                               **_tol(mine, 2))
+    run = _hopper(mine, 2, 16).run(_t(g, F32), 5)
+    exp = japi.plan(want, japi.RunConfig(backend="pallas_interpret",
+                                         par_time=2, bsize=16)).run(
+                                             _j(g, F32), 5)
+    np.testing.assert_allclose(_np(run), _np(exp), **_tol(mine, 5))
     chain, _ = _problems(_mixed_chain, (24, 32), "clamp", F32)
     assert _hopper(chain, 2, 16).geometry.par_time == 2

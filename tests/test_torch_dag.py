@@ -3,9 +3,10 @@ against the reference package on the same numpy inputs: the plain version
 of the kernel's DAG body against ``repro``'s ``pallas_interpret`` backend
 and ``oracle_dag_run`` (the DAG cases of ``tests/test_programs.py`` that
 run clamp and periodic, the wave equation in 2D and 3D, a Hotspot stage
-with its aux, eight seeded random DAGs), one super-step against ``repro``'s
-``superstep_dag(..., interpret=True)``, periodic main-path stencils and
-chains, the run forms, the traffic report and the plan-time refusals.
+with its aux, eight seeded random DAGs; eight more whose stages differ in
+boundary), one super-step against ``repro``'s ``superstep_dag(...,
+interpret=True)``, periodic main-path stencils and chains, the run forms,
+the traffic report and the plan-time refusals.
 Tolerances are ``repro.core.precision.tolerance(..., stages=S)``."""
 import dataclasses
 import random
@@ -76,9 +77,19 @@ def _hotspot_dag(S, P, st):
              fields=("u", "v"), updates={"u": "m", "v": "u"})
 
 
+def _wave_mixed(S, P, st):
+    """The 2D wave equation with a reflect Laplacian and a constant 0.5
+    combine: stages that differ in boundary (ROADMAP B1k)."""
+    lapu, unext = _wave(2)(S, P, st).stages
+    return P((dataclasses.replace(lapu, boundary="reflect"),
+              dataclasses.replace(unext, boundary="constant:0.5")),
+             fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
 #: id -> (builder, dims, boundary, par_time, bsize, iters): the clamp and
 #: periodic cases of tests/test_programs.py::_DAG_CASES at V=1, the wave
-#: equation clamped in 2D and 3D, a Hotspot DAG
+#: equation clamped in 2D and 3D, a Hotspot DAG, the wave equation whose
+#: stages differ in boundary
 CASES = {
     "wave2d_periodic": (_wave(2), (22, 19), "periodic", 2, 8, 5),
     "residual_clamp": (_residual, (20, 16), "clamp", 2, 8, 3),
@@ -88,6 +99,7 @@ CASES = {
     "wave3d": (_wave(3), (11, 14, 13), "clamp", 2, 8, 5),
     "wave3d_periodic": (_wave(3), (10, 13, 12), "periodic", 2, 8, 3),
     "hotspot_dag": (_hotspot_dag, (17, 23), "clamp", 2, 8, 5),
+    "wave2d_mixed": (_wave_mixed, (21, 26), "clamp", 3, 12, 7),
 }
 
 
@@ -197,8 +209,48 @@ def test_hopper_random_dag_matches_pallas_interpret_and_oracle(i):
                   2 * par_time + 1, seed)
 
 
+def _random_mixed_case(i):
+    """(port program, repro program, par_time, seed): a random DAG of
+    :func:`_draw_dag` with a random non-periodic boundary per stage (per
+    axis clamp, reflect or constant, one fill per stage), so that its
+    stages differ in boundary (ROADMAP B1k)."""
+    rng = random.Random(6000 + i)
+    out = []
+    for pkg in ("port", "repro"):
+        S, P, st = PKGS[pkg]
+        prog = _draw_dag(random.Random(5000 + i), S, P, st)
+        draw = random.Random(7000 + i)
+        bcs = []
+        for _ in prog.stages:
+            fill = draw.choice(["0.0", "0.5", "1.5"])
+            bcs.append(tuple(
+                k if k != "constant" else f"constant:{fill}"
+                for k in (draw.choice(["clamp", "reflect", "constant"])
+                          for _ in range(2))))
+        out.append(P(tuple(dataclasses.replace(s, boundary=bc)
+                           for s, bc in zip(prog.stages, bcs)),
+                     fields=prog.fields, updates=prog.updates))
+    return (*out, rng.randint(1, 2), rng.randint(0, 10_000))
+
+
+@pytest.mark.parametrize("i", range(8), ids=lambda i: f"dag{i}")
+def test_hopper_random_mixed_boundary_dag_matches_pallas_interpret(i):
+    """Random DAGs whose stages differ in boundary: every consumer
+    re-imposes what it reads under its own boundary (ROADMAP B1k)."""
+    prog, jprog, par_time, seed = _random_mixed_case(i)
+    rad = max(1, sum(s.stencil.radius for s in prog.stages))
+    dims = (3 * rad * par_time + 5, 13)
+    mine = StencilProblem(prog, dims)
+    want = japi.StencilProblem(jprog, dims)
+    assert [s.boundary.token() for s in mine.stages] == [
+        s.boundary.token() for s in want.stages]
+    _check_hopper(mine, want, par_time, max(2 * rad * par_time + 4, 16),
+                  2 * par_time + 1, seed)
+
+
 @pytest.mark.parametrize("name", ["wave2d_periodic", "diamond_periodic_clamp",
-                                  "hotspot_dag", "wave3d_periodic"])
+                                  "hotspot_dag", "wave3d_periodic",
+                                  "wave2d_mixed"])
 def test_plain_dag_superstep_matches_pallas_interpret(name):
     """``superstep_dag_plain`` against ``repro``'s ``superstep_dag(...,
     interpret=True)`` on the same padded ``(F, ns, *padded)`` input, on
@@ -365,15 +417,18 @@ def _hopper(problem, **cfg):
 def test_hopper_dag_refusals_name_their_item():
     S, P, st = PKGS["port"]
     wave = _wave(2)(S, P, st)
-    # one boundary on every stage plans (B1c); stages that differ do not
+    # one boundary on every stage plans (B1c), and so do stages that
+    # differ (B1k): the reflect combine agrees with pallas_interpret
     for bc in ("constant:0.5", ("clamp", "reflect")):
         assert _hopper(StencilProblem(wave, (16, 32), boundary=bc)).geometry
-    lapu, unext = wave.stages
-    with pytest.raises(ValueError, match="B1k"):
-        _hopper(StencilProblem(P(
-            (lapu, dataclasses.replace(unext, boundary="reflect")),
-            fields=wave.fields, updates={"u": "unext", "u_prev": "u"}),
-            (16, 32)))
+
+    def mixed(S, P, st):
+        lapu, unext = _wave(2)(S, P, st).stages
+        return P((lapu, dataclasses.replace(unext, boundary="reflect")),
+                 fields=("u", "u_prev"),
+                 updates={"u": "unext", "u_prev": "u"})
+    mine, want = _problems(mixed, (16, 32), "clamp")
+    _check_hopper(mine, want, 2, 16, 5, seed=9)
     custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
                         lambda get, c, aux=None: c["a"] * get((0, 1)))
     with pytest.raises(ValueError, match="B1i"):
@@ -382,19 +437,31 @@ def test_hopper_dag_refusals_name_their_item():
              S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
             fields=("u",)), (16, 32)))
     five = tuple(f"f{i}" for i in range(5))
-    with pytest.raises(ValueError, match="5 field streams"):
-        _hopper(StencilProblem(P(
-            (S(st.make_star(2, 1), name="a", inputs=("f0",)),),
-            fields=five,
-            updates={"f0": "a", **{five[i]: five[i - 1]
-                                   for i in range(1, 5)}}), (16, 32)))
-    with pytest.raises(ValueError, match="5 inputs to one stage"):
-        _hopper(StencilProblem(P(
-            (S(st.make_star(2, 1), name="a", inputs=("u",)),
-             S(st.make_combine(2, 5), name="m",
-               inputs=("u", "a", "a", "u", "a"))),), (16, 32)))
-    with pytest.raises(ValueError, match="80 fused entries"):
-        _hopper(StencilProblem(wave, (16, 128)), par_time=20, bsize=96)
+
+    def five_fields(S, P, st):
+        return P((S(st.make_star(2, 1), name="a", inputs=("f0",)),),
+                 fields=five,
+                 updates={"f0": "a", **{five[i]: five[i - 1]
+                                        for i in range(1, 5)}})
+
+    def five_inputs(S, P, st):
+        return P((S(st.make_star(2, 1), name="a", inputs=("u",)),
+                  S(st.make_combine(2, 5), name="m",
+                    inputs=("u", "a", "a", "u", "a"))),)
+    # five field streams, and five inputs to one stage, past the kernel
+    # parameter's table of 4, take the large-table route (ROADMAP B1j) and
+    # agree with pallas_interpret
+    for build, seed in ((five_fields, 12), (five_inputs, 13)):
+        mine, want = _problems(build, (16, 32), "clamp")
+        assert builder.tables_of(_hopper(mine).geometry,
+                                 mine.exec_dag).big
+        _check_hopper(mine, want, 2, 16, 5, seed=seed)
+    # 80 fused entries, past the kernel parameter's table of 64, take the
+    # large-table route (ROADMAP B1j) and agree with pallas_interpret
+    mine, want = _problems(_wave(2), (16, 128), "clamp")
+    assert builder.tables_of(_hopper(mine, par_time=20, bsize=96).geometry,
+                             mine.exec_dag).entries == 80
+    _check_hopper(mine, want, 20, 96, 21, seed=10)
     # the CTA takes a thread per entry however narrow the block, and
     # par_vec > 1 runs (ROADMAP B1d)
     assert _hopper(StencilProblem(wave, (16, 32)), par_time=4,

@@ -4,7 +4,9 @@ tables, mixed radii, radius-0 stages, aux), stage DAGs (field streams,
 fan-in, state nodes), periodic boundaries, V-row slabs (``par_vec > 1``)
 and 1D grids on all three bodies, and bfloat16 storage and the reflect and
 constant boundaries (mixed per axis and per chain stage) on all three
-bodies.  Needs an
+bodies, DAGs whose stages differ in boundary (the mixed-boundary body),
+block planes over 1024 cells (the wide form) and tables past the kernel
+parameter's capacities (the large-table route).  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -562,6 +564,168 @@ def test_storage_and_bc_plan_equals_v1_and_reference(cuda, case):
         problem.dtype, iters, stages=problem.n_stages, scale=scale))
 
 
+# --- DAGs whose stages differ in boundary (B1k), wide planes and large
+# tables (B1j) ----------------------------------------------------------------
+
+def _mixed_diamond():
+    """The diamond with ``a`` clamp, ``b`` reflect (it reads the field
+    stream, padded under ``a``'s clamp) and the combine constant 0.5."""
+    a, b, m = _diamond().stages
+    return StencilProgram(
+        (StencilStage(a.stencil, name="a", inputs=("u",), boundary="clamp"),
+         StencilStage(b.stencil, name="b", inputs=("u",), coeffs=b.coeffs,
+                      boundary="reflect"),
+         StencilStage(m.stencil, name="m", inputs=("a", "b"),
+                      coeffs=m.coeffs, boundary="constant:0.5")))
+
+
+def _mixed_wave(nd):
+    """The wave equation with a reflect Laplacian and a clamp combine."""
+    lapu, unext = _wave(nd).stages
+    return lambda: StencilProgram(
+        (StencilStage(lapu.stencil, coeffs=lapu.coeffs, name="lapu",
+                      inputs=("u",), boundary="reflect"),
+         StencilStage(unext.stencil, coeffs=unext.coeffs, name="unext",
+                      inputs=unext.inputs, boundary="clamp")),
+        fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def _mixed_hotspot_dag():
+    """The Hotspot DAG with its Hotspot stage under a constant stream axis
+    and reflect x, the combine clamped."""
+    h, m = _hotspot_dag().stages
+    return StencilProgram(
+        (StencilStage("hotspot2d", name="h", inputs=("u",),
+                      boundary=("constant:80.0", "reflect")),
+         StencilStage(m.stencil, name="m", inputs=m.inputs, coeffs=m.coeffs,
+                      boundary="clamp")),
+        fields=("u", "v"), updates={"u": "m", "v": "u"})
+
+
+def _box_chain(nd, r):
+    """Two ``make_box(nd, r)`` stages: 250 taps at (3, 2), past the kernel
+    parameter's 128."""
+    return lambda: [StencilStage(stencils.make_box(nd, r)),
+                    StencilStage(stencils.make_box(nd, r))]
+
+
+def _star_chain1d():
+    return [StencilStage(stencils.make_star(1, 1)),
+            StencilStage(stencils.make_star(1, 1))]
+
+
+def _five_fields():
+    """Five field streams, past the kernel parameter's table of 4."""
+    five = tuple(f"f{i}" for i in range(5))
+    return StencilProgram(
+        (StencilStage(stencils.make_star(2, 1), name="a", inputs=("f0",)),),
+        fields=five,
+        updates={"f0": "a", **{five[i]: five[i - 1] for i in range(1, 5)}})
+
+
+def _five_inputs_mixed():
+    """A reflect combine of five inputs (past the parameter table's 4) over
+    a clamped star."""
+    return StencilProgram(
+        (StencilStage(stencils.make_star(2, 1), name="a", inputs=("u",)),
+         StencilStage(stencils.make_combine(2, 5), name="m",
+                      inputs=("u", "a", "a", "u", "a"),
+                      boundary="reflect")))
+
+
+B1KJ = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype):
+    # mixed-boundary DAGs in the three thread forms (V = 1, one row, rows),
+    # the wide form on the three bodies in both storage types, with and
+    # without the boundary work, and the large-table route
+    ("diamond_mixed", _mixed_diamond, (33, 150), "clamp", 2, (40,), 1,
+     "float32"),
+    ("diamond_mixed_bf16_v2", _mixed_diamond, (33, 150), "clamp", 2, (40,),
+     2, "bfloat16"),
+    ("wave2d_mixed_v8", _mixed_wave(2), (37, 600), "clamp", 3, (256,), 8,
+     "float32"),
+    ("wave3d_mixed", _mixed_wave(3), (21, 30, 45), "clamp", 2, (16, 16), 1,
+     "float32"),
+    ("hotspot_dag_mixed_bf16_v4", _mixed_hotspot_dag, (25, 170), "clamp", 3,
+     (32,), 4, "bfloat16"),
+    ("diffusion2d_wide", _star("diffusion2d"), (13, 3000), "clamp", 4,
+     (2048,), 1, "float32"),
+    ("hotspot2d_wide_bf16_v2", _star("hotspot2d"), (13, 3100), "reflect", 4,
+     (1500,), 2, "bfloat16"),
+    ("diffusion3d_wide_reflect", _star("diffusion3d"), (9, 70, 70),
+     "reflect", 2, (40, 40), 1, "float32"),
+    ("hotspot3d_wide_bf16_v2", _star("hotspot3d"), (9, 70, 75),
+     ("clamp", "constant:80.0", "clamp"), 2, (36, 36), 2, "bfloat16"),
+    ("advect_diffuse2d_wide", lambda: [_advect(2),
+                                       StencilStage("diffusion2d")],
+     (13, 3000), "clamp", 2, (1200,), 1, "float32"),
+    ("wave2d_wide_periodic_v2", lambda: _wave(2), (13, 2500), "periodic", 2,
+     (1100,), 2, "float32"),
+    ("diamond_mixed_wide_bf16", _mixed_diamond, (13, 2500), "clamp", 2,
+     (1100,), 1, "bfloat16"),
+    ("box3d_r2_big", _box_chain(3, 2), (9, 40, 40), "clamp", 1, (20, 20), 1,
+     "float32"),
+    ("box3d_r2_big_reflect_bf16_v2", _box_chain(3, 2), (9, 40, 40),
+     "reflect", 1, (20, 20), 2, "bfloat16"),
+    ("star1d_chain_big_entries", _star_chain1d, (301,), "clamp", 40, (), 1,
+     "float32"),
+    ("wave2d_big_entries", lambda: _wave(2), (16, 128), "clamp", 20, (96,),
+     1, "float32"),
+    ("wave2d_mixed_big_bf16", _mixed_wave(2), (20, 200), "clamp", 17, (80,),
+     1, "bfloat16"),
+    # past the parameter table's tap coefficients (343 taps, an index past
+    # a byte), field streams, inputs, and 16-bit ring slots (38,250)
+    ("box3d_r3_big", lambda: [StencilStage(stencils.make_box(3, 3))],
+     (8, 40, 40), "clamp", 1, (20, 20), 1, "float32"),
+    ("five_fields_big", _five_fields, (16, 64), "clamp", 2, (32,), 1,
+     "float32"),
+    ("five_inputs_mixed_big_bf16_v2", _five_inputs_mixed, (16, 64), "clamp",
+     2, (32,), 2, "bfloat16"),
+    ("star1d_r127_big_slots", lambda: [StencilStage(stencils.make_star(1,
+                                                                   127))],
+     (700,), "clamp", 150, (), 1, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", B1KJ, ids=lambda c: c[0])
+def test_b1kj_kernel_equals_plain_version(cuda, case):
+    """One super-step bit for bit against the plain version, with and
+    without forwarding, through the form the case names: the
+    mixed-boundary DAG body, the wide form, the large-table route."""
+    problem, cfg, V = _storage_bc_case(case)
+    geom = plan(problem, RunConfig(par_vec=V, **cfg)).geometry
+    tab = builder.tables_of(geom, problem.exec_dag)
+    if "mixed" in case[0]:
+        assert builder.mixes_boundaries(problem.exec_dag, geom.ndim)
+    if "wide" in case[0]:
+        assert math.prod(geom.bsize) > blocking.MAX_THREADS
+    if "big" in case[0]:
+        assert tab is not None and tab.big
+    g, aux = _state(problem, cuda, seed=11)
+    _superstep_vs_plain(problem, geom, g, aux)
+
+
+@pytest.mark.parametrize("case", B1KJ, ids=lambda c: c[0])
+def test_b1kj_plan_matches_reference(cuda, case):
+    """The plan launches ``ceil(iters/T)`` times, equals the plan at V = 1
+    bit for bit and stays within ``precision.tolerance(dtype, iters,
+    stages)`` of the reference backend."""
+    problem, cfg, V = _storage_bc_case(case)
+    iters = 2 * cfg["par_time"] + 1
+    g, aux = _state(problem, cuda, seed=12)
+    before = builder.LAUNCHES
+    got = plan(problem, RunConfig(par_vec=V, **cfg)).run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / cfg["par_time"])
+    if V > 1:
+        v1 = plan(problem, RunConfig(par_vec=1, **cfg)).run(g, iters,
+                                                            aux=aux)
+        assert torch.equal(got, v1)
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        problem.dtype, iters, stages=problem.n_stages,
+        scale=100 if problem.needs_aux else None))
+
+
 # --- batches along the grid's z axis (B1f) ---------------------------------
 
 BATCHES = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype,
@@ -585,6 +749,12 @@ BATCHES = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype,
     ("diamond_reflect_v4", _diamond, (33, 150), "reflect", 2, (40,), 4,
      "float32", None),
     ("star1d_r2_v16", _star("star1d_r2"), (1001,), "clamp", 4, (), 16,
+     "float32", None),
+    ("diamond_mixed_v2", _mixed_diamond, (33, 150), "clamp", 2, (40,), 2,
+     "float32", None),
+    ("hotspot2d_wide_bf16", _star("hotspot2d"), (13, 3100), "clamp", 4,
+     (1500,), 1, "bfloat16", "member"),
+    ("box3d_r2_big", _box_chain(3, 2), (9, 40, 40), "clamp", 1, (20, 20), 1,
      "float32", None),
 ]
 

@@ -327,7 +327,9 @@ def test_cta_shape_follows_the_launcher_rule(dims, bsize, V, n_entries,
     per thread ``V / vt``, threads rounded up to a multiple of 32 and to
     the table-driven bodies' entries."""
     geom = blocking.BlockGeometry(len(dims), dims, 1, 2, bsize, V)
-    assert builder.cta_shape(geom, n_entries) == want
+    tab = builder.Tables("chain", n_entries, 1, 0, 0, 1, 1, n_entries, 0,
+                         0, 0) if n_entries else None
+    assert builder.cta_shape(geom, tab) == want
 
 
 def test_hopper_refuses_oversized_par_vec_by_shared_memory():

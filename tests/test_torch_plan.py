@@ -10,6 +10,8 @@ import torch
 
 import _torch_conformance as conf
 from repro import api as japi
+from repro.core import precision as jprecision
+from repro.core import stencils as jstencils
 from repro_torch.api import (RunConfig, StencilProblem, StencilProgram,
                              StencilStage, plan)
 from repro_torch.convert import state_from_reference
@@ -133,9 +135,9 @@ def _hopper(problem, **cfg):
 
 
 def test_hopper_refusals_name_the_roadmap_item():
-    # bf16 storage (B1e) and the reflect and constant boundaries (B1c)
-    # plan; other storage dtypes are refused, as by the reference's Pallas
-    # kernels, and so are DAGs whose stages differ in boundary (B1k)
+    # bf16 storage (B1e), the reflect and constant boundaries (B1c) and
+    # DAGs whose stages differ in boundary (B1k) plan; other storage dtypes
+    # are refused, as by the reference's Pallas kernels
     assert _hopper(StencilProblem("diffusion2d", (8, 32),
                                   dtype="bfloat16")).problem.dtype == \
         "bfloat16"
@@ -146,12 +148,23 @@ def test_hopper_refusals_name_the_roadmap_item():
                    bsize=(10, 10)).geometry
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         _hopper(StencilProblem("diffusion2d", (8, 32), dtype="float64"))
-    mixed = StencilProgram(
-        (StencilStage("diffusion2d", name="a", inputs=("u",)),
-         StencilStage(stencils.make_combine(2, 2), name="m",
-                      inputs=("u", "a"), boundary="reflect")))
-    with pytest.raises(ValueError, match="B1k"):
-        _hopper(StencilProblem(mixed, (8, 32)))
+    def mixed(S, P, st):
+        return P((S("diffusion2d", name="a", inputs=("u",)),
+                  S(st.make_combine(2, 2), name="m", inputs=("u", "a"),
+                    boundary="reflect")))
+    problem = StencilProblem(mixed(StencilStage, StencilProgram, stencils),
+                             (8, 32))
+    jproblem = japi.StencilProblem(mixed(japi.StencilStage,
+                                         japi.StencilProgram, jstencils),
+                                   (8, 32))
+    g = np.random.default_rng(7).uniform(0.5, 2.0, (8, 32)).astype(
+        np.float32)
+    conf.assert_close(
+        _hopper(problem).run(g, 5),
+        japi.plan(jproblem, japi.RunConfig(
+            backend="pallas_interpret", par_time=2, bsize=16)).run(
+                jnp.asarray(g), 5),
+        jprecision.tolerance("float32", 5, stages=2))
     # par_vec > 1 and 1D grids plan (ROADMAP B1d is ported); a V whose
     # rings do not fit one CTA is refused by its shared memory
     assert _hopper(StencilProblem("diffusion2d", (8, 32)),
@@ -167,8 +180,11 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="A11"):
         plan(StencilProblem("diffusion2d", (8, 32)),
              RunConfig(backend="hopper", device="cpu"))
-    with pytest.raises(ValueError, match="threads"):
-        _hopper(StencilProblem("diffusion3d", (8, 64, 64)), bsize=(40, 40))
+    # a block plane over 1024 cells runs the kernel's wide form (ROADMAP
+    # B1j) and agrees with pallas_interpret
+    got, want = _runs("diffusion3d", (8, 64, 64), 5, 2, (40, 40),
+                      "pallas_interpret")
+    conf.assert_close(got, want, conf.tol("diffusion3d", 5))
     with pytest.raises(ValueError, match="shared memory"):
         _hopper(StencilProblem("diffusion2d", (8, 9000)), par_time=40,
                 bsize=1000)

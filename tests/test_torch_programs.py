@@ -438,7 +438,8 @@ def _hopper(problem, **cfg):
 def test_hopper_main_path_par_time_is_bound_by_shared_memory_only():
     """A single Table-2 stage runs the kernel's main-path body, which reads
     no entry table: more fused entries than the chain body's table holds
-    still plan and run; a chain of as many entries is refused."""
+    still plan and run; a chain of as many entries takes the large-table
+    route (ROADMAP B1j) and runs too."""
     problem = StencilProblem("diffusion2d", (6, 400))
     p = _hopper(problem, par_time=80, bsize=170)
     assert builder.kernel_limits(p.geometry, problem.exec_stages) is None
@@ -448,17 +449,23 @@ def test_hopper_main_path_par_time_is_bound_by_shared_memory_only():
         g, iters)
     conf.assert_close(p.run(g, iters), want, _tol(problem, iters))
     S, _, st = PKGS["port"]
-    with pytest.raises(ValueError, match="entries"):
-        _hopper(StencilProblem([S("diffusion2d"), S(st.make_star(2, 0))],
-                               (6, 400)), par_time=40, bsize=170)
+    chain = StencilProblem([S("diffusion2d"),
+                            S(st.make_star(2, 0), coeffs={"c0": 0.99})],
+                           (6, 400))
+    p = _hopper(chain, par_time=40, bsize=170)
+    tab = builder.tables_of(p.geometry, chain.exec_dag)
+    assert tab.entries == 80 and tab.big
+    want = plan(chain, RunConfig(backend="reference", device="cpu")).run(
+        g, 43)
+    conf.assert_close(p.run(g, 43), want, _tol(chain, 43))
 
 
 def test_hopper_refuses_program_forms_it_does_not_run():
     S, P, st = PKGS["port"]
     custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
                         lambda get, c, aux=None: c["a"] * get((0, 1)))
-    # DAGs plan (ROADMAP B1h is ported), but not with a custom stencil or
-    # with stages that differ in boundary (B1k)
+    # DAGs plan (ROADMAP B1h is ported), with stages that differ in
+    # boundary too (B1k), but not with a custom stencil
     forward_ref = P((S("diffusion2d", name="a", inputs=("b",)),
                      S("diffusion2d", name="b", inputs=("u",))),
                     updates={"u": "a"})
@@ -468,10 +475,17 @@ def test_hopper_refuses_program_forms_it_does_not_run():
             (S(custom, name="a", inputs=("u",)),
              S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
         ), (16, 32)))
-    a, b, m = _diamond2d(S, P, st).stages
-    mixed = P((a, dataclasses.replace(b, boundary="reflect"), m))
-    with pytest.raises(ValueError, match="B1k"):
-        _hopper(StencilProblem(mixed, (16, 32)))
+    def mixed(S, P, st):
+        a, b, m = _diamond2d(S, P, st).stages
+        return P((a, dataclasses.replace(b, boundary="reflect"), m))
+    mine, want = _problems(mixed, (16, 32))
+    g, _ = _data(mine, seed=8)
+    conf.assert_close(
+        _hopper(mine).run(g, 5),
+        japi.plan(want, japi.RunConfig(backend="pallas_interpret",
+                                       par_time=2, bsize=16)).run(
+                                           jnp.asarray(g), 5),
+        _tol(mine, 5))
     # one boundary on a DAG, and chains whose stages differ, plan (B1c)
     assert _hopper(StencilProblem(_diamond2d(S, P, st), (16, 32),
                                   boundary=("clamp", "reflect"))).geometry
@@ -483,18 +497,37 @@ def test_hopper_refuses_program_forms_it_does_not_run():
     with pytest.raises(ValueError, match="shared memory"):
         _hopper(StencilProblem([S(st.make_star(2, 2)), S("diffusion2d")],
                                (8, 9000)), par_time=10, bsize=1000)
-    with pytest.raises(ValueError, match="entries"):
-        _hopper(StencilProblem([S(st.make_star(2, 0))] * 5, (8, 64)),
-                par_time=13, bsize=16)
+    # 65 entries and a 129-tap star, past the kernel parameter's tables,
+    # take the large-table route (ROADMAP B1j) and agree with the
+    # reference backend
+    for stages, T, bsize, dims in (([S(st.make_star(2, 0))] * 5, 13, 16,
+                                    (8, 64)),
+                                   ([S(st.make_star(2, 32))], 1, 300,
+                                    (8, 400))):
+        prob = StencilProblem(stages, dims)
+        p = _hopper(prob, par_time=T, bsize=bsize)
+        assert builder.tables_of(p.geometry, prob.exec_dag).big
+        g, _ = _data(prob, seed=11)
+        want = plan(prob, RunConfig(backend="reference", device="cpu")).run(
+            g, T + 1)
+        conf.assert_close(p.run(g, T + 1), want, _tol(prob, T + 1))
     # 12 entries on an 11-cell plane: the CTA takes a thread per entry
     assert _hopper(StencilProblem([S("diffusion2d"), S(st.make_star(2, 0)),
                                    S(st.make_star(2, 0))], (14, 26)),
                    par_time=4, bsize=11).geometry.bsize == (11,)
-    with pytest.raises(ValueError, match="taps"):
-        _hopper(StencilProblem([S(st.make_star(2, 32))], (8, 400)),
-                par_time=1, bsize=300)
+    # a 343-tap stage takes the large-table route too
+    prob = StencilProblem([S(st.make_box(3, 3)), S("diffusion3d")],
+                          (8, 30, 30))
+    p = _hopper(prob, par_time=1, bsize=(20, 20))
+    assert builder.tables_of(p.geometry, prob.exec_dag).big
+    g, _ = _data(prob, seed=12)
+    want = plan(prob, RunConfig(backend="reference", device="cpu")).run(g, 2)
+    conf.assert_close(p.run(g, 2), want, _tol(prob, 2))
     # what the hopper backend refuses, the reference backend runs
-    prob = StencilProblem(mixed, (16, 32))
+    prob = StencilProblem(P((S(custom, name="a", inputs=("u",),
+                               coeffs={"a": 0.5}),
+                             S(st.make_combine(2, 2), name="m",
+                               inputs=("u", "a")))), (16, 32))
     g, _ = _data(prob)
     out = plan(prob, RunConfig(backend="reference", device="cpu")).run(g, 2)
     assert bool(out.isfinite().all())
