@@ -85,7 +85,18 @@ On one CUDA card, from the root of a checkout:
     version, the counted run within tolerance of the reference backend,
     times with their spread, the bound, CTAs and redundancy, the
     yardstick, and the rows of the same cell it is compared with;
-11. runs the batch phase (``BATCH_CASES``: diffusion2d and hotspot2d with
+11. runs the custom phase (``CUSTOM_CASES``): programs of stencils with
+    their own ``apply`` — Allen-Cahn at 16384², T=8, bsize 256 in f32 and
+    bf16; the two-field periodic Gray-Scott DAG at 2 × 16384², T=4; upwind
+    transport at 448³, 32×32, T=4 with a standard normal velocity — each
+    through a library generated for it (``kernels/codegen.py``; the four
+    built at once, one ``nvcc`` each, and timed): a super-step bit for
+    bit against the plain version, the counted run within
+    ``tolerance(dtype, iters, stages)`` of the reference backend, the warm
+    run (median of 5), a composed yardstick (cuDNN for the linear part,
+    torch elementwise ops for the rest, checked on a small grid first),
+    the bound and the build seconds;
+12. runs the batch phase (``BATCH_CASES``: diffusion2d and hotspot2d with
     one shared power grid at 16384^2, B = 4; hotspot3d at 448^3, B = 8,
     a power grid per member; advect_diffuse2d and the periodic wave2d,
     B = 2; diffusion2d in bf16 at V = 8, B = 4; iters = 2T+3): per case
@@ -95,7 +106,7 @@ On one CUDA card, from the root of a checkout:
     batched super-step bit for bit against the plain version, the batched
     cuDNN yardstick (N = B), the bound and the peak memory; then
     ``prewarm((1, 2, 4, 8))`` of a 4096^2 plan, first call and repeat;
-12. serves stencil requests (``serve_phase``): one ``StencilService`` with
+13. serves stencil requests (``serve_phase``): one ``StencilService`` with
     a diffusion2d and a hotspot2d bucket (a power grid per request) at
     4096^2, T=8, bsize 256, batch classes (1, 2, 4, 8); 64 requests each,
     iters 8 or 16, seeded open-loop Poisson arrivals at twice the rate of
@@ -107,7 +118,7 @@ On one CUDA card, from the root of a checkout:
     deliver) and a checkpointed request killed after its first chunk and
     resubmitted (resumed bit for bit); and the kernel at the serving shape
     (hotspot2d, B = 8) against its plain version and yardstick;
-13. serves full-width qwen3-1.7b (bf16, random weights from a seed)
+14. serves full-width qwen3-1.7b (bf16, random weights from a seed)
     through ``repro_torch.launch.serve.generate`` at batch 8 x prompt 4096
     + 16 new tokens, asserts 28 flash-kernel launches in prefill (one per
     layer) and none in decode, tokens in the vocab and finite logits; times
@@ -116,7 +127,7 @@ On one CUDA card, from the root of a checkout:
     (output pre-filled with NaN), the ``"flash"`` prefill against the
     ``"xla"`` one, and teacher-forced decode against prefill; times kernel,
     plain version and ``scaled_dot_product_attention`` as the yardstick;
-14. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
+15. trains full-width qwen3-1.7b (bf16, AdamW, ``remat_policy="full"``,
     ``attn_impl="flash"``) through ``make_train_step`` at batch 8 x 4096
     (``train_4k``'s sequence, its batch of 256 cut to 8): 4 steps with one
     microbatch and 2 with two, asserting finite losses, the first within
@@ -132,7 +143,7 @@ On one CUDA card, from the root of a checkout:
     the smoke width (bf16, head dim 128, so the kernels run) with an
     injected failure and a restart, asserting the uninterrupted run's
     losses bit for bit;
-15. prints one ``{"kernels": [...]}`` line and, last, the device line.
+16. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -1515,6 +1526,254 @@ def b1kj_phase(device, peaks, rows_so_far) -> list:
     return rows
 
 
+# --- stencils with a custom apply (B1i rest) --------------------------------
+
+def _lap2d(x):
+    return x((-1, 0)) + x((1, 0)) + x((0, -1)) + x((0, 1)) - 4.0 * x((0, 0))
+
+
+def _allen_cahn(get, c, aux=None):
+    """Allen-Cahn phase field: ``u + dt*(d*lap(u) + u - u^3)``."""
+    u = get((0, 0))
+    return u + c["dt"] * (c["d"] * _lap2d(get) + u - u * u * u)
+
+
+def _gray_scott_u(gets, c, aux=None):
+    """Gray-Scott's u: ``u + dt*(Du*lap(u) - u*v*v + F*(1 - u))``."""
+    u, v = gets[0]((0, 0)), gets[1]((0, 0))
+    return u + c["dt"] * (c["Du"] * _lap2d(gets[0]) - u * v * v
+                          + c["F"] * (1.0 - u))
+
+
+def _gray_scott_v(gets, c, aux=None):
+    """Gray-Scott's v: ``v + dt*(Dv*lap(v) + u*v*v - (F+k)*v)``."""
+    v, u = gets[0]((0, 0)), gets[1]((0, 0))
+    return v + c["dt"] * (c["Dv"] * _lap2d(gets[0]) + u * v * v
+                          - c["Fk"] * v)
+
+
+def _upwind(get, c, aux):
+    """First-order upwind transport along x at velocity ``aux``."""
+    import torch
+    u = get((0, 0, 0))
+    return u - c["dt"] * (torch.clamp(aux, min=0.0) * (u - get((0, 0, -1)))
+                          + torch.clamp(aux, max=0.0) * (get((0, 0, 1)) - u))
+
+
+#: (label, cell, dtype, rank, boundary, par_time, bsize, the f32 row it is
+#: compared with): the paper's grids, seed 0, iters = 2T+3
+CUSTOM_CASES = (
+    ("allen_cahn2d", "allen_cahn2d", "float32", 2, "clamp", 8, (256,),
+     "diffusion2d"),
+    ("allen_cahn2d bf16", "allen_cahn2d", "bfloat16", 2, "clamp", 8, (256,),
+     "diffusion2d"),
+    ("gray_scott2d", "gray_scott2d", "float32", 2, "periodic", 4, (256,),
+     "wave2d"),
+    ("upwind3d", "upwind3d", "float32", 3, "clamp", 4, (32, 32),
+     "hotspot3d"),
+)
+
+
+def custom_program(cell):
+    """The program of a :data:`CUSTOM_CASES` cell: Allen-Cahn (dt 0.1, d
+    0.2); Gray-Scott with Pearson's Du 0.16, Dv 0.08, F 0.035, F+k 0.095,
+    dt 1 (fields u, v; each stage taps its own field at radius 1 and reads
+    the other's centre); upwind transport (dt 0.3) at the aux velocity."""
+    from repro_torch.api import StencilProgram, StencilStage
+    from repro_torch.core.stencils import Stencil
+    if cell == "allen_cahn2d":
+        return [StencilStage(Stencil("allen_cahn2d", 2, 1, 12, 1, 1, False,
+                                     ("dt", "d"), _allen_cahn),
+                             coeffs={"dt": 0.1, "d": 0.2})]
+    if cell == "upwind3d":
+        return [StencilStage(Stencil("upwind3d", 3, 1, 9, 2, 1, True,
+                                     ("dt",), _upwind), coeffs={"dt": 0.3})]
+    gs_u = Stencil("gs_u", 2, 1, 15, 2, 1, False, ("Du", "F", "dt"),
+                   _gray_scott_u, arity=2)
+    gs_v = Stencil("gs_v", 2, 1, 15, 2, 1, False, ("Dv", "Fk", "dt"),
+                   _gray_scott_v, arity=2)
+    return StencilProgram(
+        (StencilStage(gs_u, name="un", inputs=("u", "v"),
+                      coeffs={"Du": 0.16, "F": 0.035, "dt": 1.0}),
+         StencilStage(gs_v, name="vn", inputs=("v", "u"),
+                      coeffs={"Dv": 0.08, "Fk": 0.095, "dt": 1.0})),
+        fields=("u", "v"), updates={"u": "un", "v": "vn"})
+
+
+def custom_inputs(problem, device, seed=0):
+    """Fields ``uniform(0, 1)`` (u and v's physical range) and a standard
+    normal aux (the velocity), made on ``device`` from ``seed``, in the
+    problem's dtype."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.empty(problem.state_shape, device=device).uniform_(
+        0.0, 1.0, generator=gen)
+    aux = None
+    if problem.needs_aux:
+        aux = torch.empty(problem.shape, device=device).normal_(
+            generator=gen).to(problem.torch_dtype)
+    return g.to(problem.torch_dtype), aux
+
+
+def custom_yardstick(cell, problem, g, aux, T):
+    """``T`` iterations in composed PyTorch calls, in the state's dtype:
+    one cuDNN convolution for each linear part (the Laplacians; upwind's
+    backward and forward differences as two output channels) over the
+    input padded under the boundary, then the nonlinear update in torch
+    elementwise ops.  No single call computes these."""
+    import torch
+    import torch.nn.functional as F
+    coeffs = problem.resolve_coeffs(device=g.device)
+    dev, dt = g.device, g.dtype
+    bc = problem.structural_bc
+    if cell == "upwind3d":
+        w = torch.zeros((2, 1, 1, 1, 3), device=dev, dtype=dt)
+        w[0, 0, 0, 0, 0], w[0, 0, 0, 0, 1] = -1.0, 1.0    # u - u_w
+        w[1, 0, 0, 0, 1], w[1, 0, 0, 0, 2] = -1.0, 1.0    # u_e - u
+        c = coeffs[0]
+        pos, neg = torch.clamp(aux, min=0.0), torch.clamp(aux, max=0.0)
+
+        def run():
+            u = g
+            for _ in range(T):
+                d = F.conv3d(pad_bc(u[None, None], 1, bc), w)[0]
+                d = d[:, 1:-1, 1:-1]
+                u = u - c["dt"] * (pos * d[0] + neg * d[1])
+            return u
+        return run
+    lap = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
+                       device=dev, dtype=dt)
+    if cell == "allen_cahn2d":
+        c = coeffs[0]
+
+        def run():
+            u = g
+            for _ in range(T):
+                L = F.conv2d(pad_bc(u[None, None], 1, bc),
+                             lap[None, None])[0, 0]
+                u = u + c["dt"] * (c["d"] * L + u - u * u * u)
+            return u
+        return run
+    cu, cv = coeffs
+
+    def run():
+        u, v = g[0], g[1]
+        for _ in range(T):
+            L = F.conv2d(pad_bc(torch.stack([u, v])[None], 1, bc),
+                         lap.expand(2, 1, 3, 3), groups=2)[0]
+            u, v = (u + cu["dt"] * (cu["Du"] * L[0] - u * v * v
+                                    + cu["F"] * (1.0 - u)),
+                    v + cv["dt"] * (cv["Dv"] * L[1] + u * v * v
+                                    - cv["Fk"] * v))
+        return torch.stack([u, v])
+    return run
+
+
+def check_custom_yardstick(cell, problem, T, device) -> float:
+    """The composed yardstick against the port's reference backend on a
+    small grid, within ``tolerance(dtype, T, stages)``."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    dims = (40, 56) if problem.ndim == 2 else (12, 20, 28)
+    small = StencilProblem(problem.program, dims,
+                           boundary=problem.structural_bc,
+                           dtype=problem.dtype)
+    g, aux = custom_inputs(small, device, seed=1)
+    got = custom_yardstick(cell, small, g, aux, T)()
+    want = plan(small, RunConfig(backend="reference", device=device)).run(
+        g, T, aux=aux)
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        small.dtype, T, stages=small.n_stages))
+    return (got.float() - want.float()).abs().max().item()
+
+
+def custom_phase(device, peaks, rows_so_far) -> list:
+    """Every cell of :data:`CUSTOM_CASES` through its generated library:
+    the four libraries built at once (one nvcc each, timed), then per cell
+    a super-step bit for bit against the plain version (steps = T and
+    T - 1; CUDA events, median of 5), the counted run within
+    ``tolerance(dtype, iters, stages)`` of the reference backend, the warm
+    run (median of 5), the composed yardstick and the bound, beside the
+    row it is compared with."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    from repro_torch.kernels import builder
+    t0 = time.perf_counter()
+    ms_of = {k[0]: v for k, v in f32_times(rows_so_far).items()
+             if k[1] == 1}
+    cases = []
+    for label, cell, dtype, nd, bc, T, bsize, compare in CUSTOM_CASES:
+        problem = StencilProblem(custom_program(cell), FULL_DIMS[nd],
+                                 boundary=bc, dtype=dtype)
+        geom = plan(problem, RunConfig(backend="hopper", par_time=T,
+                                       bsize=bsize, device=device)).geometry
+        cases.append((label, cell, problem, geom, T, bsize, compare))
+
+    def build(case):
+        start = time.perf_counter()
+        lib = builder.custom_library(case[2].exec_dag, case[3],
+                                     case[2].torch_dtype)
+        return lib, time.perf_counter() - start
+    with ThreadPoolExecutor(len(cases)) as pool:     # one nvcc each
+        built = list(pool.map(build, cases))
+    print(f"custom libraries: {time.perf_counter() - t0:.3f} s for "
+          f"{len(cases)} in parallel", flush=True)
+    rows = []
+    for (label, cell, problem, geom, T, bsize, compare), (lib, secs) in zip(
+            cases, built):
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({label}):", line.strip())
+        g, aux = custom_inputs(problem, device)
+        library = (time_ms(custom_yardstick(cell, problem, g, aux, T),
+                           reps=3),
+                   check_custom_yardstick(cell, problem, T, device),
+                   f"composed: cuDNN conv for the linear part, torch "
+                   f"elementwise ops, {problem.dtype}")
+        row, out = storage_row(label, problem, g, aux, T, bsize, 1, device,
+                               peaks, library)
+        iters = row["iters"]
+        ref = plan(problem, RunConfig(backend="reference",
+                                      device=device)).run(g, iters, aux=aux)
+        torch.testing.assert_close(out, ref, **precision.tolerance(
+            problem.dtype, iters, stages=problem.n_stages))
+        row["oracle_max_abs_err"] = (out.float() - ref.float()).abs().max(
+            ).item()
+        if (tuple(out.shape) != problem.state_shape
+                or not bool(out.isfinite().all())):
+            raise AssertionError(f"{label}: result not finite of shape "
+                                 f"{problem.state_shape}")
+        del out, ref
+        p = plan(problem, RunConfig(backend="hopper", par_time=T,
+                                    bsize=bsize, device=device))
+        run_ms = time_ms(lambda: p.run(g, iters, aux=aux), reps=5)
+        cells = math.prod(problem.shape)
+        row.update({
+            "run_ms": run_ms,
+            "run_gcells_per_s": cells * iters / run_ms / 1e6,
+            "build_s": secs, "library_file": lib.name,
+            "generated_by": "src/repro_torch/kernels/codegen.py",
+            "form": ("DAG body" if problem.is_dag else "chain body"),
+            "compared_with": {compare: ms_of.get(compare)}})
+        print(f"{label} {tuple(problem.shape)} {problem.structural_bc.token()}"
+              f" T={T} bsize={bsize} ({row['form']}, {geom.num_blocks} CTAs;"
+              f" library built in {secs:.3f} s): run of {iters} iters "
+              f"{run_ms} ({row['run_gcells_per_s']:.3f} GCell/s), "
+              f"{row['launches']} launches, oracle max_abs_err "
+              f"{row['oracle_max_abs_err']:.3g}; superstep: kernel "
+              f"{row['ms']} (bit for bit with plain), plain "
+              f"{row['plain_ms']}, composed library {row['library_ms']}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"compared with {row['compared_with']}", flush=True)
+        rows.append(row)
+        del g, aux
+        torch.cuda.empty_cache()
+    print(f"custom phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
 # --- batches along the kernel grid's z axis (B1f) ---------------------------
 
 #: (label, cell, dtype, B, par_vec, aux mode): the main path without aux
@@ -2534,6 +2793,8 @@ def main() -> int:
     kernels.extend(bf16_phase(device, peaks, kernels))
     kernels.extend(bc_phase(device, peaks, kernels))
     kernels.extend(b1kj_phase(device, peaks, kernels))
+    torch.cuda.empty_cache()
+    kernels.extend(custom_phase(device, peaks, kernels))
     torch.cuda.empty_cache()
     kernels.extend(batch_phase(device, peaks))
     kernels.append(serve_kernel_row(device, peaks, serve_phase(device,

@@ -12,7 +12,9 @@ and threads the reference's fault points through both entry points
                  stencils, stage chains and stage DAGs
   ``hopper``     the streaming kernel path (``kernels/ops.py`` around
                  ``kernels/csrc/stencil_stream.cu``; plain version on CPU):
-                 bare stencils, stage chains and stage DAGs, fused
+                 bare stencils, stage chains and stage DAGs, fused, with
+                 custom stencils through device functions generated from
+                 their ``apply`` (``kernels/codegen.py``)
 
 ``execute`` takes one coefficient dict for a single-stage problem and a
 tuple of per-stage dicts for a program.  ``hopper``'s ``execute_batch``
@@ -173,12 +175,12 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
         raise ValueError(f"backend 'hopper' stores float32 or bfloat16, as "
                          f"the reference's Pallas kernels do; got "
                          f"{problem.dtype}")
-    unported = [s.name for s in problem.stages if stage_op(s.stencil) is None]
-    if unported:
-        raise ValueError(f"backend 'hopper' runs the Table-2 stencils, "
-                         f"make_star/make_box tap sums and make_combine "
-                         f"fan-in; stages {unported} are none of these "
-                         f"(ROADMAP B1i)")
+    for s in problem.stages:   # traces a custom apply, on the CPU
+        try:
+            stage_op(s.stencil)
+        except ValueError as e:
+            raise ValueError(f"backend 'hopper': stage {s.name!r}: {e}"
+                             ) from None
     limit = kernel_limits(geom, problem.exec_dag, problem.cell_bytes)
     if limit:
         raise ValueError(f"backend 'hopper': {limit}")

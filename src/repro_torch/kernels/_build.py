@@ -4,9 +4,15 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` at first use into ``build/repro_torch/`` at the root of the
 checkout, under a name that carries a hash of the source and the flags, and
 loaded with ``ctypes``; ``stencil_stream.cu`` gives one library per storage
-type for single grids and one for batches (:data:`LIBRARIES`).  Only the sources in the repository are used.
+type for single grids and one for batches (:data:`LIBRARIES`), and one
+library per program with custom stencils (:func:`custom_stencil_stream`:
+the source, with the generated header of ``kernels/codegen.py`` and only
+the kernel the program runs), named by a hash of the generated text, the
+source and the flags.  Only the sources in the repository are used.
 Nothing here runs at import time: this module imports on machines without
-``nvcc`` or a card.
+``nvcc`` or a card.  A build holds a lock per library (the stencil service
+launches from worker threads) and renames its output into place
+atomically; a failed build raises.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -213,50 +221,109 @@ def _nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
+def _digest(*parts: bytes) -> str:
+    return hashlib.sha256(b"".join(parts)).hexdigest()[:16]
+
+
 def library_path(stem: str) -> Path:
     """Where the library ``stem`` of :data:`LIBRARIES` lives: its name
     carries a hash of the source text and the compiler flags."""
     source, flags = LIBRARIES[stem]
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS + flags).encode()
-                            ).hexdigest()
-    return BUILD_DIR / f"lib{stem}_{digest[:16]}.so"
+    digest = _digest((CSRC / source).read_bytes(),
+                     " ".join(NVCC_FLAGS + flags).encode())
+    return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 
-def build(stem: str) -> Path:
-    """Compile the library ``stem`` of :data:`LIBRARIES` unless it exists.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept in a ``.log`` beside the library."""
-    lib = library_path(stem)
-    if lib.exists():
-        return lib
-    source, flags = LIBRARIES[stem]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / source)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)      # atomic: concurrent builders never race
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+_LOCKS: dict = {}
+_LOCKS_LOCK = threading.Lock()
+
+
+def _lock(lib: Path) -> threading.Lock:
+    with _LOCKS_LOCK:
+        return _LOCKS.setdefault(lib, threading.Lock())
+
+
+def _write(path: Path, text: str) -> None:
+    """Write ``path`` atomically."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent)
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def _compile(lib: Path, source: str, flags: tuple,
+             header: Optional[str] = None) -> Path:
+    """Compile ``csrc/<source>`` with ``flags`` into ``lib`` unless it
+    exists, under ``lib``'s lock; ``header``, the generated
+    ``stencil_custom.cuh``, goes into a directory beside ``lib`` on the
+    include path.  The compiler's report (``-Xptxas -v``: registers, shared
+    memory, spills) is kept in a ``.log`` beside the library."""
+    with _lock(lib):
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if header is not None:
+            inc = lib.with_suffix("")
+            inc.mkdir(exist_ok=True)
+            _write(inc / "stencil_custom.cuh", header)
+            flags = flags + ("-I", str(inc))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
+                 str(CSRC / source)],
+                capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} "
+                                   f"(exit {proc.returncode}):\n"
+                                   f"{proc.stderr}")
+            lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib)  # atomic: other processes never race
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return lib
 
 
-@functools.cache
-def stencil_stream(bf16: bool = False, batch: bool = False) -> ctypes.CDLL:
-    """The loaded ``stencil_stream.cu`` library of float32 or (``bf16``)
-    bfloat16 storage, for single grids or (``batch``) batches of two or
-    more, built at first use."""
-    stem = ("stencil_bf16" if bf16 else "stencil_f32") + (
-        "_batch" if batch else "")
-    dll = ctypes.CDLL(str(build(stem)))
+def build(stem: str) -> Path:
+    """Compile the library ``stem`` of :data:`LIBRARIES` unless it
+    exists."""
+    source, flags = LIBRARIES[stem]
+    return _compile(library_path(stem), source, flags)
+
+
+def custom_flags(bf16: bool, batch: bool, body: int, form: int, bcs: bool,
+                 big: bool) -> tuple:
+    """The ``nvcc`` defines of a custom library: its storage type and batch
+    offsets, and the one kernel it instantiates (``stencil_stream.cu``'s
+    body id, ``Form``, boundary work and large-table route)."""
+    return (f"-DSTENCIL_BF16={int(bf16)}", f"-DSTENCIL_BATCH={int(batch)}",
+            "-DSTENCIL_CUSTOM=1", f"-DCUSTOM_BODY={body}",
+            f"-DCUSTOM_FORM={form}", f"-DCUSTOM_BC={int(bcs)}",
+            f"-DCUSTOM_BIG={int(big)}")
+
+
+def custom_library_path(header: str, flags: tuple) -> Path:
+    """Where the library of a program with custom stencils lives: named by
+    a hash of the generated ``header``, ``stencil_stream.cu`` and the
+    flags (never by a stencil's name: two stencils may share one)."""
+    digest = _digest(header.encode(),
+                     (CSRC / "stencil_stream.cu").read_bytes(),
+                     " ".join(NVCC_FLAGS + flags).encode())
+    return BUILD_DIR / f"libstencil_custom_{digest}.so"
+
+
+def build_custom(header: str, flags: tuple) -> Path:
+    """Compile ``stencil_stream.cu`` with ``flags`` (:func:`custom_flags`)
+    and the generated ``header`` unless the library exists."""
+    return _compile(custom_library_path(header, flags), "stencil_stream.cu",
+                    flags, header)
+
+
+def _bind_stencil(dll: ctypes.CDLL) -> ctypes.CDLL:
+    """``dll`` (a ``stencil_stream.cu`` library) with the signatures of its
+    launchers."""
     dll.stencil_stream_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, Params,
@@ -273,6 +340,23 @@ def stencil_stream(bf16: bool = False, batch: bool = False) -> ctypes.CDLL:
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]
     dll.stencil_stream_error_string.restype = ctypes.c_char_p
     return dll
+
+
+@functools.cache
+def stencil_stream(bf16: bool = False, batch: bool = False) -> ctypes.CDLL:
+    """The loaded ``stencil_stream.cu`` library of float32 or (``bf16``)
+    bfloat16 storage, for single grids or (``batch``) batches of two or
+    more, built at first use."""
+    stem = ("stencil_bf16" if bf16 else "stencil_f32") + (
+        "_batch" if batch else "")
+    return _bind_stencil(ctypes.CDLL(str(build(stem))))
+
+
+@functools.cache
+def custom_stencil_stream(header: str, flags: tuple) -> ctypes.CDLL:
+    """The loaded library of a program with custom stencils
+    (:func:`build_custom`), built at first use."""
+    return _bind_stencil(ctypes.CDLL(str(build_custom(header, flags))))
 
 
 @functools.cache

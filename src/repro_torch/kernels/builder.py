@@ -20,11 +20,16 @@ they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
 :func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
 a CUDA tensor goes to the kernel or raises.
 
-The kernel computes a stage with one of three ops: the device function of
+The kernel computes a stage with one of four ops: the device function of
 a Table-2 stencil (:data:`KERNEL_IDS`), a tap table for a stencil whose
 ``apply`` is an ordered tap sum (``make_star``/``make_box``,
-:func:`linear_taps`), or the weighted sum of a ``make_combine``; a DAG's
-state nodes select.  This slice covers such programs on 1D, 2D and 3D
+:func:`linear_taps`), the weighted sum of a ``make_combine``, or, for any
+other stencil, a device function that ``kernels/codegen.py`` writes from
+its own ``apply`` (:data:`CUSTOM_OP`); a DAG's state nodes select.  A
+program with custom stencils runs a library of its own, built from the
+generated header at its first launch (``_build.custom_stencil_stream``).
+An ``apply`` that cannot be lowered is refused as ROADMAP B1i-ops.  This
+slice covers such programs on 1D, 2D and 3D
 grids, the four boundary kinds per axis and per stage (a DAG whose stages
 differ runs the kernel's mixed-boundary body, whose consumers re-impose at
 read time), block planes of any size (over 1024 cells a thread takes
@@ -53,7 +58,7 @@ from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        BlockGeometry, smem_bytes,
                                        stream_extension)
 from repro_torch.core.stencils import STENCILS, Stencil
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, codegen
 from repro_torch.kernels._build import (BYTE_MAX, MAX_BATCH, MAX_COEFFS,
                                         MAX_ENTRIES, MAX_FIELDS, MAX_INPUTS,
                                         MAX_STAGES, MAX_TAPS, SHORT_MAX,
@@ -70,8 +75,8 @@ _LAUNCHES_LOCK = threading.Lock()
 #: Table-2 stencil name -> its op id in ``stencil_stream.cu``
 KERNEL_IDS = {"diffusion2d": 0, "hotspot2d": 1, "diffusion3d": 2,
               "hotspot3d": 3}
-#: op ids of the tap-table path and of the combine
-TAP_OP, COMBINE_OP = 4, 5
+#: op ids of the tap-table path, the combine and a custom ``apply``
+TAP_OP, COMBINE_OP, CUSTOM_OP = 4, 5, 6
 #: ``stencil_stream.cu``'s table-driven bodies: any chain, a DAG whose
 #: stages share one boundary, and any DAG (the main-path body runs a
 #: Table-2 id)
@@ -93,10 +98,11 @@ def linear_taps(stencil: Stencil):
     return tuple(enumerate(stencil.offsets))
 
 
-def stage_op(stencil: Stencil) -> Optional[int]:
-    """The kernel op that computes ``stencil`` (a Table-2 id,
-    :data:`TAP_OP` or :data:`COMBINE_OP`), or ``None`` if the kernel has
-    none."""
+def stage_op(stencil: Stencil) -> int:
+    """The kernel op that computes ``stencil``: a Table-2 id,
+    :data:`TAP_OP`, :data:`COMBINE_OP` or, for any other stencil whose
+    ``apply`` traces (``codegen.trace``), :data:`CUSTOM_OP`.  Raises
+    ``ValueError`` naming ROADMAP B1i-ops for one that does not."""
     if stencil.name in KERNEL_IDS and STENCILS[stencil.name] == stencil:
         return KERNEL_IDS[stencil.name]
     if linear_taps(stencil) is not None:
@@ -104,7 +110,16 @@ def stage_op(stencil: Stencil) -> Optional[int]:
     if (stencil.combine and not stencil.has_aux
             and len(stencil.coeff_names) == stencil.arity):
         return COMBINE_OP
-    return None
+    codegen.trace(stencil)
+    return CUSTOM_OP
+
+
+def custom_stencils(stages) -> tuple:
+    """The distinct stencils of ``((stencil, bc), ...)`` that run as
+    :data:`CUSTOM_OP`, in stage order: the program's generated header
+    holds the device function of the ``k``-th as its function ``k``."""
+    return tuple(dict.fromkeys(st for st, _ in stages
+                               if stage_op(st) == CUSTOM_OP))
 
 
 def _as_chain(program):
@@ -263,11 +278,7 @@ def kernel_limits(geom: BlockGeometry, program,
 def _check_stages(stages, geom: BlockGeometry, rad: int) -> None:
     """What the kernel needs of ``((stencil, bc), ...)`` at ``geom``."""
     for st, bc in stages:
-        if stage_op(st) is None:
-            raise ValueError(
-                f"the streaming kernel computes {list(KERNEL_IDS)}, "
-                f"make_star/make_box tap sums and make_combine fan-in; got "
-                f"{st.name} (ROADMAP B1i)")
+        stage_op(st)
         if st.ndim != geom.ndim:
             raise ValueError(f"{st.name} is {st.ndim}D, geometry "
                              f"{geom.ndim}D")
@@ -368,9 +379,9 @@ def superstep_chain(stages, geom: BlockGeometry, gp: torch.Tensor,
         raise ValueError("superstep_chain needs at least one stage")
     many = [st.name for st, _ in stages if st.arity != 1]
     if many:
-        raise ValueError(f"the streaming kernel runs make_combine fan-in "
-                         f"in a DAG (superstep_dag), not in a chain; got "
-                         f"{many} (ROADMAP B1i)")
+        raise ValueError(f"a stencil of several inputs runs in a DAG "
+                         f"(superstep_dag), not in a chain, whose stages "
+                         f"read one; got {many}")
     return superstep_dag(chain_dag(stages), geom, gp, coeffs_packed, steps,
                          aux_p, out)
 
@@ -408,7 +419,7 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
     prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device)
-    _launch(prog, geom, gp, aux_p, out, int(steps),
+    _launch(dag, prog, geom, gp, aux_p, out, int(steps),
             smem_bytes(geom, dag, gp.element_size()) + prog.table_smem,
             batch)
     return out
@@ -447,15 +458,19 @@ def _fill_entries(k, rows, big: bool) -> None:
 
 def _stage_tables(k, stages, ndim: int, coeffs_packed) -> None:
     """Fill the stage, tap and coefficient tables of ``k`` from ``((stencil,
-    bc), ...)``: per stage its op, coefficient offset, tap range, boundary
-    kinds (stream, blocked y, blocked x) and fill; the taps of every tap
-    table; the coefficients."""
+    bc), ...)``: per stage its op, coefficient offset, tap range (a custom
+    stage's function index and 0), boundary kinds (stream, blocked y,
+    blocked x) and fill; the taps of every tap table; the coefficients."""
     taps, lo = [], 0
+    customs = custom_stencils(stages)
     for s, (st, bc) in enumerate(stages):
         pairs = linear_taps(st) or ()
         kinds = boundary.kinds_of(bc, ndim)
         blocked = ("periodic",) * (3 - ndim) + tuple(kinds[1:])
-        k.s[s] = _build.Stage(stage_op(st), lo, len(taps), len(pairs),
+        op = stage_op(st)
+        # a custom stage's tap range holds its function index
+        k.s[s] = _build.Stage(op, lo, customs.index(st) if op == CUSTOM_OP
+                              else len(taps), len(pairs),
                               *(BC_IDS[x] for x in (kinds[0],) + blocked), 0,
                               boundary.fill_of(bc))
         lo += len(st.coeff_names)
@@ -558,6 +573,58 @@ class _LaunchPlan(NamedTuple):
     big: Optional[tuple]
 
 
+def _body(dag: DagSpec, ndim: int) -> int:
+    """The kernel body that runs ``dag``: a path graph's chain (or
+    main-path) body, else the DAG body, or the mixed-boundary one when its
+    stages differ in boundary."""
+    stages = _as_chain(dag)
+    if stages is not None:
+        return kernel_body(stages)
+    return MIX_BODY if mixes_boundaries(dag, ndim) else DAG_BODY
+
+
+def _has_bcs(dag: DagSpec, ndim: int) -> bool:
+    """Whether some stage has a reflect or constant axis (the kernels that
+    do the boundary work)."""
+    return any(k in ("reflect", "constant") for _, bc, _ in dag.stages
+               for k in boundary.kinds_of(bc, ndim))
+
+
+def _form(geom: BlockGeometry, tab: Tables) -> int:
+    """``stencil_stream.cu``'s ``Form`` of a table-driven body at ``geom``:
+    its V = 1, one-row, several-row or wide form (:func:`cta_shape`)."""
+    _, rows, _ = cta_shape(geom, tab)
+    if tab.big or math.prod(geom.bsize) > MAX_THREADS:
+        return 3
+    return 0 if geom.par_vec == 1 else 1 if rows == 1 else 2
+
+
+@functools.lru_cache(maxsize=64)
+def _custom_build(dag: DagSpec, geom: BlockGeometry, bf16: bool,
+                  batch: bool) -> Optional[tuple]:
+    """``(generated header, nvcc flags)`` of the library that launches
+    ``dag`` at ``geom``: its custom stencils' device functions and the one
+    kernel it takes; None when no stage is custom (the shared libraries
+    run it)."""
+    customs = custom_stencils([(st, bc) for st, bc, _ in dag.stages])
+    if not customs:
+        return None
+    tab = tables_of(geom, dag)
+    return (codegen.program_header([codegen.trace(st) for st in customs]),
+            _build.custom_flags(bf16, batch, _body(dag, geom.ndim),
+                                _form(geom, tab), _has_bcs(dag, geom.ndim),
+                                tab.big))
+
+
+def custom_library(dag: DagSpec, geom: BlockGeometry,
+                   dtype: torch.dtype = torch.float32, batch: bool = False):
+    """The path of the generated library that launches ``dag`` at ``geom``
+    in ``dtype`` (``batch``: for batches of two or more), built unless it
+    exists, as its first launch would; None when no stage is custom."""
+    key = _custom_build(dag, geom, dtype == torch.bfloat16, batch)
+    return None if key is None else _build.build_custom(*key)
+
+
 @functools.lru_cache(maxsize=64)
 def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
               device: torch.device) -> _LaunchPlan:
@@ -566,30 +633,30 @@ def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
     super-steps: the large-table route copies its table to ``device``
     here, not at every launch."""
     coeffs_packed = torch.tensor(coeffs, dtype=torch.float32)
-    pairs = tuple((st, bc) for st, bc, _ in dag.stages)
     stages = _as_chain(dag)
     tab = tables_of(geom, dag)
     big = tab is not None and tab.big
     if stages is not None:
         table, out_lag = _program_table(stages, geom, coeffs_packed, big)
-        body, n_entries = kernel_body(stages), len(stages) * geom.par_time
+        n_entries = len(stages) * geom.par_time
     else:
         table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed, big)
-        body = MIX_BODY if mixes_boundaries(dag, geom.ndim) else DAG_BODY
     if big:
         table = torch.frombuffer(bytearray(table),
                                  dtype=torch.uint8).to(device)
-    bcs = any(k in ("reflect", "constant")
-              for _, bc in pairs for k in boundary.kinds_of(bc, geom.ndim))
-    return _LaunchPlan(body, table, out_lag, n_entries, dag.n_fields,
-                       pairs[0][1], bcs, tab.smem if big else 0,
+    return _LaunchPlan(_body(dag, geom.ndim), table, out_lag, n_entries,
+                       dag.n_fields, dag.stages[0][1],
+                       _has_bcs(dag, geom.ndim),
+                       tab.smem if big else 0,
                        (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
                        if big else None)
 
 
-def _launch(prog: _LaunchPlan, geom: BlockGeometry, gp, aux_p, out,
-            steps: int, smem: int, batch: Optional[int]) -> None:
-    """Launch one super-step of ``prog`` on every member of ``gp``;
+def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
+            aux_p, out, steps: int, smem: int, batch: Optional[int]) -> None:
+    """Launch one super-step of ``prog`` (``dag``'s) on every member of
+    ``gp``, from the shared library of its storage type or, for a program
+    with custom stencils, its own (built at the first launch);
     ``batch``: the members along the grid's z axis (None: one).  Member
     ``b`` lies ``b * member_stride`` cells into ``gp`` and ``out``, its
     aux ``b * aux_stride`` cells into ``aux_p`` (0 for a shared aux
@@ -619,8 +686,10 @@ def _launch(prog: _LaunchPlan, geom: BlockGeometry, gp, aux_p, out,
     aux_stride = (math.prod(aux_p.shape[1:])
                   if batch and aux_p is not None and aux_p.ndim > geom.ndim
                   else 0)
-    dll = _build.stencil_stream(gp.dtype == torch.bfloat16,
-                                bool(batch and batch > 1))
+    bf16, batched = gp.dtype == torch.bfloat16, bool(batch and batch > 1)
+    key = _custom_build(dag, geom, bf16, batched)
+    dll = (_build.stencil_stream(bf16, batched) if key is None
+           else _build.custom_stencil_stream(*key))
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream(gp.device)
         aux_ptr = None if aux_p is None else aux_p.data_ptr()

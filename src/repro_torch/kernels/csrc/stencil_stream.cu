@@ -11,10 +11,12 @@
 // float32 arithmetic, and slabs of V = `par_vec` rows (planes in 3D) per
 // tick.  A stage is one of the four Table-2 stencils (radius 1), a tap
 // table for a stencil whose update is an ordered sum of coefficient x
-// neighbour (`make_star`, `make_box`; any radius), or a combine `w0*x0 +
-// w1*x1 + ...` of its inputs' centres.  It computes what that kernel
-// computes: the same padded input and output layout and, in the compute
-// region it writes, the same values.
+// neighbour (`make_star`, `make_box`; any radius), a combine `w0*x0 +
+// w1*x1 + ...` of its inputs' centres, or a stencil with a custom `apply`
+// (any radius and arity), whose device function is generated per program
+// (see Custom stencils below).  It computes what that kernel computes: the
+// same padded input and output layout and, in the compute region it
+// writes, the same values.
 //
 // Design.  One CTA per overlapped block (grid = bnum; one CTA for a 1D
 // grid, the TPU's grid (1,)), and one such grid per member of a batch
@@ -170,6 +172,25 @@
 // the arithmetic is a few FLOPs per byte, far below the card's balance
 // point.
 //
+// Custom stencils.  A stencil with a custom `apply` runs as op kCustomOp
+// in a library of its own program: kernels/codegen.py traces `apply` and
+// writes `custom::custom_apply(fn, g, c, aux)` into the header
+// stencil_custom.cuh, and kernels/_build.py compiles this file with
+// -DSTENCIL_CUSTOM=1 and that header on the include path, instantiating
+// only the kernel the program runs (its body CUSTOM_BODY, form
+// CUSTOM_FORM, CUSTOM_BC and CUSTOM_BIG, the storage type and the batch
+// offsets): one kernel, not 57.  Without STENCIL_CUSTOM none of its code is
+// compiled, so the other libraries are the code they were.  The op reads
+// its taps one by one through a getter g(z, ds, dy, dx) over input z's ring
+// and lag, as the mixed-boundary body reads a Table-2 stage
+// (`table2_get`): in the chain and single-boundary DAG bodies at the
+// position the value is computed at, clipped to the block, stream rows
+// under the stage's kind (`ring_tap`); in the mixed-boundary body
+// re-imposed under the consumer's kinds, on every CTA (on interior CTAs
+// this maps nothing, and it ran 4% faster there than the push-time code).
+// Its aux value is read at `aux + at`, as Hotspot's.
+// A stage's `tap_lo` holds its function index.
+//
 // Left on the table by this first design: no cp.async or TMA (a tick waits
 // on register-prefetched loads, and only some are prefetched: a thread's
 // first 4 rows of a slab in the main-path body, its first row in the chain
@@ -185,6 +206,15 @@
 #include <stddef.h>
 
 #include <type_traits>
+
+// The generated device functions of one program's custom stencils
+// (kernels/codegen.py: program_header).
+#ifndef STENCIL_CUSTOM
+#define STENCIL_CUSTOM 0
+#endif
+#if STENCIL_CUSTOM
+#include "stencil_custom.cuh"
+#endif
 
 // Capacities of the `Program` table passed as a kernel parameter
 // (kernels/_build.py: MAX_*); a program past any of them takes the
@@ -241,7 +271,8 @@ struct Entry {
 static_assert(sizeof(Entry) == 32, "Entry layout changed");
 
 // `op`: 0 diffusion2d, 1 hotspot2d, 2 diffusion3d, 3 hotspot3d, 4 tap
-// table, 5 combine (coefficient z weighs input z's centre).  `ks`, `ky`,
+// table, 5 combine (coefficient z weighs input z's centre), 6 custom
+// (`tap_lo` is its function index in `custom_apply`).  `ks`, `ky`,
 // `kx`: the stage's boundary kind along the stream axis and the blocked y
 // and x axes (a `Kind`; kPeriodic, which re-imposes nothing, along an axis
 // the grid does not have), `fill` its constant fill.
@@ -303,7 +334,8 @@ namespace {
 
 constexpr int kTapOp = 4;
 constexpr int kCombineOp = 5;
-constexpr int kSelectOp = 6;  // a state node (no stage)
+constexpr int kCustomOp = 6;
+constexpr int kSelectOp = 7;  // a state node (no stage)
 constexpr int kChainBody = -1;
 constexpr int kDagBody = -2;
 constexpr int kMixBody = -3;  // a DAG whose stages differ in boundary
@@ -571,6 +603,34 @@ __device__ __forceinline__ float tap_sum(const Tp* taps, const float* c,
   }
   return acc;
 }
+
+#if STENCIL_CUSTOM
+// The cell offset of stream row x + d/plane in a ring of WP cells from
+// `base`, `at` the offset of row x's plane: one wrap, as `slot_of`.
+__device__ __forceinline__ int ring_plane(int at, int base, int WP, int d) {
+  const int s = at - base + d;
+  return base + (s < 0 ? s + WP : (s >= WP ? s - WP : s));
+}
+
+// A custom op's tap (ds, dy, dx) of stream row x at block cell (y, xx), in
+// the ring of WP cells from `base` whose plane of row x is at `at`: as a
+// tap of `tap_sum`, the blocked position clipped to the block and a stream
+// row past the rows under kind `ks` (constant: `fill`).
+template <bool kBC, class T>
+__device__ __forceinline__ float ring_tap(const T* win, int base, int WP,
+                                          int at, int plane, int x, int y,
+                                          int xx, int ds, int dy, int dx,
+                                          const Params& p, int ks,
+                                          float fill) {
+  int r = x + ds;
+  const bool oob = kBC && (r < 0 || r >= p.dom);
+  if (oob && ks == kConstant) return fill;
+  r = oob ? stream_row(r, p.dom, ks) : min(max(r, 0), p.dom - 1);
+  const int ty = min(max(y + dy, 0), p.by - 1);
+  const int tx = min(max(xx + dx, 0), p.bx - 1);
+  return wide(win[ring_plane(at, base, WP, (r - x) * plane) + ty * p.bx + tx]);
+}
+#endif
 
 // One entry of a DAG, flattened for shared memory: its ring layout (in
 // rows), op, inputs, coefficient/tap ranges, and a Table-2 stage's
@@ -1461,6 +1521,21 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                                              en.tap_n, en.coeff_lo, ring, W,
                                              m, plane, x, qy, qx, p, en.ks,
                                              en.fill_s));
+#if STENCIL_CUSTOM
+              } else if (en.op == kCustomOp) {
+                const int base = en.in_base * plane;
+                val = narrow<T>(custom::custom_apply(
+                    en.tap_lo,
+                    [&](int, int ds, int dy, int dx) {
+                      return ring_tap<kBC>(win, base, W * plane,
+                                           base + m * plane, plane, x, qy,
+                                           qx, ds, dy, dx, p, en.ks,
+                                           en.fill_s);
+                    },
+                    sm.c + en.coeff_lo, [&] {
+                      return wide(__ldg(aux + (size_t)x * pstride + q.g));
+                    }));
+#endif
               } else {
                 float c[8];
                 for (int z = 0; z < 8; ++z) c[z] = en.c[z];
@@ -1659,6 +1734,22 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                                                en.tap_n, en.coeff_lo, in0, W,
                                                m, plane, x, qy, qx, p, ks,
                                                fill));
+#if STENCIL_CUSTOM
+                } else if (en.op == kCustomOp) {
+                  // input z's tap: its ring and its offset at this tick
+                  val = narrow<T>(custom::custom_apply(
+                      en.tap_lo,
+                      [&](int z, int ds, int dy, int dx) {
+                        const Input in = ring_of(en, z);
+                        return ring_tap<kBC>(
+                            win, in.base * plane, in.slots * plane,
+                            mid(r, en, z) + row * plane, plane, x, qy, qx,
+                            ds, dy, dx, p, ks, fill);
+                      },
+                      sm.c + en.coeff_lo, [&] {
+                        return wide(__ldg(aux + (size_t)x * pstride + q.g));
+                      }));
+#endif
                 } else {
                   float c[8];
                   for (int z = 0; z < 8; ++z) c[z] = en.c[z];
@@ -1683,7 +1774,15 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
               push_time(ring ? cl.edge : cl.own, ring ? cl.ey : cl.ty,
                         ring ? cl.ex : cl.tx, k.s[0].ks,
                         wide(narrow<T>(k.s[0].fill)), ring && cl.fill_edge);
-            } else if (!edge_block) {
+            } else if (!edge_block
+#if STENCIL_CUSTOM
+                       // a custom op takes the getter below on every CTA:
+                       // 145.1 against 150.8 ms through push_time on the
+                       // interior ones (an Allen-Cahn, star and combine DAG
+                       // at 16384^2, H100 80GB HBM3, 700 W)
+                       && en.op != kCustomOp
+#endif
+            ) {
               // off the grid's edges re-imposing maps nothing: the cell's
               // own position under the entry's stream kind.  (Taking this
               // path per cell on grid-edge blocks too, for the cells whose
@@ -1744,6 +1843,31 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                     acc = n ? add(acc, term) : term;
                   }
                   val = narrow<T>(acc);
+#if STENCIL_CUSTOM
+                } else if (en.op == kCustomOp) {
+                  // as `tap`, over input z's ring at its offset this tick
+                  val = narrow<T>(custom::custom_apply(
+                      en.tap_lo,
+                      [&](int z, int ds, int dy, int dx) {
+                        int rr = x + ds;
+                        const bool oob = rr < 0 || rr >= p.dom;
+                        if (oob && ks == kConstant) return en.fill;
+                        rr = oob ? stream_row(rr, p.dom, ks) : rr;
+                        const int o = at(min(max(cl.ty + dy, 0), p.by - 1),
+                                         min(max(cl.tx + dx, 0), p.bx - 1));
+                        if (o < 0) return en.fill;
+                        const Input in = ring_of(en, z);
+                        return wide(win[ring_plane(
+                                            mid(r, en, z) + row * plane,
+                                            in.base * plane, in.slots * plane,
+                                            (rr - x) * plane) +
+                                        o]);
+                      },
+                      sm.c + en.coeff_lo, [&] {
+                        return wide(
+                            __ldg(aux + (size_t)x * pstride + cl.own.g));
+                      }));
+#endif
                 } else {
                   val = narrow<T>(table2_get(en.op, tap, en.c, aux,
                                              (size_t)x * pstride + cl.own.g));
@@ -1929,6 +2053,22 @@ int cta_threads(int kernel_op, int bcs, Params& p, int batch,
   return (max(plane * vt, table ? p.n_entries : 0) + 31) / 32 * 32;
 }
 
+#if STENCIL_CUSTOM
+// The form `launch` picks for a launch whose `p.vt` and `p.rows` are set;
+// the large-table route runs the wide form.
+int form_of(const Params& p, bool big) {
+  if (big || p.by * p.bx > kMaxThreads) return kWide;
+  if (p.V == 1) return kVecOne;
+  return p.rows == 1 ? kOneRow : kRows;
+}
+
+// Whether a launch is the one kernel this custom library holds.
+bool custom_kernel(int kernel_op, int bcs, const Params& p, bool big) {
+  return kernel_op == CUSTOM_BODY && bcs == CUSTOM_BC &&
+         big == (CUSTOM_BIG != 0) && form_of(p, big) == CUSTOM_FORM;
+}
+#endif
+
 }  // namespace
 
 // The storage type of this library: it is built once per type, and once
@@ -1966,10 +2106,22 @@ extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
   if (!threads) return cudaErrorInvalidValue;
   const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if STENCIL_CUSTOM
+  // a custom library holds one kernel (see Custom stencils)
+#if CUSTOM_BIG
+  return cudaErrorInvalidValue;
+#else
+  if (!custom_kernel(kernel_op, bcs, p, false)) return cudaErrorInvalidValue;
+  return launch_kernel<Storage>(
+      stream_kernel_x<CUSTOM_BODY, CUSTOM_FORM, Storage, CUSTOM_BC != 0>, gp,
+      aux, out, p, *k, g, threads, smem, s);
+#endif
+#else
   return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k, g,
                                           threads, smem, s)
              : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k, g,
                                            threads, smem, s);
+#endif
 }
 
 // The large-table route of a table-driven body (`kernel_op` -1, -2 or -3):
@@ -2003,10 +2155,21 @@ extern "C" int stencil_stream_launch_big(
   k.n_inputs = n_inputs;
   const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if STENCIL_CUSTOM
+#if CUSTOM_BIG
+  if (!custom_kernel(kernel_op, bcs, p, true)) return cudaErrorInvalidValue;
+  return launch_kernel<Storage>(
+      stream_kernel_big<CUSTOM_BODY, Storage, CUSTOM_BC != 0>, gp, aux, out,
+      p, k, g, threads, smem, s);
+#else
+  return cudaErrorInvalidValue;
+#endif
+#else
   return bcs ? launch_big_body<Storage, true>(kernel_op, gp, aux, out, p, k,
                                               g, threads, smem, s)
              : launch_big_body<Storage, false>(kernel_op, gp, aux, out, p, k,
                                                g, threads, smem, s);
+#endif
 }
 
 extern "C" const char* stencil_stream_error_string(int err) {

@@ -429,13 +429,24 @@ def test_hopper_dag_refusals_name_their_item():
                  updates={"u": "unext", "u_prev": "u"})
     mine, want = _problems(mixed, (16, 32), "clamp")
     _check_hopper(mine, want, 2, 16, 5, seed=9)
-    custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
-                        lambda get, c, aux=None: c["a"] * get((0, 1)))
-    with pytest.raises(ValueError, match="B1i"):
-        _hopper(StencilProblem(P(
-            (S(custom, name="a", inputs=("u",)),
-             S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
-            fields=("u",)), (16, 32)))
+    # a custom stage in a DAG agrees with pallas_interpret (ROADMAP B1i);
+    # an op the tracer does not lower is refused (B1i-ops)
+    def custom_dag(apply):
+        def build(S, P, st):
+            custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
+                                apply)
+            return P((S(custom, name="a", inputs=("u",), coeffs={"a": 0.9}),
+                      S(st.make_combine(2, 2), name="m",
+                        inputs=("u", "a"))),
+                     fields=("u",))
+        return build
+    mine, want = _problems(custom_dag(
+        lambda get, c, aux=None: c["a"] * get((0, 1))), (16, 32), "clamp")
+    _check_hopper(mine, want, 2, 16, 5, seed=10)
+    with pytest.raises(ValueError, match="B1i-ops"):
+        _hopper(StencilProblem(custom_dag(
+            lambda get, c, aux=None: torch.erf(get((0, 1))))(
+                *PKGS["port"]), (16, 32)))
     five = tuple(f"f{i}" for i in range(5))
 
     def five_fields(S, P, st):

@@ -1,5 +1,6 @@
 """The port imports and runs — the stencil plan, stage programs (a chain,
-and DAGs on the reference and hopper backends), the LM serving path, two
+and DAGs on the reference and hopper backends), a custom stencil traced
+for the kernel, the LM serving path, two
 training steps, a batched ``run_batch`` and a ``StencilService`` serving a
 few requests and a checkpointed one — with JAX and the reference package
 made unimportable."""
@@ -57,6 +58,17 @@ runs = [api.plan(api.StencilProblem(wave, (9, 30), boundary="periodic"),
         for b, kw in (("hopper", dict(par_time=2, bsize=12)),
                       ("reference", {}))]
 assert runs[0].shape == (2, 9, 30) and torch.equal(*runs)
+from repro_torch.core.stencils import Stencil
+cubic = Stencil("cubic2d", 2, 1, 6, 1, 1, False, ("k",),
+                lambda get, c, aux=None: get((0, 0)) + c["k"] * (
+                    get((0, 1)) - get((0, 0)) ** 3))
+custom = [api.plan(api.StencilProblem(api.StencilStage(cubic,
+                                                       coeffs={"k": 0.1}),
+                                      (9, 30)),
+                   api.RunConfig(backend=b, device="cpu", **kw)).run(g, 3)
+          for b, kw in (("hopper", dict(par_time=2, bsize=12)),
+                        ("reference", {}))]
+assert torch.equal(*custom)
 import repro_torch.models, repro_torch.launch.serve as serve
 from repro_torch.configs import smoke_config
 cfg = smoke_config("qwen3-1.7b")

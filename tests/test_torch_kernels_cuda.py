@@ -5,8 +5,9 @@ fan-in, state nodes), periodic boundaries, V-row slabs (``par_vec > 1``)
 and 1D grids on all three bodies, and bfloat16 storage and the reflect and
 constant boundaries (mixed per axis and per chain stage) on all three
 bodies, DAGs whose stages differ in boundary (the mixed-boundary body),
-block planes over 1024 cells (the wide form) and tables past the kernel
-parameter's capacities (the large-table route).  Needs an
+block planes over 1024 cells (the wide form), tables past the kernel
+parameter's capacities (the large-table route) and stencils with a custom
+``apply`` (device functions generated per program).  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -854,3 +855,222 @@ def test_batch_offsets_past_2_31_cells(cuda):
         assert torch.equal(out[b].nan_to_num(-7.0),
                            single.nan_to_num(-7.0)), b
         del single
+
+
+# --- stencils with a custom apply (device functions generated per program) --
+
+def _lap2d(x):
+    return x((-1, 0)) + x((1, 0)) + x((0, -1)) + x((0, 1)) - 4.0 * x((0, 0))
+
+
+def _allen_cahn(get, c, aux=None):
+    u = get((0, 0))
+    return u + c["dt"] * (c["d"] * _lap2d(get) + u - u * u * u)
+
+
+ALLEN_CAHN = stencils.Stencil("allen_cahn2d", 2, 1, 12, 1, 1, False,
+                              ("dt", "d"), _allen_cahn)
+
+
+def _gray_scott_u(gets, c, aux=None):
+    u, v = gets[0]((0, 0)), gets[1]((0, 0))
+    return u + c["dt"] * (c["Du"] * _lap2d(gets[0]) - u * v * v
+                          + c["F"] * (1.0 - u))
+
+
+def _gray_scott_v(gets, c, aux=None):
+    v, u = gets[0]((0, 0)), gets[1]((0, 0))
+    return v + c["dt"] * (c["Dv"] * _lap2d(gets[0]) + u * v * v
+                          - c["Fk"] * v)
+
+
+def _upwind(get, c, aux):
+    u = get((0, 0, 0))
+    return u - c["dt"] * (torch.clamp(aux, min=0.0) * (u - get((0, 0, -1)))
+                          + torch.clamp(aux, max=0.0) * (get((0, 0, 1)) - u))
+
+
+UPWIND = stencils.Stencil("upwind3d", 3, 1, 9, 2, 1, True, ("dt",), _upwind)
+
+
+def _allen_cahn_stage(**kw):
+    return StencilStage(ALLEN_CAHN, coeffs={"dt": 0.1, "d": 0.2}, **kw)
+
+
+def _gray_scott():
+    """Pearson's two-field reaction-diffusion, one custom stage per field,
+    each tapping its own field at radius 1 and reading the other's
+    centre."""
+    gs_u = stencils.Stencil("gs_u", 2, 1, 15, 2, 1, False, ("Du", "F", "dt"),
+                            _gray_scott_u, arity=2)
+    gs_v = stencils.Stencil("gs_v", 2, 1, 15, 2, 1, False, ("Dv", "Fk", "dt"),
+                            _gray_scott_v, arity=2)
+    return StencilProgram(
+        (StencilStage(gs_u, name="un", inputs=("u", "v"),
+                      coeffs={"Du": 0.16, "F": 0.035, "dt": 1.0}),
+         StencilStage(gs_v, name="vn", inputs=("v", "u"),
+                      coeffs={"Dv": 0.08, "Fk": 0.095, "dt": 1.0})),
+        fields=("u", "v"), updates={"u": "un", "v": "vn"})
+
+
+def _upwind_stage():
+    return [StencilStage(UPWIND, coeffs={"dt": 0.3})]
+
+
+def _fanin3_custom():
+    """A custom stage of three inputs that taps input 2 at radius 1 and
+    input 0 off centre."""
+    def apply(gets, c, aux=None):
+        u, v, w = gets
+        return (c["a"] * u((0, 1)) + v((0, 0)) * (w((-1, 0)) - w((1, 0)))
+                + c["b"] * w((0, -1)) * w((0, 1)))
+    st = stencils.Stencil("fanin3", 2, 1, 8, 3, 1, False, ("a", "b"), apply,
+                          arity=3)
+    return StencilProgram(
+        (StencilStage(st, name="f", inputs=("u", "v", "w"),
+                      coeffs={"a": 0.5, "b": 0.25}),),
+        fields=("u", "v", "w"), updates={"u": "f", "v": "u"})
+
+
+def _custom_mixed():
+    """A custom stage under reflect beside a clamped star, recombined under
+    constant 0.5: the mixed-boundary body's getter form on grid-edge
+    CTAs."""
+    s = stencils.make_star(2, 1)
+    return StencilProgram(
+        (_allen_cahn_stage(name="a", inputs=("u",), boundary="reflect"),
+         StencilStage(s, name="b", inputs=("u",), boundary="clamp"),
+         StencilStage(stencils.make_combine(2, 2), name="m",
+                      inputs=("a", "b"), coeffs={"w0": 0.6, "w1": 0.4},
+                      boundary="constant:0.5")))
+
+
+def _custom_big():
+    """65 entries (a custom radius-1 stage and four custom radius-0 ones at
+    T = 13): past the kernel parameter's 64."""
+    def damp(get, c, aux=None):
+        u = get((0, 0))
+        return u * (c["k"] - 0.5 * u * u)
+    st = stencils.Stencil("cubic_damp", 2, 0, 4, 1, 1, False, ("k",), damp)
+    return [_allen_cahn_stage()] + [StencilStage(st, coeffs={"k": 1.5})] * 4
+
+
+def _transcendental():
+    def apply(get, c, aux=None):
+        u = get((0, 0))
+        lap = _lap2d(get)
+        return u + c["dt"] * (torch.tanh(lap) - 0.1 * torch.sin(u)
+                              + 0.05 * u.cos() + 0.01 * torch.log(u)
+                              + 0.01 * torch.sqrt(u) * torch.exp(-u))
+    st = stencils.Stencil("transcendental2d", 2, 1, 20, 1, 1, False,
+                          ("dt",), apply)
+    return [StencilStage(st, coeffs={"dt": 0.1})]
+
+
+CUSTOM = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype,
+    # ulp-bounded): the four chip cells at small size in the forms and
+    # bodies the op takes; the transcendental case within
+    # precision.tolerance (16 ulps an iteration), every other bit for bit
+    ("allen_cahn2d", lambda: [_allen_cahn_stage()], (40, 300), "clamp", 4,
+     (64,), 1, "float32", False),
+    ("allen_cahn2d_bf16_v4", lambda: [_allen_cahn_stage()], (37, 300),
+     "clamp", 4, (64,), 4, "bfloat16", False),
+    ("allen_cahn2d_reflect_rows_v4", lambda: [_allen_cahn_stage()],
+     (37, 700), "reflect", 2, (300,), 4, "float32", False),
+    ("gray_scott2d", _gray_scott, (37, 300), "periodic", 4, (64,), 1,
+     "float32", False),
+    ("gray_scott2d_constant_v2", _gray_scott, (37, 300), "constant:0.0", 3,
+     (64,), 2, "float32", False),
+    ("upwind3d", _upwind_stage, (19, 37, 70), "clamp", 2, (12, 32), 1,
+     "float32", False),
+    ("upwind3d_wide_bf16", _upwind_stage, (9, 45, 50), "clamp", 2, (40, 40),
+     1, "bfloat16", False),
+    ("fanin3", _fanin3_custom, (29, 130), "periodic", 2, (32,), 1,
+     "float32", False),
+    ("custom_mixed", _custom_mixed, (33, 150), "clamp", 2, (40,), 1,
+     "float32", False),
+    ("custom_mixed_bf16_v2", _custom_mixed, (33, 150), "clamp", 2, (40,), 2,
+     "bfloat16", False),
+    ("custom_big", _custom_big, (20, 200), "clamp", 13, (64,), 1, "float32",
+     False),
+    ("transcendental2d", _transcendental, (40, 300), "clamp", 4, (64,), 1,
+     "float32", True),
+]
+
+
+def _custom_case(case):
+    _, program, dims, bc, par_time, bsize, V, dtype, ulps = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    cfg = dict(backend="hopper", par_time=par_time, bsize=bsize, par_vec=V)
+    return problem, cfg, ulps
+
+
+def _custom_state(problem, device, seed):
+    """Fields ``uniform(0, 1)`` (the physical range of u and v) and a
+    standard normal aux (a velocity), in the storage dtype."""
+    rng = np.random.default_rng(seed)
+    dt = problem.torch_dtype
+    g = torch.from_numpy(rng.uniform(0.0, 1.0, problem.state_shape)
+                         .astype(np.float32)).to(device, dt)
+    aux = None
+    if problem.needs_aux:
+        aux = torch.from_numpy(rng.standard_normal(problem.shape)
+                               .astype(np.float32)).to(device, dt)
+    return g, aux
+
+
+@pytest.mark.parametrize("case", CUSTOM, ids=lambda c: c[0])
+def test_custom_kernel_equals_plain_version(cuda, case):
+    """One super-step through the program's generated library against the
+    plain version (``apply`` in torch ops on the card), with and without
+    forwarding: bit for bit where the trace uses only ``+ - * /``, neg,
+    abs, min, max and where."""
+    problem, cfg, ulps = _custom_case(case)
+    geom = plan(problem, RunConfig(**cfg)).geometry
+    dag = problem.exec_dag
+    assert builder.custom_library(dag, geom, problem.torch_dtype).exists()
+    tab = builder.tables_of(geom, dag)
+    if "mixed" in case[0]:
+        assert builder.mixes_boundaries(dag, geom.ndim)
+    if "wide" in case[0]:
+        assert math.prod(geom.bsize) > blocking.MAX_THREADS
+    if "big" in case[0]:
+        assert tab.big
+    g, aux = _custom_state(problem, cuda, seed=40)
+    if not ulps:
+        _superstep_vs_plain(problem, geom, g, aux)
+        return
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    h = geom.size_halo
+    region = (Ellipsis, slice(0, builder._stream_dom(geom, bc0))) + tuple(
+        slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
+    for steps in (geom.par_time, geom.par_time - 1):
+        out = builder.superstep_dag(dag, geom, gp, c, steps)
+        want = builder.superstep_dag_plain(dag, geom, gp, c, steps, None,
+                                           torch.empty_like(gp))
+        torch.testing.assert_close(out[region], want[region],
+                                   **precision.tolerance("float32", steps))
+
+
+@pytest.mark.parametrize("case", CUSTOM, ids=lambda c: c[0])
+def test_custom_plan_matches_reference(cuda, case):
+    """The plan launches ``ceil(iters/T)`` times and stays within
+    ``precision.tolerance(dtype, iters, stages)`` of the reference
+    backend; a batch of 2 equals its members' runs bit for bit."""
+    problem, cfg, _ = _custom_case(case)
+    iters = 2 * cfg["par_time"] + 1
+    g, aux = _custom_state(problem, cuda, seed=41)
+    p = plan(problem, RunConfig(**cfg))
+    before = builder.LAUNCHES
+    got = p.run(g, iters, aux=aux)
+    assert builder.LAUNCHES - before == math.ceil(iters / cfg["par_time"])
+    want = plan(problem, RunConfig(backend="reference")).run(g, iters,
+                                                             aux=aux)
+    torch.testing.assert_close(got, want, **precision.tolerance(
+        problem.dtype, iters, stages=problem.n_stages))
+    batch = torch.stack([g, g.flip(0)])
+    both = p.run_batch(batch, iters, aux=aux)
+    assert torch.equal(both[0], got)
+    assert torch.equal(both[1], p.run(batch[1], iters, aux=aux))

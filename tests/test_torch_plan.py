@@ -174,9 +174,24 @@ def test_hopper_refusals_name_the_roadmap_item():
     with pytest.raises(ValueError, match="par_vec=16 need .* shared memory"):
         _hopper(StencilProblem("diffusion2d", (64, 9000)), par_time=8,
                 bsize=256, par_vec=16)
-    with pytest.raises(ValueError, match="B1i"):
+    # a stencil with a custom apply plans (ROADMAP B1i) and agrees with
+    # pallas_interpret; an apply that cannot be lowered is refused
+    cc = {"cc": 0.5, "cw": 0.125, "ce": 0.125, "cs": 0.125, "cn": 0.125}
+    custom, jcustom = (dataclasses.replace(mod.DIFFUSION2D, name="custom2d")
+                       for mod in (stencils, jstencils))
+    conf.assert_close(
+        _hopper(StencilProblem(StencilStage(custom, coeffs=cc),
+                               (8, 32))).run(g, 5),
+        japi.plan(japi.StencilProblem(japi.StencilStage(jcustom, coeffs=cc),
+                                      (8, 32)),
+                  japi.RunConfig(backend="pallas_interpret", par_time=2,
+                                 bsize=16)).run(jnp.asarray(g), 5),
+        jprecision.tolerance("float32", 5))
+    with pytest.raises(ValueError, match="B1i-ops"):
         _hopper(StencilProblem(dataclasses.replace(
-            stencils.DIFFUSION2D, name="custom2d"), (8, 32)))
+            stencils.DIFFUSION2D, name="custom2d",
+            apply=lambda get, c, aux=None: torch.sigmoid(get((0, 0)))),
+            (8, 32)))
     with pytest.raises(ValueError, match="A11"):
         plan(StencilProblem("diffusion2d", (8, 32)),
              RunConfig(backend="hopper", device="cpu"))

@@ -394,7 +394,8 @@ def test_linear_taps_follow_the_apply_order():
         builder.COMBINE_OP)
     custom = stencils.Stencil("custom2d", 2, 0, 1, 1, 1, False, ("a",),
                               lambda get, c, aux=None: c["a"] * get((0, 0)))
-    assert builder.stage_op(custom) is None
+    assert builder.linear_taps(custom) is None
+    assert builder.stage_op(custom) == builder.CUSTOM_OP
 
 
 # --- fusion ------------------------------------------------------------------
@@ -460,19 +461,37 @@ def test_hopper_main_path_par_time_is_bound_by_shared_memory_only():
     conf.assert_close(p.run(g, 43), want, _tol(chain, 43))
 
 
+def _custom2d(st, apply=None):
+    return st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",), apply or (
+        lambda get, c, aux=None: c["a"] * get((0, 1))))
+
+
 def test_hopper_refuses_program_forms_it_does_not_run():
     S, P, st = PKGS["port"]
-    custom = st.Stencil("custom2d", 2, 1, 3, 1, 1, False, ("a",),
-                        lambda get, c, aux=None: c["a"] * get((0, 1)))
     # DAGs plan (ROADMAP B1h is ported), with stages that differ in
-    # boundary too (B1k), but not with a custom stencil
+    # boundary too (B1k), and with a custom stencil (B1i): it agrees with
+    # pallas_interpret
     forward_ref = P((S("diffusion2d", name="a", inputs=("b",)),
                      S("diffusion2d", name="b", inputs=("u",))),
                     updates={"u": "a"})
     assert _hopper(StencilProblem(forward_ref, (16, 32))).problem.is_dag
-    with pytest.raises(ValueError, match="B1i"):
+
+    def custom_dag(S, P, st):
+        return P((S(_custom2d(st), name="a", inputs=("u",),
+                    coeffs={"a": 0.9}),
+                  S(st.make_combine(2, 2), name="m", inputs=("u", "a"))))
+    mine, want = _problems(custom_dag, (16, 32))
+    g, _ = _data(mine, seed=8)
+    conf.assert_close(
+        _hopper(mine).run(g, 5),
+        japi.plan(want, japi.RunConfig(backend="pallas_interpret",
+                                       par_time=2, bsize=16)).run(
+                                           jnp.asarray(g), 5),
+        _tol(mine, 5))
+    with pytest.raises(ValueError, match="B1i-ops"):
         _hopper(StencilProblem(P(
-            (S(custom, name="a", inputs=("u",)),
+            (S(_custom2d(st, lambda get, c, aux=None: get((0, 2))),
+               name="a", inputs=("u",)),
              S(st.make_combine(2, 2), name="m", inputs=("u", "a"))),
         ), (16, 32)))
     def mixed(S, P, st):
@@ -492,8 +511,20 @@ def test_hopper_refuses_program_forms_it_does_not_run():
     assert _hopper(StencilProblem([S("diffusion2d"),
                                    S(st.make_star(2, 1), boundary="reflect")],
                                   (16, 32))).geometry
-    with pytest.raises(ValueError, match="B1i"):
-        _hopper(StencilProblem([S("diffusion2d"), S(custom)], (16, 32)))
+    # a chain with a custom stage agrees with pallas_interpret too; one
+    # whose apply branches on a value is refused
+    mine, want = _problems(lambda S, P, st: [
+        S("diffusion2d"), S(_custom2d(st), coeffs={"a": 0.9})], (16, 32))
+    conf.assert_close(
+        _hopper(mine).run(g, 5),
+        japi.plan(want, japi.RunConfig(backend="pallas_interpret",
+                                       par_time=2, bsize=16)).run(
+                                           jnp.asarray(g), 5),
+        _tol(mine, 5))
+    with pytest.raises(ValueError, match="B1i-ops"):
+        _hopper(StencilProblem([S("diffusion2d"), S(_custom2d(
+            st, lambda get, c, aux=None: get((0, 0)) if get((0, 1)) > 0
+            else get((0, -1))))], (16, 32)))
     with pytest.raises(ValueError, match="shared memory"):
         _hopper(StencilProblem([S(st.make_star(2, 2)), S("diffusion2d")],
                                (8, 9000)), par_time=10, bsize=1000)
@@ -524,6 +555,10 @@ def test_hopper_refuses_program_forms_it_does_not_run():
     want = plan(prob, RunConfig(backend="reference", device="cpu")).run(g, 2)
     conf.assert_close(p.run(g, 2), want, _tol(prob, 2))
     # what the hopper backend refuses, the reference backend runs
+    custom = _custom2d(st, lambda get, c, aux=None: c["a"] * torch.erf(
+        get((0, 1))))
+    with pytest.raises(ValueError, match="B1i-ops"):
+        builder.stage_op(custom)
     prob = StencilProblem(P((S(custom, name="a", inputs=("u",),
                                coeffs={"a": 0.5}),
                              S(st.make_combine(2, 2), name="m",
