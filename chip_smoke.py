@@ -143,7 +143,27 @@ On one CUDA card, from the root of a checkout:
     the smoke width (bf16, head dim 128, so the kernels run) with an
     injected failure and a restart, asserting the uninterrupted run's
     losses bit for bit;
-16. prints one ``{"kernels": [...]}`` line and, last, the device line.
+16. runs the A16b phase: (a) every flash form this slice adds
+    (``NEW_FORMS``: f32 at head dims 8, 12, 16, 64, 112, 128, bf16 at 64
+    and 112; forward, dQ and dK/dV) at B 8, S 4096, H 16, Hkv 8, causal,
+    each held against its plain version (outputs pre-filled with NaN,
+    ``check_against_plain``/``check_bwd_against_plain`` for its dtype) and
+    timed beside its plain version, ``scaled_dot_product_attention``
+    (causal, GQA; forward, and backward as grad minus forward, checked to
+    compute the same function) and its bound at the dtype's peak rate;
+    (b) serves granite-3-8b, phi4-mini-3.8b and glm4-9b at full width in
+    bf16 like qwen3-1.7b (``serve_arch``: prefill, decode, tokens/s, peak
+    memory, n_layers flash launches a prefill, layer 0's flash output
+    against its plain version), one after another; (c) trains phi4-mini
+    at batch 2 x 4096 for 3 steps (``train_arch``: step ms, tokens/s,
+    peak memory, launches a step, both backward kernels against their
+    plain version through ``capture_layer0``) and says why granite and
+    glm4 do not train at full width; (d) serves and trains the four dense
+    archs' smoke configs in f32, and qwen3-1.7b's at the other head dims
+    (``SWEEP``), on the card and on the CPU from the same weights
+    (``smoke_run``: exact launch counts, logits and losses within
+    ``SMOKE_TOL``); every new form must have launched on (b)-(d);
+17. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -2221,15 +2241,87 @@ def rel_err(got, want) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def flash_bound(kernel: str, q, k, peaks) -> dict:
+    """The least time the card could take for one flash kernel's work on
+    q, k (causal): its products' FLOPs at the dtype's peak (989 TFLOP/s
+    bf16 on the tensor cores, 67 f32 FMAs) against its bytes at 3.35
+    TB/s, the larger of the two."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    bw, f32_rate, bf16_rate = peaks
+    f32 = q.dtype == torch.float32
+    el = q.element_size()
+    if kernel == "fwd":
+        flops = flash.flash_flops(B, S, S, H, D, True, False)
+        nbytes = flash.flash_traffic_bytes(B, S, S, H, Hkv, D, el, False)
+    else:
+        flops = flash.flash_bwd_kernel_flops(B, S, S, H, D, True, kernel)
+        nbytes = flash.flash_bwd_kernel_bytes(B, S, S, H, Hkv, D, kernel, el)
+    t_ops = flops / (f32_rate if f32 else bf16_rate) * 1e3
+    t_bytes = nbytes / bw * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def forward_kernel_vs_plain(q, k, v, peaks) -> dict:
+    """The flash forward on q, k, v (causal; output and lse pre-filled with
+    NaN) against ``flash_fwd_plain`` within ``check_against_plain``'s
+    bound for the dtype, then CUDA-event times of the kernel, the plain
+    version and ``scaled_dot_product_attention`` (causal, GQA; held to the
+    same bound), and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    B, S, H, D = q.shape
+    with torch.inference_mode():
+        o = torch.full_like(q, float("nan"))
+        lse = torch.full((B, H, S), float("nan"), device=q.device)
+        flash.flash_attention_lse(q, k, v, True, out=(o, lse))
+        torch.cuda.synchronize()
+        # raises past the bounds stated in check_against_plain
+        vs_plain = flash.check_against_plain(o, q, k, v, True, lse=lse)
+        print(f"flash kernel vs plain (B {B}, S {S}, H {H}, Hkv "
+              f"{k.shape[2]}, D {D}, {q.dtype}): {vs_plain}", flush=True)
+        del o, lse
+        kernel_ms = time_ms(lambda: flash.flash_attention_lse(q, k, v, True),
+                            reps=10)
+        plain_ms = time_ms(lambda: flash.flash_fwd_plain(q, k, v, True),
+                           reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_vs_plain = flash.check_against_plain(sdpa().transpose(1, 2), q,
+                                                 k, v, True)
+        print(f"scaled_dot_product_attention vs plain: {lib_vs_plain}",
+              flush=True)
+        library_ms = time_ms(sdpa, reps=10)
+    return {"readings": vs_plain, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_max_abs_err": lib_vs_plain["max_abs_err"],
+            "library_row_rel_err": lib_vs_plain["row_rel_err"],
+            **flash_bound("fwd", q, k, peaks)}
+
+
 def lm_phase(device, peaks) -> dict:
     """Serve full-width qwen3-1.7b (random weights from a seed) through
     ``generate`` and hold the flash kernel, the prefill and the decode
     against their plain counterparts on the card."""
-    import dataclasses
+    return serve_arch(LM_ARCH, device, peaks, extras=True)
 
+
+def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
+    """Serve full-width ``arch`` (bf16, random weights from seed 0) through
+    ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW, and hold
+    the flash kernel on layer 0's q, k, v against its plain version, with
+    kernel, plain and SDPA times; with ``extras`` (qwen3-1.7b's cell) also
+    profile prefill and decode and hold the "flash" prefill against "xla"
+    and decode against prefill."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import generate
@@ -2237,14 +2329,15 @@ def lm_phase(device, peaks) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.models.attention import _project_qkv
     from repro_torch.models.transformer import _unstack
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.d_head
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
-    print(f"{LM_ARCH}: {n_par} parameters ({n_par * 2 / 1e9:.3f} GB bf16, "
+    print(f"{arch}: {n_par} parameters ({n_par * 2 / 1e9:.3f} GB bf16, "
           f"padded vocab {cfg.padded_vocab}) made in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     kv_gb = cfg.n_layers * B * (S + LM_NEW) * Hkv * D * 2 * 2 / 1e9
@@ -2258,9 +2351,11 @@ def lm_phase(device, peaks) -> dict:
 
     # the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
-    flash.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
     out = generate(cfg, params, tokens, LM_NEW)
     launches = flash.LAUNCHES
+    forms = dict(flash.FORM_LAUNCHES)
     if (out.prefill_launches, out.decode_launches, launches) != (
             cfg.n_layers, 0, cfg.n_layers):
         raise AssertionError(
@@ -2280,28 +2375,32 @@ def lm_phase(device, peaks) -> dict:
     e2e = {"prefill_ms": warm.prefill_s * 1e3,
            "prefill_tok_per_s": B * S / warm.prefill_s,
            "decode_ms_per_step": warm.decode_s * 1e3 / (LM_NEW - 1),
-           "decode_tok_per_s": B * (LM_NEW - 1) / warm.decode_s}
-    with torch.inference_mode():
-        prof = device_profile(lambda: prefill(params, cfg, tokens, S),
-                              "flash_fwd_kernel")
-    e2e["kernel_share_of_prefill_device"] = prof.pop(
-        "kernel_share_of_device")
-    e2e.update({f"prefill_{k}": v for k, v in prof.items()})
-    with torch.inference_mode():
-        _, caches = prefill(params, cfg, tokens, S + 1)
-        nxt = tokens[:, -1:]
-        prof = device_profile(lambda: decode_step(params, cfg, nxt, caches),
-                              None, top=5)
-        del caches
-    e2e.update({f"decode_{k}": v for k, v in prof.items()})
+           "decode_tok_per_s": B * (LM_NEW - 1) / warm.decode_s,
+           "serve_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"generate (warm): prefill {e2e['prefill_ms']:.3f} ms "
           f"({e2e['prefill_tok_per_s']:.1f} tok/s), decode "
           f"{e2e['decode_ms_per_step']:.3f} ms/step "
-          f"({e2e['decode_tok_per_s']:.1f} tok/s); flash share of prefill "
-          f"device time {e2e['kernel_share_of_prefill_device']:.4f}, device "
-          f"idle {e2e['prefill_device_idle_share']:.4f} in prefill, "
-          f"{e2e['decode_device_idle_share']:.4f} in one decode step "
-          f"({e2e['decode_device_ops']} device ops)", flush=True)
+          f"({e2e['decode_tok_per_s']:.1f} tok/s); peak memory "
+          f"{e2e['serve_peak_memory_gb']:.3f} GB", flush=True)
+    if extras:
+        with torch.inference_mode():
+            prof = device_profile(lambda: prefill(params, cfg, tokens, S),
+                                  "flash_fwd_kernel")
+        e2e["kernel_share_of_prefill_device"] = prof.pop(
+            "kernel_share_of_device")
+        e2e.update({f"prefill_{k}": v for k, v in prof.items()})
+        with torch.inference_mode():
+            _, caches = prefill(params, cfg, tokens, S + 1)
+            nxt = tokens[:, -1:]
+            prof = device_profile(
+                lambda: decode_step(params, cfg, nxt, caches), None, top=5)
+            del caches
+        e2e.update({f"decode_{k}": v for k, v in prof.items()})
+        print(f"flash share of prefill device time "
+              f"{e2e['kernel_share_of_prefill_device']:.4f}, device idle "
+              f"{e2e['prefill_device_idle_share']:.4f} in prefill, "
+              f"{e2e['decode_device_idle_share']:.4f} in one decode step "
+              f"({e2e['decode_device_ops']} device ops)", flush=True)
 
     with torch.inference_mode():
         # the kernel against its plain version on layer 0's q, k, v
@@ -2311,77 +2410,56 @@ def lm_phase(device, peaks) -> dict:
                                bp["attn"], cfg,
                                torch.arange(S, device=device))
         del x
-        o = torch.full_like(q, float("nan"))
-        lse = torch.full((B, H, S), float("nan"), device=device)
-        flash.flash_attention_lse(q, k, v, True, out=(o, lse))
-        torch.cuda.synchronize()
-        # raises past the bounds stated in check_against_plain
-        vs_plain = flash.check_against_plain(o, q, k, v, True, lse=lse)
-        print(f"flash kernel vs plain (B {B}, S {S}, H {H}, Hkv {Hkv}, D "
-              f"{D}): {vs_plain}", flush=True)
-        kernel_ms = time_ms(lambda: flash.flash_attention_lse(q, k, v, True),
-                            reps=10)
-        plain_ms = time_ms(lambda: flash.flash_fwd_plain(q, k, v, True),
-                           reps=3)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        lib_vs_plain = flash.check_against_plain(sdpa().transpose(1, 2), q,
-                                                 k, v, True)
-        print(f"scaled_dot_product_attention vs plain: {lib_vs_plain}",
-              flush=True)
-        library_ms = time_ms(sdpa, reps=10)
-        del q, k, v, qt, kt, vt, o, lse
-
-        # "flash" prefill against "xla" (chunked torch ops)
-        lf, cf = prefill(params, cfg, tokens, S)
-        del cf
-        lx, cx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
-                            tokens, S)
-        del cx
-        flash_xla = rel_err(lf[..., :cfg.vocab], lx[..., :cfg.vocab])
-        print(f"prefill logits, flash vs xla: rel err {flash_xla}, max abs "
-              f"{(lf - lx).abs().max().item()}", flush=True)
-
-        # teacher-forced decode against prefill over the same tokens
-        tf = []
-        short = tokens[:, :LM_TF_PROMPT + LM_TF_STEPS]
-        _, caches = prefill(params, cfg, short[:, :LM_TF_PROMPT],
-                               LM_TF_PROMPT + LM_TF_STEPS)
-        for t in range(LM_TF_PROMPT, LM_TF_PROMPT + LM_TF_STEPS):
-            ld, caches = decode_step(params, cfg, short[:, t:t + 1], caches)
-            lp, _ = prefill(params, cfg, short[:, :t + 1], t + 1)
-            tf.append(rel_err(ld[..., :cfg.vocab], lp[..., :cfg.vocab]))
-        print(f"teacher-forced decode vs prefill (prompt {LM_TF_PROMPT}, "
-              f"{LM_TF_STEPS} steps): rel err {tf}", flush=True)
-        del caches
-    if flash_xla > LOGIT_REL_TOL or max(tf) > LOGIT_REL_TOL:
-        raise AssertionError(f"logits differ beyond {LOGIT_REL_TOL}")
-
-    bw, _, bf16 = peaks
-    t_ops = flash.flash_flops(B, S, S, H, D, True, False) / bf16 * 1e3
-    t_bytes = flash.flash_traffic_bytes(B, S, S, H, Hkv, D, 2, False) \
-        / bw * 1e3
-    res = {"name": f"flash_fwd[{LM_ARCH}]", "route": "cuda",
-           "source": LM_SOURCE, "replaces": LM_REPLACES,
-           "launches": launches, **vs_plain, "ms": kernel_ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms,
-           "library_max_abs_err": lib_vs_plain["max_abs_err"],
-           "library_row_rel_err": lib_vs_plain["row_rel_err"],
-           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D},
-           "flash_vs_xla_logit_rel_err": flash_xla,
-           "teacher_forced_logit_rel_err": tf,
-           "tokens_in_range": True, "logits_finite": True, **e2e}
-    print(f"  flash_fwd: kernel {kernel_ms}, plain {plain_ms}, library "
-          f"{library_ms}, bound {res['bound_ms']:.3f} ms "
-          f"({res['bound_by']})", flush=True)
+        kernel = forward_kernel_vs_plain(q, k, v, peaks)
+        del q, k, v
+        checks = {}
+        if extras:
+            checks = prefill_and_decode_checks(params, cfg, tokens)
     del params
     torch.cuda.empty_cache()
+
+    res = {"name": f"flash_fwd[{arch}]", "route": "cuda",
+           "source": LM_SOURCE, "replaces": LM_REPLACES,
+           "launches": launches, "form_launches": _form_counts(forms),
+           **kernel.pop("readings"), **kernel,
+           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D},
+           **checks, "tokens_in_range": True, "logits_finite": True, **e2e}
+    print(f"  flash_fwd[{arch}]: kernel {res['ms']}, plain "
+          f"{res['plain_ms']}, library {res['library_ms']}, bound "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']})", flush=True)
     return res
+
+
+def prefill_and_decode_checks(params, cfg, tokens) -> dict:
+    """The "flash" prefill against "xla" (chunked torch ops), and
+    teacher-forced decode against prefill over the same tokens, by the
+    relative L2 of the true-vocab logits (LOGIT_REL_TOL)."""
+    import dataclasses
+    from repro_torch.models import decode_step, prefill
+    S = tokens.shape[1]
+    lf, cf = prefill(params, cfg, tokens, S)
+    del cf
+    lx, cx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                     tokens, S)
+    del cx
+    flash_xla = rel_err(lf[..., :cfg.vocab], lx[..., :cfg.vocab])
+    print(f"prefill logits, flash vs xla: rel err {flash_xla}, max abs "
+          f"{(lf - lx).abs().max().item()}", flush=True)
+    tf = []
+    short = tokens[:, :LM_TF_PROMPT + LM_TF_STEPS]
+    _, caches = prefill(params, cfg, short[:, :LM_TF_PROMPT],
+                        LM_TF_PROMPT + LM_TF_STEPS)
+    for t in range(LM_TF_PROMPT, LM_TF_PROMPT + LM_TF_STEPS):
+        ld, caches = decode_step(params, cfg, short[:, t:t + 1], caches)
+        lp, _ = prefill(params, cfg, short[:, :t + 1], t + 1)
+        tf.append(rel_err(ld[..., :cfg.vocab], lp[..., :cfg.vocab]))
+    print(f"teacher-forced decode vs prefill (prompt {LM_TF_PROMPT}, "
+          f"{LM_TF_STEPS} steps): rel err {tf}", flush=True)
+    del caches
+    if flash_xla > LOGIT_REL_TOL or max(tf) > LOGIT_REL_TOL:
+        raise AssertionError(f"logits differ beyond {LOGIT_REL_TOL}")
+    return {"flash_vs_xla_logit_rel_err": flash_xla,
+            "teacher_forced_logit_rel_err": tf}
 
 
 # --- LM training: qwen3-1.7b through the flash backward kernels ----------
@@ -2407,6 +2485,12 @@ def _launch_counts():
 def _zero_launch_counts():
     from repro_torch.kernels import flash_attention as flash
     flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+    flash.FORM_LAUNCHES.clear()
+
+
+def _form_counts(forms: dict) -> dict:
+    """``FORM_LAUNCHES`` as JSON: ``"kernel[dtype,dD]"`` -> count."""
+    return {f"{k}[{t},d{D}]": n for (k, t, D), n in sorted(forms.items())}
 
 
 def capture_layer0(params, cfg, batch) -> dict:
@@ -2441,8 +2525,10 @@ def capture_layer0(params, cfg, batch) -> dict:
 
 def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
     """Both backward kernels against ``flash_bwd_plain`` on ``cap``'s q, k,
-    v and real dO (outputs pre-filled with NaN), then CUDA-event times of
-    each kernel, the plain version and the SDPA backward, and the bound."""
+    v and dO (outputs pre-filled with NaN) within
+    ``check_bwd_against_plain``'s bound for the dtype, then CUDA-event
+    times of each kernel, the plain version and the SDPA backward, and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -2461,7 +2547,7 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
         vs_plain = flash.check_bwd_against_plain((dq, dk, dv), q, k, v, o,
                                                  lse, do, True)
         print(f"flash backward kernels vs plain (B {B}, S {S}, H {H}, Hkv "
-              f"{Hkv}, D {D}; dO from the first batch's backward, norm "
+              f"{Hkv}, D {D}, {q.dtype}; dO norm "
               f"{do.float().norm().item():.6g}): {vs_plain}", flush=True)
         dq_ms = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, lse, do),
                         reps=10)
@@ -2493,19 +2579,13 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
     library_ms = Timing([t - fwd_ms for t in (grad_ms.lo, grad_ms,
                                               grad_ms.hi)])
     del qt, kt, vt, lib, want, o, lse, dq, dk, dv, delta
-    bw, _, bf16 = peaks
     out = {}
     for kernel, ms, err in (("dq", dq_ms, vs_plain["dq_max_abs_err"]),
                             ("dkv", dkv_ms, max(vs_plain["dk_max_abs_err"],
                                                 vs_plain["dv_max_abs_err"]))):
-        t_ops = flash.flash_bwd_kernel_flops(B, S, S, H, D, True, kernel) \
-            / bf16 * 1e3
-        t_bytes = flash.flash_bwd_kernel_bytes(B, S, S, H, Hkv, D, kernel) \
-            / bw * 1e3
         out[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes
-                       else "bytes", "library_ms": library_ms}
+                       **flash_bound(kernel, q, k, peaks),
+                       "library_ms": library_ms}
         print(f"  flash_bwd_{kernel}: kernel {ms}, plain (dq, dk, dv "
               f"together) {plain_ms}, SDPA backward (dq, dk, dv) "
               f"{library_ms}, bound {out[kernel]['bound_ms']:.3f} ms "
@@ -2611,19 +2691,33 @@ def train_phase(device, peaks) -> dict:
     """Train full-width qwen3-1.7b through ``make_train_step`` and hold the
     backward kernels, the "flash" gradients and the checkpointed loop
     against their plain counterparts on the card."""
+    return train_arch(LM_ARCH, device, peaks, TRAIN_BATCH,
+                      [1] * TRAIN_STEPS[0] + [2] * TRAIN_STEPS[1],
+                      extras=True)
+
+
+def train_arch(arch, device, peaks, B, plan, extras: bool = False) -> dict:
+    """Train full-width ``arch`` (bf16, random weights from seed 0, AdamW)
+    through ``make_train_step``, one step per entry of ``plan`` (its
+    microbatches), at batch ``B`` x TRAIN_SEQ, and hold both backward
+    kernels against their plain version on layer 0's q, k, v and real
+    output gradient; with ``extras`` (qwen3-1.7b's cell) also profile a
+    step and hold the "flash" gradients against "xla" and the checkpointed
+    loop against its uninterrupted run."""
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.train import device_batch
     from repro_torch.models import init_params, lm_loss
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import make_train_step
-    cfg = get_config(LM_ARCH)
-    B, S = TRAIN_BATCH, TRAIN_SEQ
+    cfg = get_config(arch)
+    S = TRAIN_SEQ
     full = SHAPES["train_4k"]
     print(f"cut: train_4k is batch {full['batch']} x {full['seq']} tokens "
           f"per step, {full['batch'] // B}x this one, and does not fit one "
-          f"card without microbatching; trained batch {B} x {S}, "
+          f"card without microbatching; trained {arch} at batch {B} x {S}, "
           f"remat_policy={cfg.remat_policy}, attn_impl={cfg.attn_impl}",
           flush=True)
     torch.cuda.empty_cache()
@@ -2633,13 +2727,12 @@ def train_phase(device, peaks) -> dict:
     data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=S,
                                          global_batch=B, seed=0))
     batches = [device_batch(data.batch_at(s), device)
-               for s in range(sum(TRAIN_STEPS))]
+               for s in range(len(plan))]
     with torch.no_grad():
         loss0 = lm_loss(params, cfg, batches[0]).item()
     cap = capture_layer0(params, cfg, batches[0])
-    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=sum(TRAIN_STEPS))
-    steps = {mb: make_train_step(cfg, ocfg, mb) for mb in (1, 2)}
-    plan = [1] * TRAIN_STEPS[0] + [2] * TRAIN_STEPS[1]
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=len(plan))
+    steps = {mb: make_train_step(cfg, ocfg, mb) for mb in sorted(set(plan))}
 
     # the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
@@ -2654,6 +2747,7 @@ def train_phase(device, peaks) -> dict:
         secs.append(time.perf_counter() - t0)
         per_step.append(tuple(b - a for a, b in zip(c0, _launch_counts())))
     launches = _launch_counts()
+    forms = dict(flash.FORM_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     L = cfg.n_layers
     want = [(2 * L * mb, L * mb, L * mb) for mb in plan]
@@ -2668,38 +2762,49 @@ def train_phase(device, peaks) -> dict:
             or abs(losses[0] - loss0) > 1.0:
         raise AssertionError("training losses not finite, or the first "
                              "step's loss far from the batch's loss")
-    n1 = TRAIN_STEPS[0]
-    e2e = {"train_step_ms": statistics.median(secs[1:n1]) * 1e3,
+    one = [t for t, mb in zip(secs, plan) if mb == 1]
+    two = [t for t, mb in zip(secs[1:], plan[1:]) if mb == 2]
+    e2e = {"train_step_ms": statistics.median(one[1:]) * 1e3,
            "train_cold_step_ms": secs[0] * 1e3,
-           "train_mb2_step_ms": statistics.median(secs[n1:]) * 1e3,
            "train_peak_memory_gb": peak_gb, "train_losses": losses,
            "train_loss_no_grad": loss0,
            "train_launches_per_step": per_step}
+    if two:
+        e2e["train_mb2_step_ms"] = statistics.median(two) * 1e3
     e2e["train_tok_per_s"] = B * S / (e2e["train_step_ms"] / 1e3)
-    prof = device_profile(lambda: steps[1](params, opt, batches[0]),
-                          "flash_", top=6)
-    e2e["train_kernel_share_of_device"] = prof.pop("kernel_share_of_device")
-    e2e.update({f"train_{k}": v for k, v in prof.items()})
     print(f"train (warm, mb 1): {e2e['train_step_ms']:.3f} ms per step, "
           f"{e2e['train_tok_per_s']:.1f} tok/s; cold first step "
-          f"{e2e['train_cold_step_ms']:.3f} ms; mb 2 "
-          f"{e2e['train_mb2_step_ms']:.3f} ms; flash kernels' share of "
-          f"device time {e2e['train_kernel_share_of_device']:.4f}, device "
-          f"idle {e2e['train_device_idle_share']:.4f} "
-          f"({e2e['train_device_ops']} device ops); largest other device "
-          f"times {e2e['train_top_other_device_us']}", flush=True)
+          f"{e2e['train_cold_step_ms']:.3f} ms"
+          + (f"; mb 2 {e2e['train_mb2_step_ms']:.3f} ms" if two else ""),
+          flush=True)
+    if extras:
+        prof = device_profile(lambda: steps[1](params, opt, batches[0]),
+                              "flash_", top=6)
+        e2e["train_kernel_share_of_device"] = prof.pop(
+            "kernel_share_of_device")
+        e2e.update({f"train_{k}": v for k, v in prof.items()})
+        print(f"flash kernels' share of device time "
+              f"{e2e['train_kernel_share_of_device']:.4f}, device idle "
+              f"{e2e['train_device_idle_share']:.4f} "
+              f"({e2e['train_device_ops']} device ops); largest other "
+              f"device times {e2e['train_top_other_device_us']}",
+              flush=True)
     del batches
 
     bwd = backward_kernels_vs_plain(cap, peaks)
     del cap
     torch.cuda.empty_cache()
-    xb = device_batch(SyntheticLMDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=XLA_SEQ, global_batch=XLA_BATCH,
-        seed=1)).batch_at(0), device)
-    vs_xla = flash_vs_xla(params, cfg, xb)
-    del params, opt, xb
+    more = {}
+    if extras:
+        xb = device_batch(SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=XLA_SEQ, global_batch=XLA_BATCH,
+            seed=1)).batch_at(0), device)
+        more["flash_vs_xla"] = flash_vs_xla(params, cfg, xb)
+        del xb
+    del params, opt
     torch.cuda.empty_cache()
-    loop = loop_restart_check(device)
+    if extras:
+        more["loop_restart"] = loop_restart_check(device)
 
     common = {"route": "cuda", "source": BWD_SOURCE,
               "plain_covers": "dq, dk and dv together",
@@ -2708,12 +2813,228 @@ def train_phase(device, peaks) -> dict:
               "shape": bwd["shape"], **bwd["readings"],
               "library_rel_err": bwd["library_rel_err"]}
     kernels = [
-        {"name": f"flash_bwd_dq[{LM_ARCH}]", "replaces": DQ_REPLACES,
-         "launches": launches[1], **bwd["dq"], **common, **e2e,
-         "flash_vs_xla": vs_xla, "loop_restart": loop},
-        {"name": f"flash_bwd_dkv[{LM_ARCH}]", "replaces": DKV_REPLACES,
+        {"name": f"flash_bwd_dq[{arch}]", "replaces": DQ_REPLACES,
+         "launches": launches[1], "form_launches": _form_counts(forms),
+         **bwd["dq"], **common, **e2e, **more},
+        {"name": f"flash_bwd_dkv[{arch}]", "replaces": DKV_REPLACES,
          "launches": launches[2], **bwd["dkv"], **common}]
     return {"kernels": kernels, "fwd_per_step": [p[0] for p in per_step]}
+
+
+# --- A16b: the dense configs, and every form of the flash kernels ---------
+
+A16B_ARCHS = ("granite-3-8b", "phi4-mini-3.8b", "glm4-9b")
+#: (a) the kernel rows' shape, causal: B, S, H, Hkv (qwen3-1.7b's serving
+#: batch and heads)
+FORM_SHAPE = (8, 4096, 16, 8)
+#: the forms this slice adds, (dtype, head dim); bf16 at 128 has qwen3-1.7b's
+#: rows
+NEW_FORMS = tuple(("float32", D) for D in (8, 12, 16, 64, 112, 128)) + (
+    ("bfloat16", 64), ("bfloat16", 112))
+#: (c) full-width training: train_4k's sequence, its batch of 256 cut to 2
+A16B_TRAIN_ARCH, A16B_TRAIN_BATCH, A16B_TRAIN_STEPS = "phi4-mini-3.8b", 2, 3
+#: (d) the smoke runs: generate at batch 2 x prompt 64 + 8 new, then 3
+#: AdamW steps of make_train_step at batch 2 x 64
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW, SMOKE_STEPS = 2, 64, 8, 3
+#: (d) the head-dim sweep: qwen3-1.7b's smoke config at the head dims no
+#: ported config has yet (A16f's 64 and seamless's smoke 8, A16e's 112),
+#: so that every new form runs on a served and trained path
+SWEEP = (("float32", 8), ("float32", 64), ("float32", 112),
+         ("float32", 128), ("bfloat16", 64), ("bfloat16", 112))
+#: (d) the card against the CPU (the plain versions) on the same weights
+#: and batches, by relative L2: f32 sums in other orders (kernels, cuBLAS
+#: against the CPU's BLAS), so the first pick's logits and each of the 3
+#: losses within 1e-4; bf16 rounds at other places, so the logits within
+#: LOGIT_REL_TOL and the losses within 1e-2
+SMOKE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (LOGIT_REL_TOL, 1e-2)}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def form_rows(dtype: str, D: int, device, peaks) -> list:
+    """The forward, dQ and dK/dV kernels of one form at FORM_SHAPE (q, k,
+    v and dO standard normal from seed D on the card), each held against
+    its plain version and timed beside it, SDPA and its bound
+    (``forward_kernel_vs_plain``, ``backward_kernels_vs_plain``)."""
+    import torch
+    B, S, H, Hkv = FORM_SHAPE
+    gen = torch.Generator(device=device).manual_seed(D)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dtype))
+    cap = {"q": normal(B, S, H, D), "k": normal(B, S, Hkv, D),
+           "v": normal(B, S, Hkv, D), "do": normal(B, S, H, D)}
+    fwd = forward_kernel_vs_plain(cap["q"], cap["k"], cap["v"], peaks)
+    bwd = backward_kernels_vs_plain(cap, peaks)
+    del cap
+    torch.cuda.empty_cache()
+    tag = f"{'f32' if dtype == 'float32' else 'bf16'},d{D}"
+    shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D, "dtype": dtype}
+    fwd_readings = fwd.pop("readings")
+    rows = [{"name": f"flash_fwd[{tag}]", "source": LM_SOURCE,
+             "replaces": LM_REPLACES, "form": ("fwd", dtype, D),
+             "max_abs_err": fwd_readings["max_abs_err"], **fwd,
+             "readings": fwd_readings}]
+    for kernel, replaces in (("dq", DQ_REPLACES), ("dkv", DKV_REPLACES)):
+        rows.append({"name": f"flash_bwd_{kernel}[{tag}]",
+                     "source": BWD_SOURCE, "replaces": replaces,
+                     "form": (kernel, dtype, D), **bwd[kernel],
+                     "plain_covers": "dq, dk and dv together",
+                     "library_rel_err": bwd["library_rel_err"],
+                     "readings": bwd["readings"]})
+    for row in rows:
+        row.update(route="cuda", shape=shape)
+        print(f"  {row['name']} (B {B}, S {S}, H {H}, Hkv {Hkv}): kernel "
+              f"{row['ms']}, plain {row['plain_ms']}, SDPA "
+              f"{row['library_ms']}, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}); max abs err {row['max_abs_err']:.3g}",
+              flush=True)
+    return rows
+
+
+def smoke_run(label: str, cfg, device) -> dict:
+    """``generate`` (batch 2, prompt 64, 8 new) then 3 AdamW steps of
+    ``make_train_step`` of ``cfg`` on the CPU (the plain versions) and on
+    the card (the flash kernels in ``cfg``'s dtype and head dim), from the
+    same weights (seed 0, made on the CPU) and batches: launch counts
+    exact, the first pick's logits and the losses within SMOKE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    t0 = time.perf_counter()
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT), dtype=np.int32)
+    data = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=SMOKE_BATCH,
+        seed=0))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=SMOKE_STEPS))
+    runs = {}
+    for where in ("cpu", device):
+        params = _tree_to(init_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu"), where)
+        opt = adamw_init(params)
+        tokens = torch.from_numpy(prompts).long().to(where)
+        batches = [device_batch(data.batch_at(s), where)
+                   for s in range(SMOKE_STEPS)]
+        if where == device:
+            # the main path: counts at 0 just before, read just after
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+        gen = generate(cfg, params, tokens, SMOKE_NEW)
+        losses = []
+        for batch in batches:
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(metrics["loss"].item())
+        runs[where] = (gen, losses)
+    counts, forms = _launch_counts(), dict(flash.FORM_LAUNCHES)
+    L = cfg.n_layers
+    want = (L + 2 * L * SMOKE_STEPS, L * SMOKE_STEPS, L * SMOKE_STEPS)
+    (gen_c, loss_c), (gen_g, loss_g) = runs["cpu"], runs[device]
+    dtype = cfg.dtype
+    key = ("f32" if dtype == "float32" else "bf16") + f",d{cfg.d_head}"
+    logits_rel = rel_err(gen_g.logits[:, 0, :cfg.vocab].cpu(),
+                         gen_c.logits[:, 0, :cfg.vocab])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
+    out = {"label": label, "form": key, "launches": counts,
+           "form_launches": _form_counts(forms),
+           "prefill_launches": gen_g.prefill_launches,
+           "decode_launches": gen_g.decode_launches,
+           "logits_rel_err": logits_rel, "losses_card": loss_g,
+           "losses_cpu": loss_c, "loss_rel_err": loss_rel,
+           "tokens_equal": float((gen_g.tokens.cpu() == gen_c.tokens)
+                                 .float().mean()),
+           "seconds": time.perf_counter() - t0}
+    print(f"  smoke {label} ({dtype}, d_head {cfg.d_head}, H {cfg.n_heads}, "
+          f"Hkv {cfg.n_kv}): launches (fwd, dq, dkv) {counts}, prefill "
+          f"{gen_g.prefill_launches} + decode {gen_g.decode_launches}; "
+          f"first-pick logits rel err {logits_rel:.3g}; losses card "
+          f"{loss_g} cpu {loss_c} (max rel err {loss_rel:.3g}); tokens equal "
+          f"{out['tokens_equal']:.3f}; {out['seconds']:.1f} s", flush=True)
+    logit_tol, loss_tol = SMOKE_TOL[dtype]
+    if counts != want or (gen_g.prefill_launches, gen_g.decode_launches) \
+            != (L, 0):
+        raise AssertionError(f"smoke {label}: launches {counts}, prefill "
+                             f"{gen_g.prefill_launches}; expected {want}, "
+                             f"{L}")
+    if not all(math.isfinite(x) for x in loss_g) or logits_rel > logit_tol \
+            or loss_rel > loss_tol:
+        raise AssertionError(f"smoke {label}: the card and the CPU differ "
+                             f"beyond {SMOKE_TOL[dtype]}")
+    return out
+
+
+def a16b_phase(device, peaks) -> list:
+    """(a) every new flash form at FORM_SHAPE against its plain version,
+    timed beside SDPA and its bound; (b) granite-3-8b, phi4-mini-3.8b and
+    glm4-9b served at full width in bf16; (c) phi4-mini trained at full
+    width; (d) the four dense archs' smoke configs in f32, and the head-dim
+    sweep, served and trained on the card against the CPU.  Every form's
+    launches are those of the (b)-(d) main paths."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    t0 = time.perf_counter()
+    form_rows_ = []
+    for dtype, D in NEW_FORMS:
+        form_rows_ += form_rows(dtype, D, device, peaks)
+    print(f"A16b (a) kernel rows: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    rows = []
+    forms: dict = {}
+
+    def add(counts: dict):
+        for key, n in counts.items():
+            forms[key] = forms.get(key, 0) + n
+    for arch in A16B_ARCHS:
+        rows.append(serve_arch(arch, device, peaks))
+        add(rows[-1]["form_launches"])
+    for arch in A16B_ARCHS:
+        if arch != A16B_TRAIN_ARCH:
+            cfg = get_config(arch)
+            print(f"not trained at full width: {arch}'s {cfg.n_params} "
+                  f"parameters take about {cfg.n_params * 14 / 1e9:.0f} GB "
+                  f"with AdamW (bf16 weights, f32 moments and master), more "
+                  f"than the card's 80 GB; trained at its smoke config "
+                  f"below", flush=True)
+    train = train_arch(A16B_TRAIN_ARCH, device, peaks, A16B_TRAIN_BATCH,
+                       [1] * A16B_TRAIN_STEPS)
+    train["kernels"][0]["train_fwd_launches_per_step"] = train.pop(
+        "fwd_per_step")
+    rows += train["kernels"]
+    add(rows[-2]["form_launches"])
+    torch.cuda.empty_cache()
+    smoke = [smoke_run(arch, smoke_config(arch), device)
+             for arch in (LM_ARCH,) + A16B_ARCHS]
+    smoke += [smoke_run(f"{LM_ARCH} d_head {D}", dataclasses.replace(
+        smoke_config(LM_ARCH), d_head=D, dtype=dtype), device)
+        for dtype, D in SWEEP]
+    for run in smoke:
+        add(run["form_launches"])
+    for row in form_rows_:
+        kernel, dtype, D = row.pop("form")
+        row["launches"] = forms.get(
+            f"{kernel}[{dtype.removeprefix('torch.')},d{D}]", 0)
+        row["smoke_runs"] = [r for r in smoke if r["form"] == row["name"][
+            row["name"].index("[") + 1:-1]] if kernel == "fwd" else []
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was launched no time on "
+                                 f"the phase's main paths")
+    print(f"A16b phase: {time.perf_counter() - t0:.3f} s; launches by form "
+          f"on its main paths {forms}", flush=True)
+    return form_rows_ + rows
 
 
 def _leaves(tree):
@@ -2750,10 +3071,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(lib.name for lib in libs)})")
     for lib in libs:
+        stem = lib.stem.rsplit('_', 1)[0]
+        if stem.startswith("libflash"):      # one line per (dtype, D) form
+            for kernel, report in _build.ptxas_report(lib):
+                print(f"  ptxas ({stem}) {kernel}: {report}")
+            continue
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas ({lib.stem.rsplit('_', 1)[0]}):",
-                      line.strip())
+                print(f"  ptxas ({stem}):", line.strip())
     device = torch.device("cuda", 0)
     t_main = time.perf_counter()
     kernels = []
@@ -2804,6 +3129,8 @@ def main() -> int:
     train = train_phase(device, peaks)
     kernels[-1]["train_launches_per_step"] = train.pop("fwd_per_step")
     kernels.extend(train["kernels"])
+    torch.cuda.empty_cache()
+    kernels.extend(a16b_phase(device, peaks))
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],

@@ -13,7 +13,9 @@ import importlib
 
 from repro_torch.models import ModelConfig
 
-ARCH_IDS = ["qwen3-1.7b"]
+#: the dense family: qwen3-1.7b, and granite-3-8b, phi4-mini-3.8b and
+#: glm4-9b (the reference's own configs, copied field for field)
+ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b"]
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
@@ -25,9 +27,6 @@ SHAPES = {
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {
-    "granite-3-8b": "A16b",
-    "phi4-mini-3.8b": "A16b",
-    "glm4-9b": "A16b",
     "qwen3-moe-235b-a22b": "A16c",
     "qwen3-moe-30b-a3b": "A16c",
     "mamba2-1.3b": "A16d",

@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -194,8 +195,9 @@ class FlashParams(ctypes.Structure):
                 + [(f"{t}_s{d}", ctypes.c_longlong) for t in "qkvo"
                    for d in "bsh"]
                 + [(name, ctypes.c_int) for name in ("B", "H", "Hkv", "Sq",
-                                                     "Skv", "D", "causal")]
-                + [("scale_log2", ctypes.c_float)])
+                                                     "Skv", "D", "causal",
+                                                     "dtype")]
+                + [("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)])
 
 
 class FlashBwdParams(ctypes.Structure):
@@ -206,7 +208,8 @@ class FlashBwdParams(ctypes.Structure):
                    for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
                    for d in "bsh"]
                 + [(name, ctypes.c_int) for name in ("B", "H", "Hkv", "Sq",
-                                                     "Skv", "D", "causal")]
+                                                     "Skv", "D", "causal",
+                                                     "dtype")]
                 + [("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)])
 
 
@@ -365,6 +368,8 @@ def flash_fwd() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(build("flash_fwd")))
     dll.flash_fwd_launch.argtypes = [FlashParams, ctypes.c_void_p]
     dll.flash_fwd_launch.restype = ctypes.c_int
+    dll.flash_fwd_has_form.argtypes = [ctypes.c_int, ctypes.c_int]
+    dll.flash_fwd_has_form.restype = ctypes.c_int
     dll.flash_fwd_error_string.argtypes = [ctypes.c_int]
     dll.flash_fwd_error_string.restype = ctypes.c_char_p
     return dll
@@ -377,6 +382,47 @@ def flash_bwd() -> ctypes.CDLL:
     for fn in (dll.flash_bwd_dq_launch, dll.flash_bwd_dkv_launch):
         fn.argtypes = [FlashBwdParams, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    dll.flash_bwd_has_form.argtypes = [ctypes.c_int, ctypes.c_int]
+    dll.flash_bwd_has_form.restype = ctypes.c_int
     dll.flash_bwd_error_string.argtypes = [ctypes.c_int]
     dll.flash_bwd_error_string.restype = ctypes.c_char_p
     return dll
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+
+
+def _kernel_label(mangled: str) -> str:
+    """``name<D>`` of a kernel's mangled name: the last of its
+    length-prefixed name components (after any namespaces, the unnamed
+    one included) and its int template argument, if it has one; the
+    mangled name where it has no components."""
+    at = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while at < len(mangled) and mangled[at].isdigit():
+        digits = re.match(r"\d+", mangled[at:]).group()
+        at += len(digits)
+        name = mangled[at:at + int(digits)]
+        at += int(digits)
+    if name is None:
+        return mangled
+    arg = re.match(r"ILi(\d+)E", mangled[at:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def ptxas_report(lib: Path) -> list:
+    """``(kernel, report)`` for each kernel of ``lib``'s build log
+    (``-Xptxas -v``): the kernel as :func:`_kernel_label` names it, and
+    its stack, spill and register lines joined."""
+    out, name, lines = [], None, []
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        entry = _PTXAS_ENTRY.search(line)
+        if entry:
+            if name is not None:
+                out.append((name, "; ".join(lines)))
+            name, lines = _kernel_label(entry.group(1)), []
+        elif name is not None and ("registers" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    if name is not None:
+        out.append((name, "; ".join(lines)))
+    return out

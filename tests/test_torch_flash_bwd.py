@@ -24,6 +24,15 @@ SHAPES = [
     (2, 256, 256, 8, 2, 128, 128, 128),
     (1, 512, 512, 4, 1, 64, 128, 256),   # MQA
 ]
+#: the other head dims of the repo's configs (the smoke configs' 8, 12 and
+#: 16, zamba2's 112), MQA among them
+HEAD_DIM_SHAPES = [
+    (1, 128, 128, 4, 2, 8, 64, 64),
+    (2, 64, 64, 4, 2, 12, 32, 32),
+    (1, 64, 64, 4, 1, 12, 64, 64),       # MQA
+    (1, 128, 128, 4, 1, 16, 64, 128),    # MQA
+    (1, 128, 128, 4, 2, 112, 128, 64),
+]
 #: the bound of the reference's own test_backward_matches_oracle (f32)
 F32_TOL = 5e-4
 
@@ -59,7 +68,7 @@ def _reference_bwd(q, k, v, do, causal, bq, bkv, dtype=jnp.float32):
             [np.asarray(g.astype(jnp.float32)) for g in grads])
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,bq,bkv", SHAPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,bq,bkv", SHAPES + HEAD_DIM_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_bwd_matches_pallas_f32(B, Sq, Skv, H, Hkv, D, bq, bkv,
                                       causal):
@@ -129,11 +138,14 @@ def test_non_square_causal_backward_is_top_left_aligned():
 # --- the bound the backward kernels are held to ------------------------------
 
 def _kernel_grads(q, k, v, o, lse, do, fault=None):
-    """Causal dq, dk, dv rounded as the Hopper kernels round them: f32 S,
-    P, dP and delta; P rounded to bf16 before P^T dO, dS before dS K and
-    dS^T Q; outputs in bf16.  ``fault`` plants a kernel bug on the rows past
-    the middle: dQ from the other KV head, dQ without the second 64-key
-    tile, dK without the group's last q-head, or an unwritten dV row."""
+    """Causal dq, dk, dv computed as the Hopper kernels compute them.
+    bf16: f32 S, P, dP and delta; P rounded to bf16 before P^T dO, dS
+    before dS K and dS^T Q; outputs in bf16.  f32: f32 throughout, dQ
+    summed over 64-key tiles, dK and dV over 64-row query tiles and the G
+    query heads one after another.  ``fault`` plants a kernel bug on the
+    rows past the middle: dQ from the other KV head, dQ without the second
+    64-key tile, dK without the group's last q-head, or an unwritten dV
+    row."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -150,15 +162,31 @@ def _kernel_grads(q, k, v, o, lse, do, fault=None):
         p = torch.exp(s - lse[..., None])
         dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
-        ds = (p * (dp - delta)).to(torch.bfloat16).float()
-        p = p.to(torch.bfloat16).float()
-        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
-        dkh = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-        dvh = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+        ds = p * (dp - delta)
+        if q.dtype == torch.bfloat16:
+            ds = ds.to(torch.bfloat16).float()
+            p = p.to(torch.bfloat16).float()
+            dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+        else:
+            dq = sum(torch.einsum("bhqk,bkhd->bqhd", ds[..., n0:n0 + 64],
+                                  kr[:, n0:n0 + 64])
+                     for n0 in range(0, S, 64)) * scale
+        if q.dtype == torch.bfloat16:
+            dkh = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+            dvh = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+        else:                                   # 64-row query tiles
+            dkh = sum(torch.einsum("bhqk,bqhd->bkhd", ds[:, :, i0:i0 + 64],
+                                   q[:, i0:i0 + 64].float())
+                      for i0 in range(0, S, 64)) * scale
+            dvh = sum(torch.einsum("bhqk,bqhd->bkhd", p[:, :, i0:i0 + 64],
+                                   do[:, i0:i0 + 64].float())
+                      for i0 in range(0, S, 64))
         return dq, dkh.reshape(B, S, Hkv, G, D), dvh.reshape(B, S, Hkv, G, D)
 
     dq, dkh, dvh = parts(k, v)
     dk, dv = dkh.sum(3), dvh.sum(3)
+    if q.dtype == torch.float32:
+        dk, dv = (sum(t[:, :, :, g] for g in range(G)) for t in (dkh, dvh))
     if fault == "dq_other_kv_head":
         dq[:, late] = parts(k.flip(2), v.flip(2))[0][:, late]
     elif fault == "dq_skipped_tile":
@@ -169,25 +197,34 @@ def _kernel_grads(q, k, v, o, lse, do, fault=None):
         dk[:, late] = dkh[:, late, :, :G - 1].sum(3)
     elif fault == "dv_unwritten":
         dv[:, -1] = float("nan")
-    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
-@pytest.fixture(scope="module")
-def bwd_case():
-    """bf16 q, k, v, dO (B 1, S 256, H 4, Hkv 2, D 128: the kernels' head
-    dim) with o and lse from the plain forward."""
+@functools.lru_cache(maxsize=None)
+def _bwd_case(dtype):
+    """q, k, v, dO (B 1, S 256, H 4, Hkv 2, D 128) in ``dtype``, with o and
+    lse from the plain forward."""
     q, k, v, do = _torch(*_inputs(1, 256, 256, 4, 2, 128, seed=4),
-                         dtype=torch.bfloat16)
+                         dtype=dtype)
     o, lse = flash.flash_fwd_plain(q, k, v, True)
     return q, k, v, o, lse, do
 
 
+@pytest.fixture(scope="module")
+def bwd_case():
+    """The bf16 case of :func:`_bwd_case`."""
+    return _bwd_case(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("fault", [None, "dq_other_kv_head",
                                    "dq_skipped_tile", "dk_missing_q_head"])
-def test_bwd_bound_passes_its_rounding_and_rejects_faults(bwd_case, fault):
+def test_bwd_bound_passes_its_rounding_and_rejects_faults(fault, dtype):
     """``check_bwd_against_plain`` (the bound chip_smoke.py and the GPU
     tests hold the kernels to) accepts the kernels' own roundings and
-    rejects faults confined to the late rows."""
+    rejects faults confined to the late rows; in bf16 and in f32."""
+    bwd_case = _bwd_case(dtype)
     grads = _kernel_grads(*bwd_case, fault=fault)
     if fault is None:
         got = flash.check_bwd_against_plain(grads, *bwd_case, True)

@@ -1,6 +1,7 @@
 """The Hopper flash-attention kernels (forward, and the backward's dQ and
-dK/dV) against their plain versions, on the card.  Needs an sm_90 device and ``nvcc``; skipped otherwise.  Run on a
-card with
+dK/dV) against their plain versions, on the card, in every built (dtype,
+head dim) form.  Needs an sm_90 device and ``nvcc``; skipped otherwise.
+Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_flash_cuda.py -m gpu``.
 """
 import shutil
@@ -76,13 +77,126 @@ def test_kernel_reads_strided_views(cuda):
     flash.check_against_plain(flash.flash_attention(q, k, v, True), q, k, v)
 
 
-def test_kernel_refuses_f32_and_other_head_dims(cuda):
-    q, k, v = (t.float() for t in _qkv(CASES[0], cuda))
-    with pytest.raises(ValueError, match="B2-f32"):
+def test_kernel_refuses_forms_it_was_not_built_for(cuda):
+    """float16, and f32 or bf16 at head dim 96, raise naming ROADMAP
+    B2-rest before any launch."""
+    before = flash.LAUNCHES
+    q, k, v = (t.half() for t in _qkv(CASES[0], cuda))
+    with pytest.raises(ValueError, match="B2-rest"):
         flash.flash_attention(q, k, v, True)
-    q, k, v = (t[..., :64] for t in _qkv(CASES[0], cuda))
-    with pytest.raises(ValueError, match="head dim 128"):
-        flash.flash_attention(q, k, v, True)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t[..., :96].to(dtype) for t in _qkv(CASES[0], cuda))
+        with pytest.raises(ValueError, match="B2-rest"):
+            flash.flash_attention(q, k, v, True)
+    assert flash.LAUNCHES == before
+
+
+def test_library_forms_equal_the_wrapper_table(cuda):
+    from repro_torch.kernels import _build
+    fwd, bwd = _build.flash_fwd(), _build.flash_bwd()
+    for dtype, code in flash.DTYPE_CODE.items():
+        for D in range(1, 257):
+            want = D in flash.FORMS[dtype]
+            assert bool(fwd.flash_fwd_has_form(code, D)) == want, (dtype, D)
+            assert bool(bwd.flash_bwd_has_form(code, D)) == want, (dtype, D)
+
+
+#: every built (dtype, D) form at a small shape: ragged lengths, GQA 2 and
+#: MQA (Hkv 1) in turn, causal and full attention
+FORM_CASES = [(dtype, D, case)
+              for dtype, dims in ((torch.float32, (8, 12, 16, 64, 112, 128)),
+                                  (torch.bfloat16, (64, 112, 128)))
+              for i, D in enumerate(dims)
+              for case in ([(2, 130, 130, 4, 2 - i % 2, D, True),
+                            (1, 64, 100, 4, 1 + i % 2, D, i % 3 == 0)])]
+
+
+@pytest.mark.parametrize("dtype,D,case", FORM_CASES,
+                         ids=lambda x: str(x).removeprefix("torch."))
+def test_every_form_matches_plain_version(cuda, dtype, D, case):
+    """Forward, dQ and dK/dV of each built form against their plain
+    versions (outputs pre-filled with NaN), within check_against_plain's
+    and check_bwd_against_plain's bounds for the dtype."""
+    causal = case[-1]
+    q, k, v = (t.to(dtype) for t in _qkv(case, cuda, seed=D))
+    B, Sq, H = q.shape[:3]
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full((B, H, Sq), float("nan"), device=cuda)
+    key = (str(dtype).removeprefix("torch."), D)
+    before = {n: flash.FORM_LAUNCHES.get((n, *key), 0)
+              for n in ("fwd", "dq", "dkv")}
+    flash.flash_attention_lse(q, k, v, causal, out=(o, lse))
+    flash.check_against_plain(o, q, k, v, causal, lse=lse)
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(D),
+                     device=cuda).to(dtype)
+    dq = torch.full_like(q, float("nan"))
+    delta = torch.full((B, H, Sq), float("nan"), device=cuda)
+    dk = torch.full_like(k, float("nan"))
+    dv = torch.full_like(v, float("nan"))
+    flash.flash_bwd_dq(q, k, v, o, lse, do, causal, out=(dq, delta))
+    flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal, out=(dk, dv))
+    torch.cuda.synchronize()
+    assert {n: flash.FORM_LAUNCHES[(n, *key)] - before[n]
+            for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert [t.dtype for t in (o, dq, dk, dv)] == [dtype] * 4
+    flash.check_bwd_against_plain((dq, dk, dv), q, k, v, o, lse, do, causal)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 12),
+                                     (torch.float32, 112),
+                                     (torch.bfloat16, 112)],
+                         ids=["f32-12", "f32-112", "bf16-112"])
+def test_forms_read_strided_views(cuda, dtype, D):
+    """q, k, v as views of one fused projection (row stride (H + 2 Hkv) D,
+    a multiple of 16 bytes), and dO as a view of a wider tensor."""
+    B, S, H, Hkv = 2, 96, 4, 2
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * Hkv, D)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = qkv.split([H, Hkv, Hkv], dim=2)
+    o, lse = flash.flash_attention_lse(q, k, v, True)
+    flash.check_against_plain(o, q, k, v, True, lse=lse)
+    wide = torch.from_numpy(rng.standard_normal(
+        (B, S, 2 * H, D)).astype(np.float32)).to(cuda, dtype)
+    do = wide[:, :, H:]
+    assert flash._layout_ok(do)
+    grads = flash.flash_bwd(q, k, v, o, lse, do, True)
+    flash.check_bwd_against_plain(grads, q, k, v, o, lse, do, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_glm4_group_of_16_query_heads(cuda, dtype):
+    """glm4-9b's GQA: 32 query heads on 2 KV heads (G = 16), summed in the
+    dK/dV CTA."""
+    case = (1, 192, 192, 32, 2, 128, True)
+    q, k, v = (t.to(dtype) for t in _qkv(case, cuda, seed=16))
+    o, lse = flash.flash_attention_lse(q, k, v, True)
+    flash.check_against_plain(o, q, k, v, True, lse=lse)
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1),
+                     device=cuda).to(dtype)
+    grads = flash.flash_bwd(q, k, v, o, lse, do, True)
+    flash.check_bwd_against_plain(grads, q, k, v, o, lse, do, True)
+
+
+def test_autograd_goes_through_the_f32_kernels(cuda):
+    """torch.autograd.grad through flash_attention in f32 at head dim 12
+    (phi4-mini's smoke config): one launch of each kernel, f32 gradients
+    within the f32 bound."""
+    case = (2, 96, 96, 4, 2, 12, True)
+    q, k, v = (t.float() for t in _qkv(case, cuda, seed=5))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(2),
+                     device=cuda)
+    before = (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    out = flash.flash_attention(*leaves, True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert [g.dtype for g in grads] == [torch.float32] * 3
+    o, lse = flash.flash_attention_lse(q, k, v, True)
+    flash.check_bwd_against_plain(grads, q, k, v, o, lse, do, True)
 
 
 def _bwd_inputs(case, device, seed=0):

@@ -1,6 +1,6 @@
 """The port imports and runs — the stencil plan, stage programs (a chain,
 and DAGs on the reference and hopper backends), a custom stencil traced
-for the kernel, the LM serving path, two
+for the kernel, the LM serving path (qwen3 and granite's untied head), two
 training steps, a batched ``run_batch`` and a ``StencilService`` serving a
 few requests and a checkpointed one — with JAX and the reference package
 made unimportable."""
@@ -79,6 +79,14 @@ gen = serve.generate(cfg, params,
                      3)
 assert gen.tokens.shape == (2, 3) and bool(gen.logits.isfinite().all())
 assert bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all())
+gcfg = smoke_config("granite-3-8b")
+gparams = repro_torch.models.init_params(
+    gcfg, torch.Generator().manual_seed(0), "cpu")
+assert "head" in gparams["embed"]
+ggen = serve.generate(gcfg, gparams,
+                      torch.from_numpy(rng.integers(1, gcfg.vocab, (2, 16))),
+                      3)
+assert ggen.tokens.shape == (2, 3) and bool(ggen.logits.isfinite().all())
 import repro_torch.checkpoint, repro_torch.data, repro_torch.optim
 import repro_torch.resilience, repro_torch.train
 import repro_torch.launch.train as launch_train

@@ -140,10 +140,11 @@ def test_chunked_attention_matches_reference(causal):
     _close(got, want, 1e-5)
 
 
-def test_config_matches_reference():
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_config_matches_reference(arch):
     for get in ("get_config", "smoke_config"):
-        cfg = getattr(configs, get)(ARCH)
-        jcfg = getattr(jconfigs, get)(ARCH)
+        cfg = getattr(configs, get)(arch)
+        jcfg = getattr(jconfigs, get)(arch)
         mine = dataclasses.asdict(cfg)
         theirs = dataclasses.asdict(jcfg)
         assert mine.pop("attn_impl") == "flash"
@@ -151,7 +152,7 @@ def test_config_matches_reference():
         assert mine == theirs
         assert cfg.padded_vocab == jcfg.padded_vocab
         assert cfg.n_params == jcfg.n_params
-    assert configs.get_config(ARCH).tdtype == torch.bfloat16
+    assert configs.get_config(arch).tdtype == torch.bfloat16
 
 
 def test_unported_archs_and_impls_raise_naming_roadmap():
