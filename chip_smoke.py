@@ -2270,7 +2270,8 @@ def forward_kernel_vs_plain(q, k, v, peaks) -> dict:
     NaN) against ``flash_fwd_plain`` within ``check_against_plain``'s
     bound for the dtype, then CUDA-event times of the kernel, the plain
     version and ``scaled_dot_product_attention`` (causal, GQA; held to the
-    same bound), and the bound."""
+    same bound), the bound, the kernel's TFLOP/s, its share of the bound
+    (bound / ms) and its ratio to SDPA (ms / SDPA ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -2299,11 +2300,19 @@ def forward_kernel_vs_plain(q, k, v, peaks) -> dict:
         print(f"scaled_dot_product_attention vs plain: {lib_vs_plain}",
               flush=True)
         library_ms = time_ms(sdpa, reps=10)
-    return {"readings": vs_plain, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "library_max_abs_err": lib_vs_plain["max_abs_err"],
-            "library_row_rel_err": lib_vs_plain["row_rel_err"],
-            **flash_bound("fwd", q, k, peaks)}
+    bound = flash_bound("fwd", q, k, peaks)
+    flops = flash.flash_flops(B, S, S, H, D, True, False)
+    out = {"readings": vs_plain, "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_max_abs_err": lib_vs_plain["max_abs_err"],
+           "library_row_rel_err": lib_vs_plain["row_rel_err"], **bound,
+           "tflop_per_s": flops / kernel_ms / 1e9,
+           "share_of_bound": bound["bound_ms"] / kernel_ms,
+           "ms_over_library": kernel_ms / library_ms}
+    print(f"  forward: {out['tflop_per_s']:.1f} TFLOP/s, "
+          f"{out['share_of_bound']:.3f} of the bound, "
+          f"{out['ms_over_library']:.3f}x SDPA", flush=True)
+    return out
 
 
 def lm_phase(device, peaks) -> dict:
@@ -2317,9 +2326,10 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     """Serve full-width ``arch`` (bf16, random weights from seed 0) through
     ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW, and hold
     the flash kernel on layer 0's q, k, v against its plain version, with
-    kernel, plain and SDPA times; with ``extras`` (qwen3-1.7b's cell) also
-    profile prefill and decode and hold the "flash" prefill against "xla"
-    and decode against prefill."""
+    kernel, plain and SDPA times, and profile one prefill (the flash share
+    of its device time); with ``extras`` (qwen3-1.7b's cell) also profile
+    decode and hold the "flash" prefill against "xla" and decode against
+    prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2382,13 +2392,16 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
           f"{e2e['decode_ms_per_step']:.3f} ms/step "
           f"({e2e['decode_tok_per_s']:.1f} tok/s); peak memory "
           f"{e2e['serve_peak_memory_gb']:.3f} GB", flush=True)
+    with torch.inference_mode():
+        prof = device_profile(lambda: prefill(params, cfg, tokens, S),
+                              "flash_fwd_kernel")
+    e2e["kernel_share_of_prefill_device"] = prof.pop("kernel_share_of_device")
+    e2e.update({f"prefill_{k}": v for k, v in prof.items()})
+    print(f"flash share of {arch}'s prefill device time "
+          f"{e2e['kernel_share_of_prefill_device']:.4f}, device idle "
+          f"{e2e['prefill_device_idle_share']:.4f}, profiled prefill "
+          f"{e2e['prefill_profiled_run_ms']:.3f} ms", flush=True)
     if extras:
-        with torch.inference_mode():
-            prof = device_profile(lambda: prefill(params, cfg, tokens, S),
-                                  "flash_fwd_kernel")
-        e2e["kernel_share_of_prefill_device"] = prof.pop(
-            "kernel_share_of_device")
-        e2e.update({f"prefill_{k}": v for k, v in prof.items()})
         with torch.inference_mode():
             _, caches = prefill(params, cfg, tokens, S + 1)
             nxt = tokens[:, -1:]
@@ -2396,10 +2409,8 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
                 lambda: decode_step(params, cfg, nxt, caches), None, top=5)
             del caches
         e2e.update({f"decode_{k}": v for k, v in prof.items()})
-        print(f"flash share of prefill device time "
-              f"{e2e['kernel_share_of_prefill_device']:.4f}, device idle "
-              f"{e2e['prefill_device_idle_share']:.4f} in prefill, "
-              f"{e2e['decode_device_idle_share']:.4f} in one decode step "
+        print(f"device idle {e2e['decode_device_idle_share']:.4f} in one "
+              f"decode step "
               f"({e2e['decode_device_ops']} device ops)", flush=True)
 
     with torch.inference_mode():

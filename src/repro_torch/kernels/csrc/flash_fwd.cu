@@ -12,22 +12,48 @@
 // keys or queries are zero-filled on load and never written.
 //
 // Two forms, each a template over the head dim D; the launcher dispatches
-// on (dtype, D) and refuses any pair it was not built for (kForms):
+// on (dtype, D) and refuses any pair it was not built for (has_form):
 //
-// bf16, D in {64, 112, 128} (flash_fwd_kernel).  One CTA per (64-row
-// query tile, batch * head), 4 warps of 16 query rows each.  Q, K, V and O
-// are read and written in the model's (B, S, H, D) layout through strides:
-// no transposed copy.  The CTA walks 64-key K/V tiles up to the causal
-// diagonal; each tile is copied into shared memory with cp.async (16 bytes
-// a thread), V's copy overlapping S = Q K^T and the next K's copy
-// overlapping P V.  Both products are warp-level mma.sync.m16n8k16 bf16
-// with f32 accumulation (D / 16 k-steps for S, D / 8 n-tiles of O: 14 at
-// D = 112); Q stays in registers as A fragments, S's accumulators become
-// P's A fragments in place (P rounded to bf16).  The online softmax
-// (running max m, partial row sum l, rescale of the O accumulator) is f32,
-// in base 2 with log2(e) folded into the scale.  Only the last tile a CTA
-// visits is masked (the diagonal, or the ragged end of the keys).  Heavier
-// (later) query tiles are scheduled first.
+// bf16, D in {64, 112, 128} (flash_fwd_kernel).  What bounds it: at the
+// serving shape of qwen3-1.7b (B 8, S 4096, H 16, Hkv 8, D 128, causal) the
+// two products are 0.55 TFLOP, 0.556 ms at 989 TFLOP/s, against 0.40 GB of
+// Q, K, V, O and lse, 0.121 ms at 3.35 TB/s: operations, and only wgmma
+// reaches the tensor cores' full rate (mma.sync is capped well below
+// it).  The design:
+// - A CTA of 128 query rows of one (batch, head), in three warpgroups.  The
+//   producer gives its registers up (setmaxnreg 24) and one of its threads
+//   issues every copy; the two consumers take 240 each and own 64 rows.
+//   Each K/V tile is fetched once per 128 query rows.
+// - TMA: Q once; K and V through a ring of kStages stages, each with a
+//   "full" mbarrier per tensor (transaction bytes) and an "empty" one (an
+//   arrival per consumer warp).  No thread spends issue slots or registers
+//   on copies, and no __syncthreads() sits in the loop.  Boxes are 64
+//   columns by 128 rows of one head, 128-byte swizzled, from 4-D (D, heads,
+//   rows, batch) tensor maps built over the caller's strides (no transposed
+//   copy); what lies past D = 112, past the rows or past the batch is
+//   zero-filled.  The maps are encoded by the launcher and passed as
+//   __grid_constant__ parameters.
+// - S = Q K^T: wgmma m64n128k16 per consumer, Q and K both K-major in
+//   shared memory, accumulated in f32, D / 16 k-steps.
+// - The online softmax (running max m, row sum l, rescale of O) is f32, in
+//   base 2 with log2(e) folded into the scale; a row's max and sum take two
+//   quad shuffles.  Only the diagonal tile and the ragged end of the keys
+//   are masked.
+// - O += P V: S's accumulators become P's bf16 A fragments in registers in
+//   place (for 16-bit types the accumulator layout is the A layout); V is
+//   the B operand straight from shared memory, MN-major through wgmma's
+//   transpose flag, so there is no 16-bit load of V at all.  At D = 112
+//   P V runs at N = 128 over both 64-column panels and the last 16 columns
+//   (zero-filled, never stored) are dropped: a 128-byte swizzled MN-major
+//   operand is laid out in 64-column atoms, and one shape for 112 and 128
+//   costs 1/8 more P V work and 16 registers at 112.
+// - The heaviest (latest) query tiles go first over every head, for the
+//   causal tail.
+// - Epilogue: O / l to bf16, stored per thread; lse per row; rows at or
+//   past Sq are never written.
+// Left for later designs: overlapping one consumer's softmax with the
+// other's products (ping-pong), S_{j+1} under P_j V_j within a consumer, a
+// persistent grid, clusters with TMA multicast of K and V.
 //
 // f32, D in {8, 12, 16, 64, 112, 128} (flash_fwd_f32_kernel).  The TPU
 // kernel keeps P in f32 when its inputs are f32 (`p.astype(v.dtype)`), and
@@ -46,19 +72,11 @@
 // chunks idle in P V).  Every head dim of the repo's configs is a multiple
 // of 4, so a row is whole 16-byte cp.async chunks (D = 12: three).  The
 // softmax is in natural units with expf, and o = acc / l, as the TPU
-// kernel computes them.
-//
-// Bound.  At the serving shape of qwen3-1.7b (B 8, S 4096, H 16, Hkv 8,
-// D 128, causal) the work is 0.55 TFLOP of products, 0.556 ms at 989
-// TFLOP/s in bf16, against 0.40 GB of Q, K, V, O and lse, 0.121 ms at
-// 3.35 TB/s: operations bound it.  In f32 the same work on the CUDA cores
-// takes at least 8.2 ms at 67 TFLOP/s (H100 SXM, non-tensor FP32).
-//
-// Left for a later design: wgmma (the only way to the full tensor-core
-// rate), TMA copies driven by a producer warp with mbarriers, ldmatrix for
-// the fragments, and a deeper K/V ring; for f32, a 3xTF32 split on the
-// tensor cores.
+// kernel computes them.  The same work on the CUDA cores takes at least
+// 8.2 ms at 67 TFLOP/s (H100 SXM, non-tensor FP32) at the serving shape.
+// Left for a later design: a 3xTF32 split on the tensor cores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,8 +103,8 @@ struct FlashParams {
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per CTA
-constexpr int kBlockN = 64;  // keys per K/V tile
+constexpr int kBlockM = 64;  // query rows per f32 CTA
+constexpr int kBlockN = 64;  // keys per f32 K/V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.69314718055994530942f;
 
@@ -108,224 +126,477 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// --- bf16: mma.sync on the tensor cores -------------------------------------
+// --- bf16: wgmma from a TMA ring --------------------------------------------
 
-constexpr int kWarps = 4;  // 16 query rows each
-constexpr int kThreads = 32 * kWarps;
+constexpr int kQRows = 128;  // query rows per CTA: 64 per consumer
+constexpr int kKeys = 128;   // keys per K/V tile
+constexpr int kStages = 2;   // K/V tiles in flight
+constexpr int kWarpgroup = 128;
+constexpr int kBf16Threads = 3 * kWarpgroup;  // a producer, two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kPanelCols = 64;          // bf16 columns of a 128-byte row
+constexpr int kPanelBytes = 128 * 128;  // a panel of 128 such rows
+constexpr int kAtomBytes = 1024;        // 8 swizzled rows
+// Launch errors past cudaError_t's range: a tensor map the driver would
+// not encode (kEncodeError + its CUresult), or no driver entry point.
+constexpr int kEncodeError = 100000;
+constexpr int kNoEncoder = 200000;
+
+// Head dim in whole 64-column panels: 64 -> 64, 112 -> 128, 128 -> 128.
+__host__ __device__ constexpr int padded(int D) {
+  return (D + kPanelCols - 1) / kPanelCols * kPanelCols;
+}
+
+// Dynamic shared memory of the bf16 kernel, from a 1024-byte aligned base:
+// Q, the K and V rings, then the mbarriers (Q's, and per stage K's and V's
+// full and empty ones).
+template <int D>
+struct Bf16Smem {
+  static constexpr int kPanels = padded(D) / kPanelCols;
+  static constexpr int kTile = kPanels * kPanelBytes;  // Q, or a K/V stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + kAtomBytes;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// Copy keys [n0, n0 + kBlockN) of one KV head into a padded smem tile.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* base,
-                                          long long s_stride, int n0, int skv,
-                                          int tid) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  static_assert(kBlockN * kChunks % kThreads == 0, "whole chunks a thread");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D (D, heads, rows, batch) tensor map into shared memory;
+// completion is counted in `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte swizzled layout: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2**x on the special-function unit; results below 2**-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from touching accumulators across an async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < kBlockN * kChunks / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int row = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = n0 + row < skv;
-    const uint16_t* src = base + (valid ? (n0 + row) * s_stride : 0) + col;
-    cp_async16(dst + row * kStride + col, src, valid);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B K-major in
+// shared memory; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 fragments in registers) B (16 x N),
+// B MN-major in shared memory (the transpose flag).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else {
+    static_assert(N == 128, "P V runs at N 64 or 128");
+    wgmma_rs_n128(d, a, b);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FlashParams p) {
-  static_assert(D % 16 == 0, "m16n8k16 tiles the head dim");
-  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
-  __shared__ __align__(16) uint16_t sK[kBlockN * kStride];
-  __shared__ __align__(16) uint16_t sV[kBlockN * kStride];
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_fwd_kernel(const FlashParams p,
+                     const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     int n_qtiles) {
+  using L = Bf16Smem<D>;
+  constexpr int DP = padded(D);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) +
+       kAtomBytes - 1) & ~static_cast<uint32_t>(kAtomBytes - 1);
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  // mbarriers, one a stage s at + 8 s: Q's, K's and V's "full" ones
+  // (transaction bytes) and K's and V's "empty" ones (consumer warps)
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-
-  const int bh = blockIdx.x;
+  // The heaviest query tiles first, each over every (batch, head).
+  const int qtile = n_qtiles - 1 - blockIdx.x / (p.B * p.H);
+  const int bh = blockIdx.x % (p.B * p.H);
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int n_qtiles = gridDim.y;
-  const int qtile = n_qtiles - 1 - blockIdx.y;  // heaviest tiles first
-  const int q0 = qtile * kBlockM;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  const uint16_t* qb = static_cast<const uint16_t*>(p.q) + b * p.q_sb +
-                       h * p.q_sh;
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                       hk * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                       hk * p.v_sh;
+  const int q0 = qtile * kQRows;
 
   // K/V tiles this CTA needs: up to the one holding its last row's key.
-  int n_tiles = (p.Skv + kBlockN - 1) / kBlockN;
+  // kKeys == kQRows, so every tile starts at or before the CTA's first row
+  // and no row of a tile is masked whole (its exponents would all be 0).
+  static_assert(kKeys == kQRows, "no query row sees no key of a tile");
+  int n_tiles = (p.Skv + kKeys - 1) / kKeys;
   if (p.causal) {
-    const int last_row = min(q0 + kBlockM, p.Sq) - 1;
-    n_tiles = min(n_tiles, last_row / kBlockN + 1);
+    n_tiles = min(n_tiles, (min(q0 + kQRows, p.Sq) - 1) / kKeys + 1);
   }
 
-  load_tile<D>(sK, kb, p.k_ss, 0, p.Skv, tid);
-  cp_async_commit();
-  load_tile<D>(sV, vb, p.v_ss, 0, p.Skv, tid);
-  cp_async_commit();
-
-  // Q as A fragments of m16n8k16: qa[kk] covers head dims [16kk, 16kk+16).
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      const bool ok = row < p.Sq;
-      const uint16_t* src = qb + (ok ? row : 0) * p.q_ss + kk * 16 + 2 * t;
-      qa[kk][r] = ok ? *reinterpret_cast<const uint32_t*>(src) : 0u;
-      qa[kk][r + 2] = ok ? *reinterpret_cast<const uint32_t*>(src + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumerWarps);
+      mbar_init(v_empty + 8 * s, kConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-  }
-  float m_run[2] = {kNegInf, kNegInf};  // running max, base-2 units
-  float l_run[2] = {0.f, 0.f};          // this thread's part of the row sum
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kBlockN;
-    cp_async_wait_1();  // K_j has landed (V_j may be in flight)
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const uint16_t* kp = sK + (nt * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        tma_load(sQ + pn * kPanelBytes, &tm_q, q_full, pn * kPanelCols, h, q0,
+                 b);
       }
-    }
-    __syncthreads();  // every warp is done with K_j
-    if (j + 1 < n_tiles) {
-      load_tile<D>(sK, kb, p.k_ss, n0 + kBlockN, p.Skv, tid);
-    }
-    cp_async_commit();
-
-    const bool mask = (n0 + kBlockN > p.Skv) ||
-                      (p.causal && n0 + kBlockN - 1 > q0);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[nt][c] * p.scale_log2;
-        if (mask) {
-          const int row = row0 + (c >= 2 ? 8 : 0);
-          const int col = n0 + nt * 8 + 2 * t + (c & 1);
-          if (col >= p.Skv || (p.causal && col > row)) x = kNegInf;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        // the stage's previous K (then V) has been released (passes at
+        // once on the first round)
+        const uint32_t released = ((j / kStages) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, released);
+        mbar_expect_tx(k_full + 8 * s, L::kTile);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          tma_load(sK + s * L::kTile + pn * kPanelBytes, &tm_k, k_full + 8 * s,
+                   pn * kPanelCols, hk, j * kKeys, b);
         }
-        s[nt][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        mbar_wait(v_empty + 8 * s, released);
+        mbar_expect_tx(v_full + 8 * s, L::kTile);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          tma_load(sV + s * L::kTile + pn * kPanelBytes, &tm_v, v_full + 8 * s,
+                   pn * kPanelCols, hk, j * kKeys, b);
+        }
       }
     }
-    float corr[2];
+  } else {
+    // Consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int g = lane / 4;   // accumulator row group
+    const int tq = lane % 4;  // thread within the group
+    const int r0 = q0 + 64 * cw;
+    const int row0 = r0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    // Q's 64 rows of this warpgroup: 8 swizzle atoms into each panel
+    const uint32_t sQw = sQ + cw * 64 * 128;
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // running max, base-2 units
+    float l_run[2] = {0.f, 0.f};          // this thread's part of the row sum
+
+    // Per tile j: S_j = Q K_j^T is issued, then P_{j-1} V_{j-1}, and the
+    // softmax of S_j runs while the second product is on the tensor cores.
+    // K_j is released as soon as S_j is done, V_{j-1} once P_{j-1} V_{j-1}
+    // is, so the producer refills each a tile or more before it is needed.
+    float sc[kKeys / 2];
+    uint32_t pa[kKeys / 16][4];
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int sp = (j + kStages - 1) % kStages;  // tile j - 1's stage
+      const int n0 = j * kKeys;
+
+      // S = Q K^T over the head dim in k-steps of 16 columns (32 bytes
+      // into a 128-byte swizzled row; D = 112 takes 7, never reading the
+      // zero-filled columns 112-127)
+      mbar_wait(k_full + 8 * s, (j / kStages) & 1);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sc, smem_desc(sQw + off, 16, kAtomBytes),
+                      smem_desc(sK + s * L::kTile + off, 16, kAtomBytes),
+                      kk > 0);
+      }
+      wgmma_commit();
+      if (j > 0) {
+        // O += P V: V's rows are the k dimension, its head dim contiguous
+        // (MN-major): 16 keys a k-step (two swizzle atoms), the 64-column
+        // panels one leading-byte offset apart
+        mbar_wait(v_full + 8 * sp, ((j - 1) / kStages) & 1);
+        __syncwarp();
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          wgmma_rs<DP>(o, pa[kk],
+                       smem_desc(sV + sp * L::kTile + kk * 2 * kAtomBytes,
+                                 kPanelBytes, kAtomBytes));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+
+      // online softmax in base 2 (scores scaled by D**-0.5 log2(e) inside
+      // the exponent's FMA); only the diagonal tile and the ragged end of
+      // the keys are masked
+      const bool mask = (n0 + kKeys > p.Skv) ||
+                        (p.causal && n0 + kKeys - 1 > r0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kKeys / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (mask) {
+            const int row = row0 + (e >= 2 ? 8 : 0);
+            const int col = n0 + nt * 8 + 2 * tq + (e & 1);
+            if (col >= p.Skv || (p.causal && col > row)) {
+              sc[4 * nt + e] = kNegInf;
+            }
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * nt + e]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m_run[r], mx[r] * p.scale_log2);
+        corr[r] = ex2(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], p.scale_log2, -mx[(i >> 1) & 1]));
+        l_run[(i >> 1) & 1] += sc[i];
+      }
+
+      if (j > 0) {
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= corr[0];
+        o[4 * i + 1] *= corr[0];
+        o[4 * i + 2] *= corr[1];
+        o[4 * i + 3] *= corr[1];
+      }
+      // P rounded to bf16: the accumulators of key columns [16kk, 16kk+16)
+      // are the A fragment of the kk-th k-step of P V, in place
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        }
+      }
+    }
+    {  // the last tile's P V
+      const int sp = (n_tiles - 1) % kStages;
+      mbar_wait(v_full + 8 * sp, ((n_tiles - 1) / kStages) & 1);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wgmma_rs<DP>(o, pa[kk],
+                     smem_desc(sV + sp * L::kTile + kk * 2 * kAtomBytes,
+                               kPanelBytes, kAtomBytes));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    uint16_t* ob = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= corr[r];
-    }
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      const float inv = 1.f / l;
+      uint16_t* orow = ob + row * p.o_ss + 2 * tq;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = exp2f(s[nt][c] - mx[c >> 1]);
-        s[nt][c] = e;
-        l_run[c >> 1] += e;
+      for (int nt = 0; nt < D / 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(orow + nt * 8) =
+            pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
       }
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-
-    cp_async_wait_1();  // V_j has landed (K_{j+1} may be in flight)
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // P's accumulators of key columns [16kk, 16kk+16) as an A fragment
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint16_t* vp = sV + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const uint16_t* v0 = vp + dt * 8;
-        const uint32_t b0 = uint32_t(v0[0]) | (uint32_t(v0[kStride]) << 16);
-        const uint32_t b1 = uint32_t(v0[8 * kStride]) |
-                            (uint32_t(v0[9 * kStride]) << 16);
-        mma_bf16(acc[dt], pa, b0, b1);
+      if (tq == 0) {
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+            m_run[r] * kLn2 + logf(l);
       }
-    }
-    __syncthreads();  // every warp is done with V_j
-    if (j + 1 < n_tiles) {
-      load_tile<D>(sV, vb, p.v_ss, n0 + kBlockN, p.Skv, tid);
-    }
-    cp_async_commit();
-  }
-
-  uint16_t* ob = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
-    const int row = row0 + 8 * r;
-    if (row >= p.Sq) continue;
-    const float inv = 1.f / l;
-    uint16_t* orow = ob + row * p.o_ss + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    }
-    if (t == 0) {
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
-          m_run[r] * kLn2 + logf(l);
     }
   }
 }
@@ -586,10 +857,79 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(f);
+    }
+  }
+  return fn;
+}
+
+// A bf16 (D, heads, rows, batch) map over a (batch, rows, heads, D) tensor
+// with element strides sb, ss, sh (D contiguous): boxes of 64 columns of
+// one head and kQRows rows, 128-byte swizzled; what lies past D, the rows
+// or the batch is zero-filled.  Returns 0 or an error code.
+int encode(CUtensorMap* map, const void* ptr, int D, int heads, int rows,
+           int batch, long long sh, long long ss, long long sb) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kPanelCols, 1, kQRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
 template <int D>
 int launch_bf16(const FlashParams& p, cudaStream_t s) {
-  const dim3 grid(p.B * p.H, (p.Sq + kBlockM - 1) / kBlockM);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, s>>>(p);
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode(&tm_q, p.q, p.D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb);
+  if (err == 0) {
+    err = encode(&tm_k, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb);
+  }
+  if (err == 0) {
+    err = encode(&tm_v, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb);
+  }
+  if (err != 0) return err;
+  constexpr int smem = Bf16Smem<D>::kBytes;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_qtiles = (p.Sq + kQRows - 1) / kQRows;
+  const long long ctas = static_cast<long long>(p.B) * p.H * n_qtiles;
+  if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel<D><<<static_cast<unsigned>(ctas), kBf16Threads, smem, s>>>(
+      p, tm_q, tm_k, tm_v, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -642,8 +982,9 @@ extern "C" int flash_fwd_has_form(int dtype, int D) {
   return has_form(dtype, D) ? 1 : 0;
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes or a (dtype, D) it does not take.
+// Launches on `stream`; returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for shapes or a (dtype, D) it does not take, or a
+// tensor-map error of the bf16 form (flash_fwd_error_string names it).
 extern "C" int flash_fwd_launch(FlashParams p, void* stream) {
   if (p.B <= 0 || p.H <= 0 || p.Hkv <= 0 || p.H % p.Hkv != 0 ||
       p.Sq <= 0 || p.Skv <= 0 || !has_form(p.dtype, p.D) ||
@@ -655,5 +996,12 @@ extern "C" int flash_fwd_launch(FlashParams p, void* stream) {
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {
+  if (err == kNoEncoder) {
+    return "the driver offers no cuTensorMapEncodeTiled";
+  }
+  if (err >= kEncodeError && err < kNoEncoder) {
+    return "cuTensorMapEncodeTiled refused a tensor map of q, k or v "
+           "(CUresult: the code less 100000)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -16,7 +16,9 @@ from repro_torch.kernels import flash_attention as flash
 pytestmark = pytest.mark.gpu
 
 #: B, Sq, Skv, H, Hkv, D, causal: GQA ratios 1, 2 and 4, ragged lengths
-#: (not multiples of the kernel's 64-row tiles), non-square, full attention
+#: (not multiples of the kernels' 64- or 128-row tiles), non-square, full
+#: attention; lengths on each side of the bf16 forward's 128-row tiles
+#: (127, 128, 129, 255, 257), Skv < 128 < Sq and the reverse, Sq = 1
 CASES = [
     (2, 200, 200, 4, 4, 128, True),
     (1, 256, 256, 8, 4, 128, True),
@@ -26,6 +28,16 @@ CASES = [
     (2, 200, 200, 4, 1, 128, False),
     (1, 1, 1, 2, 1, 128, True),
     (1, 1024, 1024, 16, 8, 128, True),
+    (2, 127, 127, 4, 2, 128, True),
+    (1, 128, 128, 4, 2, 128, True),
+    (2, 129, 129, 4, 2, 128, True),
+    (1, 255, 255, 4, 4, 128, True),
+    (1, 257, 257, 4, 1, 128, True),
+    (1, 300, 100, 4, 2, 128, True),
+    (1, 100, 300, 4, 2, 128, True),
+    (2, 257, 129, 4, 2, 128, False),
+    (2, 1, 257, 4, 2, 128, True),
+    (2, 1, 257, 4, 2, 128, False),
 ]
 
 
@@ -64,6 +76,46 @@ def test_kernel_matches_plain_version(cuda, case):
     # the bounds are check_against_plain's: P rounded to bf16 before P.V,
     # one bf16 ulp of o elementwise, 2**-7 of each row's norm, lse 1e-3
     flash.check_against_plain(o, q, k, v, causal, lse=lse)
+
+
+#: the bf16 forward at every head dim and GQA group size G = H / Hkv (1, 2,
+#: 3, 4, 16), over lengths on each side of its 128-row tiles
+BF16_CASES = [(D, G, S, causal)
+              for D in (64, 112, 128)
+              for G, S, causal in ((1, 127, True), (2, 129, True),
+                                   (3, 257, True), (4, 255, False),
+                                   (16, 200, True))]
+
+
+@pytest.mark.parametrize("D,G,S,causal", BF16_CASES,
+                         ids=lambda x: str(x))
+def test_bf16_forward_reads_fused_qkv_views(cuda, D, G, S, causal):
+    """q, k and v as strided views of one fused QKV projection (row stride
+    (H + 2 Hkv) D), o and lse pre-filled with NaN: every row written and
+    within check_against_plain's bf16 bound."""
+    B, Hkv = 2, 2 if G < 16 else 1
+    H = G * Hkv
+    rng = np.random.default_rng(D + G)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * Hkv, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.split([H, Hkv, Hkv], dim=2)
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full((B, H, S), float("nan"), device=cuda)
+    flash.flash_attention_lse(q, k, v, causal, out=(o, lse))
+    torch.cuda.synchronize()
+    flash.check_against_plain(o, q, k, v, causal, lse=lse)
+
+
+@pytest.mark.parametrize("D", [64, 112, 128])
+def test_bf16_forward_is_deterministic(cuda, D):
+    """Two launches on the same inputs agree bit for bit: the kernel has no
+    atomics, so its order of operations is fixed."""
+    case = (2, 300, 300, 8, 2, D, True)
+    q, k, v = _qkv(case, cuda, seed=D)
+    o1, lse1 = flash.flash_attention_lse(q, k, v, True)
+    o2, lse2 = flash.flash_attention_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_kernel_reads_strided_views(cuda):
