@@ -150,7 +150,9 @@ On one CUDA card, from the root of a checkout:
     ``check_against_plain``/``check_bwd_against_plain`` for its dtype) and
     timed beside its plain version, ``scaled_dot_product_attention``
     (causal, GQA; forward, and backward as grad minus forward, checked to
-    compute the same function) and its bound at the dtype's peak rate;
+    compute the same function) and its bound at the dtype's peak rate,
+    and the bf16 dQ and dK/dV at granite-3-8b's and glm4-9b's heads (H 32
+    on Hkv 8 and 2) the same way;
     (b) serves granite-3-8b, phi4-mini-3.8b and glm4-9b at full width in
     bf16 like qwen3-1.7b (``serve_arch``: prefill, decode, tokens/s, peak
     memory, n_layers flash launches a prefill, layer 0's flash output
@@ -2538,8 +2540,9 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
     """Both backward kernels against ``flash_bwd_plain`` on ``cap``'s q, k,
     v and dO (outputs pre-filled with NaN) within
     ``check_bwd_against_plain``'s bound for the dtype, then CUDA-event
-    times of each kernel, the plain version and the SDPA backward, and the
-    bound."""
+    times of each kernel, the plain version and the SDPA backward, the
+    bound, each kernel's TFLOP/s, its share of the bound (bound / ms) and
+    its ratio to the SDPA backward (ms / SDPA ms), and the pair's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -2594,13 +2597,29 @@ def backward_kernels_vs_plain(cap: dict, peaks) -> dict:
     for kernel, ms, err in (("dq", dq_ms, vs_plain["dq_max_abs_err"]),
                             ("dkv", dkv_ms, max(vs_plain["dk_max_abs_err"],
                                                 vs_plain["dv_max_abs_err"]))):
+        bound = flash_bound(kernel, q, k, peaks)
+        flops = flash.flash_bwd_kernel_flops(B, S, S, H, D, True, kernel)
         out[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **flash_bound(kernel, q, k, peaks),
-                       "library_ms": library_ms}
+                       **bound, "library_ms": library_ms,
+                       "tflop_per_s": flops / ms / 1e9,
+                       "share_of_bound": bound["bound_ms"] / ms,
+                       "ms_over_library": ms / library_ms}
         print(f"  flash_bwd_{kernel}: kernel {ms}, plain (dq, dk, dv "
               f"together) {plain_ms}, SDPA backward (dq, dk, dv) "
-              f"{library_ms}, bound {out[kernel]['bound_ms']:.3f} ms "
-              f"({out[kernel]['bound_by']})", flush=True)
+              f"{library_ms}, bound {bound['bound_ms']:.3f} ms "
+              f"({bound['bound_by']}); {out[kernel]['tflop_per_s']:.1f} "
+              f"TFLOP/s, {out[kernel]['share_of_bound']:.3f} of the bound, "
+              f"{out[kernel]['ms_over_library']:.3f}x the SDPA backward",
+              flush=True)
+    pair = dq_ms + dkv_ms
+    out["pair"] = {"ms": pair,
+                   "share_of_bound": (out["dq"]["bound_ms"]
+                                      + out["dkv"]["bound_ms"]) / pair,
+                   "ms_over_library": pair / library_ms}
+    print(f"  backward pair (dq + dkv): {pair:.3f} ms, "
+          f"{out['pair']['share_of_bound']:.3f} of the bound, "
+          f"{out['pair']['ms_over_library']:.3f}x the SDPA backward",
+          flush=True)
     out["readings"] = vs_plain
     out["library_rel_err"] = lib_rel
     out["shape"] = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D}
@@ -2822,7 +2841,8 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False) -> dict:
               "library": "scaled_dot_product_attention backward (grad "
                          "minus forward), dq, dk and dv together",
               "shape": bwd["shape"], **bwd["readings"],
-              "library_rel_err": bwd["library_rel_err"]}
+              "library_rel_err": bwd["library_rel_err"],
+              "pair": bwd["pair"]}
     kernels = [
         {"name": f"flash_bwd_dq[{arch}]", "replaces": DQ_REPLACES,
          "launches": launches[1], "form_launches": _form_counts(forms),
@@ -2890,14 +2910,7 @@ def form_rows(dtype: str, D: int, device, peaks) -> list:
     rows = [{"name": f"flash_fwd[{tag}]", "source": LM_SOURCE,
              "replaces": LM_REPLACES, "form": ("fwd", dtype, D),
              "max_abs_err": fwd_readings["max_abs_err"], **fwd,
-             "readings": fwd_readings}]
-    for kernel, replaces in (("dq", DQ_REPLACES), ("dkv", DKV_REPLACES)):
-        rows.append({"name": f"flash_bwd_{kernel}[{tag}]",
-                     "source": BWD_SOURCE, "replaces": replaces,
-                     "form": (kernel, dtype, D), **bwd[kernel],
-                     "plain_covers": "dq, dk and dv together",
-                     "library_rel_err": bwd["library_rel_err"],
-                     "readings": bwd["readings"]})
+             "readings": fwd_readings}] + bwd_rows(bwd, tag, dtype, D)
     for row in rows:
         row.update(route="cuda", shape=shape)
         print(f"  {row['name']} (B {B}, S {S}, H {H}, Hkv {Hkv}): kernel "
@@ -2905,6 +2918,45 @@ def form_rows(dtype: str, D: int, device, peaks) -> list:
               f"{row['library_ms']}, bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}); max abs err {row['max_abs_err']:.3g}",
               flush=True)
+    return rows
+
+
+def bwd_rows(bwd: dict, tag: str, dtype: str, D: int) -> list:
+    """The dQ and dK/dV rows of ``backward_kernels_vs_plain``'s readings
+    ``bwd`` for the form (``dtype``, ``D``), named ``flash_bwd_*[tag]``."""
+    return [{"name": f"flash_bwd_{kernel}[{tag}]", "source": BWD_SOURCE,
+             "replaces": replaces, "form": (kernel, dtype, D), **bwd[kernel],
+             "plain_covers": "dq, dk and dv together",
+             "library_rel_err": bwd["library_rel_err"], "pair": bwd["pair"],
+             "readings": bwd["readings"]}
+            for kernel, replaces in (("dq", DQ_REPLACES),
+                                     ("dkv", DKV_REPLACES))]
+
+
+def config_bwd_rows(arch: str, device, peaks) -> list:
+    """dQ and dK/dV at ``arch``'s heads (bf16, its head dim) at FORM_SHAPE's
+    batch and length: q, k, v and dO standard normal from seed H + Hkv on
+    the card, held against their plain version and timed beside it, the
+    SDPA backward and the bound (``backward_kernels_vs_plain``); for the
+    A16b configs that do not train at full width on one card."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    B, S = FORM_SHAPE[:2]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+    gen = torch.Generator(device=device).manual_seed(H + Hkv)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, cfg.dtype))
+    cap = {"q": normal(B, S, H, D), "k": normal(B, S, Hkv, D),
+           "v": normal(B, S, Hkv, D), "do": normal(B, S, H, D)}
+    bwd = backward_kernels_vs_plain(cap, peaks)
+    del cap
+    torch.cuda.empty_cache()
+    rows = bwd_rows(bwd, f"{arch} heads", cfg.dtype, D)
+    for row in rows:
+        row.update(route="cuda", shape={**bwd["shape"], "dtype": cfg.dtype})
     return rows
 
 
@@ -2988,11 +3040,13 @@ def smoke_run(label: str, cfg, device) -> dict:
 
 def a16b_phase(device, peaks) -> list:
     """(a) every new flash form at FORM_SHAPE against its plain version,
-    timed beside SDPA and its bound; (b) granite-3-8b, phi4-mini-3.8b and
-    glm4-9b served at full width in bf16; (c) phi4-mini trained at full
-    width; (d) the four dense archs' smoke configs in f32, and the head-dim
-    sweep, served and trained on the card against the CPU.  Every form's
-    launches are those of the (b)-(d) main paths."""
+    timed beside SDPA and its bound, and the backward kernels at the heads
+    of the A16b configs that do not train at full width; (b)
+    granite-3-8b, phi4-mini-3.8b and glm4-9b served at full width in
+    bf16; (c) phi4-mini trained at full width; (d) the four dense archs'
+    smoke configs in f32, and the head-dim sweep, served and trained on
+    the card against the CPU.  Every form's launches are those of the
+    (b)-(d) main paths."""
     import dataclasses
 
     import torch
@@ -3001,6 +3055,9 @@ def a16b_phase(device, peaks) -> list:
     form_rows_ = []
     for dtype, D in NEW_FORMS:
         form_rows_ += form_rows(dtype, D, device, peaks)
+    for arch in A16B_ARCHS:
+        if arch != A16B_TRAIN_ARCH:
+            form_rows_ += config_bwd_rows(arch, device, peaks)
     print(f"A16b (a) kernel rows: {time.perf_counter() - t0:.3f} s",
           flush=True)
     rows = []

@@ -2,17 +2,18 @@
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` at first use into ``build/repro_torch/`` at the root of the
-checkout, under a name that carries a hash of the source and the flags, and
-loaded with ``ctypes``; ``stencil_stream.cu`` gives one library per storage
-type for single grids and one for batches (:data:`LIBRARIES`), and one
-library per program with custom stencils (:func:`custom_stencil_stream`:
-the source, with the generated header of ``kernels/codegen.py`` and only
-the kernel the program runs), named by a hash of the generated text, the
-source and the flags.  Only the sources in the repository are used.
-Nothing here runs at import time: this module imports on machines without
-``nvcc`` or a card.  A build holds a lock per library (the stencil service
-launches from worker threads) and renames its output into place
-atomically; a failed build raises.
+checkout, under a name that carries a hash of the source, the ``csrc/``
+headers it includes (``hopper.cuh``, shared by the flash sources) and the
+flags, and loaded with ``ctypes``; ``stencil_stream.cu`` gives one library
+per storage type for single grids and one for batches
+(:data:`LIBRARIES`), and one library per program with custom stencils
+(:func:`custom_stencil_stream`: the source, with the generated header of
+``kernels/codegen.py`` and only the kernel the program runs), named by a
+hash of the generated text, the source and the flags.  Only the sources
+in the repository are used.  Nothing here runs at import time: this
+module imports on machines without ``nvcc`` or a card.  A build holds a
+lock per library (the stencil service launches from worker threads) and
+renames its output into place atomically; a failed build raises.
 """
 from __future__ import annotations
 
@@ -228,11 +229,30 @@ def _digest(*parts: bytes) -> str:
     return hashlib.sha256(b"".join(parts)).hexdigest()[:16]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_files(source: str) -> list:
+    """``csrc/<source>`` and every header of ``csrc/`` it includes, directly
+    or through another, in the order first included."""
+    files, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in files or not (CSRC / name).is_file():
+            continue
+        files.append(name)
+        todo += [m.decode() for m in
+                 _INCLUDE.findall((CSRC / name).read_bytes())]
+    return files
+
+
 def library_path(stem: str) -> Path:
     """Where the library ``stem`` of :data:`LIBRARIES` lives: its name
-    carries a hash of the source text and the compiler flags."""
+    carries a hash of the source text, of the ``csrc/`` headers it includes
+    and of the compiler flags."""
     source, flags = LIBRARIES[stem]
-    digest = _digest((CSRC / source).read_bytes(),
+    digest = _digest(*((CSRC / name).read_bytes()
+                       for name in _source_files(source)),
                      " ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"lib{stem}_{digest}.so"
 
@@ -312,7 +332,8 @@ def custom_library_path(header: str, flags: tuple) -> Path:
     a hash of the generated ``header``, ``stencil_stream.cu`` and the
     flags (never by a stencil's name: two stencils may share one)."""
     digest = _digest(header.encode(),
-                     (CSRC / "stencil_stream.cu").read_bytes(),
+                     *((CSRC / name).read_bytes()
+                       for name in _source_files("stencil_stream.cu")),
                      " ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"libstencil_custom_{digest}.so"
 

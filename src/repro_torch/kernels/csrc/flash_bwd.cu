@@ -13,38 +13,81 @@
 // with scale = D**-0.5, query head h reading KV head h / (H / Hkv), and the
 // causal mask aligned top-left (query i sees keys 0..i).  Each kernel is a
 // template over the head dim D, in two forms; the launchers dispatch on
-// (dtype, D) and refuse any pair they were not built for:
+// (dtype, D) and refuse any pair they were not built for.  Both forms read
+// and write the model's (B, S, H, D) layout through strides and take any
+// Sq and Skv (rows past the end are zero-filled on load and never
+// written).  No form uses atomics: every sum runs in a fixed order, so two
+// launches on the same inputs agree bit for bit.
 //
-// bf16, D in {64, 112, 128}: mma.sync on the tensor cores.
+// What bounds them.  At the training shape of qwen3-1.7b (B 8, S 4096, H
+// 16, Hkv 8, D 128, causal) one product is 2 * B * H * (S^2 / 2) * D =
+// 2.749e11 FLOP.  The dQ kernel recomputes S and dP and forms dS K: 3
+// products, 0.834 ms at 989 TFLOP/s (H100 SXM, bf16 dense), against 0.68
+// GB of Q, K, V, O, dO, lse, dQ and delta, 0.20 ms at 3.35 TB/s.  The
+// dK/dV kernel recomputes S and dP and forms P^T dO and dS^T Q: 4
+// products, 1.112 ms.  Operations bound both, and only wgmma reaches the
+// tensor cores' full rate; in f32 on the CUDA cores (67 TFLOP/s) the same
+// work takes at least 12.3 and 16.4 ms.
 //
-// flash_bwd_dq_kernel.  One CTA per (64-row query tile, batch * head), 4
-// warps of 16 query rows.  Q and dO tiles are copied into shared memory
-// once; delta for the tile's rows is computed here from O and dO (the TPU
-// version computes it outside the kernel) and written out for the dK/dV
-// kernel.  The CTA walks 64-key K/V tiles up to the causal diagonal (the
-// TPU kernel's `nkv_eff`), K double-buffered and V single-buffered, both
-// copied with cp.async; tile j + 1's copies overlap tile j's dS K product.
-// Per tile: S and dP as mma.sync.m16n8k16 (bf16 operands from shared
-// memory, f32 accumulators), P and dS in f32 in the accumulators, dS
-// rounded to bf16 in registers as the A operand of dQ += dS K.  dQ stays
-// in f32 registers (D / 8 n-tiles: 14 at D = 112) and is written once,
-// times scale, in bf16.
+// bf16, D in {64, 112, 128}: wgmma from TMA rings, the design of
+// flash_fwd.cu's bf16 forward (the shared pieces are in hopper.cuh).
+// - A CTA is three warpgroups: a producer that gives its registers up
+//   (setmaxnreg 24), one thread of which issues every TMA copy, and two
+//   consumers (240 registers each) of 64 rows.  Copies land on "full"
+//   mbarriers (transaction bytes) and stages are handed back on "empty"
+//   ones (an arrival per consumer warp); no __syncthreads() sits in a
+//   loop and no thread spends registers on copies.
+// - Tiles are 64 columns of one head by 64 rows, 128-byte swizzled, from
+//   4-D (D, heads, rows, batch) tensor maps over the caller's strides;
+//   what lies past D = 112, past the rows or past the batch is
+//   zero-filled.  A 128-row operand is two such boxes per panel.
+// - Every operand is read by wgmma straight from shared memory, either
+//   K-major (Q, dO, K, V as A or B of S and dP) or MN-major through the
+//   transpose flag (K in dS K, dO in P^T dO, Q in dS^T Q); P, P^T, dS
+//   and dS^T are f32 accumulators rounded to bf16 A fragments in place
+//   (for 16-bit types the accumulator layout is the A layout).  Nothing
+//   goes through shared memory on its way between products, and there is
+//   no 16-bit shared-memory load.  At D = 112 the head-dim products run
+//   at N 128 over both panels and the last 16 columns (zero-filled, never
+//   stored) are dropped, as in the forward's P V.
+// - P = exp2(S * scale * log2(e) - lse * log2(e)) on the special-function
+//   unit; dS = P (dP - delta) in f32; only the diagonal tile and the
+//   ragged ends are masked.  P and dS are rounded to bf16 before their
+//   products and everything else stays f32, the rounding points of the
+//   warp-level kernels these replace (`check_bwd_against_plain` bounds
+//   that rounding).
 //
-// flash_bwd_dkv_kernel.  One CTA per (64-key tile, batch * KV head), 4
-// warps of 16 keys.  K and V are copied into shared memory once.  The CTA
-// loops over the G query heads of its group and, for each, over 32-row
-// query tiles from the first one that sees its keys (the TPU kernel's
-// `first`), Q, dO, lse and delta double-buffered with cp.async.  Per tile
-// it forms S^T = K Q^T and dP^T = V dO^T directly in transposed form,
-// P^T and dS^T in f32, and accumulates dV += P^T dO and dK += dS^T Q with
-// P^T and dS^T rounded to bf16 as A operands.  Summing the G query heads
-// inside the CTA replaces the TPU version's per-q-head f32 outputs and the
-// sum outside the kernel (ROADMAP B4).  dK * scale and dV are written once
-// in bf16.  Heavier (earlier) key tiles come first in the grid.
+// flash_bwd_dq_kernel.  A CTA owns 128 query rows of one (batch, head),
+// the heaviest (latest) query tiles first.  Q and dO are loaded once;
+// delta = rowsum(dO * O) for its rows is computed from device memory (the
+// TPU version computes it outside the kernel) and written out for the
+// dK/dV kernel.  K and V come in 64-key tiles through a ring of kStagesDq
+// stages up to the causal diagonal (the TPU kernel's `nkv_eff`), each
+// with its own full and empty barriers: V_j is handed back as soon as S_j
+// and dP_j are done, K_j only after dQ += dS_j K_j, which runs under the
+// next tile's S and dP (so K needs the third stage).  S = Q K^T and dP =
+// dO V^T are SS wgmmas (m64n64); dQ += dS K is register-sourced.  dQ
+// stays in f32 registers and is written once, times scale, in bf16.
 //
-// The bf16 kernels round P and dS to bf16 before their products where the
-// TPU keeps f32; `check_bwd_against_plain` in kernels/flash_attention.py
-// bounds that rounding.
+// flash_bwd_dkv_kernel.  A CTA owns 128 keys of one (batch, KV head), the
+// heavier (earlier) key tiles first.  K and V are loaded once.  The ring
+// walks the G query heads of the group and, for each, the 64-row query
+// tiles from the first that sees its keys (the TPU kernel's `first`):
+// each stage brings the Q and dO tiles by TMA and the tile's 64 lse and
+// delta values, copied by the producer's second warp with cp.async onto
+// the same full barrier.  S^T = K Q^T and dP^T = V dO^T are SS wgmmas
+// with M = keys; P^T and dS^T take each column's lse and delta from
+// shared memory; dV += P^T dO and dK += dS^T Q are register-sourced.
+// Summing the G query heads inside the CTA replaces the TPU version's
+// per-q-head f32 outputs and the sum outside the kernel (ROADMAP B4).
+// dK * scale and dV are written once in bf16.
+//
+// Left for later designs: ping-pong of the two consumers, the next tile's
+// S^T and dP^T under dK/dV's products (registers: dK and dV alone take
+// 128), a persistent grid, and FA3's single kernel of 5 products (S, dP,
+// dV, dK, dQ once each: 1.390 ms bound at D 128 against 1.946), whose dQ
+// sums over key tiles need an ordered (semaphore) accumulation to stay
+// deterministic where f32 atomics are not.
 //
 // f32, D in {8, 12, 16, 64, 112, 128}: FMAs on the CUDA cores, P and dS
 // kept in f32 as the TPU kernels keep them (a tf32 mma would drop 13 bits
@@ -65,29 +108,10 @@
 // 16j.  Over the G query heads and the query tiles from `first` on, it
 // forms S^T and dP^T, stores P^T and dS^T as 64 x 64 shared tiles, and
 // accumulates dV += P^T dO and dK += dS^T Q for its keys and chunks; the G
-// heads are summed in the CTA as in the bf16 form.
-//
-// Both forms read and write the model's (B, S, H, D) layout through
-// strides and take any Sq and Skv (rows past the end are zero-filled on
-// load and never written).
-//
-// Bound.  At the training shape of qwen3-1.7b (B 8, S 4096, H 16, Hkv 8,
-// D 128, causal) one product is 2 * B * H * (S^2 / 2) * D = 2.749e11 FLOP.
-// The dQ kernel recomputes S and dP and forms dS K: 3 products, 0.834 ms
-// at 989 TFLOP/s (H100 SXM, bf16 dense), against 0.68 GB of Q, K, V, O,
-// dO, lse, dQ and delta, 0.20 ms at 3.35 TB/s.  The dK/dV kernel
-// recomputes S and dP and forms P^T dO and dS^T Q: 4 products, 1.112 ms.
-// Operations bound both; in f32 on the CUDA cores (67 TFLOP/s) the same
-// work takes at least 12.3 and 16.4 ms.  The bf16 design uses the tensor
-// cores through warp-level mma.sync and keeps every score tile in
-// registers; left for a later design: wgmma, TMA copies driven by a
-// producer warp with mbarriers, and ldmatrix (.trans) fragments in place
-// of the 16-bit shared-memory loads of the transposed operands; for f32, a
-// 3xTF32 split on the tensor cores.
+// heads are summed in the CTA as in the bf16 form.  Left for a later
+// design: a 3xTF32 split on the tensor cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 // Passed by value from Python (ctypes), so it lives outside the unnamed
 // namespace: the exported launchers' signatures name it.  Strides are in
@@ -120,46 +144,8 @@ struct FlashBwdParams {
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsDq = 64;     // query rows per dq CTA (16 per warp)
-constexpr int kKeysDq = 64;     // keys per K/V tile of the dq loop
-constexpr int kKeysDkv = 64;    // keys per dkv CTA (16 per warp)
-constexpr int kRowsDkv = 32;    // query rows per tile of the dkv loop
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kRowsDq + 3 * kKeysDq) * (D + 8) * 2;
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kKeysDkv + 4 * kRowsDkv) * (D + 8) * 2 + 4 * kRowsDkv * 4;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t x) {
-  return __uint_as_float(x << 16);
-}
-
-__device__ __forceinline__ float bf16_hi(uint32_t x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 16 bytes global -> shared; `valid == false` zero-fills the destination.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -189,411 +175,577 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Copy rows [r0, r0 + kRows) of one head (row stride `s_stride`) into a
-// padded bf16 smem tile of row stride D + 8, in 16-byte chunks; rows at or
-// past `limit` are zero-filled.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* base,
-                                          long long s_stride, int r0,
-                                          int limit, int tid) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kIters = (kRows * kChunks + kThreads - 1) / kThreads;
+// --- bf16: wgmma from TMA rings ---------------------------------------------
+
+constexpr int kBf16Threads = 3 * kWarpgroup;  // a producer, two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kRowsDq = 128;   // query rows per dQ CTA: 64 per consumer
+constexpr int kKeysDkv = 128;  // keys per dK/dV CTA: 64 per consumer
+constexpr int kTile = 64;      // keys of a dQ ring tile, query rows of a
+                               // dK/dV one, and the rows of every TMA box
+constexpr int kStagesDq = 3;   // K/V tiles in flight
+constexpr int kStagesDkv = 2;  // Q/dO tiles in flight
+constexpr int kHalfPanel = kTile * kRowBytes;  // a 64-row panel, 8 KB
+constexpr int kFullPanel = 2 * kHalfPanel;     // a 128-row panel
+
+// Dynamic shared memory of the dQ kernel, from a 1024-byte aligned base:
+// Q and dO (128 rows), the K and V rings, delta of the CTA's rows, then the
+// mbarriers (Q and dO's, and per stage K's and V's full and empty ones).
+template <int D>
+struct DqSmem {
+  static constexpr int kPanels = padded(D) / kPanelCols;
+  static constexpr int kRows = kPanels * kFullPanel;  // Q or dO
+  static constexpr int kStage = kPanels * kHalfPanel;  // a K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kdO = kQ + kRows;
+  static constexpr int kK = kdO + kRows;
+  static constexpr int kV = kK + kStagesDq * kStage;
+  static constexpr int kDelta = kV + kStagesDq * kStage;
+  static constexpr int kBars = kDelta + 4 * kRowsDq;
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStagesDq) + kAtomBytes;
+};
+
+// Dynamic shared memory of the dK/dV kernel: K and V (128 keys), the Q and
+// dO rings, lse and delta of each stage's rows, then the mbarriers (K and
+// V's, and per stage a full and an empty one).
+template <int D>
+struct DkvSmem {
+  static constexpr int kPanels = padded(D) / kPanelCols;
+  static constexpr int kRows = kPanels * kFullPanel;  // K or V
+  static constexpr int kStage = kPanels * kHalfPanel;  // a Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kRows;
+  static constexpr int kQ = kV + kRows;
+  static constexpr int kdO = kQ + kStagesDkv * kStage;
+  static constexpr int kLse = kdO + kStagesDkv * kStage;
+  static constexpr int kDelta = kLse + 4 * kTile * kStagesDkv;
+  static constexpr int kBars = kDelta + 4 * kTile * kStagesDkv;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStagesDkv) + kAtomBytes;
+};
+
+// wgmma descriptor of k-step kk (16 columns) of a K-major operand whose
+// 64-column panels lie `panel` bytes apart.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int panel) {
+  return smem_desc(tile + (kk / 4) * panel + (kk % 4) * 32, 16, kAtomBytes);
+}
+
+// wgmma descriptor of k-step kk (16 rows: two swizzle atoms) of an
+// MN-major operand, a 64-row tile whose 64-column panels lie one leading
+// byte offset apart.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 2 * kAtomBytes, kHalfPanel, kAtomBytes);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// acc + the dot product of 8 bf16 pairs.
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
+                                      float acc) {
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int c = tid + i * kThreads;
-    if (kRows * kChunks % kThreads == 0 || c < kRows * kChunks) {
-      const int row = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      const bool valid = r0 + row < limit;
-      const uint16_t* src = base + (valid ? (r0 + row) * s_stride : 0) + col;
-      cp_async16(dst + row * kStride + col, src, valid);
-    }
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(bf16_lo(av[i]), bf16_lo(bv[i]), acc);
+    acc = fmaf(bf16_hi(av[i]), bf16_hi(bv[i]), acc);
   }
+  return acc;
 }
 
-// A fragment (16 x 16, row-major) of the smem tile `s` (row stride kS) at
-// rows [r, r+16), columns [c, c+16).
-template <int kS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* s,
-                                       int r, int c, int g, int t) {
-  const uint16_t* p0 = s + (r + g) * kS + c + 2 * t;
-  const uint16_t* p1 = p0 + 8 * kS;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = s[n0 + n][k0 + k]: the tile holds B
-// transposed (one smem row per column n), as K does for Q K^T.
-template <int kS>
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const uint16_t* s, int n0, int k0,
-                                          int g, int t) {
-  const uint16_t* p = s + (n0 + g) * kS + k0 + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = s[k0 + k][n0 + n]: the tile holds B
-// as it is (one smem row per k), as K does for dS K.
-template <int kS>
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const uint16_t* s, int k0, int n0,
-                                          int g, int t) {
-  const uint16_t* p = s + (k0 + 2 * t) * kS + n0 + g;
-  b0 = uint32_t(p[0]) | (uint32_t(p[kS]) << 16);
-  b1 = uint32_t(p[8 * kS]) | (uint32_t(p[9 * kS]) << 16);
-}
-
-// Accumulators of columns [16kk, 16kk + 16) as the A fragment of the next
-// product, rounded to bf16.
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&x)[N][4], int kk) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+// Shared-memory address `at` as a generic pointer, given the generic and
+// shared addresses of the dynamic shared memory's start.
+template <typename T>
+__device__ __forceinline__ T* generic(uint8_t* raw, uint32_t raw_at,
+                                      uint32_t at) {
+  return reinterpret_cast<T*>(raw + (at - raw_at));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const FlashBwdParams p) {
-  static_assert(D % 16 == 0, "m16n8k16 tiles the head dim");
-  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sdO = sQ + kRowsDq * kStride;
-  uint16_t* sK = sdO + kRowsDq * kStride;  // two buffers
-  uint16_t* sV = sK + 2 * kKeysDq * kStride;
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dq_kernel(const FlashBwdParams p,
+                        const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        int n_qtiles) {
+  using L = DqSmem<D>;
+  constexpr int DP = padded(D);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(
+      smem_raw));
+  const uint32_t base = (raw + kAtomBytes - 1) &
+                        ~static_cast<uint32_t>(kAtomBytes - 1);
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kdO;
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  float* sDelta = generic<float>(smem_raw, raw, base + L::kDelta);
+  // mbarriers, one a stage s at + 8 s: Q and dO's "full" one, K's and V's
+  // "full" ones (transaction bytes) and "empty" ones (consumer warps)
+  const uint32_t qdo_full = base + L::kBars;
+  const uint32_t k_full = qdo_full + 8;
+  const uint32_t v_full = k_full + 8 * kStagesDq;
+  const uint32_t k_empty = v_full + 8 * kStagesDq;
+  const uint32_t v_empty = k_empty + 8 * kStagesDq;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-
-  const int bh = blockIdx.x;
+  // The heaviest query tiles first, each over every (batch, head).
+  const int qtile = n_qtiles - 1 - blockIdx.x / (p.B * p.H);
+  const int bh = blockIdx.x % (p.B * p.H);
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int qtile = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
   const int q0 = qtile * kRowsDq;
-  const int wr = warp * 16;        // the warp's first row in the tile
-  const int row0 = q0 + wr + g;    // this thread's rows: row0, row0 + 8
-
-  const uint16_t* qb = static_cast<const uint16_t*>(p.q) + b * p.q_sb +
-                       h * p.q_sh;
-  const uint16_t* dob = static_cast<const uint16_t*>(p.dout) + b * p.do_sb +
-                        h * p.do_sh;
-  const uint16_t* ob = static_cast<const uint16_t*>(p.o) + b * p.o_sb +
-                       h * p.o_sh;
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                       hk * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                       hk * p.v_sh;
-  const long long rows_at = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
   // K/V tiles this CTA needs: up to the one holding its last row's key.
-  int n_tiles = (p.Skv + kKeysDq - 1) / kKeysDq;
+  int n_tiles = (p.Skv + kTile - 1) / kTile;
   if (p.causal) {
-    const int last_row = min(q0 + kRowsDq, p.Sq) - 1;
-    n_tiles = min(n_tiles, last_row / kKeysDq + 1);
+    n_tiles = min(n_tiles, (min(q0 + kRowsDq, p.Sq) - 1) / kTile + 1);
   }
 
-  load_tile<D, kRowsDq>(sQ, qb, p.q_ss, q0, p.Sq, tid);
-  load_tile<D, kRowsDq>(sdO, dob, p.do_ss, q0, p.Sq, tid);
-  load_tile<D, kKeysDq>(sK, kb, p.k_ss, 0, p.Skv, tid);
-  load_tile<D, kKeysDq>(sV, vb, p.v_ss, 0, p.Skv, tid);
-  cp_async_commit();
-
-  float lse2[2];  // lse in base 2
-  float dlt[2];   // delta = rowsum(dO * O)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse2[r] = row < p.Sq ? p.lse[rows_at + row] * kLog2e : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStagesDq; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumerWarps);
+      mbar_init(v_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait_all();
   __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    float acc = 0.f;
-    if (row < p.Sq) {
-      const uint16_t* orow = ob + row * p.o_ss;
-      const uint16_t* drow = sdO + (wr + g + 8 * r) * kStride;
-#pragma unroll
-      for (int c = 2 * t; c < D; c += 8) {
-        const uint32_t ov = *reinterpret_cast<const uint32_t*>(orow + c);
-        const uint32_t dv = *reinterpret_cast<const uint32_t*>(drow + c);
-        acc += bf16_lo(ov) * bf16_lo(dv) + bf16_hi(ov) * bf16_hi(dv);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    dlt[r] = acc;
-    if (t == 0 && row < p.Sq) p.delta[rows_at + row] = acc;
-  }
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq[dt][c] = 0.f;
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kKeysDq;
-    const uint16_t* cK = sK + (j & 1) * kKeysDq * kStride;
-    cp_async_wait_all();  // K_j and V_j have landed
-    __syncthreads();
-
-    float s[kKeysDq / 8][4];
-    float dp[kKeysDq / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeysDq / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[nt][c] = 0.f;
-        dp[nt][c] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<kStride>(qa, sQ, wr, kk * 16, g, t);
-      load_a<kStride>(da, sdO, wr, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kKeysDq / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_nk<kStride>(b0, b1, cK, nt * 8, kk * 16, g, t);
-        mma_bf16(s[nt], qa, b0, b1);
-        load_b_nk<kStride>(b0, b1, sV, nt * 8, kk * 16, g, t);
-        mma_bf16(dp[nt], da, b0, b1);
-      }
-    }
-    __syncthreads();  // every warp is done with V_j and with K_{j-1}
-    if (j + 1 < n_tiles) {
-      load_tile<D, kKeysDq>(sK + ((j + 1) & 1) * kKeysDq * kStride, kb, p.k_ss,
-                         n0 + kKeysDq, p.Skv, tid);
-      load_tile<D, kKeysDq>(sV, vb, p.v_ss, n0 + kKeysDq, p.Skv, tid);
-    }
-    cp_async_commit();
-
-    const bool mask = (n0 + kKeysDq > p.Skv) ||
-                      (p.causal && n0 + kKeysDq - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < kKeysDq / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[nt][c] * p.scale_log2;
-        if (mask) {
-          const int row = row0 + (c >= 2 ? 8 : 0);
-          const int col = n0 + nt * 8 + 2 * t + (c & 1);
-          if (col >= p.Skv || (p.causal && col > row)) x = kNegInf;
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qdo_full, 2 * L::kRows);
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t at = pn * kFullPanel + half * kHalfPanel;
+          tma_load(sQ + at, &tm_q, qdo_full, pn * kPanelCols, h,
+                   q0 + half * kTile, b);
+          tma_load(sdO + at, &tm_do, qdo_full, pn * kPanelCols, h,
+                   q0 + half * kTile, b);
         }
-        const float pr = exp2f(x - lse2[c >> 1]);
-        s[nt][c] = pr * (dp[nt][c] - dlt[c >> 1]);  // dS, in place
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStagesDq;
+        // the stage's previous V (then K) has been handed back (passes at
+        // once on the first round); V goes first, as it is released first
+        const uint32_t released = ((j / kStagesDq) & 1) ^ 1;
+        mbar_wait(v_empty + 8 * s, released);
+        mbar_expect_tx(v_full + 8 * s, L::kStage);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          tma_load(sV + s * L::kStage + pn * kHalfPanel, &tm_v,
+                   v_full + 8 * s, pn * kPanelCols, hk, j * kTile, b);
+        }
+        mbar_wait(k_empty + 8 * s, released);
+        mbar_expect_tx(k_full + 8 * s, L::kStage);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          tma_load(sK + s * L::kStage + pn * kHalfPanel, &tm_k,
+                   k_full + 8 * s, pn * kPanelCols, hk, j * kTile, b);
+        }
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < kKeysDq / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b_kn<kStride>(b0, b1, cK, kk * 16, dt * 8, g, t);
-        mma_bf16(dq[dt], a, b0, b1);
-      }
-    }
-  }
+  } else {
+    // Consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int g = lane / 4;   // accumulator row group
+    const int tq = lane % 4;  // thread within the group
+    const int r0 = q0 + 64 * cw;
+    const int row0 = r0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const long long rows_at = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  uint16_t* dqb = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+    {  // delta = rowsum(dO * O): two threads a row, half the head dim each,
+       // in 16-byte chunks from device memory while Q and dO land
+      const int r = t / 2;
+      const int half = t % 2;
+      const int row = r0 + r;
+      float acc = 0.f;
+      if (row < p.Sq) {
+        const uint4* orow = reinterpret_cast<const uint4*>(
+            static_cast<const uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh +
+            row * p.o_ss + half * (D / 2));
+        const uint4* drow = reinterpret_cast<const uint4*>(
+            static_cast<const uint16_t*>(p.dout) + b * p.do_sb +
+            h * p.do_sh + row * p.do_ss + half * (D / 2));
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= p.Sq) continue;
-    uint16_t* drow = dqb + row * p.dq_ss + 2 * t;
+        for (int c = 0; c < D / 16; ++c) acc = dot8(orow[c], drow[c], acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        sDelta[64 * cw + r] = acc;
+        if (row < p.Sq) p.delta[rows_at + row] = acc;
+      }
+      // the warpgroup's own named barrier
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + cw), "n"(kWarpgroup)
+                   : "memory");
+    }
+    float lse2[2];  // lse in base 2
+    float dlt[2];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(drow + dt * 8) =
-          pack_bf16(dq[dt][2 * r] * p.scale, dq[dt][2 * r + 1] * p.scale);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < p.Sq ? p.lse[rows_at + row] * kLog2e : 0.f;
+      dlt[r] = sDelta[row - q0];
+    }
+    // Q's and dO's 64 rows of this warpgroup: 8 swizzle atoms into each
+    // 128-row panel
+    const uint32_t sQw = sQ + cw * kHalfPanel;
+    const uint32_t sdOw = sdO + cw * kHalfPanel;
+
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+    // Per tile j: S_j and dP_j are issued, then dQ += dS_{j-1} K_{j-1},
+    // and dS_j is formed while that product is on the tensor cores.  V_j
+    // is released as soon as S_j and dP_j are done, K_{j-1} once dS_{j-1}
+    // K_{j-1} is.
+    float s[kTile / 2];
+    float dp[kTile / 2];
+    uint32_t da[kTile / 16][4];
+    mbar_wait(qdo_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStagesDq;
+      const int sp = (j + kStagesDq - 1) % kStagesDq;  // tile j - 1's stage
+      const int n0 = j * kTile;
+      const uint32_t parity = (j / kStagesDq) & 1;
+
+      // S = Q K^T and dP = dO V^T over the head dim in k-steps of 16
+      // columns (D = 112 takes 7, never reading the zero-filled columns)
+      mbar_wait(k_full + 8 * st, parity);
+      mbar_wait(v_full + 8 * st, parity);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(s, kmajor(sQw, kk, kFullPanel),
+                     kmajor(sK + st * L::kStage, kk, kHalfPanel), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(dp, kmajor(sdOw, kk, kFullPanel),
+                     kmajor(sV + st * L::kStage, kk, kHalfPanel), kk > 0);
+      }
+      wgmma_commit();
+      if (j > 0) {
+        // dQ += dS K: K's rows are the k dimension, its head dim
+        // contiguous (MN-major)
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          wgmma_rs<DP>(dq, da[kk], mnmajor(sK + sp * L::kStage, kk));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(s);
+      fence_regs(dp);
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+
+      // dS = P (dP - delta), P in base 2 with the scale folded into the
+      // exponent's FMA; only the diagonal tile and the ragged end of the
+      // keys are masked
+      const bool mask = (n0 + kTile > p.Skv) ||
+                        (p.causal && n0 + kTile - 1 > r0);
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pr = ex2(fmaf(s[i], p.scale_log2, -lse2[r]));
+        if (mask) {
+          const int row = row0 + 8 * r;
+          const int col = n0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+          if (col >= p.Skv || (p.causal && col > row)) pr = 0.f;
+        }
+        s[i] = pr * (dp[i] - dlt[r]);
+      }
+
+      if (j > 0) {
+        wgmma_wait<0>();
+        fence_regs(dq);
+        if (lane == 0) mbar_arrive(k_empty + 8 * sp);
+      }
+      // dS rounded to bf16: the accumulators of key columns [16kk, 16kk +
+      // 16) are the A fragment of the kk-th k-step of dS K, in place
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          da[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        }
+      }
+    }
+    {  // the last tile's dS K
+      const int sp = (n_tiles - 1) % kStagesDq;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        wgmma_rs<DP>(dq, da[kk], mnmajor(sK + sp * L::kStage, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+
+    uint16_t* dqb = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      uint16_t* drow = dqb + row * p.dq_ss + 2 * tq;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(drow + nt * 8) = pack_bf16(
+            dq[4 * nt + 2 * r] * p.scale, dq[4 * nt + 2 * r + 1] * p.scale);
+      }
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const FlashBwdParams p) {
-  static_assert(D % 16 == 0, "m16n8k16 tiles the head dim");
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;
-  uint16_t* sV = sK + kKeysDkv * kStride;
-  uint16_t* sQ = sV + kKeysDkv * kStride;     // two buffers
-  uint16_t* sdO = sQ + 2 * kRowsDkv * kStride;  // two buffers
-  float* sLse = reinterpret_cast<float*>(sdO + 2 * kRowsDkv * kStride);
-  float* sDlt = sLse + 2 * kRowsDkv;
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dkv_kernel(const FlashBwdParams p,
+                         const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         int n_ktiles) {
+  using L = DkvSmem<D>;
+  constexpr int DP = padded(D);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(
+      smem_raw));
+  const uint32_t base = (raw + kAtomBytes - 1) &
+                        ~static_cast<uint32_t>(kAtomBytes - 1);
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kdO;
+  float* sLse = generic<float>(smem_raw, raw, base + L::kLse);
+  float* sDlt = generic<float>(smem_raw, raw, base + L::kDelta);
+  // mbarriers: K and V's "full" one, then per stage s (at + 8 s) a "full"
+  // one (the Q and dO tiles' transaction bytes and the 32 lse/delta
+  // copiers) and an "empty" one (consumer warps)
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full = kv_full + 8;
+  const uint32_t empty = full + 8 * kStagesDkv;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const int bh = blockIdx.x;
+  // The heavier (earlier) key tiles first, each over every (batch, KV
+  // head).
+  const int ktile = blockIdx.x / (p.B * p.Hkv);
+  const int bh = blockIdx.x % (p.B * p.Hkv);
   const int b = bh / p.Hkv;
   const int hk = bh % p.Hkv;
   const int G = p.H / p.Hkv;
-  const int k0 = blockIdx.y * kKeysDkv;  // earlier (heavier) tiles first
-  const int wr = warp * 16;
-  const int key0 = k0 + wr + g;  // this thread's keys: key0, key0 + 8
-
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                       hk * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                       hk * p.v_sh;
+  const int k0 = ktile * kKeysDkv;
 
   // Query tiles per head: from the first that sees key k0 (causal) on.
-  const int nq = (p.Sq + kRowsDkv - 1) / kRowsDkv;
-  const int first = p.causal ? min(k0 / kRowsDkv, nq) : 0;
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const int first = p.causal ? min(k0 / kTile, nq) : 0;
   const int count = nq - first;
   const int total = G * count;
 
-  load_tile<D, kKeysDkv>(sK, kb, p.k_ss, k0, p.Skv, tid);
-  load_tile<D, kKeysDkv>(sV, vb, p.v_ss, k0, p.Skv, tid);
-
-  // Copy query tile `it` (head hk * G + it / count) into buffer `buf`.
-  auto issue = [&](int it, int buf) {
-    const int h = hk * G + it / count;
-    const int i0 = (first + it % count) * kRowsDkv;
-    const uint16_t* qb = static_cast<const uint16_t*>(p.q) + b * p.q_sb +
-                         h * p.q_sh;
-    const uint16_t* dob = static_cast<const uint16_t*>(p.dout) +
-                          b * p.do_sb + h * p.do_sh;
-    load_tile<D, kRowsDkv>(sQ + buf * kRowsDkv * kStride, qb, p.q_ss, i0, p.Sq,
-                        tid);
-    load_tile<D, kRowsDkv>(sdO + buf * kRowsDkv * kStride, dob, p.do_ss, i0,
-                        p.Sq, tid);
-    if (tid < kRowsDkv) {
-      const int row = i0 + tid;
-      const bool valid = row < p.Sq;
-      const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq +
-                           (valid ? row : 0);
-      cp_async4(sLse + buf * kRowsDkv + tid, p.lse + at, valid);
-      cp_async4(sDlt + buf * kRowsDkv + tid, p.delta + at, valid);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStagesDkv; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(empty + 8 * s, kConsumerWarps);
     }
-  };
-  if (total > 0) issue(0, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4];
-  float dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      dk[dt][c] = 0.f;
-      dv[dt][c] = 0.f;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    cp_async_wait_all();  // tile `it` (and K, V) have landed
-    __syncthreads();      // and every warp is done with tile it - 1
-    if (it + 1 < total) issue(it + 1, buf ^ 1);
-    cp_async_commit();
-
-    const int i0 = (first + it % count) * kRowsDkv;
-    const uint16_t* cQ = sQ + buf * kRowsDkv * kStride;
-    const uint16_t* cdO = sdO + buf * kRowsDkv * kStride;
-    const float* cLse = sLse + buf * kRowsDkv;
-    const float* cDlt = sDlt + buf * kRowsDkv;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 query rows per warp.
-    float st[kRowsDkv / 8][4];
-    float dpt[kRowsDkv / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kRowsDkv / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        st[nt][c] = 0.f;
-        dpt[nt][c] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<kStride>(ka, sK, wr, kk * 16, g, t);
-      load_a<kStride>(va, sV, wr, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kRowsDkv / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_nk<kStride>(b0, b1, cQ, nt * 8, kk * 16, g, t);
-        mma_bf16(st[nt], ka, b0, b1);
-        load_b_nk<kStride>(b0, b1, cdO, nt * 8, kk * 16, g, t);
-        mma_bf16(dpt[nt], va, b0, b1);
-      }
-    }
-
-    const bool mask = (i0 + kRowsDkv > p.Sq) ||
-                      (p.causal && i0 < k0 + kKeysDkv - 1);
-#pragma unroll
-    for (int nt = 0; nt < kRowsDkv / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = nt * 8 + 2 * t + (c & 1);  // query row in the tile
-        float x = st[nt][c] * p.scale_log2;
-        if (mask) {
-          const int key = key0 + (c >= 2 ? 8 : 0);
-          const int row = i0 + col;
-          if (row >= p.Sq || (p.causal && row < key)) x = kNegInf;
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 0) {
+    // Producer: thread 0 issues every TMA copy, warp 1 copies lse and
+    // delta.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(kv_full, 2 * L::kRows);
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t at = pn * kFullPanel + half * kHalfPanel;
+          tma_load(sK + at, &tm_k, kv_full, pn * kPanelCols, hk,
+                   k0 + half * kTile, b);
+          tma_load(sV + at, &tm_v, kv_full, pn * kPanelCols, hk,
+                   k0 + half * kTile, b);
         }
-        const float pr = exp2f(x - cLse[col] * kLog2e);
-        st[nt][c] = pr;                             // P^T
-        dpt[nt][c] = pr * (dpt[nt][c] - cDlt[col]);  // dS^T
+      }
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStagesDkv;
+        const int h = hk * G + it / count;
+        const int i0 = (first + it % count) * kTile;
+        mbar_wait(empty + 8 * s, ((it / kStagesDkv) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kStage);
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          tma_load(sQ + s * L::kStage + pn * kHalfPanel, &tm_q, full + 8 * s,
+                   pn * kPanelCols, h, i0, b);
+          tma_load(sdO + s * L::kStage + pn * kHalfPanel, &tm_do,
+                   full + 8 * s, pn * kPanelCols, h, i0, b);
+        }
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStagesDkv;
+        const int h = hk * G + it / count;
+        const int i0 = (first + it % count) * kTile;
+        mbar_wait(empty + 8 * s, ((it / kStagesDkv) & 1) ^ 1);
+        const long long rows_at = (static_cast<long long>(b) * p.H + h) *
+                                  p.Sq;
+#pragma unroll
+        for (int c = 0; c < kTile / 32; ++c) {
+          const int row = i0 + lane + 32 * c;
+          const bool valid = row < p.Sq;
+          const long long at = rows_at + (valid ? row : 0);
+          cp_async4(sLse + s * kTile + lane + 32 * c, p.lse + at, valid);
+          cp_async4(sDlt + s * kTile + lane + 32 * c, p.delta + at, valid);
+        }
+        // arrives on the stage's full barrier once the copies have landed
+        asm volatile(
+            "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                full + 8 * s)
+            : "memory");
       }
     }
+  } else {
+    // Consumers: warpgroup cw owns keys k0 + 64 cw .. + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const int kc0 = k0 + 64 * cw;
+    const int key0 = kc0 + 16 * warp + g;  // this thread's keys: key0, + 8
+    const uint32_t sKw = sK + cw * kHalfPanel;
+    const uint32_t sVw = sV + cw * kHalfPanel;
 
-    // dV += P^T dO and dK += dS^T Q over the tile's query rows.
+    float dk[DP / 2];
+    float dv[DP / 2];
 #pragma unroll
-    for (int kk = 0; kk < kRowsDkv / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, st, kk);
-      acc_to_a(sa, dpt, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b_kn<kStride>(b0, b1, cdO, kk * 16, dt * 8, g, t);
-        mma_bf16(dv[dt], pa, b0, b1);
-        load_b_kn<kStride>(b0, b1, cQ, kk * 16, dt * 8, g, t);
-        mma_bf16(dk[dt], sa, b0, b1);
-      }
+    for (int i = 0; i < DP / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
     }
-  }
+    float st[kTile / 2];   // S^T, then P^T
+    float dpt[kTile / 2];  // dP^T, then dS^T
+    uint32_t pa[kTile / 16][4];
+    uint32_t sa[kTile / 16][4];
+    if (total > 0) mbar_wait(kv_full, 0);
+    for (int it = 0; it < total; ++it) {
+      const int s = it % kStagesDkv;
+      const int i0 = (first + it % count) * kTile;
+      const uint32_t cQ = sQ + s * L::kStage;
+      const uint32_t cdO = sdO + s * L::kStage;
 
-  uint16_t* dkb = static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  uint16_t* dvb = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 query rows
+      mbar_wait(full + 8 * s, (it / kStagesDkv) & 1);
+      __syncwarp();
+      wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= p.Skv) continue;
-    uint16_t* krow = dkb + key * p.dk_ss + 2 * t;
-    uint16_t* vrow = dvb + key * p.dv_ss + 2 * t;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(st, kmajor(sKw, kk, kFullPanel),
+                     kmajor(cQ, kk, kHalfPanel), kk > 0);
+      }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(krow + dt * 8) =
-          pack_bf16(dk[dt][2 * r] * p.scale, dk[dt][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(vrow + dt * 8) =
-          pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(dpt, kmajor(sVw, kk, kFullPanel),
+                     kmajor(cdO, kk, kHalfPanel), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T: column c (query row i0 + c) takes its own lse and
+      // delta from the stage
+      const bool mask = (i0 + kTile > p.Sq) ||
+                        (p.causal && i0 < kc0 + kTile - 1);
+      const float* cLse = sLse + s * kTile;
+      const float* cDlt = sDlt + s * kTile;
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        const int c = 8 * nt + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(cLse + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(cDlt + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * nt + e;
+          const float lse = (e & 1) ? l2.y : l2.x;
+          const float dl = (e & 1) ? d2.y : d2.x;
+          float pr = ex2(fmaf(st[i], p.scale_log2, -lse * kLog2e));
+          if (mask) {
+            const int key = key0 + 8 * (e >> 1);
+            const int row = i0 + c + (e & 1);
+            if (row >= p.Sq || (p.causal && row < key)) pr = 0.f;
+          }
+          st[i] = pr;
+          dpt[i] = pr * (dpt[i] - dl);
+        }
+      }
+      // rounded to bf16: the accumulators of query columns [16kk, 16kk +
+      // 16) are the A fragments of the kk-th k-step, in place
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+          sa[kk][i] = pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: dO's and Q's rows are the k
+      // dimension, their head dim contiguous (MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        wgmma_rs<DP>(dv, pa[kk], mnmajor(cdO, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        wgmma_rs<DP>(dk, sa[kk], mnmajor(cQ, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    uint16_t* dkb = static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
+    uint16_t* dvb = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= p.Skv) continue;
+      uint16_t* krow = dkb + key * p.dk_ss + 2 * tq;
+      uint16_t* vrow = dvb + key * p.dv_ss + 2 * tq;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(krow + nt * 8) = pack_bf16(
+            dk[4 * nt + 2 * r] * p.scale, dk[4 * nt + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(vrow + nt * 8) =
+            pack_bf16(dv[4 * nt + 2 * r], dv[4 * nt + 2 * r + 1]);
+      }
     }
   }
 }
+
 
 // --- f32: FMAs on the CUDA cores --------------------------------------------
 
@@ -1046,15 +1198,53 @@ int launch(Kernel kernel, int threads, int smem, int heads, int tiles,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 forms' head dims (m16n8k16 needs a multiple of 16).
+// The bf16 forms' head dims (wgmma k-steps of 16 columns).
 constexpr bool bf16_form(int D) { return D == 64 || D == 112 || D == 128; }
+
+// The four bf16 (D, heads, rows, batch) maps of q, dO, k and v, boxes of
+// 64 rows.  Returns 0 or a tensor-map error code.
+int encode_maps(const FlashBwdParams& p, CUtensorMap (&tm)[4]) {
+  int err = encode(&tm[0], p.q, p.D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb,
+                   kTile);
+  if (err == 0) {
+    err = encode(&tm[1], p.dout, p.D, p.H, p.Sq, p.B, p.do_sh, p.do_ss,
+                 p.do_sb, kTile);
+  }
+  if (err == 0) {
+    err = encode(&tm[2], p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb,
+                 kTile);
+  }
+  if (err == 0) {
+    err = encode(&tm[3], p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb,
+                 kTile);
+  }
+  return err;
+}
+
+// Launch a bf16 kernel with `smem` bytes of dynamic shared memory on a 1-D
+// grid of B * heads * tiles CTAs.
+template <typename Kernel>
+int launch_bf16(Kernel kernel, int smem, int heads, int tiles,
+                const FlashBwdParams& p, cudaStream_t s) {
+  CUtensorMap tm[4];
+  const int err = encode_maps(p, tm);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long ctas = static_cast<long long>(p.B) * heads * tiles;
+  if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(ctas), kBf16Threads, smem, s>>>(
+      p, tm[0], tm[1], tm[2], tm[3], tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int D>
 int launch_dq(const FlashBwdParams& p, cudaStream_t s) {
   if (p.dtype == 0) {
     if constexpr (bf16_form(D)) {
-      return launch(flash_bwd_dq_kernel<D>, kThreads, dq_smem_bytes<D>(),
-                    p.H, (p.Sq + kRowsDq - 1) / kRowsDq, p, s);
+      return launch_bf16(flash_bwd_dq_kernel<D>, DqSmem<D>::kBytes, p.H,
+                         (p.Sq + kRowsDq - 1) / kRowsDq, p, s);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1067,8 +1257,8 @@ template <int D>
 int launch_dkv(const FlashBwdParams& p, cudaStream_t s) {
   if (p.dtype == 0) {
     if constexpr (bf16_form(D)) {
-      return launch(flash_bwd_dkv_kernel<D>, kThreads, dkv_smem_bytes<D>(),
-                    p.Hkv, (p.Skv + kKeysDkv - 1) / kKeysDkv, p, s);
+      return launch_bf16(flash_bwd_dkv_kernel<D>, DkvSmem<D>::kBytes, p.Hkv,
+                         (p.Skv + kKeysDkv - 1) / kKeysDkv, p, s);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1113,10 +1303,12 @@ extern "C" int flash_bwd_has_form(int dtype, int D) {
 }
 
 // dQ, and delta for the dK/dV kernel.  Launches on `stream`; returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes or
-// a (dtype, D) it does not take.
+// cudaGetLastError() (0 on success), cudaErrorInvalidValue for shapes or a
+// (dtype, D) it does not take (the f32 grid's y axis holds at most 65535
+// tiles), or a tensor-map error of the bf16 form (flash_bwd_error_string
+// names it).
 extern "C" int flash_bwd_dq_launch(FlashBwdParams p, void* stream) {
-  if (!valid_params(p) || (p.Sq + kRowsDq - 1) / kRowsDq > 65535) {
+  if (!valid_params(p) || (p.Sq + kF32Rows - 1) / kF32Rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return dispatch<true>(p, static_cast<cudaStream_t>(stream));
@@ -1124,12 +1316,19 @@ extern "C" int flash_bwd_dq_launch(FlashBwdParams p, void* stream) {
 
 // dK and dV; reads the delta that flash_bwd_dq_launch wrote.
 extern "C" int flash_bwd_dkv_launch(FlashBwdParams p, void* stream) {
-  if (!valid_params(p) || (p.Skv + kKeysDkv - 1) / kKeysDkv > 65535) {
+  if (!valid_params(p) || (p.Skv + kF32Rows - 1) / kF32Rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return dispatch<false>(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {
+  if (err == kNoEncoder) {
+    return "the driver offers no cuTensorMapEncodeTiled";
+  }
+  if (err >= kEncodeError && err < kNoEncoder) {
+    return "cuTensorMapEncodeTiled refused a tensor map of q, dO, k or v "
+           "(CUresult: the code less 100000)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -76,10 +76,7 @@
 // 8.2 ms at 67 TFLOP/s (H100 SXM, non-tensor FP32) at the serving shape.
 // Left for a later design: a 3xTF32 split on the tensor cores.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA, wgmma: shared with flash_bwd.cu
 
 // Passed by value from Python (ctypes), so it lives outside the unnamed
 // namespace: the exported launcher's signature names it.  Strides are in
@@ -131,21 +128,9 @@ __device__ __forceinline__ void cp_async_wait_1() {
 constexpr int kQRows = 128;  // query rows per CTA: 64 per consumer
 constexpr int kKeys = 128;   // keys per K/V tile
 constexpr int kStages = 2;   // K/V tiles in flight
-constexpr int kWarpgroup = 128;
 constexpr int kBf16Threads = 3 * kWarpgroup;  // a producer, two consumers
 constexpr int kConsumerWarps = 8;
-constexpr int kPanelCols = 64;          // bf16 columns of a 128-byte row
-constexpr int kPanelBytes = 128 * 128;  // a panel of 128 such rows
-constexpr int kAtomBytes = 1024;        // 8 swizzled rows
-// Launch errors past cudaError_t's range: a tensor map the driver would
-// not encode (kEncodeError + its CUresult), or no driver entry point.
-constexpr int kEncodeError = 100000;
-constexpr int kNoEncoder = 200000;
-
-// Head dim in whole 64-column panels: 64 -> 64, 112 -> 128, 128 -> 128.
-__host__ __device__ constexpr int padded(int D) {
-  return (D + kPanelCols - 1) / kPanelCols * kPanelCols;
-}
+constexpr int kPanelBytes = 128 * kRowBytes;  // a panel of 128 rows
 
 // Dynamic shared memory of the bf16 kernel, from a 1024-byte aligned base:
 // Q, the K and V rings, then the mbarriers (Q's, and per stage K's and V's
@@ -160,200 +145,6 @@ struct Bf16Smem {
   static constexpr int kBars = kV + kStages * kTile;
   static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + kAtomBytes;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D (D, heads, rows, batch) tensor map into shared memory;
-// completion is counted in `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor of a 128-byte swizzled layout: start
-// address, leading and stride byte offsets (16-byte units), swizzle mode 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed wgmma groups are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2**x on the special-function unit; results below 2**-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Keeps the compiler from touching accumulators across an async wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B K-major in
-// shared memory; scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x N, f32) += A (64 x 16, bf16 fragments in registers) B (16 x N),
-// B MN-major in shared memory (the transpose flag).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, b);
-  } else {
-    static_assert(N == 128, "P V runs at N 64 or 128");
-    wgmma_rs_n128(d, a, b);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kBf16Threads, 1)
@@ -857,68 +648,18 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point, so that the library needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(f);
-    }
-  }
-  return fn;
-}
-
-// A bf16 (D, heads, rows, batch) map over a (batch, rows, heads, D) tensor
-// with element strides sb, ss, sh (D contiguous): boxes of 64 columns of
-// one head and kQRows rows, 128-byte swizzled; what lies past D, the rows
-// or the batch is zero-filled.  Returns 0 or an error code.
-int encode(CUtensorMap* map, const void* ptr, int D, int heads, int rows,
-           int batch, long long sh, long long ss, long long sb) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanelCols, 1, kQRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
-}
-
 template <int D>
 int launch_bf16(const FlashParams& p, cudaStream_t s) {
   CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode(&tm_q, p.q, p.D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb);
+  int err = encode(&tm_q, p.q, p.D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb,
+                   kQRows);
   if (err == 0) {
-    err = encode(&tm_k, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb);
+    err = encode(&tm_k, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb,
+                 kQRows);
   }
   if (err == 0) {
-    err = encode(&tm_v, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb);
+    err = encode(&tm_v, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb,
+                 kQRows);
   }
   if (err != 0) return err;
   constexpr int smem = Bf16Smem<D>::kBytes;

@@ -27,9 +27,8 @@ DEFAULT_BLOCK_KV = 512
 U_F32 = 2.0 ** -24
 
 #: the kernels' forms, dtype -> head dims, built into ``flash_fwd.cu`` and
-#: ``flash_bwd.cu`` (their ``has_form``): bf16 through wgmma from a TMA
-#: ring (forward) and mma.sync (backward), f32 through FMAs on the CUDA
-#: cores
+#: ``flash_bwd.cu`` (their ``has_form``): bf16 through wgmma from TMA rings
+#: (the forward, dQ and dK/dV alike), f32 through FMAs on the CUDA cores
 FORMS = {torch.bfloat16: (64, 112, 128),
          torch.float32: (8, 12, 16, 64, 112, 128)}
 #: the kernels' code for each dtype (``FlashParams::dtype``)

@@ -4,6 +4,7 @@ head dim) form.  Needs an sm_90 device and ``nvcc``; skipped otherwise.
 Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_flash_cuda.py -m gpu``.
 """
+import itertools
 import shutil
 from pathlib import Path
 
@@ -298,3 +299,56 @@ def test_autograd_goes_through_both_kernels(cuda):
         before[0] + 1, before[1] + 1, before[2] + 1)
     assert [g.dtype for g in grads] == [torch.bfloat16] * 3
     flash.check_bwd_against_plain(grads, q, k, v, o, lse, do, True)
+
+
+@pytest.mark.parametrize("D", [64, 112, 128])
+def test_bf16_backward_is_deterministic(cuda, D):
+    """Two launches of each backward kernel on the same inputs agree bit
+    for bit in dq, delta, dk and dv: the kernels have no atomics, so their
+    order of operations is fixed."""
+    case = (2, 300, 300, 8, 2, D, True)
+    q, k, v, o, lse, do = _bwd_inputs(case, cuda, seed=D)
+    runs = []
+    for _ in range(2):
+        dq, delta = flash.flash_bwd_dq(q, k, v, o, lse, do, True)
+        dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+#: the bf16 backward on fused-QKV views at every head dim (in turn), GQA
+#: group size G = H / Hkv (1, 2, 3, 4, 16) and length on each side of its
+#: 64-row ring tiles and 128-row CTAs, causal and full attention
+BWD_VIEW_CASES = [((64, 112, 128)[i % 3], G, S, causal)
+                  for i, (G, S, causal) in enumerate(itertools.product(
+                      (1, 2, 3, 4, 16), (63, 64, 65, 127, 129, 257),
+                      (True, False)))]
+
+
+@pytest.mark.parametrize("D,G,S,causal", BWD_VIEW_CASES,
+                         ids=lambda x: str(x))
+def test_bf16_backward_reads_fused_qkv_views(cuda, D, G, S, causal):
+    """q, k and v as strided views of one fused QKV projection (row stride
+    (H + 2 Hkv) D), dq, delta, dk and dv pre-filled with NaN: every row
+    written, and within check_bwd_against_plain's bf16 bound."""
+    B, Hkv = 2, 2 if G < 16 else 1
+    H = G * Hkv
+    rng = np.random.default_rng(1000 + D + G + S)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * Hkv, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.split([H, Hkv, Hkv], dim=2)
+    o, lse = flash.flash_attention_lse(q, k, v, causal)
+    do = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    nan = float("nan")
+    dq = torch.full_like(q, nan)
+    delta = torch.full((B, H, S), nan, device=cuda)
+    dk, dv = torch.full_like(k, nan), torch.full_like(v, nan)
+    flash.flash_bwd_dq(q, k, v, o, lse, do, causal, out=(dq, delta))
+    flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal, out=(dk, dv))
+    torch.cuda.synchronize()
+    want_delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.testing.assert_close(delta, want_delta, rtol=1e-5, atol=1e-4)
+    flash.check_bwd_against_plain((dq, dk, dv), q, k, v, o, lse, do, causal)
