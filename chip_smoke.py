@@ -23,7 +23,10 @@ On one CUDA card, from the root of a checkout:
    write and does not shows; times kernel, plain version and a cuDNN
    convolution yardstick (checked against the oracle on a small grid
    first) with CUDA events, and computes the bound from the bytes and
-   FLOPs of the super-step;
+   FLOPs of the super-step; for this row and every later main-path and
+   chain row it prints how the launch split the stream (segments, CTAs a
+   launch and an SM, warm-up slabs and share, barriers a tick, slabs
+   copied ahead) and the kernel's registers and spills (its build log);
 5. drives the stage programs of ``PROGRAMS`` (the chains of
    ``benchmarks/programs.py::FULL_CASES`` and a 3D chain, at the same
    sizes): ``plan(StencilProblem([StencilStage(...), ...], dims),
@@ -54,7 +57,8 @@ On one CUDA card, from the root of a checkout:
 7. drives V-row slabs (``PAR_VEC``: the four stencils at V = 2, 4, 8 in 2D
    and 2, 4 in 3D, advect_diffuse2d and wave2d at V = 4, on the earlier
    phases' inputs and schedules) and the 1D entry (``star1d_r2`` over
-   2**20 cells on one CTA, T=4, at V = 1 against the reference backend and
+   2**20 cells, one block whose stream is split across thousands of
+   CTAs, T=4, at V = 1 against the reference backend and
    the conv1d yardstick, then V = 16): for each, one super-step bit for
    bit against the plain version, then ``plan(..., RunConfig(...,
    par_vec=V)).run`` with ``ceil(iters/T)`` launches and a result equal
@@ -191,6 +195,8 @@ FULL_DIMS = {2: (16384, 16384), 3: (448, 448, 448)}
 SCHEDULE = {2: (8, (256,)), 3: (4, (32, 32))}
 STENCILS = ("diffusion2d", "hotspot2d", "diffusion3d", "hotspot3d")
 SOURCE = "src/repro_torch/kernels/csrc/stencil_stream.cu"
+#: the names of its kernels: the main-path, chain and DAG bodies
+STENCIL_KERNELS = ("main_kernel", "chain_kernel", "stream_kernel")
 REPLACES = "src/repro/kernels/builder.py:81"
 
 #: data-sheet peaks per card variant: (device-memory bytes/s, f32 FLOP/s
@@ -320,40 +326,86 @@ def drive_main_path(name, dims, par_time, bsize, device, seed=0) -> dict:
             "out": out}
 
 
-def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
-    """One profiled call of ``fn``: its own span between CUDA events, the
-    union of its device-event intervals (busy), the share of busy time in
-    kernels whose name holds ``kernel_key`` (when given), the idle share of
-    the span, and the ``top`` largest other device times.  Busy and the
-    span it is a share of are both read on the profiler's clock (the span
-    is the host range from before the launches to after the final
-    synchronize): CUDA events run on another clock, and a device busy
-    0.6% of a nearly saturated span exceeded their span on an H100."""
+#: the marker kernel that :func:`device_profile` launches before and after
+#: the call it profiles (``torch.cuda._sleep``), its length in clocks, and
+#: the spins of a pad and the clocks of each
+PROFILE_MARKER = "spin_kernel"
+PROFILE_MARKER_CYCLES = 1000
+PROFILE_PAD_SPINS, PROFILE_PAD_CYCLES = 64, 6_000_000
+
+
+def _pad():
+    """A pad: ``PROFILE_PAD_SPINS`` spins of about 3 ms each, waited for."""
+    import torch
+    for _ in range(PROFILE_PAD_SPINS):
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+    torch.cuda.synchronize()
+
+
+def _marked_profile(fn):
+    """``fn`` profiled between two marker kernels: its device events
+    (start us, end us, name) without the markers and pads, the markers'
+    (start, end) in order of start, and its milliseconds between CUDA
+    events.  In some of this script's profiles the profiler lost, on an
+    H100, the device events of the session's first 54 ms: a 50 ms spin,
+    the marker after it and the first kernels of a prefill.  So a pad of
+    about 200 ms of spins runs before the first marker and one after the
+    last, and the markers show that nothing of ``fn`` was lost."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("chip_smoke_span"):
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-    events = prof.events()
-    (whole,) = [e for e in events if e.name == "chip_smoke_span"
-                and e.device_type == DeviceType.CPU]
-    span_us = whole.time_range.end - whole.time_range.start
-    # device-side events only (CPU ops also carry their kernels' time), and
-    # not the range's own device-side copy
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and e.name != "chip_smoke_span"
-                   and e.time_range.end > e.time_range.start)
+        _pad()
+        torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+        torch.cuda.synchronize()
+        _pad()
+    # device-side events only (CPU ops also carry their kernels' time)
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    # a marker runs for a microsecond or two, a pad's spin for milliseconds
+    marks = [(s, t) for s, t, n in device
+             if PROFILE_MARKER in n and t - s < 100]
+    spans = [e for e in device
+             if PROFILE_MARKER not in e[2] and e[1] > e[0]]
+    return spans, marks, start.elapsed_time(end)
+
+
+def device_profile(fn, kernel_key, top: int = 3) -> dict:
+    """One profiled call of ``fn``: its own span between CUDA events, the
+    union of its device-event intervals (busy), the share of busy time in
+    kernels whose name holds ``kernel_key`` (a string or a tuple of them;
+    when given), the idle share of
+    the span, and the ``top`` largest other device times.  Busy and the
+    span it is a share of are both read on the device's clock: the span
+    runs from the end of a marker kernel launched just before ``fn`` to
+    the start of one launched just after it, on the same stream, after a
+    synchronize that leaves nothing earlier in flight.  A span read on the
+    host (CUDA events, or the profiler's host range) is on another clock,
+    and a device busy about 1% short of a nearly saturated span exceeded
+    it by 0.6% on an H100 with CUDA events and by 0.4% with the host
+    range.  Every device event must lie between the markers."""
+    spans, marks, run_ms = _marked_profile(fn)
+    if len(marks) != 2:
+        raise AssertionError(f"the profiler saw {len(marks)} marker kernels "
+                             f"({PROFILE_MARKER}) at {marks}, expected 2")
+    lo, hi = marks[0][1], marks[1][0]
     if not spans:
         raise AssertionError("the profiler saw no device time")
+    outside = [e for e in spans if e[0] < lo or e[1] > hi]
+    if outside:
+        raise AssertionError(
+            f"{len(outside)} device events lie outside the markers' span "
+            f"[{lo}, {hi}] us, e.g. {outside[:3]}")
+    span_us = hi - lo
     busy, reach = 0.0, -math.inf
     for s, t, _ in spans:
         busy += max(0.0, t - max(s, reach))
@@ -361,8 +413,10 @@ def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
     per_name = {}
     for s, t, n in spans:
         per_name[n] = per_name.get(n, 0.0) + (t - s)
-    key = kernel_key or "\0"
-    kernel = sum(t for n, t in per_name.items() if key in n)
+    keys = ((kernel_key,) if isinstance(kernel_key, str)
+            else kernel_key or ("\0",))
+    kernel = sum(t for n, t in per_name.items()
+                 if any(k in n for k in keys))
     if kernel_key and kernel <= 0:
         raise AssertionError(f"the profiler saw no {kernel_key} launch")
     if kernel > busy or busy > span_us:
@@ -371,10 +425,10 @@ def device_profile(fn, kernel_key: Optional[str], top: int = 3) -> dict:
     # summed by the name's first 60 characters: templated kernels share them
     short = {}
     for n, t in per_name.items():
-        if key not in n:
+        if not any(k in n for k in keys):
             short[n[:60]] = short.get(n[:60], 0.0) + t
     others = sorted(((t, n) for n, t in short.items()), reverse=True)[:top]
-    out = {"profiled_run_ms": start.elapsed_time(end),
+    out = {"profiled_run_ms": run_ms,
            "device_busy_ms": busy / 1e3,
            "device_idle_share": 1 - busy / span_us,
            "device_ops": len(spans),
@@ -389,7 +443,7 @@ def breakdown(main: dict) -> dict:
     CUDA events (median of 3), and :func:`device_profile` of one run."""
     p, g, aux, iters = main["plan"], main["g"], main["aux"], main["iters"]
     run_ms = time_ms(lambda: p.run(g, iters, aux=aux), reps=3)
-    prof = device_profile(lambda: p.run(g, iters, aux=aux), "stream_kernel")
+    prof = device_profile(lambda: p.run(g, iters, aux=aux), STENCIL_KERNELS)
     cells = math.prod(p.problem.shape)     # grid cells, not field values
     return {"run_ms": run_ms,
             "run_gcells_per_s": cells * iters / run_ms / 1e6, **prof}
@@ -502,6 +556,49 @@ def check_yardstick(name, par_time, device, seed=1, bc="clamp",
     return (got - want).abs().max().item()
 
 
+_PTXAS: dict = {}
+
+
+def ptxas_of(library: str, kernel: str) -> dict:
+    """Registers and spill bytes of ``kernel`` in the stencil library
+    ``library`` (its build log, ``-Xptxas -v``)."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    if library not in _PTXAS:
+        _PTXAS[library] = dict(_build.ptxas_report(Path(library),
+                                                   all_args=True))
+    report = _PTXAS[library].get(kernel, "")
+    num = lambda pat: int(m.group(1)) if (  # noqa: E731
+        m := re.search(pat, report)) else None
+    return {"registers": num(r"Used (\d+) registers"),
+            "spill_stores": num(r"(\d+) bytes spill stores"),
+            "spill_loads": num(r"(\d+) bytes spill loads")}
+
+
+def split_fields(name: str) -> dict:
+    """How the launch just timed split the stream (``builder.LAST_SPLIT``):
+    its segments, CTAs a launch, warm-up share and barriers a tick, and the
+    kernel's registers and spills, printed for a main-path or chain row;
+    empty for the DAG bodies, which stream in one segment."""
+    from repro_torch.kernels import builder
+    sp = builder.LAST_SPLIT
+    if sp is None or sp.body < builder.CHAIN_BODY:
+        return {}
+    out = {"segments": sp.nseg, "segment_slabs": sp.seg,
+           "warm_slabs": sp.warm, "ctas_per_launch": sp.ctas,
+           "ctas_per_sm": sp.per_sm, "warm_share": sp.warm_share,
+           "barriers_per_tick": sp.barriers, "copies_ahead": sp.look,
+           "kernel": sp.kernel, **ptxas_of(sp.library, sp.kernel)}
+    print(f"  split ({name}): {sp.nseg} segments of {sp.seg} slabs, "
+          f"{sp.ctas} CTAs a launch ({sp.per_sm} an SM), warm-up "
+          f"{sp.warm} slabs ({sp.warm_share:.4f} of the stream), "
+          f"{sp.barriers} barrier(s) a tick, {sp.look} slabs copied ahead; "
+          f"{sp.kernel}: {out['registers']} registers, spills "
+          f"{out['spill_stores']}/{out['spill_loads']} B", flush=True)
+    return out
+
+
 def compare_and_time(name, main: dict, peaks) -> dict:
     """One super-step, kernel against plain version, with and without PE
     forwarding; then the times and the bound."""
@@ -542,6 +639,7 @@ def compare_and_time(name, main: dict, peaks) -> dict:
         del plain, got, want
     kernel_ms = time_ms(lambda: builder.superstep_chain(
         stages, geom, gp, c, T, aux_p, out=out), reps=5)
+    split = split_fields(name)
     plain_ms = time_ms(lambda: builder.superstep_plain(
         stages, geom, gp, c, T, aux_p, torch.empty_like(gp)), reps=3)
     library_err = check_yardstick(name, T, gp.device)
@@ -551,7 +649,7 @@ def compare_and_time(name, main: dict, peaks) -> dict:
     # edge values
     dma = ops.dma_traffic_bytes(st, geom)
     return {
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **split,
         "library_ms": library_ms, "library_small_max_abs_err": library_err,
         **bound(main["plan"].problem, T, peaks), "dma_bytes": dma,
         "dma_bound_ms": dma / peaks[0] * 1e3,
@@ -740,11 +838,13 @@ def superstep_vs_plain(name, problem, geom, g, aux=None,
         torch.cuda.empty_cache()
     kernel_ms = time_ms(lambda: builder.superstep_dag(
         dag, geom, gp, c, T, aux_p, out=out), reps=5, warmup=0)
+    split = split_fields(name)
     plain_ms = Timing(checked[:1]) if not plain_reps else time_ms(
         lambda: builder.superstep_dag_plain(dag, geom, gp, c, T, aux_p,
                                             torch.empty_like(gp)),
         reps=plain_reps, warmup=0)
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            **split}
 
 
 def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
@@ -810,7 +910,7 @@ def program_phase(device, peaks, bases: dict) -> list:
         geom = p.geometry
         stage_names = [s.name for s in p.problem.stages]
         print(f"{name} {stage_names} {geom.dims} T={geom.par_time} "
-              f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
+              f"bsize={geom.bsize} ({geom.num_blocks} blocks): run of "
               f"{main_run['iters']} iters {e2e['run_ms']}, "
               f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
               f"{main_run['launches']} launches, oracle max_abs_err "
@@ -1006,7 +1106,7 @@ def dag_phase(device, peaks, bases: dict) -> list:
         print(f"{name} fields {list(prob.fields)} stages "
               f"{[s.name for s in prob.stages]} {geom.dims} "
               f"{prob.structural_bc.token()} T={geom.par_time} "
-              f"bsize={geom.bsize} ({geom.num_blocks} CTAs): run of "
+              f"bsize={geom.bsize} ({geom.num_blocks} blocks): run of "
               f"{main_run['iters']} iters {e2e['run_ms']}, "
               f"{e2e['run_gcells_per_s']:.3f} GCell/s, "
               f"{main_run['launches']} launches, oracle max_abs_err "
@@ -1045,8 +1145,8 @@ def dag_phase(device, peaks, bases: dict) -> list:
 PAR_VEC = {"diffusion2d": (2, 4, 8), "hotspot2d": (2, 4, 8),
            "diffusion3d": (2, 4), "hotspot3d": (2, 4),
            "advect_diffuse2d": (4,), "wave2d": (4,), "star1d_r2": (16,)}
-#: the 1D entry: one CTA streams all 2**20 cells (the TPU kernel's grid
-#: (1,)), par_time 4
+#: the 1D entry: one block of 2**20 cells (the TPU kernel's grid (1,)),
+#: its stream split across CTAs, par_time 4
 STAR1D = ("star1d_r2", (1 << 20,), 4)
 
 
@@ -1121,7 +1221,7 @@ def par_vec_row(name, base, V, device, peaks) -> dict:
     if base["library"]:
         row["library"] = base["library"]
     print(f"{name} V={V} {tuple(problem.shape)} T={T} bsize={geom.bsize} "
-          f"({geom.num_blocks} CTAs, {vt} rows at once x {rows} per thread, "
+          f"({geom.num_blocks} blocks, {vt} rows at once x {rows} per thread, "
           f"rings {row['smem_bytes']} B): run of {iters} iters {run_ms} "
           f"({row['run_gcells_per_s']:.3f} GCell/s), {launches} launches, "
           f"equal to V=1 bit for bit; superstep: kernel {res['ms']} (bit "
@@ -1166,7 +1266,7 @@ def star1d_base(device, peaks):
            "iters": iters, "oracle_max_abs_err": err, "run_ms": run_ms,
            "run_gcells_per_s": cells * iters / run_ms / 1e6,
            "gcells_per_s": cells * T / res["ms"] / 1e6}
-    print(f"{name} V=1 {dims} T={T} (one CTA): run of {iters} iters "
+    print(f"{name} V=1 {dims} T={T} (one block): run of {iters} iters "
           f"{run_ms} ({row['run_gcells_per_s']:.3f} GCell/s), {launches} "
           f"launches, oracle max_abs_err {err:.3g}; superstep: kernel "
           f"{res['ms']} (bit for bit with plain), plain {res['plain_ms']}, "
@@ -1525,7 +1625,7 @@ def b1kj_phase(device, peaks, rows_so_far) -> list:
                                          bsize=bsize, device=device)).geometry
         tab = builder.tables_of(p_geom, problem.exec_dag)
         row.update({
-            "ctas": p_geom.num_blocks, "redundancy": p_geom.redundancy,
+            "blocks": p_geom.num_blocks, "redundancy": p_geom.redundancy,
             "form": ("mixed-boundary DAG body" if problem.is_dag else
                      "large-table route" if tab is not None and tab.big
                      else "wide form"),
@@ -1533,7 +1633,7 @@ def b1kj_phase(device, peaks, rows_so_far) -> list:
         if tab is not None and tab.big:
             row["table"] = tab._asdict()
         print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize} "
-              f"({row['form']}, {row['ctas']} CTAs, redundancy "
+              f"({row['form']}, {row['blocks']} blocks, redundancy "
               f"{row['redundancy']:.4f}): run {row['run_ms']}, "
               f"{row['launches']} launches, oracle max_abs_err "
               f"{row['oracle_max_abs_err']:.3g}; superstep: kernel "
@@ -1780,7 +1880,7 @@ def custom_phase(device, peaks, rows_so_far) -> list:
             "form": ("DAG body" if problem.is_dag else "chain body"),
             "compared_with": {compare: ms_of.get(compare)}})
         print(f"{label} {tuple(problem.shape)} {problem.structural_bc.token()}"
-              f" T={T} bsize={bsize} ({row['form']}, {geom.num_blocks} CTAs;"
+              f" T={T} bsize={bsize} ({row['form']}, {geom.num_blocks} blocks;"
               f" library built in {secs:.3f} s): run of {iters} iters "
               f"{run_ms} ({row['run_gcells_per_s']:.3f} GCell/s), "
               f"{row['launches']} launches, oracle max_abs_err "
@@ -1924,7 +2024,8 @@ def batch_row(label, name, dtype, B, V, aux_mode, device, peaks) -> dict:
            "aux": aux_mode, "dtype": dtype, "par_vec": V,
            "dims": list(problem.shape), "par_time": T,
            "bsize": list(geom.bsize), "iters": iters,
-           "ctas_per_launch": B * geom.num_blocks,
+           "ctas_per_launch": res.get("ctas_per_launch",
+                                      B * geom.num_blocks),
            "equal_to_sequential": True, "run_batch_ms": batch_ms,
            "sequential_ms": seq_ms, "batch_speedup": seq_ms / batch_ms,
            "run_batch_gcells_per_s": B * cells * iters / batch_ms / 1e6,
@@ -1934,7 +2035,7 @@ def batch_row(label, name, dtype, B, V, aux_mode, device, peaks) -> dict:
           f"({row['run_batch_gcells_per_s']:.3f} GCell/s) vs {B} runs "
           f"{seq_ms}: {row['batch_speedup']:.3f}x, equal bit for bit; "
           f"{launches} launches of {row['ctas_per_launch']} CTAs "
-          f"({geom.num_blocks} a member); peak {peak / 2**30:.3f} GiB; "
+          f"({geom.num_blocks} blocks a member); peak {peak / 2**30:.3f} GiB; "
           f"superstep: kernel {res['ms']} (bit for bit with plain), plain "
           f"{res['plain_ms']}, library {library_ms}, bound "
           f"{row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
@@ -2212,7 +2313,9 @@ def serve_kernel_row(device, peaks, serve_out: dict) -> dict:
            "library_ms": library_ms,
            "library": f"cuDNN conv per step, N = {B}",
            "kernel_case": f"hotspot2d B={B}, per-member power",
-           "ctas_per_launch": B * p.geometry.num_blocks, **serve_out}
+           "ctas_per_launch": res.get("ctas_per_launch",
+                                      B * p.geometry.num_blocks),
+           **serve_out}
     print(f"  serve kernel (hotspot2d B={B}, {row['ctas_per_launch']} CTAs): "
           f"superstep {res['ms']} (bit for bit with plain), plain "
           f"{res['plain_ms']}, library {library_ms}, bound "

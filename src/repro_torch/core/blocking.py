@@ -131,10 +131,18 @@ def smem_bytes(geom: BlockGeometry, program, cell_bytes: int = 4) -> int:
     radius-``R`` consumer one level below, more where an edge skips
     levels, 1 for a radius-0 one).  A value that only feeds the output
     writes straight to device memory and has no ring; an aux stream adds
-    nothing, since the kernel reads its centre from device memory."""
-    # imported here: ``programs`` imports ``core``, which imports this module
+    nothing, since the kernel reads its centre from device memory.  The
+    main-path body's register form (one Table-2 stage at ``par_vec = 1``)
+    holds other buffers instead (``kernels.builder.main_smem``)."""
+    # imported here: ``programs`` imports ``core``, which imports this
+    # module, and so does ``kernels.builder``
+    from repro_torch.kernels import builder
     from repro_torch.programs import DagSpec, chain_dag
     dag = program if isinstance(program, DagSpec) else chain_dag(program)
+    if builder.is_main_path(dag):
+        own = builder.main_smem(geom, cell_bytes)
+        if own is not None:
+            return own
     plane = math.prod(geom.bsize)
     return _ring_slots(geom, dag) * geom.par_vec * plane * cell_bytes
 

@@ -97,10 +97,13 @@ def big_table_bytes(body: str, n_entries: int, n_taps: int, n_coeffs: int,
 
 class Params(ctypes.Structure):
     """``struct Params`` of ``stencil_stream.cu``, passed by value; the
-    launcher fills ``vt`` and ``rows`` (``builder.cta_shape``)."""
+    launcher fills ``vt`` and ``rows`` (``builder.cta_shape``); ``seg``,
+    ``warm``, ``nby`` and ``look`` are the stream split and the main path's
+    copies ahead (``builder.StreamSplit``)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "dom", "V", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy",
-        "dx", "hy", "hx", "steps", "n_entries", "n_fields", "vt", "rows")]
+        "dx", "hy", "hx", "steps", "n_entries", "n_fields", "vt", "rows",
+        "seg", "warm", "nby", "look")]
 
 
 class Entry(ctypes.Structure):
@@ -361,6 +364,10 @@ def _bind_stencil(dll: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_size_t, ctypes.c_void_p]
     dll.stencil_stream_launch_big.restype = ctypes.c_int
+    dll.stencil_stream_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, Params, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t]
+    dll.stencil_stream_occupancy.restype = ctypes.c_int
     dll.stencil_stream_error_string.argtypes = [ctypes.c_int]
     dll.stencil_stream_error_string.restype = ctypes.c_char_p
     return dll
@@ -413,10 +420,11 @@ def flash_bwd() -> ctypes.CDLL:
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 
 
-def _kernel_label(mangled: str) -> str:
+def _kernel_label(mangled: str, all_args: bool = False) -> str:
     """``name<D>`` of a kernel's mangled name: the last of its
     length-prefixed name components (after any namespaces, the unnamed
-    one included) and its int template argument, if it has one; the
+    one included) and its first int template argument, if it has one
+    (``all_args``: ``name<a,b,...>``, all its int and bool arguments); the
     mangled name where it has no components."""
     at = 3 if mangled.startswith("_ZN") else 2
     name = None
@@ -427,21 +435,25 @@ def _kernel_label(mangled: str) -> str:
         at += int(digits)
     if name is None:
         return mangled
+    if all_args:
+        args = re.findall(r"L[ib](-?\d+|n\d+)E", mangled[at:])
+        return f"{name}<{','.join(a.replace('n', '-') for a in args)}>"
     arg = re.match(r"ILi(\d+)E", mangled[at:])
     return f"{name}<{arg.group(1)}>" if arg else name
 
 
-def ptxas_report(lib: Path) -> list:
+def ptxas_report(lib: Path, all_args: bool = False) -> list:
     """``(kernel, report)`` for each kernel of ``lib``'s build log
-    (``-Xptxas -v``): the kernel as :func:`_kernel_label` names it, and
-    its stack, spill and register lines joined."""
+    (``-Xptxas -v``): the kernel as :func:`_kernel_label` names it (with
+    ``all_args``, by all its int and bool template arguments), and its
+    stack, spill and register lines joined."""
     out, name, lines = [], None, []
     for line in lib.with_suffix(".log").read_text().splitlines():
         entry = _PTXAS_ENTRY.search(line)
         if entry:
             if name is not None:
                 out.append((name, "; ".join(lines)))
-            name, lines = _kernel_label(entry.group(1)), []
+            name, lines = _kernel_label(entry.group(1), all_args), []
         elif name is not None and ("registers" in line or "spill" in line):
             lines.append(line.replace("ptxas info    :", "").strip())
     if name is not None:

@@ -15,7 +15,10 @@ batch of states with a leading batch axis, ``(B, ns, *padded)`` or ``(B,
 F, ns, *padded)``, and advances all ``B`` members in one launch (the
 members run along the kernel grid's z axis, at most
 ``_build.MAX_BATCH``); the aux grid is then one field's, shared by the
-batch, or one per member.  For a CUDA tensor
+batch, or one per member.  A launch of the chain or main-path body cuts
+the stream into segments, each streamed by its own CTA of every block
+after a warm-up (:func:`segment_plan`, :class:`StreamSplit`).  For a CUDA
+tensor
 they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
 :func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
 a CUDA tensor goes to the kernel or raises.
@@ -132,25 +135,35 @@ def _as_chain(program):
     return None
 
 
+def is_main_path(program) -> bool:
+    """Whether ``program`` (a chain ``((stencil, bc), ...)`` or a
+    ``DagSpec``) is one Table-2 stage, which the main-path body runs."""
+    stages = _as_chain(program)
+    return (stages is not None and len(stages) == 1
+            and stages[0][0].name in KERNEL_IDS
+            and STENCILS[stages[0][0].name] == stages[0][0])
+
+
 def kernel_body(stages) -> int:
     """Which loop body of the kernel runs the chain: the Table-2 id for a
     single Table-2 stage (the paper's main path), else :data:`CHAIN_BODY`
     (any chain)."""
-    op = stage_op(stages[0][0])
-    if len(stages) == 1 and op is not None and op < TAP_OP:
-        return op
+    if is_main_path(stages):
+        return KERNEL_IDS[stages[0][0].name]
     return CHAIN_BODY
 
 
 def cta_shape(geom: BlockGeometry, tab: Optional["Tables"] = None) -> tuple:
     """``(vt, rows, threads)`` of one CTA of the kernel running a program
     whose tables are ``tab`` (None for the main-path body), the rule of
-    ``stencil_stream.cu``'s ``cta_threads``: ``vt`` the largest divisor of
-    ``par_vec`` with ``prod(bsize) * vt <= 1024``, so ``vt`` rows of a
-    slab are computed at once and each thread takes ``rows = par_vec /
-    vt`` of them; ``threads`` is ``plane * vt`` or, for a table-driven
-    body, at least its entries (one thread builds each entry's tick
-    record), rounded up to a multiple of 32.  A block plane over 1024
+    ``stencil_stream.cu``'s ``cta_threads``: for a table-driven body
+    ``vt`` the largest divisor of ``par_vec`` with ``prod(bsize) * vt <=
+    1024``, so ``vt`` rows of a slab are computed at once and each thread
+    takes ``rows = par_vec / vt`` of them; ``threads`` is ``plane * vt``,
+    and at least the body's entries (one thread builds each entry's tick
+    record), rounded up to a multiple of 32.  The main-path body takes
+    every row of a slab per thread (``vt = 1``: its threads keep the
+    stream-axis taps of their own column).  A block plane over 1024
     cells, and the large-table route at any plane, run the kernel's wide
     form: ``vt = 1``, every row of a slab per thread, and ``min(plane,
     1024)`` threads rounded up to 32, each taking every ``threads``-th
@@ -159,10 +172,67 @@ def cta_shape(geom: BlockGeometry, tab: Optional["Tables"] = None) -> tuple:
     plane, V = math.prod(geom.bsize), geom.par_vec
     if (tab is not None and tab.big) or plane > MAX_THREADS:
         return 1, V, min(-(-plane // 32) * 32, MAX_THREADS)
-    vt = max(d for d in range(1, V + 1)
-             if V % d == 0 and plane * d <= MAX_THREADS)
+    vt = 1 if tab is None else max(
+        d for d in range(1, V + 1) if V % d == 0 and plane * d <= MAX_THREADS)
     threads = -(-max(plane * vt, tab.entries if tab else 0) // 32) * 32
     return vt, V // vt, threads
+
+
+#: the main path's register form: the most entries whose stream-axis
+#: windows a thread keeps in registers, the most it keeps in a plane of
+#: over 512 cells (its CTA then has up to 1024 threads of at most 64
+#: registers), and the most slabs of the field stream its copies run
+#: ahead (``stencil_stream.cu``'s ``kMaxWindowEntries``,
+#: ``kMaxWideWindowEntries``, ``kMaxLook``)
+WINDOW_ENTRIES, WIDE_WINDOW_ENTRIES, MAX_LOOK = 16, 8, 4
+
+
+def _plane_rows(geom: BlockGeometry) -> tuple:
+    """``(by, bx)``: the block plane as the kernel sees it (a 2D block is
+    one row; a 1D one a single cell)."""
+    if geom.ndim == 3:
+        return tuple(geom.bsize)
+    return (1, geom.bsize[0] if geom.ndim == 2 else 1)
+
+
+def window_smem(geom: BlockGeometry, look: int, cell_bytes: int) -> int:
+    """Shared memory of the main path's register form with ``look`` slabs
+    copied ahead: ``look + 2`` staged slots of the block's rows (in
+    bfloat16 each row ``bx`` plus two cells rounded up to an even count:
+    a row is staged from the 4-byte word that holds its first cell), and
+    two block planes per entry with a consumer."""
+    by, bx = _plane_rows(geom)
+    srow = bx if cell_bytes == 4 else (bx + 3) & ~1
+    return ((look + 2) * by * srow
+            + 2 * (geom.par_time - 1) * by * bx) * cell_bytes
+
+
+def main_look(geom: BlockGeometry, cell_bytes: int = 4) -> int:
+    """The slabs the main path's register form copies ahead at ``geom``,
+    or 0 for its ring form.  The register form runs one cell a thread at
+    ``par_vec = 1`` with at most :data:`WINDOW_ENTRIES` entries (at most
+    :data:`WIDE_WINDOW_ENTRIES` in a plane of over 512 cells), copying
+    ``min(par_time, MAX_LOOK)`` slabs ahead, fewer where shared memory is
+    short; the rest (``par_vec > 1``, the wide form, more entries, or no
+    look-ahead that fits) run the ring form, whose shared memory is the
+    layout's ``3 * par_time`` slabs."""
+    plane = math.prod(geom.bsize)
+    if (geom.par_vec != 1 or geom.par_time > WINDOW_ENTRIES
+            or plane > (512 if geom.par_time > WIDE_WINDOW_ENTRIES
+                        else MAX_THREADS)):
+        return 0
+    for look in range(min(geom.par_time, MAX_LOOK), 0, -1):
+        if window_smem(geom, look, cell_bytes) <= SMEM_LIMIT:
+            return look
+    return 0
+
+
+def main_smem(geom: BlockGeometry, cell_bytes: int = 4) -> Optional[int]:
+    """Shared memory of the main-path body at ``geom``: the register
+    form's (:func:`window_smem`), or None for the ring form, whose rings
+    are the layout's (``core/blocking.smem_bytes``)."""
+    look = main_look(geom, cell_bytes)
+    return window_smem(geom, look, cell_bytes) if look else None
 
 
 def _bc_key(bc, ndim: int) -> tuple:
@@ -369,7 +439,8 @@ def _stream_shape(geom: BlockGeometry, bc0, n_fields: int = 1) -> tuple:
 def superstep_chain(stages, geom: BlockGeometry, gp: torch.Tensor,
                     coeffs_packed: torch.Tensor, steps: int,
                     aux_p: Optional[torch.Tensor] = None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    _segments: Optional[int] = None) -> torch.Tensor:
     """One super-step through the ``len(stages) * par_time``-entry chain of
     ``stages = ((stencil, bc), ...)``: :func:`superstep_dag` of its path
     graph.  ``coeffs_packed`` is the float32 CPU vector of
@@ -383,13 +454,14 @@ def superstep_chain(stages, geom: BlockGeometry, gp: torch.Tensor,
                          f"(superstep_dag), not in a chain, whose stages "
                          f"read one; got {many}")
     return superstep_dag(chain_dag(stages), geom, gp, coeffs_packed, steps,
-                         aux_p, out)
+                         aux_p, out, _segments)
 
 
 def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
                   coeffs_packed: torch.Tensor, steps: int,
                   aux_p: Optional[torch.Tensor] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  _segments: Optional[int] = None) -> torch.Tensor:
     """One super-step (<= ``par_time`` fused program iterations) of the
     stage DAG ``dag`` over the padded state ``gp``: ``(ns, *padded)`` for
     one field, ``(F, ns, *padded)`` for ``F`` (each field padded under
@@ -401,7 +473,9 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     any other DAG its DAG body.  Returns ``out`` (allocated like ``gp`` when
     None) with the compute region of every block of every field written,
     rows ``< dom`` of the stream; the halo and overhang columns and the
-    slab-pad rows are left as they were."""
+    slab-pad rows are left as they were.  ``_segments`` (tests only) cuts
+    the stream of the chain and main-path bodies into about that many
+    segments in place of :func:`segment_plan`'s count."""
     pairs = tuple((st, bc) for st, bc, _ in dag.stages)
     _check_stages(pairs, geom, dag_radius(dag))
     limit = kernel_limits(geom, dag, gp.element_size())
@@ -421,7 +495,7 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device)
     _launch(dag, prog, geom, gp, aux_p, out, int(steps),
             smem_bytes(geom, dag, gp.element_size()) + prog.table_smem,
-            batch)
+            batch, _segments)
     return out
 
 
@@ -553,6 +627,88 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed,
     return k, lay.out_lag, len(plan.entries)
 
 
+#: the stream split: the waves of CTAs it aims to fill the card with, and
+#: the largest share of a segment's slabs its warm-up may add
+SPLIT_WAVES, WARM_SHARE = 2, 0.05
+#: the cap of the kernel grid's y axis, which carries block rows times
+#: segments (the batch members run along z)
+MAX_GRID_Y = 65535
+
+
+def stream_warmup(dag: DagSpec, geom: BlockGeometry) -> int:
+    """Slabs a segment of the chain or main-path body streams before its
+    own: the program's critical-path radius times ``par_time`` in rows —
+    as far down the stream as a wrong value at the first row streamed
+    travels through the unrolled entries — rounded up to slabs."""
+    return -(-dag_radius(dag) * geom.par_time // geom.par_vec)
+
+
+def segment_plan(nslabs: int, warm: int, ctas: int, per_sm: int, n_sm: int,
+                 nby: int = 1, lag: int = 0) -> tuple:
+    """``(seg, nseg)``: the stream's ``nslabs`` slabs cut into ``nseg``
+    segments of ``seg`` slabs (the last one may be shorter), each streamed
+    by its own CTA of every block, ``ctas`` CTAs a segment (blocks times
+    batch members).  At least as many segments as fill ``n_sm`` SMs
+    holding ``per_sm`` CTAs each for :data:`SPLIT_WAVES` waves, and no more
+    than keep the warm-up of ``warm`` slabs within :data:`WARM_SHARE` of a
+    segment, nor than the grid's y axis holds beside ``nby`` block rows;
+    among those (up to four times the fewest), the count whose waves of
+    CTAs times the ticks of one CTA (``seg + warm + lag``, ``lag`` the
+    output lag) is least, the fewest segments on a tie: a last wave that
+    is nearly empty costs a whole one."""
+    slots = max(per_sm, 1) * n_sm
+    want = max(1, -(-SPLIT_WAVES * slots // ctas))
+    cap = int(nslabs * WARM_SHARE) // warm if warm else nslabs
+    cap = max(1, min(cap, MAX_GRID_Y // nby, nslabs))
+    best = None
+    for nseg in range(min(want, cap), min(4 * want, cap) + 1):
+        seg = -(-nslabs // nseg)
+        nseg = -(-nslabs // seg)
+        cost = -(-nseg * ctas // slots) * (seg + warm + lag)
+        if best is None or cost < best[0]:
+            best = (cost, seg, nseg)
+    return best[1], best[2]
+
+
+class StreamSplit(NamedTuple):
+    """How one launch streams: ``nseg`` segments of ``seg`` of the
+    stream's ``nslabs`` slabs (one segment for the DAG bodies), each
+    streaming ``warm`` slabs before its own (fewer near the stream's
+    start), ``look`` slabs copied ahead (the main path's register form;
+    0 otherwise), ``per_sm`` CTAs an SM holds (the kernel's occupancy; 0
+    where not asked), ``ctas`` CTAs of ``threads`` threads and ``smem``
+    bytes of shared memory a launch, the CTA barriers a tick (the main
+    path's blocks whose reflect mirrors leave the grid take one per entry
+    besides), the body, and the kernel that runs it as
+    ``_build.ptxas_report(lib, all_args=True)`` names it in ``library``."""
+    seg: int
+    nseg: int
+    warm: int
+    look: int
+    per_sm: int
+    ctas: int
+    threads: int
+    smem: int
+    barriers: int
+    nslabs: int
+    body: int
+    kernel: str
+    library: str
+
+    @property
+    def warm_share(self) -> float:
+        """The slabs streamed before the segments' own, per slab of the
+        stream."""
+        return sum(min(self.warm, k * self.seg)
+                   for k in range(self.nseg)) / self.nslabs
+
+
+#: the split of the last launch (diagnostics: chip_smoke.py prints it)
+LAST_SPLIT: Optional[StreamSplit] = None
+_SPLITS: dict = {}
+_SPLITS_LOCK = threading.Lock()
+
+
 class _LaunchPlan(NamedTuple):
     """What every launch of one program at one geometry shares: the body
     that runs it, its table (a ``Program`` passed by value, or the
@@ -652,36 +808,122 @@ def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
                        if big else None)
 
 
+def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
+            steps: int) -> tuple:
+    """``(Params, grid_x, nby)`` of a launch of ``prog`` over a stream of
+    ``ns`` rows, the split left unset: a 1D grid is a 3D one with one
+    blocked cell, a 2D grid one with a single blocked y row."""
+    pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
+                           geom.blocked_dims)
+    hy = hx = geom.size_halo
+    if geom.ndim == 1:
+        pad = blk = cmp = dims = (1, 1)
+        hy = hx = 0
+    elif geom.ndim == 2:
+        pad, blk, cmp, dims = ((1,) + pad, (1,) + blk, (1,) + cmp,
+                               (1,) + dims)
+        hy = 0
+    V = geom.par_vec
+    bnum = geom.bnum
+    nby = bnum[0] if geom.ndim == 3 else 1
+    params = _build.Params(
+        ns=ns, dom=_stream_dom(geom, prog.bc0), V=V,
+        ticks=ns // V + prog.out_lag, py=pad[0], px=pad[1], by=blk[0],
+        bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
+        hx=hx, steps=steps, n_entries=prog.n_entries,
+        n_fields=prog.n_fields, seg=ns // V, warm=0, nby=nby, look=0)
+    return params, bnum[-1] if bnum else 1, nby
+
+
+def _kernel_name(prog: _LaunchPlan, geom: BlockGeometry,
+                 tab: Optional[Tables], look: int) -> str:
+    """The kernel ``stencil_stream.cu``'s launcher picks for ``prog`` at
+    ``geom`` (``look`` > 0: the main path's register form), named as
+    ``_build.ptxas_report(..., all_args=True)`` names it: its int and bool
+    template arguments (body, ``Form``, boundary work, entries)."""
+    bcs = int(prog.bcs)
+    if prog.body >= 0:
+        if look:
+            kt = next(k for k in (4, 8, 16) if prog.n_entries <= k)
+            return f"main_kernel<{prog.body},0,{bcs},{kt}>"
+        form = (3 if math.prod(geom.bsize) > MAX_THREADS
+                else 0 if geom.par_vec == 1 else 2)
+        return f"main_kernel<{prog.body},{form},{bcs},0>"
+    if prog.big is not None:
+        return (f"chain_kernel_big<{bcs}>" if prog.body == CHAIN_BODY
+                else f"stream_kernel_big<{prog.body},{bcs}>")
+    form = _form(geom, tab)
+    if prog.body == CHAIN_BODY:
+        return f"chain_kernel<{form},{bcs}>"
+    x = "_x" if form == 3 or prog.body == MIX_BODY else ""
+    return f"stream_kernel{x}<{prog.body},{form},{bcs}>"
+
+
+def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
+           params, grid_x: int, batch: int, member_stride: int,
+           aux_stride: int, smem: int, cell_bytes: int, device,
+           segments: Optional[int] = None) -> StreamSplit:
+    """:class:`StreamSplit` of a launch (kept per library, program shape,
+    batch and device): the chain and main-path bodies by
+    :func:`segment_plan` over the kernel's occupancy and the card's SMs
+    (or in about ``segments`` segments), the DAG bodies in one segment."""
+    key = (id(dll), prog.body, prog.bcs, prog.big is not None,
+           tuple(getattr(params, f) for f, _ in params._fields_ if
+                 f != "steps"), grid_x, batch, member_stride > 0,
+           aux_stride > 0, smem, cell_bytes, str(device), segments)
+    with _SPLITS_LOCK:
+        hit = _SPLITS.get(key)
+    if hit is not None:
+        return hit
+    nslabs = params.ns // params.V
+    tab = tables_of(geom, dag)
+    _, _, threads = cta_shape(geom, tab)
+    if prog.body < CHAIN_BODY:
+        split = StreamSplit(nslabs, 1, 0, 0, 0, grid_x * params.nby * batch,
+                            threads, smem, prog.n_entries + 1, nslabs,
+                            prog.body, _kernel_name(prog, geom, tab, 0),
+                            dll._name)
+    else:
+        look = main_look(geom, cell_bytes) if prog.body >= 0 else 0
+        warm = stream_warmup(dag, geom)
+        probe = _build.Params.from_buffer_copy(params)
+        probe.look = look
+        per_sm = dll.stencil_stream_occupancy(
+            prog.body, int(prog.bcs), probe, int(prog.big is not None),
+            batch, member_stride, aux_stride, smem)
+        if per_sm < 0:
+            raise RuntimeError("stencil_stream: no occupancy for the launch")
+        n_sm = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        ctas = grid_x * params.nby * batch
+        seg, nseg = segment_plan(nslabs, warm, ctas, per_sm, n_sm,
+                                 params.nby, prog.out_lag)
+        if segments is not None:
+            seg = -(-nslabs // min(max(segments, 1), nslabs))
+            nseg = -(-nslabs // seg)
+        split = StreamSplit(seg, nseg, warm, look, per_sm, ctas * nseg,
+                            threads, smem,
+                            1 if prog.body >= 0 else prog.n_entries + 1,
+                            nslabs, prog.body,
+                            _kernel_name(prog, geom, tab, look), dll._name)
+    with _SPLITS_LOCK:
+        _SPLITS[key] = split
+    return split
+
+
 def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
-            aux_p, out, steps: int, smem: int, batch: Optional[int]) -> None:
+            aux_p, out, steps: int, smem: int, batch: Optional[int],
+            segments: Optional[int] = None) -> None:
     """Launch one super-step of ``prog`` (``dag``'s) on every member of
     ``gp``, from the shared library of its storage type or, for a program
     with custom stencils, its own (built at the first launch);
     ``batch``: the members along the grid's z axis (None: one).  Member
     ``b`` lies ``b * member_stride`` cells into ``gp`` and ``out``, its
     aux ``b * aux_stride`` cells into ``aux_p`` (0 for a shared aux
-    grid)."""
-    global LAUNCHES
-    pad, blk, cmp, dims = (geom.padded_dims, geom.bsize, geom.csize,
-                           geom.blocked_dims)
-    hy = hx = geom.size_halo
-    if geom.ndim == 1:      # a 1D grid is a 3D one with one blocked cell
-        pad = blk = cmp = dims = (1, 1)
-        hy = hx = 0
-    elif geom.ndim == 2:    # a 2D grid is a 3D one with one blocked y row
-        pad, blk, cmp, dims = ((1,) + pad, (1,) + blk, (1,) + cmp,
-                               (1,) + dims)
-        hy = 0
-    ns, V = gp.shape[-geom.ndim], geom.par_vec
-    params = _build.Params(
-        ns=ns, dom=_stream_dom(geom, prog.bc0), V=V,
-        ticks=ns // V + prog.out_lag, py=pad[0], px=pad[1], by=blk[0],
-        bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
-        hx=hx, steps=steps, n_entries=prog.n_entries,
-        n_fields=prog.n_fields)
-    bnum = geom.bnum
-    grid_x = bnum[-1] if bnum else 1
-    grid_y = bnum[0] if geom.ndim == 3 else 1
+    grid).  The grid's y axis carries the block rows times the stream's
+    segments (:class:`StreamSplit`; about ``segments`` of them if given)."""
+    global LAUNCHES, LAST_SPLIT
+    params, grid_x, nby = _params(prog, geom, gp.shape[-geom.ndim], steps)
     member_stride = math.prod(gp.shape[1:]) if batch else 0
     aux_stride = (math.prod(aux_p.shape[1:])
                   if batch and aux_p is not None and aux_p.ndim > geom.ndim
@@ -691,6 +933,12 @@ def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
     dll = (_build.stencil_stream(bf16, batched) if key is None
            else _build.custom_stencil_stream(*key))
     with torch.cuda.device(gp.device):
+        split = _split(dll, dag, prog, geom, params, grid_x, batch or 1,
+                       member_stride, aux_stride, smem, gp.element_size(),
+                       gp.device, segments)
+        params.seg, params.warm, params.look = (split.seg, split.warm,
+                                                split.look)
+        grid_y = nby * split.nseg
         stream = torch.cuda.current_stream(gp.device)
         aux_ptr = None if aux_p is None else aux_p.data_ptr()
         if prog.big is None:
@@ -713,6 +961,7 @@ def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
+    LAST_SPLIT = split
 
 
 # --- plain versions ----------------------------------------------------------

@@ -18,38 +18,78 @@
 // same padded input and output layout and, in the compute region it
 // writes, the same values.
 //
-// Design.  One CTA per overlapped block (grid = bnum; one CTA for a 1D
-// grid, the TPU's grid (1,)), and one such grid per member of a batch
-// (blockIdx.z; the TPU runs the members one after the other under
-// `lax.map`, src/repro/api/backends.py:463-478).  A member's state, output
-// and per-member aux lie `member_stride` and `aux_stride` cells after the
-// previous member's, offsets taken in 64 bits (a batch of wave2d states at
-// 16384^2 passes 2^31 cells); no CTA's arithmetic depends on blockIdx.z, so
-// a batched launch equals one launch per member bit for bit.  The offsets
-// are compiled only into the batch libraries (STENCIL_BATCH): held in
-// registers, the offset pointers cost single-grid launches up to 11% on an
-// H100 (hotspot2d at V = 8, diamond2d under reflect), so a single grid
-// runs code without them.  The CTA streams axis 0 one slab of V rows
-// per tick through the unrolled entries, described by the `Program` table
-// the launcher builds from `repro_torch.programs.dag_layout(plan, V)`: per
-// entry its lag behind the input streams and its producers' and own rings,
-// all counted in slabs.  Shared memory holds one ring per producer: each
-// field stream that an entry reads and every entry that another entry
-// reads; a value that only feeds the output writes straight to device
-// memory, and only the `csize` columns of its block.  A ring of W slots
-// holds W*V block planes, and row x of the stream sits in plane x mod W*V
-// (slab s in slot s mod W), so a ring is addressed by row as when V = 1.
-// A ring is as deep as its consumers need: 2R+1 slots for a consumer of
-// slab radius R = ceil(radius / V) one level below, deeper where an edge
-// skips levels (the short branch of a diamond, a state node's previous
-// value).  At tick t the CTA pushes slab t of each field stream (coalesced;
+// Design.  One CTA per overlapped block and stream segment, and one such
+// grid per member of a batch (blockIdx.z; the TPU runs the members one
+// after the other under `lax.map`, src/repro/api/backends.py:463-478).
+// A member's state, output and per-member aux lie `member_stride` and
+// `aux_stride` cells after the previous member's, offsets taken in 64 bits
+// (a batch of wave2d states at 16384^2 passes 2^31 cells); no CTA's
+// arithmetic depends on blockIdx.z, so a batched launch equals one launch
+// per member bit for bit.  The offsets are compiled only into the batch
+// libraries (STENCIL_BATCH): held in registers, the offset pointers cost
+// single-grid launches up to 11% on an H100 (hotspot2d at V = 8, diamond2d
+// under reflect), so a single grid runs code without them.  The CTA
+// streams axis 0 one slab of V rows per tick through the unrolled entries,
+// described by the `Program` table the launcher builds from
+// `repro_torch.programs.dag_layout(plan, V)`: per entry its lag behind the
+// input streams and its producers' and own rings, all counted in slabs.
+// Shared memory holds one ring per producer: each field stream that an
+// entry reads and every entry that another entry reads; a value that only
+// feeds the output writes straight to device memory, and only the `csize`
+// columns of its block.  A ring of W slots holds W*V block planes, and row
+// x of the stream sits in plane x mod W*V (slab s in slot s mod W), so a
+// ring is addressed by row as when V = 1.  A ring is as deep as its
+// consumers need: 2R+1 slots for a consumer of slab radius R = ceil(radius
+// / V) one level below, deeper where an edge skips levels (the short branch
+// of a diamond, a state node's previous value).
+//
+// The stream split (the main-path and chain bodies).  blockIdx.y is the
+// block row plus `nby` times the segment: the stream's slabs are cut into
+// segments of `seg` slabs, and the CTA of segment k writes slabs [k*seg,
+// (k+1)*seg) only.  It streams from `warm` slabs before them (the
+// critical-path radius times par_time, in slabs: kernels/builder.py
+// stream_warmup), whose values are wrong at first — the rows before
+// are not in its rings — and are thrown away, as the blocked halo's are;
+// each output row is written by one CTA, with the same arithmetic in the
+// same order, so the split changes no bit.  Stream-axis boundaries apply
+// at rows 0 and dom-1 only.  The launcher cuts as many segments as fill
+// the card for two waves at the kernel's occupancy, fewer where the
+// warm-up would pass 5% of a segment (kernels/builder.py segment_plan):
+// 38 segments (2622 CTAs) for the 16384^2 grid at bsize 256, thousands for
+// a 1D grid.  The DAG bodies (kOp = -2, -3) stream in one segment.
+//
+// The main path (kOp = 0..3, one Table-2 stage, every entry under stage
+// 0's boundary) runs one barrier a tick.  Entry i computes slab t-i-1 at
+// tick t from its producer's slab of the tick before (the blocked-axis
+// neighbours, in shared memory, double-buffered by tick parity) and of
+// this tick (the down tap, which the same thread computed just before, at
+// the same cell), so all entries of a tick run between one pair of
+// barriers.  A thread takes every row of a slab at its cell (vt = 1), and
+// reads the stream-axis taps of its cell from its own column.  Its
+// register form (V = 1, a cell a thread, at most 16 entries:
+// `main_windows`) keeps rows j-1 and j of every entry's producer in
+// registers, turned over by unrolling the tick loop three times, copies
+// the field stream `look` (up to 4) slabs ahead into staged slots with
+// cp.async, keeps Hotspot's power in a per-thread shift register, and runs
+// its steady ticks (every entry in range, away from the stream's ends, no
+// forwarding) without per-entry tests.  Its ring form (V > 1, planes over
+// 1024 cells, more entries: `main_rings`) keeps the layout's 3-slot rings
+// and reads the stream-axis taps from the thread's own column of them.  A
+// cell outside the grid computes at the position stage 0's boundary maps
+// it to and holds that position's values; where reflect maps a block's
+// overhang onto cells outside the grid (a grid that ends well inside the
+// block), the two differ, and such a block reads the mapped column behind
+// a barrier after every entry (`own_columns`).
+//
+// The chain body (kOp = -1) and the DAG bodies keep a barrier after every
+// entry: at tick t the CTA pushes slab t of each field stream (coalesced;
 // each thread's first rows prefetched one tick ahead into registers), then
 // entry i computes slab j = t - lag_i, row by row, from rows of its
-// producers' rings up to R slabs either side; a barrier follows each entry,
-// so a producer's slab is in its ring before its consumer reads it, and the
+// producers' rings up to R slabs either side; the barrier after each entry
+// puts a producer's slab in its ring before its consumer reads it, and the
 // layout's window depths guarantee that no slot is overwritten while it is
-// still read.  One barrier per entry and tick is one per V rows.
-//
+// still read.
+
 // Storage.  `T`, a template argument, is the storage type: float or
 // __nv_bfloat16.  The input, aux, output and every ring hold T; a stage
 // widens what it reads to float, computes in float and rounds its value to
@@ -59,10 +99,11 @@
 // For float every conversion is the identity, so the float kernels are the
 // code they were before T.
 //
-// Threads.  A CTA computes `vt` rows of a slab at once, `vt` the largest
-// divisor of V with plane * vt <= 1024 (plane = the block's cells in a row
-// or plane); thread tid < plane * vt takes cell tid mod plane of rows tv,
-// tv + vt, ... (tv = tid / plane) of each slab, `rows` = V / vt in all.  The
+// Threads.  A CTA of a table-driven body computes `vt` rows of a slab at
+// once, `vt` the largest divisor of V with plane * vt <= 1024 (plane = the
+// block's cells in a row or plane); thread tid < plane * vt takes cell tid
+// mod plane of rows tv, tv + vt, ... (tv = tid / plane) of each slab,
+// `rows` = V / vt in all.  The main-path body takes vt = 1.  The
 // table-driven bodies also need a thread per entry to build the tick
 // records, so the CTA has max(plane * vt, entries) threads, rounded up to a
 // multiple of 32 (`builder.cta_shape` mirrors the launcher's rule); threads
@@ -113,40 +154,41 @@
 // consumer with another BC re-imposes them too.
 //
 // Hotspot's `power` is read at the centre of each row straight from device
-// memory, which L2 serves.  The arithmetic uses __fmul_rn/__fadd_rn, which
+// memory, which L2 serves (in the main path's register form a row a tick
+// into a shift register).  The arithmetic uses __fmul_rn/__fadd_rn, which
 // nvcc never contracts into FMAs, in the operation order of
 // src/repro_torch/core/stencils.py (a tap table in the order of its
 // `apply`), row by row, so the kernel and its plain version agree bit for
 // bit in both storage types, and a run at any V equals the run at V = 1.
 //
-// Three loop bodies, one template.  With 8 warps to an SM (2D, V = 1),
-// every instruction an entry adds is paid on each of its rows, so the
-// kernel has a body for the paper's main path — one Table-2 stage (kOp =
-// its id): lag i+1 slabs, 3-slot rings, coefficients in registers — one for
-// any chain (kOp = -1), one for any DAG whose stages share one boundary
-// (kOp = -2) and one for any DAG (kOp = -3).  Each comes in four forms
+// Loop bodies.  Every instruction an entry adds is paid on each of its
+// rows, so the kernel has a body for the paper's main path — one
+// Table-2 stage (kOp = its id): lag i+1 slabs, coefficients in registers,
+// in its register form (`main_kernel<kOp, 0, T, kBC, kT>`, kT = 4, 8 or 16
+// entries held) or its ring form (kT = 0) — one for any chain (kOp = -1,
+// `chain_kernel`), one for any DAG whose stages share one boundary (kOp =
+// -2) and one for any DAG (kOp = -3; both `stream_kernel`,
+// `stream_kernel_x`).  The table-driven bodies come in four forms
 // (`Form`): V = 1, where V, vt and the row loop fold away; one row of each
 // slab per thread; several rows per thread; several cells per thread (the
-// wide form); in two storage types (one library each); and with or without
-// the reflect and constant boundaries (kBC; kOp = -3 only with them); the
-// table-driven bodies also in the large-table route: 57 kernels a library,
-// 228 in the four.  Slab bookkeeping with a runtime V cost
-// the V = 1 main path 12% and the DAG body 28% on an H100, hence the
-// forms; deciding the boundary kinds at run time cost the float32 bodies
-// 3-31%, hence kBC.  The table-driven bodies copy the table into static
-// shared memory at start (`Rec`/`DagRec`: one flat record per entry, rings
-// in rows, a Table-2 stage's coefficients inline; the taps and
-// coefficients of tap tables), and at the top of each tick thread i
-// computes entry i's ring slots for that tick's slab (`TickRec`/`DagTick`),
-// so an entry costs its threads one record read and no division.  Striding
-// these two loops over the entries instead cost the tap chain about a
-// fifth on an H100 (chip_smoke.py's advect_diffuse2d).  The chain body
-// still costs more per entry than the main-path body: on an H100
-// (chip_smoke.py), 8 entries of diffusion2d and a radius-0 damp over
-// 16384^2 take 1.8x the time of 8 diffusion2d entries.  The DAG body adds
-// the field streams, several producers per entry, the combine and the
-// state-node select.
-//
+// wide form), and in the large-table route; the main path's ring form in
+// three (V = 1, every row of a slab, the wide form).  All in two storage
+// types (one library each), and with or without the reflect and constant
+// boundaries (kBC; kOp = -3 only with them): 73 kernels a library, 292 in
+// the four.  Slab bookkeeping with a runtime V cost the V = 1 main path
+// 12% and the DAG body 28% on an H100, hence the forms; deciding the
+// boundary kinds at run time cost the float32 bodies 3-31%, hence kBC.
+// The table-driven bodies copy the table into static shared memory at
+// start (`Rec`/`DagRec`: one flat record per entry, rings in rows, a
+// Table-2 stage's coefficients inline; the taps and coefficients of tap
+// tables), and at the top of each tick thread i computes entry i's ring
+// slots for that tick's slab (`TickRec`/`DagTick`), so an entry costs its
+// threads one record read and no division.  Striding these two loops over
+// the entries instead cost the tap chain about a fifth on an H100
+// (chip_smoke.py's advect_diffuse2d).  The DAG body adds the field
+// streams, several producers per entry, the combine and the state-node
+// select.
+
 // Tables.  Entries, stages (op, ranges, boundary kinds and fill), taps, the
 // coefficients of all stages (concatenated in stage order) and the field
 // streams travel in one `Program` struct passed by value as a
@@ -191,15 +233,22 @@
 // Its aux value is read at `aux + at`, as Hotspot's.
 // A stage's `tap_lo` holds its function index.
 //
-// Left on the table by this first design: no cp.async or TMA (a tick waits
-// on register-prefetched loads, and only some are prefetched: a thread's
-// first 4 rows of a slab in the main-path body, its first row in the chain
-// body and of the first two field streams in the DAG body), one CTA barrier
-// per entry and tick, table-driven bodies that cost more per entry than
-// the main-path body, a 1D grid on one CTA whose one active thread at V = 1
-// spends about 2 us a tick, and a CTA count of `num_blocks` per member —
-// 69 for the 16384^2 grid at bsize 256, 9 at bsize 2048 — against 132 SMs,
-// which only a batch of two or more members fills.
+// Left on the table (chip_smoke.py on an H100 80GB HBM3 at 700 W, per
+// super-step): the main path's register form runs d2 in 2.73 ms, 4.3x
+// its 0.641 ms bytes bound, and h2 in 4.22 against 0.962, issue-bound
+// (index and predicate work beside each entry's arithmetic); its
+// blocked-axis neighbours are shared-memory loads, not shuffles along a
+// warp's row.  A 3D plane of
+// 32 x 32 cells is a CTA of 1024 threads at 64 registers, one an SM: d3
+// 1.43 ms against 0.215 (two an SM, at 32 registers, spilled and ran
+// slower).  The ring form (V > 1, planes over 1024 cells, more than 16
+// entries) reads the stream-axis taps from shared memory, and from V = 8
+// its rings hold one CTA of 8 warps an SM, where the first design ran 32:
+// hotspot2d at V = 8 takes 24.4 ms against 20.5 before.  The chain body
+// keeps a barrier per entry and tick and pushes rows loaded a tick ahead
+// into registers (copies further ahead need ring slots its layout does
+// not have): advect_diffuse2d 14.9 ms, 23x its bound.  The DAG bodies keep
+// the first design, in one segment (wave2d 113 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -226,6 +275,14 @@ constexpr int kMaxCoeffs = 192;
 constexpr int kMaxFields = 4;
 constexpr int kMaxInputs = 4;
 constexpr int kMaxThreads = 1024;
+// The main path's register form: the entries whose windows a thread holds,
+// and the slabs its copies run ahead (kernels/builder.py: WINDOW_ENTRIES,
+// MAX_LOOK).
+constexpr int kMaxWindowEntries = 16;
+constexpr int kMaxLook = 4;
+// ... and the most entries it holds in a plane of 1024 cells (more take at
+// most 512: kernels/builder.py: WIDE_WINDOW_ENTRIES)
+constexpr int kMaxWideWindowEntries = 8;
 constexpr int kMaxBatch = 65535;  // gridDim.z
 
 // Whether this library advances batches (kernels/_build.py: LIBRARIES).
@@ -255,6 +312,10 @@ struct Params {
   int n_fields;     // field streams (1 but for a DAG)
   int vt;           // rows of a slab computed at once (set by the launcher)
   int rows;         // rows of a slab per thread, V / vt (the launcher)
+  int seg;          // stream slabs a segment owns (the DAG bodies: all)
+  int warm;         // slabs a segment streams before its own (0: DAG bodies)
+  int nby;          // blocks along y: blockIdx.y = block + nby * segment
+  int look;         // main path: slabs copied ahead (0: the ring form)
 };
 
 // One unrolled entry.  Lags and rings are counted in slabs; `out_slots` is 0
@@ -679,8 +740,10 @@ struct BigDagTick {  // 16 bytes
 };
 static_assert(sizeof(BigDagTick) == 16, "BigDagTick layout changed");
 
-// This thread's rows of slab 0 of one field stream (`src`, its padded
-// grid at the thread's cell) into `nxt`: the first kPre of its `nr` rows.
+// This thread's rows of the first slab a CTA streams of one field stream
+// (`src`, its padded grid at the thread's cell and that slab's first row;
+// `dom` counted from that row) into `nxt`: the first kPre of its `nr`
+// rows.
 template <int kPre, class T>
 __device__ __forceinline__ void prefetch_slab(T* nxt, const T* src, int tv,
                                               int vt, int nr, int dom,
@@ -787,23 +850,18 @@ __device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
   }
 }
 
-// The forms of the first slices: kOp in 0..3, a single-stage chain of that
-// Table-2 stencil; kOp = -1, any chain of the table; kOp = -2, any DAG of
-// the table whose stages share one boundary (`gp` and `out` then hold
-// `n_fields` padded grids one after the other); kForm one of the first three
-// `Form`s, the table a kernel parameter.  They keep this code: compiled
-// from `stream_body` below, which also runs the later forms, the same
-// kernels came out of ptxas with other register counts and spills on an
-// H100 build.  T: the storage type.  kBC: some stage has a reflect or
-// constant axis; without it the per-row and per-entry boundary work folds
-// away to the clamp and periodic code (in a run-time form it cost the
-// float32 bodies 3-31% on an H100).  The main-path body asks for 32
-// registers, so that two CTAs of 1024 threads (3D, 32 x 32) fit an SM, but
-// not with several rows per thread: there it would spill, and from V = 4 in
-// 3D the rings fit one CTA an SM anyway.
+// The DAG body's forms of the first slices: kOp = -2, any DAG of the table
+// whose stages share one boundary (`gp` and `out` then hold `n_fields`
+// padded grids one after the other); kForm one of the first three `Form`s,
+// the table a kernel parameter.  They keep this code: compiled from
+// `stream_body` below, which also runs the later forms, the same kernels
+// came out of ptxas with other register counts and spills on an H100
+// build.  T: the storage type.  kBC: some stage has a reflect or constant
+// axis; without it the per-row and per-entry boundary work folds away to
+// the clamp and periodic code (in a run-time form it cost the float32
+// bodies 3-31% on an H100).
 template <int kOp, int kForm, class T, bool kBC>
-__global__ void __launch_bounds__(1024,
-                                  kOp >= 0 && kForm != kRows ? 2 : 1)
+__global__ void __launch_bounds__(1024, 1)
     stream_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
                   T* __restrict__ out, const Params p,
                   const __grid_constant__ Program k, long long member_stride,
@@ -845,156 +903,7 @@ __global__ void __launch_bounds__(1024,
                       tx < p.hx + p.cx;
   const size_t pstride = (size_t)p.py * p.px;
 
-  if constexpr (kOp >= 0) {
-    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs;
-    // every entry runs stage 0's boundary
-    const int WV = 3 * V;
-    constexpr int kPre = kForm == kRows ? 4 : 1;
-    const Pos edge = pos_at(axis_pos(ay, ty, k.s[0].ky),
-                            axis_pos(ax, tx, k.s[0].kx), p, sy, sx);
-    const bool fill_edge = kBC && takes_fill(ay, ax, k.s[0].ky, k.s[0].kx);
-    const T fill_t = narrow<T>(k.s[0].fill);
-    T nxt[kPre];
-    if (act) prefetch_slab<kPre>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
-    float c[8];
-    for (int z = 0; z < 8; ++z) c[z] = k.c[z];
-    for (int t = 0; t < p.ticks; ++t) {
-      if (act && t < nslabs) {
-        push_slab<kPre>(nxt, gp + own.g, win, WV, (T*)nullptr, t, tv, vt, nr,
-                        V, p.dom, pstride, plane, cell);
-      }
-      __syncthreads();
-      for (int i = 0; i < p.n_entries; ++i) {
-        const int j = t - (i + 1);  // CTA-uniform
-        if (act && j >= 0 && j < nslabs) {
-          const T* ring = win + i * WV * plane;
-          const int m0 = (j % 3) * V;
-          const bool last = i == p.n_entries - 1;
-          const Pos q = last ? own : edge;
-          for_rows<kForm>(j, V, tv, vt, nr, p.dom, [&](int r, int x) {
-            const int m = m0 + r;
-            const T* mid = ring + m * plane;
-            const int ks = k.s[0].ks;
-            const T val =
-                i < p.steps
-                    ? narrow<T>(table2<kOp>(
-                          ring + slot_up<kBC>(m, x, WV, ks) * plane, mid,
-                          ring + slot_dn<kBC>(m, x, WV, p.dom, ks) * plane, q,
-                          c, ends<kBC>(x, p.dom, ks, wide(fill_t)), aux,
-                          (size_t)x * pstride))
-                    : mid[q.c];
-            if (!last) {
-              win[((i + 1) * WV + m) * plane + cell] = fill_edge ? fill_t : val;
-            } else if (writes) {
-              out[(size_t)x * pstride + own.g] = val;
-            }
-          });
-        }
-        __syncthreads();
-      }
-    }
-  } else if constexpr (kOp == kChainBody) {
-    __shared__ Rec rec[kMaxEntries];
-    __shared__ TickRec trec[kMaxEntries];
-    __shared__ Tap s_taps[kMaxTaps];
-    __shared__ float s_c[kMaxCoeffs];
-    if (tid < p.n_entries) {  // a thread per entry (the launcher's rule)
-      const Entry en = k.e[tid];
-      const Stage st = k.s[en.stage];
-      // the consumer: the next entry (the last one's value drains out)
-      const Stage sc =
-          tid + 1 < p.n_entries ? k.s[k.e[tid + 1].stage] : st;
-      // rings in rows: a slot of the table is V block planes
-      Rec r = {en.lag,          en.in_base[0] * V, en.in_slots[0] * V,
-               en.out_base * V, en.out_slots * V,  st.op,
-               en.iteration,    st.tap_lo,         st.tap_n,
-               st.coeff_lo,     st.ks,             sc.ky | (sc.kx << 8),
-               wide(narrow<T>(st.fill)),           wide(narrow<T>(sc.fill)),
-               0.0f,            0.0f};
-      for (int z = 0; z < 8; ++z) {
-        r.c[z] = st.op != kTapOp && st.coeff_lo + z < kMaxCoeffs
-                     ? k.c[st.coeff_lo + z]
-                     : 0.0f;
-      }
-      rec[tid] = r;
-    }
-    for (int z = tid; z < kMaxTaps; z += blockDim.x) s_taps[z] = k.taps[z];
-    for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
-    __syncthreads();
-    // without kBC every stage re-imposes as stage 0 does (periodicity is
-    // uniform, the other axes clamp)
-    const int ey = axis_pos(ay, ty, k.s[0].ky);
-    const int ex = axis_pos(ax, tx, k.s[0].kx);
-    const Pos edge = pos_at(ey, ex, p, sy, sx);
-    // the input stream's ring is entry 0's producer
-    T* const stream_ring = win + rec[0].in_base * plane;
-    const int stream_rows = rec[0].in_slots;
-    T nxt[1];
-    if (act) prefetch_slab<1>(nxt, gp + own.g, tv, vt, nr, p.dom, pstride);
-    for (int t = 0; t < p.ticks; ++t) {
-      if (act && t < nslabs) {
-        push_slab<1>(nxt, gp + own.g, stream_ring, stream_rows, (T*)nullptr,
-                     t, tv, vt, nr, V, p.dom, pstride, plane, cell);
-      }
-      if (tid < p.n_entries) {  // entry tid's slots at this tick
-        const Rec& e = rec[tid];
-        TickRec r;
-        r.j = t - e.lag;
-        r.flags = (r.j >= 0 && r.j < nslabs) | ((e.iteration < p.steps) << 1);
-        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
-        r.m = x0 % (unsigned)e.in_slots;
-        r.outo = e.out_slots
-                     ? (e.out_base + x0 % (unsigned)e.out_slots) * plane
-                     : 0;
-        r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
-        trec[tid] = r;
-      }
-      __syncthreads();
-      for (int i = 0; i < p.n_entries; ++i) {
-        const TickRec r = trec[i];
-        if (act && (r.flags & 1)) {
-          const Rec& en = rec[i];
-          const bool last = i == p.n_entries - 1;
-          // a value that enters a ring is taken where its consumer's
-          // blocked-axis kinds say
-          const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
-          const int qy = last ? ty : (kBC ? axis_pos(ay, ty, ky) : ey);
-          const int qx = last ? tx : (kBC ? axis_pos(ax, tx, kx) : ex);
-          const bool fill_edge = kBC && !last && takes_fill(ay, ax, ky, kx);
-          const Pos q = !kBC ? (last ? own : edge) : pos_at(qy, qx, p, sy, sx);
-          const T* ring = win + en.in_base * plane;
-          const int W = en.in_slots;
-          for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
-            const int m = r.m + row;
-            T val;
-            if (!(r.flags & 2)) {
-              val = ring[m * plane + q.c];
-            } else if (en.op == kTapOp) {
-              val = narrow<T>(tap_sum<kBC>(s_taps, s_c, en.tap_lo, en.tap_n,
-                                           en.coeff_lo, ring, W, m, plane, x,
-                                           qy, qx, p, en.ks, en.fill_s));
-            } else {
-              float c[8];
-              for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-              val = narrow<T>(table2_op(
-                  en.op, ring + slot_up<kBC>(m, x, W, en.ks) * plane,
-                  ring + m * plane,
-                  ring + slot_dn<kBC>(m, x, W, p.dom, en.ks) * plane, q, c,
-                  ends<kBC>(x, p.dom, en.ks, en.fill_s), aux,
-                  (size_t)x * pstride));
-            }
-            if (!last) {
-              win[r.outo + row * plane + cell] =
-                  fill_edge ? narrow<T>(en.fill_b) : val;
-            } else if (writes) {
-              out[(size_t)x * pstride + own.g] = val;
-            }
-          });
-        }
-        __syncthreads();
-      }
-    }
-  } else {
+  {
     // a DAG: `n_fields` field streams, entries with several producers; all
     // stages share stage 0's boundary (the launcher's rule)
     __shared__ DagRec rec[kMaxEntries];
@@ -1308,10 +1217,10 @@ __device__ __forceinline__ Records<R, TR, typename K::TapT> records(
   }
 }
 
-// The later forms, one body for all: the wide form (kWide) of the main-path,
-// chain and single-boundary DAG bodies; kOp = -3, any DAG (the consumers
-// re-impose at read time), in every form; and the large-table route of the
-// table-driven bodies (K = `DevTable`, the wide form).  The bodies compute
+// The DAG bodies' later forms, one body for all: the wide form (kWide) of
+// the single-boundary DAG body; kOp = -3, any DAG (the consumers re-impose
+// at read time), in every form; and the large-table route of both (K =
+// `DevTable`, the wide form).  The bodies compute
 // as those of `stream_kernel` do; a thread covers its cells through
 // `cells` and builds the records of its entries through `entries`.  K:
 // `Program` (the table as a kernel parameter) or `DevTable`.
@@ -1337,11 +1246,8 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   size_t front = 0;
   if constexpr (K::kBig) {
-    front = kOp == kChainBody
-                ? table_bytes<Rec, TickRec>(p.n_entries, k.n_taps,
-                                            k.n_coeffs, 0)
-                : table_bytes<BigDagRec, BigDagTick>(p.n_entries, k.n_taps,
-                                                     k.n_coeffs, k.n_inputs);
+    front = table_bytes<BigDagRec, BigDagTick>(p.n_entries, k.n_taps,
+                                               k.n_coeffs, k.n_inputs);
   }
   T* const win = reinterpret_cast<T*>(smem_raw + front);
   const int plane = p.by * p.bx;
@@ -1381,184 +1287,7 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
     }
   };
 
-  if constexpr (kOp >= 0) {
-    // the main path: entry i lags i+1 slabs and reads ring i of 3 slabs;
-    // every entry runs stage 0's boundary
-    const int WV = 3 * V;
-    constexpr int kPre = kForm == kRows ? 4 : 1;
-    const T fill_t = narrow<T>(k.s[0].fill);
-    T nxt[kPre];
-    if (!kW && act) {
-      prefetch_slab<kPre>(nxt, gp + me.own.g, tv, vt, nr, p.dom, pstride);
-    }
-    float c[8];
-    for (int z = 0; z < 8; ++z) c[z] = k.c[z];
-    for (int t = 0; t < p.ticks; ++t) {
-      if (t < nslabs) {
-        cells([&](const Cell& cl) {
-          push_slab<kPre>(kW ? (T*)nullptr : nxt, gp + cl.own.g, win, WV,
-                          (T*)nullptr, t, tv, vt, nr, V, p.dom, pstride,
-                          plane, cl.cell);
-        });
-      }
-      __syncthreads();
-      for (int i = 0; i < p.n_entries; ++i) {
-        const int j = t - (i + 1);  // CTA-uniform
-        if (j >= 0 && j < nslabs) {
-          cells([&](const Cell& cl) {
-            const T* ring = win + i * WV * plane;
-            const int m0 = (j % 3) * V;
-            const bool last = i == p.n_entries - 1;
-            const Pos q = last ? cl.own : cl.edge;
-            for_rows<kForm>(j, V, tv, vt, nr, p.dom, [&](int r, int x) {
-              const int m = m0 + r;
-              const T* mid = ring + m * plane;
-              const int ks = k.s[0].ks;
-              const T val =
-                  i < p.steps
-                      ? narrow<T>(table2<kOp>(
-                            ring + slot_up<kBC>(m, x, WV, ks) * plane, mid,
-                            ring + slot_dn<kBC>(m, x, WV, p.dom, ks) * plane,
-                            q, c, ends<kBC>(x, p.dom, ks, wide(fill_t)), aux,
-                            (size_t)x * pstride))
-                      : mid[q.c];
-              if (!last) {
-                win[((i + 1) * WV + m) * plane + cl.cell] =
-                    cl.fill_edge ? fill_t : val;
-              } else if (cl.writes) {
-                out[(size_t)x * pstride + cl.own.g] = val;
-              }
-            });
-          });
-        }
-        __syncthreads();
-      }
-    }
-  } else if constexpr (kOp == kChainBody) {
-    const auto sm = records<Rec, TickRec>(smem_raw, k, p.n_entries, 0);
-    Rec* const rec = sm.rec;
-    TickRec* const trec = sm.trec;
-    entries([&](int e) {
-      const auto en = k.e[e];
-      const Stage st = k.s[en.stage];
-      // the consumer: the next entry (the last one's value drains out)
-      const Stage sc = e + 1 < p.n_entries ? k.s[k.e[e + 1].stage] : st;
-      const Input in = input_of(k, en, 0);
-      // rings in rows: a slot of the table is V block planes
-      Rec r = {en.lag,          in.base * V,       in.slots * V,
-               en.out_base * V, en.out_slots * V,  st.op,
-               en.iteration,    st.tap_lo,         st.tap_n,
-               st.coeff_lo,     st.ks,             sc.ky | (sc.kx << 8),
-               wide(narrow<T>(st.fill)),           wide(narrow<T>(sc.fill)),
-               0.0f,            0.0f};
-      for (int z = 0; z < 8; ++z) {
-        r.c[z] = st.op != kTapOp && st.coeff_lo + z < k.n_coeffs
-                     ? k.c[st.coeff_lo + z]
-                     : 0.0f;
-      }
-      rec[e] = r;
-    });
-    for (int z = tid; z < k.n_taps; z += blockDim.x) sm.taps[z] = k.taps[z];
-    for (int z = tid; z < k.n_coeffs; z += blockDim.x) sm.c[z] = k.c[z];
-    __syncthreads();
-    // without kBC every stage re-imposes as stage 0 does (periodicity is
-    // uniform, the other axes clamp)
-    // the input stream's ring is entry 0's producer
-    T* const stream_ring = win + rec[0].in_base * plane;
-    const int stream_rows = rec[0].in_slots;
-    T nxt[1];
-    if (!kW && act) {
-      prefetch_slab<1>(nxt, gp + me.own.g, tv, vt, nr, p.dom, pstride);
-    }
-    for (int t = 0; t < p.ticks; ++t) {
-      if (t < nslabs) {
-        cells([&](const Cell& cl) {
-          push_slab<1>(kW ? (T*)nullptr : nxt, gp + cl.own.g, stream_ring,
-                       stream_rows, (T*)nullptr, t, tv, vt, nr, V, p.dom,
-                       pstride, plane, cl.cell);
-        });
-      }
-      entries([&](int e) {  // entry e's slots at this tick
-        const Rec& en = rec[e];
-        TickRec r;
-        r.j = t - en.lag;
-        r.flags = (r.j >= 0 && r.j < nslabs) | ((en.iteration < p.steps) << 1);
-        const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
-        r.m = x0 % (unsigned)en.in_slots;
-        r.outo = en.out_slots
-                     ? (en.out_base + x0 % (unsigned)en.out_slots) * plane
-                     : 0;
-        r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
-        trec[e] = r;
-      });
-      __syncthreads();
-      for (int i = 0; i < p.n_entries; ++i) {
-        const TickRec r = trec[i];
-        if (r.flags & 1) {
-          cells([&](const Cell& cl) {
-            const Rec& en = rec[i];
-            const bool last = i == p.n_entries - 1;
-            // a value that enters a ring is taken where its consumer's
-            // blocked-axis kinds say
-            const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
-            const int qy =
-                last ? cl.ty : (kBC ? axis_pos(cl.ay, cl.ty, ky) : cl.ey);
-            const int qx =
-                last ? cl.tx : (kBC ? axis_pos(cl.ax, cl.tx, kx) : cl.ex);
-            const bool fill_edge =
-                kBC && !last && takes_fill(cl.ay, cl.ax, ky, kx);
-            const Pos q = !kBC ? (last ? cl.own : cl.edge)
-                               : pos_at(qy, qx, p, sy, sx);
-            const T* ring = win + en.in_base * plane;
-            const int W = en.in_slots;
-            for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
-              const int m = r.m + row;
-              T val;
-              if (!(r.flags & 2)) {
-                val = ring[m * plane + q.c];
-              } else if (en.op == kTapOp) {
-                val = narrow<T>(tap_sum<kBC>(sm.taps, sm.c, en.tap_lo,
-                                             en.tap_n, en.coeff_lo, ring, W,
-                                             m, plane, x, qy, qx, p, en.ks,
-                                             en.fill_s));
-#if STENCIL_CUSTOM
-              } else if (en.op == kCustomOp) {
-                const int base = en.in_base * plane;
-                val = narrow<T>(custom::custom_apply(
-                    en.tap_lo,
-                    [&](int, int ds, int dy, int dx) {
-                      return ring_tap<kBC>(win, base, W * plane,
-                                           base + m * plane, plane, x, qy,
-                                           qx, ds, dy, dx, p, en.ks,
-                                           en.fill_s);
-                    },
-                    sm.c + en.coeff_lo, [&] {
-                      return wide(__ldg(aux + (size_t)x * pstride + q.g));
-                    }));
-#endif
-              } else {
-                float c[8];
-                for (int z = 0; z < 8; ++z) c[z] = en.c[z];
-                val = narrow<T>(table2_op(
-                    en.op, ring + slot_up<kBC>(m, x, W, en.ks) * plane,
-                    ring + m * plane,
-                    ring + slot_dn<kBC>(m, x, W, p.dom, en.ks) * plane, q, c,
-                    ends<kBC>(x, p.dom, en.ks, en.fill_s), aux,
-                    (size_t)x * pstride));
-              }
-              if (!last) {
-                win[r.outo + row * plane + cl.cell] =
-                    fill_edge ? narrow<T>(en.fill_b) : val;
-              } else if (cl.writes) {
-                out[(size_t)x * pstride + cl.own.g] = val;
-              }
-            });
-          });
-        }
-        __syncthreads();
-      }
-    }
-  } else {
+  {
     // a DAG: `n_fields` field streams, entries with several producers.
     // Single-boundary (kDagBody, which `builder.superstep_dag` picks only
     // when the stages share one): every value that enters a ring is
@@ -1887,6 +1616,793 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
   }
 }
 
+// --- The main-path and chain bodies ----------------------------------------
+
+// The stream rows one CTA of the main-path or chain body owns: blockIdx.y
+// is its block row plus `nby` times its segment, which writes slabs [s0,
+// s1) and streams them from slab a = s0 - warm on (from 0 at most), over
+// ticks [a, t_end): the last slab's output lag past s1.
+struct Segment {
+  int sy;      // block start along y, in padded coordinates
+  int s0, s1;  // the slabs it writes
+  int a;       // the first slab it streams
+  int t_end;   // one past its last tick
+};
+
+__device__ __forceinline__ Segment segment_of(const Params& p, int nslabs) {
+  const int k = blockIdx.y / p.nby;
+  Segment s;
+  s.sy = (blockIdx.y - k * p.nby) * p.cy;
+  s.s0 = k * p.seg;
+  s.s1 = min(s.s0 + p.seg, nslabs);
+  s.a = max(s.s0 - p.warm, 0);
+  s.t_end = s.s1 + (p.ticks - nslabs);
+  return s;
+}
+
+// cp.async of one 4-byte word, `src_bytes` of it read and the rest
+// zero-filled; commit groups; wait until at most `n` (0..3) groups of this
+// thread are in flight.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n <= 0) {
+    cp_async_wait<0>();
+  } else if (n == 1) {
+    cp_async_wait<1>();
+  } else if (n == 2) {
+    cp_async_wait<2>();
+  } else {
+    cp_async_wait<3>();
+  }
+}
+
+// Whether the stream row at `gp + g0` starts in the second half of a
+// 4-byte word (bfloat16 only).
+template <class T>
+__device__ __forceinline__ int row_shift(const T* gp, int g0) {
+  if constexpr (sizeof(T) == 4) {
+    return 0;
+  } else {
+    return static_cast<int>((reinterpret_cast<size_t>(gp + g0) >> 1) & 1);
+  }
+}
+
+// A staged slot holds the block's `by` rows `srow` cells apart (bx; for
+// bfloat16 bx + 2 rounded up to even), row y from cell row_shift(y) on,
+// so that every copy is one aligned word.  This
+// thread's copy of a slab: `dst` its cell in the slot (-1: none), `src` its
+// source's cell offset in a stream row of `gp`, `bytes` read.  float: the
+// thread's cell; bfloat16: one word of a row (from the word holding the
+// row's first cell), whose last word reads only the row's last cell.
+struct Piece {
+  int dst, src, bytes;
+};
+
+template <class T>
+__device__ __forceinline__ Piece piece_of(int tid, const T* gp,
+                                          const Params& p, int sy, int sx,
+                                          int srow) {
+  Piece pc = {-1, 0, 4};
+  if constexpr (sizeof(T) == 4) {
+    if (tid < p.by * p.bx) {
+      const int y = tid / p.bx, x = tid - y * p.bx;
+      pc.dst = y * srow + x;
+      pc.src = (sy + y) * p.px + sx + x;
+    }
+  } else {
+    const int wr = srow / 2;  // words a staged row
+    if (tid < p.by * wr) {
+      const int y = tid / wr, w = tid - y * wr;
+      const int g0 = (sy + y) * p.px + sx;
+      const int first = 2 * w - row_shift(gp, g0);  // the word's first cell
+      if (first < p.bx) {
+        pc.dst = y * srow + 2 * w;
+        pc.src = g0 + first;
+        pc.bytes = first + 1 < p.bx ? 4 : 2;
+      }
+    }
+  }
+  return pc;
+}
+
+// Cell (y, x) and its blocked-axis neighbours (clamped to the block) in a
+// staged slot, as `pos_at` gives them in a ring.
+template <class T>
+__device__ __forceinline__ Pos staged_at(int y, int x, const T* gp,
+                                         const Params& p, int sy, int sx,
+                                         int srow) {
+  const auto at = [&](int yy, int xx) {
+    return yy * srow + row_shift(gp, (sy + yy) * p.px + sx) + xx;
+  };
+  Pos q;
+  q.c = at(y, x);
+  q.n = at(max(y - 1, 0), x);
+  q.s = at(min(y + 1, p.by - 1), x);
+  q.w = at(y, max(x - 1, 0));
+  q.e = at(y, min(x + 1, p.bx - 1));
+  q.g = 0;
+  return q;
+}
+
+// The Table-2 stencils over the stream-axis taps as values (`up`, `ctr`,
+// `dn`: rows j-1, j, j+1 of the producer at the cell) and the producer's
+// row j `nb` at the blocked-axis neighbours of `q`, in the operation order
+// of the functions above.
+template <int kOp, class T>
+__device__ __forceinline__ float table2_win(float up, float ctr, float dn,
+                                            const T* nb, const Pos& q,
+                                            const float* c, float aux) {
+  if (kOp == 0) {
+    float v = mul(c[0], ctr);
+    v = add(v, mul(c[1], wide(nb[q.w])));
+    v = add(v, mul(c[2], wide(nb[q.e])));
+    v = add(v, mul(c[3], dn));
+    return add(v, mul(c[4], up));
+  }
+  if (kOp == 1) {
+    const float two_v = mul(2.0f, ctr);
+    const float dy = sub(add(up, dn), two_v);
+    const float dx = sub(add(wide(nb[q.e]), wide(nb[q.w])), two_v);
+    float t = add(aux, mul(dy, c[2]));
+    t = add(t, mul(dx, c[1]));
+    t = add(t, mul(sub(kTempAmb, ctr), c[3]));
+    return add(ctr, mul(c[0], t));
+  }
+  if (kOp == 2) {
+    float v = mul(c[0], ctr);
+    v = add(v, mul(c[1], wide(nb[q.w])));
+    v = add(v, mul(c[2], wide(nb[q.e])));
+    v = add(v, mul(c[3], wide(nb[q.s])));
+    v = add(v, mul(c[4], wide(nb[q.n])));
+    v = add(v, mul(c[5], up));
+    return add(v, mul(c[6], dn));
+  }
+  float v = mul(ctr, c[0]);
+  v = add(v, mul(wide(nb[q.n]), c[1]));
+  v = add(v, mul(wide(nb[q.s]), c[2]));
+  v = add(v, mul(wide(nb[q.e]), c[3]));
+  v = add(v, mul(wide(nb[q.w]), c[4]));
+  v = add(v, mul(dn, c[5]));
+  v = add(v, mul(up, c[6]));
+  v = add(v, mul(c[7], aux));
+  return add(v, mul(c[5], kTempAmb));
+}
+
+// The up and down taps of stream row x from a window (rows x-1, x, x+1 of
+// the producer at the cell): at the rows' ends clamp takes row x again,
+// reflect the row on the other side and constant the fill, as `slot_up`,
+// `slot_dn` and `ends` read them from a ring.
+template <bool kBC>
+__device__ __forceinline__ void window_ends(float& u, float& d, float up,
+                                            float mid, float dn, int x,
+                                            int dom, int ks, float fill) {
+  u = up;
+  d = dn;
+  if (x == 0) {
+    u = kBC && ks == kConstant ? fill : (kBC && ks == kReflect ? dn : mid);
+  }
+  if (x == dom - 1) {
+    d = kBC && ks == kConstant ? fill : (kBC && ks == kReflect ? up : mid);
+  }
+}
+
+// Whether reflect maps every cell of a block's axis that lies outside the
+// grid onto a cell inside it (lo, hi: the grid's edges in block
+// coordinates, n cells).  Then a cell outside the grid holds, in every
+// ring and in the field stream, what the cell it maps to holds, and a
+// thread may take the stream-axis taps of the position it computes at
+// from its own column.  A grid that ends well inside a block's overhang
+// maps some cells onto others outside it, whose values differ.
+__device__ __forceinline__ bool mirrors_inside(int lo, int hi, int n) {
+  const bool above = hi >= n - 1 || 2 * hi - (n - 1) >= max(lo, 0);
+  const bool below = lo <= 0 || 2 * lo <= min(hi, n - 1);
+  return above && below;
+}
+
+// Whether every cell of the block at (sy, sx) maps, under stage 0's
+// blocked-axis kinds, onto a cell holding the same values (CTA-uniform):
+// always but under reflect (`mirrors_inside`).
+template <bool kBC>
+__device__ __forceinline__ bool own_columns(const Params& p, int sy, int sx,
+                                            const Stage& s0) {
+  if (!kBC) return true;
+  return (s0.ky != kReflect ||
+          mirrors_inside(p.hy - sy, p.dy - 1 + p.hy - sy, p.by)) &&
+         (s0.kx != kReflect ||
+          mirrors_inside(p.hx - sx, p.dx - 1 + p.hx - sx, p.bx));
+}
+
+// The main path's register form: V = 1, a cell a thread, at most kT
+// entries (kernels/builder.py: main_look).  Each thread keeps rows j-1 and
+// j of every entry's producer at its cell in registers (`up`, `mid`);
+// shared memory holds the field stream's slabs, staged by cp.async `look`
+// slabs ahead in `look + 2` slots, and each entry's value of the last two
+// ticks (for its consumer's blocked-axis neighbours).  Entry i computes
+// slab t - i - 1 at tick t from its producer's slab of the tick before (the
+// neighbours, and the centre and up taps in registers) and of this tick
+// (the down tap: the value this thread computed just before), so all
+// entries of a tick run between one pair of barriers.  A thread's window
+// holds the column its entry reads the stream at: its own, or for an
+// entry whose value enters a ring the position stage 0's boundary maps
+// its cell to, which holds the same values (`own_columns`).  A block where
+// it does not (reflect, past a grid that ends inside its overhang) reads
+// each down tap from the producer's buffer at that position, behind a
+// barrier after every entry.
+template <int kOp, class T, bool kBC, int kT>
+__device__ __forceinline__ void main_windows(const T* __restrict__ gp,
+                                             const T* __restrict__ aux,
+                                             T* __restrict__ out,
+                                             const Params& p,
+                                             const Program& k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int plane = p.by * p.bx;
+  const int nslabs = p.ns;
+  const int n = p.n_entries;
+  const int tid = threadIdx.x;
+  const bool act = tid < plane;
+  const int cell = act ? tid : 0;
+  const int ty = cell / p.bx;
+  const int tx = cell - ty * p.bx;
+  const Segment sg = segment_of(p, nslabs);
+  const int sy = sg.sy;
+  const int sx = blockIdx.x * p.cx;
+  const Stage s0 = k.s[0];
+  const Axis ay = axis_at(ty, sy, p.hy, p.dy, p.by);
+  const Axis ax = axis_at(tx, sx, p.hx, p.dx, p.bx);
+  const int ey = axis_pos(ay, ty, s0.ky), ex = axis_pos(ax, tx, s0.kx);
+  const Pos own = pos_at(ty, tx, p, sy, sx);
+  const Pos edge = pos_at(ey, ex, p, sy, sx);
+  const bool writes = act && ty >= p.hy && ty < p.hy + p.cy && tx >= p.hx &&
+                      tx < p.hx + p.cx;
+  const bool fill_edge = kBC && takes_fill(ay, ax, s0.ky, s0.kx);
+  const T fill_t = narrow<T>(s0.fill);
+  const float fill_f = wide(fill_t);
+  const size_t pstride = (size_t)p.py * p.px;
+  // shared memory: S staged slots, then two block planes per entry with a
+  // consumer (its values of the ticks t and t-1, by parity)
+  const int L = p.look, S = L + 2;
+  const int srow = sizeof(T) == 4 ? p.bx : (p.bx + 3) & ~1;
+  const int sslot = p.by * srow;
+  T* const stage = reinterpret_cast<T*>(smem_raw);
+  T* const buf = stage + S * sslot;
+  const bool exact = own_columns<kBC>(p, sy, sx, s0);
+  const Piece pc = piece_of(tid, gp, p, sy, sx, srow);
+  // entry 0 reads the stream where it computes: its window's column and
+  // the neighbours
+  const Pos sq = n == 1 ? staged_at(ty, tx, gp, p, sy, sx, srow)
+                        : staged_at(ey, ex, gp, p, sy, sx, srow);
+  float c[8];
+  for (int z = 0; z < 8; ++z) c[z] = k.c[z];
+  // the windows of entries 0..n-2, whose values enter a ring, and of the
+  // last entry, whose value drains out: three rows each, of which tick
+  // phase P (t - a mod 3) reads rows P and P+1 (mod 3) as the up and
+  // centre taps and stores the producer's new row into row P+2, so that
+  // the windows turn over without moves
+  float w[kT - 1][3], w_last[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int i = 0; i < kT - 1; ++i) w[i][r] = 0.0f;
+    w_last[r] = 0.0f;
+  }
+  // Hotspot's power: entry i < n-1 at tick t reads row t-i-1 at the
+  // position it computes at, which this thread loaded i+1 ticks before
+  // (`pw`, shifted a row a tick); the last entry reads its cell's row,
+  // loaded a tick ahead (`pw_last`)
+  constexpr bool kAux = kOp == 1 || kOp == 3;
+  const auto aux_row = [&](int r, const Pos& q) {
+    return kAux && r >= 0 && r < p.dom
+               ? wide(__ldg(aux + (size_t)r * pstride + q.g))
+               : 0.0f;
+  };
+  float pw[kT - 1];
+#pragma unroll
+  for (int i = 0; i < kT - 1; ++i) pw[i] = aux_row(sg.a - 1 - i, edge);
+  float pw_last = aux_row(sg.a - n, own);
+  // copy slab s (stream row s) into staged slot `slot`; one group a slab
+  const auto issue = [&](int s, int slot) {
+    if (pc.dst >= 0 && s < p.dom) {
+      cp_async4(stage + slot * sslot + pc.dst,
+                gp + (size_t)s * pstride + pc.src, pc.bytes);
+    }
+    cp_async_commit();
+  };
+  int st = sg.a % S;  // the slot of slab t
+  for (int u = 0; u < L; ++u) issue(sg.a + u, st + u < S ? st + u : st + u - S);
+  cp_async_wait_pending(L - 1);
+  __syncthreads();
+  // One tick: the entries in phase P.  kSteady: every entry computes a
+  // row it owns away from the stream's ends, and none forwards (most
+  // ticks), so the entries run without their range, end and forwarding
+  // tests; inactive threads compute at cell 0 and store nothing.
+  const auto entries = [&](int t, const T* prev, T* now_buf,
+                           const T* was_buf, float fresh, auto phase,
+                           auto steady) {
+    constexpr int P = decltype(phase)::value;
+    constexpr int U = P, M = (P + 1) % 3, D = (P + 2) % 3;
+    constexpr bool kSteady = decltype(steady)::value;
+#pragma unroll
+    for (int i = 0; i < kT - 1; ++i) {
+      if (i < n - 1) {
+        const int j = t - (i + 1);  // CTA-uniform
+        const T* const nb = i == 0 ? prev : was_buf + 2 * (i - 1) * plane;
+        float val = 0.0f;
+        if constexpr (kSteady) {
+          T v = narrow<T>(table2_win<kOp>(w[i][U], w[i][M], fresh, nb,
+                                          i == 0 ? sq : edge, c, pw[i]));
+          if (fill_edge) v = fill_t;
+          if (act) now_buf[2 * i * plane + cell] = v;
+          val = wide(v);
+        } else if (act && j >= sg.a && j < nslabs) {
+          T v;
+          if (i < p.steps) {
+            float u, d;
+            window_ends<kBC>(u, d, w[i][U], w[i][M], fresh, j, p.dom, s0.ks,
+                             fill_f);
+            v = narrow<T>(table2_win<kOp>(u, w[i][M], d, nb,
+                                          i == 0 ? sq : edge, c, pw[i]));
+          } else {
+            v = narrow<T>(w[i][M]);
+          }
+          if (fill_edge) v = fill_t;
+          now_buf[2 * i * plane + cell] = v;
+          val = wide(v);
+        }
+        w[i][D] = fresh;
+        fresh = val;
+        if (!kSteady && !exact) {
+          // entry i+1's down tap at its column, once every thread's value
+          // of entry i is in
+          __syncthreads();
+          fresh = wide(now_buf[2 * i * plane +
+                               (i + 1 == n - 1 ? own.c : edge.c)]);
+        }
+      }
+    }
+    // the last entry: at the cell's own position, into the output
+    const int j = t - n;
+    const T* const nb = n == 1 ? prev : was_buf + 2 * (n - 2) * plane;
+    const Pos& q = n == 1 ? sq : own;
+    if constexpr (kSteady) {
+      const T v = narrow<T>(table2_win<kOp>(w_last[U], w_last[M], fresh, nb,
+                                            q, c, pw_last));
+      if (writes && j >= sg.s0) out[(size_t)j * pstride + own.g] = v;
+    } else if (act && j >= sg.a && j < nslabs) {
+      T v;
+      if (n - 1 < p.steps) {
+        float u, d;
+        window_ends<kBC>(u, d, w_last[U], w_last[M], fresh, j, p.dom, s0.ks,
+                         fill_f);
+        v = narrow<T>(table2_win<kOp>(u, w_last[M], d, nb, q, c, pw_last));
+      } else {
+        v = narrow<T>(w_last[M]);
+      }
+      if (writes && j >= sg.s0) out[(size_t)j * pstride + own.g] = v;
+    }
+    w_last[D] = fresh;
+  };
+  const bool all_steps = p.steps >= n && exact;
+  const int first_steady = max(sg.a, 1) + n;  // the last entry past row 0
+  const auto tick = [&](int t, auto phase) {
+    issue(t + L, st + L < S ? st + L : st + L - S);
+    const T* const prev = stage + (st ? st - 1 : S - 1) * sslot;  // slab t-1
+    T* const now_buf = buf + (t & 1) * plane;           // entry i: + 2i planes
+    const T* const was_buf = buf + ((t & 1) ^ 1) * plane;
+    // the stream's row t at entry 0's column: its down tap
+    const float fresh = t < nslabs ? wide(stage[st * sslot + sq.c]) : 0.0f;
+    const float pw_new = aux_row(t, edge);
+    const float pw_next = aux_row(t + 1 - n, own);
+    if (all_steps && t >= first_steady && t < p.dom - 1) {
+      entries(t, prev, now_buf, was_buf, fresh, phase, std::true_type());
+    } else {
+      entries(t, prev, now_buf, was_buf, fresh, phase, std::false_type());
+    }
+    if constexpr (kAux) {
+#pragma unroll
+      for (int i = kT - 2; i > 0; --i) pw[i] = pw[i - 1];
+      pw[0] = pw_new;
+      pw_last = pw_next;
+    }
+    st = st + 1 == S ? 0 : st + 1;
+    cp_async_wait_pending(L - 1);
+    __syncthreads();
+  };
+  for (int t = sg.a; t < sg.t_end; t += 3) {
+    tick(t, std::integral_constant<int, 0>());
+    if (t + 1 < sg.t_end) tick(t + 1, std::integral_constant<int, 1>());
+    if (t + 2 < sg.t_end) tick(t + 2, std::integral_constant<int, 2>());
+  }
+  cp_async_wait<0>();
+}
+
+// The main path's ring form: any V (a thread takes every row of a slab at
+// its cell), the wide form, and more than kMaxWindowEntries entries.  Ring
+// i of 3 slabs holds entry i's producer (ring 0 the field stream, pushed
+// from registers loaded a tick ahead); a thread reads the stream-axis taps
+// of its cells from their own column — rows it wrote itself, the down tap
+// this tick — and the blocked-axis neighbours from its producer's slab of
+// the tick before, so a tick also needs one barrier.  A block whose cells
+// do not all hold their mapped cells' values (`own_columns`) reads the
+// stream-axis taps at the mapped column, behind a barrier after the push
+// and after every entry.
+template <int kOp, int kForm, class T, bool kBC>
+__device__ __forceinline__ void main_rings(const T* __restrict__ gp,
+                                           const T* __restrict__ aux,
+                                           T* __restrict__ out,
+                                           const Params& p,
+                                           const Program& k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const win = reinterpret_cast<T*>(smem_raw);
+  constexpr bool kV1 = kForm == kVecOne;
+  constexpr bool kW = kForm == kWide;
+  const int plane = p.by * p.bx;
+  const int tid = threadIdx.x;
+  const int V = kV1 ? 1 : p.V;
+  const int nslabs = p.ns / V;
+  const int WV = 3 * V;
+  const Segment sg = segment_of(p, nslabs);
+  const int sx = blockIdx.x * p.cx;
+  const Cell me = cell_at<kBC>(tid, tid < plane, p, sg.sy, sx, k.s[0]);
+  const size_t pstride = (size_t)p.py * p.px;
+  const bool exact = own_columns<kBC>(p, sg.sy, sx, k.s[0]);
+  const auto cells = [&](auto&& f) {
+    if constexpr (!kW) {
+      if (me.act) f(me);
+    } else {
+      for (int z = tid; z < plane; z += blockDim.x) {
+        f(cell_at<kBC>(z, true, p, sg.sy, sx, k.s[0]));
+      }
+    }
+  };
+  constexpr int kPre = kV1 ? 1 : 4;
+  const T fill_t = narrow<T>(k.s[0].fill);
+  const int ks = k.s[0].ks;
+  T nxt[kPre];
+  if (!kW && me.act) {
+    prefetch_slab<kPre>(nxt, gp + me.own.g + (size_t)sg.a * V * pstride, 0,
+                        1, V, p.dom - sg.a * V, pstride);
+  }
+  float c[8];
+  for (int z = 0; z < 8; ++z) c[z] = k.c[z];
+  for (int t = sg.a; t < sg.t_end; ++t) {
+    if (t < nslabs) {
+      cells([&](const Cell& cl) {
+        push_slab<kPre>(kW ? (T*)nullptr : nxt, gp + cl.own.g, win, WV,
+                        (T*)nullptr, t, 0, 1, V, V, p.dom, pstride, plane,
+                        cl.cell);
+      });
+    }
+    if (!exact) __syncthreads();
+    for (int i = 0; i < p.n_entries; ++i) {
+      const int j = t - (i + 1);  // CTA-uniform
+      if (j >= sg.a && j < nslabs) {
+        const bool last = i == p.n_entries - 1;
+        const T* const ring = win + i * WV * plane;
+        const int m0 = (j % 3) * V;
+        cells([&](const Cell& cl) {
+          // the stream-axis taps at the cell's own column
+          Pos q = last ? cl.own : cl.edge;
+          if (exact) q.c = cl.cell;
+          const auto put = [&](int m, int x, T val) {
+            if (!last) {
+              win[((i + 1) * WV + m) * plane + cl.cell] =
+                  cl.fill_edge ? fill_t : val;
+            } else if (cl.writes && j >= sg.s0) {
+              out[(size_t)x * pstride + cl.own.g] = val;
+            }
+          };
+          if constexpr (kForm == kRows) {
+            // rolled down the slab's rows: the up and centre taps from
+            // the row before, one load a row (in the wide form and at V =
+            // 1 this cost more than it saved on an H100)
+            const int x0 = j * V;
+            float up = wide(ring[(m0 ? m0 - 1 : WV - 1) * plane + q.c]);
+            float mid = wide(ring[m0 * plane + q.c]);
+            const int rows = min(V, p.dom - x0);
+            for (int r = 0; r < rows; ++r) {
+              const int m = m0 + r, x = x0 + r;
+              const float dn =
+                  wide(ring[(m + 1 == WV ? 0 : m + 1) * plane + q.c]);
+              T val;
+              if (i < p.steps) {
+                float u, d;
+                window_ends<kBC>(u, d, up, mid, dn, x, p.dom, ks,
+                                 wide(fill_t));
+                const float a =
+                    kOp == 1 || kOp == 3
+                        ? wide(__ldg(aux + (size_t)x * pstride + q.g))
+                        : 0.0f;
+                val = narrow<T>(
+                    table2_win<kOp>(u, mid, d, ring + m * plane, q, c, a));
+              } else {
+                val = narrow<T>(mid);
+              }
+              put(m, x, val);
+              up = mid;
+              mid = dn;
+            }
+          } else {
+            for_rows<kV1 ? kVecOne : kRows>(
+                j, V, 0, 1, V, p.dom, [&](int r, int x) {
+                  const int m = m0 + r;
+                  const T* const mid = ring + m * plane;
+                  put(m, x,
+                      i < p.steps
+                          ? narrow<T>(table2<kOp>(
+                                ring + slot_up<kBC>(m, x, WV, ks) * plane,
+                                mid,
+                                ring +
+                                    slot_dn<kBC>(m, x, WV, p.dom, ks) * plane,
+                                q, c, ends<kBC>(x, p.dom, ks, wide(fill_t)),
+                                aux, (size_t)x * pstride))
+                          : mid[q.c]);
+                });
+          }
+        });
+      }
+      if (!exact) __syncthreads();
+    }
+    __syncthreads();
+  }
+}
+
+// The chain body (kOp = -1) in every form, the large-table route (K =
+// `DevTable`, the wide form) included: `dag_layout`'s lags and rings and a
+// barrier per entry and tick; its CTA streams one segment.
+template <int kForm, class T, bool kBC, class K>
+__device__ __forceinline__ void chain_body(const T* __restrict__ gp,
+                                           const T* __restrict__ aux,
+                                           T* __restrict__ out,
+                                           const Params& p, const K& k) {
+  constexpr bool kV1 = kForm == kVecOne;
+  constexpr bool kW = kForm == kWide;
+  // the rings, in value-id order (in the large-table route after the
+  // records)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  size_t front = 0;
+  if constexpr (K::kBig) {
+    front = table_bytes<Rec, TickRec>(p.n_entries, k.n_taps, k.n_coeffs, 0);
+  }
+  T* const win = reinterpret_cast<T*>(smem_raw + front);
+  const int plane = p.by * p.bx;
+  const int tid = threadIdx.x;
+  const int V = kV1 ? 1 : p.V;
+  const int vt = kV1 ? 1 : p.vt;
+  const int nr = kV1 ? 1 : p.rows;
+  const int nslabs = p.ns / V;
+  // thread tid < plane * vt takes cell tid mod plane of rows tv, tv + vt,
+  // ... of each slab; the others build records and meet the barriers (and
+  // touch no memory with their cell).  In the wide form a thread takes
+  // cells tid, tid + blockDim.x, ... with every row of a slab.
+  const bool act = tid < plane * vt;
+  const int tv = kV1 || kW ? 0 : tid / plane;
+  const Segment sg = segment_of(p, nslabs);
+  const int sy = sg.sy;
+  const int sx = blockIdx.x * p.cx;
+  const Cell me = cell_at<kBC>(tid - tv * plane, act, p, sy, sx, k.s[0]);
+  const size_t pstride = (size_t)p.py * p.px;
+  // calls f(cell) for each plane cell this thread takes
+  const auto cells = [&](auto&& f) {
+    if constexpr (!kW) {
+      if (me.act) f(me);
+    } else {
+      for (int z = tid; z < plane; z += blockDim.x) {
+        f(cell_at<kBC>(z, true, p, sy, sx, k.s[0]));
+      }
+    }
+  };
+  // calls f(i) for each entry whose records this thread builds: entry tid
+  // (the launcher gives a table-driven body a thread per entry) or, in
+  // the large-table route, every blockDim.x-th from tid
+  const auto entries = [&](auto&& f) {
+    if constexpr (!K::kBig) {
+      if (tid < p.n_entries) f(tid);
+    } else {
+      for (int i = tid; i < p.n_entries; i += blockDim.x) f(i);
+    }
+  };
+  const auto sm = records<Rec, TickRec>(smem_raw, k, p.n_entries, 0);
+  Rec* const rec = sm.rec;
+  TickRec* const trec = sm.trec;
+  entries([&](int e) {
+    const auto en = k.e[e];
+    const Stage st = k.s[en.stage];
+    // the consumer: the next entry (the last one's value drains out)
+    const Stage sc = e + 1 < p.n_entries ? k.s[k.e[e + 1].stage] : st;
+    const Input in = input_of(k, en, 0);
+    // rings in rows: a slot of the table is V block planes
+    Rec r = {en.lag,          in.base * V,       in.slots * V,
+             en.out_base * V, en.out_slots * V,  st.op,
+             en.iteration,    st.tap_lo,         st.tap_n,
+             st.coeff_lo,     st.ks,             sc.ky | (sc.kx << 8),
+             wide(narrow<T>(st.fill)),           wide(narrow<T>(sc.fill)),
+             0.0f,            0.0f};
+    for (int z = 0; z < 8; ++z) {
+      r.c[z] = st.op != kTapOp && st.coeff_lo + z < k.n_coeffs
+                   ? k.c[st.coeff_lo + z]
+                   : 0.0f;
+    }
+    rec[e] = r;
+  });
+  for (int z = tid; z < k.n_taps; z += blockDim.x) sm.taps[z] = k.taps[z];
+  for (int z = tid; z < k.n_coeffs; z += blockDim.x) sm.c[z] = k.c[z];
+  __syncthreads();
+  // without kBC every stage re-imposes as stage 0 does (periodicity is
+  // uniform, the other axes clamp)
+  // the input stream's ring is entry 0's producer
+  T* const stream_ring = win + rec[0].in_base * plane;
+  const int stream_rows = rec[0].in_slots;
+  T nxt[1];
+  if (!kW && act) {
+    prefetch_slab<1>(nxt, gp + me.own.g + (size_t)sg.a * V * pstride, tv,
+                     vt, nr, p.dom - sg.a * V, pstride);
+  }
+  for (int t = sg.a; t < sg.t_end; ++t) {
+    if (t < nslabs) {
+      cells([&](const Cell& cl) {
+        push_slab<1>(kW ? (T*)nullptr : nxt, gp + cl.own.g, stream_ring,
+                     stream_rows, (T*)nullptr, t, tv, vt, nr, V, p.dom,
+                     pstride, plane, cl.cell);
+      });
+    }
+    entries([&](int e) {  // entry e's slots at this tick
+      const Rec& en = rec[e];
+      TickRec r;
+      r.j = t - en.lag;
+      r.flags =
+          (r.j >= sg.a && r.j < nslabs) | ((en.iteration < p.steps) << 1);
+      const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
+      r.m = x0 % (unsigned)en.in_slots;
+      r.outo = en.out_slots
+                   ? (en.out_base + x0 % (unsigned)en.out_slots) * plane
+                   : 0;
+      r.pad0 = r.pad1 = r.pad2 = r.pad3 = 0;
+      trec[e] = r;
+    });
+    __syncthreads();
+    for (int i = 0; i < p.n_entries; ++i) {
+      const TickRec r = trec[i];
+      if (r.flags & 1) {
+        cells([&](const Cell& cl) {
+          const Rec& en = rec[i];
+          const bool last = i == p.n_entries - 1;
+          // a value that enters a ring is taken where its consumer's
+          // blocked-axis kinds say
+          const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
+          const int qy =
+              last ? cl.ty : (kBC ? axis_pos(cl.ay, cl.ty, ky) : cl.ey);
+          const int qx =
+              last ? cl.tx : (kBC ? axis_pos(cl.ax, cl.tx, kx) : cl.ex);
+          const bool fill_edge =
+              kBC && !last && takes_fill(cl.ay, cl.ax, ky, kx);
+          const Pos q = !kBC ? (last ? cl.own : cl.edge)
+                             : pos_at(qy, qx, p, sy, sx);
+          const T* ring = win + en.in_base * plane;
+          const int W = en.in_slots;
+          for_rows<kForm>(r.j, V, tv, vt, nr, p.dom, [&](int row, int x) {
+            const int m = r.m + row;
+            T val;
+            if (!(r.flags & 2)) {
+              val = ring[m * plane + q.c];
+            } else if (en.op == kTapOp) {
+              val = narrow<T>(tap_sum<kBC>(sm.taps, sm.c, en.tap_lo,
+                                           en.tap_n, en.coeff_lo, ring, W,
+                                           m, plane, x, qy, qx, p, en.ks,
+                                           en.fill_s));
+#if STENCIL_CUSTOM
+            } else if (en.op == kCustomOp) {
+              const int base = en.in_base * plane;
+              val = narrow<T>(custom::custom_apply(
+                  en.tap_lo,
+                  [&](int, int ds, int dy, int dx) {
+                    return ring_tap<kBC>(win, base, W * plane,
+                                         base + m * plane, plane, x, qy,
+                                         qx, ds, dy, dx, p, en.ks,
+                                         en.fill_s);
+                  },
+                  sm.c + en.coeff_lo, [&] {
+                    return wide(__ldg(aux + (size_t)x * pstride + q.g));
+                  }));
+#endif
+            } else {
+              float c[8];
+              for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+              val = narrow<T>(table2_op(
+                  en.op, ring + slot_up<kBC>(m, x, W, en.ks) * plane,
+                  ring + m * plane,
+                  ring + slot_dn<kBC>(m, x, W, p.dom, en.ks) * plane, q, c,
+                  ends<kBC>(x, p.dom, en.ks, en.fill_s), aux,
+                  (size_t)x * pstride));
+            }
+            if (!last) {
+              win[r.outo + row * plane + cl.cell] =
+                  fill_edge ? narrow<T>(en.fill_b) : val;
+            } else if (cl.writes && r.j >= sg.s0) {
+              out[(size_t)x * pstride + cl.own.g] = val;
+            }
+          });
+        });
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The main path's kernels: the register form (kT > 0, the entries it
+// holds; V = 1) or the ring form (kT = 0) of form kForm.  The register
+// form of 16 entries asks for at most 512 threads, so that its windows
+// get 128 registers a thread (at 64 they spilled).
+template <int kOp, int kForm, class T, bool kBC, int kT>
+__global__ void __launch_bounds__(kT > kMaxWideWindowEntries ? 512 : 1024,
+                                  1)
+    main_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
+                T* __restrict__ out, const Params p,
+                const __grid_constant__ Program k, long long member_stride,
+                long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
+  if constexpr (kT > 0) {
+    main_windows<kOp, T, kBC, kT>(gp, aux, out, p, k);
+  } else {
+    main_rings<kOp, kForm, T, kBC>(gp, aux, out, p, k);
+  }
+}
+
+// The chain body's kernels: the table as a __grid_constant__ parameter, or
+// (the large-table route, the wide form only) in device memory.
+template <int kForm, class T, bool kBC, class K>
+__device__ __forceinline__ void chain_member(const T* gp, const T* aux,
+                                             T* out, const Params& p,
+                                             const K& k,
+                                             long long member_stride,
+                                             long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
+  chain_body<kForm, T, kBC>(gp, aux, out, p, k);
+}
+
+template <int kForm, class T, bool kBC>
+__global__ void __launch_bounds__(1024, 1)
+    chain_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
+                 T* __restrict__ out, const Params p,
+                 const __grid_constant__ Program k, long long member_stride,
+                 long long aux_stride) {
+  chain_member<kForm, T, kBC>(gp, aux, out, p, k, member_stride,
+                              aux_stride);
+}
+
+template <class T, bool kBC>
+__global__ void __launch_bounds__(1024, 1)
+    chain_kernel_big(const T* __restrict__ gp, const T* __restrict__ aux,
+                     T* __restrict__ out, const Params p, const DevTable k,
+                     long long member_stride, long long aux_stride) {
+  chain_member<kWide, T, kBC>(gp, aux, out, p, k, member_stride,
+                              aux_stride);
+}
+
 // The later forms' kernels: the table as a __grid_constant__ parameter, or
 // (the large-table route, the wide form only) in device memory.
 template <int kOp, int kForm, class T, bool kBC>
@@ -1908,128 +2424,182 @@ __global__ void __launch_bounds__(1024, 1)
                                   aux_stride);
 }
 
-// The launch grid: blocks along x and y, batch members along z, and the
-// cells from one member's state (and aux) to the next's.
+// The launch grid: blocks along x, blocks along y times segments along y,
+// batch members along z, and the cells from one member's state (and aux)
+// to the next's.
 struct Grid {
   int x, y, z;
   long long member_stride, aux_stride;
 };
 
-// One launch of `kernel` (K: `Program` or `DevTable`).
+// What one launch takes besides its kernel, parameters and table; with
+// `occupancy` set, the launch only reports the CTAs an SM holds there.
+struct Launch {
+  const void* gp;
+  const void* aux;
+  void* out;
+  Grid g;
+  int threads;
+  size_t smem;
+  cudaStream_t stream;
+  int* occupancy;
+};
+
+// One launch of `kernel` (K: `Program` or `DevTable`), or its occupancy.
 template <class T, class F, class K>
-cudaError_t launch_kernel(F kernel, const void* gp, const void* aux,
-                          void* out, const Params& p, const K& k,
-                          const Grid& g, int threads, size_t smem,
-                          cudaStream_t stream) {
+cudaError_t launch_kernel(F kernel, const Params& p, const K& k,
+                          const Launch& l) {
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(g.x, g.y, g.z), threads, smem, stream>>>(
-      static_cast<const T*>(gp), static_cast<const T*>(aux),
-      static_cast<T*>(out), p, k, g.member_stride, g.aux_stride);
+  if (l.occupancy) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(l.occupancy, kernel,
+                                                         l.threads, l.smem);
+  }
+  kernel<<<dim3(l.g.x, l.g.y, l.g.z), l.threads, l.smem, l.stream>>>(
+      static_cast<const T*>(l.gp), static_cast<const T*>(l.aux),
+      static_cast<T*>(l.out), p, k, l.g.member_stride, l.g.aux_stride);
   return cudaGetLastError();
 }
 
-// The forms of the first slices run `stream_kernel`, the later ones
-// `stream_kernel_x`.
+// The form a launch whose `p.vt` and `p.rows` are set runs (the main
+// path's register form aside): the large-table route and planes over 1024
+// cells the wide form.
+int form_of(const Params& p, bool big) {
+  if (big || p.by * p.bx > kMaxThreads) return kWide;
+  if (p.V == 1) return kVecOne;
+  return p.rows == 1 ? kOneRow : kRows;
+}
+
+// The DAG bodies' forms: those of the first slices run `stream_kernel`,
+// the later ones `stream_kernel_x`.
 template <int kOp, int kForm, class T, bool kBC>
-cudaError_t launch_as(const void* gp, const void* aux, void* out,
-                      const Params& p, const Program& k, const Grid& g,
-                      int threads, size_t smem, cudaStream_t stream) {
+cudaError_t launch_as(const Params& p, const Program& k, const Launch& l) {
   if constexpr (kForm == kWide || kOp == kMixBody) {
-    return launch_kernel<T>(stream_kernel_x<kOp, kForm, T, kBC>, gp, aux,
-                            out, p, k, g, threads, smem, stream);
+    return launch_kernel<T>(stream_kernel_x<kOp, kForm, T, kBC>, p, k, l);
   } else {
-    return launch_kernel<T>(stream_kernel<kOp, kForm, T, kBC>, gp, aux, out,
-                            p, k, g, threads, smem, stream);
+    return launch_kernel<T>(stream_kernel<kOp, kForm, T, kBC>, p, k, l);
   }
 }
 
 template <int kOp, class T, bool kBC>
-cudaError_t launch(const void* gp, const void* aux, void* out,
-                   const Params& p, const Program& k, const Grid& g,
-                   int threads, size_t smem, cudaStream_t stream) {
-  if (p.by * p.bx > kMaxThreads) {
-    return launch_as<kOp, kWide, T, kBC>(gp, aux, out, p, k, g, threads,
-                                         smem, stream);
+cudaError_t launch_dag(const Params& p, const Program& k, const Launch& l) {
+  switch (form_of(p, false)) {
+    case kWide:
+      return launch_as<kOp, kWide, T, kBC>(p, k, l);
+    case kVecOne:
+      return launch_as<kOp, kVecOne, T, kBC>(p, k, l);
+    case kOneRow:
+      return launch_as<kOp, kOneRow, T, kBC>(p, k, l);
+    default:
+      return launch_as<kOp, kRows, T, kBC>(p, k, l);
   }
-  if (p.V == 1) {
-    return launch_as<kOp, kVecOne, T, kBC>(gp, aux, out, p, k, g, threads,
-                                           smem, stream);
+}
+
+// The main path: the register form by its entries (`p.look` > 0), else
+// the ring form.
+template <int kOp, class T, bool kBC>
+cudaError_t launch_main(const Params& p, const Program& k, const Launch& l) {
+  if (p.look > 0) {
+    if (p.n_entries <= 4) {
+      return launch_kernel<T>(main_kernel<kOp, kVecOne, T, kBC, 4>, p, k, l);
+    }
+    if (p.n_entries <= 8) {
+      return launch_kernel<T>(main_kernel<kOp, kVecOne, T, kBC, 8>, p, k, l);
+    }
+    return launch_kernel<T>(main_kernel<kOp, kVecOne, T, kBC, 16>, p, k, l);
   }
-  if (p.rows == 1) {
-    return launch_as<kOp, kOneRow, T, kBC>(gp, aux, out, p, k, g, threads,
-                                           smem, stream);
+  switch (form_of(p, false)) {
+    case kWide:
+      return launch_kernel<T>(main_kernel<kOp, kWide, T, kBC, 0>, p, k, l);
+    case kVecOne:
+      return launch_kernel<T>(main_kernel<kOp, kVecOne, T, kBC, 0>, p, k, l);
+    default:
+      return launch_kernel<T>(main_kernel<kOp, kRows, T, kBC, 0>, p, k, l);
   }
-  return launch_as<kOp, kRows, T, kBC>(gp, aux, out, p, k, g, threads, smem,
-                                       stream);
 }
 
 template <class T, bool kBC>
-cudaError_t launch_body(int kernel_op, const void* gp, const void* aux,
-                        void* out, const Params& p, const Program& k,
-                        const Grid& g, int threads, size_t smem,
-                        cudaStream_t s) {
+cudaError_t launch_chain(const Params& p, const Program& k, const Launch& l) {
+  switch (form_of(p, false)) {
+    case kWide:
+      return launch_kernel<T>(chain_kernel<kWide, T, kBC>, p, k, l);
+    case kVecOne:
+      return launch_kernel<T>(chain_kernel<kVecOne, T, kBC>, p, k, l);
+    case kOneRow:
+      return launch_kernel<T>(chain_kernel<kOneRow, T, kBC>, p, k, l);
+    default:
+      return launch_kernel<T>(chain_kernel<kRows, T, kBC>, p, k, l);
+  }
+}
+
+template <class T, bool kBC>
+cudaError_t launch_body(int kernel_op, const Params& p, const Program& k,
+                        const Launch& l) {
   switch (kernel_op) {
     case kMixBody:
-      if constexpr (kBC) {
-        return launch<kMixBody, T, true>(gp, aux, out, p, k, g, threads,
-                                         smem, s);
-      }
+      if constexpr (kBC) return launch_dag<kMixBody, T, true>(p, k, l);
       return cudaErrorInvalidValue;
     case kDagBody:
-      return launch<kDagBody, T, kBC>(gp, aux, out, p, k, g, threads, smem,
-                                      s);
+      return launch_dag<kDagBody, T, kBC>(p, k, l);
     case kChainBody:
-      return launch<kChainBody, T, kBC>(gp, aux, out, p, k, g, threads, smem,
-                                        s);
+      return launch_chain<T, kBC>(p, k, l);
     case 0:
-      return launch<0, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
+      return launch_main<0, T, kBC>(p, k, l);
     case 1:
-      return launch<1, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
+      return launch_main<1, T, kBC>(p, k, l);
     case 2:
-      return launch<2, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
+      return launch_main<2, T, kBC>(p, k, l);
     case 3:
-      return launch<3, T, kBC>(gp, aux, out, p, k, g, threads, smem, s);
+      return launch_main<3, T, kBC>(p, k, l);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <class T, bool kBC>
-cudaError_t launch_big_body(int kernel_op, const void* gp, const void* aux,
-                            void* out, const Params& p, const DevTable& k,
-                            const Grid& g, int threads, size_t smem,
-                            cudaStream_t s) {
+cudaError_t launch_big_body(int kernel_op, const Params& p, const DevTable& k,
+                            const Launch& l) {
   switch (kernel_op) {
     case kMixBody:
       if constexpr (kBC) {
-        return launch_kernel<T>(stream_kernel_big<kMixBody, T, true>, gp,
-                                aux, out, p, k, g, threads, smem, s);
+        return launch_kernel<T>(stream_kernel_big<kMixBody, T, true>, p, k, l);
       }
       return cudaErrorInvalidValue;
     case kDagBody:
-      return launch_kernel<T>(stream_kernel_big<kDagBody, T, kBC>, gp, aux,
-                              out, p, k, g, threads, smem, s);
+      return launch_kernel<T>(stream_kernel_big<kDagBody, T, kBC>, p, k, l);
     case kChainBody:
-      return launch_kernel<T>(stream_kernel_big<kChainBody, T, kBC>, gp,
-                              aux, out, p, k, g, threads, smem, s);
+      return launch_kernel<T>(chain_kernel_big<T, kBC>, p, k, l);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// The storage type of this library: it is built once per type, and once
+// more per type for batches (kernels/_build.py: LIBRARIES), so that the
+// four quarters of the kernels compile in parallel.
+#ifndef STENCIL_BF16
+#define STENCIL_BF16 0
+#endif
+#if STENCIL_BF16
+using Storage = __nv_bfloat16;
+#else
+using Storage = float;
+#endif
 
 // Checks a launch, fills `p.vt` and `p.rows` and returns the CTA's threads
 // by the rule of the header (`builder.cta_shape`), or 0 if the launch is
 // invalid.  `big`: the large-table route (table-driven bodies only; the
-// wide form at any plane, entries beyond the threads strided).
+// wide form at any plane, entries beyond the threads strided).  The
+// main-path body takes every row of a slab per thread (vt = 1).
 int cta_threads(int kernel_op, int bcs, Params& p, int batch,
                 long long member_stride, long long aux_stride, bool big) {
   const int plane = p.by * p.bx;
   const bool wide = big || plane > kMaxThreads;
-  int vt = wide ? 1 : 0;  // else the largest divisor of V with plane * vt
-                          // <= 1024
-  for (int d = 1; !wide && d <= p.V && plane * d <= kMaxThreads; ++d) {
+  const bool main = kernel_op >= 0;
+  int vt = 1;  // else the largest divisor of V with plane * vt <= 1024
+  for (int d = 2; !wide && !main && d <= p.V && plane * d <= kMaxThreads;
+       ++d) {
     if (p.V % d == 0) vt = d;
   }
   const bool table = kernel_op < 0;
@@ -2053,35 +2623,110 @@ int cta_threads(int kernel_op, int bcs, Params& p, int batch,
   return (max(plane * vt, table ? p.n_entries : 0) + 31) / 32 * 32;
 }
 
-#if STENCIL_CUSTOM
-// The form `launch` picks for a launch whose `p.vt` and `p.rows` are set;
-// the large-table route runs the wide form.
-int form_of(const Params& p, bool big) {
-  if (big || p.by * p.bx > kMaxThreads) return kWide;
-  if (p.V == 1) return kVecOne;
-  return p.rows == 1 ? kOneRow : kRows;
+// Whether the stream split of a launch whose grid has `grid_y` rows holds
+// together: `nby` block rows times the segments that `seg` slabs each
+// make of the stream, a warm-up the DAG bodies do without (their grid is
+// one segment), and copies ahead only in the main path's register form.
+bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
+  if (p.nby < 1 || p.seg < 1 || p.warm < 0 || p.V < 1 || grid_y < 1 ||
+      grid_y % p.nby != 0) {
+    return false;
+  }
+  const int nslabs = p.ns / p.V;
+  const int nseg = grid_y / p.nby;
+  if ((long long)(nseg - 1) * p.seg >= nslabs ||
+      (long long)nseg * p.seg < nslabs) {
+    return false;
+  }
+  if (kernel_op < kChainBody && (nseg != 1 || p.warm != 0)) return false;
+  if (p.look == 0) return true;
+  return kernel_op >= 0 && !big && p.V == 1 &&
+         p.by * p.bx <= (p.n_entries > kMaxWideWindowEntries ? 512
+                                                            : kMaxThreads) &&
+         p.n_entries <= kMaxWindowEntries && p.look <= kMaxLook;
 }
 
+#if STENCIL_CUSTOM
 // Whether a launch is the one kernel this custom library holds.
 bool custom_kernel(int kernel_op, int bcs, const Params& p, bool big) {
   return kernel_op == CUSTOM_BODY && bcs == CUSTOM_BC &&
          big == (CUSTOM_BIG != 0) && form_of(p, big) == CUSTOM_FORM;
 }
+
+// This custom library's one kernel (a chain body, or a DAG body).
+template <class K>
+cudaError_t launch_custom(const Params& p, const K& k, const Launch& l) {
+  if constexpr (K::kBig) {
+    if constexpr (CUSTOM_BODY == kChainBody) {
+      return launch_kernel<Storage>(
+          chain_kernel_big<Storage, CUSTOM_BC != 0>, p, k, l);
+    } else {
+      return launch_kernel<Storage>(
+          stream_kernel_big<CUSTOM_BODY, Storage, CUSTOM_BC != 0>, p, k, l);
+    }
+  } else if constexpr (CUSTOM_BODY == kChainBody) {
+    return launch_kernel<Storage>(
+        chain_kernel<CUSTOM_FORM, Storage, CUSTOM_BC != 0>, p, k, l);
+  } else {
+    return launch_kernel<Storage>(
+        stream_kernel_x<CUSTOM_BODY, CUSTOM_FORM, Storage, CUSTOM_BC != 0>, p,
+        k, l);
+  }
+}
 #endif
+
+// Launches (or, with `l.occupancy`, sizes) one super-step of a program
+// whose table is a kernel parameter.
+cudaError_t run_program(int kernel_op, int bcs, const Params& p,
+                        const Program& k, const Launch& l) {
+#if STENCIL_CUSTOM
+  // a custom library holds one kernel (see Custom stencils)
+#if CUSTOM_BIG
+  return cudaErrorInvalidValue;
+#else
+  if (!custom_kernel(kernel_op, bcs, p, false)) return cudaErrorInvalidValue;
+  return launch_custom(p, k, l);
+#endif
+#else
+  return bcs ? launch_body<Storage, true>(kernel_op, p, k, l)
+             : launch_body<Storage, false>(kernel_op, p, k, l);
+#endif
+}
+
+// ... of a program whose table is in device memory (the large-table route).
+cudaError_t run_big(int kernel_op, int bcs, const Params& p,
+                    const DevTable& k, const Launch& l) {
+#if STENCIL_CUSTOM
+#if CUSTOM_BIG
+  if (!custom_kernel(kernel_op, bcs, p, true)) return cudaErrorInvalidValue;
+  return launch_custom(p, k, l);
+#else
+  return cudaErrorInvalidValue;
+#endif
+#else
+  return bcs ? launch_big_body<Storage, true>(kernel_op, p, k, l)
+             : launch_big_body<Storage, false>(kernel_op, p, k, l);
+#endif
+}
+
+// The large-table route's view of `table` (see stencil_stream_launch_big).
+DevTable dev_table(const void* table, const Params& p, int n_stages,
+                   int n_taps, int n_coeffs, int n_inputs) {
+  DevTable k;
+  k.e = static_cast<const BigEntry*>(table);
+  k.s = reinterpret_cast<const Stage*>(k.e + p.n_entries);
+  k.taps = reinterpret_cast<const BigTap*>(k.s + n_stages);
+  k.c = reinterpret_cast<const float*>(k.taps + n_taps);
+  k.f = reinterpret_cast<const BigStream*>(k.c + n_coeffs);
+  k.ins = reinterpret_cast<const Input*>(k.f + p.n_fields);
+  k.n_taps = n_taps;
+  k.n_coeffs = n_coeffs;
+  k.n_inputs = n_inputs;
+  return k;
+}
 
 }  // namespace
 
-// The storage type of this library: it is built once per type, and once
-// more per type for batches (kernels/_build.py: LIBRARIES), so that the
-// four quarters of the kernels compile in parallel.
-#ifndef STENCIL_BF16
-#define STENCIL_BF16 0
-#endif
-#if STENCIL_BF16
-using Storage = __nv_bfloat16;
-#else
-using Storage = float;
-#endif
 
 // `kernel_op`: 0..3 runs a single-stage chain of that Table-2 stencil (the
 // main-path body), -1 any chain of the table, -2 any DAG of the table whose
@@ -2091,10 +2736,12 @@ using Storage = float;
 // the cap of gridDim.z; 1 unless the library is built with STENCIL_BATCH)
 // are advanced at once: member b's state and output start `member_stride`
 // cells after `gp` and `out`, its aux `aux_stride` cells after `aux` (0 for
-// an aux grid the batch shares).  Fills `p.vt` and `p.rows` and sizes the
-// CTA by the rule of the header (`builder.cta_shape`).  Returns the
-// cudaError_t of the launch (0 on success).  `k` is copied into the
-// kernel's parameters; the caller may free it when this returns.
+// an aux grid the batch shares).  `grid_y` is `p.nby` block rows times the
+// stream's segments (`p.seg` slabs each; one for the DAG bodies).  Fills
+// `p.vt` and `p.rows` and sizes the CTA by the rule of the header
+// (`builder.cta_shape`).  Returns the cudaError_t of the launch (0 on
+// success).  `k` is copied into the kernel's parameters; the caller may
+// free it when this returns.
 extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
                                      const void* aux, void* out, Params p,
                                      const Program* k, int grid_x, int grid_y,
@@ -2103,25 +2750,14 @@ extern "C" int stencil_stream_launch(int kernel_op, int bcs, const void* gp,
                                      void* stream) {
   const int threads = cta_threads(kernel_op, bcs, p, batch, member_stride,
                                   aux_stride, false);
-  if (!threads) return cudaErrorInvalidValue;
-  const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if STENCIL_CUSTOM
-  // a custom library holds one kernel (see Custom stencils)
-#if CUSTOM_BIG
-  return cudaErrorInvalidValue;
-#else
-  if (!custom_kernel(kernel_op, bcs, p, false)) return cudaErrorInvalidValue;
-  return launch_kernel<Storage>(
-      stream_kernel_x<CUSTOM_BODY, CUSTOM_FORM, Storage, CUSTOM_BC != 0>, gp,
-      aux, out, p, *k, g, threads, smem, s);
-#endif
-#else
-  return bcs ? launch_body<Storage, true>(kernel_op, gp, aux, out, p, *k, g,
-                                          threads, smem, s)
-             : launch_body<Storage, false>(kernel_op, gp, aux, out, p, *k, g,
-                                           threads, smem, s);
-#endif
+  if (!threads || !split_ok(kernel_op, p, grid_y, false)) {
+    return cudaErrorInvalidValue;
+  }
+  const Launch l = {gp,      aux,  out, {grid_x, grid_y, batch, member_stride,
+                                         aux_stride},
+                    threads, smem, static_cast<cudaStream_t>(stream),
+                    nullptr};
+  return run_program(kernel_op, bcs, p, *k, l);
 }
 
 // The large-table route of a table-driven body (`kernel_op` -1, -2 or -3):
@@ -2139,37 +2775,38 @@ extern "C" int stencil_stream_launch_big(
     long long aux_stride, size_t smem, void* stream) {
   const int threads = cta_threads(kernel_op, bcs, p, batch, member_stride,
                                   aux_stride, true);
-  if (!threads || table == nullptr || n_stages < 1 || n_taps < 0 ||
-      n_coeffs < 0 || n_inputs < p.n_entries) {
+  if (!threads || !split_ok(kernel_op, p, grid_y, true) || table == nullptr ||
+      n_stages < 1 || n_taps < 0 || n_coeffs < 0 || n_inputs < p.n_entries) {
     return cudaErrorInvalidValue;
   }
-  DevTable k;
-  k.e = static_cast<const BigEntry*>(table);
-  k.s = reinterpret_cast<const Stage*>(k.e + p.n_entries);
-  k.taps = reinterpret_cast<const BigTap*>(k.s + n_stages);
-  k.c = reinterpret_cast<const float*>(k.taps + n_taps);
-  k.f = reinterpret_cast<const BigStream*>(k.c + n_coeffs);
-  k.ins = reinterpret_cast<const Input*>(k.f + p.n_fields);
-  k.n_taps = n_taps;
-  k.n_coeffs = n_coeffs;
-  k.n_inputs = n_inputs;
-  const Grid g = {grid_x, grid_y, batch, member_stride, aux_stride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if STENCIL_CUSTOM
-#if CUSTOM_BIG
-  if (!custom_kernel(kernel_op, bcs, p, true)) return cudaErrorInvalidValue;
-  return launch_kernel<Storage>(
-      stream_kernel_big<CUSTOM_BODY, Storage, CUSTOM_BC != 0>, gp, aux, out,
-      p, k, g, threads, smem, s);
-#else
-  return cudaErrorInvalidValue;
-#endif
-#else
-  return bcs ? launch_big_body<Storage, true>(kernel_op, gp, aux, out, p, k,
-                                              g, threads, smem, s)
-             : launch_big_body<Storage, false>(kernel_op, gp, aux, out, p, k,
-                                               g, threads, smem, s);
-#endif
+  const Launch l = {gp,      aux,  out, {grid_x, grid_y, batch, member_stride,
+                                         aux_stride},
+                    threads, smem, static_cast<cudaStream_t>(stream),
+                    nullptr};
+  return run_big(kernel_op, bcs, p,
+                 dev_table(table, p, n_stages, n_taps, n_coeffs, n_inputs), l);
+}
+
+// The CTAs of the kernel a launch with these arguments would run that one
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its
+// threads, registers and shared memory), or -1 if the launch is invalid;
+// `big`: the large-table route.  The launcher sizes the stream split by it
+// (kernels/builder.py: segment_plan).
+extern "C" int stencil_stream_occupancy(int kernel_op, int bcs, Params p,
+                                        int big, int batch,
+                                        long long member_stride,
+                                        long long aux_stride, size_t smem) {
+  const int threads = cta_threads(kernel_op, bcs, p, batch, member_stride,
+                                  aux_stride, big != 0);
+  if (!threads) return -1;
+  int per_sm = 0;
+  const Launch l = {nullptr, nullptr, nullptr, {1, 1, 1, 0, 0}, threads, smem,
+                    nullptr, &per_sm};
+  static const Program k = {};
+  const cudaError_t e =
+      big ? run_big(kernel_op, bcs, p, DevTable{}, l)
+          : run_program(kernel_op, bcs, p, k, l);
+  return e == cudaSuccess ? per_sm : -1;
 }
 
 extern "C" const char* stencil_stream_error_string(int err) {

@@ -6,8 +6,10 @@ and 1D grids on all three bodies, and bfloat16 storage and the reflect and
 constant boundaries (mixed per axis and per chain stage) on all three
 bodies, DAGs whose stages differ in boundary (the mixed-boundary body),
 block planes over 1024 cells (the wide form), tables past the kernel
-parameter's capacities (the large-table route) and stencils with a custom
-``apply`` (device functions generated per program).  Needs an
+parameter's capacities (the large-table route), stencils with a custom
+``apply`` (device functions generated per program), and the stream cut
+into more segments than the launcher would (each CTA of a block
+streaming its own after a warm-up) in every form.  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -1074,3 +1076,93 @@ def test_custom_plan_matches_reference(cuda, case):
     both = p.run_batch(batch, iters, aux=aux)
     assert torch.equal(both[0], got)
     assert torch.equal(both[1], p.run(batch[1], iters, aux=aux))
+
+
+# --- the stream split across CTAs --------------------------------------------
+
+SPLIT = [  # (id, program, dims, boundary, par_time, bsize, par_vec, dtype,
+    # segments, batch and its aux): the stream cut into more segments than
+    # the launcher's plan would, a few slabs each, the last one ragged
+    ("diffusion2d_ragged", _star("diffusion2d"), (203, 300), "clamp", 4,
+     (64,), 1, "float32", 8, None),
+    ("hotspot2d_two_slabs", _star("hotspot2d"), (150, 300), "clamp", 8,
+     (64,), 1, "float32", 75, None),
+    ("diffusion2d_periodic", _star("diffusion2d"), (101, 300), "periodic",
+     4, (64,), 1, "float32", 9, None),
+    ("hotspot2d_reflect", _star("hotspot2d"), (101, 517), "reflect", 4,
+     (128,), 1, "float32", 9, None),
+    ("diffusion2d_reflect_overhang", _star("diffusion2d"), (97, 300),
+     "reflect", 4, (64,), 1, "float32", 8, None),
+    ("diffusion2d_constant_bf16", _star("diffusion2d"), (101, 300),
+     "constant:1.5", 4, (64,), 1, "bfloat16", 9, None),
+    ("diffusion2d_t12", _star("diffusion2d"), (203, 300), "clamp", 12,
+     (64,), 1, "float32", 5, None),
+    ("diffusion3d_reflect_v2", _star("diffusion3d"), (61, 50, 45),
+     "reflect", 3, (16, 16), 2, "float32", 6, None),
+    ("hotspot3d_mixed", _star("hotspot3d"), (47, 37, 70),
+     ("clamp", "reflect", "constant:0.0"), 2, (12, 32), 1, "float32", 5,
+     None),
+    ("diffusion2d_v4_bf16", _star("diffusion2d"), (203, 300), "clamp", 8,
+     (64,), 4, "bfloat16", 11, None),
+    ("mixed_chain2d_v2", _mixed_chain(2), (157, 300), "clamp", 2, (64,), 2,
+     "float32", 10, None),
+    ("advect_diffuse2d_batch", lambda: [_advect(2),
+                                        StencilStage("diffusion2d")],
+     (131, 300), "clamp", 3, (64,), 1, "float32", 8, (3, None)),
+    ("hotspot2d_batch_bf16", _star("hotspot2d"), (77, 517), "clamp", 4,
+     (128,), 1, "bfloat16", 6, (3, "member")),
+    ("star1d_r2", _star("star1d_r2"), (1001,), "clamp", 4, (), 1, "float32",
+     40, None),
+    ("star1d_r2_v16_reflect", _star("star1d_r2"), (1001,), "reflect", 4, (),
+     16, "float32", 12, None),
+    ("diffusion2d_wide", _star("diffusion2d"), (103, 2500), "clamp", 4,
+     (1100,), 1, "float32", 8, None),
+    ("allen_cahn2d_custom", lambda: [_allen_cahn_stage()], (103, 300),
+     "clamp", 4, (64,), 1, "float32", 9, None),
+    ("box3d_r2_big", _box_chain(3, 2), (41, 40, 40), "clamp", 1, (20, 20),
+     1, "float32", 5, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=lambda c: c[0])
+def test_split_stream_equals_plain_version(cuda, case):
+    """One super-step with the stream cut into about ``segments`` segments
+    (the launcher's private argument), bit for bit against the plain
+    version into a NaN-filled output, with and without forwarding: each
+    segment's warm-up rebuilds the rows before it, and each output row is
+    written by one CTA."""
+    _, program, dims, bc, par_time, bsize, V, dtype, segments, batch = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize, par_vec=V)).geometry
+    if batch is None:
+        g, aux = _state(problem, cuda, seed=50)
+    else:
+        g, aux = _batch_state(problem, batch[0], batch[1], cuda, seed=50)
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    dag = problem.exec_dag
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    nslabs = gp.shape[-geom.ndim] // V
+    for steps in (par_time, par_time - 1):
+        out = torch.full_like(gp, float("nan"))
+        builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out,
+                              _segments=segments)
+        torch.cuda.synchronize()
+        split = builder.LAST_SPLIT
+        assert split.nseg > 1 and split.nseg == -(-nslabs // split.seg)
+        assert split.warm == builder.stream_warmup(dag, geom)
+        assert split.ctas == split.nseg * math.prod(geom.bnum) * (
+            1 if batch is None else batch[0])
+        plain = torch.full_like(gp, float("nan"))
+        builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p, plain)
+        assert torch.equal(out.nan_to_num(-7.0), plain.nan_to_num(-7.0))
+    if case[0] == "diffusion2d_ragged":
+        assert nslabs % split.seg != 0
+    if "big" in case[0]:
+        assert builder.tables_of(geom, dag).big
+    if builder.is_main_path(dag):
+        assert split.barriers == 1
+        assert (split.look > 0) == (V == 1 and par_time <= 16
+                                    and math.prod(bsize) <= 1024)

@@ -75,10 +75,14 @@ def test_unroll_and_layout_match_reference(par_time):
         b = jprograms.dag_layout(jplan, V)
         assert (a.radii, a.lags, a.wins, a.out_lag, a.aux_depth) == (
             b.radii, b.lags, b.wins, b.out_lag, b.aux_depth)
-    # the kernel's shared memory is exactly the layout's windows
+    # the kernel's shared memory: the main path's register form stages
+    # min(T, 4) + 2 slabs of the stream and keeps two planes per entry
+    # with a consumer, as many as the layout's windows up to T = 4
     geom = blocking.BlockGeometry(2, (8, 64), 1, par_time, (32,))
     lay = programs.dag_layout(plan, 1)
-    assert blocking.smem_bytes(geom, ((st, None),)) == sum(lay.wins) * 32 * 4
+    assert sum(lay.wins) == 3 * par_time
+    assert blocking.smem_bytes(geom, ((st, None),)) == {
+        1: 3, 2: 6, 5: 14}[par_time] * 32 * 4
 
 
 @pytest.mark.parametrize("spec", ["clamp", "periodic", "reflect",

@@ -311,21 +311,25 @@ def test_kernel_tables_follow_the_slab_layout():
 
 @pytest.mark.parametrize("dims,bsize,V,n_entries,want", [
     ((64, 600), (256,), 1, 0, (1, 1, 256)),
-    ((64, 600), (256,), 2, 0, (2, 1, 512)),
-    ((64, 600), (256,), 4, 0, (4, 1, 1024)),
-    ((64, 600), (256,), 8, 0, (4, 2, 1024)),
-    ((64, 600), (256,), 16, 0, (4, 4, 1024)),
+    ((64, 600), (256,), 2, 0, (1, 2, 256)),
+    ((64, 600), (256,), 4, 0, (1, 4, 256)),
+    ((64, 600), (256,), 8, 0, (1, 8, 256)),
+    ((64, 600), (256,), 16, 0, (1, 16, 256)),
     ((16, 64, 64), (32, 32), 4, 0, (1, 4, 1024)),
     ((16, 64, 64), (20, 20), 3, 0, (1, 3, 416)),
-    ((4096,), (), 16, 0, (16, 1, 32)),
+    ((4096,), (), 16, 0, (1, 16, 32)),
     ((4096,), (), 1, 8, (1, 1, 32)),
     ((20, 60), (12,), 1, 40, (1, 1, 64)),
+    ((64, 600), (256,), 2, 4, (2, 1, 512)),
+    ((64, 600), (256,), 16, 4, (4, 4, 1024)),
+    ((4096,), (), 16, 8, (16, 1, 32)),
 ])
 def test_cta_shape_follows_the_launcher_rule(dims, bsize, V, n_entries,
                                              want):
-    """``vt`` the largest divisor of V with ``plane * vt <= 1024``, rows
-    per thread ``V / vt``, threads rounded up to a multiple of 32 and to
-    the table-driven bodies' entries."""
+    """For a table-driven body ``vt`` the largest divisor of V with
+    ``plane * vt <= 1024``, rows per thread ``V / vt``, threads rounded up
+    to a multiple of 32 and to its entries; the main-path body (no table)
+    takes every row of a slab per thread."""
     geom = blocking.BlockGeometry(len(dims), dims, 1, 2, bsize, V)
     tab = builder.Tables("chain", n_entries, 1, 0, 0, 1, 1, n_entries, 0,
                          0, 0) if n_entries else None
