@@ -23,10 +23,12 @@ On one CUDA card, from the root of a checkout:
    write and does not shows; times kernel, plain version and a cuDNN
    convolution yardstick (checked against the oracle on a small grid
    first) with CUDA events, and computes the bound from the bytes and
-   FLOPs of the super-step; for this row and every later main-path and
-   chain row it prints how the launch split the stream (segments, CTAs a
-   launch and an SM, warm-up slabs and share, barriers a tick, slabs
-   copied ahead) and the kernel's registers and spills (its build log);
+   FLOPs of the super-step; for this row and every later row of the
+   streaming kernel (main path, chains and the DAG bodies) it prints how
+   the launch split the stream (segments, CTAs a launch and an SM,
+   warm-up slabs and share, barriers a tick and why a DAG launch takes
+   one an entry, slabs copied ahead, the bytes of the kernel's rings) and
+   the kernel's registers and spills (its build log);
 5. drives the stage programs of ``PROGRAMS`` (the chains of
    ``benchmarks/programs.py::FULL_CASES`` and a 3D chain, at the same
    sizes): ``plan(StencilProblem([StencilStage(...), ...], dims),
@@ -45,9 +47,10 @@ On one CUDA card, from the root of a checkout:
    DAG_FULL_CASES``' wave equation and diamond, and the wave equation in
    3D, at the same sizes): ``plan(StencilProblem(program, dims,
    boundary=...), RunConfig(backend="hopper", ...)).run(state,
-   iters=2T+3)`` through the kernel's DAG body (two field streams, a 3-way
-   combine and state nodes; fan-out and a 2-way fan-in; periodic and clamp
-   boundaries), asserting ``ceil(iters/T)`` launches and the result within
+   iters=2T+3)`` through the kernel's DAG body in its one-barrier form
+   (two field streams, a 3-way combine and state nodes; fan-out and a
+   2-way fan-in; periodic and clamp boundaries; the stream split across
+   CTAs), asserting ``ceil(iters/T)`` launches and the result within
    ``precision.tolerance(..., stages=S)`` of the ``reference`` backend;
    prints run ms and GCell/s (grid cells x iterations), one profiled run,
    one super-step of the kernel against its plain version bit for bit
@@ -196,7 +199,8 @@ SCHEDULE = {2: (8, (256,)), 3: (4, (32, 32))}
 STENCILS = ("diffusion2d", "hotspot2d", "diffusion3d", "hotspot3d")
 SOURCE = "src/repro_torch/kernels/csrc/stencil_stream.cu"
 #: the names of its kernels: the main-path, chain and DAG bodies
-STENCIL_KERNELS = ("main_kernel", "chain_kernel", "stream_kernel")
+STENCIL_KERNELS = ("main_kernel", "chain_kernel", "stream_kernel",
+                   "dag_kernel")
 REPLACES = "src/repro/kernels/builder.py:81"
 
 #: data-sheet peaks per card variant: (device-memory bytes/s, f32 FLOP/s
@@ -578,24 +582,26 @@ def ptxas_of(library: str, kernel: str) -> dict:
 
 def split_fields(name: str) -> dict:
     """How the launch just timed split the stream (``builder.LAST_SPLIT``):
-    its segments, CTAs a launch, warm-up share and barriers a tick, and the
-    kernel's registers and spills, printed for a main-path or chain row;
-    empty for the DAG bodies, which stream in one segment."""
+    its segments, CTAs a launch and an SM, warm-up share, barriers a tick
+    and their form, the bytes of the kernel's rings, and the kernel's
+    registers and spills, printed for every row of the streaming kernel."""
     from repro_torch.kernels import builder
     sp = builder.LAST_SPLIT
-    if sp is None or sp.body < builder.CHAIN_BODY:
+    if sp is None:
         return {}
     out = {"segments": sp.nseg, "segment_slabs": sp.seg,
            "warm_slabs": sp.warm, "ctas_per_launch": sp.ctas,
            "ctas_per_sm": sp.per_sm, "warm_share": sp.warm_share,
-           "barriers_per_tick": sp.barriers, "copies_ahead": sp.look,
+           "barriers_per_tick": sp.barriers, "barrier_form": sp.form,
+           "copies_ahead": sp.look, "ring_bytes": sp.ring_bytes,
            "kernel": sp.kernel, **ptxas_of(sp.library, sp.kernel)}
     print(f"  split ({name}): {sp.nseg} segments of {sp.seg} slabs, "
           f"{sp.ctas} CTAs a launch ({sp.per_sm} an SM), warm-up "
           f"{sp.warm} slabs ({sp.warm_share:.4f} of the stream), "
-          f"{sp.barriers} barrier(s) a tick, {sp.look} slabs copied ahead; "
-          f"{sp.kernel}: {out['registers']} registers, spills "
-          f"{out['spill_stores']}/{out['spill_loads']} B", flush=True)
+          f"{sp.barriers} barrier(s) a tick ({sp.form}), {sp.look} slabs "
+          f"copied ahead, rings {sp.ring_bytes} bytes; {sp.kernel}: "
+          f"{out['registers']} registers, spills {out['spill_stores']}/"
+          f"{out['spill_loads']} B", flush=True)
     return out
 
 

@@ -99,11 +99,14 @@ class Params(ctypes.Structure):
     """``struct Params`` of ``stencil_stream.cu``, passed by value; the
     launcher fills ``vt`` and ``rows`` (``builder.cta_shape``); ``seg``,
     ``warm``, ``nby`` and ``look`` are the stream split and the main path's
-    copies ahead (``builder.StreamSplit``)."""
+    copies ahead (``builder.StreamSplit``); ``win`` 1 runs a DAG in the DAG
+    bodies' one-barrier form (``builder.win_form``), whose taps need not
+    clip ``rad`` (the largest stage radius) cells inside the block and the
+    stream."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "dom", "V", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy",
         "dx", "hy", "hx", "steps", "n_entries", "n_fields", "vt", "rows",
-        "seg", "warm", "nby", "look")]
+        "seg", "warm", "nby", "look", "win", "rad")]
 
 
 class Entry(ctypes.Structure):
@@ -323,7 +326,8 @@ def custom_flags(bf16: bool, batch: bool, body: int, form: int, bcs: bool,
                  big: bool) -> tuple:
     """The ``nvcc`` defines of a custom library: its storage type and batch
     offsets, and the one kernel it instantiates (``stencil_stream.cu``'s
-    body id, ``Form``, boundary work and large-table route)."""
+    body id, ``Form`` or ``kWinForm`` for the DAG bodies' one-barrier
+    form, boundary work and large-table route)."""
     return (f"-DSTENCIL_BF16={int(bf16)}", f"-DSTENCIL_BATCH={int(batch)}",
             "-DSTENCIL_CUSTOM=1", f"-DCUSTOM_BODY={body}",
             f"-DCUSTOM_FORM={form}", f"-DCUSTOM_BC={int(bcs)}",

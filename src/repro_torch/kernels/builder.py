@@ -15,10 +15,14 @@ batch of states with a leading batch axis, ``(B, ns, *padded)`` or ``(B,
 F, ns, *padded)``, and advances all ``B`` members in one launch (the
 members run along the kernel grid's z axis, at most
 ``_build.MAX_BATCH``); the aux grid is then one field's, shared by the
-batch, or one per member.  A launch of the chain or main-path body cuts
-the stream into segments, each streamed by its own CTA of every block
-after a warm-up (:func:`segment_plan`, :class:`StreamSplit`).  For a CUDA
-tensor
+batch, or one per member.  Every launch cuts the stream into segments,
+each streamed by its own CTA of every block after a warm-up
+(:func:`segment_plan`, :class:`StreamSplit`).  A DAG at ``par_vec = 1``
+runs the DAG bodies' one-barrier form, laid out by :func:`win_layout`
+(lags that keep every cross-thread read a tick behind its write, state
+nodes as aliases, own-cell values in registers), unless
+:func:`win_form` names why it takes the per-entry-barrier form.  For a
+CUDA tensor
 they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
 :func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
 a CUDA tensor goes to the kernel or raises.
@@ -474,8 +478,8 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     None) with the compute region of every block of every field written,
     rows ``< dom`` of the stream; the halo and overhang columns and the
     slab-pad rows are left as they were.  ``_segments`` (tests only) cuts
-    the stream of the chain and main-path bodies into about that many
-    segments in place of :func:`segment_plan`'s count."""
+    the stream into about that many segments in place of
+    :func:`segment_plan`'s count."""
     pairs = tuple((st, bc) for st, bc, _ in dag.stages)
     _check_stages(pairs, geom, dag_radius(dag))
     limit = kernel_limits(geom, dag, gp.element_size())
@@ -492,10 +496,13 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
                                    aux_p, out)
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
-    prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device)
-    _launch(dag, prog, geom, gp, aux_p, out, int(steps),
-            smem_bytes(geom, dag, gp.element_size()) + prog.table_smem,
-            batch, _segments)
+    win = win_form(dag, geom, gp.element_size()) is None
+    prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device,
+                     win)
+    smem = (win_smem(dag, geom, gp.element_size()) if win
+            else smem_bytes(geom, dag, gp.element_size()) + prog.table_smem)
+    _launch(dag, prog, geom, gp, aux_p, out, int(steps), smem, batch,
+            _segments)
     return out
 
 
@@ -627,6 +634,254 @@ def _dag_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed,
     return k, lay.out_lag, len(plan.entries)
 
 
+# --- the DAG bodies' one-barrier form ----------------------------------------
+
+#: own-cell values a thread of the one-barrier DAG body keeps in registers
+#: at once (``stencil_stream.cu``'s ``kCarries``)
+CARRIES = 4
+#: static shared memory of the one-barrier DAG body: per entry its record,
+#: two tick records (built a tick ahead) and its place in the list of the
+#: entries that compute, the taps (also as ``TapX``, with their offset in
+#: the plane and coefficient) and the coefficients (``stencil_stream.cu``'s
+#: ``WinRec``, ``WinTick``, ``TapX``)
+WINREC_BYTES, WINTICK_BYTES, TAPX_BYTES = 144, 32, 16
+WIN_TABLE_SMEM = -(-((WINREC_BYTES + 2 * WINTICK_BYTES + 4) * MAX_ENTRIES
+                      + 4 + (4 + TAPX_BYTES) * MAX_TAPS + 4 * MAX_COEFFS)
+                   // 16) * 16
+
+
+def entry_taps(e) -> tuple:
+    """Per input of the unrolled entry ``e`` (a ``programs.DagNode``), the
+    sorted ``(|ds|, cross)`` pairs of the taps the kernel reads: ``ds`` the
+    stream-axis offset (its sign dropped: reflect mirrors a tap to the
+    other side), ``cross`` whether the tap leaves the cell's own column.  A
+    Table-2 stencil and a tap table read their offsets, a combine and a
+    state node each input's centre, a custom ``apply`` its traced taps."""
+    st = e.stencil
+    if st is None:
+        return (((0, False),),) * len(e.inputs)
+    if stage_op(st) == CUSTOM_OP:
+        per = [set() for _ in e.inputs]
+        for node in codegen.trace(st).nodes:
+            if node.op == "tap":
+                per[node.attr[0]].add(node.attr[1])
+    elif st.combine:
+        per = [{(0,) * st.ndim} for _ in e.inputs]
+    else:
+        per = [set(st.offsets)]
+    return tuple(tuple(sorted({(abs(o[0]), any(o[1:])) for o in offs}))
+                 for offs in per)
+
+
+def resolved(plan, v: int) -> frozenset:
+    """The values a read of value ``v`` of ``plan`` may take: ``v`` itself,
+    or for a state node (which selects its new or its previous value by
+    ``steps``) those of both its inputs, down to stage values and field
+    streams."""
+    F = plan.n_streams
+    if v < F or plan.entries[v - F].stencil is not None:
+        return frozenset((v,))
+    a, b = plan.entries[v - F].inputs
+    return resolved(plan, a) | resolved(plan, b)
+
+
+class WinLayout(NamedTuple):
+    """The one-barrier DAG body's layout of an unrolled DAG at ``par_vec =
+    1``: per value id its lag behind the input streams and its ring's
+    slots (0: none) in rows, and its register carry (-1: none); the
+    output lag.  A state node has no ring: its readers read the value it
+    selects (:func:`resolved`)."""
+    lags: tuple
+    wins: tuple
+    regs: tuple
+    out_lag: int
+
+    @property
+    def slots(self) -> int:
+        return sum(self.wins)
+
+
+def _new_value(plan, v: int) -> int:
+    """The value a stage that computes reads for value ``v``: a state node
+    of an earlier iteration selects its new value (input 0), since the
+    stage's own iteration, and so the state node's, is below ``steps``."""
+    F = plan.n_streams
+    while v >= F and plan.entries[v - F].stencil is None:
+        v = plan.entries[v - F].inputs[0]
+    return v
+
+
+def _consumers(plan) -> dict:
+    """Value id -> ``(entry, input, declared input)`` of every read of it:
+    the stages' inputs (:func:`_new_value`), and the state nodes whose
+    value drains to an output field (the others only alias), which by
+    ``steps`` may take any value they select (:func:`resolved`)."""
+    F = plan.n_streams
+    drains = {o for o in plan.outputs if o >= F}
+    reads: dict = {}
+    for i, e in enumerate(plan.entries):
+        if e.stencil is None:
+            if F + i in drains:
+                for q in resolved(plan, F + i):
+                    reads.setdefault(q, []).append((i, 0, F + i))
+            continue
+        for z, p in enumerate(e.inputs):
+            reads.setdefault(_new_value(plan, p), []).append((i, z, p))
+    return reads
+
+
+@functools.lru_cache(maxsize=256)
+def win_layout(dag: DagSpec, par_time: int, mixed: bool) -> WinLayout:
+    """:class:`WinLayout` of ``dag`` unrolled ``par_time`` times.  The
+    body runs one barrier a tick, so a thread reads another thread's value
+    only from a row written at an earlier tick: entry ``i`` computes row
+    ``t - lag_i`` at tick ``t``, and reads input ``p``'s row ``j + ds``
+    (written at tick ``j + ds + lag_p``), so ``lag_i >= lag_p + |ds|`` for
+    a tap in its own column and ``lag_p + |ds| + 1`` for a tap in another
+    (``programs.dag_layout`` adds only the radius).  A ring holds a value
+    from its oldest row read to the row written this tick: ``lag_i + R -
+    lag_p + 1`` rows for a reader of radius ``R``.  A stage value whose
+    every reader is a combine at its own lag (it reads the value in its
+    own cell at the tick it is made) and which no state node selects
+    stays in a register carry (at most :data:`CARRIES` at once); in the
+    mixed-boundary body (``mixed``) it also keeps a ring, which the
+    grid-edge CTAs, re-imposing at read time, read behind a barrier an
+    entry."""
+    plan = unroll_dag(dag, par_time)
+    F = plan.n_streams
+    n = len(plan.entries)
+    taps = [entry_taps(e) for e in plan.entries]
+    lags = [0] * (F + n)
+    for i, e in enumerate(plan.entries):
+        lags[F + i] = max(
+            lags[p] + max((ds + c for ds, c in taps[i][z]), default=0)
+            for z, p in enumerate(e.inputs))
+    reads = _consumers(plan)
+    wins = [0] * (F + n)
+    for q, rs in reads.items():
+        wins[q] = max(lags[F + i] + max((ds for ds, _ in taps[i][z]),
+                                        default=0) - lags[q] + 1
+                      for i, z, _ in rs)
+    selected = {q for e in plan.entries if e.stencil is None
+                for p in e.inputs for q in resolved(plan, p)}
+    regs = [-1] * (F + n)
+    free_at = [0] * CARRIES            # entry index from which a carry is free
+    for i, e in enumerate(plan.entries):
+        v = F + i
+        rs = reads.get(v, ())
+        if (e.stencil is None or not rs or v in selected
+                or any(p != v or not plan.entries[c].stencil.combine
+                       or lags[F + c] != lags[v] for c, _, p in rs)):
+            continue
+        last = max(c for c, _, _ in rs)
+        slot = next((s for s in range(CARRIES) if free_at[s] <= i), None)
+        if slot is None:
+            continue
+        regs[v] = slot
+        free_at[slot] = last + 1
+        if not mixed:
+            wins[v] = 0
+    out_lag = max(lags[o] for o in plan.outputs)
+    return WinLayout(tuple(lags), tuple(wins), tuple(regs), out_lag)
+
+
+def _mirrors_inside(lo: int, hi: int, n: int) -> bool:
+    """``stencil_stream.cu``'s ``mirrors_inside``: whether reflect maps
+    every cell of a block's axis outside the grid (edges ``lo``, ``hi`` in
+    block coordinates, ``n`` cells) onto a cell inside it."""
+    above = hi >= n - 1 or 2 * hi - (n - 1) >= max(lo, 0)
+    below = lo <= 0 or 2 * lo <= min(hi, n - 1)
+    return above and below
+
+
+def own_columns(geom: BlockGeometry, bc) -> bool:
+    """Whether every block of ``geom`` holds, in each cell outside the
+    grid, what the cell ``bc``'s blocked-axis kinds map it to holds
+    (``stencil_stream.cu``'s ``own_columns`` on every CTA): always but
+    under reflect, where a grid that ends well inside a block's overhang
+    mirrors some cells onto others outside it."""
+    kinds = boundary.kinds_of(bc, geom.ndim)[1:]
+    h = geom.size_halo
+    return all(
+        _mirrors_inside(h - b * c, d - 1 + h - b * c, n)
+        for k, c, d, n, nb in zip(kinds, geom.csize, geom.blocked_dims,
+                                  geom.bsize, geom.bnum)
+        if k == "reflect" for b in range(nb))
+
+
+def win_smem(dag: DagSpec, geom: BlockGeometry, cell_bytes: int = 4) -> int:
+    """Dynamic shared memory of the one-barrier DAG body: its rings
+    (:func:`win_layout`), with ``rad * (bx + 1)`` cells before the first
+    and after the last (``rad`` cells in a 2D block row) that a
+    blocked-axis tap of the largest stage radius ``rad``, read without
+    clipping to the block, may reach (``stencil_stream.cu``'s
+    ``win_pad``)."""
+    lay = win_layout(dag, geom.par_time, mixes_boundaries(dag, geom.ndim))
+    by, bx = _plane_rows(geom)
+    rad = max(st.radius for st, _, _ in dag.stages)
+    pad = rad * (bx + 1 if by > 1 else 1)
+    return (lay.slots * by * bx + 2 * pad) * cell_bytes
+
+
+def win_form(dag: DagSpec, geom: BlockGeometry,
+             cell_bytes: int = 4) -> Optional[str]:
+    """None when the kernel runs ``dag`` at ``geom`` in the DAG bodies'
+    one-barrier form (``dag_kernel``), else why its launch takes a form
+    with a barrier after every entry: a chain, ``par_vec > 1``, a plane
+    over 1024 cells, the large-table route, a single-boundary DAG whose
+    reflect mirrors a block's overhang past the grid (its state nodes copy
+    re-imposed values, which aliases would not), or the deeper rings of
+    :func:`win_layout` past shared memory or the table's 16-bit fields."""
+    if _as_chain(dag) is not None:
+        return "a chain"
+    if geom.par_vec != 1:
+        return "par_vec > 1"
+    if math.prod(geom.bsize) > MAX_THREADS:
+        return "a plane over 1024 cells"
+    if tables_of(geom, dag).big:
+        return "the large-table route"
+    mixed = mixes_boundaries(dag, geom.ndim)
+    if not mixed and not own_columns(geom, dag.stages[0][1]):
+        return "reflect maps a block's overhang past the grid"
+    lay = win_layout(dag, geom.par_time, mixed)
+    if max(max(lay.wins), max(lay.lags)) > SHORT_MAX:
+        return "lags or rings past the table's 16-bit fields"
+    smem = win_smem(dag, geom, cell_bytes) + WIN_TABLE_SMEM
+    if smem > SMEM_LIMIT:
+        return (f"its rings and tables need {smem} bytes of shared memory "
+                f"(at most {SMEM_LIMIT})")
+    return None
+
+
+def _win_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
+    """The kernel's ``Program`` table for the one-barrier DAG body: as
+    :func:`_dag_table` with :func:`win_layout`'s lags and rings, each
+    entry's register carry in ``Entry.pad`` (-1: none), and its inputs as
+    value ids in ``in_base`` (``in_slots`` 0), which the kernel resolves
+    through the state nodes by ``steps``.  Returns ``(table, out_lag,
+    n_entries, ring slots)``."""
+    plan = unroll_dag(dag, geom.par_time)
+    lay = win_layout(dag, geom.par_time, mixes_boundaries(dag, geom.ndim))
+    base = _ring_bases(lay.wins)
+    F = plan.n_streams
+    k = _build.Program()
+    _stage_tables(k, [(st, bc) for st, bc, _ in dag.stages], geom.ndim,
+                  coeffs_packed)
+    n_state = sum(u != ~f for f, u in enumerate(dag.updates))
+    stage_of = (list(dag.topo) + [-1] * n_state) * geom.par_time
+    field_of = {o: f for f, o in enumerate(plan.outputs)}
+    for f in range(F):
+        k.f[f] = _build.Stream(base.get(f, 0), lay.wins[f],
+                               int(field_of.get(f) == f), 0)
+    for i, e in enumerate(plan.entries):
+        ins = list(e.inputs) + [0] * (MAX_INPUTS - len(e.inputs))
+        k.e[i] = _build.Entry(lay.lags[F + i], stage_of[i], e.iteration,
+                              field_of.get(F + i, -1), base.get(F + i, 0),
+                              lay.wins[F + i], len(e.inputs), lay.regs[F + i],
+                              tuple(ins), (0,) * MAX_INPUTS)
+    return k, lay.out_lag, len(plan.entries), lay.slots
+
+
 #: the stream split: the waves of CTAs it aims to fill the card with, and
 #: the largest share of a segment's slabs its warm-up may add
 SPLIT_WAVES, WARM_SHARE = 2, 0.05
@@ -672,15 +927,16 @@ def segment_plan(nslabs: int, warm: int, ctas: int, per_sm: int, n_sm: int,
 
 class StreamSplit(NamedTuple):
     """How one launch streams: ``nseg`` segments of ``seg`` of the
-    stream's ``nslabs`` slabs (one segment for the DAG bodies), each
-    streaming ``warm`` slabs before its own (fewer near the stream's
-    start), ``look`` slabs copied ahead (the main path's register form;
-    0 otherwise), ``per_sm`` CTAs an SM holds (the kernel's occupancy; 0
-    where not asked), ``ctas`` CTAs of ``threads`` threads and ``smem``
-    bytes of shared memory a launch, the CTA barriers a tick (the main
-    path's blocks whose reflect mirrors leave the grid take one per entry
-    besides), the body, and the kernel that runs it as
-    ``_build.ptxas_report(lib, all_args=True)`` names it in ``library``."""
+    stream's ``nslabs`` slabs, each streaming ``warm`` slabs before its
+    own (fewer near the stream's start), ``look`` slabs copied ahead (the
+    main path's register form; 0 otherwise), ``per_sm`` CTAs an SM holds
+    (the kernel's occupancy), ``ctas`` CTAs of ``threads`` threads and
+    ``smem`` bytes of shared memory a launch, the CTA barriers a tick (the
+    main path's blocks whose reflect mirrors leave the grid, and the
+    mixed-boundary DAG body's grid-edge blocks, take one per entry
+    besides), the body, the kernel that runs it as
+    ``_build.ptxas_report(lib, all_args=True)`` names it in ``library``,
+    the barrier form and why (``form``), and the bytes of its rings."""
     seg: int
     nseg: int
     warm: int
@@ -694,6 +950,8 @@ class StreamSplit(NamedTuple):
     body: int
     kernel: str
     library: str
+    form: str
+    ring_bytes: int
 
     @property
     def warm_share(self) -> float:
@@ -717,7 +975,9 @@ class _LaunchPlan(NamedTuple):
     has a reflect or constant axis (the kernels that do the boundary
     work), the records' shared memory in front of the rings, and the
     large-table route's table lengths ``(stages, taps, coefficients,
-    inputs)`` (None for the parameter table)."""
+    inputs)`` (None for the parameter table), whether a DAG runs the
+    one-barrier form (:func:`win_form`), its layout's ring slots, and the
+    largest radius of a stage."""
     body: int
     table: object
     out_lag: int
@@ -727,6 +987,9 @@ class _LaunchPlan(NamedTuple):
     bcs: bool
     table_smem: int
     big: Optional[tuple]
+    win: bool
+    slots: int
+    rad: int
 
 
 def _body(dag: DagSpec, ndim: int) -> int:
@@ -746,9 +1009,17 @@ def _has_bcs(dag: DagSpec, ndim: int) -> bool:
                for k in boundary.kinds_of(bc, ndim))
 
 
-def _form(geom: BlockGeometry, tab: Tables) -> int:
+#: ``stencil_stream.cu``'s form id of the DAG bodies' one-barrier form
+#: (``kWinForm``; the table-driven bodies' ``Form``s are 0 to 3)
+WIN_FORM = 4
+
+
+def _form(geom: BlockGeometry, tab: Tables, win: bool = False) -> int:
     """``stencil_stream.cu``'s ``Form`` of a table-driven body at ``geom``:
-    its V = 1, one-row, several-row or wide form (:func:`cta_shape`)."""
+    its V = 1, one-row, several-row or wide form (:func:`cta_shape`), or
+    :data:`WIN_FORM` for a DAG in the one-barrier form (``win``)."""
+    if win:
+        return WIN_FORM
     _, rows, _ = cta_shape(geom, tab)
     if tab.big or math.prod(geom.bsize) > MAX_THREADS:
         return 3
@@ -766,10 +1037,11 @@ def _custom_build(dag: DagSpec, geom: BlockGeometry, bf16: bool,
     if not customs:
         return None
     tab = tables_of(geom, dag)
+    win = win_form(dag, geom, 2 if bf16 else 4) is None
     return (codegen.program_header([codegen.trace(st) for st in customs]),
             _build.custom_flags(bf16, batch, _body(dag, geom.ndim),
-                                _form(geom, tab), _has_bcs(dag, geom.ndim),
-                                tab.big))
+                                _form(geom, tab, win),
+                                _has_bcs(dag, geom.ndim), tab.big))
 
 
 def custom_library(dag: DagSpec, geom: BlockGeometry,
@@ -783,18 +1055,23 @@ def custom_library(dag: DagSpec, geom: BlockGeometry,
 
 @functools.lru_cache(maxsize=64)
 def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
-              device: torch.device) -> _LaunchPlan:
+              device: torch.device, win: bool = False) -> _LaunchPlan:
     """:class:`_LaunchPlan` of ``dag`` at ``geom`` with the packed
-    coefficients ``coeffs``, built once and kept for the program's later
-    super-steps: the large-table route copies its table to ``device``
-    here, not at every launch."""
+    coefficients ``coeffs`` (``win``: in the DAG bodies' one-barrier
+    form), built once and kept for the program's later super-steps: the
+    large-table route copies its table to ``device`` here, not at every
+    launch."""
     coeffs_packed = torch.tensor(coeffs, dtype=torch.float32)
     stages = _as_chain(dag)
     tab = tables_of(geom, dag)
     big = tab is not None and tab.big
+    slots = 0
     if stages is not None:
         table, out_lag = _program_table(stages, geom, coeffs_packed, big)
         n_entries = len(stages) * geom.par_time
+    elif win:
+        table, out_lag, n_entries, slots = _win_table(dag, geom,
+                                                      coeffs_packed)
     else:
         table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed, big)
     if big:
@@ -805,7 +1082,8 @@ def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
                        _has_bcs(dag, geom.ndim),
                        tab.smem if big else 0,
                        (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
-                       if big else None)
+                       if big else None, win, slots,
+                       max(st.radius for st, _, _ in dag.stages))
 
 
 def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
@@ -831,16 +1109,20 @@ def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
         ticks=ns // V + prog.out_lag, py=pad[0], px=pad[1], by=blk[0],
         bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
         hx=hx, steps=steps, n_entries=prog.n_entries,
-        n_fields=prog.n_fields, seg=ns // V, warm=0, nby=nby, look=0)
+        n_fields=prog.n_fields, seg=ns // V, warm=0, nby=nby, look=0,
+        win=int(prog.win), rad=prog.rad)
     return params, bnum[-1] if bnum else 1, nby
 
 
 def _kernel_name(prog: _LaunchPlan, geom: BlockGeometry,
-                 tab: Optional[Tables], look: int) -> str:
+                 tab: Optional[Tables], look: int,
+                 custom: bool = False) -> str:
     """The kernel ``stencil_stream.cu``'s launcher picks for ``prog`` at
-    ``geom`` (``look`` > 0: the main path's register form), named as
-    ``_build.ptxas_report(..., all_args=True)`` names it: its int and bool
-    template arguments (body, ``Form``, boundary work, entries)."""
+    ``geom`` (``look`` > 0: the main path's register form; ``custom``: a
+    library of a program's custom stencils, whose table-driven DAG forms
+    are all ``stream_kernel_x``), named as ``_build.ptxas_report(...,
+    all_args=True)`` names it: its int and bool template arguments (body,
+    ``Form``, boundary work, entries)."""
     bcs = int(prog.bcs)
     if prog.body >= 0:
         if look:
@@ -852,22 +1134,62 @@ def _kernel_name(prog: _LaunchPlan, geom: BlockGeometry,
     if prog.big is not None:
         return (f"chain_kernel_big<{bcs}>" if prog.body == CHAIN_BODY
                 else f"stream_kernel_big<{prog.body},{bcs}>")
+    if prog.win:
+        return f"dag_kernel<{prog.body},{bcs}>"
     form = _form(geom, tab)
     if prog.body == CHAIN_BODY:
         return f"chain_kernel<{form},{bcs}>"
-    x = "_x" if form == 3 or prog.body == MIX_BODY else ""
+    x = "_x" if form == 3 or prog.body == MIX_BODY or custom else ""
     return f"stream_kernel{x}<{prog.body},{form},{bcs}>"
+
+
+def _edge_blocks(geom: BlockGeometry, bc) -> int:
+    """The blocks of ``geom`` that hold a grid edge along a blocked axis
+    that is not periodic (where the mixed-boundary DAG body re-imposes)."""
+    kinds = boundary.kinds_of(bc, geom.ndim)[1:]
+    h = geom.size_halo
+    edge = [[k != "periodic" and (h - b * c > 0 or d - 1 + h - b * c < n - 1)
+             for b in range(nb)]
+            for k, c, d, n, nb in zip(kinds, geom.csize, geom.blocked_dims,
+                                      geom.bsize, geom.bnum)]
+    if not edge:
+        return 0
+    inner = math.prod(sum(not e for e in ax) for ax in edge)
+    return math.prod(geom.bnum) - inner
+
+
+def _barrier_form(dag: DagSpec, prog: _LaunchPlan,
+                  geom: BlockGeometry, cell_bytes: int) -> tuple:
+    """``(barriers a tick, form)`` of a launch: one for the main-path
+    body and the DAG bodies' one-barrier form (the mixed-boundary body's
+    grid-edge blocks one per entry besides), else one per entry and one
+    for the push, and why."""
+    if prog.body >= 0:
+        return 1, "one barrier a tick"
+    if prog.win:
+        form = "one barrier a tick"
+        edges = (_edge_blocks(geom, prog.bc0) if prog.body == MIX_BODY
+                 else 0)
+        if edges:
+            form += (f"; {edges} of {math.prod(geom.bnum)} blocks hold a "
+                     f"grid edge and re-impose at read time, one barrier an "
+                     f"entry")
+        return 1, form
+    why = ("the chain body" if prog.body == CHAIN_BODY
+           else win_form(dag, geom, cell_bytes))
+    return prog.n_entries + 1, f"one barrier an entry: {why}"
 
 
 def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
            params, grid_x: int, batch: int, member_stride: int,
            aux_stride: int, smem: int, cell_bytes: int, device,
-           segments: Optional[int] = None) -> StreamSplit:
+           segments: Optional[int] = None,
+           custom: bool = False) -> StreamSplit:
     """:class:`StreamSplit` of a launch (kept per library, program shape,
-    batch and device): the chain and main-path bodies by
-    :func:`segment_plan` over the kernel's occupancy and the card's SMs
-    (or in about ``segments`` segments), the DAG bodies in one segment."""
-    key = (id(dll), prog.body, prog.bcs, prog.big is not None,
+    batch and device): every body by :func:`segment_plan` over the
+    kernel's occupancy and the card's SMs (or in about ``segments``
+    segments); ``custom``: from a library of custom stencils."""
+    key = (id(dll), prog.body, prog.bcs, prog.big is not None, prog.win,
            tuple(getattr(params, f) for f, _ in params._fields_ if
                  f != "steps"), grid_x, batch, member_stride > 0,
            aux_stride > 0, smem, cell_bytes, str(device), segments)
@@ -878,34 +1200,27 @@ def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
     nslabs = params.ns // params.V
     tab = tables_of(geom, dag)
     _, _, threads = cta_shape(geom, tab)
-    if prog.body < CHAIN_BODY:
-        split = StreamSplit(nslabs, 1, 0, 0, 0, grid_x * params.nby * batch,
-                            threads, smem, prog.n_entries + 1, nslabs,
-                            prog.body, _kernel_name(prog, geom, tab, 0),
-                            dll._name)
-    else:
-        look = main_look(geom, cell_bytes) if prog.body >= 0 else 0
-        warm = stream_warmup(dag, geom)
-        probe = _build.Params.from_buffer_copy(params)
-        probe.look = look
-        per_sm = dll.stencil_stream_occupancy(
-            prog.body, int(prog.bcs), probe, int(prog.big is not None),
-            batch, member_stride, aux_stride, smem)
-        if per_sm < 0:
-            raise RuntimeError("stencil_stream: no occupancy for the launch")
-        n_sm = torch.cuda.get_device_properties(
-            device).multi_processor_count
-        ctas = grid_x * params.nby * batch
-        seg, nseg = segment_plan(nslabs, warm, ctas, per_sm, n_sm,
-                                 params.nby, prog.out_lag)
-        if segments is not None:
-            seg = -(-nslabs // min(max(segments, 1), nslabs))
-            nseg = -(-nslabs // seg)
-        split = StreamSplit(seg, nseg, warm, look, per_sm, ctas * nseg,
-                            threads, smem,
-                            1 if prog.body >= 0 else prog.n_entries + 1,
-                            nslabs, prog.body,
-                            _kernel_name(prog, geom, tab, look), dll._name)
+    look = main_look(geom, cell_bytes) if prog.body >= 0 else 0
+    warm = stream_warmup(dag, geom)
+    probe = _build.Params.from_buffer_copy(params)
+    probe.look = look
+    per_sm = dll.stencil_stream_occupancy(
+        prog.body, int(prog.bcs), probe, int(prog.big is not None),
+        batch, member_stride, aux_stride, smem)
+    if per_sm < 0:
+        raise RuntimeError("stencil_stream: no occupancy for the launch")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    ctas = grid_x * params.nby * batch
+    seg, nseg = segment_plan(nslabs, warm, ctas, per_sm, n_sm, params.nby,
+                             prog.out_lag)
+    if segments is not None:
+        seg = -(-nslabs // min(max(segments, 1), nslabs))
+        nseg = -(-nslabs // seg)
+    barriers, form = _barrier_form(dag, prog, geom, cell_bytes)
+    split = StreamSplit(seg, nseg, warm, look, per_sm, ctas * nseg, threads,
+                        smem, barriers, nslabs, prog.body,
+                        _kernel_name(prog, geom, tab, look, custom),
+                        dll._name, form, smem - prog.table_smem)
     with _SPLITS_LOCK:
         _SPLITS[key] = split
     return split
@@ -935,7 +1250,7 @@ def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
     with torch.cuda.device(gp.device):
         split = _split(dll, dag, prog, geom, params, grid_x, batch or 1,
                        member_stride, aux_stride, smem, gp.element_size(),
-                       gp.device, segments)
+                       gp.device, segments, key is not None)
         params.seg, params.warm, params.look = (split.seg, split.warm,
                                                 split.look)
         grid_y = nby * split.nseg

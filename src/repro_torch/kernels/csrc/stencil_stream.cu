@@ -43,20 +43,22 @@
 // / V) one level below, deeper where an edge skips levels (the short branch
 // of a diamond, a state node's previous value).
 //
-// The stream split (the main-path and chain bodies).  blockIdx.y is the
-// block row plus `nby` times the segment: the stream's slabs are cut into
-// segments of `seg` slabs, and the CTA of segment k writes slabs [k*seg,
-// (k+1)*seg) only.  It streams from `warm` slabs before them (the
+// The stream split (every body).  blockIdx.y is the block row plus `nby`
+// times the segment: the stream's slabs are cut into segments of `seg`
+// slabs, and the CTA of segment k writes slabs [k*seg, (k+1)*seg) only —
+// every output row, a field carried unchanged and a DAG's outputs of any
+// lag included.  It streams from `warm` slabs before them (the
 // critical-path radius times par_time, in slabs: kernels/builder.py
-// stream_warmup), whose values are wrong at first — the rows before
-// are not in its rings — and are thrown away, as the blocked halo's are;
-// each output row is written by one CTA, with the same arithmetic in the
-// same order, so the split changes no bit.  Stream-axis boundaries apply
-// at rows 0 and dom-1 only.  The launcher cuts as many segments as fill
-// the card for two waves at the kernel's occupancy, fewer where the
-// warm-up would pass 5% of a segment (kernels/builder.py segment_plan):
-// 38 segments (2622 CTAs) for the 16384^2 grid at bsize 256, thousands for
-// a 1D grid.  The DAG bodies (kOp = -2, -3) stream in one segment.
+// stream_warmup; a DAG's state nodes take their previous value at no
+// radius), whose values are wrong at first — the rows before are not in
+// its rings — and are thrown away, as the blocked halo's are; each output
+// row is written by one CTA, with the same arithmetic in the same order,
+// so the split changes no bit.  Stream-axis boundaries apply at rows 0 and
+// dom-1 only (a periodic stream's extension included).  The launcher cuts
+// as many segments as fill the card for two waves at the kernel's
+// occupancy, fewer where the warm-up would pass 5% of a segment
+// (kernels/builder.py segment_plan): 38 segments (2622 CTAs) for the
+// 16384^2 grid at bsize 256, thousands for a 1D grid.
 //
 // The main path (kOp = 0..3, one Table-2 stage, every entry under stage
 // 0's boundary) runs one barrier a tick.  Entry i computes slab t-i-1 at
@@ -81,14 +83,27 @@
 // block), the two differ, and such a block reads the mapped column behind
 // a barrier after every entry (`own_columns`).
 //
-// The chain body (kOp = -1) and the DAG bodies keep a barrier after every
-// entry: at tick t the CTA pushes slab t of each field stream (coalesced;
-// each thread's first rows prefetched one tick ahead into registers), then
-// entry i computes slab j = t - lag_i, row by row, from rows of its
-// producers' rings up to R slabs either side; the barrier after each entry
-// puts a producer's slab in its ring before its consumer reads it, and the
-// layout's window depths guarantee that no slot is overwritten while it is
-// still read.
+// The DAG bodies at V = 1 (`dag_kernel`, kernels/builder.py win_layout)
+// run one barrier a tick too: an entry that reads another thread's cell
+// lags its producer by one row more than the stencil's reach, so it reads
+// only rows written at an earlier tick, and its own cell of the rows its
+// thread wrote this tick; a state node is an alias of the value it
+// selects, and a value read only by combines of its own lag stays in a
+// register.  Where a thread's own column does not hold what it reads (the
+// mixed-boundary body's grid-edge blocks re-impose at read time;
+// CTA-uniform) the CTA takes a barrier after every entry; where the
+// single-boundary body's reflect maps a block's overhang past the grid,
+// or the deeper rings do not fit, the launcher runs the table-driven form.
+//
+// The chain body (kOp = -1) and the DAG bodies' table-driven forms (V > 1,
+// the wide form, the large-table route, and those V = 1 launches) keep a
+// barrier after every entry: at tick t the CTA pushes slab t of each field
+// stream (coalesced; each thread's first rows prefetched one tick ahead
+// into registers), then entry i computes slab j = t - lag_i, row by row,
+// from rows of its producers' rings up to R slabs either side; the barrier
+// after each entry puts a producer's slab in its ring before its consumer
+// reads it, and the layout's window depths guarantee that no slot is
+// overwritten while it is still read.
 
 // Storage.  `T`, a template argument, is the storage type: float or
 // __nv_bfloat16.  The input, aux, output and every ring hold T; a stage
@@ -167,17 +182,20 @@
 // in its register form (`main_kernel<kOp, 0, T, kBC, kT>`, kT = 4, 8 or 16
 // entries held) or its ring form (kT = 0) — one for any chain (kOp = -1,
 // `chain_kernel`), one for any DAG whose stages share one boundary (kOp =
-// -2) and one for any DAG (kOp = -3; both `stream_kernel`,
-// `stream_kernel_x`).  The table-driven bodies come in four forms
-// (`Form`): V = 1, where V, vt and the row loop fold away; one row of each
-// slab per thread; several rows per thread; several cells per thread (the
-// wide form), and in the large-table route; the main path's ring form in
-// three (V = 1, every row of a slab, the wide form).  All in two storage
+// -2) and one for any DAG (kOp = -3; both `dag_kernel` at V = 1, and
+// `stream_kernel`, `stream_kernel_x` where it does not run).  The
+// table-driven bodies come in four forms (`Form`): V = 1, where V, vt and
+// the row loop fold away; one row of each slab per thread; several rows
+// per thread; several cells per thread (the wide form), and in the
+// large-table route; the main path's ring form in three (V = 1, every row
+// of a slab, the wide form).  All in two storage
 // types (one library each), and with or without the reflect and constant
-// boundaries (kBC; kOp = -3 only with them): 73 kernels a library, 292 in
-// the four.  Slab bookkeeping with a runtime V cost the V = 1 main path
-// 12% and the DAG body 28% on an H100, hence the forms; deciding the
-// boundary kinds at run time cost the float32 bodies 3-31%, hence kBC.
+// boundaries (kBC; kOp = -3 only with them), and the DAG bodies'
+// one-barrier form (`dag_kernel`: kOp -2 with and without kBC, -3): 76
+// kernels a library, 304 in the four.  Slab bookkeeping with a runtime V
+// cost the V = 1 main path 12% and the DAG body 28% on an H100, hence the
+// forms; deciding the boundary kinds at run time cost the float32 bodies
+// 3-31%, hence kBC.
 // The table-driven bodies copy the table into static shared memory at
 // start (`Rec`/`DagRec`: one flat record per entry, rings in rows, a
 // Table-2 stage's coefficients inline; the taps and coefficients of tap
@@ -247,8 +265,10 @@
 // hotspot2d at V = 8 takes 24.4 ms against 20.5 before.  The chain body
 // keeps a barrier per entry and tick and pushes rows loaded a tick ahead
 // into registers (copies further ahead need ring slots its layout does
-// not have): advect_diffuse2d 14.9 ms, 23x its bound.  The DAG bodies keep
-// the first design, in one segment (wave2d 113 ms).
+// not have): advect_diffuse2d 14.9 ms, 23x its bound.  The DAG bodies'
+// one-barrier form reads the stream-axis taps from its rings in shared
+// memory, and loads the field streams a tick ahead into registers, not
+// with cp.async further ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -312,10 +332,12 @@ struct Params {
   int n_fields;     // field streams (1 but for a DAG)
   int vt;           // rows of a slab computed at once (set by the launcher)
   int rows;         // rows of a slab per thread, V / vt (the launcher)
-  int seg;          // stream slabs a segment owns (the DAG bodies: all)
-  int warm;         // slabs a segment streams before its own (0: DAG bodies)
+  int seg;          // stream slabs a segment owns
+  int warm;         // slabs a segment streams before its own
   int nby;          // blocks along y: blockIdx.y = block + nby * segment
   int look;         // main path: slabs copied ahead (0: the ring form)
+  int win;          // a DAG in the one-barrier form (`dag_kernel`)
+  int rad;          // the largest radius of a stage (`dag_kernel`)
 };
 
 // One unrolled entry.  Lags and rings are counted in slabs; `out_slots` is 0
@@ -323,7 +345,9 @@ struct Params {
 // state node, which selects input 0 (the new value) while its iteration is
 // < steps, else input 1 (the field's previous value).  `field` is the
 // output field the entry's value drains to, or -1.  A chain entry reads
-// input 0 only.
+// input 0 only.  In the DAG bodies' one-barrier form `in_base` holds each
+// input's value id (field stream f is f, entry e is n_fields + e),
+// `in_slots` nothing, and `pad` the entry's register carry (-1: none).
 struct Entry {
   short lag, stage, iteration, field;
   short out_base, out_slots, n_in, pad;
@@ -850,16 +874,41 @@ __device__ __forceinline__ void for_rows(int j, int V, int tv, int vt,
   }
 }
 
-// The DAG body's forms of the first slices: kOp = -2, any DAG of the table
-// whose stages share one boundary (`gp` and `out` then hold `n_fields`
-// padded grids one after the other); kForm one of the first three `Form`s,
-// the table a kernel parameter.  They keep this code: compiled from
-// `stream_body` below, which also runs the later forms, the same kernels
-// came out of ptxas with other register counts and spills on an H100
-// build.  T: the storage type.  kBC: some stage has a reflect or constant
-// axis; without it the per-row and per-entry boundary work folds away to
-// the clamp and periodic code (in a run-time form it cost the float32
-// bodies 3-31% on an H100).
+// The stream rows one CTA owns: blockIdx.y
+// is its block row plus `nby` times its segment, which writes slabs [s0,
+// s1) and streams them from slab a = s0 - warm on (from 0 at most), over
+// ticks [a, t_end): the last slab's output lag past s1.
+struct Segment {
+  int sy;      // block start along y, in padded coordinates
+  int s0, s1;  // the slabs it writes
+  int a;       // the first slab it streams
+  int t_end;   // one past its last tick
+};
+
+__device__ __forceinline__ Segment segment_of(const Params& p, int nslabs) {
+  const int k = blockIdx.y / p.nby;
+  Segment s;
+  s.sy = (blockIdx.y - k * p.nby) * p.cy;
+  s.s0 = k * p.seg;
+  s.s1 = min(s.s0 + p.seg, nslabs);
+  s.a = max(s.s0 - p.warm, 0);
+  s.t_end = s.s1 + (p.ticks - nslabs);
+  return s;
+}
+
+// The single-boundary DAG body's table-driven forms of the first slices:
+// kOp = -2, any DAG of the table whose stages share one boundary (`gp` and
+// `out` then hold `n_fields` padded grids one after the other); kForm one
+// of the first three `Form`s (V = 1 where the one-barrier form does not
+// run, one row, several rows), the table a kernel parameter, a barrier
+// after every entry.  They keep this code: compiled from `stream_body`
+// below, which also runs the later forms, the same kernels came out of
+// ptxas with other register counts and spills on an H100 build, and ran
+// wave2d at V = 4 slower.  Each CTA streams its segment (`Segment`) and
+// writes only the slabs it owns.  T: the storage type.  kBC: some stage
+// has a reflect or constant axis; without it the per-row and per-entry
+// boundary work folds away to the clamp and periodic code (in a run-time
+// form it cost the float32 bodies 3-31% on an H100).
 template <int kOp, int kForm, class T, bool kBC>
 __global__ void __launch_bounds__(1024, 1)
     stream_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
@@ -891,7 +940,8 @@ __global__ void __launch_bounds__(1024, 1)
   const int cell = tid - tv * plane;
   const int ty = cell / p.bx;
   const int tx = cell - ty * p.bx;
-  const int sy = blockIdx.y * p.cy;  // block start in padded coordinates
+  const Segment sg = segment_of(p, nslabs);
+  const int sy = sg.sy;  // block start in padded coordinates
   const int sx = blockIdx.x * p.cx;
 
   // the cell's positions under each blocked-axis kind (no-ops on interior
@@ -953,14 +1003,16 @@ __global__ void __launch_bounds__(1024, 1)
 #pragma unroll
     for (int f = 0; f < kPreFields; ++f) {
       if (act && f < p.n_fields) {
-        prefetch_slab<1>(nxt[f], gp + f * fstride + own.g, tv, vt, nr,
-                         p.dom, pstride);
+        prefetch_slab<1>(nxt[f],
+                         gp + f * fstride + own.g +
+                             (size_t)sg.a * V * pstride,
+                         tv, vt, nr, p.dom - sg.a * V, pstride);
       }
     }
-    for (int t = 0; t < p.ticks; ++t) {
+    for (int t = sg.a; t < sg.t_end; ++t) {
       if (act && t < nslabs) {
         // push slab t of every field stream; a field carried unchanged is
-        // written out as it streams in
+        // written out as it streams in, in the slabs this CTA owns
 #pragma unroll
         for (int f = 0; f < kMaxFields; ++f) {
           if (f < p.n_fields) {
@@ -970,8 +1022,10 @@ __global__ void __launch_bounds__(1024, 1)
                 gp + f * fstride + own.g,
                 st.slots ? win + st.base * V * plane : (T*)nullptr,
                 st.slots * V,
-                st.out && writes ? out + f * fstride + own.g : (T*)nullptr, t,
-                tv, vt, nr, V, p.dom, pstride, plane, cell);
+                st.out && writes && t >= sg.s0 && t < sg.s1
+                    ? out + f * fstride + own.g
+                    : (T*)nullptr,
+                t, tv, vt, nr, V, p.dom, pstride, plane, cell);
           }
         }
       }
@@ -979,7 +1033,8 @@ __global__ void __launch_bounds__(1024, 1)
         const DagRec& e = rec[tid];
         DagTick r;
         r.j = t - e.lag;
-        r.flags = (r.j >= 0 && r.j < nslabs) | ((e.iteration < p.steps) << 1);
+        r.flags =
+            (r.j >= sg.a && r.j < nslabs) | ((e.iteration < p.steps) << 1);
         const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
         r.m = x0 % (unsigned)e.in_slots[0];
         r.outo = e.out_slots
@@ -1037,7 +1092,7 @@ __global__ void __launch_bounds__(1024, 1)
             }
             if (ring && fill_edge) val = narrow<T>(k.s[0].fill);
             if (ring) win[r.outo + row * plane + cell] = val;
-            if (en.field >= 0 && writes) {
+            if (en.field >= 0 && writes && r.j >= sg.s0 && r.j < sg.s1) {
               out[en.field * fstride + (size_t)x * pstride + own.g] = val;
             }
           });
@@ -1217,12 +1272,15 @@ __device__ __forceinline__ Records<R, TR, typename K::TapT> records(
   }
 }
 
-// The DAG bodies' later forms, one body for all: the wide form (kWide) of
-// the single-boundary DAG body; kOp = -3, any DAG (the consumers re-impose
-// at read time), in every form; and the large-table route of both (K =
-// `DevTable`, the wide form).  The bodies compute
-// as those of `stream_kernel` do; a thread covers its cells through
-// `cells` and builds the records of its entries through `entries`.  K:
+// The DAG bodies' later table-driven forms, one body for all, with a
+// barrier after every entry: the wide form (kWide) of the single-boundary
+// body (every value that enters a ring re-imposed at push time under stage
+// 0's boundary); kOp = -3 (the consumers re-impose at read time) in every
+// form (at V = 1 where the one-barrier form `dag_kernel` does not run:
+// kernels/builder.py win_form); and the large-table route of both (K =
+// `DevTable`, the wide form).  A thread covers its cells through `cells`
+// and builds the records of its entries through `entries`; each CTA
+// streams its segment (`Segment`) and writes only the slabs it owns.  K:
 // `Program` (the table as a kernel parameter) or `DevTable`.
 template <int kOp, int kForm, class T, bool kBC, class K>
 __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
@@ -1262,7 +1320,8 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
   // cells tid, tid + blockDim.x, ... with every row of a slab.
   const bool act = tid < plane * vt;
   const int tv = kV1 || kW ? 0 : tid / plane;
-  const int sy = blockIdx.y * p.cy;  // block start in padded coordinates
+  const Segment sg = segment_of(p, nslabs);
+  const int sy = sg.sy;  // block start in padded coordinates
   const int sx = blockIdx.x * p.cx;
   const Cell me = cell_at<kBC>(tid - tv * plane, act, p, sy, sx, k.s[0]);
   const size_t pstride = (size_t)p.py * p.px;
@@ -1286,6 +1345,8 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
       for (int i = tid; i < p.n_entries; i += blockDim.x) f(i);
     }
   };
+  // whether slab j is this CTA's to write
+  const auto owns = [&](int j) { return j >= sg.s0 && j < sg.s1; };
 
   {
     // a DAG: `n_fields` field streams, entries with several producers.
@@ -1375,14 +1436,16 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
 #pragma unroll
     for (int f = 0; f < kPreFields; ++f) {
       if (!kW && act && f < p.n_fields) {
-        prefetch_slab<1>(nxt[f], gp + f * fstride + me.own.g, tv, vt, nr,
-                         p.dom, pstride);
+        prefetch_slab<1>(nxt[f],
+                         gp + f * fstride + me.own.g +
+                             (size_t)sg.a * V * pstride,
+                         tv, vt, nr, p.dom - sg.a * V, pstride);
       }
     }
-    for (int t = 0; t < p.ticks; ++t) {
+    for (int t = sg.a; t < sg.t_end; ++t) {
       if (t < nslabs) {
         // push slab t of every field stream; a field carried unchanged is
-        // written out as it streams in
+        // written out as it streams in, in the slabs this CTA owns
         cells([&](const Cell& cl) {
 #pragma unroll
           for (int f = 0; f < (K::kBig ? p.n_fields : kMaxFields); ++f) {
@@ -1393,8 +1456,9 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                   gp + f * fstride + cl.own.g,
                   st.slots ? win + st.base * V * plane : (T*)nullptr,
                   st.slots * V,
-                  st.out && cl.writes ? out + f * fstride + cl.own.g
-                                      : (T*)nullptr,
+                  st.out && cl.writes && owns(t)
+                      ? out + f * fstride + cl.own.g
+                      : (T*)nullptr,
                   t, tv, vt, nr, V, p.dom, pstride, plane, cl.cell);
             }
           }
@@ -1404,7 +1468,8 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
         const DR& en = rec[e];
         DT r;
         r.j = t - en.lag;
-        r.flags = (r.j >= 0 && r.j < nslabs) | ((en.iteration < p.steps) << 1);
+        r.flags =
+            (r.j >= sg.a && r.j < nslabs) | ((en.iteration < p.steps) << 1);
         const unsigned x0 = min(max(r.j, 0), nslabs - 1) * V;
         r.m = x0 % (unsigned)ring_of(en, 0).slots;
         r.outo = en.out_slots
@@ -1491,7 +1556,7 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                 }
                 if (fill_edge) val = narrow<T>(fill);
                 if (ring) win[r.outo + row * plane + cl.cell] = val;
-                if (en.field >= 0 && cl.writes) {
+                if (en.field >= 0 && cl.writes && owns(r.j)) {
                   out[en.field * fstride + (size_t)x * pstride + cl.own.g] =
                       val;
                 }
@@ -1602,7 +1667,7 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
                                              (size_t)x * pstride + cl.own.g));
                 }
                 if (ring) win[r.outo + row * plane + cl.cell] = val;
-                if (en.field >= 0 && cl.writes) {
+                if (en.field >= 0 && cl.writes && owns(r.j)) {
                   out[en.field * fstride + (size_t)x * pstride + cl.own.g] =
                       val;
                 }
@@ -1616,29 +1681,514 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ gp,
   }
 }
 
-// --- The main-path and chain bodies ----------------------------------------
+// --- The DAG bodies' one-barrier form ---------------------------------------
 
-// The stream rows one CTA of the main-path or chain body owns: blockIdx.y
-// is its block row plus `nby` times its segment, which writes slabs [s0,
-// s1) and streams them from slab a = s0 - warm on (from 0 at most), over
-// ticks [a, t_end): the last slab's output lag past s1.
-struct Segment {
-  int sy;      // block start along y, in padded coordinates
-  int s0, s1;  // the slabs it writes
-  int a;       // the first slab it streams
-  int t_end;   // one past its last tick
+constexpr int kWinForm = 4;   // its form id (kernels/builder.py: WIN_FORM)
+constexpr int kNoOp = 8;      // a state node no output drains: an alias
+constexpr int kCarries = 4;   // register carries (kernels/builder.py: CARRIES)
+
+// One entry of the one-barrier form, flattened for shared memory: its lag,
+// op (a state node that drains to an output selects; one that does not is
+// kNoOp), whether it computes (`live`: its iteration is < steps), the
+// field it drains to, its own ring (first cell, rows) and register carry,
+// whether a consumer reads it (single-boundary: it is re-imposed), its
+// stage's tables, kinds and fill, and per input the ring (first cell,
+// rows) and carry of the value it reads, state nodes resolved by `steps`.
+struct WinRec {  // 144 bytes; `c` 16-byte aligned
+  int lag, op, live, field;
+  int out_base, out_slots, out_reg, n_in;
+  int tap_lo, tap_n, coeff_lo, kinds;
+  float fill;
+  int consumed, pad0, pad1;
+  int in_base[kMaxInputs];
+  int in_slots[kMaxInputs];
+  int in_reg[kMaxInputs];
+  float c[8];
+};
+// kernels/builder.py prices its tables with WINREC_BYTES, WINTICK_BYTES
+static_assert(sizeof(WinRec) == 144, "WinRec layout changed");
+
+// One entry at one tick: the cell offset of its slab in its own ring, and
+// the slot (relative to the ring) of that slab in each input's ring.
+struct WinTick {  // 32 bytes: two 16-byte loads
+  int outo, pad0, pad1, pad2;
+  int m[kMaxInputs];
+};
+static_assert(sizeof(WinTick) == 32, "WinTick layout changed");
+
+// A tap of a tap table as the one-barrier form reads it away from the
+// stream's ends, its blocked-axis offset unclipped: its stream offset, its
+// offset in the plane, and its coefficient.
+struct TapX {  // 16 bytes: one load
+  int ds, dcell;
+  float c;
+  int pad;
 };
 
-__device__ __forceinline__ Segment segment_of(const Params& p, int nslabs) {
-  const int k = blockIdx.y / p.nby;
-  Segment s;
-  s.sy = (blockIdx.y - k * p.nby) * p.cy;
-  s.s0 = k * p.seg;
-  s.s1 = min(s.s0 + p.seg, nslabs);
-  s.a = max(s.s0 - p.warm, 0);
-  s.t_end = s.s1 + (p.ticks - nslabs);
-  return s;
+// A tap table as `tap_sum`, whose taps in the cell's own column (dy = dx =
+// 0) read the thread's own cell `own`: in the one-barrier form a thread
+// reads another thread's cell only in rows written at an earlier tick.
+template <bool kBC, class T>
+__device__ __forceinline__ float tap_sum_own(const Tap* taps, const float* c,
+                                             int tap_lo, int tap_n,
+                                             int coeff_lo, const T* ring,
+                                             int W, int m, int plane, int x,
+                                             int y, int xx, int own,
+                                             const Params& p, int ks,
+                                             float fill) {
+  float acc = 0.0f;
+  for (int n = 0; n < tap_n; ++n) {
+    const Tap tp = taps[tap_lo + n];
+    int r = x + tp.ds;
+    const bool oob = kBC && (r < 0 || r >= p.dom);
+    r = oob ? stream_row(r, p.dom, ks) : min(max(r, 0), p.dom - 1);
+    const int at = (tp.dy | tp.dx)
+                       ? min(max(y + tp.dy, 0), p.by - 1) * p.bx +
+                             min(max(xx + tp.dx, 0), p.bx - 1)
+                       : own;
+    const float v = oob && ks == kConstant
+                        ? fill
+                        : wide(ring[slot_of(m, r, x, W) * plane + at]);
+    const float term = mul(c[coeff_lo + tp.ci], v);
+    acc = n ? add(acc, term) : term;
+  }
+  return acc;
 }
+
+// The cells an unclipped blocked-axis tap of radius `rad` reaches before a
+// plane's first cell or past its last (kernels/builder.py: win_smem).
+__device__ __host__ __forceinline__ int win_pad(const Params& p) {
+  return p.rad * (p.by > 1 ? p.bx + 1 : 1);
+}
+
+// The DAG bodies at V = 1 in one barrier a tick (kOp = -2, -3; the layout
+// is kernels/builder.py win_layout, the table `_win_table`).  A CTA streams
+// its segment (`Segment`) one row a tick, a cell a thread.  Entry i
+// computes row t - lag_i at tick t; its lags keep every read of another
+// thread's cell in rows written at an earlier tick, so the tick's entries
+// run between one pair of barriers, each thread reading its own cell of
+// the rows written this tick (its producers ran before it in the same
+// thread).  Taps in the cell's own column read the thread's own cell: in
+// the single-boundary body the position a value is computed at (`edge`)
+// holds the same values as the cell, which kernels/builder.py own_columns
+// checks at plan time (a geometry where it does not runs `stream_kernel`); in
+// the mixed-boundary body a block off the grid's edges maps nothing.  A
+// state node copies nothing: its readers read the value it selects by
+// `steps` (resolved once, when the records are built), and it only drains
+// that value to its output field.  A value whose readers are combines at
+// its own lag stays in a register carry.  The mixed-boundary body's
+// grid-edge blocks (CTA-uniform; `slow`) re-impose every tap at read time
+// from other columns, so they read rings only, behind a barrier after the
+// push and after every entry.  Each thread of the first n_entries builds
+// its entry's tick record for the next tick, into the other of two
+// buffers, from slots it turns over by one a tick.  A row `rad` rows
+// inside the stream's ends (CTA-uniform: `fast`) reads its tap tables from
+// `TapX` records and its custom taps at plain offsets, neither clipping
+// to the block: a tap that leaves the block reads a cell of the padded
+// rings, and only a cell within the stage's radius of the block's sides
+// (in the halo, which the overlap discards: its values reach no compute
+// cell within the super-step) reads one.  The entries that only alias
+// are left out of the tick.  A CTA has up to 1024 threads (a 3D plane of
+// 32 x 32 cells), so 64 registers a thread; at 48 and 40 registers (five
+// and six CTAs of 256 threads an SM) wave2d and diamond2d ran slower on
+// an H100.
+template <int kOp, class T, bool kBC>
+__global__ void __launch_bounds__(1024, 1)
+    dag_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
+               T* __restrict__ out, const Params p,
+               const __grid_constant__ Program k, long long member_stride,
+               long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
+  constexpr bool kMix = kOp == kMixBody;
+  // the rings, after `pad` cells that an unclipped tap may reach before the
+  // first (as many follow the last)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const win = reinterpret_cast<T*>(smem_raw) + win_pad(p);
+  __shared__ WinRec rec[kMaxEntries];
+  __shared__ WinTick trec[2][kMaxEntries];
+  __shared__ Tap s_taps[kMaxTaps];
+  __shared__ TapX s_tapx[kMaxTaps];
+  __shared__ float s_c[kMaxCoeffs];
+  __shared__ int s_act[kMaxEntries + 1];  // the entries that compute, count
+  const int plane = p.by * p.bx;
+  const int tid = threadIdx.x;
+  const int nslabs = p.ns;
+  const int n = p.n_entries;
+  const int F = p.n_fields;
+  const Segment sg = segment_of(p, nslabs);
+  const int sx = blockIdx.x * p.cx;
+  const Cell me = cell_at<kBC>(tid, tid < plane, p, sg.sy, sx, k.s[0]);
+  const size_t pstride = (size_t)p.py * p.px;
+  const size_t fstride = (size_t)p.ns * pstride;  // one field's grid
+  // the grid's edges in block coordinates, and whether the mixed body
+  // re-imposes in this block (CTA-uniform): a grid edge along an axis
+  // that is not periodic
+  const int loy = p.hy - sg.sy, hiy = p.dy - 1 + p.hy - sg.sy;
+  const int lox = p.hx - sx, hix = p.dx - 1 + p.hx - sx;
+  const bool slow =
+      kMix && ((k.s[0].ky != kPeriodic && (loy > 0 || hiy < p.by - 1)) ||
+               (k.s[0].kx != kPeriodic && (lox > 0 || hix < p.bx - 1)));
+
+  // the records: each input's value resolved through the state nodes
+  int cnt[kMaxInputs + 1];  // entry tid's slots at the tick being built
+  const auto resolve = [&](int v) {
+    while (v >= F && k.e[v - F].stage < 0) {
+      const Entry& e = k.e[v - F];
+      v = e.iteration < p.steps ? e.in_base[0] : e.in_base[1];
+    }
+    return v;
+  };
+  const auto wrap = [](int x, int w) {
+    const int m = x % w;
+    return m < 0 ? m + w : m;
+  };
+  if (tid < n) {  // a thread per entry (the launcher's rule)
+    const Entry en = k.e[tid];
+    WinRec r = {};
+    r.lag = en.lag;
+    r.field = en.field;
+    r.out_base = en.out_base * plane;
+    r.out_slots = en.out_slots;
+    r.out_reg = en.pad;
+    r.consumed = en.out_slots > 0 || en.pad >= 0;
+    r.live = 1;
+    int ins[kMaxInputs] = {0, 0, 0, 0};
+    if (en.stage >= 0) {
+      const Stage st = k.s[en.stage];
+      r.op = st.op;
+      r.live = en.iteration < p.steps;
+      r.n_in = en.n_in;
+      r.tap_lo = st.tap_lo;
+      r.tap_n = st.tap_n;
+      r.coeff_lo = st.coeff_lo;
+      r.kinds = st.ks | (st.ky << 8) | (st.kx << 16);
+      r.fill = wide(narrow<T>(st.fill));
+      for (int z = 0; z < 8; ++z) {
+        r.c[z] = st.op < kTapOp && st.coeff_lo + z < kMaxCoeffs
+                     ? k.c[st.coeff_lo + z]
+                     : 0.0f;
+      }
+      for (int z = 0; z < en.n_in; ++z) ins[z] = resolve(en.in_base[z]);
+    } else {
+      r.op = en.field >= 0 ? kSelectOp : kNoOp;
+      r.n_in = 1;
+      ins[0] = resolve(F + tid);
+    }
+    for (int z = 0; z < kMaxInputs; ++z) {
+      int base = 0, slots = 1, reg = -1;
+      if (z < r.n_in) {
+        const int v = ins[z];
+        if (v < F) {
+          base = k.f[v].base;
+          slots = k.f[v].slots;
+        } else {
+          base = k.e[v - F].out_base;
+          slots = k.e[v - F].out_slots;
+          reg = k.e[v - F].pad;
+        }
+      }
+      r.in_base[z] = base * plane;
+      r.in_slots[z] = max(slots, 1);
+      r.in_reg[z] = reg;
+    }
+    rec[tid] = r;
+    // the slots of the first tick's rows, and its tick record
+    const int j0 = sg.a - r.lag;
+    cnt[0] = wrap(j0, max(r.out_slots, 1));
+    WinTick w;
+    w.outo = r.out_base + cnt[0] * plane;
+    w.pad0 = w.pad1 = w.pad2 = 0;
+#pragma unroll
+    for (int z = 0; z < kMaxInputs; ++z) {
+      cnt[z + 1] = wrap(j0, r.in_slots[z]);
+      w.m[z] = cnt[z + 1];
+    }
+    trec[sg.a & 1][tid] = w;
+  }
+  for (int z = tid; z < kMaxTaps; z += blockDim.x) {
+    const Tap tp = k.taps[z];
+    s_taps[z] = tp;
+    // the coefficient of the tap table that holds tap z
+    float c = 0.0f;
+    for (int st = 0; st < kMaxStages; ++st) {
+      const Stage& sg_ = k.s[st];
+      if (sg_.op == kTapOp && z >= sg_.tap_lo && z < sg_.tap_lo + sg_.tap_n &&
+          sg_.coeff_lo + tp.ci < kMaxCoeffs) {
+        c = k.c[sg_.coeff_lo + tp.ci];
+      }
+    }
+    s_tapx[z] = {tp.ds, tp.dy * p.bx + tp.dx, c, 0};
+  }
+  for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
+  __syncthreads();
+  if (tid == 0) {
+    int a = 0;
+    for (int i = 0; i < n; ++i) {
+      if (rec[i].op != kNoOp) s_act[a++] = i;
+    }
+    s_act[kMaxEntries] = a;
+  }
+  __syncthreads();
+  const int n_act = s_act[kMaxEntries];
+  const auto wrap1 = [](int s, int w) {  // one wrap into [0, w)
+    return s < 0 ? s + w : (s >= w ? s - w : s);
+  };
+
+  // the field streams: the first two loaded a tick ahead into registers,
+  // each ring's slot of the row pushed turned over by one a tick
+  constexpr int kPreFields = 2;
+  T nxt[kPreFields];
+  int fslot[kMaxFields];
+#pragma unroll
+  for (int f = 0; f < kMaxFields; ++f) {
+    fslot[f] = f < F && k.f[f].slots ? sg.a % k.f[f].slots : 0;
+    if (f < kPreFields) {
+      nxt[f] = me.act && f < F && sg.a < p.dom
+                   ? __ldg(gp + f * fstride + me.own.g +
+                           (size_t)sg.a * pstride)
+                   : narrow<T>(0.0f);
+    }
+  }
+  float carry[kCarries];
+#pragma unroll
+  for (int q = 0; q < kCarries; ++q) carry[q] = 0.0f;
+  const auto carry_get = [&](int s) {
+    float v = carry[0];
+#pragma unroll
+    for (int q = 1; q < kCarries; ++q) v = s == q ? carry[q] : v;
+    return v;
+  };
+  const auto carry_set = [&](int s, float v) {
+#pragma unroll
+    for (int q = 0; q < kCarries; ++q) carry[q] = s == q ? v : carry[q];
+  };
+
+  for (int t = sg.a; t < sg.t_end; ++t) {
+    if (t < nslabs) {
+      // push row t of every field stream; a field carried unchanged is
+      // written out as it streams in, in the rows this CTA owns
+#pragma unroll
+      for (int f = 0; f < kMaxFields; ++f) {
+        if (f < F) {
+          const Stream st = k.f[f];
+          if (me.act) {
+            const T* const src = gp + f * fstride + me.own.g;
+            T v;
+            if (f < kPreFields) {
+              v = nxt[f];
+              if (t + 1 < p.dom) {
+                nxt[f] = __ldg(src + (size_t)(t + 1) * pstride);
+              }
+            } else {
+              v = __ldg(src + (size_t)t * pstride);
+            }
+            if (st.slots) win[(st.base + fslot[f]) * plane + me.cell] = v;
+            if (st.out && me.writes && t >= sg.s0 && t < sg.s1) {
+              out[f * fstride + (size_t)t * pstride + me.own.g] = v;
+            }
+          }
+          fslot[f] = fslot[f] + 1 == st.slots ? 0 : fslot[f] + 1;
+        }
+      }
+    }
+    if (slow) __syncthreads();
+    const WinTick* const tr = trec[t & 1];
+    for (int ii = 0; ii < n_act; ++ii) {
+      const int i = s_act[ii];
+      const WinRec& en = rec[i];
+      const int j = t - en.lag;  // CTA-uniform
+      if (en.live && j >= sg.a && j < nslabs && me.act) {
+        const WinTick& r = tr[i];
+        const T* const in0 = win + en.in_base[0];
+        const int W = en.in_slots[0];
+        const int m = r.m[0];
+        const int ks = en.kinds & 0xff;
+        T val;
+        if (!slow) {
+          // no stream-axis tap of this entry clips or maps (CTA-uniform)
+          const bool fast = j >= p.rad && j + p.rad < p.dom;
+          // the cell computed at position q (taps around block cell (qy,
+          // qx)), its own column at its own cell
+          const bool at_edge = !kMix && en.consumed;
+          const Pos& q = at_edge ? me.edge : me.own;
+          const int qy = at_edge ? me.ey : me.ty;
+          const int qx = at_edge ? me.ex : me.tx;
+          const int qcell = qy * p.bx + qx;
+          // input z's row j at the thread's own cell
+          const auto input = [&](int z) {
+            return en.in_reg[z] >= 0
+                       ? carry_get(en.in_reg[z])
+                       : wide(win[en.in_base[z] + r.m[z] * plane + me.cell]);
+          };
+          if (en.op == kSelectOp) {
+            val = narrow<T>(input(0));
+          } else if (en.op == kCombineOp) {
+            // make_combine's apply: w0*x0, then + w_z*x_z in input order
+            float acc = mul(s_c[en.coeff_lo], input(0));
+            for (int z = 1; z < en.n_in; ++z) {
+              acc = add(acc, mul(s_c[en.coeff_lo + z], input(z)));
+            }
+            val = narrow<T>(acc);
+          } else if (en.op == kTapOp) {
+            if (fast) {
+              float acc = 0.0f;
+              for (int q = 0; q < en.tap_n; ++q) {
+                const TapX tp = s_tapx[en.tap_lo + q];
+                const int at = tp.dcell ? qcell + tp.dcell : me.cell;
+                const float term =
+                    mul(tp.c, wide(in0[wrap1(m + tp.ds, W) * plane + at]));
+                acc = q ? add(acc, term) : term;
+              }
+              val = narrow<T>(acc);
+            } else {
+              val = narrow<T>(tap_sum_own<kBC>(s_taps, s_c, en.tap_lo,
+                                               en.tap_n, en.coeff_lo, in0, W,
+                                               m, plane, j, qy, qx, me.cell,
+                                               p, ks, en.fill));
+            }
+#if STENCIL_CUSTOM
+          } else if (en.op == kCustomOp) {
+            // input z's tap, taps in the own column at the own cell
+            val = narrow<T>(custom::custom_apply(
+                en.tap_lo,
+                [&](int z, int ds, int dy, int dx) {
+                  if (fast) {
+                    return wide(win[en.in_base[z] +
+                                    wrap1(r.m[z] + ds, en.in_slots[z]) *
+                                        plane +
+                                    ((dy | dx) ? qcell + dy * p.bx + dx
+                                               : me.cell)]);
+                  }
+                  int rr = j + ds;
+                  const bool oob = kBC && (rr < 0 || rr >= p.dom);
+                  if (oob && ks == kConstant) return en.fill;
+                  rr = oob ? stream_row(rr, p.dom, ks)
+                           : min(max(rr, 0), p.dom - 1);
+                  const int o = (dy | dx)
+                                    ? min(max(qy + dy, 0), p.by - 1) * p.bx +
+                                          min(max(qx + dx, 0), p.bx - 1)
+                                    : me.cell;
+                  return wide(win[en.in_base[z] +
+                                  slot_of(r.m[z], rr, j, en.in_slots[z]) *
+                                      plane +
+                                  o]);
+                },
+                s_c + en.coeff_lo, [&] {
+                  return wide(__ldg(aux + (size_t)j * pstride + q.g));
+                }));
+#endif
+          } else {
+            float c[8];
+            for (int z = 0; z < 8; ++z) c[z] = en.c[z];
+            Pos qc = q;
+            qc.c = me.cell;
+            val = narrow<T>(table2_op(
+                en.op, in0 + slot_up<kBC>(m, j, W, ks) * plane,
+                in0 + m * plane,
+                in0 + slot_dn<kBC>(m, j, W, p.dom, ks) * plane, qc, c,
+                ends<kBC>(j, p.dom, ks, en.fill), aux,
+                (size_t)j * pstride));
+          }
+          if (at_edge && me.fill_edge) val = narrow<T>(en.fill);
+          if (en.out_reg >= 0) {
+            carry_set(en.out_reg, wide(val));
+          } else if (en.out_slots) {
+            win[r.outo + me.cell] = val;
+          }
+        } else {
+          const int ky = (en.kinds >> 8) & 0xff, kx = en.kinds >> 16;
+          // where a tap at block cell (y, x) reads under this entry's
+          // blocked-axis kinds: a plane offset, or -1 for the fill
+          const auto at = [&](int y, int x) {
+            y = reimposed(y, loy, hiy, p.by, ky);
+            x = reimposed(x, lox, hix, p.bx, kx);
+            return y < 0 || x < 0 ? -1 : y * p.bx + x;
+          };
+          const int oc = at(me.ty, me.tx);
+          // input z's tap (ds, dy, dx) of row j under this entry's kinds:
+          // a stream row past the rows follows ks (constant: the fill), a
+          // blocked position clips to the block and is then re-imposed
+          const auto tap_of = [&](int z, int ds, int dy, int dx) {
+            int rr = j + ds;
+            const bool oob = rr < 0 || rr >= p.dom;
+            if (oob && ks == kConstant) return en.fill;
+            rr = oob ? stream_row(rr, p.dom, ks) : rr;
+            const int o = at(min(max(me.ty + dy, 0), p.by - 1),
+                             min(max(me.tx + dx, 0), p.bx - 1));
+            return o < 0 ? en.fill
+                         : wide(win[en.in_base[z] +
+                                    slot_of(r.m[z], rr, j, en.in_slots[z]) *
+                                        plane +
+                                    o]);
+          };
+          const auto tap = [&](int ds, int dy, int dx) {
+            return tap_of(0, ds, dy, dx);
+          };
+          if (en.op == kSelectOp) {
+            val = win[en.in_base[0] + m * plane + me.cell];
+          } else if (en.op == kCombineOp) {
+            const auto in = [&](int z) {
+              return oc < 0 ? en.fill
+                            : wide(win[en.in_base[z] + r.m[z] * plane + oc]);
+            };
+            float acc = mul(s_c[en.coeff_lo], in(0));
+            for (int z = 1; z < en.n_in; ++z) {
+              acc = add(acc, mul(s_c[en.coeff_lo + z], in(z)));
+            }
+            val = narrow<T>(acc);
+          } else if (en.op == kTapOp) {
+            float acc = 0.0f;
+            for (int q = 0; q < en.tap_n; ++q) {
+              const Tap tp = s_taps[en.tap_lo + q];
+              const float term =
+                  mul(s_c[en.coeff_lo + tp.ci], tap(tp.ds, tp.dy, tp.dx));
+              acc = q ? add(acc, term) : term;
+            }
+            val = narrow<T>(acc);
+#if STENCIL_CUSTOM
+          } else if (en.op == kCustomOp) {
+            val = narrow<T>(custom::custom_apply(
+                en.tap_lo, tap_of, s_c + en.coeff_lo, [&] {
+                  return wide(__ldg(aux + (size_t)j * pstride + me.own.g));
+                }));
+#endif
+          } else {
+            val = narrow<T>(table2_get(en.op, tap, en.c, aux,
+                                       (size_t)j * pstride + me.own.g));
+          }
+          if (en.out_slots) win[r.outo + me.cell] = val;
+        }
+        if (en.field >= 0 && me.writes && j >= sg.s0 && j < sg.s1) {
+          out[en.field * fstride + (size_t)j * pstride + me.own.g] = val;
+        }
+      }
+      if (slow) __syncthreads();
+    }
+    if (tid < n) {  // entry tid's record for the next tick
+      const WinRec& r = rec[tid];
+      cnt[0] = cnt[0] + 1 == max(r.out_slots, 1) ? 0 : cnt[0] + 1;
+      WinTick w;
+      w.outo = r.out_base + cnt[0] * plane;
+      w.pad0 = w.pad1 = w.pad2 = 0;
+#pragma unroll
+      for (int z = 0; z < kMaxInputs; ++z) {
+        cnt[z + 1] = cnt[z + 1] + 1 == r.in_slots[z] ? 0 : cnt[z + 1] + 1;
+        w.m[z] = cnt[z + 1];
+      }
+      trec[(t + 1) & 1][tid] = w;
+    }
+    __syncthreads();
+  }
+}
+
+
+// --- The main-path and chain bodies ----------------------------------------
 
 // cp.async of one 4-byte word, `src_bytes` of it read and the rest
 // zero-filled; commit groups; wait until at most `n` (0..3) groups of this
@@ -2463,16 +3013,18 @@ cudaError_t launch_kernel(F kernel, const Params& p, const K& k,
 }
 
 // The form a launch whose `p.vt` and `p.rows` are set runs (the main
-// path's register form aside): the large-table route and planes over 1024
-// cells the wide form.
+// path's register form aside): the DAG bodies' one-barrier form where
+// `p.win` asks for it, the large-table route and planes over 1024 cells
+// the wide form.
 int form_of(const Params& p, bool big) {
+  if (p.win) return kWinForm;
   if (big || p.by * p.bx > kMaxThreads) return kWide;
   if (p.V == 1) return kVecOne;
   return p.rows == 1 ? kOneRow : kRows;
 }
 
-// The DAG bodies' forms: those of the first slices run `stream_kernel`,
-// the later ones `stream_kernel_x`.
+// The DAG bodies' table-driven forms: the single-boundary body's first
+// three forms run `stream_kernel`, the rest `stream_kernel_x`.
 template <int kOp, int kForm, class T, bool kBC>
 cudaError_t launch_as(const Params& p, const Program& k, const Launch& l) {
   if constexpr (kForm == kWide || kOp == kMixBody) {
@@ -2482,9 +3034,13 @@ cudaError_t launch_as(const Params& p, const Program& k, const Launch& l) {
   }
 }
 
+// The DAG bodies: the one-barrier form (`dag_kernel`), or the table-driven
+// form of the launch.
 template <int kOp, class T, bool kBC>
 cudaError_t launch_dag(const Params& p, const Program& k, const Launch& l) {
   switch (form_of(p, false)) {
+    case kWinForm:
+      return launch_kernel<T>(dag_kernel<kOp, T, kBC>, p, k, l);
     case kWide:
       return launch_as<kOp, kWide, T, kBC>(p, k, l);
     case kVecOne:
@@ -2625,8 +3181,9 @@ int cta_threads(int kernel_op, int bcs, Params& p, int batch,
 
 // Whether the stream split of a launch whose grid has `grid_y` rows holds
 // together: `nby` block rows times the segments that `seg` slabs each
-// make of the stream, a warm-up the DAG bodies do without (their grid is
-// one segment), and copies ahead only in the main path's register form.
+// make of the stream, copies ahead only in the main path's register form,
+// and the one-barrier form only for a DAG at V = 1 whose table is a
+// kernel parameter and whose plane a CTA's threads cover.
 bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
   if (p.nby < 1 || p.seg < 1 || p.warm < 0 || p.V < 1 || grid_y < 1 ||
       grid_y % p.nby != 0) {
@@ -2638,7 +3195,10 @@ bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
       (long long)nseg * p.seg < nslabs) {
     return false;
   }
-  if (kernel_op < kChainBody && (nseg != 1 || p.warm != 0)) return false;
+  if (p.win != 0 && (p.win != 1 || kernel_op >= kChainBody || big ||
+                     p.V != 1 || p.by * p.bx > kMaxThreads || p.look != 0)) {
+    return false;
+  }
   if (p.look == 0) return true;
   return kernel_op >= 0 && !big && p.V == 1 &&
          p.by * p.bx <= (p.n_entries > kMaxWideWindowEntries ? 512
@@ -2667,6 +3227,9 @@ cudaError_t launch_custom(const Params& p, const K& k, const Launch& l) {
   } else if constexpr (CUSTOM_BODY == kChainBody) {
     return launch_kernel<Storage>(
         chain_kernel<CUSTOM_FORM, Storage, CUSTOM_BC != 0>, p, k, l);
+  } else if constexpr (CUSTOM_FORM == kWinForm) {
+    return launch_kernel<Storage>(
+        dag_kernel<CUSTOM_BODY, Storage, CUSTOM_BC != 0>, p, k, l);
   } else {
     return launch_kernel<Storage>(
         stream_kernel_x<CUSTOM_BODY, CUSTOM_FORM, Storage, CUSTOM_BC != 0>, p,

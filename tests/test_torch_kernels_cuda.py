@@ -9,7 +9,8 @@ block planes over 1024 cells (the wide form), tables past the kernel
 parameter's capacities (the large-table route), stencils with a custom
 ``apply`` (device functions generated per program), and the stream cut
 into more segments than the launcher would (each CTA of a block
-streaming its own after a warm-up) in every form.  Needs an
+streaming its own after a warm-up) in every form, DAGs in the DAG bodies'
+one-barrier form and in the per-entry-barrier forms.  Needs an
 sm_90 device and ``nvcc``; skipped otherwise.  Run on a card with
 ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py -m gpu``.
 """
@@ -1166,3 +1167,122 @@ def test_split_stream_equals_plain_version(cuda, case):
         assert split.barriers == 1
         assert (split.look > 0) == (V == 1 and par_time <= 16
                                     and math.prod(bsize) <= 1024)
+
+
+# --- the DAG bodies' stream split and one-barrier form -----------------------
+
+SPLIT_DAGS = [  # (id, program, dims, boundary, par_time, bsize, par_vec,
+    # dtype, segments, batch and its aux): every DAGS case and the
+    # mixed-boundary, custom, batch, bf16, V > 1, wide and large-table DAGs,
+    # the stream cut into a few slabs a segment
+    *[(f"{c[0]}_split", c[1], c[2], c[3], c[4], c[5], 1, "float32",
+       4 if len(c[2]) == 3 else 6, None) for c in DAGS],
+    ("diamond_reflect_overhang", _diamond, (33, 150), "reflect", 2, (40,), 1,
+     "float32", 6, None),
+    ("diamond_mixed", _mixed_diamond, (33, 150), "clamp", 2, (40,), 1,
+     "float32", 6, None),
+    ("diamond_mixed_bf16", _mixed_diamond, (33, 150), "clamp", 2, (40,), 1,
+     "bfloat16", 6, None),
+    ("wave3d_mixed", _mixed_wave(3), (21, 30, 45), "clamp", 2, (16, 16), 1,
+     "float32", 4, None),
+    ("hotspot_dag_mixed_bf16", _mixed_hotspot_dag, (25, 170), "clamp", 3,
+     (32,), 1, "bfloat16", 5, None),
+    ("gray_scott2d", _gray_scott, (37, 300), "periodic", 4, (64,), 1,
+     "float32", 6, None),
+    ("fanin3_custom", _fanin3_custom, (29, 130), "periodic", 2, (32,), 1,
+     "float32", 5, None),
+    ("custom_mixed", _custom_mixed, (33, 150), "clamp", 2, (40,), 1,
+     "float32", 6, None),
+    ("wave2d_batch", lambda: _wave(2), (37, 300), "periodic", 4, (64,), 1,
+     "float32", 6, (3, None)),
+    ("hotspot_dag_batch_member_aux", _hotspot_dag, (25, 170),
+     ("clamp", "periodic"), 3, (32,), 1, "float32", 5, (3, "member")),
+    ("wave2d_bf16", lambda: _wave(2), (37, 300), "periodic", 4, (64,), 1,
+     "bfloat16", 6, None),
+    ("wave2d_v4", lambda: _wave(2), (37, 300), "periodic", 4, (64,), 4,
+     "float32", 3, None),
+    ("diamond_mixed_v2", _mixed_diamond, (33, 150), "clamp", 2, (40,), 2,
+     "float32", 4, None),
+    ("wave2d_wide_periodic", lambda: _wave(2), (33, 2500), "periodic", 2,
+     (1100,), 1, "float32", 5, None),
+    ("wave2d_big_entries", lambda: _wave(2), (40, 128), "clamp", 20, (96,),
+     1, "float32", 3, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_DAGS, ids=lambda c: c[0])
+def test_split_dag_equals_plain_version(cuda, case):
+    """One DAG super-step with the stream cut into about ``segments``
+    segments, bit for bit against the plain version into a NaN-filled
+    output, with and without forwarding through the state nodes: the
+    one-barrier form (one barrier a tick) wherever ``win_form`` allows it,
+    else a per-entry-barrier form that says why; a batch equals its
+    members' single split launches, and V > 1 equals V = 1 on the stream's
+    rows."""
+    _, program, dims, bc, par_time, bsize, V, dtype, segments, batch = case
+    problem = StencilProblem(program(), dims, boundary=bc, dtype=dtype)
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize, par_vec=V)).geometry
+    if batch is None:
+        g, aux = _state(problem, cuda, seed=60)
+    else:
+        g, aux = _batch_state(problem, batch[0], batch[1], cuda, seed=60)
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    dag = problem.exec_dag
+    assert problem.is_dag
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    nslabs = gp.shape[-geom.ndim] // V
+    why = builder.win_form(dag, geom, gp.element_size())
+    h = geom.size_halo
+    rows = (Ellipsis, slice(0, builder._stream_dom(geom, bc0))) + tuple(
+        slice(h, h + n * cs) for n, cs in zip(geom.bnum, geom.csize))
+    for steps in (par_time, par_time - 1):
+        out = torch.full_like(gp, float("nan"))
+        builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out,
+                              _segments=segments)
+        torch.cuda.synchronize()
+        split = builder.LAST_SPLIT
+        assert split.nseg > 1 and split.nseg == -(-nslabs // split.seg)
+        assert split.warm == builder.stream_warmup(dag, geom)
+        if why is None:
+            assert split.barriers == 1
+            assert split.kernel.startswith("dag_kernel<")
+        else:
+            assert split.barriers == split_entries(dag, par_time) + 1
+            assert why in split.form
+        plain = torch.full_like(gp, float("nan"))
+        builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p, plain)
+        assert torch.equal(out.nan_to_num(-7.0), plain.nan_to_num(-7.0))
+        if batch is not None:
+            for b in range(batch[0]):
+                single = torch.full_like(gp[b], float("nan"))
+                builder.superstep_dag(
+                    dag, geom, gp[b].contiguous(), c, steps,
+                    aux_p[b].contiguous() if batch[1] == "member" else aux_p,
+                    out=single, _segments=segments)
+                assert torch.equal(out[b].nan_to_num(-7.0),
+                                   single.nan_to_num(-7.0)), b
+        if V > 1:
+            geom1 = plan(problem, RunConfig(
+                backend="hopper", par_time=par_time, bsize=bsize,
+                par_vec=1)).geometry
+            gp1 = ops._pad_blocked(g, geom1, bc0)
+            aux1 = None if aux is None else ops._pad_blocked(aux, geom1,
+                                                             bc0)
+            out1 = torch.full_like(gp1, float("nan"))
+            builder.superstep_dag(dag, geom1, gp1, c, steps, aux1, out=out1,
+                                  _segments=segments * V)
+            assert torch.equal(out[rows], out1[rows])
+    if "mixed" in case[0]:
+        assert builder.mixes_boundaries(dag, geom.ndim)
+    if "reflect_overhang" in case[0]:
+        assert why is not None and "reflect" in why
+
+
+def split_entries(dag, par_time):
+    """The unrolled entries of ``dag``: a per-entry-barrier form takes one
+    barrier after each, and one after the push."""
+    from repro_torch.programs import unroll_dag
+    return len(unroll_dag(dag, par_time).entries)

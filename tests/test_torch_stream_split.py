@@ -1,22 +1,25 @@
-"""The stream split of ``csrc/stencil_stream.cu``'s chain and main-path
-bodies, in its pure-Python parts: ``kernels/builder.segment_plan`` (the
-segments of the stream each CTA of a block streams), the warm-up a segment
-streams before its own rows (``stream_warmup``), the main path's register
-form and its shared memory (``main_look``, ``window_smem``), and that no
-geometry the kernel took before the split is refused now.  The segments'
-arithmetic is replayed on the plain version: a segment whose rows before
-its warm-up hold NaN still gives the rows it owns bit for bit."""
+"""The stream split of ``csrc/stencil_stream.cu``'s bodies, in its
+pure-Python parts: ``kernels/builder.segment_plan`` (the segments of the
+stream each CTA of a block streams), the warm-up a segment streams before
+its own rows (``stream_warmup``), the main path's register form and its
+shared memory (``main_look``, ``window_smem``), and that no geometry the
+kernel took before the split is refused now, chains and DAGs.  The
+segments' arithmetic is replayed on the plain version, chains and DAGs
+(field streams, state nodes, mixed boundaries, custom ``apply``): a
+segment whose rows before its warm-up hold NaN in every field still gives
+the rows it owns bit for bit."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import RunConfig, StencilProblem, StencilStage, plan
-from repro_torch.core import blocking
-from repro_torch.core.stencils import STENCILS, make_star
+from repro_torch.api import (RunConfig, StencilProblem, StencilProgram,
+                             StencilStage, plan)
+from repro_torch.core import blocking, stencils
+from repro_torch.core.stencils import STENCILS, make_combine, make_star
 from repro_torch.kernels import builder, ops
-from repro_torch.programs import chain_dag, dag_layout, unroll_dag
+from repro_torch.programs import DagSpec, chain_dag, dag_layout, unroll_dag
 
 #: (nslabs, warm, CTAs a segment, CTAs an SM, SMs, block rows)
 PLANS = [(16384, 8, 69, 4, 132, 1), (448, 4, 361, 1, 132, 19),
@@ -134,7 +137,7 @@ def test_register_form_holds_no_more_than_the_rings(ndim, bsize,
 def _parent_smem(geom, program, cell_bytes):
     """Shared memory the kernel took for ``program`` before the split: the
     layout's rings, ``par_vec`` rows a slot, and the tables."""
-    dag = chain_dag(program)
+    dag = program if isinstance(program, DagSpec) else chain_dag(program)
     wins = dag_layout(unroll_dag(dag, geom.par_time), geom.par_vec).wins
     smem = sum(wins) * geom.par_vec * math.prod(geom.bsize) * cell_bytes
     tab = builder.tables_of(geom, program)
@@ -146,9 +149,13 @@ def _sweep():
            ((STENCILS["hotspot2d"], None),),
            ((make_star(2, 1), None), (STENCILS["diffusion2d"], None)),
            ((STENCILS["diffusion2d"], None), (make_star(2, 0), None))]
+    two += [_wave(2).dag, _diamond().dag,
+            _mixed_diamond().resolved("clamp", (64, 9000)).dag,
+            _fanin4().dag]
     three = [((STENCILS["diffusion3d"], None),),
              ((STENCILS["hotspot3d"], None),),
-             ((make_star(3, 1), None), (STENCILS["diffusion3d"], None))]
+             ((make_star(3, 1), None), (STENCILS["diffusion3d"], None)),
+             _wave(3).dag]
     one = [((make_star(1, 2), None),)]
     for ndim, programs, sizes in ((2, two, [(64,), (256,), (1024,), (2048,),
                                             (4096,), (8192,)]),
@@ -165,8 +172,11 @@ def test_no_geometry_the_kernel_took_is_refused_now():
     """Every (program, bsize, par_time, par_vec, storage) whose rings and
     tables fit a CTA before the split (the layout's slots) still passes
     ``kernel_limits``: the register form needs no more shared memory, and
-    where it would not fit the ring form takes the plan."""
-    taken = 0
+    where it would not fit the ring form takes the plan.  A DAG (the wave
+    in 2D and 3D, the diamond, a mixed-boundary diamond, a 4-way fan-in)
+    runs the one-barrier form only where its deeper rings and tables fit
+    a CTA (``win_form``), else a form with the parent's rings."""
+    taken = dags = wins = 0
     for ndim, programs, bsize, T, V in _sweep():
         dims = {1: (4096,), 2: (64, 9000), 3: (16, 200, 200)}[ndim]
         try:
@@ -182,18 +192,121 @@ def test_no_geometry_the_kernel_took_is_refused_now():
                 assert builder.kernel_limits(geom, program,
                                              cell_bytes) is None, (
                     ndim, bsize, T, V, cell_bytes, program)
-    assert taken > 500
+                if not isinstance(program, DagSpec):
+                    continue
+                dags += 1
+                if builder.win_form(program, geom, cell_bytes) is None:
+                    wins += 1
+                    assert (builder.win_smem(program, geom, cell_bytes)
+                            + builder.WIN_TABLE_SMEM) <= blocking.SMEM_LIMIT
+    assert taken > 500 and dags > 100 and 0 < wins < dags
 
 
-CASES = [  # (stages, dims, boundary, par_time, bsize, par_vec)
-    (lambda: [StencilStage("diffusion2d")], (70, 90), "clamp", 4, (32,), 1),
-    (lambda: [StencilStage("hotspot2d")], (70, 90), "reflect", 3, (32,), 4),
+def _wave(nd):
+    """The wave equation: a star Laplacian of ``u`` fanned with ``u`` and
+    ``u_prev`` into a 3-way combine, both fields rotated (two state nodes
+    an iteration)."""
+    lap = {"c0": -2.0 * nd}
+    lap.update({f"c_{a}_{d}": 1.0 for a in range(nd) for d in (-1, 1)})
+    return StencilProgram(
+        (StencilStage(make_star(nd, 1), coeffs=lap, name="lapu",
+                      inputs=("u",)),
+         StencilStage(make_combine(nd, 3), name="unext",
+                      inputs=("u", "u_prev", "lapu"),
+                      coeffs={"w0": 2.0, "w1": -1.0, "w2": 0.16})),
+        fields=("u", "u_prev"), updates={"u": "unext", "u_prev": "u"})
+
+
+def _diamond():
+    s = make_star(2, 1)
+    return StencilProgram(
+        (StencilStage(s, name="a", inputs=("u",)),
+         StencilStage(s, name="b", inputs=("u",),
+                      coeffs={"c0": 0.5, "c_0_1": 0.2}),
+         StencilStage(make_combine(2, 2), name="m", inputs=("a", "b"),
+                      coeffs={"w0": 0.6, "w1": 0.4})))
+
+
+def _mixed_diamond():
+    """The diamond with its stages clamp, reflect and constant 0.5."""
+    a, b, m = _diamond().stages
+    return StencilProgram(
+        (StencilStage(a.stencil, name="a", inputs=("u",), boundary="clamp"),
+         StencilStage(b.stencil, name="b", inputs=("u",), coeffs=b.coeffs,
+                      boundary="reflect"),
+         StencilStage(m.stencil, name="m", inputs=("a", "b"),
+                      coeffs=m.coeffs, boundary="constant:0.5")))
+
+
+def _fanin4():
+    """Four inputs to one combine, radii 0 to 2, a field carried
+    unchanged."""
+    return StencilProgram(
+        (StencilStage(make_star(2, 2), name="s0", inputs=("f1",)),
+         StencilStage(make_star(2, 0), name="s1", inputs=("s0",)),
+         StencilStage(stencils.make_box(2, 1), name="s2", inputs=("f0",)),
+         StencilStage(make_combine(2, 4), name="out",
+                      inputs=("s1", "s2", "f0", "f1"))),
+        fields=("f0", "f1", "f2"), updates={"f0": "out", "f1": "f0"})
+
+
+def _lap2d(x):
+    return x((-1, 0)) + x((1, 0)) + x((0, -1)) + x((0, 1)) - 4.0 * x((0, 0))
+
+
+def _gray_scott():
+    """Pearson's reaction-diffusion: one custom stage a field, each
+    tapping its own field at radius 1 and reading the other's centre."""
+    def un(gets, c, aux=None):
+        u, v = gets[0]((0, 0)), gets[1]((0, 0))
+        return u + c["dt"] * (c["Du"] * _lap2d(gets[0]) - u * v * v
+                              + c["F"] * (1.0 - u))
+
+    def vn(gets, c, aux=None):
+        v, u = gets[0]((0, 0)), gets[1]((0, 0))
+        return v + c["dt"] * (c["Dv"] * _lap2d(gets[0]) + u * v * v
+                              - c["Fk"] * v)
+    gs_u = stencils.Stencil("gs_u", 2, 1, 15, 2, 1, False, ("Du", "F", "dt"),
+                            un, arity=2)
+    gs_v = stencils.Stencil("gs_v", 2, 1, 15, 2, 1, False, ("Dv", "Fk", "dt"),
+                            vn, arity=2)
+    return StencilProgram(
+        (StencilStage(gs_u, name="un", inputs=("u", "v"),
+                      coeffs={"Du": 0.16, "F": 0.035, "dt": 1.0}),
+         StencilStage(gs_v, name="vn", inputs=("v", "u"),
+                      coeffs={"Dv": 0.08, "Fk": 0.095, "dt": 1.0})),
+        fields=("u", "v"), updates={"u": "un", "v": "vn"})
+
+
+CASES = [  # (stages, dims, boundary, par_time, bsize, par_vec, tight): tight
+    # where the critical-path radius times par_time is what a wrong row
+    # travels, so one slab less of warm-up shows
+    (lambda: [StencilStage("diffusion2d")], (70, 90), "clamp", 4, (32,), 1,
+     True),
+    (lambda: [StencilStage("hotspot2d")], (70, 90), "reflect", 3, (32,), 4,
+     True),
     (lambda: [StencilStage(make_star(2, 1)), StencilStage("diffusion2d")],
-     (70, 90), "clamp", 2, (32,), 1),
+     (70, 90), "clamp", 2, (32,), 1, True),
     (lambda: [StencilStage("diffusion3d")], (40, 20, 20), "constant:0.5", 2,
-     (12, 12), 2),
-    (lambda: [StencilStage("star1d_r2")], (300,), "clamp", 4, (), 1),
-    (lambda: [StencilStage("star1d_r2")], (300,), "reflect", 4, (), 16),
+     (12, 12), 2, True),
+    (lambda: [StencilStage("star1d_r2")], (300,), "clamp", 4, (), 1, True),
+    (lambda: [StencilStage("star1d_r2")], (300,), "reflect", 4, (), 16, True),
+    # DAGs: field streams, state nodes, fan-in, mixed boundaries, custom
+    # apply, at V 1 and 4
+    (lambda: _wave(2), (71, 90), "periodic", 4, (32,), 1, True),
+    (lambda: _wave(2), (71, 90), "periodic", 3, (32,), 4, True),
+    (lambda: _wave(3), (41, 20, 20), "clamp", 2, (12, 12), 1, True),
+    (lambda: _wave(3), (41, 20, 20), "clamp", 3, (12, 12), 4, True),
+    (_diamond, (72, 90), "clamp", 2, (32,), 1, True),
+    (_diamond, (72, 90), "clamp", 3, (32,), 4, True),
+    (_mixed_diamond, (73, 90), "clamp", 2, (32,), 1, True),
+    (_mixed_diamond, (73, 90), "clamp", 2, (32,), 4, True),
+    (_gray_scott, (74, 90), "periodic", 3, (32,), 1, True),
+    (_gray_scott, (74, 90), "constant:0.0", 2, (32,), 4, True),
+    # the fan-in's field f0 reaches back 2 rows an iteration only through
+    # f1, which trails it: a wrong row travels less than 2 * par_time
+    (_fanin4, (75, 90), "periodic", 2, (32,), 1, False),
+    (_fanin4, (75, 90), "clamp", 3, (32,), 4, False),
 ]
 
 
@@ -202,19 +315,22 @@ CASES = [  # (stages, dims, boundary, par_time, bsize, par_vec)
 def test_a_segment_owns_its_rows_after_the_warm_up(case):
     """Replayed on the plain version: for each segment of a split into
     many, the stream rows before the segment's first streamed slab set to
-    NaN (what a CTA that starts there has not seen) change none of the
-    rows the segment owns, with and without PE forwarding."""
-    build, dims, bc, T, bsize, V = case
+    NaN in every field (what a CTA that starts there has not seen) change
+    none of the rows the segment owns, with and without PE forwarding
+    (through the state nodes of a DAG); where the warm-up is tight, one
+    slab less of it does."""
+    build, dims, bc, T, bsize, V, tight = case
     problem = StencilProblem(build(), dims, boundary=bc)
     geom = plan(problem, RunConfig(backend="hopper", par_time=T,
                                    bsize=bsize, par_vec=V,
                                    device="cpu")).geometry
     rng = np.random.default_rng(0)
-    g = torch.from_numpy(rng.uniform(0.5, 2.0, dims).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, problem.state_shape)
+                         .astype(np.float32))
     bc0 = problem.structural_bc
     gp = ops._pad_blocked(g, geom, bc0)
     aux = None
-    if any(st.has_aux for st, _ in problem.exec_stages):
+    if problem.needs_aux:
         a = torch.from_numpy(rng.uniform(0, 0.1, dims).astype(np.float32))
         aux = ops._pad_blocked(a, geom, bc0)
     dag = problem.exec_dag
@@ -228,6 +344,12 @@ def test_a_segment_owns_its_rows_after_the_warm_up(case):
     h = geom.size_halo
     cols = tuple(slice(h, h + n * cs) for n, cs in zip(geom.bnum,
                                                        geom.csize))
+
+    def at(rows):                  # stream rows of every field
+        return (Ellipsis, rows) + cols
+
+    def before(x):                 # stream rows [0, x) of every field
+        return (Ellipsis, slice(0, x)) + (slice(None),) * (geom.ndim - 1)
     for steps in (T, T - 1):
         full = builder.superstep_dag_plain(dag, geom, gp, c, steps, aux,
                                            torch.zeros_like(gp))
@@ -235,16 +357,16 @@ def test_a_segment_owns_its_rows_after_the_warm_up(case):
             s0, s1 = k * seg, min((k + 1) * seg, nslabs)
             a = max(s0 - warm, 0)
             cut = gp.clone()
-            cut[:a * V] = float("nan")
+            cut[before(a * V)] = float("nan")
             got = builder.superstep_dag_plain(dag, geom, cut, c, steps, aux,
                                               torch.zeros_like(gp))
             rows = slice(s0 * V, min(s1 * V, dom))
-            assert torch.equal(got[(rows,) + cols], full[(rows,) + cols])
-            if a > 0 and rows.start < rows.stop:
+            assert torch.equal(got[at(rows)], full[at(rows)])
+            if tight and a > 0 and rows.start < rows.stop:
                 # one slab less of warm-up would not do
                 short = gp.clone()
-                short[:(a + 1) * V] = float("nan")
+                short[before((a + 1) * V)] = float("nan")
                 bad = builder.superstep_dag_plain(
                     dag, geom, short, c, steps, aux, torch.zeros_like(gp))
                 if steps == T:
-                    assert bad[(rows,) + cols].isnan().any()
+                    assert bad[at(rows)].isnan().any()
