@@ -33,16 +33,22 @@ On one CUDA card, from the root of a checkout:
    ``benchmarks/programs.py::FULL_CASES`` and a 3D chain, at the same
    sizes): ``plan(StencilProblem([StencilStage(...), ...], dims),
    RunConfig(backend="hopper", ...)).run(grid, iters=2T+3)`` through the
-   kernel's chain form (Table-2 device functions and ``make_star`` tap
-   tables in one chain, radius-0 stages), asserting ``ceil(iters/T)``
-   launches and the result within ``precision.tolerance(..., stages=S)``
-   of the ``reference`` backend; prints run ms and GCell/s, one profiled
-   run, one super-step of the kernel against its plain version bit for
-   bit (with and without PE forwarding), kernel, plain and cuDNN
-   yardstick times (``S x T`` convolutions with the same taps) against
-   the bound, and the fused plan against ``S`` chained single-stage
-   ``hopper`` plans at T=1 (run ms, speedup, max abs difference within
-   the same tolerance);
+   chain body's one-barrier form, ``chain_win_kernel`` (Table-2 device
+   functions and ``make_star`` tap tables in one chain, radius-0
+   stages), asserting ``ceil(iters/T)`` launches, every one of them a
+   launch of that kernel (``builder.KERNEL_LAUNCHES``, set to empty just
+   before the run; every later counted run holds its launches to its
+   route the same way), and the result within
+   ``precision.tolerance(..., stages=S)`` of the ``reference`` backend;
+   prints run ms and GCell/s, one profiled run, one super-step of the
+   kernel against its plain version bit for bit (with and without PE
+   forwarding), kernel, plain and cuDNN yardstick times (``S x T``
+   convolutions with the same taps) against the bound, for
+   advect_diffuse2d the chain form's ring form at T = 8 (16 entries,
+   past the register form's 8) held bit for bit against the plain
+   version and timed, and the fused plan against ``S``
+   chained single-stage ``hopper`` plans at T=1 (run ms, speedup, max
+   abs difference within the same tolerance);
 6. drives the stage DAGs of ``DAGS`` (``benchmarks/programs.py::
    DAG_FULL_CASES``' wave equation and diamond, and the wave equation in
    3D, at the same sizes): ``plan(StencilProblem(program, dims,
@@ -91,7 +97,10 @@ On one CUDA card, from the root of a checkout:
     large-table route: per case a super-step bit for bit against the plain
     version, the counted run within tolerance of the reference backend,
     times with their spread, the bound, CTAs and redundancy, the
-    yardstick, and the rows of the same cell it is compared with;
+    yardstick, and the rows of the same cell it is compared with; for the
+    large-table chain also what bounds it: the cells its CTAs compute a
+    cell they own, its taps a cell, and the instructions and
+    shared-memory loads of one tap in ``chain_kernel_big``'s SASS;
 11. runs the custom phase (``CUSTOM_CASES``): programs of stencils with
     their own ``apply`` — Allen-Cahn at 16384², T=8, bsize 256 in f32 and
     bf16; the two-field periodic Gray-Scott DAG at 2 × 16384², T=4; upwind
@@ -198,9 +207,10 @@ FULL_DIMS = {2: (16384, 16384), 3: (448, 448, 448)}
 SCHEDULE = {2: (8, (256,)), 3: (4, (32, 32))}
 STENCILS = ("diffusion2d", "hotspot2d", "diffusion3d", "hotspot3d")
 SOURCE = "src/repro_torch/kernels/csrc/stencil_stream.cu"
-#: the names of its kernels: the main-path, chain and DAG bodies
-STENCIL_KERNELS = ("main_kernel", "chain_kernel", "stream_kernel",
-                   "dag_kernel")
+#: the names of its kernels: the main-path, chain and DAG bodies (the
+#: chain body's one-barrier form is ``chain_win_kernel``)
+STENCIL_KERNELS = ("main_kernel", "chain_kernel", "chain_win_kernel",
+                   "stream_kernel", "dag_kernel")
 REPLACES = "src/repro/kernels/builder.py:81"
 
 #: data-sheet peaks per card variant: (device-memory bytes/s, f32 FLOP/s
@@ -309,9 +319,11 @@ def drive_main_path(name, dims, par_time, bsize, device, seed=0) -> dict:
                        device=device))
     torch.cuda.synchronize()
     builder.LAUNCHES = 0
+    builder.KERNEL_LAUNCHES.clear()
     out = p.run(g, iters, aux=aux)
     torch.cuda.synchronize()
     launches = builder.LAUNCHES
+    by_kernel = launched_kernels(name, p)
     want = math.ceil(iters / par_time)
     if launches != want:
         raise AssertionError(f"{name}: run launched the kernel {launches} "
@@ -327,7 +339,7 @@ def drive_main_path(name, dims, par_time, bsize, device, seed=0) -> dict:
     err = (out - ref).abs().max().item()
     return {"iters": iters, "launches": launches,
             "oracle_max_abs_err": err, "plan": p, "g": g, "aux": aux,
-            "out": out}
+            "out": out, "launches_by_kernel": by_kernel}
 
 
 #: the marker kernel that :func:`device_profile` launches before and after
@@ -714,9 +726,11 @@ def drive_plan(name, problem, par_time, bsize, device, seed=0) -> dict:
                                 bsize=bsize, device=device))
     torch.cuda.synchronize()
     builder.LAUNCHES = 0
+    builder.KERNEL_LAUNCHES.clear()
     out = p.run(g, iters)
     torch.cuda.synchronize()
     launches = builder.LAUNCHES
+    by_kernel = launched_kernels(name, p)
     want = math.ceil(iters / par_time)
     if launches != want:
         raise AssertionError(f"{name}: run launched the kernel {launches} "
@@ -732,7 +746,8 @@ def drive_plan(name, problem, par_time, bsize, device, seed=0) -> dict:
     err = (out - ref).abs().max().item()
     del ref
     return {"iters": iters, "launches": launches, "oracle_max_abs_err": err,
-            "plan": p, "g": g, "aux": None, "out": out, "tol": tol}
+            "plan": p, "g": g, "aux": None, "out": out, "tol": tol,
+            "launches_by_kernel": by_kernel}
 
 
 def drive_program(name, device) -> dict:
@@ -853,6 +868,37 @@ def superstep_vs_plain(name, problem, geom, g, aux=None,
             **split}
 
 
+#: the chain whose 16 entries (T = 8) run the chain body's one-barrier
+#: form past its unrolled entries, the ring form: one super-step of it bit
+#: for bit against the plain version, and its time
+RING_FORM_CHAIN = ("advect_diffuse2d", 8)
+
+
+def ring_form_probe(name, problem, geom, g) -> dict:
+    """The chain body's one-barrier form in its ring form
+    (``chain_win_kernel<bc,0>``: the entries in a loop, every tap from the
+    rings) on :data:`RING_FORM_CHAIN` at the cell's grid and ``bsize``:
+    one super-step at ``steps = T`` and ``T - 1`` bit for bit against the
+    plain version, and its time (median of 5); ``{}`` for any other
+    chain."""
+    from repro_torch.api import RunConfig, plan
+    if name != RING_FORM_CHAIN[0]:
+        return {}
+    ring = plan(problem, RunConfig(backend="hopper",
+                                   par_time=RING_FORM_CHAIN[1],
+                                   bsize=geom.bsize, device=g.device))
+    res = superstep_vs_plain(f"{name} T={RING_FORM_CHAIN[1]}", problem,
+                             ring.geometry, g, plain_reps=0)
+    if not res["kernel"].endswith(",0>"):
+        raise AssertionError(f"{name} T={RING_FORM_CHAIN[1]}: "
+                             f"{res['kernel']} is not the ring form")
+    print(f"  probe ({name} T={RING_FORM_CHAIN[1]}): the chain form's ring "
+          f"form {res['kernel']} {res['ms']} (bit for bit with the plain "
+          f"version)", flush=True)
+    return {"ring_form_par_time": RING_FORM_CHAIN[1],
+            "ring_form_ms": res["ms"], "ring_form_kernel": res["kernel"]}
+
+
 def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     """One super-step of the chain kernel against its plain version, bit
     for bit, with and without PE forwarding; the times and the bound; and
@@ -867,6 +913,7 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     T = geom.par_time
     g = main["g"]
     res = superstep_vs_plain(name, problem, geom, g)
+    probe = ring_form_probe(name, problem, geom, g)
     library_err = check_program_yardstick(problem, T, g.device)
     library_ms = time_ms(program_yardstick(problem, g, T), reps=3)
     cells = math.prod(geom.dims)
@@ -890,7 +937,7 @@ def compare_program(name, main: dict, fused_run_ms: float, peaks) -> dict:
     del seq
     chained_ms = time_ms(chained, reps=3)
     return {
-        **res, "library_ms": library_ms,
+        **res, **probe, "library_ms": library_ms,
         "library_small_max_abs_err": library_err,
         **bound(problem, T, peaks),
         "dma_bytes": ops.dma_traffic_bytes(problem.stencil, geom),
@@ -936,7 +983,8 @@ def program_phase(device, peaks, bases: dict) -> list:
         rows.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": main_run["launches"], **res,
+            "launches": main_run["launches"],
+            "launches_by_kernel": main_run["launches_by_kernel"], **res,
             "stages": stage_names, "dims": list(geom.dims),
             "par_time": geom.par_time, "bsize": list(geom.bsize),
             "iters": main_run["iters"],
@@ -1130,7 +1178,8 @@ def dag_phase(device, peaks, bases: dict) -> list:
         rows.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": main_run["launches"], **res,
+            "launches": main_run["launches"],
+            "launches_by_kernel": main_run["launches_by_kernel"], **res,
             "fields": list(prob.fields),
             "stages": [s.name for s in prob.stages],
             "boundary": prob.structural_bc.token(), "dims": list(geom.dims),
@@ -1166,6 +1215,36 @@ def v1_base(main: dict, res: dict) -> dict:
             "library": res.get("library")}
 
 
+#: the launches per kernel of the last counted run (``launched_kernels``)
+LAST_RUN_KERNELS: dict = {}
+
+
+def launched_kernels(label, p) -> dict:
+    """The launches per kernel of the run of plan ``p`` just made
+    (``builder.KERNEL_LAUNCHES``, set to empty just before it): every one
+    of them a kernel of its route, ``chain_win_kernel`` for a chain that
+    ``builder.win_form`` sends to the chain body's one-barrier form,
+    ``chain_kernel`` or ``chain_kernel_big`` for any other chain (its
+    per-entry form).  Kept in :data:`LAST_RUN_KERNELS`; raises otherwise."""
+    from repro_torch.kernels import builder
+    counts = dict(builder.KERNEL_LAUNCHES)
+    if sum(counts.values()) != builder.LAUNCHES or not counts:
+        raise AssertionError(f"{label}: launches per kernel {counts} do not "
+                             f"add up to {builder.LAUNCHES}")
+    problem, geom = p.problem, p.geometry
+    stages = builder._as_chain(problem.exec_dag)
+    if stages is not None and not builder.is_main_path(stages):
+        why = builder.win_form(problem.exec_dag, geom, problem.cell_bytes)
+        want = "chain_win_kernel" if why is None else "chain_kernel"
+        wrong = [k for k in counts if not k.startswith(want)]
+        if wrong:
+            raise AssertionError(f"{label}: the run launched {wrong}, not "
+                                 f"{want} ({why or 'one barrier a tick'})")
+    LAST_RUN_KERNELS.clear()
+    LAST_RUN_KERNELS.update(counts)
+    return counts
+
+
 def counted_run(p, g, aux, iters):
     """``p.run`` with the launch count at 0 just before and read just
     after, timed with CUDA events: ``(out, launches, run ms)``."""
@@ -1175,6 +1254,7 @@ def counted_run(p, g, aux, iters):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     builder.LAUNCHES = 0
+    builder.KERNEL_LAUNCHES.clear()
     start.record()
     out = p.run(g, iters, aux=aux)
     end.record()
@@ -1184,6 +1264,7 @@ def counted_run(p, g, aux, iters):
     if launches != want:
         raise AssertionError(f"{p.problem.stencil.name}: run launched the "
                              f"kernel {launches} times, expected {want}")
+    launched_kernels(p.problem.stencil.name, p)
     return out, launches, Timing([start.elapsed_time(end)])
 
 
@@ -1385,6 +1466,7 @@ def storage_row(label, problem, g, aux, T, bsize, V, device, peaks,
                                 bc=bc)
     row = {"name": f"stencil_stream[{label}]", "route": "cuda",
            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           "launches_by_kernel": dict(LAST_RUN_KERNELS),
            **res, **bound(problem, T, peaks), "library_ms": library[0],
            "library_small_max_abs_err": library[1], "library": library[2],
            "dtype": problem.dtype, "boundary": [
@@ -1606,6 +1688,79 @@ def b1kj_problem(cell, dtype):
         problem.state_shape, device, 0).to(problem.torch_dtype), None)
 
 
+def sass_loop_counts(library: str, kernel: str) -> dict:
+    """Instructions and shared-memory loads of one multiply-add in the
+    innermost loop of ``kernel`` (named as ``_build.ptxas_report(...,
+    all_args=True)`` names it) in ``library``'s SASS (``cuobjdump
+    -sass``): the shortest backward branch whose body holds an ``FMUL``,
+    its instructions and ``LDS`` over its ``FMUL``s (a loop the compiler
+    unrolled counts once a copy); ``{}`` without ``cuobjdump``."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    code, cur = [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _build._kernel_label(m.group(1), all_args=True)
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if cur == kernel and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    best = None
+    for at, ins in code:
+        m = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= at:
+            continue
+        body = [i for a, i in code if int(m.group(1), 16) <= a <= at]
+        fmul = sum(bool(re.search(r"\bFMUL\b", i)) for i in body)
+        if fmul and (best is None or len(body) < len(best[0])):
+            best = (body, fmul)
+    if best is None:
+        return {}
+    body, fmul = best
+    lds = sum(bool(re.search(r"\bLDS(\.\S+)?\b", i)) for i in body)
+    return {"loop_instructions": len(body), "loop_fmuls": fmul,
+            "instructions_per_tap": len(body) / fmul,
+            "smem_loads_per_tap": lds / fmul}
+
+
+def large_table_counts(label, geom, problem) -> dict:
+    """What bounds the large-table chain (``box3d_r2 x2``), from the
+    launch just made (``builder.LAST_SPLIT``): the cells its CTAs compute
+    against those they own (the block plane over the compute plane, and
+    the slabs streamed over the slabs owned), the taps of one computed
+    cell in a super-step, the shared-memory loads and instructions of one
+    tap in ``chain_kernel_big``'s SASS (:func:`sass_loop_counts`), and the
+    multiply-adds the operations bound counts."""
+    from repro_torch.kernels import builder
+    sp = builder.LAST_SPLIT
+    stages = problem.exec_stages
+    plane, owned = math.prod(geom.bsize), math.prod(geom.csize)
+    streamed = (sp.warm_share + 1.0)
+    taps = geom.par_time * sum(len(builder.linear_taps(st) or ())
+                               for st, _ in stages)
+    sass = sass_loop_counts(sp.library, sp.kernel)
+    out = {"cells_computed_per_owned": plane / owned * streamed,
+           "plane_over_compute_plane": plane / owned,
+           "taps_per_cell": taps, "large_table_kernel": sp.kernel, **sass}
+    per_tap = sass.get("instructions_per_tap", float("nan"))
+    loads = sass.get("smem_loads_per_tap", float("nan"))
+    print(f"  bound ({label}, {sp.kernel}): {plane}/{owned} = "
+          f"{plane / owned:.3f} cells computed a cell owned in the plane, "
+          f"x {streamed:.4f} in the stream; {taps} taps a computed cell "
+          f"and super-step; SASS tap loop: {per_tap:.2f} instructions and "
+          f"{loads:.2f} shared-memory loads a tap "
+          f"({sass.get('loop_instructions')} instructions, "
+          f"{sass.get('loop_fmuls')} FMULs)", flush=True)
+    return out
+
+
 def b1kj_phase(device, peaks, rows_so_far) -> list:
     """Every case of :data:`B1KJ_CASES` at V = 1: a super-step bit for bit
     against the plain version (steps = T and T - 1), the counted run
@@ -1638,6 +1793,7 @@ def b1kj_phase(device, peaks, rows_so_far) -> list:
             "compared_with": {c: ms_of.get(c) for c in compare}})
         if tab is not None and tab.big:
             row["table"] = tab._asdict()
+            row.update(large_table_counts(label, p_geom, problem))
         print(f"{label} {tuple(problem.shape)} T={T} bsize={bsize} "
               f"({row['form']}, {row['blocks']} blocks, redundancy "
               f"{row['redundancy']:.4f}): run {row['run_ms']}, "
@@ -1969,6 +2125,7 @@ def counted_batch(p, g, aux, iters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     builder.LAUNCHES = 0
+    builder.KERNEL_LAUNCHES.clear()
     out = p.run_batch(g, iters, aux=aux)
     torch.cuda.synchronize()
     launches = builder.LAUNCHES
@@ -1976,6 +2133,7 @@ def counted_batch(p, g, aux, iters):
     if launches != want:
         raise AssertionError(f"run_batch of {g.shape[0]} launched the "
                              f"kernel {launches} times, expected {want}")
+    launched_kernels(f"run_batch of {g.shape[0]}", p)
     return out, launches, torch.cuda.max_memory_allocated()
 
 
@@ -1994,6 +2152,7 @@ def batch_row(label, name, dtype, B, V, aux_mode, device, peaks) -> dict:
     iters = 2 * T + 3
     g, aux = batch_inputs(name, problem, B, aux_mode, device)
     out, launches, peak = counted_batch(p, g, aux, iters)
+    by_kernel = dict(LAST_RUN_KERNELS)
 
     def member_aux(b):
         return aux[b] if aux_mode == "member" else aux
@@ -2025,6 +2184,7 @@ def batch_row(label, name, dtype, B, V, aux_mode, device, peaks) -> dict:
     cells = math.prod(problem.shape)
     row = {"name": f"stencil_stream[{label}]", "route": "cuda",
            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+           "launches_by_kernel": by_kernel,
            **res, **batch_bound(problem, T, peaks, B, aux_mode == "shared"),
            "library_ms": library_ms, "library": what, "batch": B,
            "aux": aux_mode, "dtype": dtype, "par_vec": V,
@@ -3281,7 +3441,8 @@ def main() -> int:
         kernels.append({
             "name": f"stencil_stream[{name}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": main_run["launches"], **res,
+            "launches": main_run["launches"],
+            "launches_by_kernel": main_run["launches_by_kernel"], **res,
             "dims": list(dims), "par_time": par_time, "bsize": list(bsize),
             "iters": main_run["iters"],
             "oracle_max_abs_err": main_run["oracle_max_abs_err"], **e2e,

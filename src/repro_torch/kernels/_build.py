@@ -98,10 +98,12 @@ def big_table_bytes(body: str, n_entries: int, n_taps: int, n_coeffs: int,
 class Params(ctypes.Structure):
     """``struct Params`` of ``stencil_stream.cu``, passed by value; the
     launcher fills ``vt`` and ``rows`` (``builder.cta_shape``); ``seg``,
-    ``warm``, ``nby`` and ``look`` are the stream split and the main path's
-    copies ahead (``builder.StreamSplit``); ``win`` 1 runs a DAG in the DAG
-    bodies' one-barrier form (``builder.win_form``), whose taps need not
-    clip ``rad`` (the largest stage radius) cells inside the block and the
+    ``warm``, ``nby`` and ``look`` are the stream split and the copies
+    ahead of the main path's register form and the chain body's
+    one-barrier form (``builder.StreamSplit``); ``win`` runs a DAG (1) or
+    a chain (1 + the entries it unrolls, ``builder.chain_unroll``) in a
+    one-barrier form (``builder.win_form``), whose taps need not clip
+    ``rad`` (the largest stage radius) cells inside the block and the
     stream."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "ns", "dom", "V", "ticks", "py", "px", "by", "bx", "cy", "cx", "dy",
@@ -323,15 +325,16 @@ def build(stem: str) -> Path:
 
 
 def custom_flags(bf16: bool, batch: bool, body: int, form: int, bcs: bool,
-                 big: bool) -> tuple:
+                 big: bool, unroll: int = 0) -> tuple:
     """The ``nvcc`` defines of a custom library: its storage type and batch
     offsets, and the one kernel it instantiates (``stencil_stream.cu``'s
-    body id, ``Form`` or ``kWinForm`` for the DAG bodies' one-barrier
-    form, boundary work and large-table route)."""
+    body id, ``Form`` or ``kWinForm`` for a one-barrier form, boundary
+    work, large-table route, and the entries the chain body's one-barrier
+    form unrolls, ``builder.chain_unroll``)."""
     return (f"-DSTENCIL_BF16={int(bf16)}", f"-DSTENCIL_BATCH={int(batch)}",
             "-DSTENCIL_CUSTOM=1", f"-DCUSTOM_BODY={body}",
             f"-DCUSTOM_FORM={form}", f"-DCUSTOM_BC={int(bcs)}",
-            f"-DCUSTOM_BIG={int(big)}")
+            f"-DCUSTOM_BIG={int(big)}", f"-DCUSTOM_KT={int(unroll)}")
 
 
 def custom_library_path(header: str, flags: tuple) -> Path:

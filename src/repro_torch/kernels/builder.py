@@ -20,8 +20,10 @@ each streamed by its own CTA of every block after a warm-up
 (:func:`segment_plan`, :class:`StreamSplit`).  A DAG at ``par_vec = 1``
 runs the DAG bodies' one-barrier form, laid out by :func:`win_layout`
 (lags that keep every cross-thread read a tick behind its write, state
-nodes as aliases, own-cell values in registers), unless
-:func:`win_form` names why it takes the per-entry-barrier form.  For a
+nodes as aliases, own-cell values in registers), and a chain at
+``par_vec = 1`` the chain body's, laid out by :func:`chain_layout` (the
+field stream copied ahead, own-column rows in registers), unless
+:func:`win_form` names why it takes a per-entry-barrier form.  For a
 CUDA tensor
 they launch ``csrc/stencil_stream.cu``; for a CPU tensor they run
 :func:`superstep_plain` / :func:`superstep_dag_plain`.  Nothing falls back:
@@ -64,7 +66,7 @@ from repro_torch.core import boundary, precision
 from repro_torch.core.blocking import (MAX_THREADS, SMEM_LIMIT,
                                        BlockGeometry, smem_bytes,
                                        stream_extension)
-from repro_torch.core.stencils import STENCILS, Stencil
+from repro_torch.core.stencils import STENCILS, Stencil, make_star
 from repro_torch.kernels import _build, codegen
 from repro_torch.kernels._build import (BYTE_MAX, MAX_BATCH, MAX_COEFFS,
                                         MAX_ENTRIES, MAX_FIELDS, MAX_INPUTS,
@@ -75,8 +77,10 @@ from repro_torch.programs import (DagSpec, chain_dag, dag_is_chain,
 
 #: kernel launches made by :func:`superstep_chain` and :func:`superstep_dag`
 #: (CUDA tensors only); counted under a lock, since the service launches
-#: from worker threads
+#: from worker threads; and the same launches per kernel, named as
+#: :attr:`StreamSplit.kernel` names it
 LAUNCHES = 0
+KERNEL_LAUNCHES: dict = {}
 _LAUNCHES_LOCK = threading.Lock()
 
 #: Table-2 stencil name -> its op id in ``stencil_stream.cu``
@@ -199,16 +203,34 @@ def _plane_rows(geom: BlockGeometry) -> tuple:
     return (1, geom.bsize[0] if geom.ndim == 2 else 1)
 
 
+def _stream_rows(geom: BlockGeometry, cell_bytes: int) -> tuple:
+    """``(by, srow)``: the rows of a staged slot of the field stream and
+    the cells between them (in bfloat16 ``bx`` plus two rounded up to an
+    even count: a row is staged from the 4-byte word that holds its first
+    cell)."""
+    by, bx = _plane_rows(geom)
+    return by, bx if cell_bytes == 4 else (bx + 3) & ~1
+
+
 def window_smem(geom: BlockGeometry, look: int, cell_bytes: int) -> int:
     """Shared memory of the main path's register form with ``look`` slabs
     copied ahead: ``look + 2`` staged slots of the block's rows (in
     bfloat16 each row ``bx`` plus two cells rounded up to an even count:
     a row is staged from the 4-byte word that holds its first cell), and
     two block planes per entry with a consumer."""
-    by, bx = _plane_rows(geom)
-    srow = bx if cell_bytes == 4 else (bx + 3) & ~1
+    by, srow = _stream_rows(geom, cell_bytes)
     return ((look + 2) * by * srow
-            + 2 * (geom.par_time - 1) * by * bx) * cell_bytes
+            + 2 * (geom.par_time - 1) * math.prod(geom.bsize)) * cell_bytes
+
+
+def whole_word_rows(geom: BlockGeometry, cell_bytes: int) -> bool:
+    """Whether every stream row of the padded grid starts on the same half
+    of a 4-byte word as the first, as the copies ahead of the main path's
+    register form and of the chain body's one-barrier form need (each copy
+    is a whole word, laid out from the first row's shift): always in
+    float32; in bfloat16 only when a padded plane holds an even count of
+    cells (a 1D grid's plane is one cell)."""
+    return cell_bytes == 4 or math.prod(geom.padded_dims) % 2 == 0
 
 
 def main_look(geom: BlockGeometry, cell_bytes: int = 4) -> int:
@@ -217,13 +239,15 @@ def main_look(geom: BlockGeometry, cell_bytes: int = 4) -> int:
     ``par_vec = 1`` with at most :data:`WINDOW_ENTRIES` entries (at most
     :data:`WIDE_WINDOW_ENTRIES` in a plane of over 512 cells), copying
     ``min(par_time, MAX_LOOK)`` slabs ahead, fewer where shared memory is
-    short; the rest (``par_vec > 1``, the wide form, more entries, or no
-    look-ahead that fits) run the ring form, whose shared memory is the
-    layout's ``3 * par_time`` slabs."""
+    short; the rest (``par_vec > 1``, the wide form, more entries, a
+    bfloat16 stream whose rows do not start on one half of a 4-byte word
+    (:func:`whole_word_rows`), or no look-ahead that fits) run the ring
+    form, whose shared memory is the layout's ``3 * par_time`` slabs."""
     plane = math.prod(geom.bsize)
     if (geom.par_vec != 1 or geom.par_time > WINDOW_ENTRIES
             or plane > (512 if geom.par_time > WIDE_WINDOW_ENTRIES
-                        else MAX_THREADS)):
+                        else MAX_THREADS)
+            or not whole_word_rows(geom, cell_bytes)):
         return 0
     for look in range(min(geom.par_time, MAX_LOOK), 0, -1):
         if window_smem(geom, look, cell_bytes) <= SMEM_LIMIT:
@@ -496,11 +520,11 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
                                    aux_p, out)
     if gp.device.type != "cuda":
         raise ValueError(f"no kernel for device {gp.device}")
-    win = win_form(dag, geom, gp.element_size()) is None
+    cell_bytes = gp.element_size()
     prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device,
-                     win)
-    smem = (win_smem(dag, geom, gp.element_size()) if win
-            else smem_bytes(geom, dag, gp.element_size()) + prog.table_smem)
+                     cell_bytes)
+    smem = (win_smem(dag, geom, cell_bytes) if prog.win
+            else smem_bytes(geom, dag, cell_bytes) + prog.table_smem)
     _launch(dag, prog, geom, gp, aux_p, out, int(steps), smem, batch,
             _segments)
     return out
@@ -810,12 +834,17 @@ def own_columns(geom: BlockGeometry, bc) -> bool:
 
 
 def win_smem(dag: DagSpec, geom: BlockGeometry, cell_bytes: int = 4) -> int:
-    """Dynamic shared memory of the one-barrier DAG body: its rings
+    """Dynamic shared memory of a one-barrier form: a chain's
+    (:func:`chain_smem` at :func:`chain_look`), or the DAG body's rings
     (:func:`win_layout`), with ``rad * (bx + 1)`` cells before the first
     and after the last (``rad`` cells in a 2D block row) that a
     blocked-axis tap of the largest stage radius ``rad``, read without
     clipping to the block, may reach (``stencil_stream.cu``'s
     ``win_pad``)."""
+    stages = _as_chain(dag)
+    if stages is not None:
+        return chain_smem(stages, geom, cell_bytes,
+                          chain_look(stages, geom, cell_bytes))
     lay = win_layout(dag, geom.par_time, mixes_boundaries(dag, geom.ndim))
     by, bx = _plane_rows(geom)
     rad = max(st.radius for st, _, _ in dag.stages)
@@ -825,15 +854,17 @@ def win_smem(dag: DagSpec, geom: BlockGeometry, cell_bytes: int = 4) -> int:
 
 def win_form(dag: DagSpec, geom: BlockGeometry,
              cell_bytes: int = 4) -> Optional[str]:
-    """None when the kernel runs ``dag`` at ``geom`` in the DAG bodies'
-    one-barrier form (``dag_kernel``), else why its launch takes a form
-    with a barrier after every entry: a chain, ``par_vec > 1``, a plane
-    over 1024 cells, the large-table route, a single-boundary DAG whose
-    reflect mirrors a block's overhang past the grid (its state nodes copy
-    re-imposed values, which aliases would not), or the deeper rings of
+    """None when the kernel runs ``dag`` at ``geom`` in a one-barrier form
+    (a chain in the chain body's, :func:`chain_form`; any other DAG in the
+    DAG bodies', ``dag_kernel``), else why its launch takes a form with a
+    barrier after every entry: ``par_vec > 1``, a plane over 1024 cells,
+    the large-table route, a single-boundary DAG whose reflect mirrors a
+    block's overhang past the grid (its state nodes copy re-imposed
+    values, which aliases would not), or the deeper rings of
     :func:`win_layout` past shared memory or the table's 16-bit fields."""
-    if _as_chain(dag) is not None:
-        return "a chain"
+    stages = _as_chain(dag)
+    if stages is not None:
+        return chain_form(stages, geom, cell_bytes)
     if geom.par_vec != 1:
         return "par_vec > 1"
     if math.prod(geom.bsize) > MAX_THREADS:
@@ -880,6 +911,192 @@ def _win_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
                               lay.wins[F + i], len(e.inputs), lay.regs[F + i],
                               tuple(ins), (0,) * MAX_INPUTS)
     return k, lay.out_lag, len(plan.entries), lay.slots
+
+
+# --- the chain body's one-barrier form ---------------------------------------
+
+#: static shared memory of the chain body's one-barrier form: per entry its
+#: record and two tick records (built a tick ahead), the taps (with their
+#: offset in the plane and coefficient) and the coefficients
+#: (``stencil_stream.cu``'s ``ChainWinRec``, ``ChainTick``, ``ChainTap``)
+CHAINREC_BYTES, CHAINTICK_BYTES, CHAINTAP_BYTES = 80, 32, 16
+CHAIN_TABLE_SMEM = ((CHAINREC_BYTES + 2 * CHAINTICK_BYTES) * MAX_ENTRIES
+                    + CHAINTAP_BYTES * MAX_TAPS + 4 * MAX_COEFFS)
+#: the entries the chain body's one-barrier form unrolls (its ``kT``): the
+#: least of these that holds the chain; a longer chain runs its ring form
+#: (``kT`` 0)
+CHAIN_UNROLLS = (4, 8)
+
+
+@functools.lru_cache(maxsize=256)
+def chain_layout(stages: tuple, par_time: int) -> WinLayout:
+    """:func:`win_layout` of the chain ``((stencil, bc), ...)`` as a path
+    graph (``programs.chain_dag``): entry ``i`` lags its producer by the
+    stage's reach, ``|ds|`` rows for a tap in its own column and ``|ds| +
+    1`` for one in another, and each ring holds its value from the oldest
+    row its consumer reads to the row written this tick.  A chain has no
+    combine, so no value stays in a register carry."""
+    return win_layout(chain_dag(stages), par_time, False)
+
+
+def chain_steps(stages) -> tuple:
+    """Per stage ``(step, register)``: the rows its entries lag their
+    producer (the stage's reach, :func:`chain_layout`), and whether every
+    tap in its own column reads a row at most 2 behind the producer's
+    newest (``step - ds`` in 0..2: a Table-2 stencil, a star of radius 0
+    or 1, a custom ``apply`` that reaches no further), which the
+    register form keeps in registers at the thread's cell."""
+    out = []
+    plan = unroll_dag(chain_dag(stages), 1)
+    for e in plan.entries:
+        (taps,) = entry_taps(e)
+        step = max((ds + c for ds, c in taps), default=0)
+        own = max((ds for ds, c in taps if not c), default=0)
+        out.append((step, step + own <= 2))
+    return tuple(out)
+
+
+def chain_unroll(n_entries: int) -> int:
+    """The ``kT`` of :data:`CHAIN_UNROLLS` that runs ``n_entries``, or 0
+    for the ring form."""
+    return next((kt for kt in CHAIN_UNROLLS if n_entries <= kt), 0)
+
+
+def chain_pad(geom: BlockGeometry, rad: int, cell_bytes: int = 4) -> int:
+    """Cells before the chain form's first ring and after its last that a
+    blocked-axis tap of radius ``rad``, read without clipping to the
+    block, may reach (``stencil_stream.cu``'s ``chain_pad``): ``rad`` rows
+    and cells of the staged stream, and two cells more for the bfloat16
+    row shift, rounded up to an even count (the stream's slots stay
+    4-byte aligned)."""
+    by, srow = _stream_rows(geom, cell_bytes)
+    return (rad * (srow + 1 if by > 1 else 1) + 3) & ~1
+
+
+def chain_smem(stages, geom: BlockGeometry, cell_bytes: int = 4,
+               look: int = 1) -> int:
+    """Dynamic shared memory of the chain body's one-barrier form copying
+    ``look`` slabs of the field stream ahead: the stream's ring of
+    :func:`chain_layout`'s rows and ``look`` more, staged, then the
+    entries' rings of block planes, with :func:`chain_pad` cells before
+    and after."""
+    lay = chain_layout(tuple(stages), geom.par_time)
+    by, srow = _stream_rows(geom, cell_bytes)
+    rad = max(st.radius for st, _ in stages)
+    cells = ((lay.wins[0] + look) * by * srow
+             + sum(lay.wins[1:]) * math.prod(geom.bsize))
+    return (cells + 2 * chain_pad(geom, rad, cell_bytes)) * cell_bytes
+
+
+def chain_look(stages, geom: BlockGeometry, cell_bytes: int = 4) -> int:
+    """The slabs of the field stream the chain form copies ahead: up to
+    :data:`MAX_LOOK`, fewer where shared memory is short, 0 when not even
+    one fits."""
+    for look in range(MAX_LOOK, 0, -1):
+        if (chain_smem(stages, geom, cell_bytes, look) + CHAIN_TABLE_SMEM
+                <= SMEM_LIMIT):
+            return look
+    return 0
+
+
+def _kinds_follow(stages, ndim: int, par_time: int) -> bool:
+    """Whether every entry of the chain but the last may read its own
+    column: the value it reads took, at push time, its own stage's
+    blocked-axis kinds (the field stream, stage 0's), and the position it
+    computes at is its consumer's, so the two must map each cell alike on
+    every axis, unless the consumer's kind there is constant (it then
+    computes at the cell itself and writes the fill where it is outside
+    the grid)."""
+    kinds = [boundary.kinds_of(bc, ndim)[1:] for _, bc in stages]
+    S = len(stages)
+    for i in range(S * par_time - 1):
+        mine, cons = kinds[i % S], kinds[(i + 1) % S]
+        if any(c != m and c != "constant" for c, m in zip(cons, mine)):
+            return False
+    return True
+
+
+def chain_form(stages, geom: BlockGeometry,
+               cell_bytes: int = 4) -> Optional[str]:
+    """None when the kernel runs the chain ``((stencil, bc), ...)`` at
+    ``geom`` in the chain body's one-barrier form (``chain_win_kernel``),
+    else why its launch takes ``chain_kernel`` or ``chain_kernel_big``,
+    with a barrier after every entry: the main-path body (one Table-2
+    stage), ``par_vec > 1``, a one-cell plane (a 1D grid: a CTA of one
+    working thread, where the per-entry form ran the chip's 1D star
+    faster), a plane over 1024 cells, the large-table route, a stage whose
+    reflect mirrors a block's overhang past the grid, a bfloat16 stream
+    whose rows do not all start on one half of a 4-byte word
+    (:func:`whole_word_rows`), a stage whose blocked-axis kinds its
+    consumer does not share (:func:`_kinds_follow`: a thread could not
+    read its own column), or the deeper rings past the table's 16-bit
+    fields or shared memory."""
+    stages = tuple(stages)
+    if is_main_path(stages):
+        return "the main-path body"
+    if geom.par_vec != 1:
+        return "par_vec > 1"
+    if math.prod(geom.bsize) == 1:
+        return "a one-cell block plane (1D)"
+    if math.prod(geom.bsize) > MAX_THREADS:
+        return "a plane over 1024 cells"
+    if tables_of(geom, stages).big:
+        return "the large-table route"
+    if not all(own_columns(geom, bc) for _, bc in stages):
+        return "reflect maps a block's overhang past the grid"
+    if not whole_word_rows(geom, cell_bytes):
+        return ("a bfloat16 stream whose rows lie an odd count of cells "
+                "apart (its copies ahead are 4-byte words)")
+    if not _kinds_follow(stages, geom.ndim, geom.par_time):
+        return "a stage's consumer re-imposes under other blocked-axis kinds"
+    lay = chain_layout(stages, geom.par_time)
+    if max(max(lay.wins) + MAX_LOOK, max(lay.lags)) > SHORT_MAX:
+        return "lags or rings past the table's 16-bit fields"
+    if not chain_look(stages, geom, cell_bytes):
+        smem = chain_smem(stages, geom, cell_bytes) + CHAIN_TABLE_SMEM
+        return (f"its rings and tables need {smem} bytes of shared memory "
+                f"(at most {SMEM_LIMIT})")
+    return None
+
+
+def star_radius(stencil: Stencil, ndim: int) -> int:
+    """0 or 1 for a tap table whose taps are ``make_star(ndim, 0)``'s or
+    ``make_star(ndim, 1)``'s in their order (each tap its own coefficient),
+    which the chain body's one-barrier form computes without reading its
+    taps; -1 for any other stencil."""
+    taps = linear_taps(stencil)
+    for r in (0, 1):
+        if taps == tuple(enumerate(make_star(ndim, r).offsets)):
+            return r
+    return -1
+
+
+def _chain_table(stages, geom: BlockGeometry, coeffs_packed, look: int):
+    """The kernel's ``Program`` table for the chain body's one-barrier
+    form: per entry :func:`chain_layout`'s lag and ring (out_base,
+    out_slots; the last entry none), its producer's ring (in_base[0],
+    in_slots[0]) and in ``pad`` 1 where its stage's own-column taps read
+    the register window (:func:`chain_steps`); per stage in ``pad`` 1 or
+    2 for a star of radius 0 or 1 (:func:`star_radius`); the field
+    stream's ring,
+    ``look`` slots deeper than the layout's, in ``f[0]``; rings laid out
+    in value-id order.  Returns ``(table, out_lag)``."""
+    lay = chain_layout(tuple(stages), geom.par_time)
+    wins = (lay.wins[0] + look,) + lay.wins[1:]
+    base = _ring_bases(wins)
+    steps = chain_steps(stages)
+    S = len(stages)
+    k = _build.Program()
+    _stage_tables(k, stages, geom.ndim, coeffs_packed)
+    for s, (st, _) in enumerate(stages):
+        k.s[s].pad = star_radius(st, geom.ndim) + 1
+    k.f[0] = _build.Stream(0, wins[0], 0, 0)
+    for i in range(S * geom.par_time):
+        k.e[i] = _build.Entry(lay.lags[1 + i], i % S, i // S, -1,
+                              base.get(1 + i, 0), wins[1 + i], 1,
+                              int(steps[i % S][1]),
+                              (base[i], 0, 0, 0), (wins[i], 0, 0, 0))
+    return k, lay.out_lag
 
 
 #: the stream split: the waves of CTAs it aims to fill the card with, and
@@ -975,9 +1192,11 @@ class _LaunchPlan(NamedTuple):
     has a reflect or constant axis (the kernels that do the boundary
     work), the records' shared memory in front of the rings, and the
     large-table route's table lengths ``(stages, taps, coefficients,
-    inputs)`` (None for the parameter table), whether a DAG runs the
-    one-barrier form (:func:`win_form`), its layout's ring slots, and the
-    largest radius of a stage."""
+    inputs)`` (None for the parameter table), whether the program runs a
+    one-barrier form (:func:`win_form`), its layout's ring slots, the
+    largest radius of a stage, and the slabs of the field stream the
+    chain body's one-barrier form copies ahead (:func:`chain_look`) and
+    the entries it unrolls (:func:`launch_form`)."""
     body: int
     table: object
     out_lag: int
@@ -990,6 +1209,23 @@ class _LaunchPlan(NamedTuple):
     win: bool
     slots: int
     rad: int
+    look: int = 0
+    unroll: int = 0
+
+
+@functools.lru_cache(maxsize=256)
+def launch_form(dag: DagSpec, geom: BlockGeometry,
+                cell_bytes: int = 4) -> tuple:
+    """``(win, unroll)`` of every launch of ``dag`` at ``geom`` in storage
+    of ``cell_bytes`` a cell: whether it runs a one-barrier form
+    (:func:`win_form`), and the entries the chain body's one-barrier form
+    unrolls there (:func:`chain_unroll`; 0 for its ring form and every
+    other form)."""
+    win = win_form(dag, geom, cell_bytes) is None
+    stages = _as_chain(dag)
+    if not win or stages is None:
+        return win, 0
+    return win, chain_unroll(len(stages) * geom.par_time)
 
 
 def _body(dag: DagSpec, ndim: int) -> int:
@@ -1009,15 +1245,16 @@ def _has_bcs(dag: DagSpec, ndim: int) -> bool:
                for k in boundary.kinds_of(bc, ndim))
 
 
-#: ``stencil_stream.cu``'s form id of the DAG bodies' one-barrier form
-#: (``kWinForm``; the table-driven bodies' ``Form``s are 0 to 3)
+#: ``stencil_stream.cu``'s form id of the one-barrier forms of the chain
+#: and DAG bodies (``kWinForm``; the table-driven bodies' ``Form``s are 0
+#: to 3)
 WIN_FORM = 4
 
 
 def _form(geom: BlockGeometry, tab: Tables, win: bool = False) -> int:
     """``stencil_stream.cu``'s ``Form`` of a table-driven body at ``geom``:
     its V = 1, one-row, several-row or wide form (:func:`cta_shape`), or
-    :data:`WIN_FORM` for a DAG in the one-barrier form (``win``)."""
+    :data:`WIN_FORM` for a one-barrier form (``win``)."""
     if win:
         return WIN_FORM
     _, rows, _ = cta_shape(geom, tab)
@@ -1037,11 +1274,11 @@ def _custom_build(dag: DagSpec, geom: BlockGeometry, bf16: bool,
     if not customs:
         return None
     tab = tables_of(geom, dag)
-    win = win_form(dag, geom, 2 if bf16 else 4) is None
+    win, kt = launch_form(dag, geom, 2 if bf16 else 4)
     return (codegen.program_header([codegen.trace(st) for st in customs]),
             _build.custom_flags(bf16, batch, _body(dag, geom.ndim),
                                 _form(geom, tab, win),
-                                _has_bcs(dag, geom.ndim), tab.big))
+                                _has_bcs(dag, geom.ndim), tab.big, kt))
 
 
 def custom_library(dag: DagSpec, geom: BlockGeometry,
@@ -1055,18 +1292,23 @@ def custom_library(dag: DagSpec, geom: BlockGeometry,
 
 @functools.lru_cache(maxsize=64)
 def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
-              device: torch.device, win: bool = False) -> _LaunchPlan:
+              device: torch.device, cell_bytes: int = 4) -> _LaunchPlan:
     """:class:`_LaunchPlan` of ``dag`` at ``geom`` with the packed
-    coefficients ``coeffs`` (``win``: in the DAG bodies' one-barrier
-    form), built once and kept for the program's later super-steps: the
-    large-table route copies its table to ``device`` here, not at every
-    launch."""
+    coefficients ``coeffs`` in storage of ``cell_bytes`` a cell, in the
+    form :func:`launch_form` picks, built once and kept for the program's
+    later super-steps: the large-table route copies its table to
+    ``device`` here, not at every launch."""
+    win, unroll = launch_form(dag, geom, cell_bytes)
     coeffs_packed = torch.tensor(coeffs, dtype=torch.float32)
     stages = _as_chain(dag)
     tab = tables_of(geom, dag)
     big = tab is not None and tab.big
-    slots = 0
-    if stages is not None:
+    slots = look = 0
+    if stages is not None and win:
+        look = chain_look(stages, geom, cell_bytes)
+        table, out_lag = _chain_table(stages, geom, coeffs_packed, look)
+        n_entries = len(stages) * geom.par_time
+    elif stages is not None:
         table, out_lag = _program_table(stages, geom, coeffs_packed, big)
         n_entries = len(stages) * geom.par_time
     elif win:
@@ -1083,7 +1325,8 @@ def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
                        tab.smem if big else 0,
                        (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
                        if big else None, win, slots,
-                       max(st.radius for st, _, _ in dag.stages))
+                       max(st.radius for st, _, _ in dag.stages), look,
+                       unroll)
 
 
 def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
@@ -1110,7 +1353,7 @@ def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
         bx=blk[1], cy=cmp[0], cx=cmp[1], dy=dims[0], dx=dims[1], hy=hy,
         hx=hx, steps=steps, n_entries=prog.n_entries,
         n_fields=prog.n_fields, seg=ns // V, warm=0, nby=nby, look=0,
-        win=int(prog.win), rad=prog.rad)
+        win=int(prog.win) + prog.unroll, rad=prog.rad)
     return params, bnum[-1] if bnum else 1, nby
 
 
@@ -1122,7 +1365,8 @@ def _kernel_name(prog: _LaunchPlan, geom: BlockGeometry,
     library of a program's custom stencils, whose table-driven DAG forms
     are all ``stream_kernel_x``), named as ``_build.ptxas_report(...,
     all_args=True)`` names it: its int and bool template arguments (body,
-    ``Form``, boundary work, entries)."""
+    ``Form``, boundary work, entries; the chain body's one-barrier form
+    by its unrolled entries, ``prog.unroll``)."""
     bcs = int(prog.bcs)
     if prog.body >= 0:
         if look:
@@ -1134,6 +1378,8 @@ def _kernel_name(prog: _LaunchPlan, geom: BlockGeometry,
     if prog.big is not None:
         return (f"chain_kernel_big<{bcs}>" if prog.body == CHAIN_BODY
                 else f"stream_kernel_big<{prog.body},{bcs}>")
+    if prog.win and prog.body == CHAIN_BODY:
+        return f"chain_win_kernel<{bcs},{prog.unroll}>"
     if prog.win:
         return f"dag_kernel<{prog.body},{bcs}>"
     form = _form(geom, tab)
@@ -1161,9 +1407,9 @@ def _edge_blocks(geom: BlockGeometry, bc) -> int:
 def _barrier_form(dag: DagSpec, prog: _LaunchPlan,
                   geom: BlockGeometry, cell_bytes: int) -> tuple:
     """``(barriers a tick, form)`` of a launch: one for the main-path
-    body and the DAG bodies' one-barrier form (the mixed-boundary body's
-    grid-edge blocks one per entry besides), else one per entry and one
-    for the push, and why."""
+    body and the one-barrier forms of the chain and DAG bodies (the
+    mixed-boundary body's grid-edge blocks one per entry besides), else
+    one per entry and one for the push, and why (:func:`win_form`)."""
     if prog.body >= 0:
         return 1, "one barrier a tick"
     if prog.win:
@@ -1175,9 +1421,8 @@ def _barrier_form(dag: DagSpec, prog: _LaunchPlan,
                      f"grid edge and re-impose at read time, one barrier an "
                      f"entry")
         return 1, form
-    why = ("the chain body" if prog.body == CHAIN_BODY
-           else win_form(dag, geom, cell_bytes))
-    return prog.n_entries + 1, f"one barrier an entry: {why}"
+    return (prog.n_entries + 1,
+            f"one barrier an entry: {win_form(dag, geom, cell_bytes)}")
 
 
 def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
@@ -1200,7 +1445,7 @@ def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
     nslabs = params.ns // params.V
     tab = tables_of(geom, dag)
     _, _, threads = cta_shape(geom, tab)
-    look = main_look(geom, cell_bytes) if prog.body >= 0 else 0
+    look = main_look(geom, cell_bytes) if prog.body >= 0 else prog.look
     warm = stream_warmup(dag, geom)
     probe = _build.Params.from_buffer_copy(params)
     probe.look = look
@@ -1276,6 +1521,8 @@ def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,
         raise RuntimeError(f"stencil_stream launch failed: {msg} ({err})")
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
+        KERNEL_LAUNCHES[split.kernel] = KERNEL_LAUNCHES.get(split.kernel,
+                                                            0) + 1
     LAST_SPLIT = split
 
 

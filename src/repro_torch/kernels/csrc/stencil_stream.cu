@@ -95,8 +95,22 @@
 // single-boundary body's reflect maps a block's overhang past the grid,
 // or the deeper rings do not fit, the launcher runs the table-driven form.
 //
-// The chain body (kOp = -1) and the DAG bodies' table-driven forms (V > 1,
-// the wide form, the large-table route, and those V = 1 launches) keep a
+// The chain body at V = 1 (`chain_win_kernel`, kernels/builder.py
+// chain_layout: the same lags and rings over the chain as a path graph)
+// runs one barrier a tick too, its values re-imposed at push time under
+// their consumer's kinds as `chain_body` does; a consumer that maps a cell
+// under other blocked-axis kinds than the value it reads took, a reflect
+// overhang past the grid, the large-table route, V > 1, one-cell (1D) and
+// over-1024-cell planes, and a bfloat16 stream whose rows do not all start
+// on one half of a 4-byte word keep `chain_kernel`/`chain_kernel_big`
+// (kernels/builder.py chain_form).  It copies the field stream ahead with
+// cp.async, runs a Table-2 stage and a star of radius 0 or 1 as
+// straight-line code, and keeps each entry's newest own-column rows in
+// registers where it unrolls the entries (up to 8).
+//
+// The chain body's per-entry form (kOp = -1 where the one-barrier form
+// does not run) and the DAG bodies' table-driven forms (V > 1, the wide
+// form, the large-table route, and those V = 1 launches) keep a
 // barrier after every entry: at tick t the CTA pushes slab t of each field
 // stream (coalesced; each thread's first rows prefetched one tick ahead
 // into registers), then entry i computes slab j = t - lag_i, row by row,
@@ -181,21 +195,23 @@
 // Table-2 stage (kOp = its id): lag i+1 slabs, coefficients in registers,
 // in its register form (`main_kernel<kOp, 0, T, kBC, kT>`, kT = 4, 8 or 16
 // entries held) or its ring form (kT = 0) — one for any chain (kOp = -1,
-// `chain_kernel`), one for any DAG whose stages share one boundary (kOp =
-// -2) and one for any DAG (kOp = -3; both `dag_kernel` at V = 1, and
-// `stream_kernel`, `stream_kernel_x` where it does not run).  The
+// `chain_win_kernel` at V = 1, `chain_kernel` where it does not run), one
+// for any DAG whose stages share one boundary (kOp = -2) and one for any
+// DAG (kOp = -3; both `dag_kernel` at V = 1, and `stream_kernel`,
+// `stream_kernel_x` where it does not run).  The
 // table-driven bodies come in four forms (`Form`): V = 1, where V, vt and
 // the row loop fold away; one row of each slab per thread; several rows
 // per thread; several cells per thread (the wide form), and in the
 // large-table route; the main path's ring form in three (V = 1, every row
 // of a slab, the wide form).  All in two storage
 // types (one library each), and with or without the reflect and constant
-// boundaries (kBC; kOp = -3 only with them), and the DAG bodies'
-// one-barrier form (`dag_kernel`: kOp -2 with and without kBC, -3): 76
-// kernels a library, 304 in the four.  Slab bookkeeping with a runtime V
-// cost the V = 1 main path 12% and the DAG body 28% on an H100, hence the
-// forms; deciding the boundary kinds at run time cost the float32 bodies
-// 3-31%, hence kBC.
+// boundaries (kBC; kOp = -3 only with them), the DAG bodies' one-barrier
+// form (`dag_kernel`: kOp -2 with and without kBC, -3) and the chain
+// body's (`chain_win_kernel`: 4, 8 or 0 entries unrolled, with and
+// without kBC): 82 kernels a library, 328 in the four.  Slab bookkeeping
+// with a runtime V cost the V = 1 main path 12% and the DAG body 28% on an
+// H100, hence the forms; deciding the boundary kinds at run time cost the
+// float32 bodies 3-31%, hence kBC.
 // The table-driven bodies copy the table into static shared memory at
 // start (`Rec`/`DagRec`: one flat record per entry, rings in rows, a
 // Table-2 stage's coefficients inline; the taps and coefficients of tap
@@ -262,13 +278,16 @@
 // slower).  The ring form (V > 1, planes over 1024 cells, more than 16
 // entries) reads the stream-axis taps from shared memory, and from V = 8
 // its rings hold one CTA of 8 warps an SM, where the first design ran 32:
-// hotspot2d at V = 8 takes 24.4 ms against 20.5 before.  The chain body
-// keeps a barrier per entry and tick and pushes rows loaded a tick ahead
-// into registers (copies further ahead need ring slots its layout does
-// not have): advect_diffuse2d 14.9 ms, 23x its bound.  The DAG bodies'
-// one-barrier form reads the stream-axis taps from its rings in shared
-// memory, and loads the field streams a tick ahead into registers, not
-// with cp.async further ahead.
+// hotspot2d at V = 8 takes 24.4 ms against 20.5 before.  The chain body's
+// one-barrier form reads its records and tick records from shared memory
+// per entry and tick and dispatches on the stage's op at run time (see
+// PERF.md for its times); a tap table other than a star of radius 0 or 1
+// loops over its taps.  The chain body's per-entry form keeps a barrier
+// per entry and tick and pushes rows loaded a tick ahead into registers:
+// advect_diffuse2d 14.9 ms, 23x its bound.  The DAG bodies' one-barrier
+// form reads the stream-axis taps from its rings in shared memory, and
+// loads the field streams a tick ahead into registers, not with cp.async
+// further ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,12 +355,18 @@ struct Params {
   int warm;         // slabs a segment streams before its own
   int nby;          // blocks along y: blockIdx.y = block + nby * segment
   int look;         // main path: slabs copied ahead (0: the ring form)
-  int win;          // a DAG in the one-barrier form (`dag_kernel`)
-  int rad;          // the largest radius of a stage (`dag_kernel`)
+  int win;          // a one-barrier form: 1 for a DAG's (`dag_kernel`), 1
+                    // + the entries the chain body's unrolls for a
+                    // chain's (`chain_win_kernel`: 4, 8; 0 its ring
+                    // form)
+  int rad;          // the largest radius of a stage (the one-barrier forms)
 };
 
 // One unrolled entry.  Lags and rings are counted in slabs; `out_slots` is 0
-// for a value that no entry reads (no ring).  `stage` -1 marks a DAG's
+// for a value that no entry reads (no ring).  In the chain body's
+// one-barrier form `pad` is 1 where the stage's own-column taps read the
+// register window, and the stage's `Stage::pad` 1 or 2 marks a star of
+// radius 0 or 1 (kernels/builder.py `_chain_table`).  `stage` -1 marks a DAG's
 // state node, which selects input 0 (the new value) while its iteration is
 // < steps, else input 1 (the field's previous value).  `field` is the
 // output field the entry's value drains to, or -1.  A chain entry reads
@@ -2376,7 +2401,10 @@ __device__ __forceinline__ bool own_columns(const Params& p, int sy, int sx,
 }
 
 // The main path's register form: V = 1, a cell a thread, at most kT
-// entries (kernels/builder.py: main_look).  Each thread keeps rows j-1 and
+// entries, and in bfloat16 only where every stream row starts on the same
+// half of a 4-byte word as the first, since each copy ahead is a word laid
+// out from the first row's shift (kernels/builder.py: main_look,
+// whole_word_rows).  Each thread keeps rows j-1 and
 // j of every entry's producer at its cell in registers (`up`, `mid`);
 // shared memory holds the field stream's slabs, staged by cp.async `look`
 // slabs ahead in `look + 2` slots, and each entry's value of the last two
@@ -2891,6 +2919,503 @@ __device__ __forceinline__ void chain_body(const T* __restrict__ gp,
   }
 }
 
+// --- The chain body's one-barrier form --------------------------------------
+
+// One entry of the chain body's one-barrier form, flattened for shared
+// memory: its lag and `step` (its lag less its producer's: the stage's
+// reach in rows); `mode` its op (bits 0-7), flags (kChainLive: its
+// iteration is < steps, else it forwards; kChainReg: its own-column taps
+// read the register window; kChainSame: its consumer's blocked-axis kinds
+// are stage 0's) and its stage's stream-axis kind (bits 16-23); its
+// producer's ring (first cell from the rings' start, rows) and its own
+// (the last entry has none); its stage's taps (`taps`: first | count <<
+// 16) and coefficients; its consumer's blocked-axis kinds (`kyx`: ky | kx
+// << 8); its stage's fill and its consumer's (rounded through the storage
+// type); and the coefficients of a Table-2 stage or a star.
+struct ChainWinRec {  // 80 bytes; 16-byte aligned
+  int lag, step, mode, in_base;
+  int in_slots, out_base, out_slots, taps;
+  int coeff_lo, kyx;
+  float fill_s, fill_b;
+  float c[8];
+};
+// kernels/builder.py prices its tables with CHAINREC_BYTES, CHAINTICK_BYTES,
+// CHAINTAP_BYTES
+static_assert(sizeof(ChainWinRec) == 80, "ChainWinRec layout changed");
+constexpr int kChainLive = 1 << 8, kChainReg = 2 << 8, kChainSame = 4 << 8;
+// A tap table in the order of `make_star(nd, 0)` (the centre alone) or
+// `make_star(nd, 1)` (the centre, then -1 and +1 along each axis in turn;
+// kernels/builder.py marks its stage, `Stage::pad` 1 or 2), computed in
+// that order from the register window and the ring without reading a tap
+// table.
+constexpr int kStar0Op = 12, kStar1Op = 13;
+
+// One entry at one tick, built a tick ahead by the entry's thread: the row
+// j it computes, whether j is one of the segment's rows (`run`), the cells
+// (from the rings' start) of its producer's rows j + step, j + step - 1
+// and j + step - 2 (its newest and the two before), of its own ring's row
+// j, and the slot of the producer's newest row.
+struct ChainTick {  // 32 bytes: two 16-byte loads
+  int j, run, r0, r1;
+  int r2, outo, sp, pad;
+};
+static_assert(sizeof(ChainTick) == 32, "ChainTick layout changed");
+
+// A tap of a tap table as the one-barrier chain form reads it: its
+// offsets, `e` (its stage's step less ds: the rows it lies behind its
+// producer's newest), its offset in the block plane and its coefficient.
+struct ChainTap {  // 16 bytes: one load
+  short ds, dy, dx, e;
+  int dcell;
+  float c;
+};
+static_assert(sizeof(ChainTap) == 16, "ChainTap layout changed");
+
+// Cells before the first ring and after the last that an unclipped tap of
+// radius `rad` may reach: `rad` rows and cells of the staged field stream
+// (`srow` cells a row), and two more for the bfloat16 row shift, rounded
+// up to an even count so that the staged slots stay 4-byte aligned
+// (kernels/builder.py: chain_pad).
+__device__ __host__ __forceinline__ int chain_pad(const Params& p, int srow) {
+  return (p.rad * (p.by > 1 ? srow + 1 : 1) + 3) & ~1;
+}
+
+// The chain body (kOp = -1) at V = 1 in one barrier a tick (the layout is
+// kernels/builder.py chain_layout, the DAG bodies' win_layout of the
+// chain as a path graph; the table `_chain_table`).  A CTA streams its segment
+// (`Segment`) one row a tick, a cell a thread.  Entry i computes row j =
+// t - lag_i at tick t: a tap in its own column lags its producer by |ds|
+// rows, one in another column by |ds| + 1, so a thread reads another
+// thread's cell only in rows written at an earlier tick and its own cell
+// of the rows it wrote this tick, and the tick's entries run between one
+// pair of barriers.  As in `chain_body`, every value that enters a ring is
+// computed at the position its consumer's blocked-axis kinds map the cell
+// to and takes the fill where that consumer is constant and the cell
+// outside the grid; the producer's value at the thread's own cell equals
+// its value at that position, since every block's overhang mirrors inside
+// the grid and each consumer maps a cell as the value it reads was mapped
+// (kernels/builder.py chain_form checks both at plan time).  The field
+// stream is copied by cp.async `look` rows ahead into its staged ring (in
+// bfloat16 a row from the 4-byte word holding its first cell, as
+// `main_windows`), which the layout's rows and `look` more hold.  Thread i
+// of the first n_entries builds entry i's tick record a tick ahead, into
+// the other of two buffers.  A Table-2 stage and a star of radius 0 or 1
+// run straight-line code; other tap tables loop over their taps, a custom
+// `apply` reads its taps through a getter.  Register form (`p.win` - 1 kT
+// = 4 or 8 entries, the least that holds the chain): the entry loop
+// unrolled, and, where a stage's own-column taps reach at most 2 rows
+// behind the producer's newest (`kChainReg`: a Table-2 stencil, a star of
+// radius 0 or 1), a window of its producer's rows at the thread's cell in
+// registers: the newest, passed on from the entry before in the same
+// thread, and the one before (kT 8) or two before (kT 4); the rest
+// from the ring.  In probes on an H100 a deeper window spilled at 8
+// entries and 64 registers and ran no faster, and more registers a thread
+// (fewer CTAs of 256 threads an SM) ran slower.  Ring form (kT = 0): the
+// entries in a loop, every tap from the rings (chip_smoke.py times it on
+// advect_diffuse2d at 16 entries).  Taps away from the
+// stream's ends (`fast`, CTA-uniform) neither clip nor map the stream row;
+// blocked-axis taps are read unclipped, as `dag_kernel` reads them (a tap
+// that leaves the block reads a padded cell, and feeds only halo cells
+// the overlap discards).  Each CTA writes only the rows it owns.
+template <class T, bool kBC, int kT>
+__global__ void __launch_bounds__(1024, 1)
+    chain_win_kernel(const T* __restrict__ gp, const T* __restrict__ aux,
+                     T* __restrict__ out, const Params p,
+                     const __grid_constant__ Program k,
+                     long long member_stride, long long aux_stride) {
+#if STENCIL_BATCH
+  // batch member blockIdx.z: its state, output and aux
+  const size_t member = blockIdx.z;
+  gp += member * (size_t)member_stride;
+  out += member * (size_t)member_stride;
+  if (aux != nullptr) aux += member * (size_t)aux_stride;
+#endif
+  __shared__ __align__(16) ChainWinRec rec[kMaxEntries];
+  __shared__ __align__(16) ChainTick trec[2][kMaxEntries];
+  __shared__ __align__(16) ChainTap s_taps[kMaxTaps];
+  __shared__ float s_c[kMaxCoeffs];
+  const int plane = p.by * p.bx;
+  const int tid = threadIdx.x;
+  const int nslabs = p.ns;
+  const int n = p.n_entries;
+  const Segment sg = segment_of(p, nslabs);
+  const int sy = sg.sy;
+  const int sx = blockIdx.x * p.cx;
+  const Cell me = cell_at<kBC>(tid, tid < plane, p, sy, sx, k.s[0]);
+  const size_t pstride = (size_t)p.py * p.px;
+  // the field stream's staged ring: `D0` slots of `by` rows `srow` cells
+  // apart, row y from cell `shift(y)` on; then the entries' rings of block
+  // planes, from cell `D0 * sslot` on
+  const int srow = sizeof(T) == 4 ? p.bx : (p.bx + 3) & ~1;
+  const int sslot = p.by * srow;
+  const int D0 = k.f[0].slots;
+  const int look = p.look;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const win = reinterpret_cast<T*>(smem_raw) + chain_pad(p, srow);
+  // where block cell (y, x) sits in a staged slot
+  const int sb = sizeof(T) == 4
+                     ? 0
+                     : static_cast<int>(
+                           ((reinterpret_cast<size_t>(gp) >> 1) +
+                            (size_t)sy * p.px + sx) &
+                           1);
+  const auto staged = [&](int y, int x) {
+    if constexpr (sizeof(T) == 4) {
+      return y * p.bx + x;
+    } else {
+      return y * srow + ((sb + y * p.px) & 1) + x;
+    }
+  };
+
+  // entry tid's records, and its slots: its producer's newest row and its
+  // own row j, turned over by one a tick
+  int cp = 0, co = 0;
+  if (tid < n) {  // a thread per entry (the launcher's rule)
+    const Entry en = k.e[tid];
+    const Stage st = k.s[en.stage];
+    // the consumer: the next entry (the last one's value drains out)
+    const Stage sc = tid + 1 < n ? k.s[k.e[tid + 1].stage] : st;
+    const int rings = D0 * (sslot - plane);  // entry ring slot s at s*plane+
+    const int op = st.op == kTapOp && st.pad == 1   ? kStar0Op
+                   : st.op == kTapOp && st.pad == 2 ? kStar1Op
+                                                    : st.op;
+    ChainWinRec r = {};
+    r.lag = en.lag;
+    r.step = en.lag - (tid ? k.e[tid - 1].lag : 0);
+    r.mode = (op & 0xff) | (en.iteration < p.steps ? kChainLive : 0) |
+             (kT > 0 && en.pad ? kChainReg : 0) |
+             (sc.ky == k.s[0].ky && sc.kx == k.s[0].kx ? kChainSame : 0) |
+             ((st.ks & 0xff) << 16);
+    r.in_base = tid ? en.in_base[0] * plane + rings : 0;
+    r.in_slots = en.in_slots[0];
+    r.out_base = en.out_base * plane + rings;
+    r.out_slots = en.out_slots;
+    r.taps = st.tap_lo | (st.tap_n << 16);
+    r.coeff_lo = st.coeff_lo;
+    r.kyx = sc.ky | (sc.kx << 8);
+    r.fill_s = wide(narrow<T>(st.fill));
+    r.fill_b = wide(narrow<T>(sc.fill));
+    for (int z = 0; z < 8; ++z) {
+      r.c[z] = (st.op < kTapOp || op >= kStar0Op) &&
+                       st.coeff_lo + z < kMaxCoeffs
+                   ? k.c[st.coeff_lo + z]
+                   : 0.0f;
+    }
+    rec[tid] = r;
+    const auto mod = [](int x, int w) {
+      const int m = x % w;
+      return m < 0 ? m + w : m;
+    };
+    cp = mod(sg.a - (tid ? k.e[tid - 1].lag : 0), r.in_slots);
+    co = mod(sg.a - r.lag, max(r.out_slots, 1));
+  }
+  // entry tid's record at tick u, whose producer's newest row is in slot
+  // cp and whose row j in slot co
+  const auto tick_rec = [&](int u) {
+    const ChainWinRec& r = rec[tid];
+    const int S = tid ? plane : sslot;
+    const int W = r.in_slots;
+    const auto back = [&](int e) {  // the slot e rows before the newest
+      int s = cp - e;
+      while (s < 0) s += W;
+      return r.in_base + s * S;
+    };
+    ChainTick tk;
+    tk.j = u - r.lag;
+    tk.run = tk.j >= sg.a && tk.j < nslabs;
+    tk.r0 = back(0);
+    tk.r1 = back(1);
+    tk.r2 = back(2);
+    tk.outo = r.out_base + co * plane;
+    tk.sp = cp;
+    tk.pad = 0;
+    trec[u & 1][tid] = tk;
+  };
+  for (int z = tid; z < kMaxTaps; z += blockDim.x) {
+    const Tap tp = k.taps[z];
+    // the coefficient and step of the tap table that holds tap z (stage s
+    // runs first as entry s)
+    float c = 0.0f;
+    int step = 0;
+    for (int s = 0; s < kMaxStages; ++s) {
+      const Stage& st = k.s[s];
+      if (st.op == kTapOp && z >= st.tap_lo && z < st.tap_lo + st.tap_n &&
+          st.coeff_lo + tp.ci < kMaxCoeffs && s < n) {
+        c = k.c[st.coeff_lo + tp.ci];
+        step = k.e[s].lag - (s ? k.e[s - 1].lag : 0);
+      }
+    }
+    s_taps[z] = {tp.ds, tp.dy, tp.dx, static_cast<short>(step - tp.ds),
+                 tp.dy * p.bx + tp.dx, c};
+  }
+  for (int z = tid; z < kMaxCoeffs; z += blockDim.x) s_c[z] = k.c[z];
+  __syncthreads();
+  if (tid < n) tick_rec(sg.a);
+
+  // this thread's copies of a row of the field stream (a float32 cell, or
+  // a bfloat16 word of a staged row; at most two a thread), one commit
+  // group a row
+  const Piece pc0 = piece_of(tid, gp, p, sy, sx, srow);
+  const Piece pc1 = piece_of(tid + blockDim.x, gp, p, sy, sx, srow);
+  const auto issue = [&](int s, int slot) {
+    if (s < p.dom) {
+      T* const dst = win + slot * sslot;
+      const T* const src = gp + (size_t)s * pstride;
+      if (pc0.dst >= 0) cp_async4(dst + pc0.dst, src + pc0.src, pc0.bytes);
+      if (sizeof(T) == 2 && pc1.dst >= 0) {
+        cp_async4(dst + pc1.dst, src + pc1.src, pc1.bytes);
+      }
+    }
+    cp_async_commit();
+  };
+  int st = sg.a % D0;  // the stream's slot of row t
+  for (int u = 0; u < look; ++u) {
+    issue(sg.a + u, st + u < D0 ? st + u : st + u - D0);
+  }
+  cp_async_wait_pending(look - 1);
+  __syncthreads();
+
+  // the thread's cell and the position stage 0's kinds map it to, in the
+  // staged stream and in a ring
+  const int sown = staged(me.ty, me.tx);
+  const int sedge = staged(me.ey, me.ex);
+  const int pedge = me.ey * p.bx + me.ex;
+  // per unrolled entry its producer's rows before the newest at the
+  // thread's cell that the window keeps: 2 of them with 4 entries, 1 with
+  // more (the register form's windows)
+  constexpr int kKeep = kT == 4 ? 2 : 1;
+  float w[kT > 0 ? kT : 1][2];
+#pragma unroll
+  for (int i = 0; i < (kT > 0 ? kT : 1); ++i) w[i][0] = w[i][1] = 0.0f;
+
+  for (int t = sg.a; t < sg.t_end; ++t) {
+    issue(t + look, st + look < D0 ? st + look : st + look - D0);
+    // entry 0's newest own-column value: the stream's row t at the cell
+    float fresh =
+        me.act && t < nslabs ? wide(win[st * sslot + sown]) : 0.0f;
+    const ChainTick* const tr = trec[t & 1];
+    // entry i at its tick record `tk`; `wu`, `wm`, `fr` its producer's rows
+    // 2, 1 and 0 behind the newest at the cell (kChainReg).  Returns the
+    // value it computed at the cell (0 where it computes nothing).
+    const auto entry = [&](int i, const ChainTick& tk, float wu, float wm,
+                           float fr) -> float {
+      if (!(me.act && tk.run)) return 0.0f;
+      const ChainWinRec& en = rec[i];
+      const int j = tk.j;  // CTA-uniform
+      const int mode = en.mode, L = en.step;
+      const bool last = i == n - 1;
+      const bool stream = i == 0;  // reads the staged field stream
+      const bool reg = kT > 0 && (mode & kChainReg);
+      const int oo = stream ? sown : me.cell;
+      // the producer's row e behind its newest (j + L - e)
+      const auto row = [&](int e) -> const T* {
+        if (e == 0) return win + tk.r0;
+        if (e == 1) return win + tk.r1;
+        if (e == 2) return win + tk.r2;
+        const int s = tk.sp - e;
+        return win + en.in_base +
+               (s < 0 ? s + en.in_slots : s) * (stream ? sslot : plane);
+      };
+      // ... at the thread's own cell
+      const auto own_at = [&](int e) {
+        if (reg && e == 0) return fr;
+        if (reg && e == 1 && kKeep >= 1) return wm;
+        if (reg && e == 2 && kKeep >= 2) return wu;
+        return wide(row(e)[oo]);
+      };
+      // the position the value is computed at: the cell itself for the
+      // last entry, else where its consumer's blocked-axis kinds map it
+      int qy = me.ty, qx = me.tx, qo = oo;
+      bool fill_edge = false;
+      if (!last) {
+        if (!kBC || (mode & kChainSame)) {
+          qy = me.ey;
+          qx = me.ex;
+          qo = stream ? sedge : pedge;
+          fill_edge = me.fill_edge;
+        } else {
+          const int ky = en.kyx & 0xff, kx = en.kyx >> 8;
+          qy = axis_pos(me.ay, me.ty, ky);
+          qx = axis_pos(me.ax, me.tx, kx);
+          qo = stream ? staged(qy, qx) : qy * p.bx + qx;
+          fill_edge = takes_fill(me.ay, me.ax, ky, kx);
+        }
+      }
+      // the producer's cell offset of the cell (dy, dx) from the position
+      const auto at = [&](int dy, int dx, int dcell) {
+        if (sizeof(T) != 4 && stream) return staged(qy + dy, qx + dx);
+        return qo + dcell;
+      };
+      const int op = mode & 0xff;
+      const int ks = (mode >> 16) & 0xff;
+      T v;
+      if (!(mode & kChainLive)) {
+        v = narrow<T>(L == 0 ? own_at(0)
+                             : (L == 1 ? own_at(1)
+                                       : (L == 2 && reg ? own_at(2)
+                                                        : wide(row(L)[oo]))));
+      } else if (op == kStar1Op || op == kStar0Op || op < kTapOp) {
+        // step 0 (a star of radius 0: the centre is the newest row) or 1:
+        // rows j-1, j, j+1 at the cell, row j at the position's neighbours
+        const float4 c0 = *reinterpret_cast<const float4*>(en.c);
+        const float4 c1 = *reinterpret_cast<const float4*>(en.c + 4);
+        if (op == kStar0Op) {
+          v = narrow<T>(mul(c0.x, own_at(0)));
+        } else {
+          float u, d;
+          const float m = own_at(1);
+          window_ends<kBC>(u, d, own_at(2), m, own_at(0), j, p.dom, ks,
+                           en.fill_s);
+          const T* const nb = row(1);
+          if (op == kStar1Op) {
+            // c0 x centre, then rows j-1 and j+1, then y-1, y+1 (3D) and
+            // x-1, x+1 (3, 5 or 7 taps: 1D, 2D, 3D)
+            const int nt = en.taps >> 16;
+            float acc = mul(c0.x, m);
+            acc = add(acc, mul(c0.y, u));
+            acc = add(acc, mul(c0.z, d));
+            if (nt == 5) {
+              acc = add(acc, mul(c0.w, wide(nb[at(0, -1, -1)])));
+              acc = add(acc, mul(c1.x, wide(nb[at(0, 1, 1)])));
+            } else if (nt == 7) {
+              acc = add(acc, mul(c0.w, wide(nb[at(-1, 0, -p.bx)])));
+              acc = add(acc, mul(c1.x, wide(nb[at(1, 0, p.bx)])));
+              acc = add(acc, mul(c1.y, wide(nb[at(0, -1, -1)])));
+              acc = add(acc, mul(c1.z, wide(nb[at(0, 1, 1)])));
+            }
+            v = narrow<T>(acc);
+          } else {
+            Pos q;
+            q.c = qo;
+            q.w = at(0, -1, -1);
+            q.e = at(0, 1, 1);
+            q.n = at(-1, 0, -p.bx);
+            q.s = at(1, 0, p.bx);
+            const float c[8] = {c0.x, c0.y, c0.z, c0.w,
+                                c1.x, c1.y, c1.z, c1.w};
+            const float a =
+                op == 1 || op == 3
+                    ? wide(__ldg(aux + (size_t)j * pstride +
+                                 (sy + qy) * p.px + sx + qx))
+                    : 0.0f;
+            switch (op) {
+              case 0:
+                v = narrow<T>(table2_win<0>(u, m, d, nb, q, c, a));
+                break;
+              case 1:
+                v = narrow<T>(table2_win<1>(u, m, d, nb, q, c, a));
+                break;
+              case 2:
+                v = narrow<T>(table2_win<2>(u, m, d, nb, q, c, a));
+                break;
+              default:
+                v = narrow<T>(table2_win<3>(u, m, d, nb, q, c, a));
+                break;
+            }
+          }
+        }
+      } else {
+        // no stream-axis tap of this row clips or maps (CTA-uniform)
+        const bool fast = j >= p.rad && j + p.rad < p.dom;
+        // the tap (ds, dy, dx) of row j, e rows behind the producer's
+        // newest: a stream row past the rows follows ks (constant: the
+        // stage's fill)
+        const auto tap = [&](int ds, int dy, int dx, int dcell,
+                             int e) -> float {
+          if (!fast) {
+            const int r = j + ds;
+            if (r < 0 || r >= p.dom) {
+              if (kBC && ks == kConstant) return en.fill_s;
+              e = L + j - (kBC ? stream_row(r, p.dom, ks)
+                               : min(max(r, 0), p.dom - 1));
+            }
+          }
+          const T* const src = row(e);
+          if (!(dy | dx)) {
+            return reg && e <= kKeep
+                       ? (e == 0 ? fr : (e == 1 ? wm : wu))
+                       : wide(src[oo]);
+          }
+          return wide(src[at(dy, dx, dcell)]);
+        };
+        if (op == kTapOp) {
+          const int lo = en.taps & 0xffff, nt = en.taps >> 16;
+          float acc = 0.0f;
+          for (int q = 0; q < nt; ++q) {
+            const ChainTap tp = s_taps[lo + q];
+            const float term =
+                mul(tp.c, tap(tp.ds, tp.dy, tp.dx, tp.dcell, tp.e));
+            acc = q ? add(acc, term) : term;
+          }
+          v = narrow<T>(acc);
+#if STENCIL_CUSTOM
+        } else if (op == kCustomOp) {
+          const auto apply = [&](const auto& g) {
+            return narrow<T>(custom::custom_apply(
+                en.taps & 0xffff, g, s_c + en.coeff_lo, [&] {
+                  return wide(__ldg(aux + (size_t)j * pstride +
+                                    (sy + qy) * p.px + sx + qx));
+                }));
+          };
+          // away from the stream's ends, at a step of 0 or 1 the rows of
+          // the generated taps (literal offsets) are compile-time: the
+          // tick record's and the window's
+          const auto fixed = [&](auto step) {
+            constexpr int kL = decltype(step)::value;
+            return apply([&](int, int ds, int dy, int dx) -> float {
+              const int e = kL - ds;
+              if (!(dy | dx)) return own_at(e);
+              return wide(row(e)[at(dy, dx, dy * p.bx + dx)]);
+            });
+          };
+          if (fast && L == 1) {
+            v = fixed(std::integral_constant<int, 1>());
+          } else if (fast && L == 0) {
+            v = fixed(std::integral_constant<int, 0>());
+          } else {
+            v = apply([&](int, int ds, int dy, int dx) {
+              return tap(ds, dy, dx, dy * p.bx + dx, L - ds);
+            });
+          }
+#endif
+        } else {
+          v = narrow<T>(0.0f);
+        }
+      }
+      if (!last) {
+        if (fill_edge) v = narrow<T>(en.fill_b);
+        win[tk.outo + me.cell] = v;
+      } else if (me.writes && j >= sg.s0) {
+        out[(size_t)j * pstride + me.own.g] = v;
+      }
+      return wide(v);
+    };
+    if constexpr (kT > 0) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        if (i < n) {
+          const float val = entry(i, tr[i], w[i][0], w[i][1], fresh);
+          if (kKeep >= 2) w[i][0] = w[i][1];
+          w[i][1] = fresh;
+          fresh = val;
+        }
+      }
+    } else {
+      for (int i = 0; i < n; ++i) entry(i, tr[i], 0.0f, 0.0f, 0.0f);
+    }
+    if (tid < n) {  // entry tid's record for the next tick
+      const ChainWinRec& r = rec[tid];
+      cp = cp + 1 == r.in_slots ? 0 : cp + 1;
+      co = co + 1 >= r.out_slots ? 0 : co + 1;
+      tick_rec(t + 1);
+    }
+    st = st + 1 == D0 ? 0 : st + 1;
+    cp_async_wait_pending(look - 1);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
 // The main path's kernels: the register form (kT > 0, the entries it
 // holds; V = 1) or the ring form (kT = 0) of form kForm.  The register
 // form of 16 entries asks for at most 512 threads, so that its windows
@@ -3075,9 +3600,20 @@ cudaError_t launch_main(const Params& p, const Program& k, const Launch& l) {
   }
 }
 
+// The chain body: its one-barrier form (`chain_win_kernel`) where `p.win`
+// asks for it, else the form of the launch.
 template <class T, bool kBC>
 cudaError_t launch_chain(const Params& p, const Program& k, const Launch& l) {
   switch (form_of(p, false)) {
+    case kWinForm:
+      switch (p.win - 1) {
+        case 4:
+          return launch_kernel<T>(chain_win_kernel<T, kBC, 4>, p, k, l);
+        case 8:
+          return launch_kernel<T>(chain_win_kernel<T, kBC, 8>, p, k, l);
+        default:
+          return launch_kernel<T>(chain_win_kernel<T, kBC, 0>, p, k, l);
+      }
     case kWide:
       return launch_kernel<T>(chain_kernel<kWide, T, kBC>, p, k, l);
     case kVecOne:
@@ -3181,8 +3717,9 @@ int cta_threads(int kernel_op, int bcs, Params& p, int batch,
 
 // Whether the stream split of a launch whose grid has `grid_y` rows holds
 // together: `nby` block rows times the segments that `seg` slabs each
-// make of the stream, copies ahead only in the main path's register form,
-// and the one-barrier form only for a DAG at V = 1 whose table is a
+// make of the stream, copies ahead only in the main path's register form
+// and (1 to kMaxLook of them) in the chain body's one-barrier form, and a
+// one-barrier form only for a chain or a DAG at V = 1 whose table is a
 // kernel parameter and whose plane a CTA's threads cover.
 bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
   if (p.nby < 1 || p.seg < 1 || p.warm < 0 || p.V < 1 || grid_y < 1 ||
@@ -3195,9 +3732,17 @@ bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
       (long long)nseg * p.seg < nslabs) {
     return false;
   }
-  if (p.win != 0 && (p.win != 1 || kernel_op >= kChainBody || big ||
-                     p.V != 1 || p.by * p.bx > kMaxThreads || p.look != 0)) {
+  const bool chain_win = p.win != 0 && kernel_op == kChainBody;
+  if (p.win != 0 &&
+      ((!chain_win && p.win != 1) || kernel_op > kChainBody || big ||
+       p.V != 1 || p.by * p.bx > kMaxThreads ||
+       (chain_win ? p.look < 1 || p.look > kMaxLook : p.look != 0))) {
     return false;
+  }
+  if (chain_win) {
+    // the register form holds its entries
+    const int kt = p.win - 1;
+    return kt == 0 || ((kt == 4 || kt == 8) && p.n_entries <= kt);
   }
   if (p.look == 0) return true;
   return kernel_op >= 0 && !big && p.V == 1 &&
@@ -3207,10 +3752,16 @@ bool split_ok(int kernel_op, const Params& p, int grid_y, bool big) {
 }
 
 #if STENCIL_CUSTOM
-// Whether a launch is the one kernel this custom library holds.
+#ifndef CUSTOM_KT
+#define CUSTOM_KT 0
+#endif
+// Whether a launch is the one kernel this custom library holds (the chain
+// body's one-barrier form by the entries it unrolls).
 bool custom_kernel(int kernel_op, int bcs, const Params& p, bool big) {
   return kernel_op == CUSTOM_BODY && bcs == CUSTOM_BC &&
-         big == (CUSTOM_BIG != 0) && form_of(p, big) == CUSTOM_FORM;
+         big == (CUSTOM_BIG != 0) && form_of(p, big) == CUSTOM_FORM &&
+         (CUSTOM_BODY != kChainBody || CUSTOM_FORM != kWinForm ||
+          p.win - 1 == CUSTOM_KT);
 }
 
 // This custom library's one kernel (a chain body, or a DAG body).
@@ -3224,6 +3775,10 @@ cudaError_t launch_custom(const Params& p, const K& k, const Launch& l) {
       return launch_kernel<Storage>(
           stream_kernel_big<CUSTOM_BODY, Storage, CUSTOM_BC != 0>, p, k, l);
     }
+  } else if constexpr (CUSTOM_BODY == kChainBody &&
+                       CUSTOM_FORM == kWinForm) {
+    return launch_kernel<Storage>(
+        chain_win_kernel<Storage, CUSTOM_BC != 0, CUSTOM_KT>, p, k, l);
   } else if constexpr (CUSTOM_BODY == kChainBody) {
     return launch_kernel<Storage>(
         chain_kernel<CUSTOM_FORM, Storage, CUSTOM_BC != 0>, p, k, l);

@@ -1286,3 +1286,190 @@ def split_entries(dag, par_time):
     barrier after each, and one after the push."""
     from repro_torch.programs import unroll_dag
     return len(unroll_dag(dag, par_time).entries)
+
+
+# --- the chain body's one-barrier form ---------------------------------------
+
+def _reflect_chain():
+    """advect then diffusion, both reflect: the kinds of a consumer follow
+    those of the value it reads."""
+    first = _advect(2)
+    return [StencilStage(first.stencil, coeffs=first.coeffs,
+                         boundary="reflect"),
+            StencilStage("diffusion2d", boundary="reflect")]
+
+
+def _kinds_do_not_follow():
+    """advect under reflect, then diffusion under constant 0.5: the
+    advect of the next iteration maps a cell under reflect where the
+    value it reads took the fill."""
+    first = _advect(2)
+    return [StencilStage(first.stencil, coeffs=first.coeffs,
+                         boundary="reflect"),
+            StencilStage("diffusion2d", boundary="constant:0.5")]
+
+
+def _star1d_chain():
+    return [StencilStage(stencils.make_star(1, 2)),
+            StencilStage(stencils.make_star(1, 1))]
+
+
+def _long_chain():
+    """18 entries at T = 6: past the register form's 8, the ring form."""
+    return [StencilStage("diffusion2d"), _damp(2),
+            StencilStage(stencils.make_box(2, 1))]
+
+
+CHAIN_FORMS = [  # (id, stages, dims, boundary, par_time, bsize, dtype,
+    # batch members, the kernel it runs: chain_win_kernel<bc,kT> or
+    # chain_kernel)
+    *[(c[0], c[1], c[2], "clamp", c[3], c[4], "float32", None,
+       "chain_kernel" if c[0] == "diffusion2d_t80" else "chain_win_kernel")
+      for c in PROGRAMS if c[0] != "diffusion2d_t80"],
+    ("chain_clamp_periodic", PERIODIC[2][1], (33, 200), ("clamp", "periodic"),
+     2, (64,), "float32", None, "chain_win_kernel"),
+    ("chain3d_periodic", PERIODIC[3][1], (21, 50, 45),
+     ("periodic", "clamp", "periodic"), 2, (16, 16), "float32", None,
+     "chain_win_kernel"),
+    ("reflect_chain", _reflect_chain, (40, 300), "clamp", 3, (64,),
+     "float32", None, "chain_win_kernel"),
+    ("mixed_chain", _mixed_chain(2), (40, 300), "clamp", 3, (64,),
+     "float32", None, "chain_win_kernel"),
+    ("kinds_do_not_follow", _kinds_do_not_follow, (40, 300), "clamp", 3,
+     (64,), "float32", None, "chain_kernel"),
+    ("advect_diffuse2d_bf16", PROGRAMS[0][1], (40, 300), "clamp", 3, (64,),
+     "bfloat16", None, "chain_win_kernel"),
+    ("star_diffuse3d_bf16", PROGRAMS[2][1], (21, 50, 45), "clamp", 2,
+     (16, 16), "bfloat16", None, "chain_win_kernel"),
+    ("reflect_chain_bf16", _reflect_chain, (40, 300), "clamp", 3, (64,),
+     "bfloat16", None, "chain_win_kernel"),
+    ("allen_cahn2d", lambda: [_allen_cahn_stage()], (37, 300), "clamp", 4,
+     (64,), "float32", None, "chain_win_kernel"),
+    ("upwind3d", lambda: [StencilStage(UPWIND, coeffs={"dt": 0.3})],
+     (19, 37, 70), "clamp", 3, (12, 32), "float32", None,
+     "chain_win_kernel"),
+    ("advect_diffuse2d_batch", PROGRAMS[0][1], (40, 300), "clamp", 3, (64,),
+     "float32", 3, "chain_win_kernel"),
+    ("star1d_chain", _star1d_chain, (3000,), "clamp", 4, (), "float32",
+     None, "chain_kernel"),
+    ("advect_diffuse2d_bf16_odd_plane", PROGRAMS[0][1], (40, 245), "clamp",
+     4, (65,), "bfloat16", None, "chain_kernel"),
+    ("long_chain_ring_form", _long_chain, (30, 400), "clamp", 6, (96,),
+     "float32", None, "chain_win_kernel"),
+    ("reflect_overhang_past_the_grid", _reflect_chain, (64, 300), "clamp", 2,
+     (96,), "float32", None, "chain_kernel"),
+]
+
+
+@pytest.mark.parametrize("case", CHAIN_FORMS, ids=lambda c: c[0])
+def test_chain_form_equals_plain_version(cuda, case, monkeypatch):
+    """The chain body's one-barrier form, one barrier a tick
+    (``chain_win_kernel``: the register form, or past its entries the ring
+    form), bit for bit against the plain version into a NaN-filled output,
+    with and without PE forwarding, on the chain cases above: every
+    ``PROGRAMS`` case, periodic and mixed-boundary chains, bf16, custom
+    ``apply`` chains (Allen-Cahn, upwind transport with an aux velocity),
+    a batch, a 3D chain; each of them again with the stream cut into 3
+    segments, so that a segment starts after a warm-up inside the stream;
+    the register form equal to the ring form bit for bit (but in a custom
+    library, which holds one kernel).  A chain whose
+    consumer re-imposes under other blocked-axis kinds, one whose reflect
+    overhang mirrors past the grid (``own_columns``), a 1D chain and a
+    bfloat16 chain on a padded plane of an odd count of cells keep
+    ``chain_kernel`` and say why."""
+    _, stages, dims, bc, par_time, bsize, dtype, batch, kernel = case
+    problem = StencilProblem(stages(), dims, boundary=bc, dtype=dtype)
+    geom = plan(problem, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize)).geometry
+    if batch is None:
+        g, aux = _state(problem, cuda, seed=70)
+    else:
+        g, aux = _batch_state(problem, batch, None, cuda, seed=70)
+    bc0 = problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    dag = problem.exec_dag
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    why = builder.win_form(dag, geom, gp.element_size())
+    assert (why is None) == (kernel == "chain_win_kernel"), why
+    if case[0] == "reflect_overhang_past_the_grid":
+        assert why.startswith("reflect maps")
+    if case[0] == "kinds_do_not_follow":
+        assert why.startswith("a stage's consumer")
+    if case[0] == "star1d_chain":
+        assert why.startswith("a one-cell")
+    if case[0] == "advect_diffuse2d_bf16_odd_plane":
+        assert why.startswith("a bfloat16 stream")
+    if case[0] == "long_chain_ring_form":
+        assert builder.launch_form(dag, geom, gp.element_size()) == (True, 0)
+    # the form the launcher picks; where it is the one-barrier form, the
+    # stream forced into 3 segments (a warm-up inside the stream) and,
+    # but in a custom library (one kernel), the ring form
+    runs = [(False, None)]
+    if why is None:
+        runs.append((False, 3))
+        if not builder.custom_stencils(problem.exec_stages):
+            runs.append((True, None))
+    for steps in (par_time, par_time - 1):
+        outs = []
+        for ring, segments in runs:
+            if ring:        # the ring form, by the unroll the launch asks for
+                monkeypatch.setattr(builder, "chain_unroll", lambda n: 0)
+                builder.launch_form.cache_clear()
+                builder._prepared.cache_clear()
+            out = torch.full_like(gp, float("nan"))
+            builder.superstep_dag(dag, geom, gp, c, steps, aux_p, out=out,
+                                  _segments=segments)
+            torch.cuda.synchronize()
+            split = builder.LAST_SPLIT
+            assert split.kernel.startswith(kernel + "<"), split.kernel
+            assert split.barriers == (1 if why is None else
+                                      split_entries(dag, par_time) + 1)
+            if why is not None:
+                assert why in split.form
+            if segments is not None:
+                assert split.nseg > 1, split
+            if ring:
+                assert split.kernel.endswith(",0>"), split.kernel
+                monkeypatch.undo()
+                builder.launch_form.cache_clear()
+                builder._prepared.cache_clear()
+            outs.append(out)
+        plain = torch.full_like(gp, float("nan"))
+        builder.superstep_dag_plain(dag, geom, gp, c, steps, aux_p, plain)
+        for out in outs:
+            assert torch.equal(out.nan_to_num(-7.0), plain.nan_to_num(-7.0))
+
+
+@pytest.mark.parametrize("name", ["diffusion2d", "hotspot2d"])
+def test_bf16_main_path_on_an_odd_plane_equals_plain_version(cuda, name):
+    """A bfloat16 grid whose padded plane holds an odd count of cells (px
+    293 at bsize 65, T 4: every other stream row starts on the other half
+    of a 4-byte word) runs the main path's ring form, whose copies are
+    cells, not the register form, whose copies ahead are words laid out
+    from the first row's shift (it computed other values there); one
+    super-step bit for bit against the plain version, with and without
+    forwarding, and a plane of an even count still takes the register
+    form."""
+    st = stencils.STENCILS[name]
+    for dims, odd in (((40, 280), True), ((40, 300), False)):
+        problem = StencilProblem(name, dims, dtype="bfloat16")
+        geom = plan(problem, RunConfig(backend="hopper", par_time=4,
+                                       bsize=(65,))).geometry
+        assert (math.prod(geom.padded_dims) % 2 == 1) == odd
+        assert (builder.main_look(geom, 2) == 0) == odd
+        g, aux = _state(problem, cuda, seed=80)
+        gp = ops._pad_blocked(g, geom)
+        aux_p = None if aux is None else ops._pad_blocked(aux, geom)
+        c = ops.pack_coeffs(st, stencils.default_coeffs(st))
+        for steps in (4, 3):
+            out = torch.full_like(gp, float("nan"))
+            builder.superstep_chain(((st, None),), geom, gp, c, steps, aux_p,
+                                    out=out)
+            torch.cuda.synchronize()
+            kt = builder.LAST_SPLIT.kernel.split(",")[-1]
+            assert (kt == "0>") == odd, builder.LAST_SPLIT.kernel
+            plain = builder.superstep_plain(((st, None),), geom, gp, c,
+                                            steps, aux_p,
+                                            torch.full_like(gp, float("nan")))
+            assert torch.equal(out.nan_to_num(-7.0), plain.nan_to_num(-7.0))

@@ -134,6 +134,29 @@ def test_register_form_holds_no_more_than_the_rings(ndim, bsize,
         assert builder.main_look(geom_v, cell_bytes) == 0
 
 
+def test_register_form_needs_rows_on_whole_words():
+    """The main path's register form copies the field stream ahead in
+    4-byte words laid out from the first row's shift, so in bfloat16 it
+    runs only where every stream row starts on the same half of a word (a
+    padded plane of an even count of cells); elsewhere the ring form,
+    whose shared memory is the layout's and fits wherever the register
+    form's did.  float32 is unaffected, and the chain body's one-barrier
+    form keeps the per-entry form there and says why."""
+    odd = _geom(2, 4, 1, (65,), dims=(40, 280))
+    even = _geom(2, 4, 1, (65,), dims=(40, 300))
+    assert math.prod(odd.padded_dims) % 2 == 1
+    assert math.prod(even.padded_dims) % 2 == 0
+    assert not builder.whole_word_rows(odd, 2)
+    assert builder.whole_word_rows(odd, 4) and builder.whole_word_rows(even, 2)
+    assert builder.main_look(odd, 2) == 0
+    assert builder.main_look(odd, 4) == builder.main_look(even, 2) == 4
+    stages = ((STENCILS["diffusion2d"], None),)
+    assert builder.kernel_limits(odd, stages, 2) is None
+    chain = ((make_star(2, 1), None), (STENCILS["diffusion2d"], None))
+    assert builder.chain_form(chain, odd, 2).startswith("a bfloat16 stream")
+    assert builder.chain_form(chain, odd, 4) is None
+
+
 def _parent_smem(geom, program, cell_bytes):
     """Shared memory the kernel took for ``program`` before the split: the
     layout's rings, ``par_vec`` rows a slot, and the tables."""
