@@ -181,7 +181,24 @@ On one CUDA card, from the root of a checkout:
     (``SWEEP``), on the card and on the CPU from the same weights
     (``smoke_run``: exact launch counts, logits and losses within
     ``SMOKE_TOL``); every new form must have launched on (b)-(d);
-17. prints one ``{"kernels": [...]}`` line and, last, the device line.
+17. runs the A16f phase: (a) serves full-width seamless-m4t-large-v2
+    (encoder-decoder, bf16, MHA: 16 heads on 16 KV heads, head dim 64)
+    through ``generate`` at batch 8 x 4096 frames (standard normal from a
+    seed on the card) and a 4096-token prompt + 16 new tokens, asserting
+    24 flash launches in prefill (its decoder's causal self-attention, one
+    a layer) and none in decode, and holding decoder layer 0's flash output
+    against its plain version, the ``"flash"`` prefill against ``"xla"``
+    and teacher-forced decode against prefill; prints prefill ms, decode ms
+    a step, tokens/s, peak memory and the shares of a profiled prefill's
+    device time in the flash kernel, in the encoder's and the
+    cross-attention's ``chunked_attention`` torch ops and in GEMMs; (b)
+    trains it at ``train_4k``'s sequence, batch 2, for 3 AdamW steps
+    (48 forward, 24 dQ and 24 dK/dV launches a step, both backward kernels
+    against their plain version on decoder layer 0, finite losses, the
+    first within 1.0 of the batch's loss without autograd; step ms,
+    tokens/s, peak memory); (c) serves and trains its SMOKE config (f32,
+    head dim 8) on the card against the CPU within ``SMOKE_TOL``;
+18. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -395,7 +412,7 @@ def _marked_profile(fn):
     return spans, marks, start.elapsed_time(end)
 
 
-def device_profile(fn, kernel_key, top: int = 3) -> dict:
+def device_profile(fn, kernel_key, top: int = 3, detail=None) -> dict:
     """One profiled call of ``fn``: its own span between CUDA events, the
     union of its device-event intervals (busy), the share of busy time in
     kernels whose name holds ``kernel_key`` (a string or a tuple of them;
@@ -408,7 +425,8 @@ def device_profile(fn, kernel_key, top: int = 3) -> dict:
     host (CUDA events, or the profiler's host range) is on another clock,
     and a device busy about 1% short of a nearly saturated span exceeded
     it by 0.6% on an H100 with CUDA events and by 0.4% with the host
-    range.  Every device event must lie between the markers."""
+    range.  Every device event must lie between the markers.
+    ``detail(spans)``, when given, adds its dict."""
     spans, marks, run_ms = _marked_profile(fn)
     if len(marks) != 2:
         raise AssertionError(f"the profiler saw {len(marks)} marker kernels "
@@ -451,7 +469,81 @@ def device_profile(fn, kernel_key, top: int = 3) -> dict:
            "top_other_device_us": {n: t for t, n in others}}
     if kernel_key:
         out["kernel_share_of_device"] = kernel / busy
+    if detail is not None:
+        out.update(detail(spans))
     return out
+
+
+#: substrings of the names of cuBLAS's and CUTLASS's matrix-product kernels
+GEMM_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def _is_gemm(name: str) -> bool:
+    return any(k in name.lower() for k in GEMM_KEYS)
+
+
+def _gemm_us(spans) -> dict:
+    return {"gemm_us": sum(t - s for s, t, n in spans if _is_gemm(n))}
+
+
+def attention_shares(prefill_fn, device) -> dict:
+    """:func:`device_profile` of one call of ``prefill_fn`` (an
+    encoder-decoder prefill) and of one ``chunked_attention`` call alone at
+    the shape the prefill gives each of its calls (the encoder's
+    self-attention and the cross-attention: q, k, v standard normal in the
+    model's dtype from seed 2 on the card): the shares of the prefill's
+    device busy time taken by the flash forward kernel, by its
+    ``chunked_attention`` calls (their count times the lone call's busy
+    time, their matrix products included), by matrix-product kernels
+    outside those calls (projections, MLP, logits; every GEMM of the
+    prefill less the calls' count times the lone call's) and by the rest.
+    A spy counts the prefill's calls and holds each to the lone call's
+    shape and arguments."""
+    import torch
+    from repro_torch.models import attention as A
+    real, seen = A.chunked_attention, []
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), q.dtype,
+                     tuple(sorted(kw.items()))))
+        return real(q, k, v, **kw)
+
+    A.chunked_attention = spy
+    try:
+        pre = device_profile(prefill_fn, "flash_fwd_kernel", top=8,
+                             detail=_gemm_us)
+    finally:
+        A.chunked_attention = real
+    if len(set(seen)) != 1:
+        raise AssertionError(f"the prefill's chunked_attention calls differ "
+                             f"in shape or arguments: {sorted(set(seen))}")
+    (qs, ks, dtype, kw), calls = seen[0], len(seen)
+    gen = torch.Generator(device=device).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in (qs, ks, ks))
+    one = device_profile(lambda: real(q, k, v, **dict(kw)), None,
+                         detail=_gemm_us)
+    del q, k, v
+    busy = pre["device_busy_ms"] * 1e3
+    inside = calls * one["device_busy_ms"] * 1e3
+    gemm_inside = calls * one["gemm_us"]
+    flash = pre["kernel_share_of_device"] * busy
+    if inside + flash > busy * 1.02 or gemm_inside > pre["gemm_us"] * 1.02:
+        raise AssertionError(
+            f"{calls} chunked_attention calls of {one['device_busy_ms']} ms "
+            f"each (GEMMs {one['gemm_us']} us) do not fit the prefill's "
+            f"{busy} us busy (flash {flash} us, GEMMs {pre['gemm_us']} us)")
+    return {**pre, "chunked_attention_calls": calls,
+            "chunked_attention_call": {"q": list(qs), "k": list(ks),
+                                       **dict(kw)},
+            "chunked_attention_call_busy_ms": one["device_busy_ms"],
+            "chunked_attention_call_idle_share": one["device_idle_share"],
+            "chunked_attention_share_of_device": inside / busy,
+            "chunked_attention_gemm_share_of_device": gemm_inside / busy,
+            "gemm_outside_chunked_share_of_device":
+                (pre["gemm_us"] - gemm_inside) / busy,
+            "other_share_of_device":
+                1 - (flash + inside + pre["gemm_us"] - gemm_inside) / busy}
 
 
 def breakdown(main: dict) -> dict:
@@ -2593,14 +2685,27 @@ def lm_phase(device, peaks) -> dict:
     return serve_arch(LM_ARCH, device, peaks, extras=True)
 
 
+def lm_frames(cfg, B: int, S: int, device):
+    """An encoder-decoder config's frame embeddings (B, S, d_model), f32
+    standard normal from seed 1 on the card; ``None`` for a config that
+    takes tokens only."""
+    import torch
+    if cfg.input_mode != "frames":
+        return None
+    gen = torch.Generator(device=device).manual_seed(1)
+    return torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+
+
 def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     """Serve full-width ``arch`` (bf16, random weights from seed 0) through
-    ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW, and hold
-    the flash kernel on layer 0's q, k, v against its plain version, with
-    kernel, plain and SDPA times, and profile one prefill (the flash share
-    of its device time); with ``extras`` (qwen3-1.7b's cell) also profile
-    decode and hold the "flash" prefill against "xla" and decode against
-    prefill."""
+    ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW (an
+    encoder-decoder arch with LM_PROMPT frames a prompt, ``lm_frames``),
+    and hold the flash kernel on (decoder) layer 0's q, k, v against its
+    plain version, with kernel, plain and SDPA times, and profile one
+    prefill (the flash share of its device time; for an encoder-decoder
+    arch also the chunked-attention and GEMM shares, ``attention_shares``);
+    with ``extras`` also profile decode and hold the "flash" prefill
+    against "xla" and decode against prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2629,12 +2734,13 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     prompts = np.random.default_rng(0).integers(1, cfg.vocab, (B, S),
                                                 dtype=np.int32)
     tokens = torch.from_numpy(prompts).long().to(device)
+    frames = lm_frames(cfg, B, S, device)
 
     # the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    out = generate(cfg, params, tokens, LM_NEW)
+    out = generate(cfg, params, tokens, LM_NEW, frames=frames)
     launches = flash.LAUNCHES
     forms = dict(flash.FORM_LAUNCHES)
     if (out.prefill_launches, out.decode_launches, launches) != (
@@ -2652,7 +2758,7 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
           f"{out.decode_s * 1e3:.3f} ms for {LM_NEW - 1} steps; launches "
           f"{out.prefill_launches} + {out.decode_launches}; tokens[0] "
           f"{out.tokens[0].tolist()}", flush=True)
-    warm = generate(cfg, params, tokens, LM_NEW)
+    warm = generate(cfg, params, tokens, LM_NEW, frames=frames)
     e2e = {"prefill_ms": warm.prefill_s * 1e3,
            "prefill_tok_per_s": B * S / warm.prefill_s,
            "decode_ms_per_step": warm.decode_s * 1e3 / (LM_NEW - 1),
@@ -2664,21 +2770,39 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
           f"({e2e['decode_tok_per_s']:.1f} tok/s); peak memory "
           f"{e2e['serve_peak_memory_gb']:.3f} GB", flush=True)
     with torch.inference_mode():
-        prof = device_profile(lambda: prefill(params, cfg, tokens, S),
-                              "flash_fwd_kernel")
+        if frames is None:
+            prof = device_profile(lambda: prefill(params, cfg, tokens, S),
+                                  "flash_fwd_kernel")
+        else:
+            prof = attention_shares(
+                lambda: prefill(params, cfg, tokens, S, frames), device)
     e2e["kernel_share_of_prefill_device"] = prof.pop("kernel_share_of_device")
     e2e.update({f"prefill_{k}": v for k, v in prof.items()})
     print(f"flash share of {arch}'s prefill device time "
           f"{e2e['kernel_share_of_prefill_device']:.4f}, device idle "
           f"{e2e['prefill_device_idle_share']:.4f}, profiled prefill "
           f"{e2e['prefill_profiled_run_ms']:.3f} ms", flush=True)
+    if frames is not None:
+        print(f"{arch}'s prefill device time: chunked attention (encoder, "
+              f"cross) {e2e['prefill_chunked_attention_share_of_device']:.4f}"
+              f" (its GEMMs "
+              f"{e2e['prefill_chunked_attention_gemm_share_of_device']:.4f})"
+              f" in {e2e['prefill_chunked_attention_calls']} calls of "
+              f"{e2e['prefill_chunked_attention_call_busy_ms']:.3f} ms "
+              f"profiled alone, GEMMs "
+              f"outside it "
+              f"{e2e['prefill_gemm_outside_chunked_share_of_device']:.4f}, "
+              f"flash {e2e['kernel_share_of_prefill_device']:.4f}, the rest "
+              f"{e2e['prefill_other_share_of_device']:.4f}; largest other "
+              f"kernels {e2e['prefill_top_other_device_us']}", flush=True)
     if extras:
         with torch.inference_mode():
-            _, caches = prefill(params, cfg, tokens, S + 1)
+            _, caches, memory = prefill(params, cfg, tokens, S + 1, frames)
             nxt = tokens[:, -1:]
             prof = device_profile(
-                lambda: decode_step(params, cfg, nxt, caches), None, top=5)
-            del caches
+                lambda: decode_step(params, cfg, nxt, caches, memory), None,
+                top=5)
+            del caches, memory
         e2e.update({f"decode_{k}": v for k, v in prof.items()})
         print(f"device idle {e2e['decode_device_idle_share']:.4f} in one "
               f"decode step "
@@ -2696,7 +2820,8 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
         del q, k, v
         checks = {}
         if extras:
-            checks = prefill_and_decode_checks(params, cfg, tokens)
+            checks = prefill_and_decode_checks(params, cfg, tokens, frames)
+        del frames
     del params
     torch.cuda.empty_cache()
 
@@ -2712,32 +2837,34 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     return res
 
 
-def prefill_and_decode_checks(params, cfg, tokens) -> dict:
+def prefill_and_decode_checks(params, cfg, tokens, frames=None) -> dict:
     """The "flash" prefill against "xla" (chunked torch ops), and
-    teacher-forced decode against prefill over the same tokens, by the
-    relative L2 of the true-vocab logits (LOGIT_REL_TOL)."""
+    teacher-forced decode against prefill over the same tokens (and
+    ``frames``, the encoder's input), by the relative L2 of the true-vocab
+    logits (LOGIT_REL_TOL)."""
     import dataclasses
     from repro_torch.models import decode_step, prefill
     S = tokens.shape[1]
-    lf, cf = prefill(params, cfg, tokens, S)
+    lf, cf, _ = prefill(params, cfg, tokens, S, frames)
     del cf
-    lx, cx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
-                     tokens, S)
+    lx, cx, _ = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                        tokens, S, frames)
     del cx
     flash_xla = rel_err(lf[..., :cfg.vocab], lx[..., :cfg.vocab])
     print(f"prefill logits, flash vs xla: rel err {flash_xla}, max abs "
           f"{(lf - lx).abs().max().item()}", flush=True)
     tf = []
     short = tokens[:, :LM_TF_PROMPT + LM_TF_STEPS]
-    _, caches = prefill(params, cfg, short[:, :LM_TF_PROMPT],
-                        LM_TF_PROMPT + LM_TF_STEPS)
+    _, caches, memory = prefill(params, cfg, short[:, :LM_TF_PROMPT],
+                                LM_TF_PROMPT + LM_TF_STEPS, frames)
     for t in range(LM_TF_PROMPT, LM_TF_PROMPT + LM_TF_STEPS):
-        ld, caches = decode_step(params, cfg, short[:, t:t + 1], caches)
-        lp, _ = prefill(params, cfg, short[:, :t + 1], t + 1)
+        ld, caches = decode_step(params, cfg, short[:, t:t + 1], caches,
+                                 memory)
+        lp, _, _ = prefill(params, cfg, short[:, :t + 1], t + 1, frames)
         tf.append(rel_err(ld[..., :cfg.vocab], lp[..., :cfg.vocab]))
     print(f"teacher-forced decode vs prefill (prompt {LM_TF_PROMPT}, "
           f"{LM_TF_STEPS} steps): rel err {tf}", flush=True)
-    del caches
+    del caches, memory
     if flash_xla > LOGIT_REL_TOL or max(tf) > LOGIT_REL_TOL:
         raise AssertionError(f"logits differ beyond {LOGIT_REL_TOL}")
     return {"flash_vs_xla_logit_rel_err": flash_xla,
@@ -2778,7 +2905,10 @@ def _form_counts(forms: dict) -> dict:
 def capture_layer0(params, cfg, batch) -> dict:
     """Layer 0's q, k, v and the gradient of its attention output from one
     backward of the batch's loss (the gradient taken with respect to the
-    stacked ``wq``, which every layer's q projection reads)."""
+    stacked ``wq``, which every layer's q projection reads).  The spy sees
+    the first flash call: an encoder-decoder model's encoder and
+    cross-attention take ``chunked_attention``, so that is the decoder's
+    layer 0, and ``wq`` is the decoder's (``params["blocks"]``)."""
     import torch
     from repro_torch.models import attention as A
     from repro_torch.models import lm_loss
@@ -2986,6 +3116,12 @@ def loop_restart_check(device) -> dict:
     return {"losses": want, "retries": first["retries"]}
 
 
+def data_mode(cfg) -> str:
+    """The synthetic pipeline's mode for ``cfg``: ``"frames"`` (tokens
+    with frame embeddings for the encoder) or ``"tokens"``."""
+    return "frames" if cfg.input_mode == "frames" else "tokens"
+
+
 def train_phase(device, peaks) -> dict:
     """Train full-width qwen3-1.7b through ``make_train_step`` and hold the
     backward kernels, the "flash" gradients and the checkpointed loop
@@ -3023,8 +3159,9 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False) -> dict:
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
     opt = adamw_init(params)
-    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                         global_batch=B, seed=0))
+    data = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0,
+        d_model=cfg.d_model, mode=data_mode(cfg)))
     batches = [device_batch(data.batch_at(s), device)
                for s in range(len(plan))]
     with torch.no_grad():
@@ -3136,9 +3273,11 @@ A16B_TRAIN_ARCH, A16B_TRAIN_BATCH, A16B_TRAIN_STEPS = "phi4-mini-3.8b", 2, 3
 #: (d) the smoke runs: generate at batch 2 x prompt 64 + 8 new, then 3
 #: AdamW steps of make_train_step at batch 2 x 64
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW, SMOKE_STEPS = 2, 64, 8, 3
-#: (d) the head-dim sweep: qwen3-1.7b's smoke config at the head dims no
-#: ported config has yet (A16f's 64 and seamless's smoke 8, A16e's 112),
-#: so that every new form runs on a served and trained path
+#: (d) the head-dim sweep: qwen3-1.7b's smoke config at every head dim
+#: the flash kernels take but 12 and 16 (phi4-mini's and the other smoke
+#: configs'), so that every form runs on a dense served and trained path;
+#: seamless-m4t-large-v2 (A16f) also runs bf16 at 64 and its SMOKE f32 at
+#: 8, and no ported config has 112 yet (A16e's zamba2-7b)
 SWEEP = (("float32", 8), ("float32", 64), ("float32", 112),
          ("float32", 128), ("bfloat16", 64), ("bfloat16", 112))
 #: (d) the card against the CPU (the plain versions) on the same weights
@@ -3233,8 +3372,9 @@ def smoke_run(label: str, cfg, device) -> dict:
     """``generate`` (batch 2, prompt 64, 8 new) then 3 AdamW steps of
     ``make_train_step`` of ``cfg`` on the CPU (the plain versions) and on
     the card (the flash kernels in ``cfg``'s dtype and head dim), from the
-    same weights (seed 0, made on the CPU) and batches: launch counts
-    exact, the first pick's logits and the losses within SMOKE_TOL."""
+    same weights (seed 0, made on the CPU), prompts, frames (an
+    encoder-decoder config's) and batches: launch counts exact, the first
+    pick's logits and the losses within SMOKE_TOL."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticLMDataset
@@ -3245,11 +3385,14 @@ def smoke_run(label: str, cfg, device) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import make_train_step
     t0 = time.perf_counter()
-    prompts = np.random.default_rng(0).integers(
-        1, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT), dtype=np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT),
+                           dtype=np.int32)
+    frames = (rng.standard_normal((SMOKE_BATCH, SMOKE_PROMPT, cfg.d_model))
+              .astype(np.float32) if cfg.input_mode == "frames" else None)
     data = SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=SMOKE_BATCH,
-        seed=0))
+        seed=0, d_model=cfg.d_model, mode=data_mode(cfg)))
     step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
                                             total_steps=SMOKE_STEPS))
     runs = {}
@@ -3264,7 +3407,9 @@ def smoke_run(label: str, cfg, device) -> dict:
             # the main path: counts at 0 just before, read just after
             torch.cuda.synchronize()
             _zero_launch_counts()
-        gen = generate(cfg, params, tokens, SMOKE_NEW)
+        gen = generate(cfg, params, tokens, SMOKE_NEW, frames=None
+                       if frames is None else torch.from_numpy(frames).to(
+                           where))
         losses = []
         for batch in batches:
             params, opt, metrics = step(params, opt, batch)
@@ -3374,6 +3519,47 @@ def a16b_phase(device, peaks) -> list:
     return form_rows_ + rows
 
 
+# --- A16f: the encoder-decoder family -------------------------------------
+
+A16F_ARCH = "seamless-m4t-large-v2"
+#: (b) full-width training: train_4k's sequence, its batch of 256 cut to 2
+A16F_TRAIN_BATCH, A16F_TRAIN_STEPS = 2, 3
+
+
+def a16f_phase(device, peaks) -> list:
+    """(a) seamless-m4t-large-v2 served at full width in bf16
+    (``serve_arch`` with ``extras``: batch 8 x 4096 frames and a 4096-token
+    prompt + 16 new tokens; 24 flash launches a prefill, none in decode;
+    decoder layer 0's flash output against its plain version; the "flash"
+    prefill against "xla" and teacher-forced decode against prefill; the
+    flash, chunked-attention and GEMM shares of a prefill's device time);
+    (b) trained at 2 x 4096 for 3 AdamW steps (``train_arch``: 48/24/24
+    launches a step, both backward kernels against their plain version on
+    decoder layer 0, finite losses); (c) its SMOKE config (f32, head dim
+    8) served and trained on the card against the CPU (``smoke_run``)."""
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    t0 = time.perf_counter()
+    cfg = get_config(A16F_ARCH)
+    kv_gb = cfg.n_layers * LM_BATCH * (LM_PROMPT + LM_NEW) * cfg.n_kv \
+        * cfg.d_head * 2 * 2 / 1e9
+    print(f"A16f: {A16F_ARCH} ({cfg.family}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, H {cfg.n_heads} on Hkv "
+          f"{cfg.n_kv}, d_head {cfg.d_head}; {cfg.n_params} parameters by "
+          f"the reference's formula); decode KV cache {kv_gb:.2f} GB; AdamW "
+          f"state about {cfg.n_params * 14 / 1e9:.1f} GB", flush=True)
+    serve = serve_arch(A16F_ARCH, device, peaks, extras=True)
+    torch.cuda.empty_cache()
+    train = train_arch(A16F_ARCH, device, peaks, A16F_TRAIN_BATCH,
+                       [1] * A16F_TRAIN_STEPS)
+    serve["train_launches_per_step"] = train.pop("fwd_per_step")
+    torch.cuda.empty_cache()
+    serve["smoke_run"] = smoke_run(A16F_ARCH, smoke_config(A16F_ARCH),
+                                   device)
+    print(f"A16f phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return [serve] + train["kernels"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3469,6 +3655,8 @@ def main() -> int:
     kernels.extend(train["kernels"])
     torch.cuda.empty_cache()
     kernels.extend(a16b_phase(device, peaks))
+    torch.cuda.empty_cache()
+    kernels.extend(a16f_phase(device, peaks))
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],

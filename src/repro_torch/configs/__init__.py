@@ -14,8 +14,10 @@ import importlib
 from repro_torch.models import ModelConfig
 
 #: the dense family: qwen3-1.7b, and granite-3-8b, phi4-mini-3.8b and
-#: glm4-9b (the reference's own configs, copied field for field)
-ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b"]
+#: glm4-9b; the encoder-decoder family: seamless-m4t-large-v2 (the
+#: reference's own configs, copied field for field)
+ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b",
+            "seamless-m4t-large-v2"]
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
@@ -31,7 +33,6 @@ PENDING = {
     "qwen3-moe-30b-a3b": "A16c",
     "mamba2-1.3b": "A16d",
     "zamba2-7b": "A16e",
-    "seamless-m4t-large-v2": "A16f",
     "internvl2-76b": "A16g",
 }
 

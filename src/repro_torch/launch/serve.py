@@ -1,11 +1,15 @@
 """Serving launcher: batched prefill + greedy KV-cache decode on one device.
 
 Builds the model from a seed, prefills a batch of random prompts, then
-decodes tokens in lockstep.  On a CUDA device each layer's prefill
-attention runs the flash kernel (``kernels/csrc/flash_fwd.cu``).
+decodes tokens in lockstep.  On a CUDA device each (decoder) layer's
+causal prefill attention runs the flash kernel
+(``kernels/csrc/flash_fwd.cu``).  An encoder-decoder arch also draws random
+frame embeddings, one per prompt position, for its encoder:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -42,10 +46,13 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-             max_new: int, max_len: Optional[int] = None) -> Generation:
+             max_new: int, max_len: Optional[int] = None,
+             frames: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``tokens`` (B, S) then pick ``max_new`` tokens greedily: the
     first from the prefill logits, the rest by ``max_new - 1`` decode
-    steps over a cache of ``max_len`` (default ``S + max_new``)."""
+    steps over a cache of ``max_len`` (default ``S + max_new``).  An
+    encoder-decoder config takes ``frames`` (B, S_enc, d_model), whose
+    encoder memory every decode step attends to."""
     B, S = tokens.shape
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1; got {max_new}")
@@ -59,13 +66,16 @@ def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     _sync(dev)
     n0, t0 = flash_attention.LAUNCHES, time.perf_counter()
-    logits, caches = prefill_fn(params, {"tokens": tokens})
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    logits, caches, memory = prefill_fn(params, batch)
     nxt = logits[:, -1:].argmax(dim=-1)
     _sync(dev)
     n1, t1 = flash_attention.LAUNCHES, time.perf_counter()
     picks, seen = [nxt], [logits[:, -1]]
     for _ in range(max_new - 1):
-        logits, caches = decode_fn(params, nxt, caches)
+        logits, caches = decode_fn(params, nxt, caches, memory)
         nxt = logits[:, -1:].argmax(dim=-1)
         picks.append(nxt)
         seen.append(logits[:, -1])
@@ -96,10 +106,15 @@ def main(argv=None) -> Generation:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    frames = None
+    if cfg.input_mode == "frames":
+        frames = torch.from_numpy(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(
+                np.float32)).to(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     out = generate(cfg, params, torch.from_numpy(prompts).long().to(device),
-                   args.max_new, max_len)
+                   args.max_new, max_len, frames)
 
     toks = out.tokens.cpu()
     for b in range(min(args.batch, 4)):

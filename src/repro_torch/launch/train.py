@@ -2,13 +2,16 @@
 -> fault-tolerant loop (checkpoint/restart, straggler detection, failure
 retry).
 
-On a CUDA device each layer's causal attention runs the flash kernels
-(``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
+On a CUDA device each (decoder) layer's causal attention runs the flash
+kernels (``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
 backward).  ``--smoke`` selects the reduced config of the same family;
-``--device cpu`` runs the kernels' plain versions:
+``--device cpu`` runs the kernels' plain versions.  An encoder-decoder
+arch's batches carry random frame embeddings for its encoder:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --device cpu --steps 20 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu --steps 4
 
 Without ``--ckpt-dir`` the checkpoints go to a fresh temporary directory
 that is removed at the end; with it, a second launch resumes from the
@@ -78,7 +81,8 @@ def main(argv=None) -> dict:
 
     data = SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-        seed=args.seed, d_model=cfg.d_model))
+        seed=args.seed, d_model=cfg.d_model,
+        mode="frames" if cfg.input_mode == "frames" else "tokens"))
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
     opt_state = adamw_init(params)

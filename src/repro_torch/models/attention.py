@@ -1,11 +1,16 @@
-"""GQA attention: prefill through the flash kernel or chunked torch ops, and
-one-token decode over a KV cache.
+"""GQA attention: prefill through the flash kernel or chunked torch ops,
+cross-attention to an encoder's memory, and one-token decode over a KV
+cache.
 
 Prefill's causal self-attention goes to ``kernels/flash_attention.py`` when
 ``cfg.attn_impl == "flash"`` (the Hopper kernel on the card, its plain
 version on the CPU) and to :func:`chunked_attention`, an online softmax over
-(q chunk, kv chunk) pairs in torch ops, when it is ``"xla"``.  Decode is
-plain torch ops: the reference's decode has no kernel either.
+(q chunk, kv chunk) pairs in torch ops, when it is ``"xla"``.  As in the
+reference, every other attention goes to :func:`chunked_attention` whatever
+``attn_impl`` says: an encoder's bidirectional self-attention and
+:func:`cross_attention`.  Training differentiates it by autograd through
+its loop.  Decode is plain torch ops: the reference's decode has no kernel
+either.
 """
 from __future__ import annotations
 
@@ -101,14 +106,16 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
     return out[:, :Sq]
 
 
-def self_attention(x, p, cfg, positions, *, return_kv: bool = False):
-    """Prefill causal self-attention block core (no residual/norm)."""
+def self_attention(x, p, cfg, positions, *, causal: bool = True,
+                   return_kv: bool = False):
+    """Train/prefill self-attention block core (no residual/norm); only the
+    causal case can take the flash kernel."""
     q, k, v = _project_qkv(x, p, cfg, positions)
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl == "flash" and causal:
         out = flash_attention(q, k, v, True, cfg.attn_q_chunk,
                               cfg.attn_kv_chunk)
     else:
-        out = chunked_attention(q, k, v, causal=True,
+        out = chunked_attention(q, k, v, causal=causal,
                                 q_chunk=cfg.attn_q_chunk,
                                 kv_chunk=cfg.attn_kv_chunk)
     B, S = x.shape[:2]
@@ -116,6 +123,20 @@ def self_attention(x, p, cfg, positions, *, return_kv: bool = False):
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(x, memory, p, cfg):
+    """Decoder-to-encoder attention core (no residual/norm): q from ``x``
+    (B,S,D), K and V projected from ``memory`` (B,S_enc,D); no RoPE and no
+    qk-norm on either side."""
+    B, S, _ = x.shape
+    Sm = memory.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = (memory @ p["wk"]).reshape(B, Sm, cfg.n_kv, cfg.d_head)
+    v = (memory @ p["wv"]).reshape(B, Sm, cfg.n_kv, cfg.d_head)
+    out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk,
+                            kv_chunk=cfg.attn_kv_chunk)
+    return out.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
 class KVCache(NamedTuple):

@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoder-only family: config, parameters,
-forward and loss (training), prefill and KV-cache decode (serving).
+"""Model assembly for the dense decoder-only and the encoder-decoder
+families: config, parameters, forward and loss (training), prefill and
+KV-cache decode (serving).
 
 Parameters are a dict shaped like the reference's pytree, with the per-layer
 leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
@@ -12,19 +13,22 @@ serving runs under ``torch.inference_mode()`` with no remat.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.attention import (KVCache, decode_attention,
-                                          init_attention, init_cache,
-                                          self_attention, update_cache)
+from repro_torch.models.attention import (KVCache, cross_attention,
+                                          decode_attention, init_attention,
+                                          init_cache, self_attention,
+                                          update_cache)
 
+#: the families the port runs
+FAMILIES = ("dense", "encdec")
 #: families of the reference that are not ported yet, and their ROADMAP item
 PENDING_FAMILIES = {"moe": "A16c", "ssm": "A16d", "hybrid": "A16e",
-                    "encdec": "A16f", "vlm": "A16g"}
+                    "vlm": "A16g"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,8 +131,8 @@ class ModelConfig:
         raise ValueError(self.family)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         item = PENDING_FAMILIES.get(cfg.family)
         if item is None:
             raise ValueError(cfg.family)
@@ -148,28 +152,47 @@ def require_device(device) -> torch.device:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
-    """Random parameters of the dense family: every weight ``normal * scale``
-    drawn in f32 from ``generator`` (on ``device``) and cast, norms ones."""
-    _require_dense(cfg)
+    """Random parameters: every weight ``normal * scale`` drawn in f32 from
+    ``generator`` (on ``device``) and cast, norms ones.  The tree is the
+    reference's: ``embed``, ``final_norm`` and the decoder's ``blocks``;
+    the encoder-decoder family adds ``enc_blocks`` (dense blocks) and
+    ``enc_norm``, and each of its decoder blocks a cross-attention
+    (``ln_x``, ``xattn``: no qk-norm)."""
+    _require_ported(cfg)
     device = require_device(device)
-    dt, D, n = cfg.tdtype, cfg.d_model, cfg.n_layers
+    dt, D = cfg.tdtype, cfg.d_model
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    layers = []
-    for _ in range(n):
-        layers.append({
-            "ln1": ones(D),
-            "attn": init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
-                                   cfg.qk_norm, dt, generator, device),
-            "ln2": ones(D),
-            "mlp": L.init_mlp(D, cfg.d_ff, cfg.act, dt, generator, device)})
-    return {
-        "embed": L.init_embed(cfg.padded_vocab, D, dt, cfg.tie_embeddings,
-                              generator, device),
-        "final_norm": ones(D),
-        "blocks": _stack(layers)}
+    def block(kind):
+        p = {"ln1": ones(D),
+             "attn": init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                                    cfg.qk_norm, dt, generator, device),
+             "ln2": ones(D),
+             "mlp": L.init_mlp(D, cfg.d_ff, cfg.act, dt, generator, device)}
+        if kind == "dec":
+            p["ln_x"] = ones(D)
+            p["xattn"] = init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                                        False, dt, generator, device)
+        return p
+
+    # the blocks are drawn before the embedding, so a seed gives the dense
+    # family the weights it always had
+    params = {}
+    if cfg.family == "encdec":
+        params["enc_blocks"] = _stack([block("dense")
+                                       for _ in range(cfg.n_enc_layers)])
+        params["enc_norm"] = ones(D)
+        params["blocks"] = _stack([block("dec")
+                                   for _ in range(cfg.n_layers)])
+    else:
+        params["blocks"] = _stack([block("dense")
+                                   for _ in range(cfg.n_layers)])
+    params["embed"] = L.init_embed(cfg.padded_vocab, D, dt,
+                                   cfg.tie_embeddings, generator, device)
+    params["final_norm"] = ones(D)
+    return params
 
 
 def _stack(layers):
@@ -193,16 +216,21 @@ def _unstack(blocks, n: int) -> list:
 
 # --- forward / prefill ---------------------------------------------------------
 
-def _dense_body(x, bp, cfg: ModelConfig, *, collect: bool = False):
-    """One pre-norm block: attention then MLP, each with a residual.
+def _dense_body(x, bp, cfg: ModelConfig, *, causal: bool = True,
+                memory=None, collect: bool = False):
+    """One pre-norm block: self-attention, then (a decoder block, with
+    ``memory``) cross-attention to it, then the MLP, each with a residual.
     Returns ``(x, (k, v) or None)``."""
     pos = torch.arange(x.shape[1], device=x.device)
     h = self_attention(L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"],
-                       cfg, pos, return_kv=collect)
+                       cfg, pos, causal=causal, return_kv=collect)
     kv = None
     if collect:
         h, kv = h
     x = x + h
+    if "xattn" in bp:
+        x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
+                                memory, bp["xattn"], cfg)
     h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
                     cfg.act)
     return x + h, kv
@@ -223,16 +251,35 @@ def _remat(fn, policy: str):
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
-def forward(params, cfg: ModelConfig, tokens
+def _encode(params, cfg: ModelConfig, frames):
+    """The encoder-decoder family's memory: the encoder's bidirectional
+    blocks over ``frames`` (B, S_enc, D) cast to the model's dtype, each
+    under ``cfg.remat_policy``, then ``enc_norm``."""
+    if frames is None:
+        raise ValueError(f"{cfg.name} (family encdec) needs frames: "
+                         f"(B, S_enc, d_model) frame embeddings")
+    body = _remat(lambda x, bp: _dense_body(x, bp, cfg, causal=False)[0],
+                  cfg.remat_policy)
+    x = frames.to(cfg.tdtype)
+    for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
+        x = body(x, bp)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens, frames=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar).
-    Each layer runs under ``cfg.remat_policy`` when autograd records."""
-    _require_dense(cfg)
-    body = _remat(lambda x, bp: _dense_body(x, bp, cfg)[0],
+    Each layer runs under ``cfg.remat_policy`` when autograd records.
+    ``frames``: (B, S_enc, D) encoder-side frame embeddings (encdec)."""
+    _require_ported(cfg)
+    memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
+        else None
+    body = _remat(lambda x, bp, mem: _dense_body(x, bp, cfg,
+                                                 memory=mem)[0],
                   cfg.remat_policy)
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
     for bp in _unstack(params["blocks"], cfg.n_layers):
-        x = body(x, bp)
+        x = body(x, bp, memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -248,12 +295,13 @@ def _chunk_loss(h, head, labels, mask, pad_mask):
 
 def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Chunked softmax cross-entropy, f32 0-d.  ``batch`` holds ``tokens``
-    and ``labels`` (B, S) and optionally ``loss_mask`` (B, S).  The loss
+    and ``labels`` (B, S), optionally ``loss_mask`` (B, S) and, for the
+    encoder-decoder family, ``frames`` (B, S_enc, D).  The loss
     is taken over ``cfg.loss_chunk`` positions at a time, and under
     autograd each chunk is a ``torch.utils.checkpoint`` region, so only one
     chunk's (B, C, padded vocab) logits are alive at a time, backward
     included."""
-    hidden, aux = forward(params, cfg, batch["tokens"])
+    hidden, aux = forward(params, cfg, batch["tokens"], batch.get("frames"))
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
@@ -277,48 +325,56 @@ def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return loss + 1e-2 * aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int
-            ) -> Tuple[torch.Tensor, dict]:
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
+            ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
     """Process the prompt and build decode caches padded to ``max_len``.
 
-    Returns (last-position logits (B,1,V) f32, caches): the caches are
-    ``{"k", "v"}`` of ``(n_layers, B, max_len, n_kv, d_head)`` and
-    ``"length"`` (an int).  The reference also returns its enc-dec
-    family's encoder memory, which the dense family does not have."""
-    _require_dense(cfg)
+    Returns (last-position logits (B,1,V) f32, caches, memory): the caches
+    are ``{"k", "v"}`` of ``(n_layers, B, max_len, n_kv, d_head)`` and
+    ``"length"`` (an int); ``memory`` is the encoder-decoder family's
+    encoder output over ``frames`` (B, S_enc, D), which
+    :func:`decode_step` attends to, and ``None`` for the dense family."""
+    _require_ported(cfg)
+    memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
+        else None
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
     B, S = tokens.shape
     if max_len < S:
         raise ValueError(f"max_len={max_len} < prompt length {S}")
     caches = make_decode_caches(cfg, B, max_len, x.device)
     for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, (k, v) = _dense_body(x, bp, cfg, collect=True)
+        x, (k, v) = _dense_body(x, bp, cfg, memory=memory, collect=True)
         caches["k"][i, :, :S] = k
         caches["v"][i, :, :S] = v
     caches["length"] = S
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
-    return logits, caches
+    return logits, caches, memory
 
 
 # --- decode -------------------------------------------------------------------
 
 def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda") -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     cache = init_cache(cfg, batch, max_len, cfg.n_layers, cfg.tdtype,
                        require_device(device))
     return {"k": cache.k, "v": cache.v, "length": cache.length}
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches: dict
+def decode_step(params, cfg: ModelConfig, tokens, caches: dict, memory=None
                 ) -> Tuple[torch.Tensor, dict]:
     """One decode step: tokens (B,1) -> (logits (B,1,V) f32, caches).
 
     The caches are updated in place: the returned dict holds the same
     ``k`` and ``v`` tensors with this step's K/V written at ``length``, and
-    ``length + 1``."""
-    _require_dense(cfg)
+    ``length + 1``.  A decoder block with cross-attention attends to
+    ``memory`` (:func:`prefill`'s), re-projecting its K and V in every
+    layer at every step, as the reference does."""
+    _require_ported(cfg)
+    if cfg.family == "encdec" and memory is None:
+        raise ValueError(f"{cfg.name} (family encdec) decodes against the "
+                         f"encoder memory that prefill returns")
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
     length = caches["length"]
     if length >= caches["k"].shape[2]:
@@ -329,6 +385,9 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: dict
         h, (kn, vn) = decode_attention(
             L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)
         x = x + h
+        if "xattn" in bp:
+            x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
+                                    memory, bp["xattn"], cfg)
         h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
                         cfg.act)
         update_cache(cache, kn, vn)

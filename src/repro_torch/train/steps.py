@@ -82,12 +82,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 def make_prefill_fn(cfg: ModelConfig, max_len: int):
+    """Returns prefill_fn(params, batch) -> (logits, caches, memory):
+    ``batch`` holds ``tokens`` and, for the encoder-decoder family,
+    ``frames``; ``memory`` is ``None`` for the dense family."""
     def prefill_fn(params, batch: dict):
-        return prefill(params, cfg, batch["tokens"], max_len)
+        return prefill(params, cfg, batch["tokens"], max_len,
+                       batch.get("frames"))
     return prefill_fn
 
 
 def make_decode_fn(cfg: ModelConfig):
-    def decode_fn(params, tokens, caches):
-        return decode_step(params, cfg, tokens, caches)
+    def decode_fn(params, tokens, caches, memory=None):
+        return decode_step(params, cfg, tokens, caches, memory)
     return decode_fn

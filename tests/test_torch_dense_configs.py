@@ -164,9 +164,10 @@ def test_prefill_and_decode_match_reference(arch):
     jlogits, jcaches = _jit_prefill(jcfg, max_len)(jparams,
                                                    jnp.asarray(tokens))
     before = flash.LAUNCHES
-    logits, caches = transformer.prefill(
+    logits, caches, memory = transformer.prefill(
         params, cfg, torch.from_numpy(tokens).long(), max_len)
     assert flash.LAUNCHES == before          # CPU tensors: plain version
+    assert memory is None                    # no encoder in the dense family
     assert logits.shape == (B, 1, cfg.padded_vocab)
     _close(logits, jlogits, PREFILL_TOL)
     _close(caches["k"], jcaches["k"], PREFILL_TOL)
@@ -221,7 +222,7 @@ def test_flash_prefill_matches_reference_pallas():
     tokens = _tokens(cfg)
     jlogits, jcaches = _jit_prefill(jcfg, S + MAX_NEW)(jparams,
                                                        jnp.asarray(tokens))
-    logits, caches = transformer.prefill(
+    logits, caches, _ = transformer.prefill(
         params, cfg, torch.from_numpy(tokens).long(), S + MAX_NEW)
     _close(logits, jlogits, PREFILL_TOL)
     _close(caches["k"], jcaches["k"], PREFILL_TOL)

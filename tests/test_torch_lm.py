@@ -189,9 +189,10 @@ def test_init_params_matches_reference_tree(model):
 def test_flash_prefill_matches_reference_pallas(model):
     tokens = torch.from_numpy(model["tokens"]).long()
     before = flash.LAUNCHES
-    logits, caches = transformer.prefill(
+    logits, caches, memory = transformer.prefill(
         model["params"], model["cfg"], tokens, model["max_len"])
     assert flash.LAUNCHES == before          # CPU tensors: plain version
+    assert memory is None                    # no encoder in the dense family
     assert logits.dtype == torch.float32
     assert logits.shape == (B, 1, model["cfg"].padded_vocab)
     _close(logits, model["jlogits"], PREFILL_TOL)
@@ -204,7 +205,7 @@ def test_flash_prefill_matches_reference_pallas(model):
 def test_xla_prefill_matches_reference_xla(model):
     cfg = dataclasses.replace(model["cfg"], attn_impl="xla")
     jcfg = dataclasses.replace(model["jcfg"], attn_impl="xla")
-    logits, caches = transformer.prefill(
+    logits, caches, _ = transformer.prefill(
         model["params"], cfg, torch.from_numpy(model["tokens"]).long(),
         model["max_len"])
     jlogits, jcaches = _jit_prefill(jcfg, model["max_len"])(
