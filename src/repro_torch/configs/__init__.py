@@ -14,10 +14,11 @@ import importlib
 from repro_torch.models import ModelConfig
 
 #: the dense family: qwen3-1.7b, and granite-3-8b, phi4-mini-3.8b and
-#: glm4-9b; the encoder-decoder family: seamless-m4t-large-v2 (the
-#: reference's own configs, copied field for field)
+#: glm4-9b; the encoder-decoder family: seamless-m4t-large-v2; the SSM
+#: family: mamba2-1.3b; the hybrid: zamba2-7b (the reference's own configs,
+#: copied field for field)
 ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b",
-            "seamless-m4t-large-v2"]
+            "seamless-m4t-large-v2", "mamba2-1.3b", "zamba2-7b"]
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
@@ -31,8 +32,6 @@ SHAPES = {
 PENDING = {
     "qwen3-moe-235b-a22b": "A16c",
     "qwen3-moe-30b-a3b": "A16c",
-    "mamba2-1.3b": "A16d",
-    "zamba2-7b": "A16e",
     "internvl2-76b": "A16g",
 }
 

@@ -8,7 +8,6 @@ port's tensors.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -42,60 +41,79 @@ def _tensor(array, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _carry(want, got, path: str, dtype_of, device):
+    """``got`` (nested mappings of numpy arrays) as tensors shaped like
+    ``want`` (the port's tree), each leaf in ``dtype_of(want leaf)``; a
+    leaf for which that is ``None`` must be ``None`` in ``got`` too and
+    stays ``None``."""
+    if isinstance(want, dict):
+        keys = (sorted(got) if isinstance(got, Mapping)
+                else type(got).__name__)
+        if keys != sorted(want):
+            raise ValueError(f"{path or 'params'}: expected keys "
+                             f"{sorted(want)}, got {keys}")
+        return {k: _carry(want[k], got[k], f"{path}/{k}", dtype_of, device)
+                for k in want}
+    dtype = dtype_of(want)
+    if dtype is None or got is None:
+        if dtype is not None or got is not None:
+            raise ValueError(f"{path}: expected "
+                             f"{'no leaf' if dtype is None else 'a leaf'}, "
+                             f"got {'None' if got is None else 'a leaf'}")
+        return None
+    shape = tuple(np.shape(got))
+    if shape != tuple(want.shape):
+        raise ValueError(f"{path}: expected shape {tuple(want.shape)}, got "
+                         f"{shape}")
+    return _tensor(got, dtype, device)
+
+
+def _want(cfg: ModelConfig) -> dict:
+    """The port's parameter tree for ``cfg`` on the meta device."""
+    return init_params(cfg, torch.Generator().manual_seed(0), "meta")
+
+
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
                           device="cpu") -> dict:
     """The reference's ``init_params`` tree (stacked ``(L, ...)`` leaves, as
-    numpy arrays) -> the port's parameters in ``cfg``'s dtype on
-    ``device``.  Keys and shapes must be those the port's ``init_params``
-    makes for ``cfg``."""
-    want = init_params(cfg, torch.Generator().manual_seed(0), "meta")
-
-    def carry(want_node, got_node, path):
-        if isinstance(want_node, dict):
-            got = (sorted(got_node) if isinstance(got_node, Mapping)
-                   else type(got_node).__name__)
-            if got != sorted(want_node):
-                raise ValueError(f"{path or 'params'}: expected keys "
-                                 f"{sorted(want_node)}, got {got}")
-            return {k: carry(want_node[k], got_node[k], f"{path}/{k}")
-                    for k in want_node}
-        shape = tuple(np.shape(got_node))
-        if shape != tuple(want_node.shape):
-            raise ValueError(f"{path}: expected shape "
-                             f"{tuple(want_node.shape)}, got {shape}")
-        return _tensor(got_node, cfg.tdtype, device)
-    return carry(want, tree, "")
+    numpy arrays) -> the port's parameters on ``device``, each leaf in the
+    dtype the port's ``init_params`` gives it for ``cfg`` (``cfg``'s dtype,
+    but f32 for an SSM layer's ``A_log``, ``D_skip`` and ``dt_bias``).
+    Keys and shapes must be those the port's ``init_params`` makes."""
+    return _carry(_want(cfg), tree, "", lambda w: w.dtype, device)
 
 
 def caches_from_reference(tree: Mapping, device="cpu",
                           dtype=torch.float32) -> dict:
-    """The reference's dense decode caches (``{"k", "v"}`` of ``(L, B,
-    max_len, n_kv, d_head)`` and the 0-d ``"length"``) -> the port's, with
-    ``length`` a Python int."""
-    return {"k": _tensor(tree["k"], dtype, device),
-            "v": _tensor(tree["v"], dtype, device),
-            "length": int(np.asarray(tree["length"]))}
+    """The reference's decode caches (the dense ``{"k", "v"}`` of ``(L, B,
+    max_len, n_kv, d_head)``; the SSM family's ``conv`` and ``state``; the
+    hybrid's ``attn_k``, ``attn_v``, ``conv``, ``state`` and
+    ``tail_conv``, ``tail_state``; each with the 0-d ``"length"``) -> the
+    port's in ``dtype``, with ``length`` a Python int."""
+    out = {k: _tensor(v, dtype, device) for k, v in tree.items()
+           if k != "length"}
+    out["length"] = int(np.asarray(tree["length"]))
+    return out
 
 
 def opt_state_from_reference(cfg: ModelConfig, state, device="cpu"):
-    """The reference's ``AdamWState`` (its leaves as numpy arrays; master
-    leaves ``None`` for f32 parameters) -> the port's: ``step`` a 0-d int32
-    tensor, ``m``, ``v`` and, for parameters that are not f32, ``master``
-    as f32 trees shaped like ``params_from_reference``'s."""
+    """The reference's ``AdamWState`` (its leaves as numpy arrays; a master
+    leaf ``None`` for each f32 parameter) -> the port's: ``step`` a 0-d
+    int32 tensor, ``m`` and ``v`` f32 trees shaped like
+    ``params_from_reference``'s, and ``master`` f32 for each parameter
+    that is not f32 and ``None`` for each that is (an f32 leaf of a bf16
+    tree too)."""
     from repro_torch.optim import AdamWState
-    f32 = dataclasses.replace(cfg, dtype="float32")
+    want = _want(cfg)
     step, m, v, master = state
-    m = params_from_reference(f32, m, device)
-    v = params_from_reference(f32, v, device)
-    if cfg.tdtype == torch.float32:
-        master = _none_like(m)
-    else:
-        master = params_from_reference(f32, master, device)
+
+    def f32(_):
+        return torch.float32
+
+    def master_dtype(w):
+        return None if w.dtype == torch.float32 else torch.float32
     return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
-                                   device=device), m, v, master)
-
-
-def _none_like(tree):
-    if isinstance(tree, Mapping):
-        return {k: _none_like(v) for k, v in tree.items()}
-    return None
+                                   device=device),
+                      _carry(want, m, "m", f32, device),
+                      _carry(want, v, "v", f32, device),
+                      _carry(want, master, "master", master_dtype, device))

@@ -1,15 +1,22 @@
 """Serving launcher: batched prefill + greedy KV-cache decode on one device.
 
 Builds the model from a seed, prefills a batch of random prompts, then
-decodes tokens in lockstep.  On a CUDA device each (decoder) layer's
-causal prefill attention runs the flash kernel
-(``kernels/csrc/flash_fwd.cu``).  An encoder-decoder arch also draws random
-frame embeddings, one per prompt position, for its encoder:
+decodes tokens in lockstep.  On a CUDA device each causal prefill attention
+(every dense or decoder layer; each application of the hybrid's shared
+block) runs the flash kernel (``kernels/csrc/flash_fwd.cu``); the SSM
+layers' scan is torch ops, and the SSM family launches no kernel.  An
+encoder-decoder arch also draws random frame embeddings, one per prompt
+position, for its encoder.  The SSM and hybrid families take a prompt of
+whole ``ssd_chunk`` chunks, or one shorter than a chunk:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch seamless-m4t-large-v2 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     first from the prefill logits, the rest by ``max_new - 1`` decode
     steps over a cache of ``max_len`` (default ``S + max_new``).  An
     encoder-decoder config takes ``frames`` (B, S_enc, d_model), whose
-    encoder memory every decode step attends to."""
+    encoder memory every decode step attends to.  The launch counts are
+    the flash forward's: 0 for the SSM family."""
     B, S = tokens.shape
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1; got {max_new}")

@@ -2,16 +2,23 @@
 -> fault-tolerant loop (checkpoint/restart, straggler detection, failure
 retry).
 
-On a CUDA device each (decoder) layer's causal attention runs the flash
-kernels (``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
-backward).  ``--smoke`` selects the reduced config of the same family;
-``--device cpu`` runs the kernels' plain versions.  An encoder-decoder
-arch's batches carry random frame embeddings for its encoder:
+On a CUDA device each causal attention (every dense or decoder layer;
+each application of the hybrid's shared block) runs the flash kernels
+(``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
+backward); the SSM layers' scan is torch ops under autograd.  ``--smoke``
+selects the reduced config of the same family; ``--device cpu`` runs the
+kernels' plain versions.  An encoder-decoder arch's batches carry random
+frame embeddings for its encoder.  The SSM and hybrid families take a
+``--seq`` of whole ``ssd_chunk`` chunks, or one shorter than a chunk:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --device cpu --steps 20 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch seamless-m4t-large-v2 --smoke --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+        --smoke --device cpu --steps 4 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --smoke --device cpu --steps 4 --batch 4 --seq 64
 
 Without ``--ckpt-dir`` the checkpoints go to a fresh temporary directory
 that is removed at the end; with it, a second launch resumes from the

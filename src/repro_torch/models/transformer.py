@@ -1,10 +1,12 @@
-"""Model assembly for the dense decoder-only and the encoder-decoder
-families: config, parameters, forward and loss (training), prefill and
-KV-cache decode (serving).
+"""Model assembly for the dense decoder-only, encoder-decoder, SSM and
+hybrid families: config, parameters, forward and loss (training), prefill
+and cached decode (serving).
 
 Parameters are a dict shaped like the reference's pytree, with the per-layer
 leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
 reference's parameters across is a copy (``convert.params_from_reference``).
+The hybrid's ``groups`` stack two axes, ``(n_groups, hybrid_group - 1,
+...)``, and its one ``shared`` attention block is not stacked.
 The layer loop is a Python loop over slices of those stacks.  Training's
 :func:`forward` wraps each layer in ``torch.utils.checkpoint`` when
 ``cfg.remat_policy == "full"`` (the reference's ``jax.checkpoint``);
@@ -19,16 +21,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import (KVCache, cross_attention,
                                           decode_attention, init_attention,
                                           init_cache, self_attention,
                                           update_cache)
 
 #: the families the port runs
-FAMILIES = ("dense", "encdec")
+FAMILIES = ("dense", "encdec", "ssm", "hybrid")
 #: families of the reference that are not ported yet, and their ROADMAP item
-PENDING_FAMILIES = {"moe": "A16c", "ssm": "A16d", "hybrid": "A16e",
-                    "vlm": "A16g"}
+PENDING_FAMILIES = {"moe": "A16c", "vlm": "A16g"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +97,24 @@ class ModelConfig:
         return (self.ssm_expand * self.d_model) // self.ssm_head_dim
 
     @property
+    def hybrid_layout(self) -> Tuple[int, int]:
+        """The hybrid's ``(n_groups, tail)``: ``n_groups`` groups of the
+        shared attention block and ``hybrid_group - 1`` SSM layers, then
+        ``tail`` SSM layers."""
+        n_groups = self.n_layers // self.hybrid_group
+        return n_groups, self.n_layers - n_groups * self.hybrid_group
+
+    @property
+    def causal_attentions(self) -> int:
+        """Causal self-attention applications in one forward or prefill:
+        the flash kernel's launches there."""
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid":
+            return self.hybrid_layout[0]
+        return self.n_layers
+
+    @property
     def tdtype(self) -> torch.dtype:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             self.dtype]
@@ -157,7 +177,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     reference's: ``embed``, ``final_norm`` and the decoder's ``blocks``;
     the encoder-decoder family adds ``enc_blocks`` (dense blocks) and
     ``enc_norm``, and each of its decoder blocks a cross-attention
-    (``ln_x``, ``xattn``: no qk-norm)."""
+    (``ln_x``, ``xattn``: no qk-norm).  An SSM block is ``ln`` and ``ssm``
+    (:func:`ssm.init_ssm`; its ``A_log``, ``D_skip`` and ``dt_bias`` stay
+    f32).  The hybrid has no ``blocks`` but one ``shared`` dense block,
+    ``groups`` of SSM blocks stacked ``(n_groups, hybrid_group - 1, ...)``
+    and, when ``n_layers % hybrid_group``, a ``tail`` of SSM blocks."""
     _require_ported(cfg)
     device = require_device(device)
     dt, D = cfg.tdtype, cfg.d_model
@@ -166,6 +190,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.ones(shape, dtype=dt, device=device)
 
     def block(kind):
+        if kind == "ssm":
+            return {"ln": ones(D),
+                    "ssm": SSM.init_ssm(cfg, dt, generator, device)}
         p = {"ln1": ones(D),
              "attn": init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
                                     cfg.qk_norm, dt, generator, device),
@@ -186,8 +213,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["enc_norm"] = ones(D)
         params["blocks"] = _stack([block("dec")
                                    for _ in range(cfg.n_layers)])
+    elif cfg.family == "hybrid":
+        n_groups, tail = cfg.hybrid_layout
+        params["shared"] = block("dense")
+        params["groups"] = _stack([
+            _stack([block("ssm") for _ in range(cfg.hybrid_group - 1)])
+            for _ in range(n_groups)])
+        if tail:
+            params["tail"] = _stack([block("ssm") for _ in range(tail)])
     else:
-        params["blocks"] = _stack([block("dense")
+        kind = "ssm" if cfg.family == "ssm" else "dense"
+        params["blocks"] = _stack([block(kind)
                                    for _ in range(cfg.n_layers)])
     params["embed"] = L.init_embed(cfg.padded_vocab, D, dt,
                                    cfg.tie_embeddings, generator, device)
@@ -236,6 +272,45 @@ def _dense_body(x, bp, cfg: ModelConfig, *, causal: bool = True,
     return x + h, kv
 
 
+def _ssm_body(x, bp, cfg: ModelConfig, collect: bool = False):
+    """One pre-norm SSM block with its residual.  Returns ``(x, (final
+    state, conv tail) or None)``."""
+    h, handoff = SSM.apply_ssm(L.rms_norm(x, bp["ln"], cfg.norm_eps),
+                               bp["ssm"], cfg)
+    return x + h, (handoff if collect else None)
+
+
+def _layers(params, cfg: ModelConfig):
+    """The decoder's layers in order: ``(kind, block params, cache keys,
+    index)`` with ``kind`` ``"attn"`` (a dense or decoder block, its K and
+    V at ``caches[keys[0]][index]``, ``caches[keys[1]][index]``) or
+    ``"ssm"`` (its conv tail and state there).  The hybrid applies
+    ``params["shared"]`` at the head of every group, each application with
+    its own KV cache."""
+    if cfg.family in ("dense", "encdec"):
+        for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            yield "attn", bp, ("k", "v"), (i,)
+    elif cfg.family == "ssm":
+        for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            yield "ssm", bp, ("conv", "state"), (i,)
+    else:
+        n_groups, tail = cfg.hybrid_layout
+        for g, gp in enumerate(_unstack(params["groups"], n_groups)):
+            yield "attn", params["shared"], ("attn_k", "attn_v"), (g,)
+            for j, bp in enumerate(_unstack(gp, cfg.hybrid_group - 1)):
+                yield "ssm", bp, ("conv", "state"), (g, j)
+        if tail:
+            for i, bp in enumerate(_unstack(params["tail"], tail)):
+                yield "ssm", bp, ("tail_conv", "tail_state"), (i,)
+
+
+def _check_length(cfg: ModelConfig, S: int) -> None:
+    """A sequence the scan takes: whole SSD chunks in the families that
+    have SSM layers."""
+    if cfg.family in ("ssm", "hybrid"):
+        SSM.check_chunks(S, cfg.ssd_chunk)
+
+
 def _remat(fn, policy: str):
     """``fn`` under the reference's remat policy: ``"full"`` recomputes
     the whole body in the backward (``torch.utils.checkpoint``, not
@@ -269,17 +344,20 @@ def _encode(params, cfg: ModelConfig, frames):
 def forward(params, cfg: ModelConfig, tokens, frames=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar).
-    Each layer runs under ``cfg.remat_policy`` when autograd records.
-    ``frames``: (B, S_enc, D) encoder-side frame embeddings (encdec)."""
+    Each layer (each application of the hybrid's shared block too) runs
+    under ``cfg.remat_policy`` when autograd records.  ``frames``:
+    (B, S_enc, D) encoder-side frame embeddings (encdec)."""
     _require_ported(cfg)
+    _check_length(cfg, tokens.shape[1])
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
         else None
-    body = _remat(lambda x, bp, mem: _dense_body(x, bp, cfg,
+    attn = _remat(lambda x, bp, mem: _dense_body(x, bp, cfg,
                                                  memory=mem)[0],
                   cfg.remat_policy)
+    mamba = _remat(lambda x, bp: _ssm_body(x, bp, cfg)[0], cfg.remat_policy)
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
-    for bp in _unstack(params["blocks"], cfg.n_layers):
-        x = body(x, bp, memory)
+    for kind, bp, _, _ in _layers(params, cfg):
+        x = attn(x, bp, memory) if kind == "attn" else mamba(x, bp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -330,22 +408,31 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
     """Process the prompt and build decode caches padded to ``max_len``.
 
     Returns (last-position logits (B,1,V) f32, caches, memory): the caches
-    are ``{"k", "v"}`` of ``(n_layers, B, max_len, n_kv, d_head)`` and
-    ``"length"`` (an int); ``memory`` is the encoder-decoder family's
-    encoder output over ``frames`` (B, S_enc, D), which
-    :func:`decode_step` attends to, and ``None`` for the dense family."""
+    are :func:`make_decode_caches`' with the prompt's K and V written at
+    positions ``[0, S)`` and each SSM layer's final state and conv tail,
+    and ``"length"`` (an int); ``memory`` is the encoder-decoder family's
+    encoder output over ``frames`` (B, S_enc, D), which :func:`decode_step`
+    attends to, and ``None`` for the other families.  A family with SSM
+    layers takes a prompt of whole ``ssd_chunk`` chunks, or one shorter
+    than a chunk."""
     _require_ported(cfg)
+    B, S = tokens.shape
+    _check_length(cfg, S)
+    if max_len < S:
+        raise ValueError(f"max_len={max_len} < prompt length {S}")
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
         else None
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
-    B, S = tokens.shape
-    if max_len < S:
-        raise ValueError(f"max_len={max_len} < prompt length {S}")
     caches = make_decode_caches(cfg, B, max_len, x.device)
-    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, (k, v) = _dense_body(x, bp, cfg, memory=memory, collect=True)
-        caches["k"][i, :, :S] = k
-        caches["v"][i, :, :S] = v
+    for kind, bp, (a, b), i in _layers(params, cfg):
+        if kind == "attn":
+            x, (k, v) = _dense_body(x, bp, cfg, memory=memory, collect=True)
+            caches[a][i][:, :S] = k
+            caches[b][i][:, :S] = v
+        else:
+            x, (state, tail) = _ssm_body(x, bp, cfg, collect=True)
+            caches[a][i] = tail
+            caches[b][i] = state
     caches["length"] = S
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
@@ -356,10 +443,47 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
 
 def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda") -> dict:
+    """Zeroed caches in the model's dtype, with ``"length"`` 0: ``k``,
+    ``v`` ``(n_layers, B, max_len, n_kv, d_head)`` (dense, encdec);
+    ``conv`` ``(n_layers, B, d_conv - 1, d_inner + 2 G N)`` and ``state``
+    ``(n_layers, B, H, P, N)`` (ssm); the hybrid's ``attn_k``, ``attn_v``
+    ``(n_groups, B, max_len, ...)``, ``conv``, ``state`` ``(n_groups,
+    hybrid_group - 1, B, ...)`` and, with a tail, ``tail_conv``,
+    ``tail_state`` ``(tail, B, ...)``."""
     _require_ported(cfg)
-    cache = init_cache(cfg, batch, max_len, cfg.n_layers, cfg.tdtype,
-                       require_device(device))
-    return {"k": cache.k, "v": cache.v, "length": cache.length}
+    device = require_device(device)
+    dt = cfg.tdtype
+    if cfg.family in ("dense", "encdec"):
+        cache = init_cache(cfg, batch, max_len, cfg.n_layers, dt, device)
+        return {"k": cache.k, "v": cache.v, "length": cache.length}
+
+    def ssm_caches(*lead, prefix=""):
+        c = SSM.init_ssm_cache(cfg, batch, dt, device, lead)
+        return {prefix + "conv": c.conv, prefix + "state": c.state}
+    if cfg.family == "ssm":
+        return {**ssm_caches(cfg.n_layers), "length": 0}
+    n_groups, tail = cfg.hybrid_layout
+    kv = init_cache(cfg, batch, max_len, n_groups, dt, device)
+    caches = {"attn_k": kv.k, "attn_v": kv.v,
+              **ssm_caches(n_groups, cfg.hybrid_group - 1), "length": 0}
+    if tail:
+        caches.update(ssm_caches(tail, prefix="tail_"))
+    return caches
+
+
+def _decode_attn_block(x, bp, cfg: ModelConfig, cache: KVCache, memory):
+    """One dense or decoder block for one token, this token's K and V
+    written into ``cache`` in place."""
+    h, (kn, vn) = decode_attention(
+        L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)
+    x = x + h
+    if "xattn" in bp:
+        x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
+                                memory, bp["xattn"], cfg)
+    h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
+                    cfg.act)
+    update_cache(cache, kn, vn)
+    return x + h
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches: dict, memory=None
@@ -367,31 +491,31 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: dict, memory=None
     """One decode step: tokens (B,1) -> (logits (B,1,V) f32, caches).
 
     The caches are updated in place: the returned dict holds the same
-    ``k`` and ``v`` tensors with this step's K/V written at ``length``, and
-    ``length + 1``.  A decoder block with cross-attention attends to
-    ``memory`` (:func:`prefill`'s), re-projecting its K and V in every
-    layer at every step, as the reference does."""
+    tensors, with this step's K/V written at ``length`` and each SSM
+    layer's conv window and state stepped, and ``length + 1``.  A decoder
+    block with cross-attention attends to ``memory`` (:func:`prefill`'s),
+    re-projecting its K and V in every layer at every step, as the
+    reference does."""
     _require_ported(cfg)
     if cfg.family == "encdec" and memory is None:
         raise ValueError(f"{cfg.name} (family encdec) decodes against the "
                          f"encoder memory that prefill returns")
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
     length = caches["length"]
-    if length >= caches["k"].shape[2]:
-        raise ValueError(f"the cache holds {caches['k'].shape[2]} positions, "
-                         f"all used")
-    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        cache = KVCache(caches["k"][i], caches["v"][i], length)
-        h, (kn, vn) = decode_attention(
-            L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)
-        x = x + h
-        if "xattn" in bp:
-            x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
-                                    memory, bp["xattn"], cfg)
-        h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
-                        cfg.act)
-        update_cache(cache, kn, vn)
-        x = x + h
+    kv = caches.get("k", caches.get("attn_k"))
+    if kv is not None and length >= kv.shape[2]:
+        raise ValueError(f"the cache holds {kv.shape[2]} positions, all "
+                         f"used")
+    for kind, bp, (a, b), i in _layers(params, cfg):
+        if kind == "attn":
+            x = _decode_attn_block(x, bp, cfg,
+                                   KVCache(caches[a][i], caches[b][i],
+                                           length), memory)
+        else:
+            h, _ = SSM.decode_ssm(L.rms_norm(x, bp["ln"], cfg.norm_eps),
+                                  bp["ssm"], cfg,
+                                  SSM.SSMCache(caches[a][i], caches[b][i]))
+            x = x + h
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
-    return logits, {"k": caches["k"], "v": caches["v"], "length": length + 1}
+    return logits, {**caches, "length": length + 1}

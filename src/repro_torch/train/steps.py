@@ -84,7 +84,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 def make_prefill_fn(cfg: ModelConfig, max_len: int):
     """Returns prefill_fn(params, batch) -> (logits, caches, memory):
     ``batch`` holds ``tokens`` and, for the encoder-decoder family,
-    ``frames``; ``memory`` is ``None`` for the dense family."""
+    ``frames``; ``memory`` is ``None`` for every other family."""
     def prefill_fn(params, batch: dict):
         return prefill(params, cfg, batch["tokens"], max_len,
                        batch.get("frames"))
