@@ -227,7 +227,30 @@ On one CUDA card, from the root of a checkout:
     seeded dO when its real one is not finite); (e) serves and trains
     both SMOKE configs (f32) on the card against the CPU within
     ``SMOKE_TOL``;
-19. prints one ``{"kernels": [...]}`` line and, last, the device line.
+19. runs the A16c phase: (a) serves full-width qwen3-moe-30b-a3b (the MoE
+    family, bf16, 48 layers of 128 experts, top-8; 32 heads on 4 KV heads
+    at head dim 128) through ``generate`` at batch 8 x 4096 + 16 new
+    tokens, asserting 48 flash launches a prefill and none in decode and a
+    peak under 80 GB, holding layer 0's flash output against its plain
+    version beside SDPA and the bound, and the MoE layer's grouped route
+    against its plain every-expert route on layer 0's normed input (the
+    first 512 tokens; relative L2 within 2**-8, the same routing); prints
+    prefill ms and tok/s, decode ms a step and its idle share, peak memory
+    and the shares of a profiled prefill's device time in routing,
+    gather/scatter, the expert GEMMs, the other GEMMs and flash (layer 0's
+    MoE pieces profiled alone, times 48); prints the "flash" prefill
+    against "xla" and teacher-forced decode against ``forward`` at full
+    depth in bf16 with the share of (token, layer) expert sets that differ,
+    and (b) holds both in f32 at full width on 4 layers, batch 2 x 512,
+    within 1e-3; (c) trains it cut to 4 layers at 2 x 4096 for 3 AdamW
+    steps, 8 forward, 4 dQ and 4 dK/dV launches a step, both backward
+    kernels against their plain version on layer 0's q, k, v and real dO,
+    finite losses, the first equal to the batch's loss without autograd
+    (the MoE aux loss included); (d) serves full-width qwen3-moe-235b-a22b
+    cut to 8 of its 94 layers (64 heads on 4 KV heads: G 16) the same way,
+    8 flash launches a prefill; (e) serves and trains both SMOKE configs
+    (f32) on the card against the CPU within ``SMOKE_TOL``;
+20. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -515,7 +538,8 @@ def _gemm_us(spans) -> dict:
     return {"gemm_us": sum(t - s for s, t, n in spans if _is_gemm(n))}
 
 
-def call_shares(prefill_fn, module, name: str, kernel_key=None) -> dict:
+def call_shares(prefill_fn, module, name: str, kernel_key=None,
+                parts=None) -> dict:
     """:func:`device_profile` of one call of ``prefill_fn`` and of one call
     of ``module.<name>`` alone, replayed on the arguments of the prefill's
     first call: the shares of the prefill's device busy time taken by the
@@ -527,11 +551,15 @@ def call_shares(prefill_fn, module, name: str, kernel_key=None) -> dict:
     A spy counts the prefill's calls and holds each to the first call's
     shapes, dtypes and other arguments.  (Kernels credited to the CPU ops
     inside ``record_function`` ranges summed past the prefill's busy time
-    on an H100, so the calls are profiled alone and multiplied.)"""
+    on an H100, so the calls are profiled alone and multiplied.)
+    ``parts(args, kw, calls, busy_us)``, when given, adds its dict, made
+    from the first call's arguments before they are dropped."""
     import torch
     real, seen, first = getattr(module, name), [], []
 
     def sig(a):
+        if isinstance(a, dict):
+            return tuple(sorted((k, sig(v)) for k, v in a.items()))
         return ((tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
                 else a)
 
@@ -553,9 +581,10 @@ def call_shares(prefill_fn, module, name: str, kernel_key=None) -> dict:
                              f"{sorted(set(seen), key=str)}")
     args, kw = first.pop()
     one = device_profile(lambda: real(*args, **kw), None, detail=_gemm_us)
-    del args, kw
     calls = len(seen)
     busy = pre["device_busy_ms"] * 1e3
+    more = parts(args, kw, calls, busy) if parts is not None else {}
+    del args, kw
     inside = calls * one["device_busy_ms"] * 1e3
     gemm_inside = calls * one["gemm_us"]
     kernel = pre.get("kernel_share_of_device", 0.0) * busy
@@ -572,7 +601,8 @@ def call_shares(prefill_fn, module, name: str, kernel_key=None) -> dict:
             f"gemm_outside_{name}_share_of_device":
                 (pre["gemm_us"] - gemm_inside) / busy,
             "other_share_of_device":
-                1 - (kernel + inside + pre["gemm_us"] - gemm_inside) / busy}
+                1 - (kernel + inside + pre["gemm_us"] - gemm_inside) / busy,
+            **more}
 
 
 def breakdown(main: dict) -> dict:
@@ -2725,7 +2755,7 @@ def lm_frames(cfg, B: int, S: int, device):
     return torch.randn((B, S, cfg.d_model), generator=gen, device=device)
 
 
-def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
+def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     """Serve full-width ``arch`` (bf16, random weights from seed 0) through
     ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW (an
     encoder-decoder arch with LM_PROMPT frames a prompt, ``lm_frames``),
@@ -2735,11 +2765,14 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     block) against its plain version, with kernel, plain and SDPA times;
     and profile one prefill: the flash share of its device time, and for an
     encoder-decoder arch the chunked-attention and GEMM shares, for an SSM
-    or hybrid arch the SSD scan's and the GEMMs' (``call_shares``).  With
+    or hybrid arch the SSD scan's and the GEMMs', for a MoE arch the MoE
+    layers' and their pieces' (``call_shares``, ``moe_layer0``).  With
     ``extras`` also profile decode and hold the "flash" prefill against
-    "xla" and decode against prefill or forward.  An arch with no
-    attention (the SSM family) returns its serving numbers without a
-    kernel's readings."""
+    "xla" and decode against prefill or forward (a MoE arch: printed in
+    bf16 with the routing that differs, held in f32 on 4 layers).  An arch
+    with no attention (the SSM family) returns its serving numbers without
+    a kernel's readings.  ``cfg``, when given, stands in for the published
+    config (a cut depth)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2748,9 +2781,10 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
     from repro_torch.models import attention as A
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
     from repro_torch.models.transformer import _unstack
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.d_head
     n_attn = cfg.causal_attentions
     t0 = time.perf_counter()
@@ -2815,15 +2849,18 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
           f"{e2e['serve_peak_memory_gb']:.3f} GB", flush=True)
     key = "flash_fwd_kernel" if n_attn else None
     spied = ("ssd_scan" if cfg.family in ("ssm", "hybrid")
-             else "chunked_attention" if frames is not None else None)
+             else "chunked_attention" if frames is not None
+             else "apply_moe" if cfg.family == "moe" else None)
     with torch.inference_mode():
         def run():
             prefill(params, cfg, tokens, S, frames)
         if spied is None:
             prof = device_profile(run, key)
         else:
-            prof = call_shares(run, SSM if spied == "ssd_scan" else A,
-                               spied, key)
+            module = {"ssd_scan": SSM, "chunked_attention": A,
+                      "apply_moe": MOE}[spied]
+            prof = call_shares(run, module, spied, key,
+                               moe_layer0 if spied == "apply_moe" else None)
     e2e["kernel_share_of_prefill_device"] = prof.pop(
         "kernel_share_of_device", 0.0)
     e2e.update({f"prefill_{k}": v for k, v in prof.items()})
@@ -2842,6 +2879,20 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
               f"flash {e2e['kernel_share_of_prefill_device']:.4f}, the rest "
               f"{e2e['prefill_other_share_of_device']:.4f}; largest other "
               f"kernels {e2e['prefill_top_other_device_us']}", flush=True)
+    if spied == "apply_moe":
+        print(f"{arch}'s prefill device time by MoE piece (layer 0's pieces "
+              f"profiled alone, times {e2e['prefill_apply_moe_calls']}): "
+              f"routing {e2e['prefill_moe_route_share_of_device']:.4f}, "
+              f"gather/scatter "
+              f"{e2e['prefill_moe_gather_scatter_share_of_device']:.4f}, "
+              f"expert GEMMs "
+              f"{e2e['prefill_moe_expert_gemm_share_of_device']:.4f}, expert "
+              f"activations "
+              f"{e2e['prefill_moe_expert_act_share_of_device']:.4f}; other "
+              f"GEMMs "
+              f"{e2e['prefill_gemm_outside_apply_moe_share_of_device']:.4f},"
+              f" flash {e2e['kernel_share_of_prefill_device']:.4f}",
+              flush=True)
     if extras:
         with torch.inference_mode():
             _, caches, memory = prefill(params, cfg, tokens, S + 1, frames)
@@ -2870,13 +2921,17 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
             kernel = forward_kernel_vs_plain(q, k, v, peaks)
             del q, k, v
         checks = {}
-        if extras:
+        if extras and cfg.family == "moe":
+            checks = moe_bf16_checks(params, cfg, tokens)
+        elif extras:
             checks = prefill_and_decode_checks(params, cfg, tokens, frames)
         del frames
     del params
     torch.cuda.empty_cache()
     if extras and cfg.family in ("ssm", "hybrid"):
         checks.update(ssm_f32_checks(arch, tokens, device))
+    if extras and cfg.family == "moe":
+        checks.update(moe_f32_checks(arch, tokens, device))
 
     common = {**checks, "tokens_in_range": True, "logits_finite": True,
               **e2e}
@@ -2886,7 +2941,8 @@ def serve_arch(arch, device, peaks, extras: bool = False) -> dict:
            "source": LM_SOURCE, "replaces": LM_REPLACES,
            "launches": launches, "form_launches": _form_counts(forms),
            **kernel.pop("readings"), **kernel,
-           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D}, **common}
+           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D},
+           "n_layers": cfg.n_layers, **common}
     print(f"  flash_fwd[{arch}]: kernel {res['ms']}, plain "
           f"{res['plain_ms']}, library {res['library_ms']}, bound "
           f"{res['bound_ms']:.3f} ms ({res['bound_by']})", flush=True)
@@ -2899,7 +2955,8 @@ def prefill_and_decode_checks(params, cfg, tokens, frames=None) -> dict:
     run whole (and ``frames``, the encoder's input), by the relative L2 of
     the true-vocab logits (LOGIT_REL_TOL): against ``prefill`` over each
     step's tokens for the dense and encoder-decoder families, and for the
-    families with SSM layers (``ssm_teacher_forced``) against ``forward``
+    families with SSM layers (``teacher_forced_vs_forward``) against
+    ``forward``
     over SSM_TF_FORWARD tokens at the same positions."""
     import dataclasses
     from repro_torch.models import decode_step, prefill
@@ -2918,7 +2975,7 @@ def prefill_and_decode_checks(params, cfg, tokens, frames=None) -> dict:
               f"{out['flash_vs_xla_logit_rel_err']}, max abs "
               f"{(lf - lx).abs().max().item()}", flush=True)
     if cfg.family in ("ssm", "hybrid"):
-        tf = ssm_teacher_forced(params, cfg, tokens)
+        tf = teacher_forced_vs_forward(params, cfg, tokens)
     else:
         tf = []
         short = tokens[:, :LM_TF_PROMPT + LM_TF_STEPS]
@@ -2954,7 +3011,7 @@ def ssm_f32_checks(arch, tokens, device) -> dict:
     """``arch``'s published config in f32 (weights from seed 0, the f32
     draws its bf16 weights are rounded from) on SSM_F32_BATCH of
     ``tokens``: the "flash" prefill (the f32 flash form) against "xla" for
-    an arch with attention, and ``ssm_teacher_forced``, within
+    an arch with attention, and ``teacher_forced_vs_forward``, within
     SSM_F32_TOL."""
     import dataclasses
     import torch
@@ -2974,7 +3031,7 @@ def ssm_f32_checks(arch, tokens, device) -> dict:
                          tokens, S)[0]
             out["f32_flash_vs_xla_logit_rel_err"] = rel_err(
                 lf[..., :cfg.vocab], lx[..., :cfg.vocab])
-        out["f32_teacher_forced_logit_rel_err"] = ssm_teacher_forced(
+        out["f32_teacher_forced_logit_rel_err"] = teacher_forced_vs_forward(
             params, cfg, tokens)
     del params
     torch.cuda.empty_cache()
@@ -2997,27 +3054,249 @@ def ssm_f32_checks(arch, tokens, device) -> dict:
 SSM_TF_PROMPT, SSM_TF_FORWARD = 512, 1024
 
 
-def ssm_teacher_forced(params, cfg, tokens) -> list:
+def teacher_forced_vs_forward(params, cfg, tokens, prompt=SSM_TF_PROMPT,
+                              total=SSM_TF_FORWARD) -> list:
     """Relative L2 of each teacher-forced decode step's true-vocab logits
-    against ``forward``'s at the same position (SSM_TF_PROMPT,
-    SSM_TF_FORWARD)."""
+    against ``forward``'s at the same position: ``forward`` over ``total``
+    tokens, then ``prefill`` of ``prompt`` tokens and LM_TF_STEPS decode
+    steps (a MoE arch's ``RouteLog`` sees the routes in that order)."""
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models import layers as L
-    whole = tokens[:, :SSM_TF_FORWARD]
+    whole = tokens[:, :total]
     hidden, _ = forward(params, cfg, whole)
-    _, caches, _ = prefill(params, cfg, whole[:, :SSM_TF_PROMPT],
-                           SSM_TF_PROMPT + LM_TF_STEPS)
+    _, caches, _ = prefill(params, cfg, whole[:, :prompt],
+                           prompt + LM_TF_STEPS)
     tf = []
-    for t in range(SSM_TF_PROMPT, SSM_TF_PROMPT + LM_TF_STEPS):
+    for t in range(prompt, prompt + LM_TF_STEPS):
         ld, caches = decode_step(params, cfg, whole[:, t:t + 1], caches)
         lf = L.lm_logits(hidden[:, t:t + 1], params["embed"],
                          cfg.vocab).float()
         tf.append(rel_err(ld[..., :cfg.vocab], lf[..., :cfg.vocab]))
     del hidden, caches
-    print(f"teacher-forced decode vs forward over {SSM_TF_FORWARD} tokens "
-          f"(prompt {SSM_TF_PROMPT}, {LM_TF_STEPS} steps, past a chunk "
-          f"boundary): rel err {tf}", flush=True)
+    where = (", past a chunk boundary" if cfg.family in ("ssm", "hybrid")
+             else "")
+    print(f"teacher-forced decode vs forward over {total} tokens (prompt "
+          f"{prompt}, {LM_TF_STEPS} steps{where}): rel err {tf}",
+          flush=True)
     return tf
+
+
+# --- the MoE family's checks ----------------------------------------------
+
+#: the grouped route against the plain one on the card: layer 0's normed
+#: input for the prefill's first MOE_DENSE_TOKENS tokens (at the whole
+#: 32768 the plain route's (T, E, D) bf16 product alone is 17.2 GB), held
+#: by relative L2 to one bf16 rounding (2**-8): the same routes, each
+#: product summed in f32 and rounded to bf16 once, in other orders
+MOE_DENSE_TOKENS, MOE_PATH_TOL = 512, 2 ** -8
+#: the f32 checks at full width, cut to MOE_F32_LAYERS layers (12.5 GB; the
+#: 48 layers in f32 are 122 GB), batch SSM_F32_BATCH x MOE_F32_SEQ: "flash"
+#: against "xla" prefill and teacher-forced decode (LM_TF_PROMPT, then
+#: LM_TF_STEPS steps) against ``forward`` over MOE_F32_SEQ tokens, held to
+#: SSM_F32_TOL as the SSM families are
+MOE_F32_LAYERS, MOE_F32_SEQ = 4, 512
+
+
+class RouteLog:
+    """A spy on ``moe.route`` while it is entered: ``calls`` holds each
+    call's expert ids (T, k) in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.calls, self._real = [], MOE.route
+
+        def spy(x2d, router, top_k):
+            w, ids, aux = self._real(x2d, router, top_k)
+            self.calls.append(ids)
+            return w, ids, aux
+        MOE.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.route = self._real
+
+
+def route_diff_share(got: list, want: list) -> float:
+    """The share of (token, layer) expert sets that differ between two
+    lists of ids of the same shapes (each set sorted, so the order of the
+    picks does not count)."""
+    import torch
+    diff = rows = 0
+    for a, b in zip(got, want, strict=True):
+        ne = (torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+        diff += int(ne.sum())
+        rows += ne.numel()
+    return diff / rows
+
+
+def tf_route_diff_share(calls: list, n_layers: int, batch: int, prompt: int,
+                        total: int) -> float:
+    """``route_diff_share`` of the teacher-forced decode steps' routes
+    against ``forward``'s at the same positions, from a ``RouteLog`` over
+    ``teacher_forced_vs_forward``: ``forward``'s n_layers calls, then the
+    prefill's, then n_layers a decode step."""
+    fwd = [c.reshape(batch, total, -1) for c in calls[:n_layers]]
+    steps = calls[2 * n_layers:]
+    got, want = [], []
+    for s in range(LM_TF_STEPS):
+        for layer in range(n_layers):
+            got.append(steps[s * n_layers + layer])
+            want.append(fwd[layer][:, prompt + s])
+    return route_diff_share(got, want)
+
+
+def moe_layer0(args, kw, calls: int, busy_us: float) -> dict:
+    """From the prefill's first ``apply_moe`` call (layer 0: x, p, cfg):
+    each piece of ``grouped_path`` (``route``, ``dispatch``,
+    ``expert_products``, ``combine``) profiled alone on that call's
+    arguments, and its share of the prefill's device busy time ``busy_us``
+    as ``calls`` times its busy time (an estimate: the other layers route
+    their own tokens); then ``grouped_path`` against ``dense_path`` on the
+    first MOE_DENSE_TOKENS tokens, within MOE_PATH_TOL, with the share of
+    tokens routed differently (expected 0: one ``route``)."""
+    import torch
+    from repro_torch.models import moe as MOE
+    x, p, cfg = args
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D)
+    w, ids, _ = MOE.route(x2, p["router"], cfg.top_k)
+    order, rows, counts = MOE.dispatch(x2, ids, cfg.n_experts)
+    y = MOE.expert_products(rows, counts, p["w_in"], p["w_out"], cfg.act)
+    pieces = {
+        "route": lambda: MOE.route(x2, p["router"], cfg.top_k),
+        "dispatch": lambda: MOE.dispatch(x2, ids, cfg.n_experts),
+        "expert_products": lambda: MOE.expert_products(
+            rows, counts, p["w_in"], p["w_out"], cfg.act),
+        "combine": lambda: MOE.combine(y, order, w, x.dtype)}
+    out, busy, gemm = {}, {}, {}
+    for name, fn in pieces.items():
+        prof = device_profile(fn, None, detail=_gemm_us)
+        busy[name], gemm[name] = prof["device_busy_ms"] * 1e3, prof["gemm_us"]
+        out[f"moe_{name}_busy_ms"] = busy[name] / 1e3
+        out[f"moe_{name}_gemm_ms"] = gemm[name] / 1e3
+    out["moe_experts_with_rows"] = sum(1 for n in counts if n)
+    out["moe_rows_per_expert_max"] = max(counts)
+
+    def share(us):
+        return calls * us / busy_us
+    out.update({
+        "moe_route_share_of_device": share(busy["route"]),
+        "moe_gather_scatter_share_of_device": share(busy["dispatch"]
+                                                    + busy["combine"]),
+        "moe_expert_gemm_share_of_device": share(gemm["expert_products"]),
+        "moe_expert_act_share_of_device": share(busy["expert_products"]
+                                                - gemm["expert_products"])})
+    del w, ids, order, rows, y
+    xs = x2[:MOE_DENSE_TOKENS][None]
+    with RouteLog() as log:
+        grouped, g_aux = MOE.grouped_path(xs, p, cfg)
+        dense, d_aux = MOE.dense_path(xs, p, cfg)
+    torch.cuda.synchronize()
+    out["grouped_vs_dense"] = {
+        "tokens": xs.shape[1], "rel_err": rel_err(grouped, dense),
+        "max_abs_err": (grouped.float() - dense.float()).abs().max().item(),
+        "aux_abs_err": abs(g_aux.item() - d_aux.item()),
+        "route_diff_share": route_diff_share(log.calls[:1], log.calls[1:])}
+    del grouped, dense
+    print(f"grouped_path vs dense_path on the card (layer 0's normed input, "
+          f"first {xs.shape[1]} tokens, {x.dtype}): {out['grouped_vs_dense']}"
+          f"; layer 0's pieces alone: busy ms "
+          f"{ {k: round(v / 1e3, 3) for k, v in busy.items()} }, GEMM ms "
+          f"{ {k: round(v / 1e3, 3) for k, v in gemm.items()} }; "
+          f"{out['moe_experts_with_rows']} experts with rows, at most "
+          f"{out['moe_rows_per_expert_max']}", flush=True)
+    gvd = out["grouped_vs_dense"]
+    if not (gvd["rel_err"] <= MOE_PATH_TOL and gvd["route_diff_share"] == 0
+            and gvd["aux_abs_err"] == 0):
+        raise AssertionError(f"grouped_path differs from dense_path on the "
+                             f"card beyond {MOE_PATH_TOL}: {gvd}")
+    return out
+
+
+def moe_bf16_checks(params, cfg, tokens) -> dict:
+    """At full depth in bf16, printed and not held (two bf16 paths can pick
+    another k-th expert for a token): the "flash" prefill against "xla"
+    and teacher-forced decode against ``forward`` over LM_TF_PROMPT +
+    LM_TF_STEPS tokens, each with the share of (token, layer) expert sets
+    that differ between the two paths; only finite logits are held."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import prefill
+    B, S = tokens.shape
+    total = LM_TF_PROMPT + LM_TF_STEPS
+    with RouteLog() as flash_log:
+        lf = prefill(params, cfg, tokens, S)[0]
+    with RouteLog() as xla_log:
+        lx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                     tokens, S)[0]
+    out = {"flash_vs_xla_logit_rel_err": rel_err(lf[..., :cfg.vocab],
+                                                 lx[..., :cfg.vocab]),
+           "flash_vs_xla_route_diff_share": route_diff_share(
+               flash_log.calls, xla_log.calls)}
+    finite = bool(lf.isfinite().all() and lx.isfinite().all())
+    del lf, lx, flash_log, xla_log
+    with RouteLog() as tf_log:
+        tf = teacher_forced_vs_forward(params, cfg, tokens, LM_TF_PROMPT,
+                                       total)
+    out["teacher_forced_logit_rel_err"] = tf
+    out["teacher_forced_route_diff_share"] = tf_route_diff_share(
+        tf_log.calls, cfg.n_layers, B, LM_TF_PROMPT, total)
+    del tf_log
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} in bf16 at full depth (printed, not held): {out}",
+          flush=True)
+    if not finite or not all(math.isfinite(e) for e in tf):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return out
+
+
+def moe_f32_checks(arch, tokens, device) -> dict:
+    """``arch``'s published config in f32, cut to MOE_F32_LAYERS layers
+    (weights from seed 0) on SSM_F32_BATCH x MOE_F32_SEQ of ``tokens``:
+    the "flash" prefill (the f32 flash form) against "xla", and
+    ``teacher_forced_vs_forward``, within SSM_F32_TOL, each with the share
+    of expert sets that differ."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=MOE_F32_LAYERS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    tokens = tokens[:SSM_F32_BATCH, :MOE_F32_SEQ]
+    B, S = tokens.shape
+    with torch.inference_mode():
+        with RouteLog() as flash_log:
+            lf = prefill(params, cfg, tokens, S)[0]
+        with RouteLog() as xla_log:
+            lx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                         tokens, S)[0]
+        out = {"f32_layers": MOE_F32_LAYERS,
+               "f32_flash_vs_xla_logit_rel_err": rel_err(
+                   lf[..., :cfg.vocab], lx[..., :cfg.vocab]),
+               "f32_flash_vs_xla_route_diff_share": route_diff_share(
+                   flash_log.calls, xla_log.calls)}
+        with RouteLog() as tf_log:
+            out["f32_teacher_forced_logit_rel_err"] = \
+                teacher_forced_vs_forward(params, cfg, tokens, LM_TF_PROMPT,
+                                          S)
+        out["f32_teacher_forced_route_diff_share"] = tf_route_diff_share(
+            tf_log.calls, cfg.n_layers, B, LM_TF_PROMPT, S)
+    del params, flash_log, xla_log, tf_log
+    torch.cuda.empty_cache()
+    print(f"{arch} in f32 at full width, {MOE_F32_LAYERS} layers, batch "
+          f"{B} x {S}: {out}", flush=True)
+    worst = max([out["f32_flash_vs_xla_logit_rel_err"]]
+                + out["f32_teacher_forced_logit_rel_err"])
+    if worst > SSM_F32_TOL:
+        raise AssertionError(f"{arch} in f32: logits differ beyond "
+                             f"{SSM_F32_TOL}")
+    return out
 
 
 # --- LM training: qwen3-1.7b through the flash backward kernels ----------
@@ -3332,7 +3611,7 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False,
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.train import device_batch
-    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models import forward, init_params, lm_loss
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import make_train_step
     cfg = cfg or get_config(arch)
@@ -3354,6 +3633,9 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False,
                for s in range(len(plan))]
     with torch.no_grad():
         loss0 = lm_loss(params, cfg, batches[0]).item()
+        # the MoE layers' summed aux loss, which lm_loss adds at 1e-2
+        aux0 = (forward(params, cfg, batches[0]["tokens"])[1].item()
+                if cfg.family == "moe" else None)
     L = cfg.causal_attentions
     cap = capture_layer0(params, cfg, batches[0]) if L else None
     gap = None
@@ -3425,6 +3707,8 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False,
            "train_launches_per_step": per_step}
     if gap is not None:
         e2e["train_masked_decay_gap"] = gap
+    if aux0 is not None:
+        e2e["train_aux_no_grad"] = aux0
     if two:
         e2e["train_mb2_step_ms"] = statistics.median(two) * 1e3
     e2e["train_tok_per_s"] = B * S / (e2e["train_step_ms"] / 1e3)
@@ -3861,6 +4145,103 @@ def a16de_phase(device, peaks) -> list:
     return [serve] + train["kernels"]
 
 
+# --- A16c: the MoE family -------------------------------------------------
+
+A16C_ARCH, A16C_BIG = "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b"
+#: (c) qwen3-moe-30b-a3b trained at full width cut to 4 of its 48 layers:
+#: the 48 layers' AdamW state with the gradient (about 16 bytes a
+#: parameter, 490 GB) passes the card; train_4k's sequence, its batch of 256
+#: cut to 2, 3 AdamW steps
+A16C_TRAIN_LAYERS, A16C_TRAIN_BATCH, A16C_TRAIN_STEPS = 4, 2, 3
+#: (d) qwen3-moe-235b-a22b served at full width cut to 8 of its 94 layers
+#: (about 42 GB of its 470 GB)
+A16C_BIG_LAYERS = 8
+#: the serving peak must stay on the card
+CARD_GB = 80.0
+
+
+def a16c_phase(device, peaks) -> list:
+    """(a) qwen3-moe-30b-a3b (48 layers of causal GQA attention at head dim
+    128, 32 heads on 4 KV heads, and 128 experts, top-8) served at full
+    width in bf16 (``serve_arch`` with ``extras``: batch 8 x 4096 + 16 new;
+    48 flash launches a prefill, none in decode; layer 0's flash output
+    against its plain version beside SDPA; ``grouped_path`` against
+    ``dense_path`` on the card (``moe_layer0``); the shares of a prefill's
+    device time in routing, gather/scatter, the expert GEMMs, the other
+    GEMMs and flash; the bf16 checks at full depth printed with the
+    routing that differs, and (b) the f32 checks on 4 layers held to
+    1e-3); (c) trained at full width cut to A16C_TRAIN_LAYERS layers at 2 x
+    4096 for 3 AdamW steps (8/4/4 launches a step, both backward kernels
+    against their plain version on layer 0, finite losses, the first equal
+    to the batch's loss without autograd, aux included); (d)
+    qwen3-moe-235b-a22b served at full width cut to A16C_BIG_LAYERS layers
+    (8 flash launches a prefill, G 16); (e) both SMOKE configs (f32, head
+    dim 16) served and trained on the card against the CPU
+    (``smoke_run``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    t0 = time.perf_counter()
+    for arch in (A16C_ARCH, A16C_BIG):
+        cfg = get_config(arch)
+        kv_gb = cfg.n_layers * LM_BATCH * (LM_PROMPT + LM_NEW) * cfg.n_kv \
+            * cfg.d_head * 2 * 2 / 1e9
+        print(f"A16c: {arch} ({cfg.family}: {cfg.n_layers} layers, H "
+              f"{cfg.n_heads} on Hkv {cfg.n_kv}, d_head {cfg.d_head}, "
+              f"{cfg.n_experts} experts of ff {cfg.d_ff}, top-{cfg.top_k}; "
+              f"{cfg.n_params} parameters by the reference's formula, "
+              f"{cfg.n_params * 2 / 1e9:.2f} GB in bf16); decode KV cache "
+              f"{kv_gb:.2f} GB; AdamW state with the gradient about "
+              f"{cfg.n_params * 16 / 1e9:.0f} GB", flush=True)
+    serve = serve_arch(A16C_ARCH, device, peaks, extras=True)
+    if serve["serve_peak_memory_gb"] >= CARD_GB:
+        raise AssertionError(f"{A16C_ARCH}'s serving peak "
+                             f"{serve['serve_peak_memory_gb']} GB")
+    torch.cuda.empty_cache()
+    full = get_config(A16C_ARCH)
+    cut = dataclasses.replace(full, n_layers=A16C_TRAIN_LAYERS)
+    print(f"cut: {A16C_ARCH}'s {full.n_params} parameters take about "
+          f"{full.n_params * 16 / 1e9:.0f} GB with AdamW and the gradient "
+          f"(bf16 weights and gradient, f32 moments and master), more than "
+          f"the card's 80 GB; trained at full width with {cut.n_layers} "
+          f"layers ({cut.n_params} parameters, about "
+          f"{cut.n_params * 16 / 1e9:.1f} GB)", flush=True)
+    train = train_arch(A16C_ARCH, device, peaks, A16C_TRAIN_BATCH,
+                       [1] * A16C_TRAIN_STEPS, cfg=cut)
+    e2e = train["e2e"]
+    first, no_grad = e2e["train_losses"][0], e2e["train_loss_no_grad"]
+    print(f"{A16C_ARCH} at {cut.n_layers} layers: first step's loss {first} "
+          f"against the batch's loss without autograd {no_grad} (aux "
+          f"{e2e['train_aux_no_grad']} at 1e-2): difference "
+          f"{first - no_grad}", flush=True)
+    if not all(math.isfinite(x) for x in e2e["train_losses"]) \
+            or first != no_grad:
+        raise AssertionError(f"{A16C_ARCH}'s training losses "
+                             f"{e2e['train_losses']}, the batch's loss "
+                             f"without autograd {no_grad}")
+    serve["train_launches_per_step"] = train.pop("fwd_per_step")
+    serve["train_layers"] = cut.n_layers
+    torch.cuda.empty_cache()
+    big = dataclasses.replace(get_config(A16C_BIG), n_layers=A16C_BIG_LAYERS)
+    print(f"cut: {A16C_BIG}'s {get_config(A16C_BIG).n_params} parameters "
+          f"take {get_config(A16C_BIG).n_params * 2 / 1e9:.1f} GB in bf16, "
+          f"more than the card's 80 GB; served at full width with "
+          f"{big.n_layers} layers ({big.n_params} parameters, "
+          f"{big.n_params * 2 / 1e9:.2f} GB)", flush=True)
+    big_serve = serve_arch(A16C_BIG, device, peaks, cfg=big)
+    if big_serve["serve_peak_memory_gb"] >= CARD_GB:
+        raise AssertionError(f"{A16C_BIG}'s serving peak "
+                             f"{big_serve['serve_peak_memory_gb']} GB")
+    torch.cuda.empty_cache()
+    serve["smoke_run"] = smoke_run(A16C_ARCH, smoke_config(A16C_ARCH),
+                                   device)
+    big_serve["smoke_run"] = smoke_run(A16C_BIG, smoke_config(A16C_BIG),
+                                       device)
+    print(f"A16c phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return [serve, big_serve] + train["kernels"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3960,6 +4341,8 @@ def main() -> int:
     kernels.extend(a16f_phase(device, peaks))
     torch.cuda.empty_cache()
     kernels.extend(a16de_phase(device, peaks))
+    torch.cuda.empty_cache()
+    kernels.extend(a16c_phase(device, peaks))
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],

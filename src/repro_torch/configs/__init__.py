@@ -15,10 +15,12 @@ from repro_torch.models import ModelConfig
 
 #: the dense family: qwen3-1.7b, and granite-3-8b, phi4-mini-3.8b and
 #: glm4-9b; the encoder-decoder family: seamless-m4t-large-v2; the SSM
-#: family: mamba2-1.3b; the hybrid: zamba2-7b (the reference's own configs,
+#: family: mamba2-1.3b; the hybrid: zamba2-7b; the MoE family:
+#: qwen3-moe-30b-a3b and qwen3-moe-235b-a22b (the reference's own configs,
 #: copied field for field)
 ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b",
-            "seamless-m4t-large-v2", "mamba2-1.3b", "zamba2-7b"]
+            "seamless-m4t-large-v2", "mamba2-1.3b", "zamba2-7b",
+            "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b"]
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
@@ -30,8 +32,6 @@ SHAPES = {
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {
-    "qwen3-moe-235b-a22b": "A16c",
-    "qwen3-moe-30b-a3b": "A16c",
     "internvl2-76b": "A16g",
 }
 

@@ -78,18 +78,19 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
     """The reference's ``init_params`` tree (stacked ``(L, ...)`` leaves, as
     numpy arrays) -> the port's parameters on ``device``, each leaf in the
     dtype the port's ``init_params`` gives it for ``cfg`` (``cfg``'s dtype,
-    but f32 for an SSM layer's ``A_log``, ``D_skip`` and ``dt_bias``).
+    but f32 for an SSM layer's ``A_log``, ``D_skip`` and ``dt_bias`` and a
+    MoE layer's ``router``).
     Keys and shapes must be those the port's ``init_params`` makes."""
     return _carry(_want(cfg), tree, "", lambda w: w.dtype, device)
 
 
 def caches_from_reference(tree: Mapping, device="cpu",
                           dtype=torch.float32) -> dict:
-    """The reference's decode caches (the dense ``{"k", "v"}`` of ``(L, B,
-    max_len, n_kv, d_head)``; the SSM family's ``conv`` and ``state``; the
-    hybrid's ``attn_k``, ``attn_v``, ``conv``, ``state`` and
-    ``tail_conv``, ``tail_state``; each with the 0-d ``"length"``) -> the
-    port's in ``dtype``, with ``length`` a Python int."""
+    """The reference's decode caches (the dense and MoE families' ``{"k",
+    "v"}`` of ``(L, B, max_len, n_kv, d_head)``; the SSM family's ``conv``
+    and ``state``; the hybrid's ``attn_k``, ``attn_v``, ``conv``, ``state``
+    and ``tail_conv``, ``tail_state``; each with the 0-d ``"length"``) ->
+    the port's in ``dtype``, with ``length`` a Python int."""
     out = {k: _tensor(v, dtype, device) for k, v in tree.items()
            if k != "length"}
     out["length"] = int(np.asarray(tree["length"]))
@@ -102,7 +103,8 @@ def opt_state_from_reference(cfg: ModelConfig, state, device="cpu"):
     int32 tensor, ``m`` and ``v`` f32 trees shaped like
     ``params_from_reference``'s, and ``master`` f32 for each parameter
     that is not f32 and ``None`` for each that is (an f32 leaf of a bf16
-    tree too)."""
+    tree too: an SSM layer's ``A_log``, ``D_skip``, ``dt_bias``, a MoE
+    layer's ``router``, which AdamW updates in f32)."""
     from repro_torch.optim import AdamWState
     want = _want(cfg)
     step, m, v, master = state

@@ -2,9 +2,10 @@
 
 Builds the model from a seed, prefills a batch of random prompts, then
 decodes tokens in lockstep.  On a CUDA device each causal prefill attention
-(every dense or decoder layer; each application of the hybrid's shared
-block) runs the flash kernel (``kernels/csrc/flash_fwd.cu``); the SSM
-layers' scan is torch ops, and the SSM family launches no kernel.  An
+(every dense, decoder or MoE layer; each application of the hybrid's
+shared block) runs the flash kernel (``kernels/csrc/flash_fwd.cu``); the
+SSM layers' scan and the MoE layers' routing and expert products are torch
+ops, and the SSM family launches no kernel.  An
 encoder-decoder arch also draws random frame embeddings, one per prompt
 position, for its encoder.  The SSM and hybrid families take a prompt of
 whole ``ssd_chunk`` chunks, or one shorter than a chunk:
@@ -17,6 +18,10 @@ whole ``ssd_chunk`` chunks, or one shorter than a chunk:
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-235b-a22b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -2,10 +2,12 @@
 -> fault-tolerant loop (checkpoint/restart, straggler detection, failure
 retry).
 
-On a CUDA device each causal attention (every dense or decoder layer;
-each application of the hybrid's shared block) runs the flash kernels
-(``kernels/csrc/flash_fwd.cu`` forward, ``kernels/csrc/flash_bwd.cu``
-backward); the SSM layers' scan is torch ops under autograd.  ``--smoke``
+On a CUDA device each causal attention (every dense, decoder or MoE
+layer; each application of the hybrid's shared block) runs the flash
+kernels (``kernels/csrc/flash_fwd.cu`` forward,
+``kernels/csrc/flash_bwd.cu`` backward); the SSM layers' scan and the MoE
+layers' routing and expert products are torch ops under autograd, and the
+MoE layers' auxiliary loss enters the loss.  ``--smoke``
 selects the reduced config of the same family; ``--device cpu`` runs the
 kernels' plain versions.  An encoder-decoder arch's batches carry random
 frame embeddings for its encoder.  The SSM and hybrid families take a
@@ -19,6 +21,12 @@ frame embeddings for its encoder.  The SSM and hybrid families take a
         --smoke --device cpu --steps 4 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --smoke --device cpu --steps 4 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 4 --batch 4 \\
+        --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen3-moe-235b-a22b --smoke --device cpu --steps 4 \\
+        --batch 4 --seq 64
 
 Without ``--ckpt-dir`` the checkpoints go to a fresh temporary directory
 that is removed at the end; with it, a second launch resumes from the

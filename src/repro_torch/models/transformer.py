@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder-only, encoder-decoder, SSM and
-hybrid families: config, parameters, forward and loss (training), prefill
+"""Model assembly for the dense decoder-only, encoder-decoder, SSM, hybrid
+and MoE families: config, parameters, forward and loss (training), prefill
 and cached decode (serving).
 
 Parameters are a dict shaped like the reference's pytree, with the per-layer
@@ -7,20 +7,24 @@ leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
 reference's parameters across is a copy (``convert.params_from_reference``).
 The hybrid's ``groups`` stack two axes, ``(n_groups, hybrid_group - 1,
 ...)``, and its one ``shared`` attention block is not stacked.
-The layer loop is a Python loop over slices of those stacks.  Training's
-:func:`forward` wraps each layer in ``torch.utils.checkpoint`` when
-``cfg.remat_policy == "full"`` (the reference's ``jax.checkpoint``);
+A MoE block is a dense block with its MLP replaced by ``moe``
+(:mod:`models.moe`), whose auxiliary loss :func:`forward` sums over the
+layers.  The layer loop is a Python loop over slices of those stacks.
+Training's :func:`forward` wraps each layer in ``torch.utils.checkpoint``
+when ``cfg.remat_policy == "full"`` (the reference's ``jax.checkpoint``);
 serving runs under ``torch.inference_mode()`` with no remat.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import (KVCache, cross_attention,
                                           decode_attention, init_attention,
@@ -28,9 +32,9 @@ from repro_torch.models.attention import (KVCache, cross_attention,
                                           update_cache)
 
 #: the families the port runs
-FAMILIES = ("dense", "encdec", "ssm", "hybrid")
+FAMILIES = ("dense", "encdec", "ssm", "hybrid", "moe")
 #: families of the reference that are not ported yet, and their ROADMAP item
-PENDING_FAMILIES = {"moe": "A16c", "vlm": "A16g"}
+PENDING_FAMILIES = {"vlm": "A16g"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +185,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (:func:`ssm.init_ssm`; its ``A_log``, ``D_skip`` and ``dt_bias`` stay
     f32).  The hybrid has no ``blocks`` but one ``shared`` dense block,
     ``groups`` of SSM blocks stacked ``(n_groups, hybrid_group - 1, ...)``
-    and, when ``n_layers % hybrid_group``, a ``tail`` of SSM blocks."""
+    and, when ``n_layers % hybrid_group``, a ``tail`` of SSM blocks.  A MoE
+    block has ``moe`` (:func:`moe.init_moe`; its ``router`` stays f32) in
+    place of ``mlp``.  Each stacked leaf is allocated once and every
+    layer's draw is copied into its slice (:func:`_stacked`)."""
     _require_ported(cfg)
     device = require_device(device)
     dt, D = cfg.tdtype, cfg.d_model
@@ -196,8 +203,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         p = {"ln1": ones(D),
              "attn": init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
                                     cfg.qk_norm, dt, generator, device),
-             "ln2": ones(D),
-             "mlp": L.init_mlp(D, cfg.d_ff, cfg.act, dt, generator, device)}
+             "ln2": ones(D)}
+        if kind == "moe":
+            p["moe"] = MOE.init_moe(D, cfg.n_experts, cfg.d_ff, cfg.act, dt,
+                                    generator, device)
+        else:
+            p["mlp"] = L.init_mlp(D, cfg.d_ff, cfg.act, dt, generator,
+                                  device)
         if kind == "dec":
             p["ln_x"] = ones(D)
             p["xattn"] = init_attention(D, cfg.n_heads, cfg.n_kv, cfg.d_head,
@@ -208,33 +220,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     # family the weights it always had
     params = {}
     if cfg.family == "encdec":
-        params["enc_blocks"] = _stack([block("dense")
-                                       for _ in range(cfg.n_enc_layers)])
+        params["enc_blocks"] = _stacked(lambda: block("dense"),
+                                        (cfg.n_enc_layers,))
         params["enc_norm"] = ones(D)
-        params["blocks"] = _stack([block("dec")
-                                   for _ in range(cfg.n_layers)])
+        params["blocks"] = _stacked(lambda: block("dec"), (cfg.n_layers,))
     elif cfg.family == "hybrid":
         n_groups, tail = cfg.hybrid_layout
         params["shared"] = block("dense")
-        params["groups"] = _stack([
-            _stack([block("ssm") for _ in range(cfg.hybrid_group - 1)])
-            for _ in range(n_groups)])
+        params["groups"] = _stacked(lambda: block("ssm"),
+                                    (n_groups, cfg.hybrid_group - 1))
         if tail:
-            params["tail"] = _stack([block("ssm") for _ in range(tail)])
+            params["tail"] = _stacked(lambda: block("ssm"), (tail,))
     else:
-        kind = "ssm" if cfg.family == "ssm" else "dense"
-        params["blocks"] = _stack([block(kind)
-                                   for _ in range(cfg.n_layers)])
+        kind = cfg.family if cfg.family in ("ssm", "moe") else "dense"
+        params["blocks"] = _stacked(lambda: block(kind), (cfg.n_layers,))
     params["embed"] = L.init_embed(cfg.padded_vocab, D, dt,
                                    cfg.tie_embeddings, generator, device)
     params["final_norm"] = ones(D)
     return params
 
 
-def _stack(layers):
-    if isinstance(layers[0], dict):
-        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
-    return torch.stack(layers)
+def _stacked(draw, lead: tuple) -> dict:
+    """``draw()`` called ``prod(lead)`` times in row-major order of the
+    leading indices, each call's tree copied into its slice of leaves
+    allocated once with the leading dims ``lead``: the tensors that
+    stacking the draws gives, with one layer's draw alive beside the
+    stacked leaves, never a second stack."""
+    out = None
+    for index in itertools.product(*map(range, lead)):
+        layer = draw()
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty(lead + tuple(t.shape)),
+                            layer)
+        _copy_into(out, layer, index)
+        del layer       # before the next draw, not after it
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(out, layer, index) -> None:
+    if isinstance(out, dict):
+        for k in out:
+            _copy_into(out[k], layer[k], index)
+    else:
+        out[index].copy_(layer)
 
 
 def _unstack(blocks, n: int) -> list:
@@ -252,11 +286,21 @@ def _unstack(blocks, n: int) -> list:
 
 # --- forward / prefill ---------------------------------------------------------
 
+def _ffn(x, bp, cfg: ModelConfig):
+    """A block's pre-norm MLP or, in a MoE block, its experts: ``(h, the
+    MoE's aux loss or None)``."""
+    xn = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if "moe" in bp:
+        return MOE.apply_moe(xn, bp["moe"], cfg)
+    return L.apply_mlp(xn, bp["mlp"], cfg.act), None
+
+
 def _dense_body(x, bp, cfg: ModelConfig, *, causal: bool = True,
                 memory=None, collect: bool = False):
     """One pre-norm block: self-attention, then (a decoder block, with
-    ``memory``) cross-attention to it, then the MLP, each with a residual.
-    Returns ``(x, (k, v) or None)``."""
+    ``memory``) cross-attention to it, then the MLP or the experts, each
+    with a residual.  Returns ``(x, (k, v) or None, the MoE's aux loss or
+    None)``."""
     pos = torch.arange(x.shape[1], device=x.device)
     h = self_attention(L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"],
                        cfg, pos, causal=causal, return_kv=collect)
@@ -267,9 +311,8 @@ def _dense_body(x, bp, cfg: ModelConfig, *, causal: bool = True,
     if "xattn" in bp:
         x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
                                 memory, bp["xattn"], cfg)
-    h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
-                    cfg.act)
-    return x + h, kv
+    h, aux = _ffn(x, bp, cfg)
+    return x + h, kv, aux
 
 
 def _ssm_body(x, bp, cfg: ModelConfig, collect: bool = False):
@@ -287,7 +330,7 @@ def _layers(params, cfg: ModelConfig):
     ``"ssm"`` (its conv tail and state there).  The hybrid applies
     ``params["shared"]`` at the head of every group, each application with
     its own KV cache."""
-    if cfg.family in ("dense", "encdec"):
+    if cfg.family in ("dense", "encdec", "moe"):
         for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             yield "attn", bp, ("k", "v"), (i,)
     elif cfg.family == "ssm":
@@ -345,20 +388,26 @@ def forward(params, cfg: ModelConfig, tokens, frames=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar).
     Each layer (each application of the hybrid's shared block too) runs
-    under ``cfg.remat_policy`` when autograd records.  ``frames``:
-    (B, S_enc, D) encoder-side frame embeddings (encdec)."""
+    under ``cfg.remat_policy`` when autograd records.  ``aux`` is the sum
+    of the MoE layers' auxiliary losses (f32; 0 in the other families).
+    ``frames``: (B, S_enc, D) encoder-side frame embeddings (encdec)."""
     _require_ported(cfg)
     _check_length(cfg, tokens.shape[1])
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
         else None
     attn = _remat(lambda x, bp, mem: _dense_body(x, bp, cfg,
-                                                 memory=mem)[0],
+                                                 memory=mem)[::2],
                   cfg.remat_policy)
     mamba = _remat(lambda x, bp: _ssm_body(x, bp, cfg)[0], cfg.remat_policy)
     x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
-    for kind, bp, _, _ in _layers(params, cfg):
-        x = attn(x, bp, memory) if kind == "attn" else mamba(x, bp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, bp, _, _ in _layers(params, cfg):
+        if kind == "ssm":
+            x = mamba(x, bp)
+            continue
+        x, a = attn(x, bp, memory)
+        if a is not None:
+            aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -426,7 +475,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
     caches = make_decode_caches(cfg, B, max_len, x.device)
     for kind, bp, (a, b), i in _layers(params, cfg):
         if kind == "attn":
-            x, (k, v) = _dense_body(x, bp, cfg, memory=memory, collect=True)
+            x, (k, v), _ = _dense_body(x, bp, cfg, memory=memory,
+                                       collect=True)
             caches[a][i][:, :S] = k
             caches[b][i][:, :S] = v
         else:
@@ -444,7 +494,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
 def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda") -> dict:
     """Zeroed caches in the model's dtype, with ``"length"`` 0: ``k``,
-    ``v`` ``(n_layers, B, max_len, n_kv, d_head)`` (dense, encdec);
+    ``v`` ``(n_layers, B, max_len, n_kv, d_head)`` (dense, encdec, moe);
     ``conv`` ``(n_layers, B, d_conv - 1, d_inner + 2 G N)`` and ``state``
     ``(n_layers, B, H, P, N)`` (ssm); the hybrid's ``attn_k``, ``attn_v``
     ``(n_groups, B, max_len, ...)``, ``conv``, ``state`` ``(n_groups,
@@ -453,7 +503,7 @@ def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     _require_ported(cfg)
     device = require_device(device)
     dt = cfg.tdtype
-    if cfg.family in ("dense", "encdec"):
+    if cfg.family in ("dense", "encdec", "moe"):
         cache = init_cache(cfg, batch, max_len, cfg.n_layers, dt, device)
         return {"k": cache.k, "v": cache.v, "length": cache.length}
 
@@ -472,16 +522,16 @@ def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_attn_block(x, bp, cfg: ModelConfig, cache: KVCache, memory):
-    """One dense or decoder block for one token, this token's K and V
-    written into ``cache`` in place."""
+    """One dense, decoder or MoE block for one token, this token's K and V
+    written into ``cache`` in place; a MoE block's aux loss is dropped, as
+    in the reference's decode."""
     h, (kn, vn) = decode_attention(
         L.rms_norm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, cache)
     x = x + h
     if "xattn" in bp:
         x = x + cross_attention(L.rms_norm(x, bp["ln_x"], cfg.norm_eps),
                                 memory, bp["xattn"], cfg)
-    h = L.apply_mlp(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
-                    cfg.act)
+    h, _ = _ffn(x, bp, cfg)
     update_cache(cache, kn, vn)
     return x + h
 

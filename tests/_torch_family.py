@@ -1,5 +1,6 @@
-"""Checks shared by the SSM and hybrid family tests
-(``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``): a smoke
+"""Checks shared by the SSM, hybrid and MoE family tests
+(``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``,
+``tests/test_torch_moe.py``): a smoke
 config of the port against the reference on the CPU, on the same numpy
 inputs and the reference's own ``init_params`` carried across.  The
 reference runs ``attn_impl="pallas"`` (its flash kernel in interpret mode)
@@ -62,8 +63,9 @@ STEP_EPS = 1e-3
 #: bf16 bounds; measured 0.58%); m, v and the f32 leaves, which are the
 #: gradients' own statistics and updates, are not compared in bf16
 BF16_LOSS_RTOL, BF16_TOL = 2e-3, 2e-2
-#: an SSM layer's leaves that are f32 whatever the model's dtype
-F32_LEAVES = ("A_log", "D_skip", "dt_bias")
+#: the leaves that are f32 whatever the model's dtype: an SSM layer's
+#: ``A_log``, ``D_skip``, ``dt_bias`` and a MoE layer's ``router``
+F32_LEAVES = ("A_log", "D_skip", "dt_bias", "router")
 
 
 def np_tree(tree):
@@ -159,9 +161,9 @@ def reference_params(jcfg):
 def check_tree(jcfg, cfg, bf16: bool = True):
     """The port's ``init_params`` tree (keys, shapes) equal to the
     reference's for ``cfg``, and every leaf carried across equal; with
-    ``bf16``, in a bf16 tree the SSM layers' ``A_log``, ``D_skip`` and
-    ``dt_bias`` stay f32 on both sides and every other leaf is bf16.
-    Returns the flat keys."""
+    ``bf16``, in a bf16 tree the ``F32_LEAVES`` (an SSM layer's ``A_log``,
+    ``D_skip`` and ``dt_bias``, a MoE layer's ``router``) stay f32 on both
+    sides and every other leaf is bf16.  Returns the flat keys."""
     jparams = np_tree(reference_params(jcfg))
     want = flat(jparams)
     got = flat(params_from_reference(cfg, jparams))
@@ -200,7 +202,12 @@ def check_forward(arch):
         jparams, jnp.asarray(tokens))
     assert hidden.shape == (B, S, cfg.d_model)
     close(hidden, jhidden, PREFILL_TOL)
-    assert float(aux) == float(jaux) == 0.0
+    if cfg.family != "moe":
+        assert float(aux) == float(jaux) == 0.0
+    else:
+        # the MoE layers' load-balance and z-loss terms, summed over layers
+        assert float(jaux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=LOSS_RTOL)
 
 
 def check_loss_and_grads(arch):

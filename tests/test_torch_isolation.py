@@ -1,7 +1,7 @@
 """The port imports and runs — the stencil plan, stage programs (a chain,
 and DAGs on the reference and hopper backends), a custom stencil traced
 for the kernel, the LM serving path (qwen3 and granite's untied head; the
-SSM and hybrid families' smoke configs, two tokens each), two
+SSM, hybrid and MoE families' smoke configs, two tokens each), two
 training steps, a batched ``run_batch`` and a ``StencilService`` serving a
 few requests and a checkpointed one — with JAX and the reference package
 made unimportable."""
@@ -88,7 +88,7 @@ ggen = serve.generate(gcfg, gparams,
                       torch.from_numpy(rng.integers(1, gcfg.vocab, (2, 16))),
                       3)
 assert ggen.tokens.shape == (2, 3) and bool(ggen.logits.isfinite().all())
-for arch in ("mamba2-1.3b", "zamba2-7b"):
+for arch in ("mamba2-1.3b", "zamba2-7b", "qwen3-moe-30b-a3b"):
     scfg = smoke_config(arch)
     sgen = serve.generate(
         scfg, repro_torch.models.init_params(

@@ -158,15 +158,15 @@ def test_config_matches_reference(arch):
 def test_unported_archs_and_impls_raise_naming_roadmap():
     assert set(configs.ARCH_IDS) | set(configs.PENDING) \
         == set(jconfigs.ARCH_IDS)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16c"):
-        configs.get_config("qwen3-moe-30b-a3b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A16g"):
+        configs.get_config("internvl2-76b")
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         dataclasses.replace(configs.smoke_config(ARCH), attn_impl="stub")
     with pytest.raises(ValueError):
         dataclasses.replace(configs.smoke_config(ARCH), attn_impl="pallas")
-    moe = dataclasses.replace(configs.smoke_config(ARCH), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16c"):
-        transformer.init_params(moe, torch.Generator(), "cpu")
+    vlm = dataclasses.replace(configs.smoke_config(ARCH), family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP A16g"):
+        transformer.init_params(vlm, torch.Generator(), "cpu")
 
 
 def test_init_params_matches_reference_tree(model):
