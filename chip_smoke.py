@@ -250,7 +250,36 @@ On one CUDA card, from the root of a checkout:
     cut to 8 of its 94 layers (64 heads on 4 KV heads: G 16) the same way,
     8 flash launches a prefill; (e) serves and trains both SMOKE configs
     (f32) on the card against the CPU within ``SMOKE_TOL``;
-20. prints one ``{"kernels": [...]}`` line and, last, the device line.
+20. runs the A16g/h phase: (a) serves full-width internvl2-76b (the VLM
+    family, bf16: dense blocks at 64 heads on 8 KV heads, head dim 128,
+    and 1024 positions of patch embeddings in front of the tokens, from
+    seed 2) cut to the deeper of 32 and 24 of its 80 layers whose
+    reckoned peak (weights, KV cache, the MLP's transients) stays under
+    76 GB, through ``generate`` at batch 8 x (1024 + 4096) + 16 new
+    tokens, asserting a flash launch a layer in prefill and none in
+    decode and a peak under 80 GB, holding layer 0's flash output against
+    its plain version beside SDPA and the bound at S 5120; prints prefill
+    ms with text tokens/s and positions/s, decode ms a step and its idle
+    share, peak memory, the flash and GEMM shares of a profiled prefill,
+    and the bf16 "flash" prefill against "xla"; holds both in f32 on 2
+    layers at 2 x (1024 + 1024) within 1e-3, with teacher-forced decode
+    against ``forward``; (b) trains it cut to 2 layers at 2 x (1024 +
+    4096) for 3 AdamW steps, 4 forward, 2 dQ and 2 dK/dV launches a step,
+    both backward kernels against their plain version on layer 0's q, k,
+    v and real dO, the first loss equal to the no-grad loss; (c) trains
+    full-width qwen3-1.7b under ``remat_policy="dots"`` against "full"
+    (2 steps at 8 x 4096 in two microbatches from the same weights and
+    batches: the first loss bit for bit; later losses, gradient norms,
+    step ms, peaks and a profiled step's idle share printed); (d) trains
+    it through ``make_compressed_train_step`` (keep 0.05, int8; 3 steps)
+    against the exact step (the first loss bit for bit; kept + residual
+    against g + e on every leaf; one leaf's mask, kept values and residual
+    against the CPU's bit for bit; step ms, the compression's ms, wire
+    bytes, peak); (e) serves and trains internvl2-76b's SMOKE config (a
+    60-token prompt after its 4-position prefix) and qwen3-1.7b's under
+    "dots" and compressed on the card against the CPU within
+    ``SMOKE_TOL``;
+21. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -2755,21 +2784,37 @@ def lm_frames(cfg, B: int, S: int, device):
     return torch.randn((B, S, cfg.d_model), generator=gen, device=device)
 
 
+def lm_embeds(cfg, B: int, device):
+    """A VLM config's patch embeddings (B, prefix_len, d_model), f32
+    standard normal from seed 2 on the card; ``None`` for the other
+    families."""
+    import torch
+    if cfg.input_mode != "embeds_prefix":
+        return None
+    gen = torch.Generator(device=device).manual_seed(2)
+    return torch.randn((B, cfg.prefix_len, cfg.d_model), generator=gen,
+                       device=device)
+
+
 def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     """Serve full-width ``arch`` (bf16, random weights from seed 0) through
     ``generate`` at batch LM_BATCH x prompt LM_PROMPT + LM_NEW (an
-    encoder-decoder arch with LM_PROMPT frames a prompt, ``lm_frames``),
+    encoder-decoder arch with LM_PROMPT frames a prompt, ``lm_frames``; a
+    VLM arch with its ``prefix_len`` patch embeddings in front of the
+    prompt, ``lm_embeds``),
     with ``cfg.causal_attentions`` flash launches a prefill and none in
     decode; hold the flash kernel on the first causal attention's q, k, v
     (decoder layer 0, or the hybrid's first application of its shared
     block) against its plain version, with kernel, plain and SDPA times;
-    and profile one prefill: the flash share of its device time, and for an
+    and profile one prefill: the flash and GEMM shares of its device time,
+    and for an
     encoder-decoder arch the chunked-attention and GEMM shares, for an SSM
     or hybrid arch the SSD scan's and the GEMMs', for a MoE arch the MoE
     layers' and their pieces' (``call_shares``, ``moe_layer0``).  With
     ``extras`` also profile decode and hold the "flash" prefill against
     "xla" and decode against prefill or forward (a MoE arch: printed in
-    bf16 with the routing that differs, held in f32 on 4 layers).  An arch
+    bf16 with the routing that differs, held in f32 on 4 layers; a VLM
+    arch: printed in bf16, held in f32 on 2 layers).  An arch
     with no attention (the SSM family) returns its serving numbers without
     a kernel's readings.  ``cfg``, when given, stands in for the published
     config (a cut depth)."""
@@ -2783,9 +2828,11 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
-    from repro_torch.models.transformer import _unstack
+    from repro_torch.models.transformer import _embed, _unstack
     cfg = cfg or get_config(arch)
     B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.d_head
+    # the positions a prefill covers: a VLM's patch embeddings, then tokens
+    P = cfg.prefix_len if cfg.input_mode == "embeds_prefix" else 0
     n_attn = cfg.causal_attentions
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2796,13 +2843,13 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     print(f"{arch}: {n_par} parameters ({n_par * 2 / 1e9:.3f} GB bf16, "
           f"padded vocab {cfg.padded_vocab}) made in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    kv_gb = n_attn * B * (S + LM_NEW) * Hkv * D * 2 * 2 / 1e9
+    kv_gb = n_attn * B * (P + S + LM_NEW) * Hkv * D * 2 * 2 / 1e9
     full_kv_gb = n_attn * 32 * (32768 + LM_NEW) * Hkv * D * 2 * 2 / 1e9
     if n_attn:
         print(f"cut: prefill_32k (batch 32 x 32768) needs {full_kv_gb:.1f} "
               f"GB of KV cache, more than one card holds; served batch {B} "
-              f"x prompt {S} + {LM_NEW} new ({kv_gb:.2f} GB of KV cache)",
-              flush=True)
+              f"x {f'prefix {P} + ' if P else ''}prompt {S} + {LM_NEW} new "
+              f"({kv_gb:.2f} GB of KV cache)", flush=True)
     if cfg.family in ("ssm", "hybrid"):
         state_gb = (cfg.n_layers - n_attn) * B * cfg.ssm_heads \
             * cfg.ssm_head_dim * cfg.d_state * 2 / 1e9
@@ -2813,12 +2860,13 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
                                                 dtype=np.int32)
     tokens = torch.from_numpy(prompts).long().to(device)
     frames = lm_frames(cfg, B, S, device)
+    embeds = lm_embeds(cfg, B, device)
 
     # the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    out = generate(cfg, params, tokens, LM_NEW, frames=frames)
+    out = generate(cfg, params, tokens, LM_NEW, frames=frames, embeds=embeds)
     launches = flash.LAUNCHES
     forms = dict(flash.FORM_LAUNCHES)
     if (out.prefill_launches, out.decode_launches, launches) != (
@@ -2836,14 +2884,17 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
           f"{out.decode_s * 1e3:.3f} ms for {LM_NEW - 1} steps; launches "
           f"{out.prefill_launches} + {out.decode_launches}; tokens[0] "
           f"{out.tokens[0].tolist()}", flush=True)
-    warm = generate(cfg, params, tokens, LM_NEW, frames=frames)
+    warm = generate(cfg, params, tokens, LM_NEW, frames=frames,
+                    embeds=embeds)
     e2e = {"prefill_ms": warm.prefill_s * 1e3,
            "prefill_tok_per_s": B * S / warm.prefill_s,
            "decode_ms_per_step": warm.decode_s * 1e3 / (LM_NEW - 1),
            "decode_tok_per_s": B * (LM_NEW - 1) / warm.decode_s,
            "serve_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"generate (warm): prefill {e2e['prefill_ms']:.3f} ms "
-          f"({e2e['prefill_tok_per_s']:.1f} tok/s), decode "
+          f"({e2e['prefill_tok_per_s']:.1f} tok/s"
+          + (f", {B * (P + S) / warm.prefill_s:.1f} positions/s with the "
+             f"{P}-position prefix" if P else "") + "), decode "
           f"{e2e['decode_ms_per_step']:.3f} ms/step "
           f"({e2e['decode_tok_per_s']:.1f} tok/s); peak memory "
           f"{e2e['serve_peak_memory_gb']:.3f} GB", flush=True)
@@ -2851,11 +2902,15 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     spied = ("ssd_scan" if cfg.family in ("ssm", "hybrid")
              else "chunked_attention" if frames is not None
              else "apply_moe" if cfg.family == "moe" else None)
+    if P:
+        e2e["prefill_positions_per_s"] = B * (P + S) / warm.prefill_s
     with torch.inference_mode():
         def run():
-            prefill(params, cfg, tokens, S, frames)
+            prefill(params, cfg, tokens, P + S, frames, embeds=embeds)
         if spied is None:
-            prof = device_profile(run, key)
+            prof = device_profile(run, key, detail=_gemm_us)
+            prof["gemm_share_of_device"] = prof.pop("gemm_us") / (
+                prof["device_busy_ms"] * 1e3)
         else:
             module = {"ssd_scan": SSM, "chunked_attention": A,
                       "apply_moe": MOE}[spied]
@@ -2867,7 +2922,9 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
     print(f"flash share of {arch}'s prefill device time "
           f"{e2e['kernel_share_of_prefill_device']:.4f}, device idle "
           f"{e2e['prefill_device_idle_share']:.4f}, profiled prefill "
-          f"{e2e['prefill_profiled_run_ms']:.3f} ms", flush=True)
+          f"{e2e['prefill_profiled_run_ms']:.3f} ms"
+          + (f"; GEMMs {e2e['prefill_gemm_share_of_device']:.4f}"
+             if spied is None else ""), flush=True)
     if spied is not None:
         print(f"{arch}'s prefill device time: {spied} "
               f"{e2e[f'prefill_{spied}_share_of_device']:.4f} (its GEMMs "
@@ -2895,7 +2952,8 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
               flush=True)
     if extras:
         with torch.inference_mode():
-            _, caches, memory = prefill(params, cfg, tokens, S + 1, frames)
+            _, caches, memory = prefill(params, cfg, tokens, P + S + 1,
+                                        frames, embeds=embeds)
             nxt = tokens[:, -1:]
             prof = device_profile(
                 lambda: decode_step(params, cfg, nxt, caches, memory), None,
@@ -2911,27 +2969,31 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
         if n_attn:
             # the kernel against its plain version on the first causal
             # attention's q, k, v
-            x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+            x = _embed(params, cfg, tokens, embeds)
             bp = (params["shared"] if "shared" in params
                   else _unstack(params["blocks"], cfg.n_layers)[0])
             q, k, v = A._project_qkv(L.rms_norm(x, bp["ln1"], cfg.norm_eps),
                                      bp["attn"], cfg,
-                                     torch.arange(S, device=device))
+                                     torch.arange(P + S, device=device))
             del x
             kernel = forward_kernel_vs_plain(q, k, v, peaks)
             del q, k, v
         checks = {}
         if extras and cfg.family == "moe":
             checks = moe_bf16_checks(params, cfg, tokens)
+        elif extras and cfg.family == "vlm":
+            checks = vlm_bf16_checks(params, cfg, tokens, embeds)
         elif extras:
             checks = prefill_and_decode_checks(params, cfg, tokens, frames)
-        del frames
+        del frames, embeds
     del params
     torch.cuda.empty_cache()
     if extras and cfg.family in ("ssm", "hybrid"):
         checks.update(ssm_f32_checks(arch, tokens, device))
     if extras and cfg.family == "moe":
         checks.update(moe_f32_checks(arch, tokens, device))
+    if extras and cfg.family == "vlm":
+        checks.update(vlm_f32_checks(arch, tokens, device))
 
     common = {**checks, "tokens_in_range": True, "logits_finite": True,
               **e2e}
@@ -2941,7 +3003,7 @@ def serve_arch(arch, device, peaks, extras: bool = False, cfg=None) -> dict:
            "source": LM_SOURCE, "replaces": LM_REPLACES,
            "launches": launches, "form_launches": _form_counts(forms),
            **kernel.pop("readings"), **kernel,
-           "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D},
+           "shape": {"B": B, "S": P + S, "H": H, "Hkv": Hkv, "D": D},
            "n_layers": cfg.n_layers, **common}
     print(f"  flash_fwd[{arch}]: kernel {res['ms']}, plain "
           f"{res['plain_ms']}, library {res['library_ms']}, bound "
@@ -3055,26 +3117,28 @@ SSM_TF_PROMPT, SSM_TF_FORWARD = 512, 1024
 
 
 def teacher_forced_vs_forward(params, cfg, tokens, prompt=SSM_TF_PROMPT,
-                              total=SSM_TF_FORWARD) -> list:
+                              total=SSM_TF_FORWARD, embeds=None) -> list:
     """Relative L2 of each teacher-forced decode step's true-vocab logits
     against ``forward``'s at the same position: ``forward`` over ``total``
     tokens, then ``prefill`` of ``prompt`` tokens and LM_TF_STEPS decode
-    steps (a MoE arch's ``RouteLog`` sees the routes in that order)."""
+    steps (a MoE arch's ``RouteLog`` sees the routes in that order); a
+    VLM's ``embeds`` in front of both."""
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models import layers as L
     whole = tokens[:, :total]
-    hidden, _ = forward(params, cfg, whole)
+    hidden, _ = forward(params, cfg, whole, embeds=embeds)
+    P = hidden.shape[1] - whole.shape[1]
     _, caches, _ = prefill(params, cfg, whole[:, :prompt],
-                           prompt + LM_TF_STEPS)
+                           P + prompt + LM_TF_STEPS, embeds=embeds)
     tf = []
     for t in range(prompt, prompt + LM_TF_STEPS):
         ld, caches = decode_step(params, cfg, whole[:, t:t + 1], caches)
-        lf = L.lm_logits(hidden[:, t:t + 1], params["embed"],
+        lf = L.lm_logits(hidden[:, P + t:P + t + 1], params["embed"],
                          cfg.vocab).float()
         tf.append(rel_err(ld[..., :cfg.vocab], lf[..., :cfg.vocab]))
     del hidden, caches
     where = (", past a chunk boundary" if cfg.family in ("ssm", "hybrid")
-             else "")
+             else f", after a {P}-position prefix" if P else "")
     print(f"teacher-forced decode vs forward over {total} tokens (prompt "
           f"{prompt}, {LM_TF_STEPS} steps{where}): rel err {tf}",
           flush=True)
@@ -3577,12 +3641,6 @@ def masked_decay_gap(params, cfg, batch) -> float:
     return max(gaps)
 
 
-def data_mode(cfg) -> str:
-    """The synthetic pipeline's mode for ``cfg``: ``"frames"`` (tokens
-    with frame embeddings for the encoder) or ``"tokens"``."""
-    return "frames" if cfg.input_mode == "frames" else "tokens"
-
-
 def train_phase(device, peaks) -> dict:
     """Train full-width qwen3-1.7b through ``make_train_step`` and hold the
     backward kernels, the "flash" gradients and the checkpointed loop
@@ -3610,7 +3668,7 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False,
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.launch.train import device_batch
+    from repro_torch.launch.train import data_mode, device_batch
     from repro_torch.models import forward, init_params, lm_loss
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import make_train_step
@@ -3628,7 +3686,8 @@ def train_arch(arch, device, peaks, B, plan, extras: bool = False,
     opt = adamw_init(params)
     data = SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0,
-        d_model=cfg.d_model, mode=data_mode(cfg)))
+        prefix_len=cfg.prefix_len, d_model=cfg.d_model,
+        mode=data_mode(cfg)))
     batches = [device_batch(data.batch_at(s), device)
                for s in range(len(plan))]
     with torch.no_grad():
@@ -3877,38 +3936,48 @@ def config_bwd_rows(arch: str, device, peaks) -> list:
     return rows
 
 
-def smoke_run(label: str, cfg, device) -> dict:
+def smoke_run(label: str, cfg, device, compress=None) -> dict:
     """``generate`` (batch 2, prompt 64, 8 new) then 3 AdamW steps of
-    ``make_train_step`` of ``cfg`` on the CPU (the plain versions) and on
+    ``make_train_step`` of ``cfg`` (``make_compressed_train_step`` at keep
+    ratio ``compress``, when given) on the CPU (the plain versions) and on
     the card (the flash kernels in ``cfg``'s dtype and head dim), from the
     same weights (seed 0, made on the CPU), prompts, frames (an
-    encoder-decoder config's) and batches: launch counts exact, the first
-    pick's logits and the losses within SMOKE_TOL."""
+    encoder-decoder config's), patch embeddings (a VLM config's: its
+    prompt is 64 positions, the prefix's and 64 - prefix tokens) and
+    batches: launch counts exact, the first pick's logits and the losses
+    within SMOKE_TOL."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import generate
-    from repro_torch.launch.train import device_batch
+    from repro_torch.launch.train import data_mode, device_batch
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.train import make_train_step
+    from repro_torch.train import make_compressed_train_step, make_train_step
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    prompts = rng.integers(1, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT),
-                           dtype=np.int32)
-    frames = (rng.standard_normal((SMOKE_BATCH, SMOKE_PROMPT, cfg.d_model))
+    P = cfg.prefix_len if cfg.input_mode == "embeds_prefix" else 0
+    S = SMOKE_PROMPT - P
+    prompts = rng.integers(1, cfg.vocab, (SMOKE_BATCH, S), dtype=np.int32)
+    frames = (rng.standard_normal((SMOKE_BATCH, S, cfg.d_model))
               .astype(np.float32) if cfg.input_mode == "frames" else None)
+    embeds = (rng.standard_normal((SMOKE_BATCH, P, cfg.d_model))
+              .astype(np.float32) if P else None)
     data = SyntheticLMDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=SMOKE_BATCH,
-        seed=0, d_model=cfg.d_model, mode=data_mode(cfg)))
-    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                            total_steps=SMOKE_STEPS))
+        vocab=cfg.vocab, seq_len=S, global_batch=SMOKE_BATCH, seed=0,
+        prefix_len=cfg.prefix_len, d_model=cfg.d_model,
+        mode=data_mode(cfg)))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=SMOKE_STEPS)
+    step = (make_train_step(cfg, ocfg) if compress is None
+            else make_compressed_train_step(cfg, ocfg, keep_ratio=compress))
     runs = {}
     for where in ("cpu", device):
         params = _tree_to(init_params(cfg, torch.Generator().manual_seed(0),
                                       "cpu"), where)
         opt = adamw_init(params)
+        if compress is not None:
+            opt = (opt, step.init_extra(params))
         tokens = torch.from_numpy(prompts).long().to(where)
         batches = [device_batch(data.batch_at(s), where)
                    for s in range(SMOKE_STEPS)]
@@ -3918,7 +3987,8 @@ def smoke_run(label: str, cfg, device) -> dict:
             _zero_launch_counts()
         gen = generate(cfg, params, tokens, SMOKE_NEW, frames=None
                        if frames is None else torch.from_numpy(frames).to(
-                           where))
+                           where), embeds=None if embeds is None
+                       else torch.from_numpy(embeds).to(where))
         losses = []
         for batch in batches:
             params, opt, metrics = step(params, opt, batch)
@@ -4242,6 +4312,470 @@ def a16c_phase(device, peaks) -> list:
     return [serve, big_serve] + train["kernels"]
 
 
+# --- A16g, A16h: the VLM family, "dots" remat, gradient compression -------
+
+VLM_ARCH = "internvl2-76b"
+#: (a) the served depths, the deeper first while its reckoned peak stays
+#: under VLM_PEAK_LIMIT_GB (the card's 80 GB less a margin)
+VLM_DEPTHS, VLM_PEAK_LIMIT_GB = (32, 24), 76.0
+#: (a) the f32 checks at full width on VLM_F32_LAYERS layers, batch
+#: SSM_F32_BATCH: "flash" against "xla" over the prefix and VLM_F32_SEQ
+#: tokens (2048 positions: whole multiples of attn_kv_chunk 1024; 1024 +
+#: 512 would be refused), and teacher-forced decode after the same prefill
+#: against ``forward`` over the prefix and VLM_TF_FORWARD tokens, held to
+#: SSM_F32_TOL
+VLM_F32_LAYERS, VLM_F32_SEQ, VLM_TF_FORWARD = 2, 1024, 2048
+#: (b) trained at full width cut to 2 of its 80 layers (weights, gradient
+#: and AdamW state about 16 bytes a parameter: 61 GB at 2 layers, 88 at 4),
+#: train_4k's sequence after the prefix, its batch of 256 cut to 2, 3 steps
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_STEPS = 2, 2, 3
+#: (c) qwen3-1.7b at train_4k's sequence, batch 8 in two microbatches, 2
+#: steps under each remat policy; (d) 3 compressed steps at batch 8, keep
+#: ratio COMPRESS_KEEP with int8
+DOTS_STEPS, COMPRESS_STEPS, COMPRESS_KEEP = 2, 3, 0.05
+#: (d) the leaf whose mask and kept values are held against the CPU's
+COMPRESS_CPU_LEAF = ("blocks", "attn", "wk")
+
+
+def vlm_serve_peak_gb(cfg, B: int, S: int, new: int) -> dict:
+    """The reckoned serving peak of ``cfg`` at batch B x (prefix + S) +
+    ``new``: the bf16 weights, the KV cache, and the largest transient of
+    a prefill layer over its B (P + S) positions: the MLP's (2 d_ff) bf16
+    product with its gate in f32 and the gate's SiLU in f32 (12 bytes a
+    position and d_ff column), beside the residual stream and the norm's
+    f32 temporaries (8 bytes a position and d_model column)."""
+    T = B * (cfg.prefix_len + S)
+    parts = {"weights": cfg.n_params * 2,
+             "kv_cache": cfg.n_layers * B * (cfg.prefix_len + S + new)
+             * cfg.n_kv * cfg.d_head * 2 * 2,
+             "mlp_transient": T * cfg.d_ff * 12,
+             "stream": T * cfg.d_model * 8}
+    out = {k: v / 1e9 for k, v in parts.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def vlm_bf16_checks(params, cfg, tokens, embeds) -> dict:
+    """At the served depth in bf16, printed and not held: the "flash"
+    prefill against "xla" over the prefix and the whole prompt; only
+    finite logits are held.  The tight checks run in f32
+    (``vlm_f32_checks``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import prefill
+    P, S = embeds.shape[1], tokens.shape[1]
+    lf = prefill(params, cfg, tokens, P + S, embeds=embeds)[0]
+    lx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"), tokens,
+                 P + S, embeds=embeds)[0]
+    out = {"flash_vs_xla_logit_rel_err": rel_err(lf[..., :cfg.vocab],
+                                                 lx[..., :cfg.vocab])}
+    finite = bool(lf.isfinite().all() and lx.isfinite().all())
+    del lf, lx
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} in bf16 at {cfg.n_layers} layers, batch "
+          f"{tokens.shape[0]} x ({P} + {S}) (printed, not held): {out}",
+          flush=True)
+    if not finite:
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return out
+
+
+def vlm_f32_checks(arch, tokens, device) -> dict:
+    """``arch``'s published config in f32 cut to VLM_F32_LAYERS layers
+    (weights from seed 0) at batch SSM_F32_BATCH with its patch embeddings
+    (``lm_embeds``): the "flash" prefill (the f32 flash form) against
+    "xla" over the prefix and VLM_F32_SEQ tokens, and teacher-forced decode
+    after that prefill against ``forward`` over the prefix and
+    VLM_TF_FORWARD tokens at the same positions, within SSM_F32_TOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=VLM_F32_LAYERS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    embeds = lm_embeds(cfg, SSM_F32_BATCH, device)
+    P = cfg.prefix_len
+    short = tokens[:SSM_F32_BATCH, :VLM_F32_SEQ]
+    with torch.inference_mode():
+        lf = prefill(params, cfg, short, P + VLM_F32_SEQ, embeds=embeds)[0]
+        lx = prefill(params, dataclasses.replace(cfg, attn_impl="xla"),
+                     short, P + VLM_F32_SEQ, embeds=embeds)[0]
+        out = {"f32_layers": VLM_F32_LAYERS,
+               "f32_flash_vs_xla_logit_rel_err": rel_err(
+                   lf[..., :cfg.vocab], lx[..., :cfg.vocab])}
+        del lf, lx
+        out["f32_teacher_forced_logit_rel_err"] = teacher_forced_vs_forward(
+            params, cfg, tokens[:SSM_F32_BATCH], VLM_F32_SEQ,
+            VLM_TF_FORWARD, embeds=embeds)
+    del params, embeds
+    torch.cuda.empty_cache()
+    print(f"{arch} in f32 at full width, {VLM_F32_LAYERS} layers, batch "
+          f"{SSM_F32_BATCH} x ({P} + {VLM_F32_SEQ}): {out}", flush=True)
+    worst = max([out["f32_flash_vs_xla_logit_rel_err"]]
+                + out["f32_teacher_forced_logit_rel_err"])
+    if worst > SSM_F32_TOL:
+        raise AssertionError(f"{arch} in f32: logits differ beyond "
+                             f"{SSM_F32_TOL}")
+    return out
+
+
+def _lm_batches(cfg, n: int, device) -> list:
+    """``n`` synthetic batches (seed 0) of qwen3-1.7b's training cell:
+    TRAIN_BATCH x TRAIN_SEQ tokens on the card."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import device_batch
+    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH, seed=0))
+    return [device_batch(data.batch_at(s), device) for s in range(n)]
+
+
+def _timed_steps(step, params, state, batches, mb: int, cfg) -> dict:
+    """``step`` over ``batches`` from the launch counts at 0 and the peak
+    reset: each step's loss, gradient norm and host seconds (ending in a
+    synchronize), launches (forward, dQ, dK/dV) a step, held to ``2 L mb``,
+    ``L mb``, ``L mb``, and the peak memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, norms, secs, per_step, metrics = [], [], [], [], []
+    for batch in batches:
+        c0, t0 = _launch_counts(), time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(c0, _launch_counts())))
+        metrics.append(m)
+    L = cfg.causal_attentions
+    want = [(2 * L * mb, L * mb, L * mb)] * len(batches)
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{want}")
+    return {"params": params, "state": state, "losses": losses,
+            "grad_norms": norms, "seconds": secs,
+            "launches_per_step": per_step, "metrics": metrics,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def remat_dots_vs_full(device) -> dict:
+    """(c) qwen3-1.7b at full width under ``remat_policy="dots"`` against
+    ``"full"``: DOTS_STEPS steps of TRAIN_BATCH x TRAIN_SEQ in two
+    microbatches each, from the same weights (seed 0) and batches.  The
+    first step's loss must equal "full"'s bit for bit (the forward is the
+    same); the later losses and the gradient norms are printed with
+    whether they agree bit for bit (the backward's atomics may order sums
+    differently from run to run), with each policy's step ms and peak,
+    and a profiled third step's device busy ms, idle share and device
+    ops."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    base = get_config(LM_ARCH)
+    batches = _lm_batches(base, DOTS_STEPS, device)
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=DOTS_STEPS)
+    runs = {}
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            0), device)
+        step = make_train_step(cfg, ocfg, 2)
+        run = _timed_steps(step, params, adamw_init(params), batches, 2,
+                           cfg)
+        prof = device_profile(lambda: step(run["params"], run["state"],
+                                           batches[0]), None)
+        run.update(device_busy_ms=prof["device_busy_ms"],
+                   device_idle_share=prof["device_idle_share"],
+                   device_ops=prof["device_ops"])
+        del params, run["params"], run["state"], run["metrics"]
+        runs[policy] = run
+    del batches
+    torch.cuda.empty_cache()
+    full, dots = runs["full"], runs["dots"]
+    out = {"steps": DOTS_STEPS, "microbatches": 2,
+           "first_loss_equal": dots["losses"][0] == full["losses"][0],
+           "losses_equal": dots["losses"] == full["losses"],
+           "grad_norms_equal": dots["grad_norms"] == full["grad_norms"],
+           **{f"{p}_{k}": runs[p][k] for p in runs
+              for k in ("losses", "grad_norms", "seconds",
+                        "launches_per_step", "peak_memory_gb",
+                        "device_busy_ms", "device_idle_share",
+                        "device_ops")},
+           "full_step_ms": full["seconds"][-1] * 1e3,
+           "dots_step_ms": dots["seconds"][-1] * 1e3}
+    print(f"{LM_ARCH} remat 'dots' against 'full' at {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, 2 microbatches: losses {dots['losses']} | "
+          f"{full['losses']}, gradient norms {dots['grad_norms']} | "
+          f"{full['grad_norms']} (bit for bit: losses "
+          f"{out['losses_equal']}, norms {out['grad_norms_equal']}); warm "
+          f"step {out['dots_step_ms']:.3f} | {out['full_step_ms']:.3f} ms; "
+          f"peak {dots['peak_memory_gb']:.3f} | {full['peak_memory_gb']:.3f}"
+          f" GB; launches a step {dots['launches_per_step']}; a profiled "
+          f"step's device busy {dots['device_busy_ms']:.3f} | "
+          f"{full['device_busy_ms']:.3f} ms, idle "
+          f"{dots['device_idle_share']:.4f} | "
+          f"{full['device_idle_share']:.4f}, device ops "
+          f"{dots['device_ops']} | {full['device_ops']}", flush=True)
+    if not out["first_loss_equal"] or not all(
+            math.isfinite(x) for x in dots["losses"]):
+        raise AssertionError("remat 'dots' changed the forward's loss")
+    return out
+
+
+def compression_checks(grads, ef, out, keep: float, quantize: bool) -> dict:
+    """One ``ef_compress_update`` on the card: on every leaf ``kept +
+    residual`` against ``g + e`` (the residual is taken before ``kept`` is
+    rounded to the gradient's dtype: equal bit for bit for f32 gradients,
+    within that rounding, 2**-8 of |kept|, and the f32 sum's 2**-23 of |g +
+    e| for bf16 ones), and on COMPRESS_CPU_LEAF the mask, the kept values
+    and the residual against the CPU's from the same gradient, bit for
+    bit."""
+    import torch
+    from repro_torch.optim import compression as C
+    kept, res, _ = out
+    worst, n_leaves = 0.0, 0
+    # the four trees share their key order
+    for g, e, k, r in zip(*map(_leaves, (grads, ef, kept, res)),
+                          strict=True):
+        gf = g.float() + e
+        kf = k.float()
+        diff = (kf + r - gf).abs()
+        if g.dtype == torch.float32:
+            if bool((diff != 0).any()):
+                raise AssertionError(f"leaf {n_leaves}: kept + residual != "
+                                     f"g + e")
+        else:
+            bound = 2.0 ** -8 * kf.abs() + 2.0 ** -23 * gf.abs()
+            ratio = (diff / bound.clamp_min(1e-45)).max().item()
+            worst = max(worst, ratio)
+        n_leaves += 1
+        del gf, kf, diff
+    a, b, c = COMPRESS_CPU_LEAF
+    g, e = grads[a][b][c], ef[a][b][c]
+    cpu = C._one(g.cpu(), e.cpu(), keep, quantize)
+    mask_card = C._topk_mask(g.float() + e, keep).cpu()
+    mask_cpu = C._topk_mask(g.cpu().float() + e.cpu(), keep)
+    same = {"mask": torch.equal(mask_card, mask_cpu),
+            "kept": torch.equal(kept[a][b][c].cpu(), cpu[0]),
+            "residual": torch.equal(res[a][b][c].cpu(), cpu[1])}
+    out = {"leaves": n_leaves, "bf16_sum_bound_ratio": worst,
+           "cpu_leaf": "/".join(COMPRESS_CPU_LEAF),
+           "cpu_leaf_elements": g.numel(),
+           "cpu_leaf_kept": int(mask_cpu.sum().item()),
+           "cpu_leaf_equal": same}
+    print(f"compression on the card: kept + residual against g + e on "
+          f"{n_leaves} leaves (bf16 leaves within {worst:.3f} of the bound); "
+          f"{out['cpu_leaf']} ({g.numel()} elements, {out['cpu_leaf_kept']} "
+          f"kept) against the CPU: {same}", flush=True)
+    if worst > 1 or not all(same.values()):
+        raise AssertionError(f"compression on the card: {out}")
+    return out
+
+
+def compressed_steps(device) -> dict:
+    """(d) qwen3-1.7b at full width through ``make_compressed_train_step``
+    (keep COMPRESS_KEEP, int8): COMPRESS_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ against two exact steps of ``make_train_step`` from the same
+    weights (seed 0) on the same batches.  Finite losses, the first equal
+    to the exact step's bit for bit; the first step's compression held by
+    ``compression_checks``; step ms of both, the compression's own ms
+    (synchronized around each call), wire bytes (and the share of
+    elements kept they imply: 1 + 4/8 bytes an element with int8) and
+    peak memory, the checks' own temporaries left out of it, split into
+    each step's peak before its compression (the update of the step
+    before, the forward and backward) and the compression's own."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import (make_compressed_train_step,
+                                   make_train_step)
+    from repro_torch.train import steps as STEPS
+    cfg = get_config(LM_ARCH)
+    batches = _lm_batches(cfg, COMPRESS_STEPS, device)
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=COMPRESS_STEPS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    exact = _timed_steps(make_train_step(cfg, ocfg), params,
+                         adamw_init(params), batches[:2], 1, cfg)
+    del params, exact["params"], exact["state"], exact["metrics"]
+    torch.cuda.empty_cache()
+    real = STEPS.ef_compress_update
+    seen = {"ms": [], "checks": None, "before": [], "own": []}
+
+    def spy(grads, ef_state, keep_ratio, quantize):
+        torch.cuda.synchronize()
+        seen["before"].append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(grads, ef_state, keep_ratio=keep_ratio,
+                   quantize=quantize)
+        torch.cuda.synchronize()
+        seen["ms"].append((time.perf_counter() - t0) * 1e3)
+        seen["own"].append(torch.cuda.max_memory_allocated() / 1e9)
+        if seen["checks"] is None:
+            seen["checks"] = compression_checks(grads, ef_state, out,
+                                                keep_ratio, quantize)
+        # the next count leaves the checks out
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    step = make_compressed_train_step(cfg, ocfg, keep_ratio=COMPRESS_KEEP)
+    STEPS.ef_compress_update = spy
+    try:
+        # no name here holds the first residual past the first step
+        comp = _timed_steps(step, params, (adamw_init(params),
+                                           step.init_extra(params)),
+                            batches, 1, cfg)
+    finally:
+        STEPS.ef_compress_update = real
+    wire = [m["compressed_wire_bytes"].item() for m in comp["metrics"]]
+    peak_gb = max(seen["before"] + seen["own"]
+                  + [torch.cuda.max_memory_allocated() / 1e9])
+    del params, comp["params"], comp["state"], comp["metrics"]
+    del batches
+    torch.cuda.empty_cache()
+    n_par = cfg.n_params
+    out = {"keep_ratio": COMPRESS_KEEP, "steps": COMPRESS_STEPS,
+           "losses": comp["losses"], "exact_losses": exact["losses"],
+           "grad_norms": comp["grad_norms"],
+           "seconds": comp["seconds"], "exact_seconds": exact["seconds"],
+           "step_ms": statistics.median(comp["seconds"][1:]) * 1e3,
+           "exact_step_ms": exact["seconds"][-1] * 1e3,
+           "compression_ms": seen["ms"],
+           "wire_bytes": wire, "dense_f32_bytes": 4 * n_par,
+           "kept_share_from_wire": [w / 1.5 / n_par for w in wire],
+           "peak_memory_gb": peak_gb,
+           "peak_before_compression_gb": seen["before"],
+           "peak_in_compression_gb": seen["own"],
+           "exact_peak_memory_gb": exact["peak_memory_gb"],
+           "launches_per_step": comp["launches_per_step"],
+           "checks": seen["checks"]}
+    print(f"{LM_ARCH} compressed (keep {COMPRESS_KEEP}, int8) at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {comp['losses']} (exact "
+          f"{exact['losses']}); warm step {out['step_ms']:.3f} ms against "
+          f"the exact step's {out['exact_step_ms']:.3f} ms; compression "
+          f"{[round(t, 3) for t in seen['ms']]} ms; wire bytes {wire} "
+          f"(dense f32 {4 * n_par}; about "
+          f"{[round(k, 4) for k in out['kept_share_from_wire']]} of the "
+          f"elements kept); peak {peak_gb:.3f} GB (exact "
+          f"{exact['peak_memory_gb']:.3f}; a step's before its compression "
+          f"{[round(g, 3) for g in seen['before']]}, in it "
+          f"{[round(g, 3) for g in seen['own']]})", flush=True)
+    if comp["losses"][0] != exact["losses"][0] or not all(
+            math.isfinite(x) for x in comp["losses"]):
+        raise AssertionError(f"compressed losses {comp['losses']}, the "
+                             f"exact step's first {exact['losses'][0]}")
+    return out
+
+
+def a16gh_phase(device, peaks) -> list:
+    """(a) internvl2-76b (the VLM family: the dense blocks at 64 heads on 8
+    KV heads, head dim 128, with 1024 positions of patch embeddings in
+    front of the tokens) served at full width in bf16, cut to the deepest
+    of VLM_DEPTHS whose reckoned peak stays under VLM_PEAK_LIMIT_GB
+    (``serve_arch`` with ``extras``: batch 8 x (1024 + 4096) + 16 new; a
+    flash launch a layer in prefill, none in decode; layer 0's flash
+    output against its plain version beside SDPA and the bound at S 5120;
+    the flash and GEMM shares of a prefill; "flash" against "xla" printed
+    in bf16, and in f32 on 2 layers with teacher-forced decode, held to
+    1e-3) with a peak under the card's 80 GB; (b) trained cut to
+    VLM_TRAIN_LAYERS layers at 2 x (1024 + 4096) for 3 AdamW steps (4/2/2
+    launches a step, both backward kernels against their plain version on
+    layer 0, the first loss equal to the batch's loss without autograd);
+    (c) qwen3-1.7b trained at full width under "dots" against "full"
+    (``remat_dots_vs_full``); (d) with gradient compression
+    (``compressed_steps``); (e) internvl2-76b's SMOKE config (a 60-token
+    prompt after its 4-position prefix) and qwen3-1.7b's under "dots" and
+    with compression served and trained on the card against the CPU
+    (``smoke_run``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    t0 = time.perf_counter()
+    full = get_config(VLM_ARCH)
+    print(f"A16g: {VLM_ARCH} ({full.family}: {full.n_layers} layers, H "
+          f"{full.n_heads} on Hkv {full.n_kv}, d_head {full.d_head}, ff "
+          f"{full.d_ff}, a {full.prefix_len}-position prefix; "
+          f"{full.n_params} parameters by the reference's formula, "
+          f"{full.n_params * 2 / 1e9:.2f} GB in bf16)", flush=True)
+    cut = None
+    for depth in VLM_DEPTHS:
+        cfg = dataclasses.replace(full, n_layers=depth)
+        peak = vlm_serve_peak_gb(cfg, LM_BATCH, LM_PROMPT, LM_NEW)
+        fits = peak["total"] < VLM_PEAK_LIMIT_GB
+        parts = {k: round(v, 2) for k, v in peak.items() if k != "total"}
+        print(f"cut: {VLM_ARCH} at {depth} layers reckons a serving peak of "
+              f"{peak['total']:.2f} GB (GB: {parts}) at batch {LM_BATCH} x "
+              f"({full.prefix_len} + {LM_PROMPT}) + {LM_NEW}: "
+              f"{'under' if fits else 'not under'} {VLM_PEAK_LIMIT_GB} GB",
+              flush=True)
+        if fits:
+            cut = cfg
+            break
+    if cut is None:
+        raise AssertionError(f"no depth of {VLM_DEPTHS} fits")
+    print(f"served {VLM_ARCH} at full width with {cut.n_layers} of its "
+          f"{full.n_layers} layers ({cut.n_params} parameters, "
+          f"{cut.n_params * 2 / 1e9:.2f} GB)", flush=True)
+    serve = serve_arch(VLM_ARCH, device, peaks, extras=True, cfg=cut)
+    if serve["serve_peak_memory_gb"] >= CARD_GB:
+        raise AssertionError(f"{VLM_ARCH}'s serving peak "
+                             f"{serve['serve_peak_memory_gb']} GB")
+    serve["serve_layers"] = cut.n_layers
+    torch.cuda.empty_cache()
+    tcut = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    print(f"cut: {VLM_ARCH}'s weights, gradient and AdamW state take about "
+          f"{full.n_params * 16 / 1e9:.0f} GB (16 bytes a parameter), "
+          f"{dataclasses.replace(full, n_layers=4).n_params * 16 / 1e9:.1f}"
+          f" GB at 4 layers; trained at full width with "
+          f"{tcut.n_layers} layers ({tcut.n_params} parameters, about "
+          f"{tcut.n_params * 16 / 1e9:.1f} GB)", flush=True)
+    train = train_arch(VLM_ARCH, device, peaks, VLM_TRAIN_BATCH,
+                       [1] * VLM_TRAIN_STEPS, cfg=tcut)
+    e2e = train["e2e"]
+    first, no_grad = e2e["train_losses"][0], e2e["train_loss_no_grad"]
+    print(f"{VLM_ARCH} at {tcut.n_layers} layers: first step's loss {first} "
+          f"against the batch's loss without autograd {no_grad}; "
+          f"{VLM_TRAIN_BATCH * (full.prefix_len + TRAIN_SEQ)} positions a "
+          f"step", flush=True)
+    if not all(math.isfinite(x) for x in e2e["train_losses"]) \
+            or first != no_grad:
+        raise AssertionError(f"{VLM_ARCH}'s training losses "
+                             f"{e2e['train_losses']}, the batch's loss "
+                             f"without autograd {no_grad}")
+    serve["train_launches_per_step"] = train.pop("fwd_per_step")
+    serve["train_layers"] = tcut.n_layers
+    torch.cuda.empty_cache()
+    serve["remat_dots"] = remat_dots_vs_full(device)
+    torch.cuda.empty_cache()
+    serve["compressed"] = compressed_steps(device)
+    torch.cuda.empty_cache()
+    small = smoke_config(LM_ARCH)
+    serve["smoke_runs"] = [
+        smoke_run(VLM_ARCH, smoke_config(VLM_ARCH), device),
+        smoke_run(f"{LM_ARCH} dots", dataclasses.replace(
+            small, remat_policy="dots"), device),
+        smoke_run(f"{LM_ARCH} compress {COMPRESS_KEEP}", small, device,
+                  compress=COMPRESS_KEEP)]
+    print(f"A16g/h phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return [serve] + train["kernels"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4343,6 +4877,8 @@ def main() -> int:
     kernels.extend(a16de_phase(device, peaks))
     torch.cuda.empty_cache()
     kernels.extend(a16c_phase(device, peaks))
+    torch.cuda.empty_cache()
+    kernels.extend(a16gh_phase(device, peaks))
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],

@@ -4,8 +4,7 @@
 ``smoke_config(name)`` — same family, reduced dims (CPU tests).
 ``SHAPES``             — the assigned input-shape set (per-arch cells).
 
-Architectures of the reference that are not ported yet raise and name
-their ROADMAP item.
+Every architecture of the reference is ported.
 """
 from __future__ import annotations
 
@@ -16,11 +15,11 @@ from repro_torch.models import ModelConfig
 #: the dense family: qwen3-1.7b, and granite-3-8b, phi4-mini-3.8b and
 #: glm4-9b; the encoder-decoder family: seamless-m4t-large-v2; the SSM
 #: family: mamba2-1.3b; the hybrid: zamba2-7b; the MoE family:
-#: qwen3-moe-30b-a3b and qwen3-moe-235b-a22b (the reference's own configs,
-#: copied field for field)
+#: qwen3-moe-30b-a3b and qwen3-moe-235b-a22b; the VLM family: internvl2-76b
+#: (the reference's own configs, copied field for field)
 ARCH_IDS = ["qwen3-1.7b", "granite-3-8b", "phi4-mini-3.8b", "glm4-9b",
             "seamless-m4t-large-v2", "mamba2-1.3b", "zamba2-7b",
-            "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b"]
+            "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "internvl2-76b"]
 
 # assigned input-shape set (LM-family): seq_len x global_batch
 SHAPES = {
@@ -30,17 +29,13 @@ SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 
-#: the reference's other architectures -> the ROADMAP item that ports them
-PENDING = {
-    "internvl2-76b": "A16g",
-}
+#: the reference's architectures that are not ported yet -> the ROADMAP
+#: item that ports them: none since the VLM family (A16g)
+PENDING: dict = {}
 
 
 def _module(name: str):
     if name not in ARCH_IDS:
-        if name in PENDING:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                      f"{PENDING[name]})")
         raise ValueError(f"unknown architecture {name!r}; ported: "
                          f"{ARCH_IDS}")
     return importlib.import_module(

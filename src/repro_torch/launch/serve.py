@@ -7,8 +7,11 @@ shared block) runs the flash kernel (``kernels/csrc/flash_fwd.cu``); the
 SSM layers' scan and the MoE layers' routing and expert products are torch
 ops, and the SSM family launches no kernel.  An
 encoder-decoder arch also draws random frame embeddings, one per prompt
-position, for its encoder.  The SSM and hybrid families take a prompt of
-whole ``ssd_chunk`` chunks, or one shorter than a chunk:
+position, for its encoder; a VLM arch draws ``prefix_len`` random patch
+embeddings a prompt, which go in front of its tokens (the cache then
+holds ``prefix_len + prompt + new`` positions).  The SSM and hybrid
+families take a prompt of whole ``ssd_chunk`` chunks, or one shorter than
+a chunk:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --device cpu
@@ -22,6 +25,8 @@ whole ``ssd_chunk`` chunks, or one shorter than a chunk:
         --arch qwen3-moe-30b-a3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-235b-a22b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch internvl2-76b --smoke --device cpu --prompt-len 28
 """
 from __future__ import annotations
 
@@ -59,20 +64,26 @@ def _sync(device: torch.device) -> None:
 @torch.inference_mode()
 def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
              max_new: int, max_len: Optional[int] = None,
-             frames: Optional[torch.Tensor] = None) -> Generation:
+             frames: Optional[torch.Tensor] = None,
+             embeds: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``tokens`` (B, S) then pick ``max_new`` tokens greedily: the
     first from the prefill logits, the rest by ``max_new - 1`` decode
-    steps over a cache of ``max_len`` (default ``S + max_new``).  An
+    steps over a cache of ``max_len`` (default ``P + S + max_new``).  An
     encoder-decoder config takes ``frames`` (B, S_enc, d_model), whose
-    encoder memory every decode step attends to.  The launch counts are
-    the flash forward's: 0 for the SSM family."""
+    encoder memory every decode step attends to; a VLM config takes
+    ``embeds`` (B, P, d_model), patch embeddings in front of the prompt
+    (P is 0 otherwise; the reference's launcher leaves P out of its
+    default and fails there).  The launch counts are the flash forward's:
+    0 for the SSM family."""
     B, S = tokens.shape
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1; got {max_new}")
-    max_len = max_len or S + max_new
-    if max_len < S + max_new - 1:
-        raise ValueError(f"max_len={max_len} cannot hold {S} prompt and "
-                         f"{max_new - 1} decoded tokens")
+    P = embeds.shape[1] if embeds is not None and cfg.family == "vlm" \
+        else 0
+    max_len = max_len or P + S + max_new
+    if max_len < P + S + max_new - 1:
+        raise ValueError(f"max_len={max_len} cannot hold {P} prefix, {S} "
+                         f"prompt and {max_new - 1} decoded tokens")
     prefill_fn = make_prefill_fn(cfg, max_len)
     decode_fn = make_decode_fn(cfg)
     dev = tokens.device
@@ -82,6 +93,8 @@ def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     batch = {"tokens": tokens}
     if frames is not None:
         batch["frames"] = frames
+    if embeds is not None:
+        batch["embeds"] = embeds
     logits, caches, memory = prefill_fn(params, batch)
     nxt = logits[:, -1:].argmax(dim=-1)
     _sync(dev)
@@ -112,7 +125,8 @@ def main(argv=None) -> Generation:
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = require_device(args.device)
-    max_len = args.max_len or args.prompt_len + args.max_new
+    prefix = cfg.prefix_len if cfg.input_mode == "embeds_prefix" else 0
+    max_len = args.max_len or prefix + args.prompt_len + args.max_new
     print(f"arch={cfg.name} params={cfg.n_params / 1e6:.1f}M "
           f"batch={args.batch} max_len={max_len} device={device}")
 
@@ -124,10 +138,15 @@ def main(argv=None) -> Generation:
         frames = torch.from_numpy(rng.standard_normal(
             (args.batch, args.prompt_len, cfg.d_model)).astype(
                 np.float32)).to(device)
+    embeds = None
+    if cfg.input_mode == "embeds_prefix":
+        embeds = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.prefix_len, cfg.d_model)).astype(
+                np.float32)).to(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     out = generate(cfg, params, torch.from_numpy(prompts).long().to(device),
-                   args.max_new, max_len, frames)
+                   args.max_new, max_len, frames, embeds)
 
     toks = out.tokens.cpu()
     for b in range(min(args.batch, 4)):

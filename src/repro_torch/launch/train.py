@@ -10,8 +10,12 @@ layers' routing and expert products are torch ops under autograd, and the
 MoE layers' auxiliary loss enters the loss.  ``--smoke``
 selects the reduced config of the same family; ``--device cpu`` runs the
 kernels' plain versions.  An encoder-decoder arch's batches carry random
-frame embeddings for its encoder.  The SSM and hybrid families take a
-``--seq`` of whole ``ssd_chunk`` chunks, or one shorter than a chunk:
+frame embeddings for its encoder, a VLM arch's ``prefix_len`` random patch
+embeddings in front of ``--seq`` tokens (its first label carries no loss).
+``--compress RATIO`` trains through the error-feedback top-k (int8)
+gradient compression step, whose residual the checkpoints keep.  The SSM
+and hybrid families take a ``--seq`` of whole ``ssd_chunk`` chunks, or one
+shorter than a chunk:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --device cpu --steps 20 --batch 8 --seq 128
@@ -27,6 +31,11 @@ frame embeddings for its encoder.  The SSM and hybrid families take a
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-moe-235b-a22b --smoke --device cpu --steps 4 \\
         --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch internvl2-76b --smoke --device cpu --steps 4 --batch 4 \\
+        --seq 28
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --device cpu --steps 4 --batch 4 --seq 64 --compress 0.05
 
 Without ``--ckpt-dir`` the checkpoints go to a fresh temporary directory
 that is removed at the end; with it, a second launch resumes from the
@@ -49,7 +58,7 @@ from repro_torch.models import init_params
 from repro_torch.models.transformer import require_device
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train import (TrainLoopConfig, fault_tolerant_train,
-                               make_train_step)
+                               make_compressed_train_step, make_train_step)
 
 
 def device_batch(host: dict, device) -> dict:
@@ -58,6 +67,15 @@ def device_batch(host: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(
         device, torch.long if v.dtype.kind in "iu" else torch.float32)
         for k, v in host.items()}
+
+
+def data_mode(cfg) -> str:
+    """The synthetic pipeline's mode for ``cfg``'s ``input_mode``:
+    ``"frames"`` (tokens and an encoder's frame embeddings),
+    ``"embeds_prefix"`` (tokens after patch embeddings) or ``"tokens"``."""
+    if cfg.input_mode in ("frames", "embeds_prefix"):
+        return cfg.input_mode
+    return "tokens"
 
 
 def main(argv=None) -> dict:
@@ -74,18 +92,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compress", type=float, default=None, metavar="RATIO",
-                    help="EF-top-k gradient compression keep-ratio (not "
-                    "ported yet)")
+                    help="EF-top-k gradient compression keep-ratio (the "
+                    "cross-pod step's); e.g. 0.05")
     ap.add_argument("--attn-impl", default=None, choices=["flash", "xla"],
                     help="attention implementation override (flash = the "
                     "flash kernels on the card, their plain versions on the "
                     "CPU)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.compress:
-        raise NotImplementedError("--compress: gradient compression "
-                                  "(optim/compression.py) is not ported yet "
-                                  "(ROADMAP A16h-compress)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.attn_impl:
@@ -96,13 +110,20 @@ def main(argv=None) -> dict:
 
     data = SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-        seed=args.seed, d_model=cfg.d_model,
-        mode="frames" if cfg.input_mode == "frames" else "tokens"))
+        seed=args.seed, prefix_len=cfg.prefix_len, d_model=cfg.d_model,
+        mode=data_mode(cfg)))
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
     opt_state = adamw_init(params)
     ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    step_fn = make_train_step(cfg, ocfg, microbatches=args.microbatches)
+    if args.compress:
+        step_fn = make_compressed_train_step(
+            cfg, ocfg, microbatches=args.microbatches,
+            keep_ratio=args.compress)
+        opt_state = (opt_state, step_fn.init_extra(params))
+    else:
+        step_fn = make_train_step(cfg, ocfg,
+                                  microbatches=args.microbatches)
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
         prefix=f"repro_torch_{cfg.name}_ckpt_")

@@ -1,6 +1,6 @@
-"""Model assembly for the dense decoder-only, encoder-decoder, SSM, hybrid
-and MoE families: config, parameters, forward and loss (training), prefill
-and cached decode (serving).
+"""Model assembly for the dense decoder-only, encoder-decoder, SSM, hybrid,
+MoE and VLM families: config, parameters, forward and loss (training),
+prefill and cached decode (serving).
 
 Parameters are a dict shaped like the reference's pytree, with the per-layer
 leaves stacked on a leading ``(n_layers, ...)`` axis, so carrying the
@@ -9,19 +9,24 @@ The hybrid's ``groups`` stack two axes, ``(n_groups, hybrid_group - 1,
 ...)``, and its one ``shared`` attention block is not stacked.
 A MoE block is a dense block with its MLP replaced by ``moe``
 (:mod:`models.moe`), whose auxiliary loss :func:`forward` sums over the
-layers.  The layer loop is a Python loop over slices of those stacks.
+layers.  The VLM family is the dense stack with ``embeds``, precomputed
+patch embeddings, in front of the token embeddings; they carry no loss.
+The layer loop is a Python loop over slices of those stacks.
 Training's :func:`forward` wraps each layer in ``torch.utils.checkpoint``
-when ``cfg.remat_policy == "full"`` (the reference's ``jax.checkpoint``);
-serving runs under ``torch.inference_mode()`` with no remat.
+under ``cfg.remat_policy`` (:func:`_remat`: the reference's
+``jax.checkpoint`` and its ``"dots"`` policy); serving runs under
+``torch.inference_mode()`` with no remat.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -32,9 +37,13 @@ from repro_torch.models.attention import (KVCache, cross_attention,
                                           update_cache)
 
 #: the families the port runs
-FAMILIES = ("dense", "encdec", "ssm", "hybrid", "moe")
-#: families of the reference that are not ported yet, and their ROADMAP item
-PENDING_FAMILIES = {"vlm": "A16g"}
+FAMILIES = ("dense", "encdec", "ssm", "hybrid", "moe", "vlm")
+#: families of the reference that are not ported yet, and their ROADMAP
+#: item: none since the VLM family (A16g)
+PENDING_FAMILIES: dict = {}
+#: the families whose decoder is a stack of attention blocks, each with a
+#: KV cache
+ATTN_STACKS = ("dense", "encdec", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,7 +339,7 @@ def _layers(params, cfg: ModelConfig):
     ``"ssm"`` (its conv tail and state there).  The hybrid applies
     ``params["shared"]`` at the head of every group, each application with
     its own KV cache."""
-    if cfg.family in ("dense", "encdec", "moe"):
+    if cfg.family in ATTN_STACKS:
         for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             yield "attn", bp, ("k", "v"), (i,)
     elif cfg.family == "ssm":
@@ -357,16 +366,51 @@ def _check_length(cfg: ModelConfig, S: int) -> None:
 def _remat(fn, policy: str):
     """``fn`` under the reference's remat policy: ``"full"`` recomputes
     the whole body in the backward (``torch.utils.checkpoint``, not
-    reentrant), ``"none"`` keeps every activation."""
+    reentrant), ``"none"`` keeps every activation, and ``"dots"`` (the
+    reference's ``dots_with_no_batch_dims_saveable``) keeps the body's
+    weight products and recomputes the rest (:func:`_dots_policy`)."""
     if policy == "none" or not torch.is_grad_enabled():
         return fn
     if policy == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots":
-        raise NotImplementedError("remat_policy='dots' (save the matrix "
-                                  "products, recompute the rest) is not "
-                                  "ported yet (ROADMAP A16h-dots)")
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy(args)))
     raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _storages(tree: dict) -> set:
+    """The storages (by address) of the tensors of nested dicts."""
+    return set().union(*(_storages(v) if isinstance(v, dict)
+                         else {v.untyped_storage().data_ptr()}
+                         for v in tree.values()))
+
+
+def _dots_policy(args):
+    """The selective-checkpoint policy of ``"dots"`` for a body called on
+    ``args``: save each product with no batch dimension (``aten.mm``, or
+    ``aten.bmm`` over a batch of 1, as an ``einsum`` may give) of which one
+    operand is a weight, i.e. shares its storage with a tensor of the
+    block's parameter dicts; recompute every other op.  So the
+    projections and the MLP's products are kept, and attention's batched
+    score products are recomputed, as the reference's policy does; the
+    flash kernels run outside the dispatcher and are recomputed, as the
+    reference recomputes its ``pallas_call``."""
+    weights = set().union(*(_storages(a) for a in args
+                            if isinstance(a, dict)))
+
+    def policy(ctx, op, *a, **kw):
+        if op in _PRODUCTS and (op is _PRODUCTS[0] or a[0].shape[0] == 1) \
+                and any(t.untyped_storage().data_ptr() in weights
+                        for t in a[:2]):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def _encode(params, cfg: ModelConfig, frames):
@@ -384,13 +428,25 @@ def _encode(params, cfg: ModelConfig, frames):
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def forward(params, cfg: ModelConfig, tokens, frames=None
+def _embed(params, cfg: ModelConfig, tokens, embeds):
+    """The tokens' embeddings, with a VLM's ``embeds`` (B, P, D), cast to
+    the model's dtype, in front of them; ``embeds`` is ignored in the
+    other families, as in the reference."""
+    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    if cfg.family == "vlm" and embeds is not None:
+        x = torch.cat([embeds.to(cfg.tdtype), x], dim=1)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, frames=None, *, embeds=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden (B,S,D), aux_loss scalar).
     Each layer (each application of the hybrid's shared block too) runs
     under ``cfg.remat_policy`` when autograd records.  ``aux`` is the sum
     of the MoE layers' auxiliary losses (f32; 0 in the other families).
-    ``frames``: (B, S_enc, D) encoder-side frame embeddings (encdec)."""
+    ``frames``: (B, S_enc, D) encoder-side frame embeddings (encdec);
+    ``embeds``: (B, P, D) patch embeddings at the head of the sequence
+    (vlm: ``hidden`` is then (B, P + S, D))."""
     _require_ported(cfg)
     _check_length(cfg, tokens.shape[1])
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
@@ -399,7 +455,7 @@ def forward(params, cfg: ModelConfig, tokens, frames=None
                                                  memory=mem)[::2],
                   cfg.remat_policy)
     mamba = _remat(lambda x, bp: _ssm_body(x, bp, cfg)[0], cfg.remat_policy)
-    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    x = _embed(params, cfg, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, bp, _, _ in _layers(params, cfg):
         if kind == "ssm":
@@ -423,12 +479,18 @@ def _chunk_loss(h, head, labels, mask, pad_mask):
 def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Chunked softmax cross-entropy, f32 0-d.  ``batch`` holds ``tokens``
     and ``labels`` (B, S), optionally ``loss_mask`` (B, S) and, for the
-    encoder-decoder family, ``frames`` (B, S_enc, D).  The loss
+    encoder-decoder family, ``frames`` (B, S_enc, D), for the VLM family
+    ``embeds`` (B, P, D), whose P positions carry no loss: their hidden
+    rows are dropped before the head.  The loss
     is taken over ``cfg.loss_chunk`` positions at a time, and under
     autograd each chunk is a ``torch.utils.checkpoint`` region, so only one
     chunk's (B, C, padded vocab) logits are alive at a time, backward
     included."""
-    hidden, aux = forward(params, cfg, batch["tokens"], batch.get("frames"))
+    embeds = batch.get("embeds")
+    hidden, aux = forward(params, cfg, batch["tokens"], batch.get("frames"),
+                          embeds=embeds)
+    if cfg.family == "vlm" and embeds is not None:
+        hidden = hidden[:, embeds.shape[1]:]
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
@@ -452,7 +514,8 @@ def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return loss + 1e-2 * aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None,
+            *, embeds=None
             ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
     """Process the prompt and build decode caches padded to ``max_len``.
 
@@ -461,17 +524,22 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
     positions ``[0, S)`` and each SSM layer's final state and conv tail,
     and ``"length"`` (an int); ``memory`` is the encoder-decoder family's
     encoder output over ``frames`` (B, S_enc, D), which :func:`decode_step`
-    attends to, and ``None`` for the other families.  A family with SSM
-    layers takes a prompt of whole ``ssd_chunk`` chunks, or one shorter
-    than a chunk."""
+    attends to, and ``None`` for the other families.  A VLM's ``embeds``
+    (B, P, D) go in front of the prompt: S counts its P + S_tok positions,
+    which ``max_len`` must hold (the reference pads by a negative width
+    there and fails).  A family with SSM layers takes a prompt of whole
+    ``ssd_chunk`` chunks, or one shorter than a chunk."""
     _require_ported(cfg)
-    B, S = tokens.shape
-    _check_length(cfg, S)
+    B, S_tok = tokens.shape
+    _check_length(cfg, S_tok)
+    x = _embed(params, cfg, tokens, embeds)
+    S = x.shape[1]
     if max_len < S:
-        raise ValueError(f"max_len={max_len} < prompt length {S}")
+        prefix = (f" ({S - S_tok} prefix + {S_tok} token positions)"
+                  if S > S_tok else "")
+        raise ValueError(f"max_len={max_len} < prompt length {S}{prefix}")
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
         else None
-    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
     caches = make_decode_caches(cfg, B, max_len, x.device)
     for kind, bp, (a, b), i in _layers(params, cfg):
         if kind == "attn":
@@ -494,7 +562,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None
 def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda") -> dict:
     """Zeroed caches in the model's dtype, with ``"length"`` 0: ``k``,
-    ``v`` ``(n_layers, B, max_len, n_kv, d_head)`` (dense, encdec, moe);
+    ``v`` ``(n_layers, B, max_len, n_kv, d_head)`` (dense, encdec, moe,
+    vlm);
     ``conv`` ``(n_layers, B, d_conv - 1, d_inner + 2 G N)`` and ``state``
     ``(n_layers, B, H, P, N)`` (ssm); the hybrid's ``attn_k``, ``attn_v``
     ``(n_groups, B, max_len, ...)``, ``conv``, ``state`` ``(n_groups,
@@ -503,7 +572,7 @@ def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     _require_ported(cfg)
     device = require_device(device)
     dt = cfg.tdtype
-    if cfg.family in ("dense", "encdec", "moe"):
+    if cfg.family in ATTN_STACKS:
         cache = init_cache(cfg, batch, max_len, cfg.n_layers, dt, device)
         return {"k": cache.k, "v": cache.v, "length": cache.length}
 

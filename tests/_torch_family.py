@@ -1,12 +1,15 @@
-"""Checks shared by the SSM, hybrid and MoE family tests
+"""Checks shared by the SSM, hybrid, MoE and VLM family tests
 (``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``,
-``tests/test_torch_moe.py``): a smoke
+``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py``): a smoke
 config of the port against the reference on the CPU, on the same numpy
 inputs and the reference's own ``init_params`` carried across.  The
 reference runs ``attn_impl="pallas"`` (its flash kernel in interpret mode)
-for the hybrid's shared attention.  The bounds are those of
-``tests/test_torch_encdec.py``: f32 on both sides, summed in other
-orders."""
+for the hybrid's shared attention.  A VLM's inputs add ``embeds``, patch
+embeddings in front of its tokens: it takes ``seq_of(cfg)`` tokens, so
+that its prefix and tokens fill the same S positions (the attention takes
+whole multiples of the smoke configs' 16-position chunks).  The bounds
+are those of ``tests/test_torch_encdec.py``: f32 on both sides, summed in
+other orders."""
 import dataclasses
 import functools
 
@@ -124,15 +127,42 @@ def model(arch, dtype="float32"):
     return jcfg, cfg, jparams, params_from_reference(cfg, np_tree(jparams))
 
 
-def prompts(arch, seed, batch=B, seq=S):
+def seq_of(cfg, positions=S):
+    """The tokens that fill ``positions`` positions: all of them, or a
+    VLM's after its ``prefix_len`` patch embeddings."""
+    return positions - (cfg.prefix_len if cfg.family == "vlm" else 0)
+
+
+def prompts(arch, seed, batch=B, seq=None):
     cfg = configs.smoke_config(arch)
+    seq = seq_of(cfg) if seq is None else seq
     return np.random.default_rng(seed).integers(1, cfg.vocab, (batch, seq),
                                                 dtype=np.int32)
 
 
+def embeds(arch, seed, batch=B):
+    """A VLM's patch embeddings (batch, prefix_len, d_model), f32 standard
+    normal from ``seed``; ``None`` for the other families."""
+    cfg = configs.smoke_config(arch)
+    if cfg.family != "vlm":
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+
+
+def as_tensor(a):
+    """A numpy input as the port takes it (``None`` stays ``None``)."""
+    return None if a is None else torch.from_numpy(a)
+
+
+def as_jnp(a):
+    return None if a is None else jnp.asarray(a)
+
+
 @functools.lru_cache(maxsize=None)
 def jit_prefill(jcfg, max_len):
-    return jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, max_len)[:2])
+    return jax.jit(lambda p, t, e=None: jtf.prefill(p, jcfg, t, max_len,
+                                                     embeds=e)[:2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,9 +175,20 @@ def jit_loss(jcfg):
     return jax.jit(jax.value_and_grad(lambda p, b: jtf.lm_loss(p, jcfg, b)))
 
 
-def host_batch(cfg, seed, batch=4, seq=S):
-    return JDataset(JDataConfig(vocab=cfg.vocab, seq_len=seq,
-                                global_batch=batch, seed=seed)).batch_at(0)
+def data_config(cfg, seed, batch=4, seq=None):
+    """The reference's pipeline config for ``cfg``: a VLM's in
+    ``"embeds_prefix"`` mode (``embeds`` in its batches, the first label
+    masked), ``seq_of(cfg)`` tokens by default."""
+    vlm = cfg.family == "vlm"
+    return JDataConfig(vocab=cfg.vocab,
+                       seq_len=seq_of(cfg) if seq is None else seq,
+                       global_batch=batch, seed=seed,
+                       prefix_len=cfg.prefix_len, d_model=cfg.d_model,
+                       mode="embeds_prefix" if vlm else "tokens")
+
+
+def host_batch(cfg, seed, batch=4, seq=None):
+    return JDataset(data_config(cfg, seed, batch, seq)).batch_at(0)
 
 
 # --- the checks --------------------------------------------------------------
@@ -195,11 +236,13 @@ def check_tree(jcfg, cfg, bf16: bool = True):
 
 def check_forward(arch):
     jcfg, cfg, jparams, params = model(arch)
-    tokens = prompts(arch, 4)
+    tokens, emb = prompts(arch, 4), embeds(arch, 6)
     hidden, aux = transformer.forward(params, cfg,
-                                      torch.from_numpy(tokens).long())
-    jhidden, jaux = jax.jit(lambda p, t: jtf.forward(p, jcfg, t))(
-        jparams, jnp.asarray(tokens))
+                                      torch.from_numpy(tokens).long(),
+                                      embeds=as_tensor(emb))
+    jhidden, jaux = jax.jit(lambda p, t, e: jtf.forward(p, jcfg, t,
+                                                        embeds=e))(
+        jparams, jnp.asarray(tokens), as_jnp(emb))
     assert hidden.shape == (B, S, cfg.d_model)
     close(hidden, jhidden, PREFILL_TOL)
     if cfg.family != "moe":
@@ -231,12 +274,13 @@ def check_prefill_and_decode(arch, steps=5):
     decode steps from the reference's caches carried across, against the
     reference's jitted ``prefill`` and ``decode_step``."""
     jcfg, cfg, jparams, params = model(arch)
-    tokens = prompts(arch, 4)
+    tokens, emb = prompts(arch, 4), embeds(arch, 6)
     max_len = S + steps
-    jlogits, jcaches = jit_prefill(jcfg, max_len)(jparams,
-                                                  jnp.asarray(tokens))
+    jlogits, jcaches = jit_prefill(jcfg, max_len)(
+        jparams, jnp.asarray(tokens), as_jnp(emb))
     logits, caches, memory = transformer.prefill(
-        params, cfg, torch.from_numpy(tokens).long(), max_len)
+        params, cfg, torch.from_numpy(tokens).long(), max_len,
+        embeds=as_tensor(emb))
     assert memory is None
     assert logits.shape == (B, 1, cfg.padded_vocab)
     assert caches.keys() == jcaches.keys()
@@ -267,9 +311,9 @@ def check_generate(arch, seed):
     reference's top-2 logit margin is above 10x the decode tolerance at
     every step, so equal picks are a check, not luck."""
     jcfg, cfg, jparams, params = model(arch)
-    tokens = prompts(arch, seed)
-    jlogits, jcaches = jit_prefill(jcfg, S + MAX_NEW)(jparams,
-                                                      jnp.asarray(tokens))
+    tokens, emb = prompts(arch, seed), embeds(arch, seed + 1)
+    jlogits, jcaches = jit_prefill(jcfg, S + MAX_NEW)(
+        jparams, jnp.asarray(tokens), as_jnp(emb))
     step = jit_decode(jcfg)
     want, margins = [], []
     for t in range(MAX_NEW):
@@ -282,7 +326,7 @@ def check_generate(arch, seed):
         want.append(np.asarray(nxt)[:, 0])
     assert np.min(margins) > 10 * DECODE_TOL, np.min(margins)
     out = serve.generate(cfg, params, torch.from_numpy(tokens).long(),
-                         MAX_NEW)
+                         MAX_NEW, embeds=as_tensor(emb))
     np.testing.assert_array_equal(out.tokens.numpy(), np.stack(want, 1))
     assert out.logits.shape == (B, MAX_NEW, cfg.padded_vocab)
     assert out.prefill_launches == out.decode_launches == 0
@@ -307,8 +351,7 @@ def check_train_steps(arch, dtype):
     assert {k for k, m in masters.items() if m is None} == (
         set(masters) if dtype == "float32"
         else {k for k in masters if k.split("/")[-1] in F32_LEAVES})
-    data = JDataset(JDataConfig(vocab=cfg.vocab, seq_len=S, global_batch=4,
-                                seed=2))
+    data = JDataset(data_config(cfg, seed=2))
     for s in range(3):
         host = data.batch_at(s)
         jparams, jstate, jm = jstep(jparams, jstate,
@@ -341,10 +384,10 @@ def flat_with_none(tree, prefix=""):
 
 
 def check_serve_main(arch, capsys):
-    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--batch", "2", "--prompt-len", "16", "--max-new",
-                      "3"])
     cfg = configs.smoke_config(arch)
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len",
+                      str(seq_of(cfg, 16)), "--max-new", "3"])
     assert out.tokens.shape == (2, 3)
     assert bool(((out.tokens >= 0) & (out.tokens < cfg.vocab)).all())
     assert bool(out.logits.isfinite().all())
@@ -352,12 +395,14 @@ def check_serve_main(arch, capsys):
     assert "tok/s on the CPU" in capsys.readouterr().out
 
 
-def check_train_main_and_resume(arch, tmp_path, capsys):
+def check_train_main_and_resume(arch, tmp_path, capsys, extra=()):
     """Three steps with checkpoints, then a second launch to 5 steps that
     resumes from step 2 and whose two losses equal those of an
-    uninterrupted 5-step launch bit for bit."""
+    uninterrupted 5-step launch bit for bit; ``extra`` arguments go to
+    every launch."""
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",
-            "--seq", "32", "--ckpt-every", "1"]
+            "--seq", str(seq_of(configs.smoke_config(arch))),
+            "--ckpt-every", "1"] + list(extra)
     ck = str(tmp_path / "ck")
     events = launch_train.main(args + ["--steps", "3", "--ckpt-dir", ck])
     out = capsys.readouterr().out

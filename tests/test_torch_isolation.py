@@ -1,9 +1,10 @@
 """The port imports and runs — the stencil plan, stage programs (a chain,
 and DAGs on the reference and hopper backends), a custom stencil traced
 for the kernel, the LM serving path (qwen3 and granite's untied head; the
-SSM, hybrid and MoE families' smoke configs, two tokens each), two
-training steps, a batched ``run_batch`` and a ``StencilService`` serving a
-few requests and a checkpointed one — with JAX and the reference package
+SSM, hybrid, MoE and VLM families' smoke configs, two tokens each; the
+VLM's after its patch embeddings), two training steps and two through the
+compressed step, a batched ``run_batch`` and a ``StencilService`` serving
+a few requests and a checkpointed one — with JAX and the reference package
 made unimportable."""
 import os
 import subprocess
@@ -95,6 +96,14 @@ for arch in ("mamba2-1.3b", "zamba2-7b", "qwen3-moe-30b-a3b"):
             scfg, torch.Generator().manual_seed(0), "cpu"),
         torch.from_numpy(rng.integers(1, scfg.vocab, (2, 16))), 2)
     assert sgen.tokens.shape == (2, 2) and bool(sgen.logits.isfinite().all())
+vcfg = smoke_config("internvl2-76b")
+vgen = serve.generate(
+    vcfg, repro_torch.models.init_params(
+        vcfg, torch.Generator().manual_seed(0), "cpu"),
+    torch.from_numpy(rng.integers(1, vcfg.vocab, (2, 12))), 2,
+    embeds=torch.from_numpy(rng.standard_normal(
+        (2, vcfg.prefix_len, vcfg.d_model)).astype(np.float32)))
+assert vgen.tokens.shape == (2, 2) and bool(vgen.logits.isfinite().all())
 import repro_torch.checkpoint, repro_torch.data, repro_torch.optim
 import repro_torch.resilience, repro_torch.train
 import repro_torch.launch.train as launch_train
@@ -103,6 +112,11 @@ from repro_torch.configs import SHAPES
 events = launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
                             "cpu", "--steps", "2", "--batch", "2", "--seq",
                             "16"])
+assert len(events["losses"]) == 2 and all(np.isfinite(events["losses"]))
+import repro_torch.optim.compression
+events = launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
+                            "cpu", "--steps", "2", "--batch", "2", "--seq",
+                            "16", "--compress", "0.05"])
 assert len(events["losses"]) == 2 and all(np.isfinite(events["losses"]))
 import asyncio, tempfile
 import repro_torch.resilience, repro_torch.serve as rserve

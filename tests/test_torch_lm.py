@@ -156,17 +156,20 @@ def test_config_matches_reference(arch):
 
 
 def test_unported_archs_and_impls_raise_naming_roadmap():
-    assert set(configs.ARCH_IDS) | set(configs.PENDING) \
-        == set(jconfigs.ARCH_IDS)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16g"):
-        configs.get_config("internvl2-76b")
+    """Every architecture of the reference is ported; an unknown one or an
+    unknown family raises ``ValueError``; the reference's dry-run stub
+    attention names ROADMAP A17."""
+    assert sorted(configs.ARCH_IDS) == sorted(jconfigs.ARCH_IDS)
+    assert not configs.PENDING and not transformer.PENDING_FAMILIES
+    with pytest.raises(ValueError, match="unknown architecture"):
+        configs.get_config("internvl2-8b")
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         dataclasses.replace(configs.smoke_config(ARCH), attn_impl="stub")
     with pytest.raises(ValueError):
         dataclasses.replace(configs.smoke_config(ARCH), attn_impl="pallas")
-    vlm = dataclasses.replace(configs.smoke_config(ARCH), family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16g"):
-        transformer.init_params(vlm, torch.Generator(), "cpu")
+    other = dataclasses.replace(configs.smoke_config(ARCH), family="audio")
+    with pytest.raises(ValueError, match="audio"):
+        transformer.init_params(other, torch.Generator(), "cpu")
 
 
 def test_init_params_matches_reference_tree(model):

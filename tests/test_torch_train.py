@@ -1,8 +1,9 @@
 """The port's training path against the reference on the CPU: ``lm_loss``
-and its gradients, AdamW, ``make_train_step`` (microbatches 1 and 2, f32
-and bf16 with master weights), the data pipeline, checkpoints, the
-fault-tolerant loop and the launcher, on the same numpy inputs and the
-reference's own ``init_params`` carried across."""
+and its gradients (remat full, none and dots), AdamW, ``make_train_step``
+(microbatches 1 and 2, f32 and bf16 with master weights), the data
+pipeline, checkpoints, the fault-tolerant loop and the launcher, on the
+same numpy inputs and the reference's own ``init_params`` carried
+across."""
 import dataclasses
 import functools
 import os
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jconfigs
 from repro.data import DataConfig as JDataConfig
@@ -102,7 +104,7 @@ def _jit_loss(jcfg):
 
 # --- loss and gradients ------------------------------------------------------
 
-@pytest.mark.parametrize("remat", ["full", "none"])
+@pytest.mark.parametrize("remat", ["full", "none", "dots"])
 @pytest.mark.parametrize("impl", [("pallas", "flash"), ("xla", "xla")],
                          ids=["flash", "xla"])
 def test_lm_loss_and_grads_match_reference(impl, remat):
@@ -131,12 +133,68 @@ def test_lm_loss_value_matches_forward_without_autograd():
     assert float(a) == float(b)
 
 
-def test_remat_dots_raises_naming_roadmap():
+class _Products(TorchDispatchMode):
+    """Counts the matrix products (``aten.mm``, ``aten.bmm``) dispatched
+    while it is entered, by (op, operand shapes), and among them those with
+    an operand that shares a parameter's storage (weight products)."""
+
+    def __init__(self, params):
+        super().__init__()
+        self.weights = {t.untyped_storage().data_ptr()
+                        for t in leaves(params)}
+        self.all, self.weight = {}, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+            key = (str(func), tuple(args[0].shape), tuple(args[1].shape))
+            self.all[key] = self.all.get(key, 0) + 1
+            if any(a.untyped_storage().data_ptr() in self.weights
+                   for a in args[:2]):
+                self.weight[key] = self.weight.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_remat_dots_equals_full_and_none_and_recomputes_no_weight_product(
+        impl):
+    """Remat never changes a value: ``"dots"``, ``"full"`` and ``"none"``
+    give the same loss and gradients bit for bit on the CPU.  In the
+    backward, ``"dots"`` dispatches the same weight products as ``"none"``
+    (the gradients' own: no forward weight product recomputed) and
+    ``"full"`` more (its recomputed forward); ``"dots"`` recomputes only
+    batched products (attention's scores and values here)."""
     _, cfg, jparams = _reference()
-    cfg = dataclasses.replace(cfg, remat_policy="dots")
     params = params_from_reference(cfg, _np(jparams))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16h-dots"):
-        _loss_and_grads(params, cfg, _tbatch(_batch(cfg)))
+    batch = _tbatch(_batch(cfg, seed=4))
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        c = dataclasses.replace(cfg, attn_impl=impl, remat_policy=remat)
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            loss = lm_loss(params, c, batch)
+            with _Products(params) as seen:
+                grads = torch.autograd.grad(loss, flat)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+        runs[remat] = (loss.detach(), grads, seen)
+    loss, grads, none = runs["none"]
+    for remat in ("full", "dots"):
+        assert torch.equal(runs[remat][0], loss), remat
+        assert all(torch.equal(a, b) for a, b in zip(runs[remat][1], grads))
+    full, dots = runs["full"][2], runs["dots"][2]
+    assert dots.weight == none.weight
+    recomputed = sum(full.weight.values()) - sum(none.weight.values())
+    # q, k, v, o and w_in in each of the 2 layers; not w_out, the body's
+    # last product: the recompute stops once it has every tensor the
+    # backward saved, and a product's backward needs only its inputs
+    assert recomputed == 5 * cfg.n_layers
+    extra = {k: n - none.all.get(k, 0) for k, n in dots.all.items()
+             if n != none.all.get(k, 0)}
+    assert extra and all(k[0] == "aten.bmm.default" and k[1][0] > 1
+                         for k in extra)
 
 
 def test_layer_loop_gives_one_gradient_node_per_stack():
@@ -395,9 +453,6 @@ def test_train_launcher_on_cpu(tmp_path, capsys):
 
 
 def test_train_launcher_refusals():
-    with pytest.raises(NotImplementedError, match="A16h-compress"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--compress", "0.05"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
