@@ -29,6 +29,27 @@ On one CUDA card, from the root of a checkout:
    warm-up slabs and share, barriers a tick and why a DAG launch takes
    one an entry, slabs copied ahead, the bytes of the kernel's rings) and
    the kernel's registers and spills (its build log);
+4a. tunes the four stencils (``tune_phase``): (a) plans each with
+   ``RunConfig(backend="hopper", autotune="model")`` and prints the
+   performance model's best schedules (predicted ms a super-step, the
+   issue, bytes and FLOP terms, form and kernel, CTAs, CTAs an SM, waves
+   and ticks, shared memory); (b) plans each with ``autotune="measure"``,
+   ``tune_top_k=4`` and a cache in a temporary directory, prints each
+   candidate's measured ms a super-step and the model accuracy (the
+   paper's Table 4 columns) beside the pinned ``SCHEDULE`` timed the same
+   way, asserts the winner's time an iteration within
+   ``TUNED_VS_PINNED`` of the pinned one's, and runs the winner at
+   ``iters = 2T+3`` (``ceil(iters/T)`` launches of the kernel the model
+   named, within ``tolerance`` of the reference backend); (c) plans each
+   again and asserts ``tuned_from_cache`` and no launch in ``plan()``;
+   (d) asserts the model's ranking rules (diffusion2d at bsize 256 ahead
+   of 2048, V = 1 ahead of V = 2, 4, 8 on diffusion2d and hotspot2d),
+   plans ``star1d_r2`` over 2**20 cells (V >= 8, its super-step at least
+   ``STAR1D_TUNED_SPEEDUP`` times faster than V = 1's at the same
+   ``par_time``) and diffusion2d in bf16 under the model and runs both
+   against the reference backend; (e) asserts, for every timed candidate,
+   that ``perf_model.occupancy`` equals ``stencil_stream_occupancy``;
+   prints its seconds;
 5. drives the stage programs of ``PROGRAMS`` (the chains of
    ``benchmarks/programs.py::FULL_CASES`` and a 3D chain, at the same
    sizes): ``plan(StencilProblem([StencilStage(...), ...], dims),
@@ -279,7 +300,9 @@ On one CUDA card, from the root of a checkout:
     60-token prompt after its 4-position prefix) and qwen3-1.7b's under
     "dots" and compressed on the card against the CPU within
     ``SMOKE_TOL``;
-21. prints one ``{"kernels": [...]}`` line and, last, the device line.
+21. prints the tuning phase's rows as one ``{"tuning": [...]}`` line,
+    then one ``{"kernels": [...], "card": ...}`` line and, last, the
+    device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -311,20 +334,16 @@ STENCIL_KERNELS = ("main_kernel", "chain_kernel", "chain_win_kernel",
                    "stream_kernel", "dag_kernel")
 REPLACES = "src/repro/kernels/builder.py:81"
 
-#: data-sheet peaks per card variant: (device-memory bytes/s, f32 FLOP/s
-#: outside the tensor cores, dense bf16 tensor-core FLOP/s), matched
-#: against the nvidia-smi name
-PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12),
-         ("H100 NVL", 3.9e12, 60.0e12, 835e12),
-         ("H200", 4.8e12, 67.0e12, 989e12),
-         ("H100", 3.35e12, 67.0e12, 989e12))
-
-
 def peaks_for(card_name: str):
-    for key, *peaks in PEAKS:
-        if key in card_name:
-            return tuple(peaks)
-    raise RuntimeError(f"no data-sheet peaks for {card_name!r}")
+    """The data-sheet peaks of the card: (device-memory bytes/s, f32
+    FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s), from
+    ``repro_torch.core.perf_model.DEVICES``, matched against its name."""
+    from repro_torch.core.perf_model import device_for
+    try:
+        d = device_for(card_name)
+    except ValueError as e:
+        raise RuntimeError(str(e)) from None
+    return d.mem_bw, d.f32_flops, d.bf16_tc_flops
 
 
 class Timing(float):
@@ -1559,6 +1578,241 @@ def par_vec_phase(bases: dict, device, peaks) -> list:
             torch.cuda.empty_cache()
         del bases[name]
     print(f"par_vec phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return rows
+
+
+# --- the performance model and the tuner (A11) -----------------------------
+
+#: what the measured winner of each Table-2 stencil may take an iteration,
+#: as a share of the pinned SCHEDULE's in the same run
+TUNED_VS_PINNED = 1.10
+#: iterations a timed run of the measured tuner (whole super-steps, so
+#: the padding of the grid is shared by several)
+TUNE_ITERS = 32
+#: how much faster the model's schedule of the 1D star must run its
+#: super-step than the same par_time at V = 1
+STAR1D_TUNED_SPEEDUP = 3.0
+
+
+def describe_prediction(pr) -> str:
+    """One line of the model's view of a schedule."""
+    g = pr.geom
+    return (f"T={g.par_time} bsize={g.bsize} V={g.par_vec}: predicted "
+            f"{pr.run_time / pr.n_super * 1e3:.3f} ms a super-step "
+            f"(issue {pr.t_issue * 1e3:.3f}, bytes {pr.t_mem * 1e3:.3f}, "
+            f"FLOPs {pr.t_compute * 1e3:.3f}; {pr.bound}), {pr.form} "
+            f"{pr.kernel}, {pr.ctas} CTAs ({pr.per_sm} an SM, {pr.waves} "
+            f"waves of {pr.ticks} ticks), {pr.smem_bytes} B of shared memory")
+
+
+def kernel_per_sm(problem, geom, g, aux) -> int:
+    """The CTAs an SM holds of the launch of ``problem`` at ``geom`` by
+    ``stencil_stream_occupancy`` (one super-step through the kernel)."""
+    import torch
+    from repro_torch.kernels import builder, ops
+    dag, bc0 = problem.exec_dag, problem.structural_bc
+    gp = ops._pad_blocked(g, geom, bc0)
+    aux_p = None if aux is None else ops._pad_blocked(aux, geom, bc0)
+    c = ops.pack_dag_coeffs(dag, problem.resolve_coeffs())
+    builder.superstep_dag(dag, geom, gp, c, geom.par_time, aux_p)
+    torch.cuda.synchronize()
+    return builder.LAST_SPLIT.per_sm
+
+
+def tuned_run(label, p, g, aux) -> dict:
+    """The tuned plan's counted run at ``iters = 2T+3``: ``ceil(iters/T)``
+    launches, every one of the kernel the model named, the result within
+    ``tolerance`` of the reference backend."""
+    T = p.geometry.par_time
+    iters = 2 * T + 3
+    out, launches, run_ms = counted_run(p, g, aux, iters)
+    want = p.candidates[0]
+    want = getattr(want, "prediction", want).kernel
+    if set(LAST_RUN_KERNELS) != {want}:
+        raise AssertionError(f"{label}: the tuned run launched "
+                             f"{LAST_RUN_KERNELS}, not {want}")
+    err = check_reference(label, p.problem, g, aux, out, iters)
+    return {"iters": iters, "launches": launches, "run_ms": run_ms,
+            "oracle_max_abs_err": err, "kernel": want}
+
+
+def tune_phase(device) -> list:
+    """The performance model and the tuner on the card: (a) the model's
+    shortlist of each Table-2 stencil at the paper's size; (b) the
+    measured tuner over its 4 best (a cache in a temporary directory),
+    each candidate's measured time and model accuracy beside the pinned
+    :data:`SCHEDULE`'s, timed the same way, the winner within
+    :data:`TUNED_VS_PINNED` of it, its counted run; (c) the same plans
+    from the cache, with no launch in ``plan()``; (d) the 1D star and
+    diffusion2d in bf16 under the model; (e) for every timed candidate,
+    ``perf_model.occupancy`` against ``stencil_stream_occupancy``."""
+    import tempfile
+
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.api import tuner
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import builder
+    t0 = time.perf_counter()
+    rows = []
+    cache = tempfile.mkdtemp(prefix="schedules_")
+    cache_file = os.path.join(cache, "schedules.json")
+    dev_model = perf_model.device_for(torch.cuda.get_device_name(0)).on_card()
+    try:
+        for name in STENCILS:
+            nd = int(name[-2])
+            dims = FULL_DIMS[nd]
+            problem = StencilProblem(name, dims)
+            pm = plan(problem, RunConfig(backend="hopper", autotune="model",
+                                         device=device))
+            print(f"tune {name} {dims}: the model's shortlist "
+                  f"({len(pm.candidates)} schedules run)", flush=True)
+            for pr in pm.candidates[:6]:
+                print(f"  {describe_prediction(pr)}", flush=True)
+            cfg = RunConfig(backend="hopper", autotune="measure",
+                            tune_top_k=4, tune_iters=TUNE_ITERS,
+                            cache=cache_file, device=device)
+            p = plan(problem, cfg)
+            if p.tuned_from_cache:
+                raise AssertionError(f"{name}: a fresh cache served a "
+                                     "schedule")
+            g, aux = tuner.make_inputs(problem, device)
+            T, bsize = SCHEDULE[nd]
+            pinned = tuner.measure_candidate(
+                problem, cfg, perf_model.predict(
+                    problem.stencil, dims, cfg.iters_hint, bsize, T,
+                    dev_model), g, tuner._payload(problem), aux)
+            cands = []
+            for c in p.candidates:
+                per_sm = kernel_per_sm(problem, c.geom, g, aux)
+                if per_sm != c.prediction.per_sm:
+                    raise AssertionError(
+                        f"{name}: occupancy rule {c.prediction.per_sm} != "
+                        f"stencil_stream_occupancy {per_sm} at {c.geom}")
+                cands.append({
+                    "par_time": c.geom.par_time, "bsize": list(c.geom.bsize),
+                    "par_vec": c.geom.par_vec, "kernel": c.prediction.kernel,
+                    "measured_ms": c.measured_s * 1e3,
+                    "predicted_ms": c.prediction.run_time
+                    / c.prediction.n_super * 1e3,
+                    "model_accuracy": c.model_accuracy,
+                    "ms_per_iter": c.s_per_iter * 1e3, "per_sm": per_sm})
+                print(f"  measured T={c.geom.par_time} bsize={c.geom.bsize} "
+                      f"V={c.geom.par_vec}: {c.measured_s * 1e3:.3f} ms a "
+                      f"super-step ({c.s_per_iter * 1e3:.4f} an iteration), "
+                      f"predicted {cands[-1]['predicted_ms']:.3f}, model "
+                      f"accuracy {c.model_accuracy:.3f}; {per_sm} CTAs an "
+                      f"SM by the rule and by the occupancy API", flush=True)
+            best = p.candidates[0]
+            ratio = best.s_per_iter / pinned.s_per_iter
+            print(f"  pinned T={T} bsize={bsize}: {pinned.measured_s * 1e3:.3f}"
+                  f" ms a super-step ({pinned.s_per_iter * 1e3:.4f} an "
+                  f"iteration), model accuracy {pinned.model_accuracy:.3f}; "
+                  f"the winner takes {ratio:.3f} of it an iteration",
+                  flush=True)
+            if ratio > TUNED_VS_PINNED:
+                raise AssertionError(f"{name}: the tuned schedule takes "
+                                     f"{ratio:.3f}x the pinned one")
+            run = tuned_run(f"{name} tuned", p, g, aux)
+            print(f"  tuned run of {run['iters']} iters {run['run_ms']}, "
+                  f"{run['launches']} launches of {run['kernel']}, oracle "
+                  f"max_abs_err {run['oracle_max_abs_err']:.3g}", flush=True)
+            builder.LAUNCHES = 0
+            again = plan(problem, cfg)
+            if not again.tuned_from_cache or builder.LAUNCHES:
+                raise AssertionError(
+                    f"{name}: the second plan() was not served from the "
+                    f"cache ({builder.LAUNCHES} launches)")
+            if again.geometry != p.geometry:
+                raise AssertionError(f"{name}: the cache served "
+                                     f"{again.geometry}, not {p.geometry}")
+            rows.append({"name": name, "dims": list(dims),
+                         "model_top": [describe_prediction(pr)
+                                       for pr in pm.candidates[:4]],
+                         "candidates": cands,
+                         "pinned": {"par_time": T, "bsize": list(bsize),
+                                    "measured_ms": pinned.measured_s * 1e3,
+                                    "ms_per_iter": pinned.s_per_iter * 1e3,
+                                    "model_accuracy": pinned.model_accuracy},
+                         "winner_vs_pinned": ratio, **run,
+                         "run_ms": float(run["run_ms"]),
+                         "from_cache": True})
+            del g, aux, p, again, pm
+            torch.cuda.empty_cache()
+        # --- the model's ranking rules, at the pinned schedules ------------
+        d2 = StencilProblem("diffusion2d", FULL_DIMS[2])
+        h2 = StencilProblem("hotspot2d", FULL_DIMS[2])
+        T2 = SCHEDULE[2][0]
+
+        def ms(problem, b, V=1):
+            pr = perf_model.predict(problem.stencil, problem.shape, T2, b,
+                                    T2, dev_model, par_vec=V)
+            return pr.run_time * 1e3
+        if not ms(d2, 256) < ms(d2, 2048):
+            raise AssertionError("the model ranks d2 bsize 2048 ahead of 256")
+        for prob in (d2, h2):
+            v1 = ms(prob, 256)
+            vs = {V: ms(prob, 256, V) for V in (2, 4, 8)}
+            if not all(v1 < t for t in vs.values()):
+                raise AssertionError(f"{prob.stencil.name}: the model ranks "
+                                     f"V > 1 ahead of V = 1 ({v1}, {vs})")
+            print(f"model {prob.stencil.name} T={T2} bsize 256: V=1 "
+                  f"{v1:.3f} ms, V=2/4/8 "
+                  f"{'/'.join(f'{t:.3f}' for t in vs.values())}; bsize "
+                  f"2048 {ms(prob, 2048):.3f}", flush=True)
+        # --- the 1D star and bf16 under the model ---------------------------
+        name, dims, _ = STAR1D
+        problem = StencilProblem(name, dims)
+        p = plan(problem, RunConfig(backend="hopper", autotune="model",
+                                    device=device))
+        geom = p.geometry
+        if geom.par_vec < 8:
+            raise AssertionError(f"{name}: the model picked V={geom.par_vec}")
+        g, _ = tuner.make_inputs(problem, device)
+        run = tuned_run(f"{name} tuned", p, g, None)
+        v1 = plan(problem, RunConfig(backend="hopper", par_time=geom.par_time,
+                                     bsize=(), device=device))
+        fast = superstep_vs_plain(f"{name} tuned", problem, geom, g,
+                                  plain_reps=0)["ms"]
+        slow = superstep_vs_plain(f"{name} T={geom.par_time} V=1", problem,
+                                  v1.geometry, g, plain_reps=0)["ms"]
+        speedup = slow / fast
+        print(f"tune {name} {dims}: the model's T={geom.par_time} "
+              f"V={geom.par_vec}: super-step {fast} against {slow} at V=1, "
+              f"{speedup:.2f}x; run of {run['iters']} iters {run['run_ms']}, "
+              f"{run['launches']} launches of {run['kernel']}, oracle "
+              f"max_abs_err {run['oracle_max_abs_err']:.3g}", flush=True)
+        if speedup < STAR1D_TUNED_SPEEDUP:
+            raise AssertionError(f"{name}: the tuned super-step is only "
+                                 f"{speedup:.2f}x V=1's")
+        rows.append({"name": name, "dims": list(dims),
+                     "par_time": geom.par_time, "par_vec": geom.par_vec,
+                     "superstep_ms": fast, "v1_superstep_ms": slow,
+                     "speedup_vs_v1": speedup, **run,
+                     "run_ms": float(run["run_ms"])})
+        problem = StencilProblem("diffusion2d", FULL_DIMS[2],
+                                 dtype="bfloat16")
+        p = plan(problem, RunConfig(backend="hopper", autotune="model",
+                                    device=device))
+        g, _ = tuner.make_inputs(problem, device)
+        run = tuned_run("diffusion2d bf16 tuned", p, g, None)
+        print(f"tune diffusion2d bf16 {FULL_DIMS[2]}: "
+              f"{describe_prediction(p.candidates[0])}; run of "
+              f"{run['iters']} iters {run['run_ms']}, {run['launches']} "
+              f"launches of {run['kernel']}, oracle max_abs_err "
+              f"{run['oracle_max_abs_err']:.3g}", flush=True)
+        rows.append({"name": "diffusion2d bf16", "dims": list(FULL_DIMS[2]),
+                     "par_time": p.geometry.par_time,
+                     "bsize": list(p.geometry.bsize),
+                     "par_vec": p.geometry.par_vec, **run,
+                     "run_ms": float(run["run_ms"])})
+        del g, p
+        torch.cuda.empty_cache()
+    finally:
+        for f in os.listdir(cache):
+            os.unlink(os.path.join(cache, f))
+        os.rmdir(cache)
+    print(f"tune phase: {time.perf_counter() - t0:.3f} s", flush=True)
     return rows
 
 
@@ -4851,6 +5105,7 @@ def main() -> int:
         })
         del main_run
         torch.cuda.empty_cache()
+    tuning = tune_phase(device)
     kernels.extend(program_phase(device, peaks, bases))
     kernels.extend(dag_phase(device, peaks, bases))
     kernels.extend(par_vec_phase(bases, device, peaks))
@@ -4881,6 +5136,7 @@ def main() -> int:
     kernels.extend(a16gh_phase(device, peaks))
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
+    print(json.dumps({"tuning": tuning}))
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,15 @@ A program fuses its stages into one super-step:
     p = plan(StencilProblem(prog, (4096, 4096)),
              RunConfig(backend="hopper", par_time=4, bsize=256))
 
+A schedule left free is chosen by the performance model
+(``autotune="model"``, the default when ``par_time`` or ``bsize`` is
+unset) or by timing the model's shortlist (``autotune="measure"``,
+:func:`tune`), whose winner the :class:`ScheduleCache` keeps:
+
+    p = plan(StencilProblem("diffusion2d", (16384, 16384)),
+             RunConfig(backend="hopper"))
+    print(p.describe())
+
 Backends: ``hopper`` (the streaming CUDA kernel; its plain version when
 ``RunConfig(device="cpu")``) and ``reference`` (the unblocked oracle).
 """
@@ -24,11 +33,13 @@ from repro_torch.api.backends import (get_backend, list_backends,
 from repro_torch.api.config import RunConfig
 from repro_torch.api.plan import StencilPlan, plan
 from repro_torch.api.problem import StencilProblem
+from repro_torch.api.schedule_cache import ScheduleCache
+from repro_torch.api.tuner import TunedCandidate, tune
 from repro_torch.core.boundary import BoundaryCondition
 from repro_torch.programs import StencilProgram, StencilStage
 
 __all__ = [
-    "BoundaryCondition", "RunConfig", "StencilPlan", "StencilProblem",
-    "StencilProgram", "StencilStage", "get_backend", "list_backends", "plan",
-    "register_backend",
+    "BoundaryCondition", "RunConfig", "ScheduleCache", "StencilPlan",
+    "StencilProblem", "StencilProgram", "StencilStage", "TunedCandidate",
+    "get_backend", "list_backends", "plan", "register_backend", "tune",
 ]

@@ -168,9 +168,8 @@ def _refuse_hopper(problem: StencilProblem, config: RunConfig,
                    geom: Optional[BlockGeometry]) -> None:
     """Raise for anything the streaming kernel of this slice does not run."""
     if geom is None:
-        raise ValueError("backend 'hopper' runs pinned schedules: pass "
-                         "RunConfig(par_time=..., bsize=...) (autotuning is "
-                         "ROADMAP A11)")
+        raise ValueError("backend 'hopper' needs a schedule: plan() pins "
+                         "or tunes one")
     if problem.torch_dtype not in KERNEL_DTYPES:
         raise ValueError(f"backend 'hopper' stores float32 or bfloat16, as "
                          f"the reference's Pallas kernels do; got "

@@ -1,4 +1,12 @@
-"""``plan(problem, config) -> StencilPlan`` — the public entry point."""
+"""``plan(problem, config) -> StencilPlan`` — the public entry point.
+
+As in the paper's workflow, the performance model prunes the (bsize,
+par_time, par_vec) design space offline (§4, §5.3,
+``core/perf_model.py``), optionally refined by timing the model's
+shortlist (``api/tuner.py``, through ``api/schedule_cache.py``), and the
+fixed schedule then runs any number of iterations.  A ``StencilPlan`` is
+that schedule: reusable, and introspectable (``predicted()``,
+``traffic_report()``, ``describe()``) without running anything."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,17 +16,131 @@ from typing import Optional
 
 import torch
 
+from repro_torch.api import schedule_cache, tuner
 from repro_torch.api.backends import ExecuteFn, as_program, get_backend
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
+from repro_torch.core import perf_model
 from repro_torch.core.blocking import (BlockGeometry, extended_geometry,
                                        smem_bytes, superstep_traffic_bytes)
+from repro_torch.core.perf_model import Device, Prediction
+
+#: backends whose kernels realize ``par_vec``: the tuner sweeps it only
+#: there (elsewhere an unpinned V stays 1)
+PAR_VEC_BACKENDS = ("hopper",)
+
+
+def _candidate_shortlist(problem: StencilProblem, config: RunConfig,
+                         device: Device, top_k: Optional[int] = None):
+    """Model-ranked predictions (§5.3 pruning), best first: the free
+    dimensions of the schedule enumerated, kept where the kernel runs
+    them (``builder.kernel_limits``: shared memory and tables) and ranked
+    by predicted run time; ``top_k`` truncates to the shortlist the
+    measured tuner times.  Raises ``ValueError`` when nothing runs."""
+    par_vec = config.par_vec
+    if par_vec is None and config.backend not in PAR_VEC_BACKENDS:
+        par_vec = 1
+    cands = perf_model.autotune(
+        problem.stencil, problem.shape, config.iters_hint, device,
+        config.resolved_cell_bytes(problem.dtype), config.par_time_max,
+        par_time=config.par_time,
+        bsize=config.normalized_bsize(problem.ndim), par_vec=par_vec,
+        top_k=top_k, bc=problem.structural_bc)
+    if not cands:
+        raise ValueError(
+            f"no (bsize, par_time, par_vec) of {problem.stencil.name} on "
+            f"{problem.shape} fits a CTA's shared memory "
+            f"({device.smem_per_cta} bytes on {device.name}) and leaves a "
+            f"compute block under the pins par_time={config.par_time}, "
+            f"bsize={config.bsize}, par_vec={config.par_vec}, "
+            f"par_time_max={config.par_time_max}")
+    return cands
+
+
+def _resolve_schedule(problem: StencilProblem, config: RunConfig,
+                      device: Device):
+    """``(par_time, bsize, par_vec, candidates)``: pinned, or the model's
+    best (§5.3).  An unpinned ``par_vec`` of a pinned schedule is 1."""
+    par_time = config.par_time
+    bsize = config.normalized_bsize(problem.ndim)
+    if not config.autotune and par_time is not None and bsize is not None:
+        return par_time, bsize, config.par_vec or 1, ()
+    cands = _candidate_shortlist(problem, config, device)
+    best = cands[0].geom
+    return best.par_time, best.bsize, best.par_vec, tuple(cands)
+
+
+def _cached(problem: StencilProblem, config: RunConfig, device: Device,
+            entry: dict):
+    """The :class:`~repro_torch.api.tuner.TunedCandidate` of a cache entry,
+    or None for one that is mangled or names a schedule the backend
+    refuses (a miss: re-tune, never a crash)."""
+    from repro_torch.kernels import builder
+    try:
+        par_time = int(entry["par_time"])
+        bsize = tuple(int(b) for b in entry["bsize"])
+        par_vec = int(entry.get("par_vec", 1))
+        measured_s = float(entry["measured_s"])
+        accuracy = float(entry["model_accuracy"])
+        if (par_time < 1 or par_vec < 1 or len(bsize) != problem.ndim - 1
+                or any(b < 1 for b in bsize) or not measured_s > 0):
+            return None
+        geom = BlockGeometry(problem.ndim, problem.shape,
+                             problem.stencil.radius, par_time, bsize,
+                             par_vec)
+        if (config.backend == "hopper" and builder.kernel_limits(
+                geom, problem.exec_dag, problem.cell_bytes)):
+            return None
+        pred = perf_model.predict(
+            problem.stencil, problem.shape, config.iters_hint, bsize,
+            par_time, device, config.resolved_cell_bytes(problem.dtype),
+            bc=problem.structural_bc, par_vec=par_vec)
+    except (KeyError, TypeError, ValueError):
+        return None
+    return tuner.TunedCandidate(
+        prediction=pred, measured_s=measured_s,
+        measured_run_time=measured_s * pred.n_super,
+        model_accuracy=accuracy, from_cache=True)
+
+
+def _resolve_measured(problem: StencilProblem, config: RunConfig,
+                      device: Device):
+    """``autotune="measure"``: the schedule from the persistent cache, or
+    the model's shortlist timed on the backend with the winner persisted.
+    Returns ``(par_time, bsize, par_vec, candidates, from_cache)``, the
+    candidates :class:`~repro_torch.api.tuner.TunedCandidate`, fastest
+    first."""
+    cache = schedule_cache.ScheduleCache.resolve(config.cache)
+    key = schedule_cache.schedule_key(problem, config, device)
+    if cache is not None:
+        entry = cache.get(key)
+        cand = None if entry is None else _cached(problem, config, device,
+                                                  entry)
+        if cand is not None:
+            g = cand.geom
+            return g.par_time, g.bsize, g.par_vec, (cand,), True
+    shortlist = _candidate_shortlist(problem, config, device,
+                                     top_k=config.tune_top_k)
+    tuned = tuner.measure_candidates(problem, config, shortlist)
+    best = tuned[0]
+    if cache is not None:
+        cache.put(key, {
+            "stencil": problem.stencil.name,
+            "par_time": best.geom.par_time, "bsize": list(best.geom.bsize),
+            "par_vec": best.geom.par_vec, "measured_s": best.measured_s,
+            "model_accuracy": best.model_accuracy,
+        })
+    return (best.geom.par_time, best.geom.bsize, best.geom.par_vec, tuned,
+            False)
 
 
 def plan(problem: StencilProblem,
          config: Optional[RunConfig] = None) -> "StencilPlan":
-    """Pair ``problem`` with ``config`` into a reusable ``StencilPlan``.
-    Raises if the config's device is CUDA and no card is present."""
+    """Pair ``problem`` with ``config`` into a reusable ``StencilPlan``,
+    choosing the schedule the config leaves free (``autotune``).  Raises
+    if the config's device is CUDA and no card is present, and for a
+    schedule the backend cannot run; a ``reference`` plan, which runs no
+    schedule, then has no geometry instead."""
     if config is None:
         config = RunConfig()
     factory = get_backend(config.backend)
@@ -26,16 +148,33 @@ def plan(problem: StencilProblem,
         raise RuntimeError("RunConfig(device='cuda') but no CUDA device is "
                            "available; pass device='cpu' to run the plain "
                            "versions on the CPU")
-    bsize = config.normalized_bsize(problem.ndim)
-    geom = None
-    if config.par_time is not None and bsize is not None:
+    if (config.backend == "hopper" and config.cell_bytes is not None
+            and config.cell_bytes != problem.cell_bytes):
+        raise ValueError(f"backend 'hopper' stores {problem.dtype} at "
+                         f"{problem.cell_bytes} bytes a cell; "
+                         f"cell_bytes={config.cell_bytes} would price "
+                         "another kernel")
+    device = config.resolved_perf_device()
+    geom, cands, from_cache = None, (), False
+    try:
+        if config.autotune == "measure":
+            par_time, bsize, par_vec, cands, from_cache = _resolve_measured(
+                problem, config, device)
+        else:
+            par_time, bsize, par_vec, cands = _resolve_schedule(
+                problem, config, device)
         geom = BlockGeometry(problem.ndim, problem.shape,
-                             problem.stencil.radius, config.par_time, bsize,
-                             config.par_vec)
+                             problem.stencil.radius, par_time, tuple(bsize),
+                             par_vec)
+    except ValueError:
+        if config.backend != "reference":
+            raise
     program = as_program(factory(problem, config, geom))
     return StencilPlan(problem=problem, config=config, geometry=geom,
                        _execute=program.execute,
-                       _execute_batch=program.execute_batch)
+                       _execute_batch=program.execute_batch,
+                       candidates=cands, tuned_from_cache=from_cache,
+                       perf_device=device)
 
 
 @dataclasses.dataclass
@@ -48,6 +187,16 @@ class StencilPlan:
     #: the batched entry point (None: ``run_batch`` loops over ``run``)
     _execute_batch: Optional[ExecuteFn] = dataclasses.field(default=None,
                                                             repr=False)
+    #: the tuner's candidates, best first (empty for a pinned schedule):
+    #: :class:`~repro_torch.core.perf_model.Prediction`\ s of
+    #: ``autotune="model"``, :class:`~repro_torch.api.tuner.TunedCandidate`\ s
+    #: of ``"measure"``; ``candidates[0]`` is the schedule that runs
+    candidates: tuple = ()
+    #: True when the measured schedule came from the schedule cache (no
+    #: candidate timed for this plan)
+    tuned_from_cache: bool = False
+    #: the card the model priced (``RunConfig.resolved_perf_device``)
+    perf_device: Device = perf_model.H100_SXM
 
     @property
     def device(self) -> torch.device:
@@ -205,18 +354,19 @@ class StencilPlan:
     def traffic_report(self, iters: Optional[int] = None) -> dict:
         """Model traffic (paper Eq. 7/8) against the streaming kernel's
         device-memory bytes (``kernels/ops.dma_traffic_bytes``), the
-        kernel's shared memory for its rings (``smem_bytes``), and the
-        fields with the streams read (``F`` plus aux) and written (``F``).
+        kernel's shared memory for its rings (``smem_bytes``) and what a
+        CTA of its launch takes in all (``cta_smem_bytes``: dynamic and
+        static, what the occupancy reads), and the fields with the
+        streams read (``F`` plus aux) and written (``F``).
         For a program it adds the stages and the fusion accounting: the
         fused program's intermediates stay in shared memory (0
         device-memory bytes) where chained single-stage plans would write
         and re-read each of the ``S - 1`` intermediates once per
         iteration."""
+        from repro_torch.kernels import builder
         from repro_torch.kernels.ops import dma_traffic_bytes
-        geom = self.geometry
-        if geom is None:
-            raise ValueError("traffic_report() needs a block geometry: "
-                             "pin par_time and bsize")
+        geom = self._require_geometry("traffic_report()")
+        dag = self.problem.exec_dag
         st = self.problem.stencil
         cb = self.problem.cell_bytes
         bc = self.problem.structural_bc
@@ -229,7 +379,9 @@ class StencilPlan:
             "traffic_accuracy": model / kernel,
             "redundancy": geom.redundancy,
             "par_vec": geom.par_vec,
-            "smem_bytes": smem_bytes(geom, self.problem.exec_dag, cb),
+            "smem_bytes": smem_bytes(geom, dag, cb),
+            "cta_smem_bytes": (builder.launch_smem(dag, geom, cb)
+                               + builder.static_smem(dag, geom, cb)),
             # device-memory streams per super-step: one per field, plus aux
             "fields": list(self.problem.fields),
             "streams_in": st.num_read,
@@ -251,3 +403,51 @@ class StencilPlan:
             report["model_bytes_total"] = model * n_super
             report["kernel_dma_bytes_total"] = kernel * n_super
         return report
+
+    def predicted(self, iters: Optional[int] = None,
+                  device: Optional[Device] = None,
+                  batch: int = 1) -> Prediction:
+        """The performance model's :class:`Prediction` of this plan (paper
+        §4) on ``device`` (default: the card the plan was priced for) for
+        ``iters`` (default ``iters_hint``); ``batch > 1`` models
+        :meth:`run_batch` (the aux stream billed once)."""
+        geom = self._require_geometry("predicted()")
+        if isinstance(device, str):
+            device = perf_model.DEVICES[device]
+        return perf_model.predict(
+            self.problem.stencil, self.problem.shape,
+            iters if iters is not None else self.config.iters_hint,
+            geom.bsize, geom.par_time, device or self.perf_device,
+            self.config.resolved_cell_bytes(self.problem.dtype),
+            batch=batch, bc=self.problem.structural_bc,
+            par_vec=geom.par_vec)
+
+    def describe(self) -> str:
+        st = self.problem.stencil
+        lines = [f"StencilPlan[{self.config.backend}] {st.name} "
+                 f"{self.problem.shape} {self.problem.dtype} "
+                 f"bc={self.problem.bc.token()} on {self.device}"]
+        if self.problem.n_stages > 1:
+            for i, s in enumerate(self.problem.stages):
+                lines.append(f"  stage {i}: {s.name} rad={s.stencil.radius} "
+                             f"flop_pcu={s.stencil.flop_pcu} "
+                             f"bc={s.boundary.token()}")
+        if self.geometry is not None:
+            g = self.geometry
+            lines.append(f"  schedule: bsize={g.bsize} par_time={g.par_time} "
+                         f"par_vec={g.par_vec} csize={g.csize} bnum={g.bnum} "
+                         f"redundancy={g.redundancy:.3f}")
+            lines.append("  predicted: " + self.predicted().describe())
+            if self.candidates and isinstance(self.candidates[0],
+                                              tuner.TunedCandidate):
+                lines.append("  measured:  " + self.candidates[0].describe())
+        else:
+            lines.append("  schedule: none (unblocked oracle)")
+        return "\n".join(lines)
+
+    def _require_geometry(self, what: str) -> BlockGeometry:
+        if self.geometry is None:
+            raise ValueError(f"{what} needs a block geometry; this "
+                             f"'{self.config.backend}' plan has no "
+                             "(bsize, par_time) that runs")
+        return self.geometry

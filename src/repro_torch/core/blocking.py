@@ -181,6 +181,50 @@ def bsize_feasible(rad: int, par_time: int, bsize: Sequence[int]) -> bool:
     return all(b > 2 * halo for b in bsize)
 
 
+#: the smallest 2D block (one warp's width of cells) and the 3D squares'
+#: range: a plane of 8×8 to 64×64 cells (up to 4096 in the wide form)
+MIN_BSIZE_2D, BSIZE_3D = 32, (8, 64)
+
+
+def wide_reach(cell_bytes: int = 4) -> int:
+    """The widest power-of-two 2D block the kernel's wide form holds: the
+    largest whose three one-row ring slots of ``b`` cells (a radius-1
+    stage at ``par_time`` 1) fit :data:`SMEM_LIMIT`."""
+    b = MIN_BSIZE_2D
+    while 3 * (2 * b) * cell_bytes <= SMEM_LIMIT:
+        b *= 2
+    return b
+
+
+def choose_bsize_candidates(ndim: int, dims: Sequence[int], rad: int = 1,
+                            par_time: int | None = None,
+                            cell_bytes: int = 4) -> list:
+    """Power-of-two block extents for the tuner (paper §5.3): in 2D from
+    one warp's width (32) up to the smaller of ``dims[1]`` and the wide
+    form's reach (:func:`wide_reach`), at least one; in 3D squares from 8
+    to 64 (no wider than the grid, at least one); ``[()]`` in 1D (nothing
+    is blocked).  With ``par_time``, extents that leave no compute block
+    (:func:`bsize_feasible`) are dropped: the result may be empty."""
+    if ndim == 1:
+        return [()]
+    out = []
+    if ndim == 2:
+        b, top = MIN_BSIZE_2D, max(MIN_BSIZE_2D,
+                                   min(dims[1], wide_reach(cell_bytes)))
+        while b <= top:
+            out.append((b,))
+            b *= 2
+    else:
+        lo, hi = BSIZE_3D
+        b, top = lo, max(lo, min(dims[1], dims[2], hi))
+        while b <= top:
+            out.append((b, b))
+            b *= 2
+    if par_time is not None:
+        out = [bs for bs in out if bsize_feasible(rad, par_time, bs)]
+    return out
+
+
 def superstep_traffic_bytes(geom: BlockGeometry, num_read: int,
                             num_write: int, cell_bytes: int = 4) -> int:
     """External-memory bytes per super-step (paper Eq. 7/8 numerator), with

@@ -523,8 +523,7 @@ def superstep_dag(dag: DagSpec, geom: BlockGeometry, gp: torch.Tensor,
     cell_bytes = gp.element_size()
     prog = _prepared(dag, geom, tuple(coeffs_packed.tolist()), gp.device,
                      cell_bytes)
-    smem = (win_smem(dag, geom, cell_bytes) if prog.win
-            else smem_bytes(geom, dag, cell_bytes) + prog.table_smem)
+    smem = launch_smem(dag, geom, cell_bytes)
     _launch(dag, prog, geom, gp, aux_p, out, int(steps), smem, batch,
             _segments)
     return out
@@ -922,6 +921,11 @@ def _win_table(dag: DagSpec, geom: BlockGeometry, coeffs_packed):
 CHAINREC_BYTES, CHAINTICK_BYTES, CHAINTAP_BYTES = 80, 32, 16
 CHAIN_TABLE_SMEM = ((CHAINREC_BYTES + 2 * CHAINTICK_BYTES) * MAX_ENTRIES
                     + CHAINTAP_BYTES * MAX_TAPS + 4 * MAX_COEFFS)
+#: its static part as ``ptxas`` counts it: the records, tick records and
+#: taps (11264 bytes for ``chain_win_kernel<0,*>`` in the sweep of
+#: ``tests/torch_calibration_h100.json``, NVIDIA H100 80GB HBM3)
+CHAIN_WIN_STATIC = ((CHAINREC_BYTES + 2 * CHAINTICK_BYTES) * MAX_ENTRIES
+                    + CHAINTAP_BYTES * MAX_TAPS)
 #: the entries the chain body's one-barrier form unrolls (its ``kT``): the
 #: least of these that holds the chain; a longer chain runs its ring form
 #: (``kT`` 0)
@@ -1298,35 +1302,22 @@ def _prepared(dag: DagSpec, geom: BlockGeometry, coeffs: tuple,
     form :func:`launch_form` picks, built once and kept for the program's
     later super-steps: the large-table route copies its table to
     ``device`` here, not at every launch."""
-    win, unroll = launch_form(dag, geom, cell_bytes)
+    shape = launch_shape(dag, geom, cell_bytes)
     coeffs_packed = torch.tensor(coeffs, dtype=torch.float32)
     stages = _as_chain(dag)
-    tab = tables_of(geom, dag)
-    big = tab is not None and tab.big
-    slots = look = 0
-    if stages is not None and win:
-        look = chain_look(stages, geom, cell_bytes)
-        table, out_lag = _chain_table(stages, geom, coeffs_packed, look)
-        n_entries = len(stages) * geom.par_time
+    big = shape.big is not None
+    if stages is not None and shape.win:
+        table = _chain_table(stages, geom, coeffs_packed, shape.look)[0]
     elif stages is not None:
-        table, out_lag = _program_table(stages, geom, coeffs_packed, big)
-        n_entries = len(stages) * geom.par_time
-    elif win:
-        table, out_lag, n_entries, slots = _win_table(dag, geom,
-                                                      coeffs_packed)
+        table = _program_table(stages, geom, coeffs_packed, big)[0]
+    elif shape.win:
+        table = _win_table(dag, geom, coeffs_packed)[0]
     else:
-        table, out_lag, n_entries = _dag_table(dag, geom, coeffs_packed, big)
+        table = _dag_table(dag, geom, coeffs_packed, big)[0]
     if big:
         table = torch.frombuffer(bytearray(table),
                                  dtype=torch.uint8).to(device)
-    return _LaunchPlan(_body(dag, geom.ndim), table, out_lag, n_entries,
-                       dag.n_fields, dag.stages[0][1],
-                       _has_bcs(dag, geom.ndim),
-                       tab.smem if big else 0,
-                       (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
-                       if big else None, win, slots,
-                       max(st.radius for st, _, _ in dag.stages), look,
-                       unroll)
+    return shape._replace(table=table)
 
 
 def _params(prog: _LaunchPlan, geom: BlockGeometry, ns: int,
@@ -1425,6 +1416,31 @@ def _barrier_form(dag: DagSpec, prog: _LaunchPlan,
             f"one barrier an entry: {win_form(dag, geom, cell_bytes)}")
 
 
+def _split_of(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
+              nslabs: int, nby: int, grid_x: int, batch: int, per_sm: int,
+              n_sm: int, smem: int, cell_bytes: int,
+              segments: Optional[int] = None, custom: bool = False,
+              library: str = "") -> StreamSplit:
+    """:class:`StreamSplit` of a launch of ``prog`` over ``nslabs`` slabs
+    whose kernel an SM holds ``per_sm`` CTAs of, on a card of ``n_sm``
+    SMs: :func:`segment_plan`'s cut (or about ``segments`` segments)."""
+    tab = tables_of(geom, dag)
+    _, _, threads = cta_shape(geom, tab)
+    look = main_look(geom, cell_bytes) if prog.body >= 0 else prog.look
+    warm = stream_warmup(dag, geom)
+    ctas = grid_x * nby * batch
+    seg, nseg = segment_plan(nslabs, warm, ctas, per_sm, n_sm, nby,
+                             prog.out_lag)
+    if segments is not None:
+        seg = -(-nslabs // min(max(segments, 1), nslabs))
+        nseg = -(-nslabs // seg)
+    barriers, form = _barrier_form(dag, prog, geom, cell_bytes)
+    return StreamSplit(seg, nseg, warm, look, per_sm, ctas * nseg, threads,
+                       smem, barriers, nslabs, prog.body,
+                       _kernel_name(prog, geom, tab, look, custom), library,
+                       form, smem - prog.table_smem)
+
+
 def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
            params, grid_x: int, batch: int, member_stride: int,
            aux_stride: int, smem: int, cell_bytes: int, device,
@@ -1432,8 +1448,9 @@ def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
            custom: bool = False) -> StreamSplit:
     """:class:`StreamSplit` of a launch (kept per library, program shape,
     batch and device): every body by :func:`segment_plan` over the
-    kernel's occupancy and the card's SMs (or in about ``segments``
-    segments); ``custom``: from a library of custom stencils."""
+    kernel's occupancy (``stencil_stream_occupancy``) and the card's SMs
+    (or in about ``segments`` segments); ``custom``: from a library of
+    custom stencils."""
     key = (id(dll), prog.body, prog.bcs, prog.big is not None, prog.win,
            tuple(getattr(params, f) for f, _ in params._fields_ if
                  f != "steps"), grid_x, batch, member_stride > 0,
@@ -1442,33 +1459,95 @@ def _split(dll, dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry,
         hit = _SPLITS.get(key)
     if hit is not None:
         return hit
-    nslabs = params.ns // params.V
-    tab = tables_of(geom, dag)
-    _, _, threads = cta_shape(geom, tab)
-    look = main_look(geom, cell_bytes) if prog.body >= 0 else prog.look
-    warm = stream_warmup(dag, geom)
     probe = _build.Params.from_buffer_copy(params)
-    probe.look = look
+    probe.look = main_look(geom, cell_bytes) if prog.body >= 0 else prog.look
     per_sm = dll.stencil_stream_occupancy(
         prog.body, int(prog.bcs), probe, int(prog.big is not None),
         batch, member_stride, aux_stride, smem)
     if per_sm < 0:
         raise RuntimeError("stencil_stream: no occupancy for the launch")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = grid_x * params.nby * batch
-    seg, nseg = segment_plan(nslabs, warm, ctas, per_sm, n_sm, params.nby,
-                             prog.out_lag)
-    if segments is not None:
-        seg = -(-nslabs // min(max(segments, 1), nslabs))
-        nseg = -(-nslabs // seg)
-    barriers, form = _barrier_form(dag, prog, geom, cell_bytes)
-    split = StreamSplit(seg, nseg, warm, look, per_sm, ctas * nseg, threads,
-                        smem, barriers, nslabs, prog.body,
-                        _kernel_name(prog, geom, tab, look, custom),
-                        dll._name, form, smem - prog.table_smem)
+    split = _split_of(dag, prog, geom, params.ns // params.V, params.nby,
+                      grid_x, batch, per_sm, n_sm, smem, cell_bytes,
+                      segments, custom, dll._name)
     with _SPLITS_LOCK:
         _SPLITS[key] = split
     return split
+
+
+def launch_smem(dag: DagSpec, geom: BlockGeometry,
+                cell_bytes: int = 4) -> int:
+    """The dynamic shared memory of a launch of ``dag`` at ``geom``: a
+    one-barrier form's (:func:`win_smem`), else the rings
+    (``core/blocking.smem_bytes``) and, in the large-table route, the
+    records in front of them."""
+    if launch_form(dag, geom, cell_bytes)[0]:
+        return win_smem(dag, geom, cell_bytes)
+    tab = tables_of(geom, dag)
+    return smem_bytes(geom, dag, cell_bytes) + (
+        tab.smem if tab is not None and tab.big else 0)
+
+
+def static_smem(dag: DagSpec, geom: BlockGeometry,
+                cell_bytes: int = 4) -> int:
+    """The static shared memory of the kernel that runs ``dag`` at
+    ``geom``: the tables a table-driven body keeps as ``__shared__``
+    arrays sized to the caps (the one-barrier forms' records and tick
+    records, the per-entry forms' :data:`_build.TABLE_SMEM`), none for the
+    main-path body or the large-table route (its records are dynamic)."""
+    tab = tables_of(geom, dag)
+    if tab is None or tab.big:
+        return 0
+    if launch_form(dag, geom, cell_bytes)[0]:
+        return CHAIN_WIN_STATIC if tab.body == "chain" else WIN_TABLE_SMEM
+    return TABLE_SMEM[tab.body]
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_shape(dag: DagSpec, geom: BlockGeometry,
+                 cell_bytes: int = 4) -> _LaunchPlan:
+    """:class:`_LaunchPlan` of ``dag`` at ``geom`` without its table
+    (``table`` None), in the form :func:`launch_form` picks: the body,
+    output lag, entries, the slabs copied ahead; what :func:`_prepared`
+    adds the table to, and what the performance model prices."""
+    win, unroll = launch_form(dag, geom, cell_bytes)
+    stages = _as_chain(dag)
+    tab = tables_of(geom, dag)
+    big = tab is not None and tab.big
+    look = slots = 0
+    if stages is not None and win:
+        look = chain_look(stages, geom, cell_bytes)
+        lay = chain_layout(stages, geom.par_time)
+    elif win:
+        lay = win_layout(dag, geom.par_time,
+                         mixes_boundaries(dag, geom.ndim))
+        slots = lay.slots
+    else:
+        lay = dag_layout(unroll_dag(dag, geom.par_time), geom.par_vec)
+    n_entries = (len(stages) * geom.par_time if stages is not None
+                 else len(unroll_dag(dag, geom.par_time).entries))
+    return _LaunchPlan(_body(dag, geom.ndim), None, lay.out_lag, n_entries,
+                       dag.n_fields, dag.stages[0][1],
+                       _has_bcs(dag, geom.ndim), tab.smem if big else 0,
+                       (tab.stages, tab.taps, tab.coeffs, tab.all_inputs)
+                       if big else None, win, slots,
+                       max(st.radius for st, _, _ in dag.stages), look,
+                       unroll)
+
+
+def model_split(dag: DagSpec, geom: BlockGeometry, cell_bytes: int,
+                per_sm: int, n_sm: int, batch: int = 1) -> StreamSplit:
+    """The :class:`StreamSplit` a launch of ``dag`` at ``geom`` (``batch``
+    members) takes on a card of ``n_sm`` SMs holding ``per_sm`` of its
+    CTAs each, from :func:`launch_shape` alone: the split the launcher
+    would pick, with no library loaded (a custom DAG's per-entry kernel
+    named as the shared library's)."""
+    prog = launch_shape(dag, geom, cell_bytes)
+    nby = geom.bnum[0] if geom.ndim == 3 else 1
+    grid_x = geom.bnum[-1] if geom.bnum else 1
+    nslabs = geom.stream_slabs(_stream_dom(geom, prog.bc0))
+    return _split_of(dag, prog, geom, nslabs, nby, grid_x, batch, per_sm,
+                     n_sm, launch_smem(dag, geom, cell_bytes), cell_bytes)
 
 
 def _launch(dag: DagSpec, prog: _LaunchPlan, geom: BlockGeometry, gp,

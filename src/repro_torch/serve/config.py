@@ -16,7 +16,9 @@ one JSON document away — while accepting already-constructed
 
 A bucket's ``run`` is the port's :class:`RunConfig`: its ``device``
 defaults to ``"cuda"`` (``"cpu"`` serves through the kernels' plain
-versions).  Reference ``RunConfig`` keys that mean nothing here are
+versions); ``"autotune"`` and the tuning keys pass through, and the
+service builds each bucket's plan off the event loop
+(``asyncio.to_thread``), so a measured tune at boot does not block it.  Reference ``RunConfig`` keys that mean nothing here are
 refused by name with the ROADMAP item that would bring them
 (:data:`REFUSED_RUN_KEYS`), never ignored.
 
@@ -46,7 +48,6 @@ REFUSED_RUN_KEYS = {
     "axis_map": "multi-device runs are ROADMAP A15",
     "block_parallel": "it is the TPU's megacore split; the kernel's grid "
                       "spreads blocks and batch members over every SM",
-    "autotune": "autotuning is ROADMAP A11: pin par_time and bsize",
 }
 
 

@@ -1,4 +1,5 @@
-"""The port imports and runs — the stencil plan, stage programs (a chain,
+"""The port imports and runs — the stencil plan (pinned, and tuned by the
+performance model and by the measured tuner), stage programs (a chain,
 and DAGs on the reference and hopper backends), a custom stencil traced
 for the kernel, the LM serving path (qwen3 and granite's untied head; the
 SSM, hybrid, MoE and VLM families' smoke configs, two tokens each; the
@@ -29,6 +30,22 @@ rng = np.random.default_rng(0)
 out = p.run(rng.uniform(0.5, 2, (9, 30)).astype(np.float32), 5,
             aux=rng.uniform(0, 0.1, (9, 30)).astype(np.float32))
 assert out.shape == (9, 30) and bool(out.isfinite().all())
+import tempfile
+import repro_torch.api.schedule_cache, repro_torch.api.tuner
+import repro_torch.core.perf_model
+tuned = api.plan(api.StencilProblem("diffusion2d", (9, 30)),
+                 api.RunConfig(backend="hopper", autotune="model",
+                               device="cpu"))
+g9 = rng.uniform(0.5, 2, (9, 30)).astype(np.float32)
+assert tuned.candidates and bool(tuned.run(g9, 5).isfinite().all())
+with tempfile.TemporaryDirectory() as cdir:
+    measured = api.plan(api.StencilProblem("diffusion2d", (9, 30)),
+                        api.RunConfig(backend="hopper", autotune="measure",
+                                      tune_top_k=2, tune_repeats=1,
+                                      device="cpu",
+                                      cache=cdir + "/schedules.json"))
+    assert isinstance(measured.candidates[0], api.TunedCandidate)
+    assert bool(measured.run(g9, 5).isfinite().all())
 from repro_torch.core.stencils import make_star
 prog = [api.StencilStage(make_star(2, 1), coeffs={"c0": 0.7}),
         api.StencilStage("diffusion2d")]

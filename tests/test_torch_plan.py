@@ -192,9 +192,17 @@ def test_hopper_refusals_name_the_roadmap_item():
             stencils.DIFFUSION2D, name="custom2d",
             apply=lambda get, c, aux=None: torch.sigmoid(get((0, 0)))),
             (8, 32)))
-    with pytest.raises(ValueError, match="A11"):
-        plan(StencilProblem("diffusion2d", (8, 32)),
-             RunConfig(backend="hopper", device="cpu"))
+    # an unpinned schedule is the model's (ROADMAP A11): it plans and runs
+    tuned = plan(StencilProblem("diffusion2d", (8, 32)),
+                 RunConfig(backend="hopper", device="cpu"))
+    assert tuned.geometry is not None and tuned.candidates
+    g8 = conf.data("diffusion2d", (8, 32))[0]
+    conf.assert_close(
+        tuned.run(g8, 5),
+        japi.plan(japi.StencilProblem("diffusion2d", (8, 32)),
+                  japi.RunConfig(backend="reference")).run(
+                      jnp.asarray(g8), 5),
+        conf.tol("diffusion2d", 5))
     # a block plane over 1024 cells runs the kernel's wide form (ROADMAP
     # B1j) and agrees with pallas_interpret
     got, want = _runs("diffusion3d", (8, 64, 64), 5, 2, (40, 40),

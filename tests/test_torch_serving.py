@@ -289,6 +289,53 @@ async def _gather_service(cfg, reqs, prewarm=False):
 
 
 class TestService:
+    def test_autotune_bucket_boots_off_the_loop_and_serves(self, tmp_path,
+                                                          monkeypatch):
+        """A bucket whose ``run`` has ``"autotune": True`` (the reference's
+        default bucket) or ``"measure"`` boots and serves on the CPU: its
+        plan is built off the event loop (``asyncio.to_thread``), and every
+        delivered grid equals the tuned plan's ``run`` bit for bit."""
+        import threading
+
+        from repro_torch.serve import service as service_mod
+        threads = []
+        real = service_mod.make_plan
+
+        def spy(problem, run):
+            threads.append(threading.current_thread())
+            return real(problem, run)
+        monkeypatch.setattr(service_mod, "make_plan", spy)
+        runs = [{"backend": "hopper", "device": "cpu", "autotune": True},
+                {"backend": "hopper", "device": "cpu", "autotune": "measure",
+                 "tune_top_k": 2, "tune_repeats": 1,
+                 "cache": str(tmp_path / "s.json")}]
+        shapes = [SHAPE, (16, 40)]
+        cfg = ServiceConfig(buckets=tuple(
+            make_bucket(problem={"stencil": "diffusion2d",
+                                 "shape": list(shape)}, run=run)
+            for shape, run in zip(shapes, runs)))
+        assert [b.run.autotune for b in cfg.buckets] == ["model", "measure"]
+        gs = [grid_for(i, shape) for i, shape in enumerate(shapes * 2)]
+        reqs = [StencilRequest(StencilProblem("diffusion2d", g.shape), g,
+                               iters=5) for g in gs]
+
+        async def main():
+            loop_thread = threading.current_thread()
+            svc = await serve(cfg, prewarm=False)
+            plans = {b.cfg.name: b.plan for b in svc._buckets.values()}
+            out = await asyncio.gather(*[svc.submit_nowait(r)
+                                         for r in reqs])
+            await svc.stop()
+            return loop_thread, plans, out
+        loop_thread, plans, out = run_async(main())
+        assert threads and all(t is not loop_thread for t in threads)
+        for p in plans.values():
+            assert p.geometry is not None and p.candidates
+        by_shape = {p.problem.shape: p for p in plans.values()}
+        for r, got in zip(reqs, out):
+            assert torch.equal(got.grid,
+                               by_shape[r.problem.shape].run(r.grid, 5))
+
     def test_results_equal_plan_run_and_reference_service(self):
         """Clamp, a periodic mix, reflect and constant buckets (and a
         Hotspot bucket with per-request aux and a bf16 bucket): every
@@ -695,7 +742,8 @@ class TestResilience:
 #: import time would depend on which modules the worker imported first)
 CHAOS_POINTS = ("backend.execute", "backend.execute.result",
                 "backend.execute_batch", "backend.execute_batch.result",
-                "checkpoint.restore", "checkpoint.save", "serve.launch")
+                "checkpoint.restore", "checkpoint.save", "schedule_cache.get",
+                "schedule_cache.put", "serve.launch")
 
 
 def test_chaos_points_are_the_registered_points():
