@@ -29,6 +29,16 @@ On one CUDA card, from the root of a checkout:
    warm-up slabs and share, barriers a tick and why a DAG launch takes
    one an entry, slabs copied ahead, the bytes of the kernel's rings) and
    the kernel's registers and spills (its build log);
+3a. right after step 3's runs, drives the ``engine`` backend on the same
+   four cells (``engine_phase``: no kernel launch, within ``tolerance``
+   of the reference backend, run ms and ms a super-step beside the
+   ``hopper`` run's) and the ``distributed`` backend (``distributed_phase``,
+   ``DIST_CASES``: diffusion2d on a mesh of 4 logical shards of the card
+   along the stream, hotspot3d on 2x2 over the stream and the first
+   blocked axis, the periodic wave2d on a 4-shard ring), each bit for bit
+   the single-device engine on the card, with its counted exchanges
+   (``ceil(iters/T)`` per split axis, one a run for aux), their bytes a
+   super-step and one exchange timed;
 4a. tunes the four stencils (``tune_phase``): (a) plans each with
    ``RunConfig(backend="hopper", autotune="model")`` and prints the
    performance model's best schedules (predicted ms a super-step, the
@@ -301,8 +311,8 @@ On one CUDA card, from the root of a checkout:
     "dots" and compressed on the card against the CPU within
     ``SMOKE_TOL``;
 21. prints the tuning phase's rows as one ``{"tuning": [...]}`` line,
-    then one ``{"kernels": [...], "card": ...}`` line and, last, the
-    device line.
+    step 3a's as one ``{"backends": ...}`` line, then one ``{"kernels":
+    [...], "card": ...}`` line and, last, the device line.
 
 Every timed median is printed and reported with the min and max of its
 samples.  Any failed check raises, and the script exits non-zero.  It
@@ -5030,6 +5040,174 @@ def a16gh_phase(device, peaks) -> list:
     return [serve] + train["kernels"]
 
 
+#: the multi-device cases: (label, program, mesh shape, mesh axes, axis_map)
+#: — four logical shards on one card along the stream, 2×2 over the
+#: stream and the first blocked axis, the periodic wave on a 4-shard ring
+DIST_CASES = (
+    ("diffusion2d", "diffusion2d", (4,), ("d",), (("d",), None)),
+    ("hotspot3d", "hotspot3d", (2, 2), ("a", "b"), (("a",), ("b",), None)),
+    ("wave2d", "wave2d", (4,), ("d",), (("d",), None)),
+)
+
+
+def engine_phase(device, smi: str) -> tuple:
+    """The ``engine`` backend (``core/engine.py``, torch ops, no
+    hand-written kernel) on the four Table-2 stencils at the main path's
+    sizes, schedules and inputs, ``iters = 2T+3``: no kernel launch (the
+    stencil library's count stays 0 over the run), the result within
+    ``precision.tolerance`` of the reference backend; run ms and ms a
+    super-step (median of 3 after the checked run) beside the ``hopper``
+    backend's in the same run.  Returns the rows and the engine's results
+    of d2 and h3 (the distributed phase holds its shards against them)."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import precision
+    from repro_torch.kernels import builder
+    rows, outs = [], {}
+    for name in STENCILS:
+        nd = int(name[-2])
+        dims = FULL_DIMS[nd]
+        par_time, bsize = SCHEDULE[nd]
+        iters = 2 * par_time + 3
+        n_super = math.ceil(iters / par_time)
+        g, aux = inputs(name, dims, device, 0)
+        prob = StencilProblem(name, dims)
+        eng = plan(prob, RunConfig(backend="engine", par_time=par_time,
+                                   bsize=bsize, device=device))
+        torch.cuda.synchronize()
+        builder.LAUNCHES = 0
+        out = eng.run(g, iters, aux=aux)
+        torch.cuda.synchronize()
+        if builder.LAUNCHES:
+            raise AssertionError(f"engine {name}: {builder.LAUNCHES} "
+                                 "kernel launches; the engine runs none")
+        ref = plan(prob, RunConfig(backend="reference",
+                                   device=device)).run(g, iters, aux=aux)
+        scale = 100 if name.startswith("hotspot") else None
+        torch.testing.assert_close(out, ref, **precision.tolerance(
+            "float32", iters, scale=scale))
+        err = (out - ref).abs().max().item()
+        del ref
+        run_ms = time_ms(lambda: eng.run(g, iters, aux=aux), 3, 0)
+        hop = plan(prob, RunConfig(backend="hopper", par_time=par_time,
+                                   bsize=bsize, device=device))
+        hop_ms = time_ms(lambda: hop.run(g, iters, aux=aux), 3)
+        row = {"name": name, "dims": list(dims), "par_time": par_time,
+               "bsize": list(bsize), "iters": iters, "run_ms": run_ms,
+               "superstep_ms": float(run_ms) / n_super,
+               "hopper_run_ms": hop_ms,
+               "hopper_superstep_ms": float(hop_ms) / n_super,
+               "engine_over_hopper": float(run_ms) / float(hop_ms),
+               "oracle_max_abs_err": err, "launches": 0}
+        print(f"engine {name} {dims} T={par_time} bsize={bsize}: run of "
+              f"{iters} iters {run_ms} ({row['superstep_ms']:.3f} ms a "
+              f"super-step), hopper {hop_ms} "
+              f"({row['hopper_superstep_ms']:.3f}), "
+              f"{row['engine_over_hopper']:.2f}x; oracle max_abs_err "
+              f"{err:.3g}; 0 launches [{smi}]", flush=True)
+        rows.append(row)
+        if name in ("diffusion2d", "hotspot3d"):
+            outs[name] = (g, aux, out, run_ms)
+        del g, aux, out, eng, hop
+        torch.cuda.empty_cache()
+    return rows, outs
+
+
+def distributed_phase(device, smi: str, engine_outs: dict) -> list:
+    """The ``distributed`` backend (``core/distributed.py``) on
+    :data:`DIST_CASES`, every shard a logical one on ``device``: d2 and h3
+    on the engine phase's inputs and held bit for bit against its
+    single-device results, the periodic wave2d (2 x 16384², T=4) against
+    the engine run (and timed, median of 3) here; each run's counted
+    exchanges (``ceil(iters/T)`` per sharded axis, one a run per axis for
+    the aux grid) and their bytes; run ms (median of 3) beside the
+    engine's, and one exchange of the state's shards alone timed (median
+    of 5) with its bytes a super-step."""
+    import torch
+    from repro_torch.api import RunConfig, StencilProblem, plan
+    from repro_torch.core import distributed
+    from repro_torch.kernels import builder
+    from repro_torch.launch.mesh import make_mesh
+    rows = []
+    for label, name, mshape, axes, axis_map in DIST_CASES:
+        if name in DAGS:
+            nd, bc, par_time, bsize = DAGS[name]
+            prob = StencilProblem(dag_program(name), FULL_DIMS[nd],
+                                  boundary=bc)
+            g, aux = grid_input(prob.state_shape, device, 0), None
+            want = None
+        else:
+            nd = int(name[-2])
+            par_time, bsize = SCHEDULE[nd]
+            prob = StencilProblem(name, FULL_DIMS[nd])
+            g, aux, want, eng_ms = engine_outs[name]
+        iters = 2 * par_time + 3
+        n_super = math.ceil(iters / par_time)
+        if want is None:
+            eng = plan(prob, RunConfig(backend="engine", par_time=par_time,
+                                       bsize=bsize, device=device))
+            want = eng.run(g, iters, aux=aux)
+            eng_ms = time_ms(lambda: eng.run(g, iters, aux=aux), 3, 0)
+            del eng
+        mesh = make_mesh(mshape, axes, [device] * math.prod(mshape))
+        p = plan(prob, RunConfig(backend="distributed", par_time=par_time,
+                                 bsize=bsize, device=device, mesh=mesh,
+                                 axis_map=axis_map))
+        torch.cuda.synchronize()
+        builder.LAUNCHES = 0
+        distributed.reset_exchange_counts()
+        out = p.run(g, iters, aux=aux)
+        torch.cuda.synchronize()
+        counts = dict(distributed.EXCHANGES)
+        sharded = sum(1 for a in axis_map if a)
+        expect = {"state": n_super * sharded,
+                  "aux": sharded if prob.needs_aux else 0}
+        if {k: counts[k] for k in expect} != expect or builder.LAUNCHES:
+            raise AssertionError(f"distributed {label}: exchanges {counts}, "
+                                 f"expected {expect}; {builder.LAUNCHES} "
+                                 "kernel launches (the engine runs none)")
+        if out.device != g.device or not torch.equal(out, want):
+            raise AssertionError(f"distributed {label}: not bit for bit the "
+                                 "single-device engine")
+        del want
+        run_ms = time_ms(lambda: p.run(g, iters, aux=aux), 3, 0)
+        layout = distributed.shard_layout(prob.shape, axis_map, mesh)
+        lead = int(len(prob.fields) > 1)
+        h = distributed.halo_width(prob.stencil, par_time)
+        kinds = prob.structural_bc.kinds
+        shards = distributed.scatter(g, layout, lead)
+        ex_ms = time_ms(lambda: distributed.exchange(shards, layout, h,
+                                                     kinds, lead), 5)
+        del shards
+        row = {"name": label, "dims": list(prob.shape),
+               "fields": len(prob.fields), "mesh": dict(mesh.shape),
+               "axis_map": [list(a) if a else None for a in axis_map],
+               "shards": len(layout.devices), "par_time": par_time,
+               "bsize": list(bsize), "iters": iters, "halo": h,
+               "run_ms": run_ms, "superstep_ms": float(run_ms) / n_super,
+               "engine_run_ms": eng_ms,
+               "over_engine": float(run_ms) / float(eng_ms),
+               "exchanges": counts["state"], "aux_exchanges": counts["aux"],
+               "exchange_ms": ex_ms,
+               "exchange_bytes_per_superstep":
+                   counts["state_bytes"] // n_super,
+               "aux_exchange_bytes": counts["aux_bytes"]}
+        print(f"distributed {label} {prob.shape} x{len(prob.fields)} on "
+              f"{row['shards']} shards of {device} (mesh {mesh.shape}, "
+              f"axis_map {axis_map}) T={par_time}: run of {iters} iters "
+              f"{run_ms} ({row['superstep_ms']:.3f} ms a super-step), "
+              f"{row['over_engine']:.3f}x the engine's {eng_ms} and bit "
+              f"for bit its result; {counts['state']} exchanges of halo "
+              f"{h} ({counts['aux']} aux), one exchange {ex_ms}, "
+              f"{row['exchange_bytes_per_superstep']} bytes a super-step "
+              f"[{smi}]", flush=True)
+        rows.append(row)
+        del g, aux, out, p
+        torch.cuda.empty_cache()
+    return rows
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5105,6 +5283,13 @@ def main() -> int:
         })
         del main_run
         torch.cuda.empty_cache()
+    t_backends = time.perf_counter()
+    engine_rows, engine_outs = engine_phase(device, smi)
+    dist_rows = distributed_phase(device, smi, engine_outs)
+    del engine_outs
+    torch.cuda.empty_cache()
+    print(f"engine and distributed phases: "
+          f"{time.perf_counter() - t_backends:.3f} s [{smi}]", flush=True)
     tuning = tune_phase(device)
     kernels.extend(program_phase(device, peaks, bases))
     kernels.extend(dag_phase(device, peaks, bases))
@@ -5137,6 +5322,9 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"tuning": tuning}))
+    print(json.dumps({"backends": {
+        "engine": [with_spread(r) for r in engine_rows],
+        "distributed": [with_spread(r) for r in dist_rows]}, "card": smi}))
     print(json.dumps({"kernels": [with_spread(k) for k in kernels],
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,10 @@ unset) or by timing the model's shortlist (``autotune="measure"``,
     print(p.describe())
 
 Backends: ``hopper`` (the streaming CUDA kernel; its plain version when
-``RunConfig(device="cpu")``) and ``reference`` (the unblocked oracle).
+``RunConfig(device="cpu")``), ``reference`` (the unblocked oracle),
+``engine`` (the blocked algorithm in torch ops) and ``distributed`` (the
+engine on each shard of a grid split over ``RunConfig.mesh``, a
+:class:`~repro_torch.launch.mesh.Mesh`).
 """
 from repro_torch.api.backends import (get_backend, list_backends,
                                       register_backend)

@@ -10,18 +10,25 @@ and threads the reference's fault points through both entry points
 
   ``reference``  the port's unblocked oracle (``kernels/ref.py``): bare
                  stencils, stage chains and stage DAGs
-  ``hopper``     the streaming kernel path (``kernels/ops.py`` around
-                 ``kernels/csrc/stencil_stream.cu``; plain version on CPU):
-                 bare stencils, stage chains and stage DAGs, fused, with
-                 custom stencils through device functions generated from
-                 their ``apply`` (``kernels/codegen.py``)
+  ``hopper``       the streaming kernel path (``kernels/ops.py`` around
+                   ``kernels/csrc/stencil_stream.cu``; plain version on
+                   CPU): bare stencils, stage chains and stage DAGs,
+                   fused, with custom stencils through device functions
+                   generated from their ``apply`` (``kernels/codegen.py``)
+  ``engine``       the blocked engine in torch ops (``core/engine.py``):
+                   the algorithm, on any device, launching no kernel
+  ``distributed``  the engine on each shard of a grid split over
+                   ``config.mesh`` (``core/distributed.py``), built at
+                   its first run
 
 ``execute`` takes one coefficient dict for a single-stage problem and a
 tuple of per-stage dicts for a program.  ``hopper``'s ``execute_batch``
 pads the batch once and advances every member in each launch (one per
 super-step, as a single grid), equal to sequential runs bit for bit;
-``reference`` has none, so ``run_batch`` runs the oracle member by
-member.  The ``hopper`` factory
+``engine``'s carries the batch as a leading axis through every op and
+``distributed``'s makes one exchange per sharded axis a super-step for
+the whole batch; ``reference`` has none, so ``run_batch`` runs the
+oracle member by member.  The ``hopper`` factory
 refuses, at plan time, what this slice of the port does not cover, and
 names the ROADMAP item that will add it.
 
@@ -38,6 +45,7 @@ import torch
 
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
+from repro_torch.core import engine
 from repro_torch.core.blocking import BlockGeometry
 from repro_torch.kernels.builder import (KERNEL_DTYPES, check_batch,
                                           kernel_limits, stage_op)
@@ -203,5 +211,88 @@ def _hopper_backend(problem, config, geom):
     return BackendProgram(execute, execute_batch)
 
 
+def _engine_backend(problem, config, geom):
+    if geom is None:
+        raise ValueError("backend 'engine' needs a schedule: plan() pins "
+                         "or tunes one")
+    if problem.is_dag:
+        dag = problem.exec_dag
+
+        def execute(grid, coeffs, iters, aux=None):
+            return engine.superstep_loop_dag(
+                dag, geom, grid, _stage_coeffs(problem, coeffs), iters, aux)
+    elif problem.n_stages > 1:
+        stages = problem.exec_stages
+
+        def execute(grid, coeffs, iters, aux=None):
+            return engine.superstep_loop_chain(stages, geom, grid, coeffs,
+                                               iters, aux)
+    else:
+        st, bc = problem.exec_stages[0]
+
+        def execute(grid, coeffs, iters, aux=None):
+            return engine.superstep_loop(st, geom, grid, coeffs, iters, aux,
+                                         bc=bc)
+    # the engine carries leading axes through: a batch, with one aux grid
+    # shared by it or one per member, is one call
+    return BackendProgram(execute, execute)
+
+
+def resolve_axis_map(problem: StencilProblem, config: RunConfig) -> tuple:
+    """The mesh axes that split each grid axis for the ``distributed``
+    backend: ``config.axis_map``, else the streaming axis split over every
+    mesh axis and the blocked axes whole."""
+    if config.mesh is None:
+        raise ValueError("backend='distributed' needs config.mesh (and "
+                         "optionally config.axis_map)")
+    if config.axis_map is not None:
+        if len(config.axis_map) != problem.ndim:
+            raise ValueError(f"axis_map {config.axis_map} must have one "
+                             f"entry per grid axis ({problem.ndim})")
+        return config.axis_map
+    return (tuple(config.mesh.axis_names),) + (None,) * (problem.ndim - 1)
+
+
+def _distributed_backend(problem, config, geom):
+    from repro_torch.core import distributed
+    if geom is None:
+        raise ValueError("backend 'distributed' needs a schedule: plan() "
+                         "pins or tunes one")
+    mesh = config.mesh
+    axis_map = resolve_axis_map(problem, config)
+    if mesh.device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the mesh holds CUDA devices but no CUDA device "
+                           "is available")
+    chain = problem.n_stages > 1 and not problem.is_dag
+    stages = problem.exec_stages if chain else None
+    dag = problem.exec_dag if problem.is_dag else None
+    distributed.shard_layout(problem.shape, axis_map, mesh,
+                             distributed.halo_width(problem.stencil,
+                                                    geom.par_time, stages,
+                                                    dag))
+    runners: Dict[tuple, Callable] = {}
+
+    def runner(batch: bool, aux_batched: bool) -> Callable:
+        # built at the first run, as the reference builds its program:
+        # plan() touches no device of the mesh
+        key = (batch, aux_batched)
+        if key not in runners:
+            runners[key] = distributed.build_distributed_fn(
+                problem.stencil, problem.shape, geom.par_time, geom.bsize,
+                mesh, axis_map, batch=batch, aux_batched=aux_batched,
+                bc=problem.structural_bc, stages=stages, dag=dag)
+        return runners[key]
+
+    def execute(grid, coeffs, iters, aux=None):
+        return runner(False, False)(grid, aux, coeffs, iters)
+
+    def execute_batch(grids, coeffs, iters, aux=None):
+        per_member = aux is not None and aux.ndim > problem.ndim
+        return runner(True, per_member)(grids, aux, coeffs, iters)
+    return BackendProgram(execute, execute_batch)
+
+
 register_backend("reference", _reference_backend)
 register_backend("hopper", _hopper_backend)
+register_backend("engine", _engine_backend)
+register_backend("distributed", _distributed_backend)

@@ -7,6 +7,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core import precision
+from repro_torch.core.distributed import normalize_axis_map
 from repro_torch.core.perf_model import DEVICES, H100_SXM, Device, device_for
 
 #: accepted ``RunConfig.autotune`` modes (``False`` disables; ``True`` is
@@ -39,7 +40,13 @@ class RunConfig:
     ``cache``: ``None``/``True`` is the default cache file (the
     ``REPRO_TORCH_SCHEDULE_CACHE`` variable, else
     ``~/.cache/repro_torch/schedules.json``), a path that file, ``False``
-    no cache."""
+    no cache.
+
+    ``mesh`` and ``axis_map`` place the ``distributed`` backend: a
+    :class:`~repro_torch.launch.mesh.Mesh`, and per grid axis the mesh
+    axes that split it (a name, a sequence of names, or None); unset, the
+    streaming axis is split over every mesh axis.  ``device`` stays where
+    the whole grid lives: the shards live on the mesh's devices."""
     backend: str = "hopper"
     par_time: Optional[int] = None
     bsize: Optional[Union[int, Tuple[int, ...]]] = None
@@ -52,6 +59,10 @@ class RunConfig:
     par_time_max: int = 64
     #: the iterations the model ranks and predicts for
     iters_hint: int = 100
+    #: the distributed backend's mesh (``launch/mesh.py``) and the mesh
+    #: axes that split each grid axis
+    mesh: Optional[object] = None
+    axis_map: Optional[Tuple] = None
     # --- measured tuning (autotune="measure") ------------------------------
     cache: Union[None, bool, str] = None
     tune_top_k: int = 4          # model candidates the tuner times
@@ -81,6 +92,9 @@ class RunConfig:
             object.__setattr__(self, "bsize",
                                tuple(int(b) for b in self.bsize))
         object.__setattr__(self, "device", torch.device(self.device))
+        if self.axis_map is not None:
+            object.__setattr__(self, "axis_map",
+                               normalize_axis_map(self.axis_map))
 
     def normalized_bsize(self, ndim: int) -> Optional[Tuple[int, ...]]:
         """bsize as a per-blocked-dim tuple (``ndim - 1`` entries)."""

@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.api import schedule_cache, tuner
-from repro_torch.api.backends import ExecuteFn, as_program, get_backend
+from repro_torch.api.backends import (ExecuteFn, as_program, get_backend,
+                                      resolve_axis_map)
 from repro_torch.api.config import RunConfig
 from repro_torch.api.problem import StencilProblem
 from repro_torch.core import perf_model
@@ -29,9 +30,50 @@ from repro_torch.core.perf_model import Device, Prediction
 #: there (elsewhere an unpinned V stays 1)
 PAR_VEC_BACKENDS = ("hopper",)
 
+#: built-in backends that run a row a tick: a pinned ``par_vec > 1`` would
+#: price a width they never run, so ``plan()`` refuses it there
+SCALAR_TICK_BACKENDS = ("engine", "distributed")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipLayout:
+    """How the model splits a plan over devices: ``n_chips`` shards in a
+    ``chip_grid`` (shards per grid axis; None off a mesh) on ``n_cards``
+    distinct devices."""
+    n_chips: int = 1
+    chip_grid: Optional[tuple] = None
+    n_cards: int = 1
+
+
+def _chip_layout(problem: StencilProblem, config: RunConfig) -> ChipLayout:
+    """The ``distributed`` backend's shards for the performance model; one
+    chip off a mesh.  Logical shards that share a card are priced as that
+    card running them one after another, their exchange as a copy in its
+    device memory (``perf_model.predict``)."""
+    if config.backend != "distributed" or config.mesh is None:
+        return ChipLayout()
+    mesh = config.mesh
+    chip_grid = tuple(math.prod(mesh.shape[a] for a in names) if names
+                      else 1 for names in resolve_axis_map(problem, config))
+    return ChipLayout(math.prod(chip_grid), chip_grid,
+                      len(mesh.distinct_devices))
+
+
+def _validate_distributed(problem: StencilProblem,
+                          config: RunConfig) -> None:
+    """Fail at plan time, not at the first ``run()``, when the mesh cannot
+    split the grid evenly: the model ceil-divides, so only this catches
+    it."""
+    if config.backend != "distributed" or config.mesh is None:
+        return
+    from repro_torch.core.distributed import shard_extents
+    shard_extents(problem.shape, resolve_axis_map(problem, config),
+                  config.mesh)
+
 
 def _candidate_shortlist(problem: StencilProblem, config: RunConfig,
-                         device: Device, top_k: Optional[int] = None):
+                         device: Device, chips: ChipLayout,
+                         top_k: Optional[int] = None):
     """Model-ranked predictions (§5.3 pruning), best first: the free
     dimensions of the schedule enumerated, kept where the kernel runs
     them (``builder.kernel_limits``: shared memory and tables) and ranked
@@ -43,6 +85,7 @@ def _candidate_shortlist(problem: StencilProblem, config: RunConfig,
     cands = perf_model.autotune(
         problem.stencil, problem.shape, config.iters_hint, device,
         config.resolved_cell_bytes(problem.dtype), config.par_time_max,
+        chips.n_chips, chips.chip_grid, n_cards=chips.n_cards,
         par_time=config.par_time,
         bsize=config.normalized_bsize(problem.ndim), par_vec=par_vec,
         top_k=top_k, bc=problem.structural_bc)
@@ -58,20 +101,20 @@ def _candidate_shortlist(problem: StencilProblem, config: RunConfig,
 
 
 def _resolve_schedule(problem: StencilProblem, config: RunConfig,
-                      device: Device):
+                      device: Device, chips: ChipLayout):
     """``(par_time, bsize, par_vec, candidates)``: pinned, or the model's
     best (§5.3).  An unpinned ``par_vec`` of a pinned schedule is 1."""
     par_time = config.par_time
     bsize = config.normalized_bsize(problem.ndim)
     if not config.autotune and par_time is not None and bsize is not None:
         return par_time, bsize, config.par_vec or 1, ()
-    cands = _candidate_shortlist(problem, config, device)
+    cands = _candidate_shortlist(problem, config, device, chips)
     best = cands[0].geom
     return best.par_time, best.bsize, best.par_vec, tuple(cands)
 
 
 def _cached(problem: StencilProblem, config: RunConfig, device: Device,
-            entry: dict):
+            chips: ChipLayout, entry: dict):
     """The :class:`~repro_torch.api.tuner.TunedCandidate` of a cache entry,
     or None for one that is mangled or names a schedule the backend
     refuses (a miss: re-tune, never a crash)."""
@@ -94,7 +137,8 @@ def _cached(problem: StencilProblem, config: RunConfig, device: Device,
         pred = perf_model.predict(
             problem.stencil, problem.shape, config.iters_hint, bsize,
             par_time, device, config.resolved_cell_bytes(problem.dtype),
-            bc=problem.structural_bc, par_vec=par_vec)
+            chips.n_chips, chips.chip_grid, bc=problem.structural_bc,
+            par_vec=par_vec, n_cards=chips.n_cards)
     except (KeyError, TypeError, ValueError):
         return None
     return tuner.TunedCandidate(
@@ -104,22 +148,23 @@ def _cached(problem: StencilProblem, config: RunConfig, device: Device,
 
 
 def _resolve_measured(problem: StencilProblem, config: RunConfig,
-                      device: Device):
+                      device: Device, chips: ChipLayout):
     """``autotune="measure"``: the schedule from the persistent cache, or
     the model's shortlist timed on the backend with the winner persisted.
     Returns ``(par_time, bsize, par_vec, candidates, from_cache)``, the
     candidates :class:`~repro_torch.api.tuner.TunedCandidate`, fastest
     first."""
     cache = schedule_cache.ScheduleCache.resolve(config.cache)
-    key = schedule_cache.schedule_key(problem, config, device)
+    key = schedule_cache.schedule_key(problem, config, device,
+                                      chips.n_chips, chips.chip_grid)
     if cache is not None:
         entry = cache.get(key)
         cand = None if entry is None else _cached(problem, config, device,
-                                                  entry)
+                                                  chips, entry)
         if cand is not None:
             g = cand.geom
             return g.par_time, g.bsize, g.par_vec, (cand,), True
-    shortlist = _candidate_shortlist(problem, config, device,
+    shortlist = _candidate_shortlist(problem, config, device, chips,
                                      top_k=config.tune_top_k)
     tuned = tuner.measure_candidates(problem, config, shortlist)
     best = tuned[0]
@@ -154,15 +199,24 @@ def plan(problem: StencilProblem,
                          f"{problem.cell_bytes} bytes a cell; "
                          f"cell_bytes={config.cell_bytes} would price "
                          "another kernel")
+    if (config.par_vec is not None and config.par_vec > 1
+            and config.backend in SCALAR_TICK_BACKENDS):
+        raise ValueError(
+            f"par_vec={config.par_vec} is the streaming kernel's knob; "
+            f"backend {config.backend!r} runs a row a tick and cannot "
+            f"honour it: pin par_vec only for {list(PAR_VEC_BACKENDS)} "
+            "(or leave it unset)")
+    _validate_distributed(problem, config)
     device = config.resolved_perf_device()
+    chips = _chip_layout(problem, config)
     geom, cands, from_cache = None, (), False
     try:
         if config.autotune == "measure":
             par_time, bsize, par_vec, cands, from_cache = _resolve_measured(
-                problem, config, device)
+                problem, config, device, chips)
         else:
             par_time, bsize, par_vec, cands = _resolve_schedule(
-                problem, config, device)
+                problem, config, device, chips)
         geom = BlockGeometry(problem.ndim, problem.shape,
                              problem.stencil.radius, par_time, tuple(bsize),
                              par_vec)
@@ -174,7 +228,7 @@ def plan(problem: StencilProblem,
                        _execute=program.execute,
                        _execute_batch=program.execute_batch,
                        candidates=cands, tuned_from_cache=from_cache,
-                       perf_device=device)
+                       perf_device=device, chips=chips)
 
 
 @dataclasses.dataclass
@@ -197,6 +251,8 @@ class StencilPlan:
     tuned_from_cache: bool = False
     #: the card the model priced (``RunConfig.resolved_perf_device``)
     perf_device: Device = perf_model.H100_SXM
+    #: the shards the model priced (the ``distributed`` backend's mesh)
+    chips: ChipLayout = ChipLayout()
 
     @property
     def device(self) -> torch.device:
@@ -419,8 +475,9 @@ class StencilPlan:
             iters if iters is not None else self.config.iters_hint,
             geom.bsize, geom.par_time, device or self.perf_device,
             self.config.resolved_cell_bytes(self.problem.dtype),
-            batch=batch, bc=self.problem.structural_bc,
-            par_vec=geom.par_vec)
+            self.chips.n_chips, self.chips.chip_grid, batch=batch,
+            bc=self.problem.structural_bc, par_vec=geom.par_vec,
+            n_cards=self.chips.n_cards)
 
     def describe(self) -> str:
         st = self.problem.stencil
@@ -443,6 +500,12 @@ class StencilPlan:
                 lines.append("  measured:  " + self.candidates[0].describe())
         else:
             lines.append("  schedule: none (unblocked oracle)")
+        if self.config.mesh is not None and self.config.backend == \
+                "distributed":
+            c = self.chips
+            lines.append(f"  mesh: {c.n_chips} shards, chip_grid="
+                         f"{c.chip_grid}, on {c.n_cards} device(s) of "
+                         f"{self.config.mesh}")
         return "\n".join(lines)
 
     def _require_geometry(self, what: str) -> BlockGeometry:

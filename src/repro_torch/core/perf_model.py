@@ -348,7 +348,8 @@ def driver_times(geom_t: BlockGeometry, dag, batch: int, has_aux: bool,
 def predict(stencil, dims: Sequence[int], iters: int, bsize,
             par_time: int, device: Device = H100_SXM, cell_bytes: int = 4,
             n_chips: int = 1, chip_grid: Sequence[int] | None = None,
-            batch: int = 1, bc=None, par_vec: int = 1) -> Prediction:
+            batch: int = 1, bc=None, par_vec: int = 1,
+            n_cards: int | None = None) -> Prediction:
     """Paper Eqs. (3)-(9) with the compute, collective and issue terms.
 
     ``stencil``: a ``Stencil`` (one stage under ``bc``), a
@@ -357,10 +358,14 @@ def predict(stencil, dims: Sequence[int], iters: int, bsize,
     with it, the read-only aux stream (Hotspot's power, shared by the
     batch) is billed once.  ``bc``: a periodic stream axis bills the
     ``2 * rad * par_time`` stream extension the kernels stream.
-    ``n_chips``/``chip_grid``: the grid split over cards along the
+    ``n_chips``/``chip_grid``: the grid split into shards along the
     streaming axis (or ``chip_grid``), each exchanging a ``rad *
-    par_time`` halo a super-step over ``link_bw``.  The issue term is one
-    launch's (:func:`launch_terms`)."""
+    par_time`` halo a super-step, on ``n_cards`` distinct cards (None: one
+    a shard).  Shards on distinct cards run at once and their exchange,
+    over ``link_bw``, overlaps them; logical shards that share a card run
+    one after another on it, and their exchange is a copy in its device
+    memory (each strip read and written once at ``mem_bw``), after them.
+    The issue term is one launch's (:func:`launch_terms`)."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     if isinstance(bsize, int):
@@ -397,19 +402,23 @@ def predict(stencil, dims: Sequence[int], iters: int, bsize,
 
     # --- collective term: halo exchange once per super-step ---------------
     t_halo = 0.0
+    cards = n_chips if n_cards is None else max(1, min(n_cards, n_chips))
+    per_card = -(-n_chips // cards)      # shards a card runs in turn
     if n_chips > 1:
         local_cells = math.prod(local_dims)
         halo_cells = sum(geom.size_halo * local_cells // local_dims[ax]
                          for ax, c in enumerate(cg) if c > 1)
-        t_halo = (2 * batch * halo_cells * cell_bytes * max(num_read, 1)
-                  / device.link_bw)
+        halo_bytes = 2 * batch * halo_cells * cell_bytes * max(num_read, 1)
+        t_halo = (halo_bytes / device.link_bw if cards > 1
+                  else n_chips * 2 * halo_bytes / device.mem_bw)
 
     n_super = math.ceil(iters / par_time)
     # --- driver term: the halo refresh between launches, serial with them
     t_driver, t_once = driver_times(geom_t, dag, batch, has_aux,
                                     cell_bytes, device)
-    t_step = max(t_mem, t_compute, t_issue, t_halo)
-    run_time = n_super * (t_step + t_driver) + t_once
+    t_kernel = per_card * max(t_mem, t_compute, t_issue)
+    t_step = max(t_kernel, t_halo) if cards > 1 else t_kernel + t_halo
+    run_time = n_super * (t_step + per_card * t_driver) + per_card * t_once
     total_cells = batch * math.prod(dims) * iters
     bound = ("issue" if t_issue >= max(t_mem, t_compute, t_halo)
              else "memory" if t_mem >= max(t_compute, t_halo)
@@ -431,6 +440,7 @@ def autotune(stencil, dims: Sequence[int], iters: int,
              device: Device = H100_SXM, cell_bytes: int = 4,
              par_time_max: int = 64, n_chips: int = 1,
              chip_grid: Sequence[int] | None = None, *,
+             n_cards: int | None = None,
              par_time: int | None = None,
              bsize: Sequence[int] | None = None,
              par_vec: int | None = None,
@@ -476,7 +486,7 @@ def autotune(stencil, dims: Sequence[int], iters: int,
                     continue
                 cands.append(predict(dag, dims, iters, bs, pt, device,
                                      cell_bytes, n_chips, chip_grid,
-                                     par_vec=pv))
+                                     par_vec=pv, n_cards=n_cards))
     cands.sort(key=lambda p: p.run_time)
     return cands if top_k is None else cands[:top_k]
 

@@ -1,1 +1,2 @@
-"""Launchers: ``serve`` (batched prefill + KV-cache decode)."""
+"""Launchers: ``serve`` (batched prefill + KV-cache decode), ``train``, and
+``mesh`` (the ``distributed`` backend's device meshes)."""

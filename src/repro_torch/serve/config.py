@@ -18,9 +18,11 @@ A bucket's ``run`` is the port's :class:`RunConfig`: its ``device``
 defaults to ``"cuda"`` (``"cpu"`` serves through the kernels' plain
 versions); ``"autotune"`` and the tuning keys pass through, and the
 service builds each bucket's plan off the event loop
-(``asyncio.to_thread``), so a measured tune at boot does not block it.  Reference ``RunConfig`` keys that mean nothing here are
-refused by name with the ROADMAP item that would bring them
-(:data:`REFUSED_RUN_KEYS`), never ignored.
+(``asyncio.to_thread``), so a measured tune at boot does not block it.
+A ``"distributed"`` bucket takes its ``mesh`` (``launch/mesh.py``, an
+object, so the bucket is built in Python) and ``axis_map`` as the
+reference's does.  Reference ``RunConfig`` keys that mean nothing here
+are refused by name (:data:`REFUSED_RUN_KEYS`), never ignored.
 
 A :class:`BucketConfig` declares one admission bucket: the exact problem it
 serves, how to run it, and the coalescing/backpressure policy.  The bucket
@@ -44,8 +46,6 @@ REFUSED_RUN_KEYS = {
                  "device='cpu' runs the kernels' plain versions",
     "exec_cache": "it selects XLA's executable cache, which PyTorch does "
                   "not have (it runs eagerly)",
-    "mesh": "multi-device runs are ROADMAP A15",
-    "axis_map": "multi-device runs are ROADMAP A15",
     "block_parallel": "it is the TPU's megacore split; the kernel's grid "
                       "spreads blocks and batch members over every SM",
 }

@@ -1,6 +1,7 @@
 """The port imports and runs — the stencil plan (pinned, and tuned by the
 performance model and by the measured tuner), stage programs (a chain,
-and DAGs on the reference and hopper backends), a custom stencil traced
+and DAGs on the reference and hopper backends), the engine and a 2-shard
+CPU distributed plan, a custom stencil traced
 for the kernel, the LM serving path (qwen3 and granite's untied head; the
 SSM, hybrid, MoE and VLM families' smoke configs, two tokens each; the
 VLM's after its patch embeddings), two training steps and two through the
@@ -77,6 +78,17 @@ runs = [api.plan(api.StencilProblem(wave, (9, 30), boundary="periodic"),
         for b, kw in (("hopper", dict(par_time=2, bsize=12)),
                       ("reference", {}))]
 assert runs[0].shape == (2, 9, 30) and torch.equal(*runs)
+from repro_torch.launch.mesh import make_mesh
+cpu2 = make_mesh((2,), ("d",), ["cpu", "cpu"])
+h2 = api.StencilProblem("hotspot2d", (8, 30), boundary="reflect")
+pw = rng.uniform(0, 0.1, (8, 30)).astype(np.float32)
+g8 = rng.uniform(0.5, 2, (8, 30)).astype(np.float32)
+eng = api.plan(h2, api.RunConfig(backend="engine", par_time=2, bsize=12,
+                                 device="cpu")).run(g8, 5, aux=pw)
+dist = api.plan(h2, api.RunConfig(backend="distributed", par_time=2,
+                                  bsize=12, device="cpu", mesh=cpu2)).run(
+    g8, 5, aux=pw)
+assert eng.shape == (8, 30) and torch.equal(eng, dist)
 from repro_torch.core.stencils import Stencil
 cubic = Stencil("cubic2d", 2, 1, 6, 1, 1, False, ("k",),
                 lambda get, c, aux=None: get((0, 0)) + c["k"] * (

@@ -399,6 +399,27 @@ class TestService:
                     r.problem.dtype, r.iters,
                     scale=100 if r.problem.needs_aux else None))
 
+    def test_distributed_bucket_equals_plan_run(self):
+        """A ``"distributed"`` bucket on a 2-shard CPU mesh (the mesh and
+        ``axis_map`` keys the port once refused) serves requests, coalesced
+        into ``run_batch`` rounds, each equal to ``plan().run()`` of the
+        same request on the same config bit for bit."""
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((2,), ("d",), [torch.device("cpu")] * 2)
+        run = {"backend": "distributed", "par_time": 2, "bsize": 16,
+               "device": "cpu", "mesh": mesh, "axis_map": [None, "d"]}
+        bucket = make_bucket(run=run, max_wait_ms=10.0)
+        assert bucket.run.axis_map == (None, ("d",))
+        gs = grids_for(5, seed=3)
+        reqs = [StencilRequest("diffusion2d", g, 3 + i % 2)
+                for i, g in enumerate(gs)]
+        results, snap, _ = run_async(_gather_service(
+            ServiceConfig(buckets=(bucket,)), reqs))
+        assert snap["completed"] == len(reqs) and snap["failed_total"] == 0
+        p = plan(StencilProblem("diffusion2d", SHAPE), RunConfig(**run))
+        for r, res in zip(reqs, results):
+            assert torch.equal(res.grid, p.run(r.grid, r.iters))
+
     def test_unmatched_dtype_and_shape_rejected(self):
         async def main():
             svc = await serve(ServiceConfig(buckets=(make_bucket(),)),
@@ -739,10 +760,13 @@ class TestResilience:
 
 
 #: every injection point the port registers (spelled out: a list built at
-#: import time would depend on which modules the worker imported first)
+#: import time would depend on which modules the worker imported first);
+#: ``distributed.exchange`` registers with ``repro_torch.api``, as in the
+#: reference, and never fires on this workload's ``hopper`` bucket
 CHAOS_POINTS = ("backend.execute", "backend.execute.result",
                 "backend.execute_batch", "backend.execute_batch.result",
-                "checkpoint.restore", "checkpoint.save", "schedule_cache.get",
+                "checkpoint.restore", "checkpoint.save",
+                "distributed.exchange", "schedule_cache.get",
                 "schedule_cache.put", "serve.launch")
 
 
