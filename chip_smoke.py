@@ -310,7 +310,26 @@ On one CUDA card, from the root of a checkout:
     60-token prompt after its 4-position prefix) and qwen3-1.7b's under
     "dots" and compressed on the card against the CPU within
     ``SMOKE_TOL``;
-21. prints the tuning phase's rows as one ``{"tuning": [...]}`` line,
+21. runs the A16i phase (``a16i_phase``: LM serving on a mesh of logical
+    shards of the card, ``generate(..., mesh=)``): (a) full-width
+    qwen3-moe-30b-a3b at batch 8 x 4096 + 16 on a (1, 4) mesh (prefill
+    through the expert-parallel all-to-all route with its capacity,
+    decode through the broadcast route) and with no mesh in the same run:
+    prefill ms, decode ms a step, the (token, pick) pairs dropped a layer
+    and in all, each all-to-all call's kept pairs held to the capacity
+    rule's count from the routed expert ids, 48 + 0 flash launches each,
+    bytes at rest a shard, peak memory; the same on the launchers'
+    default one-card mesh (1, 1); layer 0's route with real activations
+    held on the card in f32 against the CPU within 1e-3 (its bf16 figure
+    printed); 4 layers trained on (1, 1) (the all-to-all route under
+    autograd, the first loss bit for bit the no-grad one); both launchers
+    at the smoke width with their default mesh; (b) full-width
+    qwen3-1.7b on (2, 2) (two data shards, the KV cache split on its
+    sequence): 56 + 0 flash launches, bf16 tokens and every pick's logits
+    against no mesh printed, 2 layers in f32 held within 1e-3 with the
+    tokens equal; each arch's figures go to its flash entry
+    (``"mesh_serve"``);
+22. prints the tuning phase's rows as one ``{"tuning": [...]}`` line,
     step 3a's as one ``{"backends": ...}`` line, then one ``{"kernels":
     [...], "card": ...}`` line and, last, the device line.
 
@@ -5050,6 +5069,562 @@ DIST_CASES = (
 )
 
 
+# --- A16i: LM serving on a mesh --------------------------------------------
+
+#: (a) qwen3-moe-30b-a3b on a (1, 4) mesh of logical shards of the card:
+#: prefill through the all-to-all route (4 expert shards), decode through
+#: the broadcast route; (b) qwen3-1.7b on (2, 2): two data shards and the
+#: KV cache split on its sequence
+A16I_MOE_MESH, A16I_DENSE_MESH = (1, 4), (2, 2)
+#: (a) layer 0's route with real activations, held on the card against the
+#: CPU in f32 on the first A16I_ROUTE_ROWS rows of A16I_ROUTE_SEQ positions
+#: (the same inputs, a shortened batch), within A16I_TOL relative L2
+A16I_ROUTE_ROWS, A16I_ROUTE_SEQ, A16I_TOL = 1, 2048, 1e-3
+#: (b) the f32 hold: qwen3-1.7b at full width cut to A16I_F32_LAYERS layers,
+#: batch SSM_F32_BATCH x A16I_F32_SEQ + A16I_F32_NEW, on the mesh against
+#: no mesh, within A16I_TOL
+A16I_F32_LAYERS, A16I_F32_SEQ, A16I_F32_NEW = 2, 512, 8
+#: (a) the launchers' default mesh on a one-card machine, (1, 1): one
+#: expert shard, the all-to-all route in prefill, decode and training;
+#: the capacity reckoning (``capacity_reckoning``) of a prefill is printed
+#: in full at layers 0 and A16I_DEEP_LAYER
+A16I_ONE_MESH, A16I_DEEP_LAYER = (1, 1), 35
+#: (a) training under the launchers' default mesh: qwen3-moe-30b-a3b at
+#: full width cut to A16C_TRAIN_LAYERS layers, A16C_TRAIN_BATCH x
+#: TRAIN_SEQ, A16I_TRAIN_STEPS AdamW steps
+A16I_TRAIN_STEPS = 2
+
+
+def capacity_reckoning(calls, log, cfg, n_ep: int) -> dict:
+    """Hold each all-to-all call's kept (token, pick) pairs
+    (``moe.DROP_LOG``) to what the capacity rule alone keeps, reckoned by
+    counts from the expert ids each of its shards routed (``RouteLog``:
+    a call's ``n_dp * n_ep`` route calls come together, shards row-major;
+    a call's ``T`` is a shard's routed rows, ``n_dp`` its pairs over
+    ``n_ep T k``; route calls of no all-to-all call, the broadcast
+    route's, come after the last): a shard's send buffer for expert shard
+    ``j`` keeps its pairs for ``j``'s experts in ascending expert order
+    (the stable sort's) until ``C_s`` are kept, and expert shard ``j``
+    keeps each local expert's first ``C_e`` of what its senders kept.
+    ``C_s`` and ``C_e`` come from the rule's formula, written out here.
+    Returns per-call rows (pairs, kept, dropped at the send and at the
+    expert, ``C_s``, ``C_e``, the most pairs a shard sent one expert
+    shard, the most an expert received, the experts past ``C_e``, the
+    busiest expert's load over the mean); raises where a call kept
+    another number of pairs."""
+    import torch
+    E, k = cfg.n_experts, cfg.top_k
+    e_loc = E // n_ep
+    rows, bad, at = [], [], 0
+    for n, entry in enumerate(log):
+        T = calls[at].shape[0]
+        n_dp = entry["pairs"] // (n_ep * T * k)
+        ids = calls[at:at + n_dp * n_ep]
+        at += n_dp * n_ep
+        c_s = max(8, -(-(T * k * int(8 * cfg.moe_capacity)) // (8 * n_ep)))
+        c_s = -(-c_s // 8) * 8
+        c_e = max(8, -(-(n_ep * c_s) // e_loc))
+        kept1 = kept2 = max_send = max_recv = over = 0
+        load = torch.zeros(E, dtype=torch.long)
+        for d in range(n_dp):
+            recv = torch.zeros(E, dtype=torch.long)
+            for m in range(n_ep):
+                cnt = torch.bincount(ids[d * n_ep + m].reshape(-1).cpu(),
+                                     minlength=E)
+                load += cnt
+                c = cnt.view(n_ep, e_loc)
+                before = c.cumsum(1) - c
+                recv += torch.minimum(c, (c_s - before).clamp(min=0)) \
+                    .reshape(-1)
+                max_send = max(max_send, int(c.sum(1).max()))
+            max_recv = max(max_recv, int(recv.max()))
+            over += int((recv > c_e).sum())
+            kept1 += int(recv.sum())
+            kept2 += int(recv.clamp(max=c_e).sum())
+        pairs = sum(x.numel() for x in ids)
+        if entry["pairs"] != pairs or int(entry["processed"]) != kept2 \
+                or any(x.shape[0] != T for x in ids):
+            bad.append(n)
+        rows.append({"call": n, "pairs": pairs,
+                     "kept": int(entry["processed"]), "rule_kept": kept2,
+                     "dropped_at_send": pairs - kept1,
+                     "dropped_at_expert": kept1 - kept2,
+                     "c_s": c_s, "c_e": c_e,
+                     "max_sent_to_a_shard": max_send,
+                     "max_received_by_an_expert": max_recv,
+                     "experts_past_c_e": over,
+                     "max_load_over_mean": float(load.max()) * E / pairs})
+    if bad:
+        raise AssertionError(f"all-to-all calls kept other pairs than the "
+                             f"capacity rule: {[rows[i] for i in bad]}")
+    return rows
+
+
+def capacity_summary(rows) -> dict:
+    """``capacity_reckoning``'s rows of one pass over the layers, for the
+    kernels line: the capacities, the drops at each stage, the busiest
+    expert's load a layer, and layers 0 and A16I_DEEP_LAYER in full."""
+    return {"c_s": rows[0]["c_s"], "c_e": rows[0]["c_e"],
+            "pairs": sum(r["pairs"] for r in rows),
+            "dropped_at_send": sum(r["dropped_at_send"] for r in rows),
+            "dropped_at_expert": sum(r["dropped_at_expert"] for r in rows),
+            "max_load_over_mean": [r["max_load_over_mean"] for r in rows],
+            "layer0": rows[0],
+            "deep_layer": rows[min(A16I_DEEP_LAYER, len(rows) - 1)]}
+
+
+def _mesh_run(label, cfg, params, tokens, new, mesh, smi, drops=False,
+              reckon=False):
+    """One ``generate`` (``mesh`` ``None``: one device) with the launch
+    counts at 0 just before and read just after: its times, launches,
+    peak memory and, with ``drops``, the (token, pick) pairs that the
+    all-to-all route dropped a layer (``moe.DROP_LOG``); with ``reckon``
+    also the prefill's drops held to the capacity rule
+    (``capacity_reckoning``, its routes read by ``RouteLog``)."""
+    import contextlib
+
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe as MOE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    MOE.DROP_LOG = [] if drops else None
+    with (RouteLog() if reckon else contextlib.nullcontext()) as routes:
+        out = generate(cfg, params, tokens, new, mesh=mesh)
+    log, MOE.DROP_LOG = MOE.DROP_LOG, None
+    B, S = tokens.shape
+    res = {"prefill_ms": out.prefill_s * 1e3,
+           "prefill_tok_per_s": B * S / out.prefill_s,
+           "decode_ms_per_step": out.decode_s * 1e3 / (new - 1),
+           "prefill_launches": out.prefill_launches,
+           "decode_launches": out.decode_launches,
+           "launches": _launch_counts()[0],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if log is not None:
+        # the prefill's calls come first, one a layer on one data shard;
+        # on one expert shard decode takes the all-to-all route too
+        pre = log[:cfg.n_layers]
+        per = [(e["pairs"] - int(e["processed"])) / e["pairs"] for e in pre]
+        res["a2a_calls"] = len(log)
+        res["dropped_share_per_layer"] = per
+        res["dropped_share"] = sum(e["pairs"] - int(e["processed"])
+                                   for e in pre) / max(
+                                       1, sum(e["pairs"] for e in pre))
+        res["dropped_all_calls"] = sum(e["pairs"] - int(e["processed"])
+                                       for e in log)
+    print(f"  {label}: prefill {res['prefill_ms']:.3f} ms "
+          f"({res['prefill_tok_per_s']:.1f} tok/s), decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step; flash launches "
+          f"{out.prefill_launches} + {out.decode_launches}; peak "
+          f"{res['peak_memory_gb']:.3f} GB"
+          + (f"; the prefill dropped {res['dropped_share']:.5f} of (token, "
+             f"pick) pairs, per layer {[round(x, 5) for x in per]}; "
+             f"{res['dropped_all_calls']} pairs dropped over all "
+             f"{len(log)} all-to-all calls" if log is not None else "")
+          + f" [{smi}]", flush=True)
+    if reckon:
+        rows = capacity_reckoning(routes.calls, log, cfg,
+                                  mesh.shape["model"])
+        pre = rows[:cfg.n_layers]       # the prefill's calls, a layer each
+        res["capacity"] = capacity_summary(pre)
+        print(f"  {label}: each of {len(rows)} all-to-all calls kept the "
+              f"pairs the capacity rule keeps; in prefill (C_s "
+              f"{pre[0]['c_s']}, C_e {pre[0]['c_e']}) dropped at the send "
+              f"{sum(r['dropped_at_send'] for r in pre)}, at the expert "
+              f"{sum(r['dropped_at_expert'] for r in pre)} of "
+              f"{sum(r['pairs'] for r in pre)} pairs; busiest expert's load "
+              f"over the mean a layer "
+              f"{[round(r['max_load_over_mean'], 2) for r in pre]}",
+              flush=True)
+        for r in (pre[0], pre[min(A16I_DEEP_LAYER, len(pre) - 1)]):
+            print(f"    layer {r['call']}: {r}", flush=True)
+    return out, res
+
+
+def _at_rest(cfg, params, mesh, B, S_max):
+    """Bytes each mesh position holds at rest: the parameters placed by
+    ``param_axes`` and the KV cache by ``cache_axes`` (as a device of the
+    mesh would hold them; on one card the pieces are views)."""
+    import math
+
+    import torch
+    from repro_torch.models.transformer import cache_axes, param_axes
+    from repro_torch.parallel.sharding import (bytes_by_position,
+                                               default_rules, resolve_spec,
+                                               shard_tree)
+    rules = default_rules()
+    placed = shard_tree(params, param_axes(cfg), mesh, rules)
+    per = bytes_by_position(placed, mesh)
+    kv_shape = (cfg.causal_attentions, B, S_max, cfg.n_kv, cfg.d_head)
+    spec = resolve_spec(kv_shape, cache_axes(cfg)["k"], mesh, rules)
+    split = math.prod(math.prod(mesh.shape[a] for a in
+                                ((v,) if isinstance(v, str) else v))
+                      for v in spec if v is not None)
+    kv = 2 * math.prod(kv_shape) * torch.empty((), dtype=cfg.tdtype) \
+        .element_size() // split
+    return {"params_gb": [per[p] / 1e9 for p in sorted(per)],
+            "kv_cache_gb": kv / 1e9, "kv_spec": [str(v) for v in spec]}
+
+
+def _layer0_moe_input(params, cfg, tokens):
+    """Layer 0's MoE input (its normed residual after attention) for
+    ``tokens``, and layer 0's MoE weights."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.attention import self_attention
+    from repro_torch.models.transformer import _embed, _unstack
+    bp = _unstack(params["blocks"], cfg.n_layers)[0]
+    x = _embed(params, cfg, tokens, None)
+    pos = torch.arange(x.shape[1], device=x.device)
+    x = x + self_attention(L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                           bp["attn"], cfg, pos)
+    return L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp["moe"]
+
+
+def a16i_route_check(params, cfg, tokens, device, smi) -> dict:
+    """Layer 0's all-to-all route on the (1, 4) mesh with real
+    activations (layer 0's MoE input over the first A16I_ROUTE_ROWS x
+    A16I_ROUTE_SEQ tokens): on the card in f32 against the CPU in f32
+    (the same inputs and weights, cast), held within A16I_TOL; the card's
+    bf16 route against the CPU's f32 printed; the dropped pairs of each."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel.sharding import default_rules
+    rules = default_rules()
+    with torch.inference_mode():
+        xn, p = _layer0_moe_input(params, cfg, tokens[:A16I_ROUTE_ROWS,
+                                                       :A16I_ROUTE_SEQ])
+        outs = {}
+        for label, where, dt in (("card_bf16", device, None),
+                                 ("card_f32", device, torch.float32),
+                                 ("cpu_f32", torch.device("cpu"),
+                                  torch.float32)):
+            mesh = make_mesh(A16I_MOE_MESH, ("data", "model"),
+                             [where] * int(np.prod(A16I_MOE_MESH)))
+            x = xn.to(where, dt or xn.dtype)
+            q = {k: v.to(where, torch.float32 if k == "router" else
+                         (dt or v.dtype)) for k, v in p.items()}
+            MOE.DROP_LOG = []
+            out, aux = MOE.ep_a2a_path(x, q, cfg, mesh, rules)
+            log, MOE.DROP_LOG = MOE.DROP_LOG, None
+            outs[label] = (out.float().cpu(), float(aux),
+                           log[0]["pairs"] - int(log[0]["processed"]))
+            del x, q, out
+    want = outs["cpu_f32"][0]
+    res = {"route_f32_rel_err": rel_err(outs["card_f32"][0], want),
+           "route_bf16_rel_err": rel_err(outs["card_bf16"][0], want),
+           "route_dropped": {k: v[2] for k, v in outs.items()},
+           "route_aux": {k: v[1] for k, v in outs.items()},
+           "route_tokens": A16I_ROUTE_ROWS * A16I_ROUTE_SEQ}
+    print(f"  layer 0's all-to-all route ({A16I_ROUTE_ROWS} x "
+          f"{A16I_ROUTE_SEQ} tokens of real activations, mesh "
+          f"{A16I_MOE_MESH}): card f32 against CPU f32 rel L2 "
+          f"{res['route_f32_rel_err']:.3g}, card bf16 against CPU f32 "
+          f"{res['route_bf16_rel_err']:.3g}; pairs dropped "
+          f"{res['route_dropped']}; aux {res['route_aux']} [{smi}]",
+          flush=True)
+    if res["route_f32_rel_err"] > A16I_TOL:
+        raise AssertionError(f"layer 0's route on the card differs from "
+                             f"the CPU's beyond {A16I_TOL}")
+    return res
+
+
+def a16i_phase(device, peaks, smi) -> dict:
+    """(a) qwen3-moe-30b-a3b at full width (bf16) served by ``generate`` at
+    batch LM_BATCH x LM_PROMPT + LM_NEW on a (1, 4) mesh of logical shards
+    of the card (prefill: the all-to-all route, 4 expert shards, capacity
+    1.25; decode: the broadcast route) and with no mesh in the same run:
+    prefill ms, decode ms a step (each path run cold, then warm: the warm
+    run's), pairs dropped a layer and in all, held layer by layer to the
+    capacity rule (``capacity_reckoning``), flash launches (48 + 0
+    both), bytes at rest a shard, peak memory; once more on the
+    launchers' default one-card mesh (1, 1); layer 0's route held on the
+    card against the CPU in f32 (``a16i_route_check``); trained cut in
+    depth on (1, 1) (``a16i_train_check``) and both launchers at the
+    smoke width with their default mesh (``a16i_launcher_check``).
+    (b) qwen3-1.7b at full width on a (2, 2) mesh (two data shards, the KV
+    cache split on its sequence over ``model``) against no mesh: 56 + 0
+    flash launches (28 a data shard), the bf16 greedy tokens and each
+    pick's logits printed (``_against_no_mesh``); the same at 2 layers in
+    f32 held within A16I_TOL with the tokens equal.  Returns each arch's
+    figures for its flash entry."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    out = {}
+    B, S, new = LM_BATCH, LM_PROMPT, LM_NEW
+    for arch, shape in ((A16C_ARCH, A16I_MOE_MESH),
+                        (LM_ARCH, A16I_DENSE_MESH)):
+        cfg = get_config(arch)
+        mesh = make_mesh(shape, ("data", "model"),
+                         [device] * int(np.prod(shape)))
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            1, cfg.vocab, (B, S), dtype=np.int32)).long().to(device)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device)
+        rest = _at_rest(cfg, params, mesh, B, S + new)
+        print(f"A16i: {arch} on a {shape} mesh of logical shards of the "
+              f"card, batch {B} x {S} + {new}: parameters at rest a shard "
+              f"{[round(x, 3) for x in rest['params_gb']]} GB, KV cache a "
+              f"shard {rest['kv_cache_gb']:.3f} GB (spec {rest['kv_spec']}) "
+              f"[{smi}]", flush=True)
+        moe = cfg.family == "moe"
+        _mesh_run(f"{arch} no mesh (cold)", cfg, params, toks, new, None,
+                  smi)
+        plain, one = _mesh_run(f"{arch} no mesh (warm)", cfg, params, toks,
+                               new, None, smi)
+        _, cold = _mesh_run(f"{arch} mesh {shape} (cold)", cfg, params,
+                            toks, new, mesh, smi, drops=moe, reckon=moe)
+        meshed, res = _mesh_run(f"{arch} mesh {shape} (warm)", cfg, params,
+                                toks, new, mesh, smi, drops=moe)
+        if moe:
+            res["capacity"] = cold["capacity"]
+        n_data = shape[0]
+        want = (cfg.causal_attentions * n_data, 0)
+        for label, r in (("no mesh", one), ("mesh", res)):
+            got = (r["prefill_launches"], r["decode_launches"])
+            w = want if label == "mesh" else (cfg.causal_attentions, 0)
+            if got != w or r["launches"] != w[0]:
+                raise AssertionError(f"{arch} {label}: flash launches {got}, "
+                                     f"{r['launches']} in all; expected {w}")
+        if not bool(meshed.logits.isfinite().all()) or not bool(
+                ((meshed.tokens >= 0) & (meshed.tokens < cfg.vocab)).all()):
+            raise AssertionError(f"{arch} on the mesh: non-finite logits or "
+                                 f"tokens outside the vocab")
+        res.update({"mesh": list(shape), "at_rest": rest, "no_mesh": one,
+                    **_against_no_mesh(f"{arch} bf16, mesh {shape}",
+                                       meshed, plain, cfg.vocab, smi)})
+        del meshed
+        if moe:
+            torch.cuda.empty_cache()
+            ones = make_mesh(A16I_ONE_MESH, ("data", "model"), [device])
+            single, res["one_mesh"] = _mesh_run(
+                f"{arch} mesh {A16I_ONE_MESH}, the launchers' default on "
+                f"one card (one run)", cfg, params, toks, new, ones, smi,
+                drops=True, reckon=True)
+            res["one_mesh"].update(_against_no_mesh(
+                f"{arch} bf16, mesh {A16I_ONE_MESH}", single, plain,
+                cfg.vocab, smi))
+            del single
+        del plain
+        if moe:
+            res.update(a16i_route_check(params, cfg, toks, device, smi))
+        del params
+        torch.cuda.empty_cache()
+        if moe:
+            res["one_mesh_train"] = a16i_train_check(device, smi)
+            res["launchers"] = a16i_launcher_check(device, smi)
+        else:
+            res.update(a16i_f32_check(cfg, mesh, toks, device, smi))
+        out[arch] = res
+    print(f"A16i phase: {time.perf_counter() - t0:.3f} s [{smi}]",
+          flush=True)
+    return out
+
+
+def _against_no_mesh(label, meshed, plain, V, smi) -> dict:
+    """A meshed ``generate`` against the one-device one on the same
+    inputs: each pick's logits' relative L2 (pick 0 the prefill's, the
+    rest decode steps', which read different contexts once a token
+    differs), whether the prefill's are bit for bit, and the share of
+    greedy tokens equal."""
+    import torch
+    per = [rel_err(meshed.logits[:, i, :V], plain.logits[:, i, :V])
+           for i in range(meshed.logits.shape[1])]
+    res = {"first_logits_rel_err": per[0],
+           "first_logits_bit_equal": bool(torch.equal(
+               meshed.logits[:, 0], plain.logits[:, 0])),
+           "logits_rel_err_per_pick": per,
+           "decode_logits_rel_err_max": max(per[1:], default=0.0),
+           "tokens_equal": float((meshed.tokens == plain.tokens).float()
+                                 .mean()),
+           "first_pick_equal": float((meshed.tokens[:, 0] ==
+                                      plain.tokens[:, 0]).float().mean())}
+    print(f"  {label} against no mesh: prefill logits bit for bit "
+          f"{res['first_logits_bit_equal']}, rel L2 {per[0]:.4g}; decode "
+          f"picks' logits rel L2 {[float(f'{x:.4g}') for x in per[1:]]}; "
+          f"first picks equal {res['first_pick_equal']:.3f}, all greedy "
+          f"tokens equal {res['tokens_equal']:.3f} [{smi}]", flush=True)
+    return res
+
+
+def a16i_train_check(device, smi) -> dict:
+    """Training under the launchers' default mesh on one card
+    (``launch.train.training_mesh`` of no shape: (1, 1) on a one-card
+    machine): qwen3-moe-30b-a3b at full width cut to A16C_TRAIN_LAYERS
+    layers, A16I_TRAIN_STEPS AdamW steps at A16C_TRAIN_BATCH x TRAIN_SEQ
+    under its rules, so each MoE layer's forward and backward take the
+    all-to-all route under autograd: (2c, c, c) flash launches a step,
+    finite losses, the first bit for bit the batch's loss under the same
+    rules without autograd, whose all-to-all calls keep the capacity
+    rule's pairs (``capacity_reckoning``); the pairs it dropped, the
+    busiest expert's load, the commonest token's share of the batch (the
+    pipeline's tokens are Zipf-distributed) and the distance from the
+    grouped route's loss printed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import device_batch, training_mesh
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import use_sharding_rules
+    from repro_torch.train import make_train_step
+    cut = dataclasses.replace(get_config(A16C_ARCH),
+                              n_layers=A16C_TRAIN_LAYERS)
+    mesh, rules = training_mesh(None, device, cut)
+    params = init_params(cut, torch.Generator(device=device).manual_seed(0),
+                         device)
+    opt = adamw_init(params)
+    data = SyntheticLMDataset(DataConfig(vocab=cut.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=A16C_TRAIN_BATCH,
+                                         seed=0))
+    batches = [device_batch(data.batch_at(s), device)
+               for s in range(A16I_TRAIN_STEPS)]
+    step = make_train_step(cut, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                            total_steps=A16I_TRAIN_STEPS))
+    with torch.no_grad():
+        grouped = lm_loss(params, cut, batches[0]).item()
+        MOE.DROP_LOG = []
+        with use_sharding_rules(mesh, rules), RouteLog() as routes:
+            loss0 = lm_loss(params, cut, batches[0]).item()
+        log, MOE.DROP_LOG = MOE.DROP_LOG, None
+    rows = capacity_reckoning(routes.calls, log, cut, mesh.shape["model"])
+    dropped = sum(e["pairs"] - int(e["processed"]) for e in log) / sum(
+        e["pairs"] for e in log)
+    tokens = batches[0]["tokens"]
+    top = torch.bincount(tokens.reshape(-1)).max().item() / tokens.numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, secs = [], []
+    with use_sharding_rules(mesh, rules):
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(metrics["loss"].item())
+            secs.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    L = cut.causal_attentions
+    res = {"mesh": dict(mesh.shape), "layers": cut.n_layers,
+           "batch": [A16C_TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
+           "loss_no_grad": loss0, "grouped_loss_no_grad": grouped,
+           "dropped_share": dropped, "a2a_calls_no_grad": len(log),
+           "capacity": capacity_summary(rows), "top_token_share": top,
+           "step_s": secs, "launches": list(launches),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt
+    torch.cuda.empty_cache()
+    print(f"  {A16C_ARCH} at {cut.n_layers} layers trained on {mesh} (the "
+          f"launchers' default on one card), {A16C_TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: losses {losses}, the batch's loss without "
+          f"autograd under the rules {loss0} (grouped route {grouped}; "
+          f"{dropped:.5f} of pairs dropped over {len(log)} all-to-all "
+          f"calls, each the capacity rule's count: C_e {rows[0]['c_e']}, "
+          f"busiest expert's load over the mean a layer "
+          f"{[round(r['max_load_over_mean'], 2) for r in rows]}, the "
+          f"commonest token {top:.3f} of the batch's); seconds a step "
+          f"{secs}; launches {launches}; peak "
+          f"{res['peak_memory_gb']:.3f} GB [{smi}]", flush=True)
+    want = tuple(n * A16I_TRAIN_STEPS for n in (2 * L, L, L))
+    if launches != want or not all(math.isfinite(x) for x in losses) \
+            or losses[0] != loss0 or not log:
+        raise AssertionError(f"training on the launchers' default mesh: "
+                             f"{res}; launches expected {want}")
+    return res
+
+
+def a16i_launcher_check(device, smi) -> dict:
+    """``launch.serve.main`` and ``launch.train.main`` on
+    qwen3-moe-30b-a3b's smoke config as a user calls them on a one-card
+    machine (no ``--mesh-shape``, no ``--device``: the default mesh,
+    (1, 1) over the card), so prefill, decode (one expert shard divides a
+    step's one token) and training take the all-to-all route: its calls
+    (``moe.DROP_LOG``, one a layer a step) and the flash launches counted,
+    the tokens and losses finite."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe as MOE
+    cfg = smoke_config(A16C_ARCH)
+    flags = [] if torch.cuda.device_count() == 1 else ["--device",
+                                                       str(device)]
+    _zero_launch_counts()
+    MOE.DROP_LOG = []
+    gen = launch_serve.main(["--arch", A16C_ARCH, "--smoke", "--max-new",
+                             "4", *flags])
+    serve_calls, MOE.DROP_LOG = len(MOE.DROP_LOG), []
+    serve_launches = _launch_counts()
+    events = launch_train.main(["--arch", A16C_ARCH, "--smoke", "--steps",
+                                "3", "--batch", "4", "--seq", "64", *flags])
+    train_calls, MOE.DROP_LOG = len(MOE.DROP_LOG), None
+    train_launches = tuple(b - a for a, b in zip(serve_launches,
+                                                 _launch_counts()))
+    res = {"serve_a2a_calls": serve_calls, "serve_launches":
+           [gen.prefill_launches, gen.decode_launches],
+           "train_a2a_calls": train_calls,
+           "train_launches": list(train_launches),
+           "train_losses": events["losses"]}
+    print(f"  launchers on {A16C_ARCH}'s smoke config, default mesh: serve "
+          f"{serve_calls} all-to-all calls, flash {gen.prefill_launches} + "
+          f"{gen.decode_launches}; train losses {events['losses']}, "
+          f"{train_calls} all-to-all calls, launches {train_launches} "
+          f"[{smi}]", flush=True)
+    L = cfg.causal_attentions
+    if serve_calls != 4 * cfg.n_layers or (gen.prefill_launches,
+                                       gen.decode_launches) != (L, 0) \
+            or train_calls < 3 * cfg.n_layers or not all(train_launches) \
+            or not all(math.isfinite(x) for x in events["losses"]) \
+            or not bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab))
+                        .all()):
+        raise AssertionError(f"the launchers' default mesh: {res}")
+    return res
+
+
+def a16i_f32_check(cfg, mesh, tokens, device, smi) -> dict:
+    """``cfg`` in f32 cut to A16I_F32_LAYERS layers (seed 0), greedy
+    ``generate`` of SSM_F32_BATCH x A16I_F32_SEQ + A16I_F32_NEW on
+    ``mesh`` against no mesh: every pick's logits within A16I_TOL
+    relative L2 and the tokens equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+    cut = dataclasses.replace(cfg, n_layers=A16I_F32_LAYERS,
+                              dtype="float32")
+    params = init_params(cut, torch.Generator(device=device).manual_seed(0),
+                         device)
+    toks = tokens[:SSM_F32_BATCH, :A16I_F32_SEQ]
+    plain = generate(cut, params, toks, A16I_F32_NEW)
+    meshed = generate(cut, params, toks, A16I_F32_NEW, mesh=mesh)
+    V = cut.vocab
+    res = {"f32_layers": A16I_F32_LAYERS,
+           "f32_logits_rel_err": rel_err(meshed.logits[..., :V],
+                                         plain.logits[..., :V]),
+           "f32_tokens_equal": bool(torch.equal(meshed.tokens,
+                                                plain.tokens))}
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name} f32 at {A16I_F32_LAYERS} layers, batch "
+          f"{SSM_F32_BATCH} x {A16I_F32_SEQ} + {A16I_F32_NEW}, mesh against "
+          f"no mesh: logits rel L2 {res['f32_logits_rel_err']:.3g}, tokens "
+          f"equal {res['f32_tokens_equal']} [{smi}]", flush=True)
+    if res["f32_logits_rel_err"] > A16I_TOL or not res["f32_tokens_equal"]:
+        raise AssertionError(f"{cfg.name} in f32 on the mesh: {res}")
+    return res
+
+
 def engine_phase(device, smi: str) -> tuple:
     """The ``engine`` backend (``core/engine.py``, torch ops, no
     hand-written kernel) on the four Table-2 stencils at the main path's
@@ -5319,6 +5894,11 @@ def main() -> int:
     kernels.extend(a16c_phase(device, peaks))
     torch.cuda.empty_cache()
     kernels.extend(a16gh_phase(device, peaks))
+    torch.cuda.empty_cache()
+    a16i = a16i_phase(device, peaks, smi)
+    for arch, rows in a16i.items():
+        entry = next(k for k in kernels if k["name"] == f"flash_fwd[{arch}]")
+        entry["mesh_serve"] = rows
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"tuning": tuning}))

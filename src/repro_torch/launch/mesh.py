@@ -1,5 +1,7 @@
-"""Device meshes for the ``distributed`` backend (the reference's
-``launch/mesh.py``).
+"""Device meshes (the reference's ``launch/mesh.py``): the ``distributed``
+backend's, and the LM side's, on which ``launch/serve.py`` places
+parameters and caches by ``parallel/sharding.py``'s rules and runs each
+data shard and each expert-parallel shard of a MoE layer.
 
 A :class:`Mesh` is single-controller, as a JAX ``Mesh`` is: an object array
 of ``torch.device``\\ s with one name per axis, driven by one process that
@@ -8,6 +10,11 @@ holds every shard (``core/distributed.py``).  The reference's API is
 device; one card cannot hold two NCCL ranks, so a process group could not
 run a halo exchange on one card at all; and the same code moves halos
 between cards by peer copies when a machine has several.
+
+A mesh named ``("data", "model")`` (or ``("pod", "data", "model")``)
+serves the LM side (``parallel/sharding.py`` places on it, and its
+``submesh`` is one data shard's view, the mesh a data shard's prefill or
+decode step runs its MoE layers on).
 
 ``make_production_mesh`` (the reference's 256 TPU chips) serves only its
 dry run (``launch/dryrun.py``) and comes with it (ROADMAP A17).
@@ -101,3 +108,4 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
 def dp_axes(mesh: Mesh) -> tuple:
     """The mesh's data-parallel axes: ``pod`` and ``data``, those it has."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+

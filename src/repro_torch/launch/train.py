@@ -1,6 +1,19 @@
-"""Training launcher on one device: config -> data pipeline -> train step
--> fault-tolerant loop (checkpoint/restart, straggler detection, failure
-retry).
+"""Training launcher: config -> mesh -> sharding rules -> data pipeline ->
+train step -> fault-tolerant loop (checkpoint/restart, straggler
+detection, failure retry).
+
+As the reference's launcher does, it builds a mesh (``--mesh-shape``
+over the cards ``--device`` names, as ``launch.serve.serving_mesh``
+does: default ``(n, 1)`` over the ``n`` visible cards; ``--device
+cuda:N`` logical shards of card N, ``--device cpu`` of the CPU) and runs
+every step under the reference's sharding rules, so a MoE layer trains
+through the expert-parallel all-to-all route and its capacity
+(``models/moe.py``).  The parameters, the optimizer state and the
+batches stay whole on the mesh's one device: a mesh over more than one
+distinct device is refused (ROADMAP A16i-train), so on a host of several
+cards pass ``--mesh-shape 1,1`` (the first card) or ``--device cuda:N``;
+a mesh of logical shards on one device is taken (``--mesh-shape 2,2
+--device cpu``).
 
 On a CUDA device each causal attention (every dense, decoder or MoE
 layer; each application of the hybrid's shared block) runs the flash
@@ -54,9 +67,11 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.launch.serve import parse_mesh_shape, serving_mesh
 from repro_torch.models import init_params
 from repro_torch.models.transformer import require_device
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel.sharding import default_rules, use_sharding_rules
 from repro_torch.train import (TrainLoopConfig, fault_tolerant_train,
                                make_compressed_train_step, make_train_step)
 
@@ -78,6 +93,25 @@ def data_mode(cfg) -> str:
     return "tokens"
 
 
+def training_mesh(shape, device, cfg):
+    """``(mesh, rules)`` of the launcher: ``launch.serve.serving_mesh`` and
+    the reference's rules for ``cfg`` (ZeRO-3 over pods past 5e10
+    parameters).  A mesh over more than one distinct device is refused:
+    its optimizer state, batches and checkpoints would have to be placed
+    over the cards (ROADMAP A16i-train)."""
+    mesh = serving_mesh(shape, device)
+    if len(mesh.distinct_devices) > 1:
+        raise ValueError(
+            f"training on {mesh} spans {len(mesh.distinct_devices)} "
+            "devices; optimizer state, batches and checkpoints placed over "
+            "cards are not ported yet (ROADMAP A16i-train): train on one "
+            "device with --mesh-shape 1,1 or --device cuda:N (a mesh of "
+            "logical shards on it is taken)")
+    rules = default_rules(multi_pod="pod" in mesh.axis_names,
+                          fsdp_over_pod=cfg.n_params > 5e10)
+    return mesh, rules
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -88,6 +122,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="data,model or pod,data,model over one device "
+                    "(default n,1 over the n visible devices; 1,1 takes "
+                    "the first)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
@@ -105,8 +143,11 @@ def main(argv=None) -> dict:
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     device = require_device(args.device)
+    mesh, rules = training_mesh(parse_mesh_shape(args.mesh_shape), device,
+                                cfg)
+    device = mesh.devices.flat[0]
     print(f"arch={cfg.name} params={cfg.n_params / 1e6:.1f}M "
-          f"device={device} attn_impl={cfg.attn_impl}")
+          f"mesh={mesh} attn_impl={cfg.attn_impl}")
 
     data = SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
@@ -132,9 +173,10 @@ def main(argv=None) -> dict:
                                checkpoint_dir=ckpt_dir)
     try:
         t0 = time.time()
-        params, opt_state, events = fault_tolerant_train(
-            loop_cfg, step_fn, (params, opt_state), iter(data),
-            lambda s: device_batch(data.batch_at(s), device))
+        with use_sharding_rules(mesh, rules):
+            params, opt_state, events = fault_tolerant_train(
+                loop_cfg, step_fn, (params, opt_state), iter(data),
+                lambda s: device_batch(data.batch_at(s), device))
         dt = time.time() - t0
     finally:
         if args.ckpt_dir is None:

@@ -1,10 +1,13 @@
 """Models: the dense decoder-only, encoder-decoder, SSM (Mamba2), hybrid
 (Zamba2), MoE and VLM families (config, parameters, forward and loss,
-prefill, cached decode).  The sharding specs are not ported yet (ROADMAP
-A16i)."""
-from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            forward, init_params, lm_loss,
-                                            make_decode_caches, prefill)
+prefill, cached decode), and the logical axes trees that place their
+parameters and caches on a mesh (``param_axes``, ``cache_axes``)."""
+from repro_torch.models.transformer import (ModelConfig, cache_axes,
+                                            decode_step, forward,
+                                            init_params, lm_loss,
+                                            make_decode_caches, param_axes,
+                                            prefill)
 
-__all__ = ["ModelConfig", "decode_step", "forward", "init_params",
-           "lm_loss", "make_decode_caches", "prefill"]
+__all__ = ["ModelConfig", "cache_axes", "decode_step", "forward",
+           "init_params", "lm_loss", "make_decode_caches", "param_axes",
+           "prefill"]

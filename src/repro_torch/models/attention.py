@@ -10,7 +10,13 @@ reference, every other attention goes to :func:`chunked_attention` whatever
 ``attn_impl`` says: an encoder's bidirectional self-attention and
 :func:`cross_attention`.  Training differentiates it by autograd through
 its loop.  Decode is plain torch ops: the reference's decode has no kernel
-either.
+either.  A decode cache placed on a mesh (``parallel.Sharded``, split on
+its sequence axis by ``cache_axes``' ``kv_seq``, or on its heads) is read
+where it lies: each piece's device computes the partial (max, sum,
+weighted V) of the step's query over its positions, and the compute
+device combines them (the log-sum-exp combine of flash-decoding, which
+the reference's GSPMD derives from the same softmax); the step's K and V
+are written into the piece that holds position ``length``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, normal, rms_norm, rope_table
+from repro_torch.parallel.sharding import Sharded
 
 NEG_INF = -1e30
 
@@ -35,6 +42,16 @@ def init_attention(d_model: int, n_heads: int, n_kv: int, d_head: int,
     if qk_norm:
         p["q_norm"] = torch.ones((d_head,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((d_head,), dtype=dtype, device=device)
+    return p
+
+
+def attention_axes(qk_norm: bool) -> dict:
+    """Logical axes of :func:`init_attention`'s leaves."""
+    p = {"wq": ("wt_fsdp", "heads"), "wk": ("wt_fsdp", "kv_heads"),
+         "wv": ("wt_fsdp", "kv_heads"), "wo": ("heads", "wt_fsdp")}
+    if qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
     return p
 
 
@@ -163,10 +180,14 @@ def decode_attention(x, p, cfg, cache: KVCache):
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
 
-    Skv = cache.k.shape[1]
     G = cfg.n_heads // cfg.n_kv
     qg = q.reshape(B, cfg.n_kv, G, cfg.d_head).float()
     scale = cfg.d_head ** -0.5
+    if isinstance(cache.k, Sharded):
+        o = _split_cache_attention(qg, k_new, v_new, cache, scale)
+        o = o.reshape(B, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
+        return o @ p["wo"], (k_new, v_new)
+    Skv = cache.k.shape[1]
     s_cache = torch.einsum("bhgd,bshd->bhgs", qg, cache.k.float()) * scale
     valid = torch.arange(Skv, device=x.device) < cache.length
     s_cache = torch.where(valid, s_cache, NEG_INF)
@@ -183,10 +204,53 @@ def decode_attention(x, p, cfg, cache: KVCache):
     return o @ p["wo"], (k_new, v_new)
 
 
+def _split_cache_attention(qg, k_new, v_new, cache: KVCache, scale):
+    """Decode attention over a placed cache: each piece's partial max
+    ``m``, sum ``l`` and weighted V ``o`` of ``qg`` (B, Hkv, G, D) over
+    its positions (those at or past ``length`` masked), on the piece's
+    device, combined on ``qg``'s with the step's own K/V by rescaling each
+    partial to the common max.  Returns o (B, Hkv, G, D) f32."""
+    dev = qg.device
+    s_new = torch.einsum("bhgd,bshd->bhgs", qg, k_new.float())[..., 0] \
+        * scale
+    parts = []
+    local = cache.k.local
+    for coord, kp in cache.k.pieces.items():
+        vp = cache.v.pieces[coord]
+        b, s, h = (slice(c * n, (c + 1) * n)
+                   for c, n in zip(coord[:3], local[:3]))
+        qp = qg[b, h].to(kp.device)
+        sc = torch.einsum("bhgd,bshd->bhgs", qp, kp.float()) * scale
+        valid = torch.arange(s.start, s.stop, device=kp.device) \
+            < cache.length
+        sc = torch.where(valid, sc, NEG_INF)
+        m = sc.amax(dim=-1)
+        pc = torch.exp(sc - m[..., None])
+        o = torch.einsum("bhgs,bshd->bhgd", pc.to(vp.dtype).float(),
+                         vp.float())
+        parts.append((b, h, m.to(dev), pc.sum(dim=-1).to(dev), o.to(dev)))
+    m = s_new.clone()
+    for b, h, mp, _, _ in parts:
+        m[b, h] = torch.maximum(m[b, h], mp)
+    p_new = torch.exp(s_new - m)
+    denom = p_new.clone()
+    o = p_new[..., None] * v_new[:, 0, :, None, :].float()
+    for b, h, mp, lp, op in parts:
+        c = torch.exp(mp - m[b, h])
+        denom[b, h] += lp * c
+        o[b, h] += op * c[..., None]
+    return o / denom[..., None]
+
+
 def update_cache(cache: KVCache, k_new, v_new) -> KVCache:
     """Write this step's K/V at position ``length``.  Unlike the reference's
     ``dynamic_update_slice``, this writes into ``cache.k`` and ``cache.v``
-    in place; the returned cache shares their storage."""
+    in place (into the piece that holds the position, for a placed
+    cache); the returned cache shares their storage."""
+    if isinstance(cache.k, Sharded):
+        cache.k.write((slice(None), cache.length), k_new[:, 0])
+        cache.v.write((slice(None), cache.length), v_new[:, 0])
+        return KVCache(cache.k, cache.v, cache.length + 1)
     cache.k[:, cache.length] = k_new[:, 0]
     cache.v[:, cache.length] = v_new[:, 0]
     return KVCache(cache.k, cache.v, cache.length + 1)

@@ -61,6 +61,11 @@ def init_mlp(d_model: int, d_ff: int, act: str, dtype, generator,
     }
 
 
+def mlp_axes() -> dict:
+    """Logical axes of :func:`init_mlp`'s leaves."""
+    return {"w_in": ("wt_fsdp", "ff"), "w_out": ("ff", "wt_fsdp")}
+
+
 def apply_mlp(x, p, act: str):
     h = x @ p["w_in"]
     if act == "swiglu":
@@ -82,6 +87,14 @@ def init_embed(vocab: int, d_model: int, dtype, tie: bool, generator,
     if not tie:
         p["head"] = normal((d_model, vocab), dtype, d_model ** -0.5,
                            generator, device)
+    return p
+
+
+def embed_axes(tie: bool) -> dict:
+    """Logical axes of :func:`init_embed`'s leaves."""
+    p = {"tok": ("vocab", "wt_fsdp")}
+    if not tie:
+        p["head"] = ("wt_fsdp", "vocab")
     return p
 
 

@@ -51,6 +51,16 @@ def init_ssm(cfg, dtype, generator: torch.Generator, device) -> dict:
     }
 
 
+def ssm_axes() -> dict:
+    """Logical axes of :func:`init_ssm`'s leaves."""
+    return {"w_z": ("wt_fsdp", "heads"), "w_x": ("wt_fsdp", "heads"),
+            "w_B": ("wt_fsdp", None), "w_C": ("wt_fsdp", None),
+            "w_dt": ("wt_fsdp", "heads"),
+            "conv_x": (None, "heads"), "conv_bc": (None, None),
+            "A_log": ("heads",), "D_skip": ("heads",), "dt_bias": ("heads",),
+            "norm": ("heads",), "w_out": ("heads", "wt_fsdp")}
+
+
 def _causal_conv(x, w):
     """Depthwise causal conv as shifted adds (no convolution op), as the
     reference computes it.  x (B,S,C), w (d_conv, C)."""

@@ -12,6 +12,14 @@ A MoE block is a dense block with its MLP replaced by ``moe``
 layers.  The VLM family is the dense stack with ``embeds``, precomputed
 patch embeddings, in front of the token embeddings; they carry no loss.
 The layer loop is a Python loop over slices of those stacks.
+:func:`param_axes` and :func:`cache_axes` are the reference's logical
+axes trees, the same structure as the parameters and the decode caches;
+``parallel.shard_tree`` places them on a mesh by them.  The functions
+here take placed parameters too (``parallel.Sharded`` leaves): each
+layer's are gathered on the compute device for that layer only and freed
+after it (ZeRO-3), except a MoE layer's expert weights, which its mesh
+routes take as pieces; and a decode cache placed on its sequence axis is
+read a piece at a time where it lies (``attention.decode_attention``).
 Training's :func:`forward` wraps each layer in ``torch.utils.checkpoint``
 under ``cfg.remat_policy`` (:func:`_remat`: the reference's
 ``jax.checkpoint`` and its ``"dots"`` policy); serving runs under
@@ -31,10 +39,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.attention import (KVCache, cross_attention,
-                                          decode_attention, init_attention,
-                                          init_cache, self_attention,
-                                          update_cache)
+from repro_torch.models.attention import (KVCache, attention_axes,
+                                          cross_attention, decode_attention,
+                                          init_attention, init_cache,
+                                          self_attention, update_cache)
+from repro_torch.parallel.sharding import (Sharded, as_tensor,
+                                           current_rules, placement,
+                                           resolve_spec, shard_tree,
+                                           use_sharding_rules)
 
 #: the families the port runs
 FAMILIES = ("dense", "encdec", "ssm", "hybrid", "moe", "vlm")
@@ -184,7 +196,7 @@ def require_device(device) -> torch.device:
 # --- init ---------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
+                device="cuda", mesh=None, rules=None) -> dict:
     """Random parameters: every weight ``normal * scale`` drawn in f32 from
     ``generator`` (on ``device``) and cast, norms ones.  The tree is the
     reference's: ``embed``, ``final_norm`` and the decoder's ``blocks``;
@@ -197,10 +209,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     and, when ``n_layers % hybrid_group``, a ``tail`` of SSM blocks.  A MoE
     block has ``moe`` (:func:`moe.init_moe`; its ``router`` stays f32) in
     place of ``mlp``.  Each stacked leaf is allocated once and every
-    layer's draw is copied into its slice (:func:`_stacked`)."""
+    layer's draw is copied into its slice (:func:`_stacked`).
+
+    With ``mesh`` and ``rules``, the same values placed on the mesh by
+    :func:`param_axes` (``parallel.Sharded`` leaves): each stacked leaf
+    is allocated as its pieces on their devices and each layer's draw (on
+    ``device``) copied into them, so no device holds the whole model."""
     _require_ported(cfg)
     device = require_device(device)
     dt, D = cfg.tdtype, cfg.d_model
+    axes = param_axes(cfg) if mesh is not None else None
+
+    def stacked(draw, lead, key):
+        if axes is None:
+            return _stacked(draw, lead)
+        return _stacked(draw, lead, lambda layer: _empty_pieces(
+            layer, axes[key], lead, mesh, rules))
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
@@ -229,41 +253,62 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     # family the weights it always had
     params = {}
     if cfg.family == "encdec":
-        params["enc_blocks"] = _stacked(lambda: block("dense"),
-                                        (cfg.n_enc_layers,))
+        params["enc_blocks"] = stacked(lambda: block("dense"),
+                                       (cfg.n_enc_layers,), "enc_blocks")
         params["enc_norm"] = ones(D)
-        params["blocks"] = _stacked(lambda: block("dec"), (cfg.n_layers,))
+        params["blocks"] = stacked(lambda: block("dec"), (cfg.n_layers,),
+                                   "blocks")
     elif cfg.family == "hybrid":
         n_groups, tail = cfg.hybrid_layout
         params["shared"] = block("dense")
-        params["groups"] = _stacked(lambda: block("ssm"),
-                                    (n_groups, cfg.hybrid_group - 1))
+        params["groups"] = stacked(lambda: block("ssm"),
+                                   (n_groups, cfg.hybrid_group - 1),
+                                   "groups")
         if tail:
-            params["tail"] = _stacked(lambda: block("ssm"), (tail,))
+            params["tail"] = stacked(lambda: block("ssm"), (tail,), "tail")
     else:
         kind = cfg.family if cfg.family in ("ssm", "moe") else "dense"
-        params["blocks"] = _stacked(lambda: block(kind), (cfg.n_layers,))
+        params["blocks"] = stacked(lambda: block(kind), (cfg.n_layers,),
+                                   "blocks")
     params["embed"] = L.init_embed(cfg.padded_vocab, D, dt,
                                    cfg.tie_embeddings, generator, device)
     params["final_norm"] = ones(D)
+    if axes is not None:
+        params = shard_tree(params, axes, mesh, rules, copy=True)
     return params
 
 
-def _stacked(draw, lead: tuple) -> dict:
+def _stacked(draw, lead: tuple, empty=None) -> dict:
     """``draw()`` called ``prod(lead)`` times in row-major order of the
     leading indices, each call's tree copied into its slice of leaves
-    allocated once with the leading dims ``lead``: the tensors that
-    stacking the draws gives, with one layer's draw alive beside the
-    stacked leaves, never a second stack."""
+    allocated once with the leading dims ``lead`` (by ``empty(first
+    draw)`` when given): the tensors that stacking the draws gives, with
+    one layer's draw alive beside the stacked leaves, never a second
+    stack."""
     out = None
     for index in itertools.product(*map(range, lead)):
         layer = draw()
         if out is None:
-            out = _tree_map(lambda t: t.new_empty(lead + tuple(t.shape)),
-                            layer)
+            out = empty(layer) if empty is not None else _tree_map(
+                lambda t: t.new_empty(lead + tuple(t.shape)), layer)
         _copy_into(out, layer, index)
         del layer       # before the next draw, not after it
     return out
+
+
+def _empty_pieces(layer, axes, lead: tuple, mesh, rules):
+    """Leaves of the leading dims ``lead`` placed on ``mesh`` by ``axes``,
+    each an uninitialised :class:`Sharded` of its pieces."""
+    if isinstance(layer, dict):
+        return {k: _empty_pieces(v, axes[k], lead, mesh, rules)
+                for k, v in layer.items()}
+    shape = lead + tuple(layer.shape)
+    spec = resolve_spec(shape, axes, mesh, rules)
+    counts, devices = placement(shape, spec, mesh)
+    local = tuple(n // c for n, c in zip(shape, counts))
+    return Sharded(shape, layer.dtype, spec, mesh, counts,
+                   {c: torch.empty(local, dtype=layer.dtype, device=dev)
+                    for c, dev in devices.items()}, devices)
 
 
 def _tree_map(fn, tree):
@@ -276,8 +321,101 @@ def _copy_into(out, layer, index) -> None:
     if isinstance(out, dict):
         for k in out:
             _copy_into(out[k], layer[k], index)
+    elif isinstance(out, Sharded):
+        out.write(index, layer)
     else:
         out[index].copy_(layer)
+
+
+# --- logical axes ------------------------------------------------------------
+
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes of one block of ``kind`` (``dense``, ``moe``, ``ssm``
+    or ``dec``)."""
+    if kind == "ssm":
+        return {"ln": (None,), "ssm": SSM.ssm_axes()}
+    p = {"ln1": (None,), "attn": attention_axes(cfg.qk_norm), "ln2": (None,)}
+    if kind == "moe":
+        p["moe"] = MOE.moe_axes()
+    else:
+        p["mlp"] = L.mlp_axes()
+    if kind == "dec":
+        p["ln_x"] = (None,)
+        p["xattn"] = attention_axes(False)
+    return p
+
+
+def _lead(axes, *names):
+    return {k: _lead(v, *names) for k, v in axes.items()} \
+        if isinstance(axes, dict) else (*names, *axes)
+
+
+def _stack_axes(cfg: ModelConfig, kind: str) -> dict:
+    """A stack of blocks: ``"layers"`` before each block axis."""
+    return _lead(_block_axes(cfg, kind), "layers")
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf (the
+    reference's ``param_axes``)."""
+    _require_ported(cfg)
+    axes: dict = {"embed": L.embed_axes(cfg.tie_embeddings),
+                  "final_norm": (None,)}
+    if cfg.family in ("dense", "vlm"):
+        axes["blocks"] = _stack_axes(cfg, "dense")
+    elif cfg.family in ("moe", "ssm"):
+        axes["blocks"] = _stack_axes(cfg, cfg.family)
+    elif cfg.family == "hybrid":
+        axes["shared"] = _block_axes(cfg, "dense")
+        axes["groups"] = _lead(_stack_axes(cfg, "ssm"), "layers")
+        if cfg.n_layers % cfg.hybrid_group:
+            axes["tail"] = _stack_axes(cfg, "ssm")
+    elif cfg.family == "encdec":
+        axes["enc_blocks"] = _stack_axes(cfg, "dense")
+        axes["enc_norm"] = (None,)
+        axes["blocks"] = _stack_axes(cfg, "dec")
+    return axes
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`make_decode_caches`' tree (the reference's
+    ``cache_axes``): a KV cache on ``kv_seq`` (context-parallel decode),
+    an SSM state and conv window on ``heads``; ``"length"`` has none."""
+    _require_ported(cfg)
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    if cfg.family in ATTN_STACKS:
+        return {"k": kv, "v": kv, "length": ()}
+    if cfg.family == "ssm":
+        return {"conv": ("layers", "batch", None, "heads"),
+                "state": ("layers", "batch", "heads", None, None),
+                "length": ()}
+    ax = {"attn_k": kv, "attn_v": kv,
+          "conv": ("layers", "stage", "batch", None, "heads"),
+          "state": ("layers", "stage", "batch", "heads", None, None),
+          "length": ()}
+    if cfg.n_layers % cfg.hybrid_group:
+        ax["tail_conv"] = ("layers", "batch", None, "heads")
+        ax["tail_state"] = ("layers", "batch", "heads", None, None)
+    return ax
+
+
+def _on(tree, device, pieces_ok: bool = False):
+    """``tree`` with each :class:`Sharded` leaf gathered on ``device``
+    (the ZeRO-3 gather of one layer), but a MoE block's ``w_in`` and
+    ``w_out``, which its mesh routes take as pieces; a tree with no
+    placed leaf is returned as it is."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device, k == "moe") if isinstance(v, dict)
+                else v if pieces_ok and k in ("w_in", "w_out")
+                else as_tensor(v, device) if isinstance(v, Sharded) else v
+                for k, v in tree.items()}
+    return tree
+
+
+def _placed(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_placed(v) for v in tree.values())
+    return isinstance(tree, Sharded)
 
 
 def _unstack(blocks, n: int) -> list:
@@ -332,13 +470,18 @@ def _ssm_body(x, bp, cfg: ModelConfig, collect: bool = False):
     return x + h, (handoff if collect else None)
 
 
-def _layers(params, cfg: ModelConfig):
+def _layers(params, cfg: ModelConfig, device=None):
     """The decoder's layers in order: ``(kind, block params, cache keys,
     index)`` with ``kind`` ``"attn"`` (a dense or decoder block, its K and
     V at ``caches[keys[0]][index]``, ``caches[keys[1]][index]``) or
     ``"ssm"`` (its conv tail and state there).  The hybrid applies
     ``params["shared"]`` at the head of every group, each application with
-    its own KV cache."""
+    its own KV cache.  Placed parameters are gathered on ``device`` a
+    layer at a time, as each is yielded (:func:`_on`)."""
+    if device is not None and _placed(params):
+        for kind, bp, keys, i in _layers(params, cfg):
+            yield kind, _on(bp, device), keys, i
+        return
     if cfg.family in ATTN_STACKS:
         for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             yield "attn", bp, ("k", "v"), (i,)
@@ -368,17 +511,29 @@ def _remat(fn, policy: str):
     the whole body in the backward (``torch.utils.checkpoint``, not
     reentrant), ``"none"`` keeps every activation, and ``"dots"`` (the
     reference's ``dots_with_no_batch_dims_saveable``) keeps the body's
-    weight products and recomputes the rest (:func:`_dots_policy`)."""
+    weight products and recomputes the rest (:func:`_dots_policy`).
+    The recomputation runs under the sharding rules active in the
+    forward: autograd runs a CUDA backward on a thread of its own, where
+    the thread's rules are unset, and a MoE layer recomputed without them
+    would take another route."""
     if policy == "none" or not torch.is_grad_enabled():
         return fn
-    if policy == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if policy == "dots":
-        return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False,
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
+    def run(*args):
+        mesh, rules = current_rules()
+
+        def body(*a):
+            with use_sharding_rules(mesh, rules):
+                return fn(*a)
+        if policy == "full":
+            return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(
+            body, *args, use_reentrant=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts,
                                          _dots_policy(args)))
-    raise ValueError(f"unknown remat_policy {policy!r}")
+    return run
 
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
@@ -424,18 +579,28 @@ def _encode(params, cfg: ModelConfig, frames):
                   cfg.remat_policy)
     x = frames.to(cfg.tdtype)
     for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
-        x = body(x, bp)
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x = body(x, _on(bp, x.device))
+    return L.rms_norm(x, as_tensor(params["enc_norm"], x.device),
+                      cfg.norm_eps)
 
 
 def _embed(params, cfg: ModelConfig, tokens, embeds):
     """The tokens' embeddings, with a VLM's ``embeds`` (B, P, D), cast to
     the model's dtype, in front of them; ``embeds`` is ignored in the
     other families, as in the reference."""
-    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    x = L.embed_tokens(tokens, {"tok": as_tensor(params["embed"]["tok"],
+                                                 tokens.device)},
+                       cfg.tdtype)
     if cfg.family == "vlm" and embeds is not None:
         x = torch.cat([embeds.to(cfg.tdtype), x], dim=1)
     return x
+
+
+def _head(params, cfg: ModelConfig, x):
+    """The final norm and the logits (f32) of ``x``."""
+    x = L.rms_norm(x, as_tensor(params["final_norm"], x.device),
+                   cfg.norm_eps)
+    return L.lm_logits(x, _on(params["embed"], x.device), cfg.vocab).float()
 
 
 def forward(params, cfg: ModelConfig, tokens, frames=None, *, embeds=None
@@ -457,14 +622,15 @@ def forward(params, cfg: ModelConfig, tokens, frames=None, *, embeds=None
     mamba = _remat(lambda x, bp: _ssm_body(x, bp, cfg)[0], cfg.remat_policy)
     x = _embed(params, cfg, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, bp, _, _ in _layers(params, cfg):
+    for kind, bp, _, _ in _layers(params, cfg, x.device):
         if kind == "ssm":
             x = mamba(x, bp)
             continue
         x, a = attn(x, bp, memory)
         if a is not None:
             aux = aux + a
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    return L.rms_norm(x, as_tensor(params["final_norm"], x.device),
+                      cfg.norm_eps), aux
 
 
 def _chunk_loss(h, head, labels, mask, pad_mask):
@@ -499,9 +665,8 @@ def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     B, S, D = hidden.shape
     C = min(cfg.loss_chunk, S)
     nc = S // C
-    head = params["embed"].get("head")
-    if head is None:
-        head = params["embed"]["tok"].T
+    emb = _on(params["embed"], hidden.device)
+    head = emb["head"] if "head" in emb else emb["tok"].T
     cols = torch.arange(cfg.padded_vocab, device=hidden.device)
     pad_mask = torch.where(cols < cfg.vocab, 0.0, -1e30)
     chunk = _remat(_chunk_loss, "full")
@@ -541,7 +706,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None,
     memory = _encode(params, cfg, frames) if cfg.family == "encdec" \
         else None
     caches = make_decode_caches(cfg, B, max_len, x.device)
-    for kind, bp, (a, b), i in _layers(params, cfg):
+    for kind, bp, (a, b), i in _layers(params, cfg, x.device):
         if kind == "attn":
             x, (k, v), _ = _dense_body(x, bp, cfg, memory=memory,
                                        collect=True)
@@ -552,9 +717,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None,
             caches[a][i] = tail
             caches[b][i] = state
     caches["length"] = S
-    x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
-    return logits, caches, memory
+    return _head(params, cfg, x[:, -1:]), caches, memory
 
 
 # --- decode -------------------------------------------------------------------
@@ -619,22 +782,34 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: dict, memory=None
     if cfg.family == "encdec" and memory is None:
         raise ValueError(f"{cfg.name} (family encdec) decodes against the "
                          f"encoder memory that prefill returns")
-    x = L.embed_tokens(tokens, params["embed"], cfg.tdtype)
+    x = _embed(params, cfg, tokens, None)
     length = caches["length"]
     kv = caches.get("k", caches.get("attn_k"))
     if kv is not None and length >= kv.shape[2]:
         raise ValueError(f"the cache holds {kv.shape[2]} positions, all "
                          f"used")
-    for kind, bp, (a, b), i in _layers(params, cfg):
+    for kind, bp, (a, b), i in _layers(params, cfg, x.device):
         if kind == "attn":
             x = _decode_attn_block(x, bp, cfg,
                                    KVCache(caches[a][i], caches[b][i],
                                            length), memory)
         else:
-            h, _ = SSM.decode_ssm(L.rms_norm(x, bp["ln"], cfg.norm_eps),
-                                  bp["ssm"], cfg,
-                                  SSM.SSMCache(caches[a][i], caches[b][i]))
-            x = x + h
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.lm_logits(x, params["embed"], cfg.vocab).float()
-    return logits, {**caches, "length": length + 1}
+            x = x + _decode_ssm_block(x, bp, cfg, caches[a][i],
+                                      caches[b][i])
+    return _head(params, cfg, x), {**caches, "length": length + 1}
+
+
+def _decode_ssm_block(x, bp, cfg: ModelConfig, conv, state):
+    """One SSM block's output for one token, its conv window and state
+    stepped in place; a placed window or state (split on ``heads``) is
+    gathered on ``x``'s device for the step and written back."""
+    placed = isinstance(conv, Sharded), isinstance(state, Sharded)
+    c = conv.gather(x.device) if placed[0] else conv
+    st = state.gather(x.device) if placed[1] else state
+    h, _ = SSM.decode_ssm(L.rms_norm(x, bp["ln"], cfg.norm_eps), bp["ssm"],
+                          cfg, SSM.SSMCache(c, st))
+    if placed[0]:
+        conv.write((), c)
+    if placed[1]:
+        state.write((), st)
+    return h

@@ -10,9 +10,11 @@ failure retry.
   * **Straggler mitigation**: per-step wall times feed a rolling median; a
     step slower than ``straggler_factor``× median is recorded and triggers
     an early checkpoint so a replacement can join with minimal lost work.
-
-The reference's elastic re-mesh (``reshard_for_mesh``) waits for the
-port's sharding (ROADMAP A16i).
+  * **Elastic re-mesh**: :func:`reshard_for_mesh` places a tree (whole
+    tensors, or pieces on another mesh) onto a new mesh by a spec tree.
+    The training launcher keeps its state whole on one device (optimizer
+    state, batches and checkpoints placed over cards are ROADMAP
+    A16i-train).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.parallel.sharding import PartitionSpec, shard_leaf
 
 
 @dataclasses.dataclass
@@ -101,3 +104,21 @@ def fault_tolerant_train(loop_cfg: TrainLoopConfig, train_step: Callable,
         s += 1
     mgr.wait()
     return params, opt_state, events
+
+
+def reshard_for_mesh(tree, mesh, spec_tree):
+    """Elastic re-mesh: each leaf of ``tree`` (a tensor, or a
+    ``parallel.Sharded`` on any mesh) placed on ``mesh`` by the
+    ``PartitionSpec`` at its place in ``spec_tree`` (e.g.
+    ``resolve_spec`` of ``param_axes``), as the reference's
+    ``device_put`` does: every piece of the new layout is taken from the
+    pieces of the old one that hold it, so the values are the tree's bit
+    for bit.  ``None`` leaves stay ``None``."""
+    if isinstance(spec_tree, dict):
+        return {k: reshard_for_mesh(tree[k], mesh, spec_tree[k])
+                for k in spec_tree}
+    if tree is None:
+        return None
+    if not isinstance(spec_tree, PartitionSpec):
+        raise ValueError(f"not a PartitionSpec: {spec_tree!r}")
+    return shard_leaf(tree, spec_tree, mesh)

@@ -6,15 +6,34 @@ microbatches when there are more than one) -> global-norm clip -> AdamW ->
 metrics.  ``make_compressed_train_step`` is the reference's cross-pod
 variant: the same loss and gradients, then error-feedback top-k (int8)
 compression of the gradients (``optim/compression.py``) before AdamW.
+
+Under active sharding rules (``parallel.use_sharding_rules``) the prefill
+and decode functions run each data shard on its own device: the batch is
+split by ``resolve_spec`` of ``"batch"``, each shard runs under the rules
+on its data shard's view of the mesh (``parallel.sharding.submesh``: its MoE
+layers route over the ``model`` axis), and the logits are gathered on the
+tokens' device.  Prefill returns its caches (and an encoder-decoder's
+memory) split on the batch, one piece a data shard where it was computed;
+decode reads and writes each data shard's part of the caches in place.
+The training step runs the whole batch under the rules, as the
+reference's jitted step does: its MoE layers take the expert-parallel
+routes over every (data, model) shard.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import ModelConfig, decode_step, lm_loss, prefill
+from repro_torch.models.transformer import cache_axes
 from repro_torch.optim import (AdamWState, adamw_update, ef_compress_update,
                                init_ef_state)
 from repro_torch.optim.adamw import AdamWConfig, leaves
+from repro_torch.parallel.sharding import (P, Sharded, current_rules,
+                                           device_at, names_of, placement,
+                                           resolve_spec, submesh, unravel,
+                                           use_sharding_rules)
 
 
 def _shaped_like(tree, values):
@@ -118,18 +137,112 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def data_shards(mesh, rules, B: int) -> list:
+    """``[(rows, device, mesh view, at)]`` a data shard: its slice of a
+    batch of ``B``, the mesh's first device (row-major) at its ``batch``
+    indices ``at``, and :func:`~repro_torch.parallel.sharding.submesh`
+    there.  A batch that the ``batch`` axes do not divide is one shard on
+    the first device, under the whole mesh (``resolve_spec``'s
+    fallback)."""
+    names = names_of(resolve_spec((B,), ("batch",), mesh, rules)[0])
+    n = math.prod(mesh.shape[a] for a in names)
+    out = []
+    for d in range(n):
+        at = unravel(mesh, names, d)
+        out.append((slice(d * B // n, (d + 1) * B // n), device_at(mesh, at),
+                    submesh(mesh, at), names))
+    return out
+
+
+def _batch_dims(cfg: ModelConfig) -> dict:
+    """Each cache leaf's batch dim (``cache_axes``)."""
+    return {k: ax.index("batch") for k, ax in cache_axes(cfg).items()
+            if "batch" in ax}
+
+
+def _rows(x, dim: int, rows: slice, device):
+    """Rows ``rows`` along ``dim`` of ``x`` (a tensor, or a :class:`Sharded`
+    split there) on ``device``."""
+    index = (slice(None),) * dim + (rows,)
+    if isinstance(x, Sharded):
+        return x.region(index, device)
+    return x[index].to(device)
+
+
+def _part(x, dim: int, d: int, rows: slice):
+    """Data shard ``d``'s part of a cache leaf, in place: of a leaf split
+    on its batch into the data shards, its piece (the same tensors); else
+    a view of its rows."""
+    if isinstance(x, Sharded):
+        return x.select(dim, d) if x.counts[dim] > 1 else x
+    return x[(slice(None),) * dim + (rows,)]
+
+
+def _split_on_batch(parts: list, dim: int, names, mesh):
+    """The data shards' tensors (each on its shard's device) as one
+    :class:`Sharded` split on ``dim`` over the ``batch`` axes ``names``."""
+    if len(parts) == 1:
+        return parts[0]
+    shape = list(parts[0].shape)
+    shape[dim] *= len(parts)
+    spec = P(*[names if i == dim else None for i in range(len(shape))])
+    counts, devices = placement(shape, spec, mesh)
+    pieces = {tuple(d if i == dim else 0 for i in range(len(shape))): t
+              for d, t in enumerate(parts)}
+    return Sharded(shape, parts[0].dtype, spec, mesh, counts, pieces,
+                   devices)
+
+
 def make_prefill_fn(cfg: ModelConfig, max_len: int):
     """Returns prefill_fn(params, batch) -> (logits, caches, memory):
     ``batch`` holds ``tokens`` and, for the encoder-decoder family,
     ``frames``, for the VLM family ``embeds``; ``memory`` is ``None`` for
-    every family but the encoder-decoder."""
+    every family but the encoder-decoder.  Under active rules each data
+    shard runs on its device (the module's docstring)."""
     def prefill_fn(params, batch: dict):
-        return prefill(params, cfg, batch["tokens"], max_len,
-                       batch.get("frames"), embeds=batch.get("embeds"))
+        mesh, rules = current_rules()
+        if mesh is None or rules is None:
+            return prefill(params, cfg, batch["tokens"], max_len,
+                           batch.get("frames"), embeds=batch.get("embeds"))
+        home = batch["tokens"].device
+        outs = []
+        shards = data_shards(mesh, rules, batch["tokens"].shape[0])
+        for rows, dev, view, _ in shards:
+            part = {k: v[rows].to(dev) for k, v in batch.items()}
+            with use_sharding_rules(view, rules):
+                outs.append(prefill(params, cfg, part["tokens"], max_len,
+                                    part.get("frames"),
+                                    embeds=part.get("embeds")))
+        names = shards[0][3]
+        logits = torch.cat([o[0].to(home) for o in outs])
+        caches = {k: _split_on_batch([o[1][k] for o in outs], dim, names,
+                                     mesh)
+                  for k, dim in _batch_dims(cfg).items()}
+        caches["length"] = outs[0][1]["length"]
+        memory = None if outs[0][2] is None else _split_on_batch(
+            [o[2] for o in outs], 0, names, mesh)
+        return logits, caches, memory
     return prefill_fn
 
 
 def make_decode_fn(cfg: ModelConfig):
+    """Returns decode_fn(params, tokens, caches, memory=None) -> (logits,
+    caches), the caches updated in place.  Under active rules each data
+    shard steps its part of the caches on its device."""
     def decode_fn(params, tokens, caches, memory=None):
-        return decode_step(params, cfg, tokens, caches, memory)
+        mesh, rules = current_rules()
+        if mesh is None or rules is None:
+            return decode_step(params, cfg, tokens, caches, memory)
+        dims = _batch_dims(cfg)
+        logits = []
+        for d, (rows, dev, view, _) in enumerate(
+                data_shards(mesh, rules, tokens.shape[0])):
+            part = {k: _part(v, dims[k], d, rows) if k in dims else v
+                    for k, v in caches.items()}
+            mem = None if memory is None else _rows(memory, 0, rows, dev)
+            with use_sharding_rules(view, rules):
+                out, _ = decode_step(params, cfg, tokens[rows].to(dev), part,
+                                     mem)
+            logits.append(out.to(tokens.device))
+        return torch.cat(logits), {**caches, "length": caches["length"] + 1}
     return decode_fn

@@ -5,7 +5,9 @@ CPU distributed plan, a custom stencil traced
 for the kernel, the LM serving path (qwen3 and granite's untied head; the
 SSM, hybrid, MoE and VLM families' smoke configs, two tokens each; the
 VLM's after its patch embeddings), two training steps and two through the
-compressed step, a batched ``run_batch`` and a ``StencilService`` serving
+compressed step, the MoE smoke config served on a 2 x 2 CPU mesh
+(``repro_torch.parallel``: its weights placed and gathered back, its
+mesh routes), a batched ``run_batch`` and a ``StencilService`` serving
 a few requests and a checkpointed one — with JAX and the reference package
 made unimportable."""
 import os
@@ -126,6 +128,18 @@ for arch in ("mamba2-1.3b", "zamba2-7b", "qwen3-moe-30b-a3b"):
         torch.from_numpy(rng.integers(1, scfg.vocab, (2, 16))), 2)
     assert sgen.tokens.shape == (2, 2) and bool(sgen.logits.isfinite().all())
 vcfg = smoke_config("internvl2-76b")
+from repro_torch.parallel import default_rules, gather_tree, shard_tree
+from repro_torch.models.transformer import param_axes
+mcfg = smoke_config("qwen3-moe-30b-a3b")
+mparams = repro_torch.models.init_params(
+    mcfg, torch.Generator().manual_seed(0), "cpu")
+cpu4 = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+placed = shard_tree(mparams, param_axes(mcfg), cpu4, default_rules())
+assert torch.equal(gather_tree(placed)["blocks"]["moe"]["w_in"],
+                   mparams["blocks"]["moe"]["w_in"])
+mtok = torch.from_numpy(rng.integers(1, mcfg.vocab, (4, 16)))
+mgen = serve.generate(mcfg, mparams, mtok, 3, mesh=cpu4)
+assert mgen.tokens.shape == (4, 3) and bool(mgen.logits.isfinite().all())
 vgen = serve.generate(
     vcfg, repro_torch.models.init_params(
         vcfg, torch.Generator().manual_seed(0), "cpu"),
