@@ -5093,6 +5093,18 @@ A16I_ONE_MESH, A16I_DEEP_LAYER = (1, 1), 35
 #: full width cut to A16C_TRAIN_LAYERS layers, A16C_TRAIN_BATCH x
 #: TRAIN_SEQ, A16I_TRAIN_STEPS AdamW steps
 A16I_TRAIN_STEPS = 2
+#: the A16i-train phase.  (a) qwen3-1.7b at full width (bf16) trained
+#: through the launcher's setup on an A16I_DP_MESH mesh of logical shards
+#: of the card (two data shards of TRAIN_BATCH / 2 rows at TRAIN_SEQ),
+#: A16I_DP_STEPS AdamW steps, against the same steps with no mesh; then cut
+#: to A16I_F32_LAYERS layers in f32 at A16I_DP_F32_BATCH x A16I_DP_F32_SEQ,
+#: held within A16I_TOL of no mesh (losses, gradient norms, parameters).
+#: (b) with two or more cards: A16I_CARDS_ARCH at full width and depth on
+#: (n, 1) over the n cards, A16I_CARDS_STEPS steps at TRAIN_BATCH x
+#: TRAIN_SEQ
+A16I_DP_MESH, A16I_DP_STEPS = (2, 2), 3
+A16I_DP_F32_BATCH, A16I_DP_F32_SEQ = 4, 1024
+A16I_CARDS_ARCH, A16I_CARDS_STEPS = "granite-3-8b", 2
 
 
 def capacity_reckoning(calls, log, cfg, n_ep: int) -> dict:
@@ -5625,6 +5637,214 @@ def a16i_f32_check(cfg, mesh, tokens, device, smi) -> dict:
     return res
 
 
+def _sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _mesh_train_run(label, cfg, mesh, batches, smi) -> dict:
+    """``cfg`` trained from seed 0 through ``launch.train``'s setup, one
+    step a host batch: on ``mesh`` (``init_state``: the parameters, AdamW's
+    state placed by ``param_axes``; ``placed_batch``; under the rules) or,
+    with ``mesh`` None, whole on the card with no rules.  The first
+    batch's loss without autograd (``step_loss``), then, the launch counts
+    at 0 and each card's peak reset, the steps: the losses, gradient
+    norms, seconds a step (each ending in a synchronize of every card),
+    flash launches a step held to ``(2 L d, L d, L d)`` for ``d`` data
+    shards, each card's bytes at rest and peak, the parameters after the
+    steps."""
+    import contextlib
+
+    import torch
+    from repro_torch.launch.train import (device_batch, init_state,
+                                          placed_batch, state_tree,
+                                          training_mesh)
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import (bytes_by_device,
+                                               use_sharding_rules)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.steps import data_shards, step_loss
+    device = torch.device("cuda", 0)
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=len(batches))
+    if mesh is None:
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device)
+        state, step = adamw_init(params), make_train_step(cfg, ocfg)
+        rules, n_data = None, 1
+        batches = [device_batch(h, device) for h in batches]
+    else:
+        _, rules = training_mesh((1, 1), device, cfg)
+        params, state, step = init_state(cfg, mesh, rules, 0, ocfg)
+        n_data = len(data_shards(mesh, rules,
+                                 batches[0]["tokens"].shape[0]))
+        batches = [placed_batch(h, mesh, rules) for h in batches]
+    rest = bytes_by_device(state_tree(params, state))
+    cards = sorted({d for d in rest if d.type == "cuda"}, key=str)
+    losses, norms, secs, per_step = [], [], [], []
+    ctx = (use_sharding_rules(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        with torch.no_grad():
+            loss0 = step_loss(params, cfg, batches[0]).item()
+        _sync_all()
+        for dev in cards:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        for batch in batches:
+            c0, t0 = _launch_counts(), time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            _sync_all()
+            secs.append(time.perf_counter() - t0)
+            per_step.append(tuple(b - a for a, b in zip(c0,
+                                                        _launch_counts())))
+    L = cfg.causal_attentions
+    want = [(2 * L * n_data, L * n_data, L * n_data)] * len(batches)
+    res = {"mesh": None if mesh is None else dict(mesh.shape),
+           "data_shards": n_data, "loss_no_grad": loss0, "losses": losses,
+           "grad_norms": norms,
+           "step_s": secs, "launches_per_step": [list(x) for x in per_step],
+           "at_rest_gb": {str(d): rest[d] / 1e9 for d in cards},
+           "peak_gb": {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                       for d in cards}}
+    print(f"  {label}: the first batch's loss without autograd {loss0}; "
+          f"losses {losses}, grad norms "
+          f"{[round(x, 4) for x in norms]}; seconds a step "
+          f"{[round(x, 3) for x in secs]}; flash launches a step "
+          f"{per_step[0]} ({n_data} data shard(s)); state at rest "
+          f"{ {k: round(v, 3) for k, v in res['at_rest_gb'].items()} } GB, "
+          f"peak { {k: round(v, 3) for k, v in res['peak_gb'].items()} } GB "
+          f"[{smi}]", flush=True)
+    if per_step != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: {res}; launches expected {want}")
+    res["params"] = params
+    return res
+
+
+def _params_rel_err(got, want) -> float:
+    """The largest relative L2 distance of a leaf of ``got`` (placed or
+    whole) from ``want``'s."""
+    from repro_torch.parallel.sharding import Sharded
+    worst = 0.0
+    for a, b in zip(_sorted_leaves(got), _sorted_leaves(want)):
+        if isinstance(a, Sharded):
+            a = a.gather(b.device)
+        worst = max(worst, rel_err(a, b))
+    return worst
+
+
+def _sorted_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k])
+    elif tree is not None:
+        yield tree
+
+
+def a16i_train_phase(smi) -> dict:
+    """(a) qwen3-1.7b at full width (bf16) trained on an A16I_DP_MESH mesh
+    of logical shards of the card, A16I_DP_STEPS steps at TRAIN_BATCH x
+    TRAIN_SEQ, against the same steps with no mesh: losses, bytes at rest
+    a shard, peak memory, step time and flash launches a step (two data
+    shards: twice the no-mesh count, ``(4L, 2L, 2L)``); then the same
+    model cut to A16I_F32_LAYERS layers in f32, held within A16I_TOL of no
+    mesh.  (b) ``a16i_cards_check`` when two or more cards are visible.
+    Returns the figures for qwen3-1.7b's flash entry."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(A16I_DP_MESH, ("data", "model"),
+                     [device] * int(math.prod(A16I_DP_MESH)))
+    out = {}
+    for tag, cfg, B, S in (
+            ("bf16", get_config(LM_ARCH), TRAIN_BATCH, TRAIN_SEQ),
+            ("f32", dataclasses.replace(get_config(LM_ARCH),
+                                        n_layers=A16I_F32_LAYERS,
+                                        dtype="float32"),
+             A16I_DP_F32_BATCH, A16I_DP_F32_SEQ)):
+        data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                             global_batch=B, seed=0))
+        hosts = [data.batch_at(s) for s in range(A16I_DP_STEPS)]
+        torch.cuda.empty_cache()
+        plain = _mesh_train_run(f"{LM_ARCH} {tag} {cfg.n_layers} L, {B} x "
+                                f"{S}, no mesh", cfg, None, hosts, smi)
+        want = plain.pop("params")
+        torch.cuda.empty_cache()
+        meshed = _mesh_train_run(f"{LM_ARCH} {tag} {cfg.n_layers} L, {B} x "
+                                 f"{S}, mesh {A16I_DP_MESH}", cfg, mesh,
+                                 hosts, smi)
+        got = meshed.pop("params")
+        for run in (plain, meshed):
+            if run["losses"][0] != run["loss_no_grad"]:
+                raise AssertionError(f"{LM_ARCH} {tag}: the first loss is "
+                                     f"not the no-grad one: {run}")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in
+                       zip(meshed["losses"], plain["losses"]))
+        norm_gap = max(abs(a - b) / abs(b) for a, b in
+                       zip(meshed["grad_norms"], plain["grad_norms"]))
+        param_gap = _params_rel_err(got, want)
+        del got, want
+        print(f"  {LM_ARCH} {tag}: mesh against no mesh, losses rel "
+              f"{loss_gap:.3g}, grad norms rel {norm_gap:.3g}, parameters "
+              f"after {A16I_DP_STEPS} steps rel L2 {param_gap:.3g} "
+              f"[{smi}]", flush=True)
+        out[tag] = {"mesh": meshed, "no_mesh": plain,
+                    "loss_rel_err": loss_gap, "grad_norm_rel_err": norm_gap,
+                    "params_rel_err": param_gap}
+        if tag == "f32" and max(loss_gap, norm_gap, param_gap) > A16I_TOL:
+            raise AssertionError(f"{LM_ARCH} f32 on {A16I_DP_MESH}: "
+                                 f"{out[tag]}")
+    torch.cuda.empty_cache()
+    out["cards"] = a16i_cards_check(smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"A16i-train phase: {out['seconds']:.3f} s [{smi}]", flush=True)
+    return out
+
+
+def a16i_cards_check(smi) -> dict:
+    """(b) A16I_CARDS_ARCH at full width and depth on the launcher's
+    default mesh, (n, 1) over the n visible cards, when n >= 2: the
+    parameters, AdamW's state and the batches placed over the cards,
+    A16I_CARDS_STEPS steps at TRAIN_BATCH x TRAIN_SEQ: each card's bytes at
+    rest and peak, seconds a step, flash launches a step (``(2L n, L n,
+    L n)``), the first loss bit for bit the batch's loss without autograd.
+    With one card it prints why it did not run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import training_mesh
+    n = torch.cuda.device_count()
+    cfg = get_config(A16I_CARDS_ARCH)
+    if n < 2:
+        print(f"A16i-train (b): not run: {n} card visible; "
+              f"{A16I_CARDS_ARCH} at full depth ({cfg.n_params / 1e9:.3f} B "
+              f"parameters, 14 B each with AdamW) trains over two or more "
+              f"cards [{smi}]", flush=True)
+        return {"ran": False, "cards": n}
+    t0 = time.perf_counter()
+    mesh, _ = training_mesh(None, "cuda", cfg)
+    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH, seed=0))
+    res = _mesh_train_run(f"{A16I_CARDS_ARCH} full depth over {n} cards",
+                          cfg, mesh, [data.batch_at(s) for s in
+                                      range(A16I_CARDS_STEPS)], smi)
+    res.pop("params")
+    res.update({"ran": True, "cards": n,
+                "seconds": time.perf_counter() - t0})
+    if res["losses"][0] != res["loss_no_grad"]:
+        raise AssertionError(f"{A16I_CARDS_ARCH} over {n} cards: the first "
+                             f"loss is not the no-grad one: {res}")
+    return res
+
+
 def engine_phase(device, smi: str) -> tuple:
     """The ``engine`` backend (``core/engine.py``, torch ops, no
     hand-written kernel) on the four Table-2 stencils at the main path's
@@ -5899,6 +6119,9 @@ def main() -> int:
     for arch, rows in a16i.items():
         entry = next(k for k in kernels if k["name"] == f"flash_fwd[{arch}]")
         entry["mesh_serve"] = rows
+    torch.cuda.empty_cache()
+    entry = next(k for k in kernels if k["name"] == f"flash_fwd[{LM_ARCH}]")
+    entry["mesh_train"] = a16i_train_phase(smi)
     print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s after the "
           f"build", flush=True)
     print(json.dumps({"tuning": tuning}))

@@ -22,6 +22,13 @@ index, joined by ``/``.  npz has no bf16: a bf16 leaf is stored through a
 same-width integer view and its logical dtype recorded in the manifest.
 Restore returns the template's structure with each leaf on the template
 leaf's device (tensors) or as numpy (other leaves).
+
+A leaf placed on a mesh (``parallel.Sharded``) is stored as the whole
+array it stands for, under the same key, in the same files: its pieces
+are copied to the host one at a time, so no device ever holds the whole
+leaf.  Restore places a stored array as the template's leaf is placed, so
+a checkpoint written on one mesh (or on one device, before leaves were
+placed) restores on another mesh or on one device.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import Sharded, shard_leaf
 from repro_torch.resilience.faults import fault_point, register_point
 
 #: fires after the shard+manifest land in ``step_N.tmp`` but BEFORE the
@@ -89,7 +97,11 @@ def _rebuild(tree, leaf_fn, prefix: str = ""):
 
 
 def _host(leaf) -> tuple:
-    """``(numpy array to store, logical dtype name)``."""
+    """``(numpy array to store, logical dtype name)``; a :class:`Sharded`
+    leaf's whole array, assembled on the host piece by piece."""
+    if isinstance(leaf, Sharded):
+        with torch.no_grad():
+            leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype in _STORAGE_VIEW:
@@ -161,15 +173,17 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _logical(arr: np.ndarray, dtype_name: str, like):
     """The stored array as the template leaf's kind: a tensor on ``like``'s
-    device, else numpy."""
+    device, a :class:`Sharded` placed as ``like`` is, else numpy."""
     if dtype_name in _FROM_NAME:
         dtype, view = _FROM_NAME[dtype_name]
         t = torch.from_numpy(np.ascontiguousarray(arr)).view(view).view(
             dtype)
-    elif isinstance(like, torch.Tensor):
+    elif isinstance(like, (torch.Tensor, Sharded)):
         t = torch.from_numpy(np.ascontiguousarray(arr))
     else:
         return arr
+    if isinstance(like, Sharded):
+        return shard_leaf(t, like.spec, like.mesh, copy=True)
     if isinstance(like, torch.Tensor):
         return t.to(like.device)
     return t

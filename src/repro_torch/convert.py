@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.stencils import Stencil
-from repro_torch.models.transformer import ModelConfig, init_params
+from repro_torch.models.transformer import (ModelConfig, init_params,
+                                            param_axes)
+from repro_torch.parallel.sharding import shard_tree
 
 
 def coeffs_from_reference(stencil: Stencil, coeffs: Mapping[str, np.ndarray],
@@ -73,15 +75,25 @@ def _want(cfg: ModelConfig) -> dict:
     return init_params(cfg, torch.Generator().manual_seed(0), "meta")
 
 
+def _placed(cfg: ModelConfig, tree, mesh, rules):
+    """``tree`` (parameter-shaped) placed on ``mesh`` by ``param_axes``
+    (each piece a copy), or as it is without a mesh."""
+    if mesh is None:
+        return tree
+    return shard_tree(tree, param_axes(cfg), mesh, rules, copy=True)
+
+
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
-                          device="cpu") -> dict:
+                          device="cpu", mesh=None, rules=None) -> dict:
     """The reference's ``init_params`` tree (stacked ``(L, ...)`` leaves, as
     numpy arrays) -> the port's parameters on ``device``, each leaf in the
     dtype the port's ``init_params`` gives it for ``cfg`` (``cfg``'s dtype,
     but f32 for an SSM layer's ``A_log``, ``D_skip`` and ``dt_bias`` and a
-    MoE layer's ``router``).
+    MoE layer's ``router``); with ``mesh`` and ``rules``, placed on the
+    mesh as the reference's launcher places them (``param_axes``).
     Keys and shapes must be those the port's ``init_params`` makes."""
-    return _carry(_want(cfg), tree, "", lambda w: w.dtype, device)
+    return _placed(cfg, _carry(_want(cfg), tree, "", lambda w: w.dtype,
+                               device), mesh, rules)
 
 
 def caches_from_reference(tree: Mapping, device="cpu",
@@ -97,14 +109,17 @@ def caches_from_reference(tree: Mapping, device="cpu",
     return out
 
 
-def opt_state_from_reference(cfg: ModelConfig, state, device="cpu"):
+def opt_state_from_reference(cfg: ModelConfig, state, device="cpu",
+                             mesh=None, rules=None):
     """The reference's ``AdamWState`` (its leaves as numpy arrays; a master
     leaf ``None`` for each f32 parameter) -> the port's: ``step`` a 0-d
     int32 tensor, ``m`` and ``v`` f32 trees shaped like
     ``params_from_reference``'s, and ``master`` f32 for each parameter
     that is not f32 and ``None`` for each that is (an f32 leaf of a bf16
     tree too: an SSM layer's ``A_log``, ``D_skip``, ``dt_bias``, a MoE
-    layer's ``router``, which AdamW updates in f32)."""
+    layer's ``router``, which AdamW updates in f32); with ``mesh`` and
+    ``rules``, the three trees placed like the parameters (the reference
+    launcher's ``_shard_tree`` of each by ``param_axes``)."""
     from repro_torch.optim import AdamWState
     want = _want(cfg)
     step, m, v, master = state
@@ -116,6 +131,8 @@ def opt_state_from_reference(cfg: ModelConfig, state, device="cpu"):
         return None if w.dtype == torch.float32 else torch.float32
     return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                                    device=device),
-                      _carry(want, m, "m", f32, device),
-                      _carry(want, v, "v", f32, device),
-                      _carry(want, master, "master", master_dtype, device))
+                      *(_placed(cfg, _carry(want, t, name, dtype, device),
+                                mesh, rules)
+                        for t, name, dtype in ((m, "m", f32), (v, "v", f32),
+                                               (master, "master",
+                                                master_dtype))))

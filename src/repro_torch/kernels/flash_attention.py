@@ -17,6 +17,7 @@ tensor goes to the kernels or raises, and a (dtype, head dim) outside
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -44,9 +45,17 @@ DKV_LAUNCHES = 0
 FORM_LAUNCHES: dict = {}
 
 
+#: the counter each kernel bumps; under a lock, as autograd runs the
+#: backward of each device on a thread of its own
+_TOTALS = {"fwd": "LAUNCHES", "dq": "DQ_LAUNCHES", "dkv": "DKV_LAUNCHES"}
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(kernel: str, dtype, D: int) -> None:
     key = (kernel, str(dtype).removeprefix("torch."), D)
-    FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
+    with _COUNT_LOCK:
+        globals()[_TOTALS[kernel]] += 1
+        FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
 
 
 def ref_attention(q, k, v, *, causal: bool = True):
@@ -434,7 +443,6 @@ def _strides(**tensors) -> dict:
 
 
 def _launch(q, k, v, causal: bool, out=None):
-    global LAUNCHES
     from repro_torch.kernels import _build
     _require_card(q, k, v)
     B, Sq, H, D = q.shape
@@ -467,7 +475,6 @@ def _launch(q, k, v, causal: bool, out=None):
     if err != 0:
         msg = dll.flash_fwd_error_string(err).decode()
         raise RuntimeError(f"flash_fwd launch failed: {msg} ({err})")
-    LAUNCHES += 1
     _count("fwd", q.dtype, D)
     return o, lse
 
@@ -528,14 +535,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True, out=None):
     rowsum(dO * O)`` ``(B, H, Sq)`` f32, which :func:`flash_bwd_dkv`
     reads; written into the pair ``out`` when it is given.  CUDA tensors
     only."""
-    global DQ_LAUNCHES
     B, Sq, H, _ = q.shape
     dq, delta = _outputs(out, ((q.shape, q.dtype, q.device),
                                ((B, H, Sq), torch.float32, q.device)))
     # the dK/dV slots are not touched by this kernel
     params = _bwd_params(q, k, v, o, lse, do, delta, dq, k, v, causal)
     _run_bwd("flash_bwd_dq_launch", params, q.device)
-    DQ_LAUNCHES += 1
     _count("dq", q.dtype, q.shape[-1])
     return dq, delta
 
@@ -544,13 +549,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True, out=None):
     """Launch the dK/dV kernel: ``(dk, dv)`` like k and v, each KV head's
     G query heads summed in the kernel; written into the pair ``out`` when
     it is given.  CUDA tensors only."""
-    global DKV_LAUNCHES
     dk, dv = _outputs(out, ((k.shape, k.dtype, k.device),
                             (v.shape, v.dtype, v.device)))
     # the O and dQ slots are not touched by this kernel
     params = _bwd_params(q, k, v, q, lse, do, delta, q, dk, dv, causal)
     _run_bwd("flash_bwd_dkv_launch", params, q.device)
-    DKV_LAUNCHES += 1
     _count("dkv", q.dtype, q.shape[-1])
     return dk, dv
 

@@ -101,8 +101,13 @@ def serving_mesh(shape, device) -> Mesh:
     more positions (a multiple of ``n``) puts ``prod(shape) / n``
     consecutive positions on each card.  ``cuda:N`` names that one card
     and a CPU ``device`` the CPU: the default shape is then ``(1, 1)``
-    and every position lies on that device (logical shards)."""
+    and every position lies on that device (logical shards).  A card that
+    is not visible is refused."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is not None \
+            and device.index >= torch.cuda.device_count():
+        raise ValueError(f"{device} is not among the "
+                         f"{torch.cuda.device_count()} visible cards")
     devs = ([torch.device("cuda", i)
              for i in range(torch.cuda.device_count())]
             if device.type == "cuda" and device.index is None else [device])

@@ -22,8 +22,14 @@ routes take as pieces; and a decode cache placed on its sequence axis is
 read a piece at a time where it lies (``attention.decode_attention``).
 Training's :func:`forward` wraps each layer in ``torch.utils.checkpoint``
 under ``cfg.remat_policy`` (:func:`_remat`: the reference's
-``jax.checkpoint`` and its ``"dots"`` policy); serving runs under
-``torch.inference_mode()`` with no remat.
+``jax.checkpoint`` and its ``"dots"`` policy), the layer's gather inside
+the checkpointed region: the backward gathers the layer again rather than
+keeping it, and sends each gradient slice to its piece's device
+(``parallel.sharding``), so no device holds the gathered model or its
+whole gradient.  :func:`lm_loss_parts` gives the loss's masked sum and
+mask count, which a data-parallel step adds over its data shards before
+it divides.  Serving runs under ``torch.inference_mode()`` with no
+remat.
 """
 from __future__ import annotations
 
@@ -44,9 +50,9 @@ from repro_torch.models.attention import (KVCache, attention_axes,
                                           init_attention, init_cache,
                                           self_attention, update_cache)
 from repro_torch.parallel.sharding import (Sharded, as_tensor,
-                                           current_rules, placement,
-                                           resolve_spec, shard_tree,
-                                           use_sharding_rules)
+                                           current_rules, pieces_of,
+                                           placement, resolve_spec,
+                                           shard_tree, use_sharding_rules)
 
 #: the families the port runs
 FAMILIES = ("dense", "encdec", "ssm", "hybrid", "moe", "vlm")
@@ -401,13 +407,15 @@ def cache_axes(cfg: ModelConfig) -> dict:
 
 def _on(tree, device, pieces_ok: bool = False):
     """``tree`` with each :class:`Sharded` leaf gathered on ``device``
-    (the ZeRO-3 gather of one layer), but a MoE block's ``w_in`` and
-    ``w_out``, which its mesh routes take as pieces; a tree with no
-    placed leaf is returned as it is."""
+    (the ZeRO-3 gather of one layer) and each tensor moved there (a data
+    shard's copy of an unplaced leaf; none on its own device), but a MoE
+    block's ``w_in`` and ``w_out``, which its mesh routes take as
+    pieces."""
     if isinstance(tree, dict):
         return {k: _on(v, device, k == "moe") if isinstance(v, dict)
                 else v if pieces_ok and k in ("w_in", "w_out")
-                else as_tensor(v, device) if isinstance(v, Sharded) else v
+                else as_tensor(v, device)
+                if isinstance(v, (Sharded, torch.Tensor)) else v
                 for k, v in tree.items()}
     return tree
 
@@ -506,33 +514,50 @@ def _check_length(cfg: ModelConfig, S: int) -> None:
         SSM.check_chunks(S, cfg.ssd_chunk)
 
 
+def _gathered(args) -> list:
+    """``args`` with each dict of parameters gathered (:func:`_on`) on the
+    device of the first tensor among them (the activations')."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    return [_on(a, device) if isinstance(a, dict) else a for a in args]
+
+
 def _remat(fn, policy: str):
-    """``fn`` under the reference's remat policy: ``"full"`` recomputes
-    the whole body in the backward (``torch.utils.checkpoint``, not
+    """``fn`` under the reference's remat policy, its dict arguments (a
+    block's parameters, placed or not) gathered inside it
+    (:func:`_gathered`): ``"full"`` recomputes the whole body, the gather
+    included, in the backward (``torch.utils.checkpoint``, not
     reentrant), ``"none"`` keeps every activation, and ``"dots"`` (the
     reference's ``dots_with_no_batch_dims_saveable``) keeps the body's
     weight products and recomputes the rest (:func:`_dots_policy`).
     The recomputation runs under the sharding rules active in the
-    forward: autograd runs a CUDA backward on a thread of its own, where
-    the thread's rules are unset, and a MoE layer recomputed without them
-    would take another route."""
+    forward: autograd runs a CUDA backward on a thread of its own for
+    each device, where the thread's rules are unset, and a MoE layer
+    recomputed without them would take another route."""
     if policy == "none" or not torch.is_grad_enabled():
-        return fn
+        return lambda *args: fn(*_gathered(args))
     if policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {policy!r}")
 
     def run(*args):
         mesh, rules = current_rules()
+        weights: set = set()
 
         def body(*a):
             with use_sharding_rules(mesh, rules):
+                a = _gathered(a)
+                if policy == "dots":
+                    # this run's gathered weights only: a storage freed
+                    # since may hold an activation now
+                    weights.clear()
+                    weights.update(*(_storages(v) for v in a
+                                     if isinstance(v, dict)))
                 return fn(*a)
         if policy == "full":
             return checkpoint(body, *args, use_reentrant=False)
         return checkpoint(
             body, *args, use_reentrant=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _dots_policy(args)))
+                                         _dots_policy(weights)))
     return run
 
 
@@ -540,25 +565,25 @@ _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
 
 
 def _storages(tree: dict) -> set:
-    """The storages (by address) of the tensors of nested dicts."""
+    """The storages (by address) of the tensors of nested dicts (a MoE
+    block's expert weights left in pieces: theirs)."""
     return set().union(*(_storages(v) if isinstance(v, dict)
-                         else {v.untyped_storage().data_ptr()}
+                         else {p.untyped_storage().data_ptr()
+                               for p in pieces_of(v)}
                          for v in tree.values()))
 
 
-def _dots_policy(args):
-    """The selective-checkpoint policy of ``"dots"`` for a body called on
-    ``args``: save each product with no batch dimension (``aten.mm``, or
-    ``aten.bmm`` over a batch of 1, as an ``einsum`` may give) of which one
-    operand is a weight, i.e. shares its storage with a tensor of the
-    block's parameter dicts; recompute every other op.  So the
+def _dots_policy(weights: set):
+    """The selective-checkpoint policy of ``"dots"`` for a body whose
+    gathered parameters' storages ``weights`` holds: save each product
+    with no batch dimension (``aten.mm``, or ``aten.bmm`` over a batch of
+    1, as an ``einsum`` may give) of which one operand is a weight, i.e.
+    shares its storage with a tensor of the block's parameter dicts;
+    recompute every other op.  So the
     projections and the MLP's products are kept, and attention's batched
     score products are recomputed, as the reference's policy does; the
     flash kernels run outside the dispatcher and are recomputed, as the
     reference recomputes its ``pallas_call``."""
-    weights = set().union(*(_storages(a) for a in args
-                            if isinstance(a, dict)))
-
     def policy(ctx, op, *a, **kw):
         if op in _PRODUCTS and (op is _PRODUCTS[0] or a[0].shape[0] == 1) \
                 and any(t.untyped_storage().data_ptr() in weights
@@ -579,7 +604,7 @@ def _encode(params, cfg: ModelConfig, frames):
                   cfg.remat_policy)
     x = frames.to(cfg.tdtype)
     for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
-        x = body(x, _on(bp, x.device))
+        x = body(x, bp)
     return L.rms_norm(x, as_tensor(params["enc_norm"], x.device),
                       cfg.norm_eps)
 
@@ -622,7 +647,7 @@ def forward(params, cfg: ModelConfig, tokens, frames=None, *, embeds=None
     mamba = _remat(lambda x, bp: _ssm_body(x, bp, cfg)[0], cfg.remat_policy)
     x = _embed(params, cfg, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, bp, _, _ in _layers(params, cfg, x.device):
+    for kind, bp, _, _ in _layers(params, cfg):
         if kind == "ssm":
             x = mamba(x, bp)
             continue
@@ -643,7 +668,18 @@ def _chunk_loss(h, head, labels, mask, pad_mask):
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Chunked softmax cross-entropy, f32 0-d.  ``batch`` holds ``tokens``
+    """Chunked softmax cross-entropy, f32 0-d: :func:`lm_loss_parts`'
+    masked sum over its mask count (at least 1), plus ``1e-2`` times the
+    MoE layers' aux loss, as the reference divides."""
+    total, count, aux = lm_loss_parts(params, cfg, batch)
+    return total / count.clamp_min(1.0) + 1e-2 * aux
+
+
+def lm_loss_parts(params, cfg: ModelConfig, batch: dict):
+    """``(masked sum, mask count, aux)`` of :func:`lm_loss`, each f32 0-d:
+    the cross-entropy summed over the positions the mask keeps, the
+    mask's sum (over the positions of whole chunks), and the summed aux
+    loss of :func:`forward`.  ``batch`` holds ``tokens``
     and ``labels`` (B, S), optionally ``loss_mask`` (B, S) and, for the
     encoder-decoder family, ``frames`` (B, S_enc, D), for the VLM family
     ``embeds`` (B, P, D), whose P positions carry no loss: their hidden
@@ -675,8 +711,7 @@ def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         sl = slice(c * C, (c + 1) * C)
         total = total + chunk(hidden[:, sl], head, labels[:, sl],
                               mask[:, sl], pad_mask)
-    loss = total / mask[:, :nc * C].sum().clamp_min(1.0)
-    return loss + 1e-2 * aux
+    return total, mask[:, :nc * C].sum(), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, frames=None,

@@ -7,8 +7,14 @@ Unlike the reference, which returns new trees, :func:`adamw_update` updates
 the moments, the master copies and the parameters **in place** (a full-width
 bf16 model's state is 24 GB; a second copy would not fit beside it) and
 returns the same tensors.  The step count, the learning rate and the
-gradient norm stay 0-d tensors on the parameters' device, so a step never
-waits on the host.
+gradient norm stay 0-d tensors on the parameters' (first) device, so a
+step never waits on the host.
+
+Placed parameters (``parallel.Sharded`` leaves) get moments and masters
+placed like them, each piece allocated on its own device; the global norm
+adds each piece's square sum once (a replicated leaf has one piece for
+the axes its spec leaves out), and the update runs piece by piece where
+each piece lies, with the step's scalars copied to each device once.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import map_pieces, pieces_of, square_sum
 
 
 class AdamWState(NamedTuple):
@@ -65,14 +73,17 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def _square_sum(x: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
-    """sum(x**2) in f32, widening ``chunk`` elements at a time."""
-    flat = x.reshape(-1)
-    return sum(part.float().square().sum() for part in flat.split(chunk))
+def _home(tree) -> torch.device:
+    """The device of the first tensor of ``tree`` (a placed leaf's first
+    piece's)."""
+    return pieces_of(leaves(tree)[0])[0].device
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(_square_sum(x) for x in leaves(tree)))
+    """The f32 norm of every element of ``tree``, each counted once, on
+    its first device."""
+    home = _home(tree)
+    return torch.sqrt(sum(square_sum(x, home) for x in leaves(tree)))
 
 
 def adamw_init(params) -> AdamWState:
@@ -81,10 +92,13 @@ def adamw_init(params) -> AdamWState:
 
     def master(p):
         return p.float() if p.dtype != torch.float32 else None
-    device = leaves(params)[0].device
-    return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
-                      _map(zeros, params), _map(zeros, params),
-                      _map(master, params))
+
+    def placed(fn):
+        return lambda leaf: map_pieces(fn, leaf)
+    return AdamWState(torch.zeros((), dtype=torch.int32,
+                                  device=_home(params)),
+                      _map(placed(zeros), params), _map(placed(zeros), params),
+                      _map(placed(master), params))
 
 
 #: elements updated at a time (f32 temporaries of 256 MB each)
@@ -106,7 +120,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=step.device),
                         step.float())
 
-    def upd(p, g, m, v, master):
+    def upd(p, g, m, v, master, scale, lr, b1c, b2c):
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
@@ -117,15 +131,25 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
             master.copy_(new)
         p.copy_(new)
 
+    scalars = {}
+
     def upd_in_pieces(*ts):
+        # the step's scalars on this piece's device, copied once a device
+        dev = ts[0].device
+        if dev not in scalars:
+            scalars[dev] = [t.to(dev) for t in (scale, lr, b1c, b2c)]
         # elementwise, so slices of the leading axis bound the f32
         # temporaries without changing a value
         n = ts[0].shape[0] if ts[0].dim() else 1
         rows = max(1, _PIECE // max(1, ts[0].numel() // n))
         if rows >= n:
-            return upd(*ts)
+            return upd(*ts, *scalars[dev])
         for i in range(0, n, rows):
-            upd(*(None if t is None else t[i:i + rows] for t in ts))
-    _map(upd_in_pieces, params, grads, state.m, state.v, state.master)
+            upd(*(None if t is None else t[i:i + rows] for t in ts),
+                *scalars[dev])
+
+    def leaf(*ts):
+        map_pieces(upd_in_pieces, *ts)
+    _map(leaf, params, grads, state.m, state.v, state.master)
     state.step.copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -26,6 +26,14 @@ Where a piece's device is its source's, the piece is a view of the
 source, not a copy.  :func:`gather_tree` rebuilds whole tensors.
 ``with_sharding_constraint`` changes no value, so :func:`logical_shard`
 returns its input unchanged under any rules: it is kept for the API.
+
+Under autograd a gather (:meth:`Sharded.region`) is differentiable: its
+backward sends each piece's slice of the gradient to the piece's device
+(:class:`_Gather`), so where several data shards gather a piece, autograd
+sums their slices there (the reduce-scatter of ZeRO-3).  The pieces are
+the autograd leaves of a placed tree (:func:`pieces_of`), and
+:func:`map_pieces` builds the optimizer's trees piece by piece, each
+placed like the parameter it belongs to.
 """
 from __future__ import annotations
 
@@ -283,9 +291,9 @@ class Sharded:
             if tuple(s.stop - s.start for s in src) == shape:
                 out = piece[src].to(device)
                 return out.squeeze(drop) if drop else out
-        out = torch.empty(shape, dtype=self.dtype, device=device)
-        for coord, src, dst in parts:
-            out[dst] = self.pieces[coord][src]
+        out = _Gather.apply((shape, self.dtype, device,
+                             [(src, dst) for _, src, dst in parts]),
+                            *(self.pieces[c] for c, _, _ in parts))
         return out.squeeze(drop) if drop else out
 
     def gather(self, device) -> torch.Tensor:
@@ -318,9 +326,33 @@ class Sharded:
                        {c[k:]: d for c, d in self.devices.items()})
 
     def unbind(self, dim: int = 0) -> list:
+        """The leaves of each index of dim 0, which must be unsplit: one
+        ``unbind`` a piece, so under autograd each piece has one backward
+        node that stacks its layers' gradients (indexing a piece once a
+        layer would give each layer's backward a zero gradient the size
+        of the whole piece)."""
         if dim != 0:
             raise ValueError("Sharded.unbind takes dim 0")
-        return [self[i] for i in range(self.shape[0])]
+        if self.counts[0] != 1:
+            raise ValueError(f"{self!r}: a split leading dim cannot be "
+                             "indexed")
+        per = {c: p.unbind(0) for c, p in self.pieces.items()}
+        spec = None if self.spec is None else P(*self.spec[1:])
+        devices = {c[1:]: d for c, d in self.devices.items()}
+        return [Sharded(self.shape[1:], self.dtype, spec, self.mesh,
+                        self.counts[1:], {c[1:]: t[i] for c, t in per.items()},
+                        devices)
+                for i in range(self.shape[0])]
+
+    def with_pieces(self, pieces: dict) -> "Sharded":
+        """A :class:`Sharded` placed as this one (shape, spec, mesh,
+        devices) whose pieces are ``pieces`` ({coord: tensor}, each of
+        this one's piece shape on its device); its dtype is theirs."""
+        if pieces.keys() != self.pieces.keys():
+            raise ValueError(f"{self!r}: pieces at {sorted(pieces)}")
+        dtype = next(iter(pieces.values())).dtype
+        return Sharded(self.shape, dtype, self.spec, self.mesh, self.counts,
+                       pieces, self.devices)
 
     def select(self, dim: int, index: int) -> "Sharded":
         """The part of piece index ``index`` along ``dim`` (e.g. one data
@@ -345,6 +377,39 @@ class Sharded:
             dev = self.devices[coord]
             out[dev] = out.get(dev, 0) + p.numel() * p.element_size()
         return out
+
+
+class _Gather(torch.autograd.Function):
+    """A region of a :class:`Sharded` assembled on one device from the
+    pieces it overlaps; the backward sends each piece its slice of the
+    gradient, on the piece's device (zeros where the region leaves a
+    piece partly out)."""
+
+    @staticmethod
+    def forward(ctx, meta, *pieces):
+        shape, dtype, device, parts = meta
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for (src, dst), piece in zip(parts, pieces):
+            out[dst] = piece[src]
+        ctx.parts = parts
+        ctx.pieces = [(p.shape, p.device) for p in pieces]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = [None]
+        for (src, dst), (shape, dev), need in zip(
+                ctx.parts, ctx.pieces, ctx.needs_input_grad[1:]):
+            if not need:
+                out.append(None)
+                continue
+            g = grad[dst].to(dev, copy=True)
+            if g.shape != shape:
+                full = g.new_zeros(shape)
+                full[src] = g
+                g = full
+            out.append(g)
+        return tuple(out)
 
 
 def placement(shape, spec: PartitionSpec, mesh):
@@ -471,3 +536,44 @@ def bytes_by_position(tree, mesh) -> Dict[tuple, int]:
             out[pos] += per
     tree_map(one, tree)
     return out
+
+
+# --- piece by piece ----------------------------------------------------------
+
+def pieces_of(x) -> list:
+    """The tensors that hold ``x``: a :class:`Sharded` leaf's pieces (each
+    element of the whole tensor in exactly one of them: a mesh axis that
+    the spec leaves out has one piece for the whole axis), a tensor
+    itself, ``None`` none."""
+    if x is None:
+        return []
+    return list(x.pieces.values()) if isinstance(x, Sharded) else [x]
+
+
+def map_pieces(fn, *xs):
+    """``fn`` of the pieces at each coordinate of ``xs`` (leaves placed
+    alike; a ``None`` among them passes ``None``), as a :class:`Sharded`
+    placed like ``xs[0]``; of tensors, ``fn(*xs)``.  ``fn`` may return
+    ``None`` (the result is then ``None``)."""
+    first = xs[0]
+    if not isinstance(first, Sharded):
+        return fn(*xs)
+    for x in xs[1:]:
+        if isinstance(x, Sharded) and x.counts != first.counts:
+            raise ValueError(f"{x!r} is not placed like {first!r}")
+    out = {c: fn(*(None if x is None else x.pieces[c] for x in xs))
+           for c in first.pieces}
+    if any(v is None for v in out.values()):
+        return None
+    return first.with_pieces(out)
+
+
+def square_sum(x, device, chunk: int = 1 << 26) -> torch.Tensor:
+    """``sum(x**2)`` in f32 on ``device``, over the pieces of a
+    :class:`Sharded` (each element counted once) or a tensor, widening
+    ``chunk`` elements at a time where they lie."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for p in pieces_of(x):
+        for part in p.reshape(-1).split(chunk):
+            total = total + part.float().square().sum().to(device)
+    return total

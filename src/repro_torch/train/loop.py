@@ -12,9 +12,13 @@ failure retry.
     an early checkpoint so a replacement can join with minimal lost work.
   * **Elastic re-mesh**: :func:`reshard_for_mesh` places a tree (whole
     tensors, or pieces on another mesh) onto a new mesh by a spec tree.
-    The training launcher keeps its state whole on one device (optimizer
-    state, batches and checkpoints placed over cards are ROADMAP
-    A16i-train).
+    A checkpoint saved from state placed on a mesh (``parallel.Sharded``
+    leaves) restores into the placement of the state the loop is started
+    with (``checkpoint``), so a run saved on a (2, 2) mesh resumes on
+    (4, 1), or on one device, from the same files.
+
+``checkpoint_every=0`` saves no checkpoint at all (a measuring run of a
+full-width model, whose every save would copy its whole state to disk).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.parallel.sharding import PartitionSpec, shard_leaf
 @dataclasses.dataclass
 class TrainLoopConfig:
     total_steps: int
-    checkpoint_every: int = 50
+    checkpoint_every: int = 50      # 0: no checkpoint
     checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
                                        "repro_torch_ckpt")
     keep_checkpoints: int = 3
@@ -50,7 +54,9 @@ def fault_tolerant_train(loop_cfg: TrainLoopConfig, train_step: Callable,
     """Run the loop. ``init_state`` = (params, opt_state). ``batch_at(step)``
     regenerates the batch for any step (restart-safe addressing).
 
-    Returns (params, opt_state, history dict).
+    Returns (params, opt_state, history dict): its ``losses`` and
+    ``step_s`` (each step's host seconds, the loss read back included)
+    a completed step, ``retries``, ``stragglers``.
     """
     mgr = CheckpointManager(loop_cfg.checkpoint_dir,
                             keep=loop_cfg.keep_checkpoints)
@@ -62,8 +68,9 @@ def fault_tolerant_train(loop_cfg: TrainLoopConfig, train_step: Callable,
         start_step = step + 1
         log(f"[restart] resumed from checkpoint step {step}")
 
+    saving = loop_cfg.checkpoint_every > 0
     times: list = []
-    events = {"stragglers": [], "retries": 0, "losses": []}
+    events = {"stragglers": [], "retries": 0, "losses": [], "step_s": times}
     s = start_step
     retries = 0
     while s < loop_cfg.total_steps:
@@ -98,8 +105,10 @@ def fault_tolerant_train(loop_cfg: TrainLoopConfig, train_step: Callable,
             events["stragglers"].append((s, dt, med))
             log(f"[straggler] step {s}: {dt:.3f}s vs median {med:.3f}s "
                 f"-> early checkpoint")
-            mgr.save_async({"params": params, "opt": opt_state}, s)
-        if s % loop_cfg.checkpoint_every == 0 or s == loop_cfg.total_steps - 1:
+            if saving:
+                mgr.save_async({"params": params, "opt": opt_state}, s)
+        if saving and (s % loop_cfg.checkpoint_every == 0
+                       or s == loop_cfg.total_steps - 1):
             mgr.save_async({"params": params, "opt": opt_state}, s)
         s += 1
     mgr.wait()

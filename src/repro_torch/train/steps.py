@@ -15,9 +15,20 @@ layers route over the ``model`` axis), and the logits are gathered on the
 tokens' device.  Prefill returns its caches (and an encoder-decoder's
 memory) split on the batch, one piece a data shard where it was computed;
 decode reads and writes each data shard's part of the caches in place.
-The training step runs the whole batch under the rules, as the
-reference's jitted step does: its MoE layers take the expert-parallel
-routes over every (data, model) shard.
+The training step runs data parallel under active rules, as the
+reference's jitted step does under GSPMD: each microbatch is rows ``i*m``
+to ``(i+1)*m`` of the global batch (the reference's reshape), each data
+shard takes its rows of it to its device and runs the loss there under
+its view of the mesh (its MoE layers route over the ``model`` axis, and
+the mean of the data shards' aux losses is the reference's mean over
+every (data, model) shard), and the step divides the shards' summed
+masked losses by their summed mask counts (``lm_loss_parts``), as the
+reference's loss over the whole microbatch does.  One backward runs
+through every shard; placed parameters are gathered a layer at a time
+inside each layer's remat region, and each gradient comes back in
+pieces on its parameter's devices (summed over the data shards there),
+accumulated over microbatches in f32 pieces.  The batch may be placed
+(``parallel.Sharded`` leaves split on ``batch``) or whole.
 """
 from __future__ import annotations
 
@@ -26,34 +37,66 @@ import math
 import torch
 
 from repro_torch.models import ModelConfig, decode_step, lm_loss, prefill
-from repro_torch.models.transformer import cache_axes
+from repro_torch.models.transformer import cache_axes, lm_loss_parts
 from repro_torch.optim import (AdamWState, adamw_update, ef_compress_update,
                                init_ef_state)
 from repro_torch.optim.adamw import AdamWConfig, leaves
 from repro_torch.parallel.sharding import (P, Sharded, current_rules,
-                                           device_at, names_of, placement,
+                                           device_at, map_pieces, names_of,
+                                           pieces_of, placement,
                                            resolve_spec, submesh, unravel,
                                            use_sharding_rules)
 
 
 def _shaped_like(tree, values):
     """``tree``'s nested dicts with its leaves taken in order from the
-    iterator ``values``.  (A module-level function: a recursive closure
-    over the iterator would form a reference cycle that keeps a whole
-    step's gradients alive until the garbage collector runs.)"""
+    iterator ``values``: a tensor leaf one value, a :class:`Sharded` leaf
+    one a piece (placed as it is).  (A module-level function: a recursive
+    closure over the iterator would form a reference cycle that keeps a
+    whole step's gradients alive until the garbage collector runs.)"""
     if isinstance(tree, dict):
         return {k: _shaped_like(v, values) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.with_pieces({c: next(values) for c in tree.pieces})
     return next(values)
 
 
-def _loss_and_grads(params, cfg: ModelConfig, batch: dict):
-    """``(loss, grads)``: the f32 loss and its gradients in the parameters'
-    dtypes, shaped like ``params``."""
-    flat = leaves(params)
+def step_loss(params, cfg: ModelConfig, batch: dict, rows: slice = None):
+    """The f32 loss a training step differentiates, of rows ``rows`` of
+    ``batch`` (all of them by default): ``lm_loss`` of them with no active
+    rules; under active rules each data shard's part on its device under
+    its view of the mesh, the masked sums and mask counts added over the
+    shards before the division (the module's docstring), on the mesh's
+    first device."""
+    if rows is None:
+        rows = slice(0, _batch_size(batch))
+    mesh, rules = current_rules()
+    if mesh is None or rules is None:
+        return lm_loss(params, cfg, {k: v[rows] for k, v in batch.items()})
+    home = device_at(mesh, {})
+    total, count, auxes = 0.0, 0.0, []
+    for part, dev, view, _ in data_shards(mesh, rules,
+                                          rows.stop - rows.start):
+        sl = slice(rows.start + part.start, rows.start + part.stop)
+        shard = {k: _rows(v, 0, sl, dev) for k, v in batch.items()}
+        with use_sharding_rules(view, rules):
+            s, n, aux = lm_loss_parts(params, cfg, shard)
+        total = total + s.to(home)
+        count = count + n.to(home)
+        auxes.append(aux.to(home))
+    return total / count.clamp_min(1.0) + 1e-2 * torch.stack(auxes).mean()
+
+
+def _loss_and_grads(params, cfg: ModelConfig, batch: dict,
+                    rows: slice = None):
+    """``(loss, grads)``: the f32 loss of ``batch`` (of its rows ``rows``)
+    and its gradients in the parameters' dtypes, shaped like ``params``
+    (a placed leaf's in pieces placed as its own)."""
+    flat = [p for x in leaves(params) for p in pieces_of(x)]
     for p in flat:
         p.requires_grad_(True)
     try:
-        loss = lm_loss(params, cfg, batch)
+        loss = step_loss(params, cfg, batch, rows)
         grads = torch.autograd.grad(loss, flat)
     finally:
         for p in flat:
@@ -61,33 +104,36 @@ def _loss_and_grads(params, cfg: ModelConfig, batch: dict):
     return loss.detach(), _shaped_like(params, iter(grads))
 
 
+def _batch_size(batch: dict) -> int:
+    return batch["tokens"].shape[0]
+
+
 def _step_grads(params, cfg: ModelConfig, batch: dict, microbatches: int):
     """``(loss, grads)`` of one step: with one microbatch
     :func:`_loss_and_grads`' (the parameters' dtypes); with more, the
     mean of the microbatches' losses and gradients, the gradients
-    accumulated in f32."""
+    accumulated in f32 (in pieces where the parameters are placed)."""
     if microbatches == 1:
         return _loss_and_grads(params, cfg, batch)
-    n = next(iter(batch.values())).shape[0]
+    n = _batch_size(batch)
     if n % microbatches:
         raise ValueError(f"batch {n} does not split into "
                          f"{microbatches} microbatches")
     m = n // microbatches
-    loss = torch.zeros((), dtype=torch.float32,
-                       device=batch["tokens"].device)
-    acc = None
+    loss, acc = 0.0, None
     for i in range(microbatches):
-        mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-        mb_loss, g = _loss_and_grads(params, cfg, mb)
+        mb_loss, g = _loss_and_grads(params, cfg, batch,
+                                     slice(i * m, (i + 1) * m))
         loss = loss + mb_loss
         if acc is None:
-            acc = [x.float() for x in leaves(g)]
+            acc = [map_pieces(torch.Tensor.float, x) for x in leaves(g)]
         else:
             for a, x in zip(acc, leaves(g)):
-                a.add_(x)              # into the f32 accumulator
+                map_pieces(torch.Tensor.add_, a, x)  # the f32 accumulator
         del g
     loss = loss / microbatches
-    grads = _shaped_like(params, (a.div_(microbatches) for a in acc))
+    grads = _shaped_like(params, (p.div_(microbatches) for a in acc
+                                  for p in pieces_of(a)))
     del acc
     return loss, grads
 
@@ -96,10 +142,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics).  ``batch`` holds ``tokens``, ``labels`` and ``loss_mask``
-    tensors on the parameters' device (and a VLM's ``embeds``, an
-    encoder-decoder's ``frames``).  The parameters and the optimizer
-    state are updated in place (``adamw_update``) and returned; the
-    metrics are 0-d tensors (``loss``, ``grad_norm``, ``lr``)."""
+    (and a VLM's ``embeds``, an encoder-decoder's ``frames``): tensors on
+    the parameters' device, or under active rules tensors or leaves
+    placed on the mesh (the module's docstring).  The parameters and the
+    optimizer state are updated in place (``adamw_update``) and returned;
+    the metrics are 0-d tensors (``loss``, ``grad_norm``, ``lr``)."""
 
     def train_step(params, opt_state: AdamWState, batch: dict):
         loss, grads = _step_grads(params, cfg, batch, microbatches)

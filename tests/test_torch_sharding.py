@@ -368,6 +368,11 @@ def test_serve_main_takes_a_mesh_shape(capsys):
 
 def test_train_main_takes_logical_shards_and_refuses_cards(monkeypatch,
                                                           capsys):
+    """The launcher trains on a (2, 2) mesh of logical CPU shards; on a
+    mesh over two devices (two CPU device names standing in for two
+    cards) it places the parameters and AdamW's state over both, each
+    device printing its bytes at rest; a card that is not there is
+    refused, not run as logical shards of another."""
     events = launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
                                 "--device", "cpu", "--steps", "2",
                                 "--batch", "4", "--seq", "32",
@@ -377,9 +382,17 @@ def test_train_main_takes_logical_shards_and_refuses_cards(monkeypatch,
     two = make_mesh((2, 1), ("data", "model"),
                     [torch.device("cpu", 0), torch.device("cpu", 1)])
     monkeypatch.setattr(launch_train, "serving_mesh", lambda *a: two)
-    with pytest.raises(ValueError, match="A16i-train"):
-        launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
-                           "--device", "cpu", "--steps", "1"])
+    events = launch_train.main(["--arch", "qwen3-1.7b", "--smoke",
+                                "--device", "cpu", "--steps", "2",
+                                "--batch", "4", "--seq", "32"])
+    assert len(events["losses"]) == 2 and all(np.isfinite(events["losses"]))
+    rest = events["state_bytes"]
+    assert set(rest) == {"cpu:0", "cpu:1"} and all(rest.values())
+    out = capsys.readouterr().out
+    assert "cpu:0: state at rest" in out and "cpu:1: state at rest" in out
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(ValueError, match="cuda:4 .* 4 visible"):
+        serve.serving_mesh(None, "cuda:4")
 
 
 def test_launcher_meshes_on_a_host_of_four_cards(monkeypatch):
@@ -387,8 +400,7 @@ def test_launcher_meshes_on_a_host_of_four_cards(monkeypatch):
     default shape spans them; a shape of fewer positions takes the first
     cards and one of more puts consecutive positions on each; ``cuda:N``
     names one card, whose logical shards take every shape; training takes
-    one card and refuses a mesh over four, naming the flags that take
-    one."""
+    the same meshes: one card, or all four."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cards = [torch.device("cuda", i) for i in range(4)]
 
@@ -413,8 +425,8 @@ def test_launcher_meshes_on_a_host_of_four_cards(monkeypatch):
     assert dict(rules) == dict(sharding.default_rules())
     mesh, _ = launch_train.training_mesh((2, 2), "cuda:3", cfg)
     assert mesh.distinct_devices == (cards[3],)
-    with pytest.raises(ValueError, match="A16i-train.*--mesh-shape 1,1"):
-        launch_train.training_mesh(None, "cuda", cfg)
+    mesh, _ = launch_train.training_mesh(None, "cuda", cfg)
+    assert devs(mesh) == cards and mesh.shape == {"data": 4, "model": 1}
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
